@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels: ``nvcc`` -> shared library -> ctypes.
 
-Each source in ``rdst_tpu_torch/csrc/`` is compiled at first use by one
-``nvcc`` call for ``sm_90a`` into a plain-C shared library under
+Each ``.cu`` source in ``rdst_tpu_torch/csrc/`` is compiled at first use
+by one ``nvcc`` call for ``sm_90a`` into a plain-C shared library under
 ``build/rdst_tpu_torch/`` at the repository root, named by the hash of
-the source and the flags, so an edit rebuilds and an unchanged source
-loads the library already built. Nothing is compiled or loaded when a
-module is imported. A failed build raises with the compiler's output.
+the source, the headers it includes from ``csrc/`` and the flags, so an
+edit rebuilds and an unchanged source loads the library already built.
+Nothing is compiled or loaded when a module is imported. A failed build
+raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,7 +26,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "rdst_tpu_torch"
 
-SOURCES = ("swin_block.cu",)  # every kernel source of the port
+# every kernel source of the port, one library each
+SOURCES = tuple(sorted(p.name for p in CSRC_DIR.glob("*.cu")))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -51,11 +54,22 @@ def find_nvcc() -> str:
         "compiled from rdst_tpu_torch/csrc at first use")
 
 
+def _hashed_bytes(source: str) -> bytes:
+    """The source and the ``csrc/`` headers it includes (by quoted
+    ``#include``, one level: the headers include only system headers)."""
+    text = (CSRC_DIR / source).read_bytes()
+    out = text
+    for name in re.findall(rb'#include "([^"]+)"', text):
+        out += (CSRC_DIR / name.decode()).read_bytes()
+    return out
+
+
 def library_path(source: str) -> Path:
     """Where the library built from ``csrc/<source>`` goes."""
     src = CSRC_DIR / source
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        _hashed_bytes(source) + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 

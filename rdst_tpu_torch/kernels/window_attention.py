@@ -15,12 +15,24 @@ and keeps the result on the model; nothing here writes the environment.
 A key present in the config wins over the env flag, which wins over the
 default.
 
-In the float32 path of this slice every kernel mode (``rdstb``, ``pair``,
-``swin``, ``pack``, and the default) means the single-block kernel
-``kernels.swin_block.fused_swin_block``; ``off`` asks for the plain
-PyTorch path. The softmax variant only selects among the bf16 fast
-path's stabilizers; the f32 kernel always runs the exact max-subtracted
-softmax.
+What a mode runs depends on the model's dtype (``models.rdst
+.set_kernel_mode`` applies it once, when the model is built):
+
+* float32: every kernel mode (``rdstb``, ``pair``, ``swin``, ``pack``,
+  and the default) means the f32 single-block kernel
+  ``kernels.swin_block.fused_swin_block``;
+* bfloat16: ``rdstb`` (the default) runs one ``kernels.rdstb_block``
+  launch per RDSTB, ``pair`` one ``kernels.swin_pair`` launch per DSTL,
+  ``swin`` the fast block kernel per Swin block, and ``pack`` the same
+  fast block kernel: the JAX package's ``pack=2`` puts two windows in
+  one lane row of the TPU, a layout with the same arithmetic.
+
+``off`` asks for the plain PyTorch path in either dtype. The softmax
+variant (resolved once; ``auto`` against the checkpoint's stamp) selects
+the bf16 kernels' stabilizer: ``''``/``stable``/``stable_bc`` (exact,
+the per-head row max subtracted), ``stable_mm`` (the max rounded to
+bf16), ``clamp`` (exp(min(s, 60)), no max); the f32 kernel always runs
+the exact max-subtracted softmax.
 """
 
 from __future__ import annotations
@@ -53,8 +65,8 @@ def _lookup(paras, key: str, env: str):
 
 
 def pallas_mode(raw: str, from_config: bool = False) -> str:
-    """'rdstb' (the default when unset), 'pair', 'swin' or 'pack' -- all
-    the block kernel in f32 -- or '' for the plain path. An empty config
+    """'rdstb' (the default when unset), 'pair', 'swin' or 'pack' (what
+    each runs: the module docstring), or '' for the plain path. An empty config
     value means off, an empty env flag the default; an unknown mode
     raises rather than running something else."""
     if raw in _OFF and (raw or from_config):

@@ -11,6 +11,17 @@
 Module names give the reference RDSTSR state_dict keys (the ones
 ``checkpoint.convert.export_rdstsr`` writes). Layouts are NHWC and
 (B, L, C) tokens, as in the JAX package. Inference only.
+
+The model computes in its ``dtype`` (float32, or bfloat16 with float32
+parameter masters: the input is rounded to bf16 first, as the JAX
+serving path does, and every layer follows ``nn.layers``' policy). Its
+kernel routes are decided once, by :func:`set_kernel_mode` when the
+model is built: in float32 every kernel mode runs each Swin block on the
+f32 block kernel; in bfloat16, 'rdstb' runs each RDSTB as one
+``kernels.rdstb_block`` launch, 'pair' each DSTL's block pair as one
+``kernels.swin_pair`` launch, and 'swin'/'pack' each block on the fast
+block kernel. A block the mode's kernel cannot take raises and names the
+mode to choose instead; nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -23,8 +34,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from rdst_tpu_torch.nn.common import Conv, MeanShift, UpSampler
-from rdst_tpu_torch.nn.layers import LayerNorm
-from rdst_tpu_torch.nn.swin import BasicLayer, set_block_kernels
+from rdst_tpu_torch.nn.layers import BF16, LayerNorm, Linear
+from rdst_tpu_torch.nn.swin import (BasicLayer, kernel_plan, resolve_ws_shift,
+                                    set_block_kernels)
 
 
 def to_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
@@ -64,8 +76,8 @@ def _adapter(in_dim: int, out_dim: int, pre_norm: bool,
     LayerNorm is an Identity when the model has no norms."""
     if pre_norm:
         return nn.Sequential(LayerNorm(in_dim) if layer_norm else nn.Identity(),
-                             nn.Linear(in_dim, out_dim))
-    return nn.Sequential(nn.Linear(in_dim, out_dim),
+                             Linear(in_dim, out_dim))
+    return nn.Sequential(Linear(in_dim, out_dim),
                          LayerNorm(out_dim) if layer_norm else nn.Identity())
 
 
@@ -124,6 +136,15 @@ class RDSTB(nn.Module):
                 f"resi_connection {resi_connection!r}: only '1conv' (every "
                 "shipped RDST config) is ported")
         self.residual_scale = residual_scale
+        self.input_dim, self.growth_rate = input_dim, growth_rate
+        self.num_heads, self.window_size = num_heads, window_size
+        self.mlp_ratio, self.pre_norm = mlp_ratio, pre_norm
+        self.layer_depth, self.layer_norm = layer_depth, layer_norm
+        self.qk_scale, self.dense_scale = qk_scale, dense_scale
+        self.dim_modify_mode = dim_modify_mode
+        self.build_resolution = build_resolution
+        self.use_rdstb = False  # see set_kernel_mode
+        self.softmax = ""
         self.body = nn.ModuleList([
             DenseSTLayer(input_dim + i * growth_rate, growth_rate,
                          layer_depth, num_heads, window_size, mlp_ratio,
@@ -133,7 +154,79 @@ class RDSTB(nn.Module):
         self.conv = Conv(input_dim + int(num_blocks) * growth_rate,
                          input_dim, 3)
 
+    def _window(self, h: int, w: int) -> Tuple[int, int]:
+        return resolve_ws_shift(self.build_resolution or (h, w), h, w,
+                                self.window_size, self.window_size // 2)
+
+    def rdstb_unsupported(self) -> Optional[str]:
+        """Why the RDSTB kernel cannot run this block (None when it can):
+        the structure ``RDSTB._use_fused_rdstb`` asks for in the JAX
+        package, and what the CUDA kernel takes at the build resolution.
+        Checked when the model is built; the wrapper checks the runtime
+        geometry again at every call."""
+        from rdst_tpu_torch.kernels.rdstb_block import rdstb_kernel_supports
+
+        nb = len(self.body)
+        widths = [self.input_dim + i * self.growth_rate for i in range(nb)]
+        if self.layer_depth != 2 or not self.layer_norm:
+            return (f"layer_depth {self.layer_depth} / layer_norm "
+                    f"{self.layer_norm}: the kernel runs one LayerNorm pair "
+                    "per DSTL")
+        if (self.dim_modify_mode != "tail" or self.qk_scale is not None
+                or self.dense_scale != 1.0 or self.residual_scale != 1.0
+                or self.input_dim == self.growth_rate):
+            return ("the kernel takes tail adapters, the default q scale "
+                    "and unit dense and residual scales")
+        if any(c % self.num_heads for c in widths):
+            return f"widths {widths} are not multiples of {self.num_heads}"
+        h, w = self.build_resolution or (self.window_size,) * 2
+        ws, _ = self._window(h, w)
+        if not rdstb_kernel_supports(ws * ws, self.input_dim,
+                                     self.growth_rate, nb, self.num_heads,
+                                     self.mlp_ratio):
+            return (f"{nb} DSTLs of C0={self.input_dim} growing by "
+                    f"{self.growth_rate} with window {ws} exceed what the "
+                    "CUDA kernel takes")
+        return None
+
+    def rdstb_inputs(self, x_size: Tuple[int, int], ws: int, shift: int):
+        """(dstls, conv_kernel HWIO, conv_bias) in the argument layout of
+        the JAX ``fused_rdstb`` (``RDSTB._fused_rdstb``)."""
+        dstls = []
+        for layer in self.body:
+            a, b = layer.body.blocks
+            t = layer.tail
+            ln, lin = (t[0], t[1]) if self.pre_norm else (t[1], t[0])
+            dstls.append({
+                "blocks": [a.fast_kernel_inputs(x_size, ws, 0),
+                           b.fast_kernel_inputs(x_size, ws, shift)],
+                "adapter": (lin.weight.t(), lin.bias, ln.weight, ln.bias)})
+        return dstls, self.conv.weight.permute(2, 3, 1, 0), self.conv.bias
+
+    def _fused_rdstb(self, x, x_size):
+        from rdst_tpu_torch.kernels.rdstb_block import plan_rdstb, run_rdstb
+
+        h, w = x_size
+        ws, shift = self._window(h, w)
+        built = self.body[0].body.blocks[0].attn.window_size
+        if x.dtype != BF16 or ws != built:
+            raise ValueError(
+                f"the RDSTB kernel takes bf16 tokens at the built window "
+                f"{built}; got {x.dtype}, {h}x{w} resolving to window {ws} "
+                "(build with pallas_kernels='off')")
+        plan = kernel_plan(
+            self, ("rdstb", x_size, ws, shift, x.device),
+            lambda: plan_rdstb(*self.rdstb_inputs(x_size, ws, shift),
+                               num_heads=self.num_heads,
+                               growth=self.growth_rate,
+                               adapter_prenorm=self.pre_norm))
+        return run_rdstb(x.contiguous(), plan, num_heads=self.num_heads,
+                         x_size=x_size, window_size=ws, shift=shift,
+                         softmax=self.softmax)
+
     def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
+        if self.use_rdstb:
+            return self._fused_rdstb(x, x_size)
         shortcut = x
         for layer in self.body:
             x = layer(x, x_size)
@@ -169,8 +262,13 @@ class RDSTSR(nn.Module):
                  mean: Sequence[float] = (0.0,), std: Sequence[float] = (1.0,),
                  pre_norm: bool = False, layer_norm: bool = True,
                  feature_last_operation: bool = False,
-                 build_resolution: Optional[Tuple[int, int]] = None):
+                 build_resolution: Optional[Tuple[int, int]] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, BF16):
+            raise NotImplementedError(
+                f"RDST in {dtype}: the port computes in float32 or bfloat16")
+        self.dtype = dtype
         if not (len(rdb_depths) == len(window_size) == len(num_heads)
                 == len(dense_layer_depths)):
             raise ValueError("per-RDSTB config lists differ in length")
@@ -203,6 +301,10 @@ class RDSTSR(nn.Module):
             Conv(embed_dim, in_chans, 3))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC LR -> HR in the model's dtype (bf16: the input is rounded
+        to bf16 first, as ``x.astype(infer_dtype)`` in the JAX serving
+        path)."""
+        x = x.to(self.dtype)
         x, (h0, w0) = pad_to_window_multiple(x, _lcm_all(self.window_size))
         x = self.head(self.sub_mean(x))
         tokens, x_size = to_tokens(x)
@@ -222,17 +324,81 @@ class RDSTSR(nn.Module):
         return out[:, : h0 * s, : w0 * s, :]
 
 
+def set_kernel_mode(model: RDSTSR, mode: str, softmax: str = "") -> list:
+    """Route ``model``'s blocks for kernel mode ``mode`` ('' for the plain
+    path) at the model's dtype, with the bf16 kernels' ``softmax``
+    variant; sets ``model.kernel_mode``, ``model.softmax`` and
+    ``model.routes`` (the kernel each RDSTB runs) and returns the routes.
+
+    float32: every mode runs each Swin block on the f32 block kernel.
+    bfloat16: 'rdstb' -> ``fused_rdstb`` per RDSTB, 'pair' ->
+    ``fused_swin_pair`` per DSTL, 'swin'/'pack' -> the fast
+    ``fused_swin_block`` per block ('pack', the TPU's two-windows-per-lane
+    layout, computes the same function). An RDSTB the mode's kernel
+    cannot take raises, naming the mode to choose instead."""
+    from rdst_tpu_torch.kernels.swin_block import softmax_code
+    from rdst_tpu_torch.kernels.window_attention import KERNEL_MODES
+
+    if mode and mode not in KERNEL_MODES:
+        raise ValueError(f"kernel mode {mode!r}: expected one of "
+                         f"{KERNEL_MODES} or ''")
+    bf16 = model.dtype == BF16
+    if bf16:
+        softmax_code(softmax)  # raises on a variant the kernels lack
+    set_block_kernels(model, False)
+    for m in model.modules():
+        if isinstance(m, BasicLayer):
+            m.use_pair = False
+        if isinstance(m, RDSTB):
+            m.use_rdstb = False
+        if hasattr(m, "softmax"):
+            m.softmax = softmax
+    routes = []
+    for i, block in enumerate(model.body):
+        if not mode:
+            routes.append("plain")
+        elif not bf16 or mode in ("swin", "pack"):
+            for layer in block.body if bf16 else ():
+                for blk in layer.body.blocks:
+                    why = blk.fast_unsupported()
+                    if why:
+                        raise ValueError(
+                            f"RDSTB {i}: the fast block kernel cannot run "
+                            f"it ({why}); build with pallas_kernels='off'")
+            set_block_kernels(block, True)
+            routes.append("fused_swin_block")
+        elif mode == "pair":
+            for layer in block.body:
+                why = layer.body.pair_unsupported()
+                if why:
+                    raise ValueError(
+                        f"RDSTB {i}: the pair kernel cannot run it ({why}); "
+                        "build with pallas_kernels='swin' or 'off'")
+                layer.body.use_pair = True
+            routes.append("fused_swin_pair")
+        else:
+            why = block.rdstb_unsupported()
+            if why:
+                raise ValueError(
+                    f"RDSTB {i}: the RDSTB kernel cannot run it ({why}); "
+                    "build with pallas_kernels='pair' or 'off'")
+            block.use_rdstb = True
+            routes.append("fused_rdstb")
+    model.kernel_mode, model.softmax, model.routes = mode, softmax, routes
+    return routes
+
+
 def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
     """Factory keyed off the reference config names (the JAX package's
-    ``make_rdst``). The kernel mode (``pallas_kernels``, else
-    ``RDST_TORCH_KERNELS``) is resolved here, once: the model keeps it as
-    ``kernel_mode`` and its Swin blocks as ``use_kernel``."""
+    ``make_rdst``), in float32 or bfloat16. The kernel mode
+    (``pallas_kernels``, else ``RDST_TORCH_KERNELS``) and the softmax
+    variant (``pallas_softmax``, 'auto' resolved against the configured
+    checkpoint's stats sidecar) are resolved here, once, and the routes
+    set by :func:`set_kernel_mode`."""
+    from rdst_tpu_torch.checkpoint.loading import (resolve_model_path,
+                                                   resolve_pallas_softmax)
     from rdst_tpu_torch.kernels.window_attention import kernel_flags
 
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"RDST in {dtype}: this slice runs float32 only; bf16 inference "
-            "comes with the fused_rdstb / fused_swin_pair slice")
     if paras.rdst_global_bottleneck:
         raise NotImplementedError(
             "rdst_global_bottleneck (RDST-N) comes with the model-zoo slice")
@@ -268,7 +434,9 @@ def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
         pre_norm=paras.rdst_pre_norm,
         feature_last_operation=paras.rdst_feature_last_operation,
         build_resolution=(paras.patch_size // paras.swin_patch_size,) * 2,
+        dtype=dtype,
     )
-    model.kernel_mode = kernel_flags(paras).kernels
-    set_block_kernels(model, bool(model.kernel_mode))
+    flags = kernel_flags(paras)
+    softmax = resolve_pallas_softmax(resolve_model_path(paras), flags.softmax)
+    set_kernel_mode(model, flags.kernels, softmax)
     return model

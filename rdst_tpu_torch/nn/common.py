@@ -3,7 +3,9 @@
 Public functions and modules take and return NHWC tensors, the JAX
 package's layout; the convolutions themselves run as
 ``torch.nn.functional.conv2d`` (the JAX package left them to XLA, outside
-any Pallas kernel).
+any Pallas kernel). On bfloat16 activations they compute as the flax
+modules do at ``dtype=bfloat16`` (``nn.layers``' policy): the conv of bf16
+operands rounded to bf16, then the bf16 bias added and rounded.
 """
 
 from __future__ import annotations
@@ -13,6 +15,9 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+BF16 = torch.bfloat16
 
 
 class Conv(nn.Conv2d):
@@ -24,12 +29,21 @@ class Conv(nn.Conv2d):
                          stride=stride, padding=kernel_size // 2, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == BF16:
+            y = F.conv2d(x.permute(0, 3, 1, 2).float(),
+                         self.weight.to(BF16).float(), None, self.stride,
+                         self.padding).to(BF16)
+            if self.bias is not None:
+                y = (y.float() + self.bias.to(BF16).float()[:, None, None]
+                     ).to(BF16)
+            return y.permute(0, 2, 3, 1)
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 def mean_shift(x: torch.Tensor, mean: Sequence[float], std: Sequence[float],
                mode: str) -> torch.Tensor:
-    """Elementwise (x - mean)/std ('sub') or x*std + mean ('add')."""
+    """Elementwise (x - mean)/std ('sub') or x*std + mean ('add'), in
+    x's dtype (bf16: mean and std rounded, each op's result rounded)."""
     mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
     std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
     if mode == "sub":
@@ -47,6 +61,8 @@ class MeanShift(nn.Module):
     def __init__(self, mean: Sequence[float], std: Sequence[float],
                  mode: str):
         super().__init__()
+        self.mode = mode
+        self.mean, self.std = tuple(mean), tuple(std)
         mean = torch.as_tensor(mean, dtype=torch.float32)
         std = torch.as_tensor(std, dtype=torch.float32)
         nc = mean.numel()
@@ -57,6 +73,8 @@ class MeanShift(nn.Module):
         self.bias = nn.Parameter(shift, requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == BF16:  # the JAX package's mean_shift in bf16
+            return mean_shift(x, self.mean, self.std, self.mode)
         nc = self.bias.numel()
         return (x * torch.diagonal(self.weight.reshape(nc, nc))
                 + self.bias)

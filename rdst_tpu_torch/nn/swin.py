@@ -9,9 +9,14 @@ roll -> partition -> :class:`WindowAttention` -> reverse -> MLP) or, when
 its ``use_kernel`` is set (:func:`set_block_kernels`, which the model
 builder calls once with the config's kernel mode), the fused block
 ``kernels.swin_block.fused_swin_block`` on window-layout tokens with
-roll, partition and reverse outside it. A block the kernel does not take
-raises in kernel mode instead of taking the plain path. The port serves
-inference only: no dropout or stochastic depth.
+roll, partition and reverse outside it: the f32 precise kernel on
+float32 tokens, the fast kernel on bfloat16 tokens. A :class:`BasicLayer`
+whose ``use_pair`` is set runs each pair of blocks through
+``kernels.swin_pair`` instead (bf16 only). A block the kernel does not
+take raises in kernel mode instead of taking the plain path. On bfloat16
+tokens the plain path computes as the JAX package's flax modules do at
+``dtype=bfloat16`` (``nn.layers``). The port serves inference only: no
+dropout or stochastic depth.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from rdst_tpu_torch.nn.layers import LayerNorm, Mlp
+from rdst_tpu_torch.nn.layers import BF16, LayerNorm, Linear, Mlp
 
 
 def window_partition(x: torch.Tensor, window_size: int) -> torch.Tensor:
@@ -91,6 +96,21 @@ def resolve_ws_shift(decide_res: Tuple[int, int], h: int, w: int,
     return ws, shift
 
 
+def kernel_plan(module: nn.Module, key, build):
+    """A fused kernel's prepared operands, kept on ``module`` while its
+    parameters (by storage and in-place version) and ``key`` stay the
+    same; ``build()`` makes them anew otherwise. Parameters created under
+    ``torch.inference_mode`` have no version counter; they are keyed by
+    storage alone."""
+    key = (key, tuple((p.data_ptr(), -1 if p.is_inference() else p._version)
+                      for p in module.parameters()))
+    cached = getattr(module, "_kernel_plan", None)
+    if cached is None or cached[0] != key:
+        cached = (key, build())
+        module._kernel_plan = cached
+    return cached[1]
+
+
 @functools.lru_cache(maxsize=64)
 def _index_tensor(ws: int, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(relative_position_index(ws, ws).reshape(-1),
@@ -116,8 +136,8 @@ class WindowAttention(nn.Module):
         self.scale = qk_scale or (dim // num_heads) ** -0.5
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
-        self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3, bias=qkv_bias)
+        self.proj = Linear(dim, dim)
 
     def rel_bias(self) -> torch.Tensor:
         """(nH, N, N) relative-position bias gathered from the table."""
@@ -129,6 +149,8 @@ class WindowAttention(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x.dtype == BF16:
+            return self._forward_bf16(x, mask)
         b_, n, c = x.shape
         nh = self.num_heads
         qkv = self.qkv(x).reshape(b_, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
@@ -141,6 +163,28 @@ class WindowAttention(nn.Module):
                     + mask[None, :, None]).reshape(-1, nh, n, n)
         attn = torch.softmax(attn, dim=-1)
         y = (attn @ v).transpose(1, 2).reshape(b_, n, c)
+        return self.proj(y)
+
+    def _forward_bf16(self, x, mask):
+        """The JAX package's bf16 XLA attention: every op's output rounded
+        to bf16 (q * scale, the scores, the biases added, each softmax
+        step, the attention-weighted values); products and sums in f32."""
+        b_, n, c = x.shape
+        nh = self.num_heads
+        qkv = self.qkv(x).reshape(b_, n, 3, nh, c // nh).permute(2, 0, 3, 1, 4)
+        q, k, v = qkv[0], qkv[1], qkv[2]
+        attn = ((q * self.scale).float() @ k.float().transpose(-2, -1)
+                ).to(BF16)
+        attn = attn + self.rel_bias().to(BF16)[None]
+        if mask is not None:
+            nw = mask.shape[0]
+            attn = (attn.reshape(b_ // nw, nw, nh, n, n)
+                    + mask.to(BF16)[None, :, None]).reshape(-1, nh, n, n)
+        e = torch.exp((attn - attn.amax(dim=-1, keepdim=True)).float()
+                      ).to(BF16)
+        den = e.float().sum(dim=-1, keepdim=True).to(BF16)
+        p = (e.float() / den.float()).to(BF16)
+        y = (p.float() @ v.float()).to(BF16).transpose(1, 2).reshape(b_, n, c)
         return self.proj(y)
 
 
@@ -162,6 +206,7 @@ class SwinTransformerBlock(nn.Module):
         self.build_resolution = build_resolution
         self.layer_norm = layer_norm
         self.use_kernel = False  # see set_block_kernels
+        self.softmax = ""  # bf16 kernels' softmax variant, set with the mode
         # the table's window is decided from the build resolution, as the
         # reference's constructor does; the runtime window must match it
         ws = (min(window_size, *build_resolution) if build_resolution
@@ -231,22 +276,61 @@ class SwinTransformerBlock(nn.Module):
                 f"{self.layer_norm}, qk_scale={self.qk_scale}, {h}x{w} with "
                 f"window {ws} (build with pallas_kernels='off' for the "
                 "plain path)")
-        params, bias = self.kernel_inputs(x_size, ws, shift)
         xi = x.reshape(b, h, w, c)
         if shift > 0:
             xi = torch.roll(xi, (-shift, -shift), dims=(1, 2))
         x_windows = window_partition(xi, ws).reshape(-1, ws * ws, c)
-        y = fused_swin_block(x_windows.contiguous(), *params, bias,
-                             num_heads=self.num_heads,
-                             windows_per_image=(h // ws) * (w // ws))
+        nw = (h // ws) * (w // ws)
+        if x.dtype == BF16:
+            from rdst_tpu_torch.kernels.swin_block import (plan_fast_block,
+                                                           run_fast_block)
+
+            plan = kernel_plan(self, (x_size, ws, shift, x.device),
+                               lambda: plan_fast_block(
+                                   *self.fast_kernel_inputs(x_size, ws,
+                                                            shift),
+                                   num_heads=self.num_heads))
+            y = run_fast_block(x_windows.contiguous(), plan,
+                               num_heads=self.num_heads,
+                               windows_per_image=nw, softmax=self.softmax)
+        else:
+            params, bias = self.kernel_inputs(x_size, ws, shift)
+            y = fused_swin_block(x_windows.contiguous(), *params, bias,
+                                 num_heads=self.num_heads,
+                                 windows_per_image=nw)
         y = window_reverse(y.reshape(-1, ws, ws, c), ws, h, w)
         if shift > 0:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         return y.reshape(b, l, c)
 
+    def fast_unsupported(self) -> Optional[str]:
+        """Why the bf16 fast kernels cannot run this block at its built
+        window (None when they can); checked when the model is built."""
+        from rdst_tpu_torch.kernels.swin_block import fast_kernel_supports
+
+        if not self.layer_norm or self.qk_scale is not None:
+            return "the block has no LayerNorm or a custom q scale"
+        n = self.attn.window_size ** 2
+        hidden = self.mlp.fc1.out_features
+        if not fast_kernel_supports(n, self.dim, self.num_heads, hidden):
+            return (f"N={n}, C={self.dim}, {self.num_heads} heads, hidden "
+                    f"{hidden} exceed what the CUDA kernels take")
+        return None
+
+    def fast_kernel_inputs(self, x_size: Tuple[int, int], ws: int,
+                           shift: int):
+        """:meth:`kernel_inputs` as the JAX package hands them to a bf16
+        kernel (``_kernel_inputs``/``_fused_block``): the bias rounded to
+        bf16 after the mask is added; the weights stay f32 masters (the
+        kernel wrappers round them in the JAX order)."""
+        params, bias = self.kernel_inputs(x_size, ws, shift)
+        return params, bias.to(BF16)
+
 
 class BasicLayer(nn.Module):
-    """Stack of ``depth`` blocks, alternating shift 0 / ws//2."""
+    """Stack of ``depth`` blocks, alternating shift 0 / ws//2. With
+    ``use_pair`` set (bf16, mode 'pair'), each pair of blocks runs as one
+    ``kernels.swin_pair`` launch."""
 
     def __init__(self, dim: int, depth: int, num_heads: int, window_size: int,
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
@@ -261,10 +345,65 @@ class BasicLayer(nn.Module):
                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
                 build_resolution=build_resolution, layer_norm=layer_norm)
             for i in range(depth)])
+        self.window_size = window_size
+        self.build_resolution = build_resolution
+        self.use_pair = False  # see models.rdst.set_kernel_mode
+        self.softmax = ""
+
+    def pair_unsupported(self) -> Optional[str]:
+        """Why the pair kernel cannot run this layer's blocks (None when
+        it can): what ``BasicLayer``'s ``pair_eligible`` asks in the JAX
+        package, checked when the model is built."""
+        if not self.blocks or len(self.blocks) % 2:
+            return f"depth {len(self.blocks)} is not a whole number of pairs"
+        return self.blocks[0].fast_unsupported()
 
     def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
+        if self.use_pair:
+            return self._fused_pairs(x, x_size)
         for block in self.blocks:
             x = block(x, x_size)
+        return x
+
+    def _fused_pairs(self, x, x_size):
+        from rdst_tpu_torch.kernels.swin_block import plan_fast_block
+        from rdst_tpu_torch.kernels.swin_pair import run_swin_pair
+
+        h, w = x_size
+        b, l, c = x.shape
+        ws, shift = resolve_ws_shift(self.build_resolution or (h, w), h, w,
+                                     self.window_size, self.window_size // 2)
+        if x.dtype != BF16 or h % ws or w % ws:
+            raise ValueError(
+                f"the pair kernel takes bf16 tokens on whole windows; got "
+                f"{x.dtype}, {h}x{w} with window {ws} (build with "
+                "pallas_kernels='swin' or 'off')")
+        nh = self.blocks[0].num_heads
+        if ws != self.blocks[0].attn.window_size:
+            raise ValueError(
+                f"input {h}x{w} resolves to window {ws}, but the block "
+                f"was built for window {self.blocks[0].attn.window_size}")
+
+        def build():
+            return [(plan_fast_block(*a.fast_kernel_inputs(x_size, ws, 0),
+                                     num_heads=nh),
+                     plan_fast_block(*bb.fast_kernel_inputs(x_size, ws,
+                                                            shift),
+                                     num_heads=nh))
+                    for a, bb in zip(self.blocks[0::2], self.blocks[1::2])]
+
+        plans = kernel_plan(self, ("pair", x_size, ws, shift, x.device),
+                            build)
+        for plan_a, plan_b in plans:
+            xw = window_partition(x.reshape(b, h, w, c), ws)
+            y = run_swin_pair(xw.reshape(-1, ws * ws, c), plan_a, plan_b,
+                              num_heads=nh, x_size=x_size, window_size=ws,
+                              shift=shift, softmax=self.softmax)
+            # y is in SHIFTED window layout
+            y = window_reverse(y.reshape(-1, ws, ws, c), ws, h, w)
+            if shift > 0:
+                y = torch.roll(y, (shift, shift), dims=(1, 2))
+            x = y.reshape(b, l, c)
         return x
 
 

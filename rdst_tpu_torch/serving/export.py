@@ -4,8 +4,11 @@
 config, as the tester does, and answers ``predict(x, scale)`` with the
 batch padded to a bucket of a sparse ladder (default 1, 8, 64), so a
 server sees a few fixed batch shapes. Normalization (MeanShift) is part
-of the model. The exported bundle of the JAX package waits for a later
-slice; so do bf16 inference and MetaSR's residual blend, which raise.
+of the model. ``inference_dtype = 'bfloat16'`` serves the bf16 model
+(float32 parameter masters; inputs and outputs stay float32 numpy) on
+the fast kernels of its kernel mode. The exported bundle of the JAX
+package waits for a later slice; so do int8 matmuls and MetaSR's
+residual blend, which raise.
 """
 
 from __future__ import annotations
@@ -82,13 +85,13 @@ def _bucketed_predict(fn: Callable[[np.ndarray], np.ndarray], x: np.ndarray,
 def build_serving_model(paras, device="cuda"):
     """Build the generator + trained weights exactly like the tester, on
     ``device``. Returns ``(model, meta)``; ``meta`` is the manifest
-    identity (generator, scales, dtype, kernel mode...). The kernel keys
-    are resolved once, here and in the model builder; the model keeps its
-    mode, so another model built later in the process cannot change it."""
+    identity (generator, scales, dtype, kernel mode, softmax variant, the
+    kernel each RDSTB runs...). The kernel keys are resolved once, in the
+    model builder; the model keeps its mode, so another model built later
+    in the process cannot change it."""
     from rdst_tpu_torch.checkpoint.loading import (load_well_trained_params,
                                                    resolve_model_path,
-                                                   resolve_norm_stats,
-                                                   resolve_pallas_softmax)
+                                                   resolve_norm_stats)
     from rdst_tpu_torch.device import resolve_device
     from rdst_tpu_torch.kernels.window_attention import kernel_flags
     from rdst_tpu_torch.models import build_generator
@@ -97,10 +100,7 @@ def build_serving_model(paras, device="cuda"):
     flags = kernel_flags(paras)
     path = resolve_model_path(paras)
     idt = str(paras.get("inference_dtype", "float32")).lower()
-    if idt in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            "inference_dtype='bfloat16' comes with the fused_rdstb / "
-            "fused_swin_pair slice of the port; this slice serves float32")
+    dtype = torch.bfloat16 if idt in ("bfloat16", "bf16") else torch.float32
     if flags.quant:
         raise NotImplementedError(
             f"pallas_quant {sorted(flags.quant)}: int8 matmuls come with "
@@ -117,7 +117,7 @@ def build_serving_model(paras, device="cuda"):
     norm = paras.get("normal_inputs") or ""
     if "zero_mean" in norm or "unit_std" in norm:
         mean, std = resolve_norm_stats(paras, path)
-    model = build_generator(paras, mean, std, dtype=torch.float32)
+    model = build_generator(paras, mean, std, dtype=dtype)
     scales = [float(s) for s in paras.get("sr_scales_for_final_testing",
                                           paras.get("test_sr_scales"))]
     load_well_trained_params(model, paras, path, scales)
@@ -127,13 +127,14 @@ def build_serving_model(paras, device="cuda"):
         "model_name": paras.get("model_name"),
         "feature_generator": str(paras.get("feature_generator")),
         "input_channel": int(paras.input_channel),
-        "dtype": "float32",
+        "dtype": "bfloat16" if dtype == torch.bfloat16 else "float32",
         "layout": "NHWC",
         "scales": scales,
         "scale_free": bool(paras.get("scale_free", False)),
         "residual_scale": residual_scale,
         "pallas_kernels": model.kernel_mode or None,
-        "pallas_softmax": resolve_pallas_softmax(path, flags.softmax) or None,
+        "pallas_softmax": model.softmax or None,
+        "routes": list(model.routes),
         "device": str(dev),
         "torch_version": torch.__version__,
     }
@@ -156,7 +157,7 @@ class LiveModel:
     def _run(self, blk: np.ndarray) -> np.ndarray:
         with self._lock, torch.inference_mode():
             y = self.model(torch.from_numpy(blk).to(self.device))
-            return y.cpu().numpy()
+            return y.float().cpu().numpy()
 
     def predict(self, x, scale: float) -> np.ndarray:
         x = _canon_input(x)

@@ -165,6 +165,25 @@ def test_softmax_auto_resolution_matches_jax(monkeypatch, env, want):
     assert got == jax_loading.resolve_pallas_softmax(str(SNAPSHOT)) == want
 
 
+def test_softmax_auto_unstamped_is_stable_bc(tmp_path, monkeypatch):
+    """A checkpoint without an audited logit stamp resolves 'auto' to the
+    exact 'stable_bc', as ``rdst_tpu/kernels/swin_block.py:111`` does; the
+    bf16 model built for the flagship keeps the resolved 'clamp'."""
+    import torch
+
+    from rdst_tpu_torch.models import build_generator
+
+    bare = str(tmp_path / "bare.msgpack")
+    monkeypatch.setenv("RDST_TPU_PALLAS_SOFTMAX", "auto")
+    assert loading.resolve_pallas_softmax(bare, "auto") == "stable_bc"
+    assert jax_loading.resolve_pallas_softmax(bare) == "stable_bc"
+    p = ParametersLoader(CONFIG)
+    p.set("well_trained_single_scale_model_g", bare)
+    assert build_generator(p, dtype=torch.bfloat16).softmax == "stable_bc"
+    p.set("well_trained_single_scale_model_g", str(SNAPSHOT))
+    assert build_generator(p, dtype=torch.bfloat16).softmax == "clamp"
+
+
 def test_export_kernel_flags(monkeypatch):
     """The port's counterpart of ``export_kernel_flags`` resolves the
     keys (config, then env, then default) and writes no env flag."""

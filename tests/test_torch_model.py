@@ -180,5 +180,15 @@ def test_unported_options_raise(key, value, match):
 
 
 def test_bf16_model_raises():
-    with pytest.raises(NotImplementedError, match="fused_rdstb"):
-        build_generator(ParametersLoader(CONFIG), dtype=torch.bfloat16)
+    """bfloat16 now builds (its kernels are ported); what the bf16
+    kernels cannot take raises when the model is built, naming the mode
+    to choose instead, and a dtype the port does not compute in raises."""
+    model = build_generator(ParametersLoader(CONFIG), dtype=torch.bfloat16)
+    assert model.dtype == torch.bfloat16
+    assert model.routes == ["fused_rdstb"] * 8
+    p = ParametersLoader(CONFIG)
+    p.set("rdst_rdb_residual_scale", 0.5)
+    with pytest.raises(ValueError, match="pallas_kernels='pair'"):
+        build_generator(p, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="float16"):
+        build_generator(ParametersLoader(CONFIG), dtype=torch.float16)

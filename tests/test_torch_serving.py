@@ -5,7 +5,11 @@
   process);
 * the batcher coalesces a concurrent burst;
 * the port imports and serves with jax, flax, msgpack and rdst_tpu made
-  unimportable, as on a machine that has none of them;
+  unimportable, as on a machine that has none of them, in float32 and in
+  bfloat16 (every kernel module imported);
+* ``inference_dtype = 'bfloat16'`` serves the flagship on the CPU through
+  the plain versions of its kernels; the manifest names the dtype, the
+  mode, the resolved softmax variant and the kernel each RDSTB runs;
 * asking for the device ``cuda`` where there is none raises, and the
   options this slice leaves out raise instead of running something else.
 """
@@ -195,6 +199,12 @@ p.set("well_trained_single_scale_model_g", {WEIGHTS!r})
 live = LiveModel(p, max_batch=8, device="cpu")
 y = live.predict(np.random.default_rng(0).random((2, 16, 24), dtype=np.float32), 4.0)
 assert y.shape == (2, 64, 96, 1) and np.isfinite(y).all(), y.shape
+import rdst_tpu_torch.kernels.rdstb_block, rdst_tpu_torch.kernels.swin_pair
+p.set("inference_dtype", "bfloat16")
+live = LiveModel(p, max_batch=8, device="cpu")
+y = live.predict(np.random.default_rng(0).random((1, 16, 24), dtype=np.float32), 4.0)
+assert live.manifest["dtype"] == "bfloat16" and y.dtype == np.float32
+assert y.shape == (1, 64, 96, 1) and np.isfinite(y).all(), y.shape
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
                 ("jax", "jaxlib", "flax", "msgpack", "rdst_tpu")
                 and sys.modules[m] is not None)
@@ -218,7 +228,7 @@ def test_cuda_request_without_card_raises():
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("inference_dtype", "bfloat16", "fused_rdstb"),
+    ("pallas_quant", "mlp,conv", "int8"),
     ("residual_scale", 0.5, "MetaSR"),
     ("pallas_quant", "qkv", "int8"),
 ])
@@ -226,6 +236,43 @@ def test_unported_serving_options_raise(monkeypatch, key, value, match):
     monkeypatch.setenv("RDST_TORCH_QUANT", "")
     with pytest.raises(NotImplementedError, match=match):
         export.build_serving_model(_paras(**{key: value}), device="cpu")
+
+
+def test_bf16_live_model_serves_flagship():
+    """The flagship config with ``inference_dtype='bfloat16'`` on the CPU:
+    every RDSTB routed to the RDSTB kernel (its plain version here), the
+    softmax 'auto' resolved to clamp by the 25.412 stamp, float32 numpy in
+    and out, close to the float32 model (bf16 noise: < 0.05 max and
+    < 0.005 mean, relative)."""
+    from rdst_tpu_torch.kernels import rdstb_block
+
+    live = export.LiveModel(_paras(inference_dtype="bfloat16"), max_batch=8,
+                            device="cpu")
+    m = live.manifest
+    assert m["dtype"] == "bfloat16" and m["pallas_kernels"] == "rdstb"
+    assert m["pallas_softmax"] == "clamp"
+    assert m["routes"] == ["fused_rdstb"] * 8
+    x = np.random.default_rng(3).random((2,) + LR, dtype=np.float32)
+    before = rdstb_block.run_rdstb.launches
+    y = live.predict(x, 4.0)
+    assert rdstb_block.run_rdstb.launches == before  # CPU: plain versions
+    assert y.dtype == np.float32 and y.shape == (2, 64, 96, 1)
+    ref = export.LiveModel(_paras(), max_batch=8, device="cpu").predict(
+        x, 4.0)
+    d = np.abs(y - ref) / np.abs(ref).max()
+    assert d.max() < 0.05 and d.mean() < 0.005
+
+
+@pytest.mark.parametrize("mode", ["pair", "swin", "pack", "off"])
+def test_bf16_manifest_names_routes(mode):
+    live = export.LiveModel(_paras(inference_dtype="bfloat16",
+                                   pallas_kernels=mode), max_batch=8,
+                            device="cpu")
+    route = {"pair": "fused_swin_pair", "swin": "fused_swin_block",
+             "pack": "fused_swin_block", "off": "plain"}[mode]
+    assert live.manifest["routes"] == [route] * 8
+    assert live.manifest["pallas_kernels"] == (None if mode == "off"
+                                               else mode)
 
 
 def test_missing_weights_path_raises():
@@ -253,3 +300,8 @@ def test_server_main_config_arguments(monkeypatch):
     main(["--config-file", CONFIG, "--port", "0", "--platform", "cpu",
           "--max-batch", "8", f"well_trained_single_scale_model_g='{WEIGHTS}'"])
     assert seen["port"] > 0 and seen["meta"]["device"] == "cpu"
+    main(["--config-file", CONFIG, "--port", "0", "--platform", "cpu",
+          "--max-batch", "8", f"well_trained_single_scale_model_g='{WEIGHTS}'",
+          "inference_dtype='bfloat16'"])
+    assert seen["meta"]["dtype"] == "bfloat16"
+    assert seen["meta"]["routes"] == ["fused_rdstb"] * 8
