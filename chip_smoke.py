@@ -34,7 +34,27 @@ card. Phases, each printed with its seconds:
    after), the kernel path vs the plain bf16 path, and vs the f32 kernel
    path (relative error and PSNR);
 9. bf16 serving (mode rdstb, the default): as phase 5;
-10. the profile of one warm bf16 bucket-64 forward, as phase 6.
+10. the profile of one warm bf16 bucket-64 forward, as phase 6;
+11. the train-pair kernels (``kernels.pair_train``, forward and
+    backward) vs their plain version and its ``torch.autograd`` gradient,
+    with the flagship's weights at the training geometry (32 images of
+    24x24, C = 60/90/120), with and without stochastic-depth factor
+    columns, under 'clamp' and 'stable' (and 'stable_mm' once, at C =
+    60): relative max error of the output, the input cotangent and every
+    weight and bias gradient (bar 0.02); CUDA-event times, plain times
+    (the plain backward alone, through a graph built once) and bounds;
+12. the bf16 training step: the 20-phantom corpus made by the port's
+    generator, then ``python -m rdst_tpu_torch.train`` (in process) on
+    ``config_files/rdst_e1_100k_oasis20_x4.ini`` for 20 steps with a
+    quick evaluation every 10: 24 forward and 24 backward train-pair
+    launches per step (counts set to 0 just before the run, read just
+    after), a finite loss at every step, parameters that moved, the
+    snapshot and its sidecar, the snapshot served by ``LiveModel``, a
+    resume from the checkpoint that goes on for 2 more steps; the
+    first step's loss and gradients on the kernel route against the
+    plain bf16 route (loss rtol 2e-2, gradients relative max < 0.08);
+13. steps/s on the wall clock over 10 warm steps queued back to back,
+    and the profile of one warm training step.
 
 Any failed phase raises and the script exits non-zero. It needs a CUDA
 card: without one it exits non-zero and prints no result. The last two
@@ -50,6 +70,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -84,6 +105,13 @@ BF16_TOL = 0.02
 # bf16 model vs the f32 model (test_kernels.py:394-397): relative max and
 # mean error.
 BF16_VS_F32_MAX, BF16_VS_F32_MEAN = 0.05, 0.005
+# the training step (phase 12): the shipped bf16 training config, cut to
+# 20 steps; kernel route vs plain bf16 route on one step
+# (tests/test_pair_train.py:192,209)
+TRAIN_CONFIG = "config_files/rdst_e1_100k_oasis20_x4.ini"
+TRAIN_STEPS, TRAIN_CHECK = 20, 10
+WALL_STEPS = 10
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 2e-2, 0.08
 # A bf16 response vs a direct predict of the same slices (HR values about
 # 0..1): equal batch shapes agree exactly; at another batch shape the f32
 # convolutions may take another cuDNN algorithm, and a bf16 rounding that
@@ -615,6 +643,338 @@ bf16_serving_phase = phase("bf16 serving")(_serve)
 bf16_profile_phase = phase("bf16 profile")(_profile)
 
 
+def _pair_train_operands(model, c: int, gen):
+    """Folded flagship weights of the first DSTL of width c at the
+    training geometry, with random bf16 tokens and cotangents."""
+    from rdst_tpu_torch.kernels.swin_block import fast_params, pack_bias_fast
+
+    ws, nh, images, nw = 8, 6, 32, 9
+    j = (60, 90, 120).index(c)
+    a, b = model.body[0].body[j].body.blocks
+    pa, ba = a.fast_kernel_inputs((24, 24), ws, 0)
+    pb, bb = b.fast_kernel_inputs((24, 24), ws, ws // 2)
+    with torch.no_grad():
+        ops = [*fast_params(pa, c, nh), pack_bias_fast(ba, nh, 64),
+               *fast_params(pb, c, nh), pack_bias_fast(bb, nh, 64)]
+    x = torch.randn(images * nw, 64, c, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    dz = torch.randn(images * nw, 64, c, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    keep = 0.9
+    cols = (torch.rand(images, 4, device="cuda", generator=gen) < keep)
+    dpf = (cols.float() / keep).repeat_interleave(nw * 64, 0).contiguous()
+    return [o.detach().contiguous() for o in ops], x, dz, dpf
+
+
+def _pair_train_grads(fn, ops, x, dz, dpf, kw):
+    """Output and gradients (input, then every operand) of fn."""
+    from rdst_tpu_torch.kernels.swin_block import FastParams
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in [x] + ops]
+    out = fn(leaves[0], FastParams(*leaves[1:9]), leaves[9],
+             FastParams(*leaves[10:18]), leaves[18], dpf, **kw)
+    out.backward(dz)
+    return out.detach(), [t.grad for t in leaves]
+
+
+@phase("train-pair kernels vs plain")
+def train_kernel_phase(model) -> dict:
+    """Forward and backward kernels against the plain version and its
+    autograd gradient, at the training geometry of the flagship."""
+    from rdst_tpu_torch.kernels import pair_train as pt
+    from rdst_tpu_torch.kernels.swin_block import (FastParams, kernel_layout,
+                                                   softmax_code)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    names = (["x"] + [f"a.{f}" for f in FastParams._fields] + ["bias_a"]
+             + [f"b.{f}" for f in FastParams._fields] + ["bias_b"])
+    rows = []
+    for c in (60, 90, 120):
+        ops, x, dz, dpf0 = _pair_train_operands(model, c, gen)
+        variants = [(s, d) for s in ("clamp", "stable") for d in (False, True)]
+        if c == 60:  # the wrapper takes stable_mm too: hold it once
+            variants.append(("stable_mm", False))
+        for softmax, use_dpf in variants:
+            dpf = dpf0 if use_dpf else None
+            kw = dict(num_heads=6, x_size=(24, 24), window_size=8,
+                      shift=4, softmax=softmax)
+            got, g_got = _pair_train_grads(pt.run_pair_train, ops, x,
+                                           dz, dpf, kw)
+            want, g_want = _pair_train_grads(pt.pair_train_reference,
+                                             ops, x, dz, dpf, kw)
+            torch.cuda.synchronize()
+            errs = {"out": _rel(got, want)}
+            for nm, a, b in zip(names, g_got, g_want):
+                errs[nm] = _rel(a, b)
+            worst = max(errs, key=lambda k: errs[k][0])
+            finite = all(bool(torch.isfinite(g.float()).all())
+                         for g in g_got) and bool(
+                             torch.isfinite(got.float()).all())
+            log(f"train pair C={c:3d} {softmax:9s} dpf={use_dpf!s:5s}: "
+                f"out rel max {errs['out'][0]:.3e}, dx "
+                f"{errs['x'][0]:.3e}, worst {worst} "
+                f"{errs[worst][0]:.3e} (bar {BF16_TOL})")
+            if not finite or errs[worst][0] > BF16_TOL:
+                raise AssertionError(f"train pair C={c} {softmax} "
+                                     f"dpf={use_dpf}: {errs}")
+            row = dict(c=c, softmax=softmax, dpf=use_dpf,
+                       rel_max={k: v[0] for k, v in errs.items()},
+                       out_abs_err=errs["out"][2],
+                       grad_abs_err=max(v[2] for k, v in errs.items()
+                                        if k != "out"))
+            if softmax == "clamp" and not use_dpf:
+                geom = ((24, 24), 8, 4, 6, softmax_code(softmax))
+                pa, pb = FastParams(*ops[:8]), FastParams(*ops[9:17])
+                ba, bb = ops[8], ops[17]
+                # the launch alone: weights laid out once
+                la, lb = kernel_layout(pa), kernel_layout(pb)
+                fwd = (x, la, ba, lb, bb, None, geom, 2 * c)
+                _, y = pt.launch_forward(*fwd)
+                row["ms"] = cuda_time_ms(
+                    lambda: pt.launch_forward(*fwd), iters=10)
+                row["bwd_ms"] = cuda_time_ms(lambda: pt.launch_backward(
+                    x, dz, y, pa, ba, pb, bb, None, geom), warmup=1,
+                    iters=5)
+                with torch.no_grad():
+                    row["plain_ms"] = cuda_time_ms(
+                        lambda: pt.pair_train_reference(
+                            x, pa, ba, pb, bb, None, **kw))
+
+                # the plain backward alone: autograd through the
+                # plain version's graph, built once
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in [x] + ops]
+                twin = pt.pair_train_reference(
+                    leaves[0], FastParams(*leaves[1:9]), leaves[9],
+                    FastParams(*leaves[10:18]), leaves[18], None, **kw)
+                row["plain_bwd_ms"] = cuda_time_ms(
+                    lambda: torch.autograd.grad(twin, leaves, dz,
+                                                retain_graph=True),
+                    warmup=1, iters=5)
+                del twin, leaves
+                windows = x.shape[0]
+                flops = 2 * _block_flops(windows, c)
+                wbytes = sum(t.numel() * t.element_size() for t in ops)
+                tok = x.numel() * 2
+                # forward: x in, out and y (block a's output) written
+                row["bound_ms"], row["bound_by"] = _bound(
+                    flops, 3 * tok + wbytes)
+                # backward: x, dz, y in, dx out, every gradient (f32)
+                row["bwd_bound_ms"], row["bwd_bound_by"] = _bound(
+                    2 * flops, 4 * tok + wbytes + 2 * wbytes)
+                log(f"  C={c}: forward {row['ms']:.4f} ms (plain "
+                    f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f}"
+                    f" {row['bound_by']}), backward {row['bwd_ms']:.4f} "
+                    f"ms (plain {row['plain_bwd_ms']:.4f}, bound "
+                    f"{row['bwd_bound_ms']:.4f} {row['bwd_bound_by']})")
+            rows.append(row)
+    log("library yardstick: no single PyTorch call computes a DSTL pair or "
+        "its gradient")
+    return {"variants": rows}
+
+
+def _train_argv(data_dir: str, out_dir: str, steps: int) -> list:
+    return ["--config-file", TRAIN_CONFIG,
+            f"data_folder='{data_dir}'", f"output_dir='{out_dir}'",
+            f"epochs_in_total={{'WarmUP': {steps}}}",
+            f"check_every={TRAIN_CHECK}", "quick_eva_num_samples=8",
+            "eva_metrics='psnr ssim'", "verbose=False"]
+
+
+def _grads_of(trainer, batch):
+    """Loss and gradients of one step on trainer's model (no update)."""
+    dev = trainer.device
+    trainer.model.train()
+    pred = trainer.model(torch.from_numpy(batch["in"]).to(dev)).float()
+    total, _ = trainer.loss(pred, {"out": torch.from_numpy(
+        batch["out"]).to(dev)}, "WarmUP")
+    grads = torch.autograd.grad(total, trainer.params)
+    return float(total.detach()), [g.float() for g in grads]
+
+
+@phase("bf16 training step")
+def train_phase(tmp: str) -> dict:
+    from rdst_tpu_torch.cli import build_trainer, train_main
+    from rdst_tpu_torch.data import synthetic
+    from rdst_tpu_torch.kernels import pair_train as pt
+    from rdst_tpu_torch.models.rdst import set_train_mode
+    from rdst_tpu_torch.serving.export import LiveModel
+    from rdst_tpu_torch.config import ParametersLoader
+
+    out = {}
+    data_dir = os.path.join(tmp, "OASIS", "example20")
+    t0 = time.perf_counter()
+    synthetic.make_oasis_example(
+        data_dir, patient_ids=tuple(f"OAS1_{i:04d}_MR1" for i in range(1, 21)))
+    out["corpus_s"] = time.perf_counter() - t0
+    log(f"generated the 20-phantom corpus in {out['corpus_s']:.3f} s")
+
+    # the first step's loss and gradients, kernel route vs plain route,
+    # from the run's own initial parameters (same seed) and first batch
+    probe = build_trainer(_train_argv(data_dir, os.path.join(tmp, "probe"),
+                                      1))
+    probe.setup()
+    # the run below starts from these parameters (same seed, same init)
+    init = {k: v.clone() for k, v in probe.model.state_dict().items()}
+    batch = probe.ds_train.sample(np.random.default_rng(17))
+    if probe.model.train_mode != "pair":
+        raise AssertionError(f"train route {probe.model.train_mode}")
+    loss_k, g_k = _grads_of(probe, batch)
+    set_train_mode(probe.model, "")
+    loss_p, g_p = _grads_of(probe, batch)
+    gmax = max(float(g.abs().max()) for g in g_p)
+    rel = max(float((a - b).abs().max())
+              / max(1e-5, float(b.abs().max()), 0.12 * gmax)
+              for a, b in zip(g_k, g_p))
+    out.update(first_loss_kernel=loss_k, first_loss_plain=loss_p,
+               first_grad_rel_max=rel)
+    log(f"first step: loss kernel route {loss_k:.6f} vs plain bf16 route "
+        f"{loss_p:.6f} (rtol {TRAIN_LOSS_RTOL}); gradients rel max {rel:.4f}"
+        f" (bar {TRAIN_GRAD_TOL})")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+            rel >= TRAIN_GRAD_TOL:
+        raise AssertionError("kernel route vs plain route on the first step")
+    del probe
+
+    out_dir = os.path.join(tmp, "outputs")
+    pt.launch_forward.launches = pt.launch_backward.launches = 0  # main path
+    t0 = time.perf_counter()
+    trainer = train_main(_train_argv(data_dir, out_dir, TRAIN_STEPS))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    fwd, bwd = pt.launch_forward.launches, pt.launch_backward.launches
+    out.update(forward_launches=fwd, backward_launches=bwd)
+    log(f"{TRAIN_STEPS} steps in {out['run_s']:.3f} s (evaluations "
+        f"included): train-pair launches forward {fwd}, backward {bwd}")
+    if fwd != 24 * TRAIN_STEPS or bwd != 24 * TRAIN_STEPS:
+        raise AssertionError(f"expected {24 * TRAIN_STEPS} forward and "
+                             "backward launches (24 DSTL pairs a step)")
+    losses = trainer.training_loss_records.get("WarmUP", [])
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses}")
+    costs = trainer.training_epoch_costs[1:]
+    out["losses"] = losses
+    out["host_steps_per_s"] = len(costs) / sum(costs)
+    log(f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+        f"{out['host_steps_per_s']:.3f} steps/s of host time (the host "
+        "queues steps without waiting for the card; steps 2..20, quick "
+        "evaluations excluded)")
+    final = trainer.model.state_dict()
+    moved = sum(not torch.equal(init[k], final[k]) for k in init)
+    trained = sum(p.numel() > 0 for p in trainer.params)
+    out["tensors_moved"] = moved
+    if moved != trained:
+        raise AssertionError(f"{moved} of {trained} trained tensors moved")
+    snap = os.path.join(trainer.dirs["models"], "WarmUP_model_g.msgpack")
+    with open(os.path.splitext(snap)[0] + ".stats.json") as f:
+        stats = json.load(f)
+    log(f"snapshot {os.path.getsize(snap)} bytes, sidecar {stats}; "
+        f"{moved} of {trained} trained tensors moved from the initial "
+        "parameters")
+    if "attn_logit_max" not in stats:
+        raise AssertionError(f"sidecar {stats}")
+    paras = ParametersLoader(TRAIN_CONFIG)
+    paras.set("well_trained_single_scale_model_g", snap)
+    live = LiveModel(paras, max_batch=1, device="cuda")
+    lr = trainer.ds_valid.get_test_pair(0)[4.0]["in"]
+    y = live.predict(lr, SCALE)
+    if not np.isfinite(y).all() or y.shape[1:3] != (lr.shape[1] * 4,
+                                                     lr.shape[2] * 4):
+        raise AssertionError(f"served {y.shape}")
+    log(f"the snapshot served by LiveModel: {lr.shape} -> {y.shape}")
+    # resume: the same command with 2 more steps goes on from step 20
+    resumed = train_main(_train_argv(data_dir, out_dir, TRAIN_STEPS + 2))
+    with open(resumed.log_file) as f:
+        resumed_log = f.read()
+    if resumed.step != TRAIN_STEPS + 2 or (
+            f"Resumed from checkpoint: state_id=0 epoch={TRAIN_STEPS}"
+            not in resumed_log):
+        raise AssertionError(f"resume: step {resumed.step}")
+    log(f"resumed from the step-{TRAIN_STEPS} checkpoint to step "
+        f"{resumed.step}")
+    out["resumed_step"] = resumed.step
+    out["trainer"] = trainer
+    return out
+
+
+@phase("training profile")
+def train_profile_phase(trainer) -> dict:
+    """Device time of one warm training step by kernel group, and the
+    device's idle share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rdst_tpu_torch.runners.trainer import pin_batch
+
+    batch = pin_batch(trainer.ds_train.sample(np.random.default_rng(SEED + 6)))
+    trainer.train_step(batch, "WarmUP")
+    torch.cuda.synchronize()
+    # steps/s on the wall clock: WALL_STEPS steps queued back to back, as
+    # the training loop queues them, then one wait for the card
+    t0 = time.perf_counter()
+    for _ in range(WALL_STEPS):
+        trainer.train_step(batch, "WarmUP")
+    torch.cuda.synchronize()
+    steps_per_s = WALL_STEPS / (time.perf_counter() - t0)
+    log(f"{steps_per_s:.3f} steps/s over {WALL_STEPS} warm steps (wall "
+        "clock, one batch)")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch, "WarmUP")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups = {"train-pair forward": 0.0, "train-pair backward": 0.0,
+              "convolution": 0.0, "matmul (adapters, optimizer)": 0.0,
+              "other (LayerNorms, casts, elementwise)": 0.0}
+    top = []
+    events = prof.key_averages()
+    for e in events:
+        t = float(e.self_device_time_total or 0.0)
+        if e.device_type != DeviceType.CUDA or t <= 0:
+            continue
+        name = e.key.lower()
+        if "pair_train_fwd" in name:
+            groups["train-pair forward"] += t
+        elif "pair_block_bwd" in name or "sum_parts" in name:
+            groups["train-pair backward"] += t
+        elif any(w in name for w in ("conv", "cudnn", "xmma", "implicit",
+                                     "wgrad", "dgrad")):
+            groups["convolution"] += t
+        elif any(w in name for w in ("gemm", "sm90", "cutlass")):
+            groups["matmul (adapters, optimizer)"] += t
+        else:
+            groups["other (LayerNorms, casts, elementwise)"] += t
+        top.append((t, e.count, e.key[:90]))
+    busy = sum(groups.values())
+    cpu = sorted(((float(e.self_cpu_time_total), e.count, e.key[:60])
+                  for e in events
+                  if e.device_type == DeviceType.CPU), reverse=True)
+    out = {"steps_per_s": steps_per_s, "wall_us": wall_us,
+           "device_us": busy, "groups_us": groups,
+           "top": sorted(top, reverse=True)[:12], "host_top": cpu[:12],
+           "host_ops": sum(n for _, n, _ in cpu)}
+    if busy == 0:
+        log("torch.profiler recorded no device time: breakdown not measured")
+        return out
+    out["idle_share"] = 1.0 - busy / wall_us
+    log(f"one training step under the profiler: wall {wall_us / 1e3:.3f} ms,"
+        f" device busy {busy / 1e3:.3f} ms, idle share "
+        f"{out['idle_share']:.3f}")
+    for name, t in groups.items():
+        log(f"  {name}: {t / 1e3:.3f} ms ({100 * t / busy:.1f} % of device "
+            "time)")
+    for t, count, key in out["top"]:
+        log(f"  {t / 1e3:9.3f} ms x{count:4d} {key}")
+    log(f"host: {out['host_ops']} profiled CPU ops; by self CPU time "
+        "(the profiler's own overhead included):")
+    for t, count, key in out["host_top"]:
+        log(f"  {t / 1e3:9.3f} ms x{count:5d} {key}")
+    return out
+
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -664,6 +1024,10 @@ def main(argv=None) -> int:
     serve16 = bf16_serving_phase(live16, rdstb_block.run_rdstb, 8,
                                  "bfloat16", SERVE_TOL_BF16)
     prof16 = bf16_profile_phase(live16, "rdstb_kernel")
+    kern_train = train_kernel_phase(live16.model)
+    with tempfile.TemporaryDirectory() as tmp:
+        train = train_phase(tmp)
+        prof_train = train_profile_phase(train.pop("trainer"))
 
     rows = kern["variants"]
     k = len(rows)
@@ -712,12 +1076,33 @@ def main(argv=None) -> int:
             "rdst_tpu/kernels/rdstb_block.py:334", serve16["launches"],
             kern16["rdstb"]),
     ]
+    # the train pair at the main path's (clamp, no factor columns)
+    # variants, one row for the forward kernel and one for the backward
+    timed = [r for r in kern_train["variants"] if "ms" in r]
+    # (max_abs_err: the output for the forward, the largest absolute
+    # error of any gradient for the backward; relative errors are logged)
+    train_rows = {
+        "forward": ("ms", "plain_ms", "bound_ms", "bound_by",
+                    train["forward_launches"], "out_abs_err"),
+        "backward": ("bwd_ms", "plain_bwd_ms", "bwd_bound_ms",
+                     "bwd_bound_by", train["backward_launches"],
+                     "grad_abs_err"),
+    }
+    for part, (ms, plain, bound, by, launches, err) in train_rows.items():
+        kernels.append(row(
+            f"fused_swin_pair_train ({part})", "pair_train.cu",
+            "rdst_tpu/kernels/pair_train.py:293", launches,
+            [dict(max_abs_err=max(v[err] for v in kern_train["variants"]),
+                  ms=r[ms], plain_ms=r[plain], bound_ms=r[bound],
+                  bound_by=r[by]) for r in timed]))
     results = {"card": card, "device": torch.cuda.get_device_name(0),
                "torch": torch.__version__, "libs": libs, "kernel": kern,
                "model": whole, "serving": serve, "profile": prof,
                "bf16": {"manifest": live16.manifest, "kernel": kern16,
                         "model": whole16, "serving": serve16,
                         "profile": prof16},
+               "train": {"kernel": kern_train, "step": train,
+                         "profile": prof_train},
                "kernels": kernels,
                "total_s": time.perf_counter() - t_start}
     if args.out:

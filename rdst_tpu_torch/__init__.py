@@ -2,14 +2,15 @@
 
 A second package beside the JAX one. It keeps the JAX package's module
 paths and names so each piece has an obvious counterpart, imports only
-``torch``, ``numpy`` and the standard library, and runs its kernels as
-hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at
-first use and bound with ``ctypes``.
+``torch``, ``numpy``, ``scipy`` and the standard library, and runs its
+kernels as hand-written CUDA C++ for Hopper (``csrc/``), built with
+``nvcc`` at first use and bound with ``ctypes``.
 
-This slice serves RDST-E1 x4 in float32: config -> msgpack weights ->
-``models.build_generator`` -> ``serving`` (live model + HTTP server).
-Every Swin block of that path runs the kernel
-``kernels.swin_block.fused_swin_block``.
+It serves RDST-E1 x4 (``serving``: live model + HTTP server) in float32
+on the f32 block kernel and in bfloat16 on the RDSTB, pair and fast
+block kernels, and trains it (``python -m rdst_tpu_torch.train``: the
+data pipeline, the trainer, flax-readable snapshots) with each bf16
+DSTL pair on the train-pair forward and backward kernels.
 """
 
 __version__ = "0.1.0"

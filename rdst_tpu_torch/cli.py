@@ -1,0 +1,66 @@
+"""Command-line entry points of the port (counterpart of
+``rdst_tpu/cli.py``); ``python -m rdst_tpu_torch.train`` runs
+:func:`train_main`."""
+
+from __future__ import annotations
+
+import argparse
+
+
+def train_main(argv=None):
+    """``--config-file X.ini [--gpu-id N] [--seed S] [KEY=VALUE ...]``, as
+    ``rdst_tpu.cli.train_main`` takes them: build the trainer
+    (:func:`build_trainer`), set it up (resuming from its checkpoint when
+    there is one) and train; returns the trainer."""
+    trainer = build_trainer(argv)
+    trainer.setup()
+    trainer.train()
+    return trainer
+
+
+def build_trainer(argv=None):
+    """Parse the training command line and build its trainer and data.
+    Runs on the card (``cuda:N``, default ``cuda``); ``--gpu-id -1`` asks
+    for the CPU. Without a card and without that flag it raises."""
+    parser = argparse.ArgumentParser(description="Training Parameters")
+    parser.add_argument("--config-file", type=str, required=True,
+                        metavar="CONFIG", help="Path to config file.")
+    parser.add_argument("--gpu-id", type=int, metavar="GPU",
+                        help="CUDA device id; -1 runs on the CPU.")
+    parser.add_argument("--seg-loss", action="store_true",
+                        help="Use the segmentation-label training dataset "
+                             "(not ported yet: raises).")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("overrides", nargs="*", metavar="KEY=VALUE",
+                        help="Config overrides, e.g. batch_size=16 (values "
+                             "parsed like .ini values).")
+    args = parser.parse_args(argv)
+
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.data.readers import make_train_valid_datasets
+    from rdst_tpu_torch.device import resolve_device
+    from rdst_tpu_torch.runners.trainer import TransSRTrainer
+
+    if args.seg_loss:
+        raise NotImplementedError(
+            "--seg-loss (the seg-UNet loss) comes with the port's "
+            "losses-and-metrics slice (ROADMAP Queue A 8)")
+    if args.gpu_id is None:
+        device = "cuda"
+    elif args.gpu_id == -1:
+        device = "cpu"
+    else:
+        device = f"cuda:{args.gpu_id}"
+    resolve_device(device)  # no card and no --gpu-id -1: raise now
+
+    paras = ParametersLoader(args.config_file)
+    if args.gpu_id is not None:
+        paras.set("gpu_id", args.gpu_id)
+        paras.set("eva_gpu_id", args.gpu_id)
+    paras.apply_overrides(args.overrides)
+
+    ds_train, ds_valid = make_train_valid_datasets(paras)
+    print(f"DS info: {len(ds_train)} training samples, and "
+          f"{ds_valid.test_len()} testing cases.")
+    return TransSRTrainer(paras, ds_train, ds_valid, seed=args.seed,
+                          device=device)

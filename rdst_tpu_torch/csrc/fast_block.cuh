@@ -252,9 +252,14 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // The whole fast block on one window: xs (n, c) f32 in shared memory is
 // replaced by the block's f32 output. `smem` is the block's dynamic
 // shared memory laid out by smem_layout(g); bias_win selects the window's
-// bias slice. Starts and ends with __syncthreads().
+// bias slice. The training kernel (pair_train.cu) asks for an exact
+// division of the softmax normalizer (`exact`) and scales the residual
+// branches of row m by dp_attn[4 m] and dp_mlp[4 m] (stochastic-depth
+// factor columns; null means 1). Starts and ends with __syncthreads().
 __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
-                           int bias_win, int softmax) {
+                           int bias_win, int softmax, bool exact = false,
+                           const float* dp_attn = nullptr,
+                           const float* dp_mlp = nullptr) {
   const Smem L = smem_layout(g);
   float* xs = reinterpret_cast<float*>(smem + L.xs);
   bf16* xn = reinterpret_cast<bf16*>(smem + L.xn);
@@ -396,8 +401,8 @@ __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
       d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
       d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
       d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
-      const float rd0 = rcp_approx(round_bf16(d0));
-      const float rd1 = rcp_approx(round_bf16(d1));
+      const float dn0 = round_bf16(d0), dn1 = round_bf16(d1);
+      const float rd0 = rcp_approx(dn0), rd1 = rcp_approx(dn1);
       for (int dt = 0; dt < g.hdv; dt += 8) {
         float o[4] = {0.f, 0.f, 0.f, 0.f};
         const bf16* vb = vt + (h * g.hdv + dt + gr) * g.ldv + 2 * t;
@@ -411,13 +416,24 @@ __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
         const int d = dt + 2 * t;
         bf16* a0p = ao + r0 * g.lda + h * g.hd;
         bf16* a1p = ao + r1 * g.lda + h * g.hd;
+        if (exact) {
+          o[0] /= dn0;
+          o[1] /= dn0;
+          o[2] /= dn1;
+          o[3] /= dn1;
+        } else {
+          o[0] *= rd0;
+          o[1] *= rd0;
+          o[2] *= rd1;
+          o[3] *= rd1;
+        }
         if (d < g.hd) {
-          a0p[d] = __float2bfloat16_rn(o[0] * rd0);
-          a1p[d] = __float2bfloat16_rn(o[2] * rd1);
+          a0p[d] = __float2bfloat16_rn(o[0]);
+          a1p[d] = __float2bfloat16_rn(o[2]);
         }
         if (d + 1 < g.hd) {
-          a0p[d + 1] = __float2bfloat16_rn(o[1] * rd0);
-          a1p[d + 1] = __float2bfloat16_rn(o[3] * rd1);
+          a0p[d + 1] = __float2bfloat16_rn(o[1]);
+          a1p[d + 1] = __float2bfloat16_rn(o[3]);
         }
       }
     }
@@ -427,10 +443,11 @@ __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
   // proj + residual 1 (x1 = x + (o Wproj + bproj))
   gemm(xn, g.lda, n, g.cp / 16, w.wproj, g.cp, g.cp / 8,
        [&](int m, int o, float v0, float v1) {
+         const float f = dp_attn ? dp_attn[4 * m] : 1.0f;
          if (o < c)
-           xs[m * c + o] += v0 + __bfloat162float(w.bproj[o]);
+           xs[m * c + o] += (v0 + __bfloat162float(w.bproj[o])) * f;
          if (o + 1 < c)
-           xs[m * c + o + 1] += v1 + __bfloat162float(w.bproj[o + 1]);
+           xs[m * c + o + 1] += (v1 + __bfloat162float(w.bproj[o + 1])) * f;
        });
   __syncthreads();
 
@@ -448,9 +465,10 @@ __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
   // fc2 + residual 2
   gemm(hb, g.ldh, n, g.hp / 16, w.w2, g.hp, g.cp / 8,
        [&](int m, int o, float v0, float v1) {
-         if (o < c) xs[m * c + o] += v0 + __bfloat162float(w.bf2[o]);
+         const float f = dp_mlp ? dp_mlp[4 * m] : 1.0f;
+         if (o < c) xs[m * c + o] += (v0 + __bfloat162float(w.bf2[o])) * f;
          if (o + 1 < c)
-           xs[m * c + o + 1] += v1 + __bfloat162float(w.bf2[o + 1]);
+           xs[m * c + o + 1] += (v1 + __bfloat162float(w.bf2[o + 1])) * f;
        });
   __syncthreads();
 }

@@ -334,13 +334,18 @@ def gelu_tanh(x):
     return x * cdf
 
 
-def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str):
+def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
+              dpf=None):
     """The fast block body on float32 tokens (T, N, C) with its bf16
     roundings, as ``_body(fast=True)`` computes it; returns float32.
 
     ``bias`` is the packed (bw, N, nH*N) bf16 bias, bw = 1 (shared) or
     the bias period in windows. The softmax normalizer is an exact
-    division here (the kernels use an approximate reciprocal)."""
+    division here (the inference kernels use an approximate reciprocal;
+    the training kernel divides exactly, as ``exact_recip=True``).
+    ``dpf``: optional (attn, mlp) stochastic-depth factor columns, each
+    (T*N,) float32, that scale the two residual branches (``_body``'s
+    ``dpf``). Differentiable with ``torch.autograd``."""
     code = softmax_code(softmax)
     t, n, c = xf.shape
     nh = num_heads
@@ -370,9 +375,15 @@ def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str):
     den = _bf(e.float().sum(dim=-1, keepdim=True)).float()
     o = _mm(e, v) / den  # (T, nH, N, hd)
     o = _bf(o.transpose(1, 2).reshape(t, n, c))
-    x1 = xf + (_mm(o, p.wproj) + p.bproj.float())
+    y = _mm(o, p.wproj) + p.bproj.float()
+    if dpf is not None:
+        y = y * dpf[0].reshape(t, n, 1)
+    x1 = xf + y
     h1 = _bf(gelu_tanh(_mm(_bf(normalize(x1)), p.w1) + p.bf1))
-    return x1 + (_mm(h1, p.w2) + p.bf2.float())
+    h2 = _mm(h1, p.w2) + p.bf2.float()
+    if dpf is not None:
+        h2 = h2 * dpf[1].reshape(t, n, 1)
+    return x1 + h2
 
 
 def swin_block_fast_reference(x_windows, p: FastParams, bias, *,

@@ -6,6 +6,8 @@ keys keep their meaning:
 ``pallas_kernels`` -> ``RDST_TORCH_KERNELS``  (rdstb/pair/swin/pack/off)
 ``pallas_quant``   -> ``RDST_TORCH_QUANT``    (int8 groups, or off)
 ``pallas_softmax`` -> ``RDST_TORCH_SOFTMAX``  (auto/stable/clamp/...)
+``pallas_train``   -> ``RDST_TORCH_TRAIN``    (pair/off: the bf16 training
+                                              route, :func:`train_flag`)
 
 The JAX package exports a config's keys to its env flags, and the blocks
 read them at trace time, which freezes the choice into the compiled
@@ -43,6 +45,7 @@ from typing import NamedTuple
 ENV_KERNELS = "RDST_TORCH_KERNELS"
 ENV_QUANT = "RDST_TORCH_QUANT"
 ENV_SOFTMAX = "RDST_TORCH_SOFTMAX"
+ENV_TRAIN = "RDST_TORCH_TRAIN"
 
 KERNEL_MODES = ("rdstb", "pair", "swin", "pack")
 QUANT_GROUPS = ("qkv", "mlp", "proj", "conv")
@@ -105,3 +108,19 @@ def kernel_flags(paras) -> KernelFlags:
         raise ValueError(
             f"pallas_softmax={softmax!r}: expected one of {SOFTMAX_VARIANTS}")
     return KernelFlags(kernels, quant, softmax)
+
+
+def train_flag(paras) -> str:
+    """``pallas_train`` resolved once (config, then env): 'pair' (the
+    default, as the JAX trainer turns it on for bf16 training) runs each
+    DSTL pair of a bf16 training step on the train-pair kernels, '' the
+    plain modules under autograd; 'block' (the JAX package's
+    single-block train kernel) is returned for the model builder to
+    refuse; anything else raises."""
+    raw, from_config = _lookup(paras, "pallas_train", ENV_TRAIN)
+    if raw in _OFF and (raw or from_config):
+        return ""
+    mode = raw or "pair"
+    if mode not in ("pair", "block"):
+        raise ValueError(f"pallas_train={raw!r}: expected 'pair' or off")
+    return mode

@@ -10,7 +10,7 @@
 
 Module names give the reference RDSTSR state_dict keys (the ones
 ``checkpoint.convert.export_rdstsr`` writes). Layouts are NHWC and
-(B, L, C) tokens, as in the JAX package. Inference only.
+(B, L, C) tokens, as in the JAX package.
 
 The model computes in its ``dtype`` (float32, or bfloat16 with float32
 parameter masters: the input is rounded to bf16 first, as the JAX
@@ -22,6 +22,13 @@ f32 block kernel; in bfloat16, 'rdstb' runs each RDSTB as one
 ``kernels.swin_pair`` launch, and 'swin'/'pack' each block on the fast
 block kernel. A block the mode's kernel cannot take raises and names the
 mode to choose instead; nothing falls back quietly.
+
+Those routes serve (eval mode, no gradient). A model built here starts
+in eval mode; in training mode (``model.train()``) the blocks compute
+for autograd: float32 trains on the plain modules, as the JAX package
+does; bfloat16 runs each DSTL pair on the differentiable train-pair
+kernels (``pallas_train='pair'``, the default) or on the plain bf16
+modules (``'off'``), as decided once by :func:`set_train_mode`.
 """
 
 from __future__ import annotations
@@ -31,12 +38,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from rdst_tpu_torch.nn.common import Conv, MeanShift, UpSampler
-from rdst_tpu_torch.nn.layers import BF16, LayerNorm, Linear
-from rdst_tpu_torch.nn.swin import (BasicLayer, kernel_plan, resolve_ws_shift,
-                                    set_block_kernels)
+from rdst_tpu_torch.nn.layers import BF16, Dropout, LayerNorm, Linear
+from rdst_tpu_torch.nn.swin import (BasicLayer, kernel_plan, refuse_grad,
+                                    resolve_ws_shift, set_block_kernels)
 
 
 def to_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
@@ -58,15 +64,28 @@ def _lcm_all(sizes) -> int:
     return out
 
 
+def reflect_index(size: int, padded: int) -> torch.Tensor:
+    """Source indices of ``jnp.pad(mode='reflect')`` padding an axis of
+    ``size`` at its end up to ``padded``: the reflection (edge not
+    repeated) goes on past the far edge, period 2(size - 1), so a pad
+    longer than the axis is allowed (torch's reflect pad refuses it)."""
+    i = torch.arange(padded)
+    if size == 1:
+        return torch.zeros_like(i)
+    j = i % (2 * size - 2)
+    return torch.where(j < size, j, 2 * size - 2 - j)
+
+
 def pad_to_window_multiple(x: torch.Tensor, multiple: int
                            ) -> Tuple[torch.Tensor, Tuple[int, int]]:
-    """Reflect-pad H, W of an NHWC batch up to a window multiple; the
-    caller crops the output back."""
+    """Reflect-pad H, W of an NHWC batch up to a window multiple, as
+    ``jnp.pad(mode='reflect')`` does; the caller crops the output back."""
     b, h, w, c = x.shape
     ph, pw = (-h) % multiple, (-w) % multiple
-    if ph or pw:
-        x = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph),
-                  mode="reflect").permute(0, 2, 3, 1)
+    if ph:
+        x = x.index_select(1, reflect_index(h, h + ph).to(x.device))
+    if pw:
+        x = x.index_select(2, reflect_index(w, w + pw).to(x.device))
     return x, (h, w)
 
 
@@ -90,7 +109,8 @@ class DenseSTLayer(nn.Module):
                  qk_scale: Optional[float] = None, dense_scale: float = 1.0,
                  dim_modify_mode: str = "tail", pre_norm: bool = False,
                  build_resolution: Optional[Tuple[int, int]] = None,
-                 layer_norm: bool = True):
+                 layer_norm: bool = True, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         if growth_rate % num_heads or input_dim % num_heads:
             raise ValueError("input_dim and growth_rate must divide by heads")
@@ -101,7 +121,7 @@ class DenseSTLayer(nn.Module):
                      if dim_modify_mode == "head" and need_adapter else None)
         self.body = BasicLayer(hidden_dim, depth, num_heads, window_size,
                                mlp_ratio, qkv_bias, qk_scale,
-                               build_resolution, layer_norm)
+                               build_resolution, layer_norm, drop, attn_drop)
         self.tail = (_adapter(hidden_dim, growth_rate, pre_norm, layer_norm)
                      if dim_modify_mode == "tail" and need_adapter else None)
 
@@ -129,7 +149,8 @@ class RDSTB(nn.Module):
                  num_blocks: int = 3, residual_scale: float = 1.0,
                  pre_norm: bool = False,
                  build_resolution: Optional[Tuple[int, int]] = None,
-                 layer_norm: bool = True):
+                 layer_norm: bool = True, drop: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
         if resi_connection != "1conv":
             raise NotImplementedError(
@@ -149,7 +170,8 @@ class RDSTB(nn.Module):
             DenseSTLayer(input_dim + i * growth_rate, growth_rate,
                          layer_depth, num_heads, window_size, mlp_ratio,
                          qkv_bias, qk_scale, dense_scale, dim_modify_mode,
-                         pre_norm, build_resolution, layer_norm)
+                         pre_norm, build_resolution, layer_norm, drop,
+                         attn_drop)
             for i in range(int(num_blocks))])
         self.conv = Conv(input_dim + int(num_blocks) * growth_rate,
                          input_dim, 3)
@@ -206,6 +228,7 @@ class RDSTB(nn.Module):
     def _fused_rdstb(self, x, x_size):
         from rdst_tpu_torch.kernels.rdstb_block import plan_rdstb, run_rdstb
 
+        refuse_grad("fused_rdstb", x, self)
         h, w = x_size
         ws, shift = self._window(h, w)
         built = self.body[0].body.blocks[0].attn.window_size
@@ -225,7 +248,7 @@ class RDSTB(nn.Module):
                          softmax=self.softmax)
 
     def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
-        if self.use_rdstb:
+        if self.use_rdstb and not self.training:
             return self._fused_rdstb(x, x_size)
         shortcut = x
         for layer in self.body:
@@ -263,8 +286,13 @@ class RDSTSR(nn.Module):
                  pre_norm: bool = False, layer_norm: bool = True,
                  feature_last_operation: bool = False,
                  build_resolution: Optional[Tuple[int, int]] = None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, drop_rate: float = 0.0,
+                 attn_drop: float = 0.0):
         super().__init__()
+        # no drop path rate: the JAX RDSTSR takes swin_drop_path_rate but
+        # never hands it to its RDSTBs (rdst_tpu/models/rdst.py:410-428),
+        # so stochastic depth stays off in RDST training
+        self.train_mode = ""  # plain autograd until set_train_mode
         if dtype not in (torch.float32, BF16):
             raise NotImplementedError(
                 f"RDST in {dtype}: the port computes in float32 or bfloat16")
@@ -290,8 +318,9 @@ class RDSTSR(nn.Module):
                   window_size[i], mlp_ratio, qkv_bias, qk_scale,
                   resi_connection, growth_rate, dense_scale, dim_modify_mode,
                   rdb_depths[i], rdb_residual_scale, pre_norm,
-                  build_resolution, layer_norm)
+                  build_resolution, layer_norm, drop_rate, attn_drop)
             for i in range(len(rdb_depths))])
+        self.pos_drop = Dropout(drop_rate)
         self.norm = LayerNorm(embed_dim) if layer_norm else None
         self.conv_after_body = (Conv(embed_dim, embed_dim, 3)
                                 if feature_last_operation else None)
@@ -310,6 +339,7 @@ class RDSTSR(nn.Module):
         tokens, x_size = to_tokens(x)
         if self.patch_embed is not None:
             tokens = self.patch_embed.norm(tokens)
+        tokens = self.pos_drop(tokens)
         for block in self.body:
             tokens = block(tokens, x_size)
         if self.norm is not None:
@@ -358,12 +388,14 @@ def set_kernel_mode(model: RDSTSR, mode: str, softmax: str = "") -> list:
         if not mode:
             routes.append("plain")
         elif not bf16 or mode in ("swin", "pack"):
-            for layer in block.body if bf16 else ():
+            for layer in block.body:
                 for blk in layer.body.blocks:
-                    why = blk.fast_unsupported()
+                    why = (blk.fast_unsupported() if bf16
+                           else blk.f32_unsupported())
                     if why:
+                        kind = "fast" if bf16 else "f32"
                         raise ValueError(
-                            f"RDSTB {i}: the fast block kernel cannot run "
+                            f"RDSTB {i}: the {kind} block kernel cannot run "
                             f"it ({why}); build with pallas_kernels='off'")
             set_block_kernels(block, True)
             routes.append("fused_swin_block")
@@ -386,6 +418,36 @@ def set_kernel_mode(model: RDSTSR, mode: str, softmax: str = "") -> list:
             routes.append("fused_rdstb")
     model.kernel_mode, model.softmax, model.routes = mode, softmax, routes
     return routes
+
+
+def set_train_mode(model: RDSTSR, mode: str) -> str:
+    """Decide the training route of ``model`` once (``model.train_mode``,
+    returned). float32 trains on the plain modules whatever ``mode``
+    says (the JAX train kernels need bf16). bfloat16: 'pair' runs each
+    DSTL pair on the train-pair kernels and raises, naming
+    ``pallas_train='off'``, for a layer they cannot take (dropout rates
+    included); '' runs the plain bf16 modules; 'block' raises."""
+    layers = [m for m in model.modules() if isinstance(m, BasicLayer)]
+    for layer in layers:
+        layer.use_pair_train = False
+    if model.dtype != BF16:
+        mode = ""
+    if mode == "block":
+        raise NotImplementedError(
+            "pallas_train='block' (fused_swin_block_train, for widths a "
+            "pair cannot hold) comes with the wide-width slice of the port "
+            "(ROADMAP Queue B 6); use 'pair' or 'off'")
+    if mode not in ("", "pair"):
+        raise ValueError(f"pallas_train={mode!r}: expected 'pair' or ''")
+    if mode == "pair":
+        for layer in layers:
+            why = layer.pair_train_unsupported()
+            if why:
+                raise ValueError(f"the train-pair kernels cannot run a DSTL "
+                                 f"({why}); build with pallas_train='off'")
+            layer.use_pair_train = True
+    model.train_mode = mode
+    return mode
 
 
 def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
@@ -435,8 +497,10 @@ def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
         feature_last_operation=paras.rdst_feature_last_operation,
         build_resolution=(paras.patch_size // paras.swin_patch_size,) * 2,
         dtype=dtype,
+        drop_rate=float(paras.get("swin_drop_rate", 0.0) or 0.0),
+        attn_drop=float(paras.get("swin_attn_drop_rate", 0.0) or 0.0),
     )
     flags = kernel_flags(paras)
     softmax = resolve_pallas_softmax(resolve_model_path(paras), flags.softmax)
     set_kernel_mode(model, flags.kernels, softmax)
-    return model
+    return model.eval()

@@ -11,6 +11,9 @@ rounded to bf16): LayerNorm statistics in f32 by the fast variance
 ``max(E[x^2] - E[x]^2, 0)``, affine in f32, output bf16; a Dense layer's
 product rounded to bf16, then its bf16 bias added and rounded again.
 float32 activations take the float32 code unchanged.
+
+Dropout and stochastic depth act in training mode only, drawing from an
+explicit ``torch.Generator`` (:func:`set_generator`).
 """
 
 from __future__ import annotations
@@ -67,14 +70,59 @@ class Linear(nn.Linear):
         return super().forward(x)
 
 
+class Dropout(nn.Module):
+    """``flax.linen.Dropout`` in training mode: each element kept with
+    probability 1 - rate and scaled by 1 / keep; the identity in eval
+    mode or at rate 0. Draws from ``generator`` (an explicit
+    ``torch.Generator`` on the tensors' device, :func:`set_generator`),
+    else from torch's default generator."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+        self.generator: Optional[torch.Generator] = None
+
+    def _keep(self, shape, x):
+        keep = 1.0 - self.rate
+        u = torch.rand(shape, generator=self.generator, device=x.device)
+        return u < keep, keep
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        mask, keep = self._keep(x.shape, x)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(Dropout):
+    """Stochastic depth (``rdst_tpu/nn/layers.py:60``): the whole branch
+    of each sample (leading dim) kept with probability 1 - rate, scaled
+    by 1 / keep."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        mask, keep = self._keep((x.shape[0],) + (1,) * (x.dim() - 1), x)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def set_generator(module: nn.Module, generator: torch.Generator) -> None:
+    """Give every stochastic layer under ``module`` (dropout, drop path,
+    the pair route's factor columns) the explicit ``generator``."""
+    for m in module.modules():
+        if hasattr(m, "generator"):
+            m.generator = generator
+
+
 class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 (inference: dropout rates are 0)."""
+    """fc1 -> exact GELU -> dropout -> fc2 -> dropout."""
 
     def __init__(self, in_features: int, hidden_features: int,
-                 out_features: Optional[int] = None):
+                 out_features: Optional[int] = None, drop: float = 0.0):
         super().__init__()
         self.fc1 = Linear(in_features, hidden_features)
         self.fc2 = Linear(hidden_features, out_features or in_features)
+        self.drop = Dropout(drop)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(gelu_exact(self.fc1(x)))
+        return self.drop(self.fc2(self.drop(gelu_exact(self.fc1(x)))))

@@ -15,8 +15,16 @@ whose ``use_pair`` is set runs each pair of blocks through
 ``kernels.swin_pair`` instead (bf16 only). A block the kernel does not
 take raises in kernel mode instead of taking the plain path. On bfloat16
 tokens the plain path computes as the JAX package's flax modules do at
-``dtype=bfloat16`` (``nn.layers``). The port serves inference only: no
-dropout or stochastic depth.
+``dtype=bfloat16`` (``nn.layers``).
+
+Those are the serving routes, taken in eval mode; they have no gradient
+and raise when reached with autograd recording. In training mode
+(``module.train()``) every block runs the plain path with dropout and
+stochastic depth, differentiated by autograd, unless its
+:class:`BasicLayer`'s ``use_pair_train`` is set (bf16 training, set by
+``models.rdst.set_train_mode``): then each pair of blocks runs as one
+differentiable ``kernels.pair_train`` call, whose CUDA forward and
+backward take the place of autograd's.
 """
 
 from __future__ import annotations
@@ -28,7 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from rdst_tpu_torch.nn.layers import BF16, LayerNorm, Linear, Mlp
+from rdst_tpu_torch.nn.layers import (BF16, Dropout, DropPath, LayerNorm,
+                                      Linear, Mlp)
 
 
 def window_partition(x: torch.Tensor, window_size: int) -> torch.Tensor:
@@ -96,6 +105,18 @@ def resolve_ws_shift(decide_res: Tuple[int, int], h: int, w: int,
     return ws, shift
 
 
+def refuse_grad(route: str, x: torch.Tensor, module: nn.Module) -> None:
+    """A serving route has no gradient: raise when autograd is recording
+    for its input or parameters, instead of returning a detached
+    output."""
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            p.requires_grad for p in module.parameters())):
+        raise RuntimeError(
+            f"{route} is a serving kernel without a gradient: run it under "
+            "torch.no_grad()/inference_mode(), or put the model in "
+            "training mode (model.train()) for the training route")
+
+
 def kernel_plan(module: nn.Module, key, build):
     """A fused kernel's prepared operands, kept on ``module`` while its
     parameters (by storage and in-place version) and ``key`` stay the
@@ -111,25 +132,37 @@ def kernel_plan(module: nn.Module, key, build):
     return cached[1]
 
 
+# The cached index and mask tensors are made outside inference mode even
+# when the first caller serves under torch.inference_mode(): a training
+# step in the same process saves them for its backward.
 @functools.lru_cache(maxsize=64)
 def _index_tensor(ws: int, device: torch.device) -> torch.Tensor:
-    return torch.as_tensor(relative_position_index(ws, ws).reshape(-1),
-                           device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(relative_position_index(ws, ws).reshape(-1),
+                               device=device)
 
 
 @functools.lru_cache(maxsize=256)
 def _mask_tensor(h: int, w: int, ws: int, shift: int,
                  device: torch.device) -> Optional[torch.Tensor]:
     mask = shift_attention_mask(h, w, ws, shift)
-    return None if mask is None else torch.as_tensor(mask, device=device)
+    with torch.inference_mode(False):
+        return None if mask is None else torch.as_tensor(mask, device=device)
 
 
 class WindowAttention(nn.Module):
     """W-MSA with relative position bias on (B*nW, N, C) tokens."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
-                 qkv_bias: bool = True, qk_scale: Optional[float] = None):
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0):
         super().__init__()
+        self.attn_drop = Dropout(attn_drop)
+        self.proj_drop = Dropout(proj_drop)
+        # kernels.logit_audit: when set, the running max attention logit
+        # (after scale, bias and mask) is kept in logit_max
+        self.audit = False
+        self.logit_max: Optional[torch.Tensor] = None
         self.dim = dim
         self.window_size = window_size
         self.num_heads = num_heads
@@ -161,9 +194,16 @@ class WindowAttention(nn.Module):
             nw = mask.shape[0]
             attn = (attn.reshape(b_ // nw, nw, nh, n, n)
                     + mask[None, :, None]).reshape(-1, nh, n, n)
-        attn = torch.softmax(attn, dim=-1)
+        self._audit(attn)
+        attn = self.attn_drop(torch.softmax(attn, dim=-1))
         y = (attn @ v).transpose(1, 2).reshape(b_, n, c)
-        return self.proj(y)
+        return self.proj_drop(self.proj(y))
+
+    def _audit(self, attn):
+        if self.audit:
+            m = attn.detach().amax().float()
+            self.logit_max = (m if self.logit_max is None
+                              else torch.maximum(self.logit_max, m))
 
     def _forward_bf16(self, x, mask):
         """The JAX package's bf16 XLA attention: every op's output rounded
@@ -180,12 +220,13 @@ class WindowAttention(nn.Module):
             nw = mask.shape[0]
             attn = (attn.reshape(b_ // nw, nw, nh, n, n)
                     + mask.to(BF16)[None, :, None]).reshape(-1, nh, n, n)
+        self._audit(attn)
         e = torch.exp((attn - attn.amax(dim=-1, keepdim=True)).float()
                       ).to(BF16)
         den = e.float().sum(dim=-1, keepdim=True).to(BF16)
-        p = (e.float() / den.float()).to(BF16)
+        p = self.attn_drop((e.float() / den.float()).to(BF16))
         y = (p.float() @ v.float()).to(BF16).transpose(1, 2).reshape(b_, n, c)
-        return self.proj(y)
+        return self.proj_drop(self.proj(y))
 
 
 class SwinTransformerBlock(nn.Module):
@@ -196,7 +237,8 @@ class SwinTransformerBlock(nn.Module):
                  shift_size: int = 0, mlp_ratio: float = 4.0,
                  qkv_bias: bool = True, qk_scale: Optional[float] = None,
                  build_resolution: Optional[Tuple[int, int]] = None,
-                 layer_norm: bool = True):
+                 layer_norm: bool = True, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: float = 0.0):
         super().__init__()
         self.dim = dim
         self.num_heads = num_heads
@@ -212,9 +254,11 @@ class SwinTransformerBlock(nn.Module):
         ws = (min(window_size, *build_resolution) if build_resolution
               else window_size)
         self.norm1 = LayerNorm(dim) if layer_norm else nn.Identity()
-        self.attn = WindowAttention(dim, ws, num_heads, qkv_bias, qk_scale)
+        self.attn = WindowAttention(dim, ws, num_heads, qkv_bias, qk_scale,
+                                    attn_drop, drop)
         self.norm2 = LayerNorm(dim) if layer_norm else nn.Identity()
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop)
+        self.drop_path = DropPath(drop_path)
 
     def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
         h, w = x_size
@@ -224,7 +268,7 @@ class SwinTransformerBlock(nn.Module):
             raise ValueError(
                 f"input {h}x{w} resolves to window {ws}, but the block was "
                 f"built for window {self.attn.window_size}")
-        if self.use_kernel:
+        if self.use_kernel and not self.training:
             return self._fused_block(x, (h, w), ws, shift)
 
         b, l, c = x.shape
@@ -238,8 +282,8 @@ class SwinTransformerBlock(nn.Module):
         x = window_reverse(attn_windows.reshape(-1, ws, ws, c), ws, h, w)
         if shift > 0:
             x = torch.roll(x, (shift, shift), dims=(1, 2))
-        x = shortcut + x.reshape(b, h * w, c)
-        return x + self.mlp(self.norm2(x))
+        x = shortcut + self.drop_path(x.reshape(b, h * w, c))
+        return x + self.drop_path(self.mlp(self.norm2(x)))
 
     def kernel_inputs(self, x_size: Tuple[int, int], ws: int, shift: int):
         """(params 12-tuple in the kernel's (in, out) layout, bias).
@@ -252,7 +296,9 @@ class SwinTransformerBlock(nn.Module):
         rel = a.rel_bias()
         mask = _mask_tensor(h, w, ws, shift, rel.device)
         if mask is not None:
-            bias = (rel[:, None] + mask[None]).reshape(-1, n, n)
+            # contiguous: with one window the sum keeps rel's permuted
+            # strides
+            bias = (rel[:, None] + mask[None]).reshape(-1, n, n).contiguous()
         else:
             bias = rel.contiguous()
         params = (a.qkv.weight.t().contiguous(),
@@ -276,6 +322,7 @@ class SwinTransformerBlock(nn.Module):
                 f"{self.layer_norm}, qk_scale={self.qk_scale}, {h}x{w} with "
                 f"window {ws} (build with pallas_kernels='off' for the "
                 "plain path)")
+        refuse_grad("fused_swin_block", x, self)
         xi = x.reshape(b, h, w, c)
         if shift > 0:
             xi = torch.roll(xi, (-shift, -shift), dims=(1, 2))
@@ -317,6 +364,23 @@ class SwinTransformerBlock(nn.Module):
                     f"{hidden} exceed what the CUDA kernels take")
         return None
 
+    def f32_unsupported(self) -> Optional[str]:
+        """Why the f32 block kernel cannot run this block at its built
+        window (None when it can); checked when the model is built."""
+        from rdst_tpu_torch.kernels.swin_block import (block_kernel_supports,
+                                                       smem_bytes)
+
+        if not self.layer_norm or self.qk_scale is not None:
+            return "the block has no LayerNorm or a custom q scale"
+        n = self.attn.window_size ** 2
+        hidden = self.mlp.fc1.out_features
+        if not block_kernel_supports(n, self.dim, self.num_heads, hidden):
+            return (f"N={n}, C={self.dim}, {self.num_heads} heads, hidden "
+                    f"{hidden} exceed what the CUDA kernel takes ("
+                    f"{smem_bytes(n, self.dim, hidden)} bytes of shared "
+                    "memory)")
+        return None
+
     def fast_kernel_inputs(self, x_size: Tuple[int, int], ws: int,
                            shift: int):
         """:meth:`kernel_inputs` as the JAX package hands them to a bf16
@@ -336,19 +400,25 @@ class BasicLayer(nn.Module):
                  mlp_ratio: float = 4.0, qkv_bias: bool = True,
                  qk_scale: Optional[float] = None,
                  build_resolution: Optional[Tuple[int, int]] = None,
-                 layer_norm: bool = True):
+                 layer_norm: bool = True, drop: float = 0.0,
+                 attn_drop: float = 0.0, drop_path: Tuple[float, ...] = ()):
         super().__init__()
+        self.drop_path = tuple(float(r) for r in drop_path) or (0.0,) * depth
         self.blocks = nn.ModuleList([
             SwinTransformerBlock(
                 dim, num_heads, window_size,
                 shift_size=0 if i % 2 == 0 else window_size // 2,
                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, qk_scale=qk_scale,
-                build_resolution=build_resolution, layer_norm=layer_norm)
+                build_resolution=build_resolution, layer_norm=layer_norm,
+                drop=drop, attn_drop=attn_drop, drop_path=self.drop_path[i])
             for i in range(depth)])
         self.window_size = window_size
         self.build_resolution = build_resolution
+        self.drop, self.attn_drop = float(drop), float(attn_drop)
         self.use_pair = False  # see models.rdst.set_kernel_mode
+        self.use_pair_train = False  # see models.rdst.set_train_mode
         self.softmax = ""
+        self.generator: Optional[torch.Generator] = None  # factor columns
 
     def pair_unsupported(self) -> Optional[str]:
         """Why the pair kernel cannot run this layer's blocks (None when
@@ -358,11 +428,97 @@ class BasicLayer(nn.Module):
             return f"depth {len(self.blocks)} is not a whole number of pairs"
         return self.blocks[0].fast_unsupported()
 
+    def pair_train_unsupported(self) -> Optional[str]:
+        """Why the train-pair kernels cannot run this layer (None when
+        they can): the pair's structure, no dropout (the kernels apply
+        stochastic depth only, as the JAX kernel does), and what the
+        CUDA kernels take at the built window."""
+        from rdst_tpu_torch.kernels.pair_train import (
+            pair_train_kernel_supports)
+
+        if not self.blocks or len(self.blocks) % 2:
+            return f"depth {len(self.blocks)} is not a whole number of pairs"
+        blk = self.blocks[0]
+        if not blk.layer_norm or blk.qk_scale is not None:
+            return "the block has no LayerNorm or a custom q scale"
+        if self.drop or self.attn_drop:
+            return (f"dropout rates {self.drop}/{self.attn_drop} (the "
+                    "kernels apply stochastic depth only)")
+        n = blk.attn.window_size ** 2
+        hidden = blk.mlp.fc1.out_features
+        if not pair_train_kernel_supports(n, blk.dim, blk.num_heads, hidden):
+            return (f"N={n}, C={blk.dim}, {blk.num_heads} heads, hidden "
+                    f"{hidden} exceed what the CUDA kernels take")
+        return None
+
     def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
-        if self.use_pair:
+        if self.training and self.use_pair_train:
+            return self._train_pairs(x, x_size)
+        if self.use_pair and not self.training:
             return self._fused_pairs(x, x_size)
         for block in self.blocks:
             x = block(x, x_size)
+        return x
+
+    def dp_factor_cols(self, b: int, rows_per_image: int, i: int):
+        """(B*nW*N, 4) float32 stochastic-depth factor columns [attn_a,
+        mlp_a, attn_b, mlp_b] for blocks i, i+1 (``_dp_factor_cols``):
+        four independent per-sample draws, kept with probability 1 -
+        rate and scaled by 1 / keep; None when both rates are 0."""
+        dpa, dpb = self.drop_path[i], self.drop_path[i + 1]
+        if dpa == 0.0 and dpb == 0.0:
+            return None
+        dev = self.blocks[0].attn.qkv.weight.device
+        cols = []
+        for r in (dpa, dpa, dpb, dpb):
+            if r == 0.0:
+                cols.append(torch.ones(b, device=dev))
+            else:
+                keep = 1.0 - r
+                u = torch.rand(b, generator=self.generator, device=dev)
+                cols.append(torch.where(u < keep, 1.0 / keep, 0.0))
+        return torch.stack(cols, -1).repeat_interleave(rows_per_image, 0)
+
+    def _window_geometry(self, x, x_size, kernel: str):
+        h, w = x_size
+        ws, shift = resolve_ws_shift(self.build_resolution or (h, w), h, w,
+                                     self.window_size, self.window_size // 2)
+        if x.dtype != BF16 or h % ws or w % ws:
+            raise ValueError(
+                f"the {kernel} kernel takes bf16 tokens on whole windows; "
+                f"got {x.dtype}, {h}x{w} with window {ws}")
+        if ws != self.blocks[0].attn.window_size:
+            raise ValueError(
+                f"input {h}x{w} resolves to window {ws}, but the block "
+                f"was built for window {self.blocks[0].attn.window_size}")
+        return ws, shift
+
+    def _train_pairs(self, x, x_size):
+        """The training route: each pair of blocks through
+        ``kernels.pair_train.fused_swin_pair_train`` (raw parameters
+        folded in plain torch, so autograd reaches them); entry
+        partition and exit reverse + roll in plain torch."""
+        from rdst_tpu_torch.kernels.pair_train import fused_swin_pair_train
+
+        h, w = x_size
+        b, l, c = x.shape
+        ws, shift = self._window_geometry(x, x_size, "train-pair")
+        nh = self.blocks[0].num_heads
+        n = ws * ws
+        rows = (h // ws) * (w // ws) * n
+        for i in range(0, len(self.blocks), 2):
+            pa, ba = self.blocks[i].fast_kernel_inputs(x_size, ws, 0)
+            pb, bb = self.blocks[i + 1].fast_kernel_inputs(x_size, ws, shift)
+            xw = window_partition(x.reshape(b, h, w, c), ws)
+            y = fused_swin_pair_train(
+                xw.reshape(-1, n, c).contiguous(), pa, ba, pb, bb,
+                self.dp_factor_cols(b, rows, i), num_heads=nh,
+                x_size=x_size, window_size=ws, shift=shift,
+                softmax=self.softmax)
+            y = window_reverse(y.reshape(-1, ws, ws, c), ws, h, w)
+            if shift > 0:
+                y = torch.roll(y, (shift, shift), dims=(1, 2))
+            x = y.reshape(b, l, c)
         return x
 
     def _fused_pairs(self, x, x_size):
@@ -371,18 +527,9 @@ class BasicLayer(nn.Module):
 
         h, w = x_size
         b, l, c = x.shape
-        ws, shift = resolve_ws_shift(self.build_resolution or (h, w), h, w,
-                                     self.window_size, self.window_size // 2)
-        if x.dtype != BF16 or h % ws or w % ws:
-            raise ValueError(
-                f"the pair kernel takes bf16 tokens on whole windows; got "
-                f"{x.dtype}, {h}x{w} with window {ws} (build with "
-                "pallas_kernels='swin' or 'off')")
+        refuse_grad("fused_swin_pair", x, self)
+        ws, shift = self._window_geometry(x, x_size, "pair")
         nh = self.blocks[0].num_heads
-        if ws != self.blocks[0].attn.window_size:
-            raise ValueError(
-                f"input {h}x{w} resolves to window {ws}, but the block "
-                f"was built for window {self.blocks[0].attn.window_size}")
 
         def build():
             return [(plan_fast_block(*a.fast_kernel_inputs(x_size, ws, 0),
@@ -396,7 +543,8 @@ class BasicLayer(nn.Module):
                             build)
         for plan_a, plan_b in plans:
             xw = window_partition(x.reshape(b, h, w, c), ws)
-            y = run_swin_pair(xw.reshape(-1, ws * ws, c), plan_a, plan_b,
+            y = run_swin_pair(xw.reshape(-1, ws * ws, c).contiguous(),
+                              plan_a, plan_b,
                               num_heads=nh, x_size=x_size, window_size=ws,
                               shift=shift, softmax=self.softmax)
             # y is in SHIFTED window layout

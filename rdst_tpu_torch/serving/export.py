@@ -101,7 +101,9 @@ def build_serving_model(paras, device="cuda"):
     path = resolve_model_path(paras)
     idt = str(paras.get("inference_dtype", "float32")).lower()
     dtype = torch.bfloat16 if idt in ("bfloat16", "bf16") else torch.float32
-    if flags.quant:
+    # int8 rides the bf16 fast path only; the f32 precise path drops it,
+    # as the JAX precise branch does
+    if flags.quant and dtype == torch.bfloat16:
         raise NotImplementedError(
             f"pallas_quant {sorted(flags.quant)}: int8 matmuls come with "
             "the int8 slice of the port")

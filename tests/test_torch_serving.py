@@ -234,8 +234,12 @@ def test_cuda_request_without_card_raises():
 ])
 def test_unported_serving_options_raise(monkeypatch, key, value, match):
     monkeypatch.setenv("RDST_TORCH_QUANT", "")
+    # int8 raises in bf16 only: the f32 precise path drops it, as in the
+    # JAX package (test_torch_repairs.py)
+    extra = {"inference_dtype": "bfloat16"} if key == "pallas_quant" else {}
     with pytest.raises(NotImplementedError, match=match):
-        export.build_serving_model(_paras(**{key: value}), device="cpu")
+        export.build_serving_model(_paras(**{key: value}, **extra),
+                                   device="cpu")
 
 
 def test_bf16_live_model_serves_flagship():
