@@ -1,12 +1,14 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--only e1|swinir]
 
 Drives the port's main paths -- the shipped RDST-E1 x4 config with its
 committed weights, served over HTTP by ``rdst_tpu_torch.serving`` in
-float32 and in bfloat16 (``inference_dtype='bfloat16'``) -- and holds
-every CUDA kernel of those paths against its plain PyTorch version on the
-card. Phases, each printed with its seconds:
+float32 and in bfloat16 (``inference_dtype='bfloat16'``) and trained in
+bfloat16; the shipped SwinIR-std x4 configs, served and trained in
+bfloat16 -- and holds every CUDA kernel of those paths against its plain
+PyTorch version on the card. Phases, each printed with its seconds (the
+20-phantom corpus is generated once, after the build):
 
 1. the card (``nvidia-smi`` name and power limit);
 2. build every kernel source with ``nvcc`` (one process per source, all
@@ -54,7 +56,37 @@ card. Phases, each printed with its seconds:
     first step's loss and gradients on the kernel route against the
     plain bf16 route (loss rtol 2e-2, gradients relative max < 0.08);
 13. steps/s on the wall clock over 10 warm steps queued back to back,
-    and the profile of one warm training step.
+    and the profile of one warm training step;
+14. SwinIR-std (``config_files/swinir_std_40k_oasis20_x4.ini``, its
+    committed weights, bf16, mode swin, int8 qkv; every block unshifted
+    at the build resolution): the fast block at C = 180 with int8 qkv vs
+    its plain version at bucket 64 (1280 windows), the path's unshifted
+    block and a shifted case, 'clamp' and 'stable_bc': CUDA-event times,
+    plain time, bound (the qkv product at the int8 peak), relative error
+    (bar 0.02);
+15. the SwinIR-std model on 8 slices: 36 fast-block launches per forward
+    (counts set to 0 just before, read just after), vs the same model on
+    the CPU (the plain versions, bar 0.02) and vs the plain f32 path
+    (``pallas_kernels='off'``): relative error and PSNR;
+16. SwinIR-std bf16 serving over HTTP, as phase 5, and the profile of
+    one warm bucket-64 forward, as phase 6;
+17. the block-train kernels (``kernels.block_train``, forward and
+    backward) vs the plain version and its autograd gradient at 288
+    windows, C = 180 (the committed weights; the path's unshifted block
+    and a shifted case, with and without factor columns, 'clamp' and
+    'stable'): the output and every gradient (tokens, the 12 parameters
+    through the fold, the bias), bar 0.02; CUDA-event times, plain
+    times, bounds;
+18. SwinIR-std bf16 training (``config_files/swinir_std_100k_oasis20_x4
+    .ini``, 20 steps, a quick evaluation every 10): ``train_routes`` 36
+    block / 0 pair, 36 + 36 block-train wrapper calls a step and none of
+    the train pair (counts set to 0 just before the run), a finite loss
+    that falls, the quick evaluations on the fast block, the snapshot
+    served by ``LiveModel``; the first step on the kernel route vs the
+    plain bf16 route from the same generator state (the same
+    stochastic-depth draws; loss rtol 2e-2, gradients < 0.08);
+19. steps/s and the profile of one warm SwinIR-std training step, as
+    phase 13.
 
 Any failed phase raises and the script exits non-zero. It needs a CUDA
 card: without one it exits non-zero and prints no result. The last two
@@ -119,6 +151,11 @@ TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 2e-2, 0.08
 SERVE_TOL_BF16 = BF16_TOL
 
 
+# cuDNN's convolution kernels by name, its FFT algorithms included
+CONV_KERNELS = ("conv", "cudnn", "xmma", "implicit", "fft",
+                "pointwise_mult_and_sum_complex")
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -171,12 +208,15 @@ def build_phase() -> dict:
 
     with concurrent.futures.ThreadPoolExecutor(len(_build.SOURCES)) as ex:
         libs = dict(zip(_build.SOURCES, ex.map(_build.build, _build.SOURCES)))
+    out = {}
     for src, path in libs.items():
         log(f"built {src} -> {path.name}")
-        for line in _build.build_log(src).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
-    return {k: str(v) for k, v in libs.items()}
+        ptxas = [line.strip() for line in _build.build_log(src).splitlines()
+                 if "registers" in line or "spill" in line]
+        for line in ptxas:
+            log(f"  ptxas: {line}")
+        out[src] = {"library": str(path), "ptxas": ptxas}
+    return out
 
 
 def _block_work(block, c: int, windows: int):
@@ -394,7 +434,7 @@ def _profile(live, kernel: str = "swin_block_kernel") -> dict:
         name = e.key.lower()
         if kernel in name:
             groups[group] += t
-        elif any(w in name for w in ("conv", "cudnn", "xmma", "implicit")):
+        elif any(w in name for w in CONV_KERNELS):
             groups["convolution"] += t
         else:
             groups["other"] += t
@@ -792,22 +832,28 @@ def _grads_of(trainer, batch):
     return float(total.detach()), [g.float() for g in grads]
 
 
-@phase("bf16 training step")
-def train_phase(tmp: str) -> dict:
-    from rdst_tpu_torch.cli import build_trainer, train_main
+def _make_corpus(tmp: str) -> str:
+    """The 20-phantom corpus the port's generator makes from seed 0."""
     from rdst_tpu_torch.data import synthetic
-    from rdst_tpu_torch.kernels import pair_train as pt
-    from rdst_tpu_torch.models.rdst import set_train_mode
-    from rdst_tpu_torch.serving.export import LiveModel
-    from rdst_tpu_torch.config import ParametersLoader
 
-    out = {}
     data_dir = os.path.join(tmp, "OASIS", "example20")
     t0 = time.perf_counter()
     synthetic.make_oasis_example(
         data_dir, patient_ids=tuple(f"OAS1_{i:04d}_MR1" for i in range(1, 21)))
-    out["corpus_s"] = time.perf_counter() - t0
-    log(f"generated the 20-phantom corpus in {out['corpus_s']:.3f} s")
+    log(f"generated the 20-phantom corpus in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return data_dir
+
+
+@phase("bf16 training step")
+def train_phase(data_dir: str, tmp: str) -> dict:
+    from rdst_tpu_torch.cli import build_trainer, train_main
+    from rdst_tpu_torch.kernels import pair_train as pt
+    from rdst_tpu_torch.models.routes import set_train_mode
+    from rdst_tpu_torch.serving.export import LiveModel
+    from rdst_tpu_torch.config import ParametersLoader
+
+    out = {}
 
     # the first step's loss and gradients, kernel route vs plain route,
     # from the run's own initial parameters (same seed) and first batch
@@ -817,10 +863,19 @@ def train_phase(tmp: str) -> dict:
     # the run below starts from these parameters (same seed, same init)
     init = {k: v.clone() for k, v in probe.model.state_dict().items()}
     batch = probe.ds_train.sample(np.random.default_rng(17))
-    if probe.model.train_mode != "pair":
-        raise AssertionError(f"train route {probe.model.train_mode}")
+    if probe.model.train_mode != "pair" or \
+            probe.model.train_routes != {"pair": 24, "block": 0}:
+        raise AssertionError(f"train route {probe.model.train_mode} "
+                             f"{probe.model.train_routes}")
+    out["train_routes"] = dict(probe.model.train_routes)
+    log(f"train routes {probe.model.train_routes}")
+    # the same stochastic-depth draws on both routes: the kernel route's
+    # factor columns take the generator's numbers in the order the plain
+    # route's DropPath layers take them
+    state = probe.generator.get_state()
     loss_k, g_k = _grads_of(probe, batch)
     set_train_mode(probe.model, "")
+    probe.generator.set_state(state)
     loss_p, g_p = _grads_of(probe, batch)
     gmax = max(float(g.abs().max()) for g in g_p)
     rel = max(float((a - b).abs().max())
@@ -837,6 +892,8 @@ def train_phase(tmp: str) -> dict:
     del probe
 
     out_dir = os.path.join(tmp, "outputs")
+    from rdst_tpu_torch.kernels import block_train as bt
+    bt.launch_forward.launches = bt.launch_backward.launches = 0
     pt.launch_forward.launches = pt.launch_backward.launches = 0  # main path
     t0 = time.perf_counter()
     trainer = train_main(_train_argv(data_dir, out_dir, TRAIN_STEPS))
@@ -846,9 +903,11 @@ def train_phase(tmp: str) -> dict:
     out.update(forward_launches=fwd, backward_launches=bwd)
     log(f"{TRAIN_STEPS} steps in {out['run_s']:.3f} s (evaluations "
         f"included): train-pair launches forward {fwd}, backward {bwd}")
-    if fwd != 24 * TRAIN_STEPS or bwd != 24 * TRAIN_STEPS:
+    if fwd != 24 * TRAIN_STEPS or bwd != 24 * TRAIN_STEPS or \
+            bt.launch_forward.launches or bt.launch_backward.launches:
         raise AssertionError(f"expected {24 * TRAIN_STEPS} forward and "
-                             "backward launches (24 DSTL pairs a step)")
+                             "backward launches (24 DSTL pairs a step) and "
+                             "no single-block train launch")
     losses = trainer.training_loss_records.get("WarmUP", [])
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"losses {losses}")
@@ -924,7 +983,8 @@ def train_profile_phase(trainer) -> dict:
         trainer.train_step(batch, "WarmUP")
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    groups = {"train-pair forward": 0.0, "train-pair backward": 0.0,
+    groups = {"train kernels forward": 0.0,
+              "train kernels backward (VJP + reductions)": 0.0,
               "convolution": 0.0, "matmul (adapters, optimizer)": 0.0,
               "other (LayerNorms, casts, elementwise)": 0.0}
     top = []
@@ -934,12 +994,11 @@ def train_profile_phase(trainer) -> dict:
         if e.device_type != DeviceType.CUDA or t <= 0:
             continue
         name = e.key.lower()
-        if "pair_train_fwd" in name:
-            groups["train-pair forward"] += t
-        elif "pair_block_bwd" in name or "sum_parts" in name:
-            groups["train-pair backward"] += t
-        elif any(w in name for w in ("conv", "cudnn", "xmma", "implicit",
-                                     "wgrad", "dgrad")):
+        if "pair_train_fwd" in name or "block_train_fwd" in name:
+            groups["train kernels forward"] += t
+        elif "block_bwd" in name or "sum_parts" in name:
+            groups["train kernels backward (VJP + reductions)"] += t
+        elif any(w in name for w in CONV_KERNELS + ("wgrad", "dgrad")):
             groups["convolution"] += t
         elif any(w in name for w in ("gemm", "sm90", "cutlass")):
             groups["matmul (adapters, optimizer)"] += t
@@ -974,23 +1033,412 @@ def train_profile_phase(trainer) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# SwinIR-std x4 (C = 180): the widened fast block with int8 qkv, the
+# single-block train kernels, serving and training
+# ---------------------------------------------------------------------------
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--out", default=None,
-                    help="also write every measurement to this JSON file")
-    args = ap.parse_args(argv)
+SWINIR_CONFIG = "config_files/swinir_std_40k_oasis20_x4.ini"
+SWINIR_WEIGHTS = "weights/swinir_std_40k_best_oasis20_x4.msgpack"
+SWINIR_TRAIN_CONFIG = "config_files/swinir_std_100k_oasis20_x4.ini"
+INT8_OPS = 1979e12  # dense int8 tensor-core peak (H100 SXM data sheet)
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
-              "run needs a CUDA card", file=sys.stderr)
-        return 1
+
+def _int8_qkv_bound(tokens: int, c: int, nbytes: float, n: int = 64):
+    """Bound of a fast-block launch with int8 qkv: the qkv product (6C^2
+    ops per token) at the int8 peak, the rest (10C^2 + 4NC) at the bf16
+    peak."""
+    t_ops = tokens * (6 * c * c / INT8_OPS + (10 * c * c + 4 * n * c)
+                      / BF16_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+@phase("SwinIR-std bf16 kernels vs plain")
+def swinir_kernel_phase(model) -> dict:
+    """The fast block at C = 180 with int8 qkv, the launch alone (weights
+    prepared once, as the model keeps them) against its plain version at
+    bucket 64 (1280 windows), with the committed SwinIR-std weights: the
+    path's unshifted block (shared bias), and a shifted case (the second
+    block's weights at shift 4, per-window bias), under 'clamp' (the
+    checkpoint's resolved variant) and 'stable_bc'."""
+    from rdst_tpu_torch.kernels import swin_block
+
+    ws, nw, images, nh, c = 8, 20, 64, 6, 180
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    quant = frozenset({"qkv"})
+    rows = []
+    for k, shift in enumerate((0, ws // 2)):
+        blk = model.layers[0].residual_group.blocks[k]
+        plan = swin_block.plan_fast_block(
+            *blk.fast_kernel_inputs(LR_HW, ws, shift), num_heads=nh,
+            quant=quant)
+        x = torch.randn(images * nw, ws * ws, c, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        for softmax in ("clamp", "stable_bc"):
+            kw = dict(num_heads=nh, windows_per_image=nw, softmax=softmax)
+            with torch.inference_mode():
+                got = swin_block.run_fast_block(x, plan, **kw)
+                want = swin_block.swin_block_fast_reference(
+                    x, plan.params, plan.bias, num_heads=nh,
+                    softmax=softmax, qkv=plan.qkv)
+                torch.cuda.synchronize()
+                err = _check(f"fast block C={c} shift={shift} int8 qkv "
+                             f"{softmax}", got, want)
+                ms = cuda_time_ms(lambda: swin_block.run_fast_block(x, plan,
+                                                                    **kw))
+                plain_ms = cuda_time_ms(
+                    lambda: swin_block.swin_block_fast_reference(
+                        x, plan.params, plan.bias, num_heads=nh,
+                        softmax=softmax, qkv=plan.qkv), warmup=1, iters=5)
+            nbytes = 2 * 2 * x.numel() + _plan_bytes(plan) + sum(
+                t.numel() * t.element_size() for t in plan.qkv_layout)
+            bound_ms, by = _int8_qkv_bound(x.shape[0] * 64, c, nbytes)
+            flops = _block_flops(images * nw, c)
+            rows.append(dict(c=c, shift=shift, softmax=softmax,
+                             rel_max=err[0], rel_mean=err[1],
+                             max_abs_err=err[2], ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=by))
+            log(f"fast block C={c} shift={shift} int8 qkv {softmax:9s}: rel "
+                f"max {err[0]:.3e} mean {err[1]:.3e} (bar {BF16_TOL}) kernel "
+                f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms"
+                f" ({by}; {flops / ms / 1e9:.1f} TFLOP/s of block work)")
+    log("library yardstick: no single PyTorch call computes a Swin block")
+    return {"variants": rows}
+
+
+@phase("SwinIR-std bf16 whole model")
+def swinir_model_phase(live16, live32, live_cpu) -> dict:
+    """36 fast-block launches per forward (every RSTB block, none shifted);
+    the card against the same model on the CPU, where the wrapper takes
+    its plain version (bf16 + int8, bar BF16_TOL); and against the plain
+    f32 path (``pallas_kernels='off'``): relative error and PSNR."""
+    from rdst_tpu_torch.kernels import swin_block
+
+    rng = np.random.default_rng(SEED + 8)
+    x = rng.random((8,) + LR_HW + (1,), dtype=np.float32)
+    y_cpu = live_cpu.predict(x, SCALE)
+    y32 = live32.predict(x, SCALE)
+    swin_block.run_fast_block.launches = 0  # the path starts here
+    y = live16.predict(x, SCALE)
+    launches = swin_block.run_fast_block.launches  # and ends here
+    if launches != 36:
+        raise AssertionError(f"{launches} fast-block launches per forward, "
+                             "expected 36 (6 RSTBs x 6 blocks)")
+    if not np.isfinite(y).all() or y.shape != (8, 160, 128, 1):
+        raise AssertionError(f"output {y.shape}")
+
+    def versus(a, ref):
+        r = _rel(torch.from_numpy(a), torch.from_numpy(ref))
+        return r[0], r[1], float(10 * np.log10(1.0 / np.mean((a - ref) ** 2)))
+
+    kp, kf = versus(y, y_cpu), versus(y, y32)
+    log(f"SwinIR-std bf16 + int8 qkv: {launches} launches of run_fast_block "
+        f"per forward; vs its plain versions (the CPU run) rel max "
+        f"{kp[0]:.3e} (bar {BF16_TOL}); vs the plain f32 path rel max "
+        f"{kf[0]:.3e} mean {kf[1]:.3e}, PSNR {kf[2]:.2f} dB")
+    if kp[0] > BF16_TOL:
+        raise AssertionError(f"vs plain versions: {kp}")
+    if kf[0] >= BF16_VS_F32_MAX or kf[1] >= BF16_VS_F32_MEAN:
+        raise AssertionError(f"vs f32: {kf}")
+    return {"launches_per_forward": launches,
+            "vs_plain_versions_rel_max": kp[0], "vs_f32_rel_max": kf[0],
+            "vs_f32_rel_mean": kf[1], "psnr_vs_f32_db": kf[2]}
+
+
+swinir_serving_phase = phase("SwinIR-std bf16 serving")(_serve)
+swinir_profile_phase = phase("SwinIR-std bf16 profile")(_profile)
+
+
+def _block_train_case(model, k: int, shift: int, gen):
+    """The k-th block of the first RSTB at the training geometry (32
+    images of 24x24, 288 windows): its raw 12 parameters and head-major
+    bias (shift 4: rel-pos + mask per window), bf16 tokens, cotangents
+    and factor columns."""
+    blk = model.layers[0].residual_group.blocks[k]
+    params, bias = blk.fast_kernel_inputs((24, 24), 8, shift)
+    ops = [p.detach().float().contiguous() for p in params] + \
+        [bias.detach().float().contiguous()]
+    x = torch.randn(288, 64, 180, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    dz = torch.randn(288, 64, 180, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    keep = 0.9
+    cols = (torch.rand(32, 2, device="cuda", generator=gen) < keep)
+    dpf = (cols.float() / keep).repeat_interleave(9 * 64, 0).contiguous()
+    return ops, x, dz, dpf
+
+
+def _block_train_grads(kernel: bool, ops, x, dz, dpf, softmax):
+    """Output and gradients (x, the 12 raw parameters, the head-major
+    bias) of the block through the fold, on the kernels or the plain
+    version."""
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels.swin_block import fast_params, pack_bias_fast
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in [x] + ops]
+    p, bias = leaves[1:13], leaves[13]
+    fp, pb = fast_params(p, 180, 6), pack_bias_fast(bias.to(torch.bfloat16),
+                                                    6, 64)
+    if kernel:
+        out = bt.run_block_train(leaves[0], fp, pb, dpf, num_heads=6,
+                                 windows_per_image=9, softmax=softmax)
+    else:
+        out = bt.block_train_reference(leaves[0], fp, pb, dpf, num_heads=6,
+                                       softmax=softmax)
+    out.backward(dz)
+    return out.detach(), [t.grad for t in leaves]
+
+
+@phase("block-train kernels vs plain")
+def block_train_kernel_phase(model) -> dict:
+    """``fused_swin_block_train``'s forward and backward kernels against
+    the plain version and its autograd gradient at 288 windows, C = 180,
+    with the committed SwinIR-std weights: the path's unshifted block and
+    a shifted case, with and without factor columns, 'clamp' and
+    'stable'; the output and every gradient (x, the 12 parameters through
+    the fold, the bias), bar BF16_TOL."""
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels.swin_block import (fast_params, kernel_layout,
+                                                   pack_bias_fast,
+                                                   softmax_code)
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    names = ["x", "wqkv", "bqkv", "wproj", "bproj", "g1", "b1", "g2", "b2",
+             "w1", "bf1", "w2", "bf2", "bias"]
+    rows = []
+    for k, shift in enumerate((0, 4)):
+        ops, x, dz, dpf0 = _block_train_case(model, k, shift, gen)
+        for softmax in ("clamp", "stable"):
+            for use_dpf in (False, True):
+                dpf = dpf0 if use_dpf else None
+                got, g_got = _block_train_grads(True, ops, x, dz, dpf,
+                                                softmax)
+                want, g_want = _block_train_grads(False, ops, x, dz, dpf,
+                                                  softmax)
+                torch.cuda.synchronize()
+                errs = {"out": _rel(got, want)}
+                for nm, a, b in zip(names, g_got, g_want):
+                    if float(b.abs().max()) > 0:
+                        errs[nm] = _rel(a, b)
+                    elif float(a.abs().max()) > 0:
+                        errs[nm] = (float("inf"), float("inf"),
+                                    float(a.abs().max()))
+                worst = max(errs, key=lambda e: errs[e][0])
+                finite = all(bool(torch.isfinite(g).all()) for g in g_got) \
+                    and bool(torch.isfinite(got.float()).all())
+                log(f"block train C=180 shift={shift} {softmax:6s} "
+                    f"dpf={use_dpf!s:5s}: out rel max {errs['out'][0]:.3e},"
+                    f" dx {errs['x'][0]:.3e}, worst {worst} "
+                    f"{errs[worst][0]:.3e} (bar {BF16_TOL})")
+                if not finite or errs[worst][0] > BF16_TOL:
+                    raise AssertionError(f"block train shift={shift} "
+                                         f"{softmax} dpf={use_dpf}: {errs}")
+                rows.append(dict(shift=shift, softmax=softmax, dpf=use_dpf,
+                                 rel_max={e: v[0] for e, v in errs.items()},
+                                 out_abs_err=errs["out"][2],
+                                 grad_abs_err=max(v[2] for e, v in
+                                                  errs.items() if e != "out")))
+        if shift == 0:  # the path's case: times of the launches alone
+            softmax = "clamp"
+            with torch.no_grad():
+                fp = fast_params(ops[:12], 180, 6)
+                pb = pack_bias_fast(ops[12].to(torch.bfloat16), 6, 64)
+                layout = kernel_layout(fp)
+            code = softmax_code(softmax)
+            row = rows[-4]
+            row["ms"] = cuda_time_ms(lambda: bt.launch_forward(
+                x, layout, pb, None, 6, 360, code), iters=10)
+            row["bwd_ms"] = cuda_time_ms(lambda: bt.launch_backward(
+                x, dz, fp, pb, None, 6, code), warmup=1, iters=5)
+            with torch.no_grad():
+                row["plain_ms"] = cuda_time_ms(
+                    lambda: bt.block_train_reference(
+                        x, fp, pb, None, num_heads=6, softmax=softmax))
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in [x, *fp, pb]]
+            twin = bt.block_train_reference(
+                leaves[0], type(fp)(*leaves[1:9]), leaves[9], None,
+                num_heads=6, softmax=softmax)
+            row["plain_bwd_ms"] = cuda_time_ms(
+                lambda: torch.autograd.grad(twin, leaves, dz,
+                                            retain_graph=True),
+                warmup=1, iters=5)
+            del twin, leaves
+            flops = _block_flops(288, 180)
+            wbytes = sum(t.numel() * t.element_size() for t in [*fp, pb])
+            tok = x.numel() * 2
+            row["bound_ms"], row["bound_by"] = _bound(flops,
+                                                      2 * tok + wbytes)
+            # backward: x, dz in, dx out, the weights in, f32 grads out
+            row["bwd_bound_ms"], row["bwd_bound_by"] = _bound(
+                2 * flops, 3 * tok + wbytes + 2 * wbytes)
+            log(f"  C=180: forward {row['ms']:.4f} ms (plain "
+                f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f} "
+                f"{row['bound_by']}), backward {row['bwd_ms']:.4f} ms "
+                f"(plain {row['plain_bwd_ms']:.4f}, bound "
+                f"{row['bwd_bound_ms']:.4f} {row['bwd_bound_by']})")
+    log("library yardstick: no single PyTorch call computes a Swin block or "
+        "its gradient")
+    return {"variants": rows}
+
+
+def _swinir_train_argv(data_dir: str, out_dir: str, steps: int) -> list:
+    return ["--config-file", SWINIR_TRAIN_CONFIG,
+            f"data_folder='{data_dir}'", f"output_dir='{out_dir}'",
+            f"epochs_in_total={{'WarmUP': {steps}}}",
+            f"check_every={TRAIN_CHECK}", "quick_eva_num_samples=8",
+            "eva_metrics='psnr ssim'", "verbose=False"]
+
+
+@phase("SwinIR-std bf16 training")
+def swinir_train_phase(data_dir: str, tmp: str) -> dict:
+    """``python -m rdst_tpu_torch.train`` (in process) on
+    ``config_files/swinir_std_100k_oasis20_x4.ini`` for TRAIN_STEPS steps
+    with a quick evaluation every TRAIN_CHECK: every block on the
+    single-block train kernel (36 forward and 36 backward wrapper calls a
+    step, none of the train pair), a finite loss that falls, the quick
+    evaluations on the serving kernel, the snapshot served by
+    ``LiveModel``; the first step on the kernel route against the plain
+    bf16 route."""
+    from rdst_tpu_torch.cli import build_trainer, train_main
     from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels import pair_train as pt
+    from rdst_tpu_torch.kernels import swin_block
+    from rdst_tpu_torch.models.routes import set_train_mode
     from rdst_tpu_torch.serving.export import LiveModel
 
-    t_start = time.perf_counter()
-    card = card_phase()
-    libs = build_phase()
+    out = {}
+    probe = build_trainer(_swinir_train_argv(
+        data_dir, os.path.join(tmp, "swinir_probe"), 1))
+    probe.setup()
+    routes = dict(probe.model.train_routes)
+    out["train_routes"] = routes
+    log(f"train routes {routes}, eval routes {probe.model.routes}, int8 "
+        f"{sorted(probe.model.quant)}, softmax {probe.model.softmax}")
+    if routes != {"pair": 0, "block": 36}:
+        raise AssertionError(f"train routes {routes}")
+    if probe.model.routes != ["fused_swin_block"] * 6 or \
+            probe.model.quant != frozenset({"qkv"}):
+        raise AssertionError(f"eval routes {probe.model.routes}")
+    batch = probe.ds_train.sample(np.random.default_rng(17))
+    # the same stochastic-depth draws on both routes: the kernel route's
+    # factor columns take the generator's numbers in the order the plain
+    # route's DropPath layers take them
+    state = probe.generator.get_state()
+    loss_k, g_k = _grads_of(probe, batch)
+    set_train_mode(probe.model, "")
+    probe.generator.set_state(state)
+    loss_p, g_p = _grads_of(probe, batch)
+    gmax = max(float(g.abs().max()) for g in g_p)
+    rel = max(float((a - b).abs().max())
+              / max(1e-5, float(b.abs().max()), 0.12 * gmax)
+              for a, b in zip(g_k, g_p))
+    out.update(first_loss_kernel=loss_k, first_loss_plain=loss_p,
+               first_grad_rel_max=rel)
+    log(f"first step: loss kernel route {loss_k:.6f} vs plain bf16 route "
+        f"{loss_p:.6f} (rtol {TRAIN_LOSS_RTOL}); gradients rel max {rel:.4f}"
+        f" (bar {TRAIN_GRAD_TOL})")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+            rel >= TRAIN_GRAD_TOL:
+        raise AssertionError("kernel route vs plain route on the first step")
+    del probe
+
+    out_dir = os.path.join(tmp, "swinir_outputs")
+    counters = (bt.launch_forward, bt.launch_backward, pt.launch_forward,
+                pt.launch_backward, swin_block.run_fast_block)
+    for cnt in counters:
+        cnt.launches = 0  # the main path starts here
+    bt.launch_backward.reductions = 0
+    t0 = time.perf_counter()
+    trainer = train_main(_swinir_train_argv(data_dir, out_dir, TRAIN_STEPS))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    fwd, bwd, pfwd, pbwd, evals = (cnt.launches for cnt in counters)
+    out.update(forward_launches=fwd, backward_launches=bwd,
+               reduction_launches=bt.launch_backward.reductions,
+               pair_launches=pfwd + pbwd, eval_launches=evals)
+    log(f"{TRAIN_STEPS} steps in {out['run_s']:.3f} s (evaluations "
+        f"included): block-train wrapper calls forward {fwd}, backward "
+        f"{bwd} (+{bt.launch_backward.reductions} reduction kernels), "
+        f"train-pair {pfwd + pbwd}, fast-block launches in the quick "
+        f"evaluations {evals}")
+    if fwd != 36 * TRAIN_STEPS or bwd != 36 * TRAIN_STEPS or pfwd + pbwd:
+        raise AssertionError(f"expected {36 * TRAIN_STEPS} block-train "
+                             "forward and backward calls and no train pair")
+    if evals == 0 or evals % 36:
+        raise AssertionError(f"quick evaluations: {evals} fast launches")
+    losses = trainer.training_loss_records.get("WarmUP", [])
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses}")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    out["losses"] = losses
+    log(f"loss {losses[0]:.5f} -> {losses[-1]:.5f} (first 3 mean "
+        f"{first:.5f}, last 3 mean {last:.5f})")
+    if not last < first:
+        raise AssertionError("the loss did not fall")
+    snap = os.path.join(trainer.dirs["models"], "WarmUP_model_g.msgpack")
+    paras = ParametersLoader(SWINIR_TRAIN_CONFIG)
+    paras.set("well_trained_single_scale_model_g", snap)
+    live = LiveModel(paras, max_batch=1, device="cuda")
+    lr = trainer.ds_valid.get_test_pair(0)[4.0]["in"]
+    y = live.predict(lr, SCALE)
+    if not np.isfinite(y).all() or y.shape[1:3] != (lr.shape[1] * 4,
+                                                     lr.shape[2] * 4):
+        raise AssertionError(f"served {y.shape}")
+    log(f"the snapshot ({os.path.getsize(snap)} bytes) served by LiveModel "
+        f"(routes {live.manifest['routes'][:1]}..., int8 "
+        f"{live.manifest['pallas_quant']}): {lr.shape} -> {y.shape}")
+    out["trainer"] = trainer
+    return out
+
+
+
+def _row(name, source, replaces, launches, rs):
+    """One kernel of the JSON line: per launch, averaged over the variants
+    the main path runs."""
+    n = len(rs)
+    return {"name": name, "route": "cuda",
+            "source": f"rdst_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rs),
+            "ms": sum(r["ms"] for r in rs) / n,
+            "plain_ms": sum(r["plain_ms"] for r in rs) / n,
+            "bound_ms": sum(r["bound_ms"] for r in rs) / n,
+            "bound_by": ("operations" if sum(
+                r["bound_by"] == "operations" for r in rs) * 2 >= n
+                else "bytes"),
+            "library_ms": None}
+
+
+def _train_rows(name, source, replaces, kern_train, train):
+    """The forward and backward rows of a train kernel at the main path's
+    timed variant (max_abs_err: the output for the forward, the largest
+    absolute error of any gradient for the backward; relative errors are
+    logged)."""
+    timed = [r for r in kern_train["variants"] if "ms" in r]
+    parts = {
+        "forward": ("ms", "plain_ms", "bound_ms", "bound_by",
+                    train["forward_launches"], "out_abs_err"),
+        "backward": ("bwd_ms", "plain_bwd_ms", "bwd_bound_ms",
+                     "bwd_bound_by", train["backward_launches"],
+                     "grad_abs_err"),
+    }
+    return [_row(f"{name} ({part})", source, replaces, launches,
+                 [dict(max_abs_err=max(v[err] for v in kern_train["variants"]),
+                       ms=r[ms], plain_ms=r[plain], bound_ms=r[bound],
+                       bound_by=r[by]) for r in timed])
+            for part, (ms, plain, bound, by, launches, err) in parts.items()]
+
+
+def run_e1(data_dir: str, tmp: str):
+    """Phases 3-13, RDST-E1; returns (results, kernel rows)."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.kernels import rdstb_block
+    from rdst_tpu_torch.serving.export import LiveModel
+
     paras = ParametersLoader(CONFIG)
     paras.set("well_trained_single_scale_model_g", WEIGHTS)
     t0 = time.perf_counter()
@@ -1003,8 +1451,6 @@ def main(argv=None) -> int:
     whole = model_phase(live)
     serve = serving_phase(live)
     prof = profile_phase(live)
-
-    from rdst_tpu_torch.kernels import rdstb_block
 
     paras16 = ParametersLoader(CONFIG)
     paras16.set("well_trained_single_scale_model_g", WEIGHTS)
@@ -1025,86 +1471,124 @@ def main(argv=None) -> int:
                                  "bfloat16", SERVE_TOL_BF16)
     prof16 = bf16_profile_phase(live16, "rdstb_kernel")
     kern_train = train_kernel_phase(live16.model)
-    with tempfile.TemporaryDirectory() as tmp:
-        train = train_phase(tmp)
-        prof_train = train_profile_phase(train.pop("trainer"))
-
-    rows = kern["variants"]
-    k = len(rows)
-    kernels = [{
-        "name": "fused_swin_block",
-        "route": "cuda",
-        "source": "rdst_tpu_torch/csrc/swin_block.cu",
-        "replaces": "rdst_tpu/kernels/swin_block.py:757",
-        "launches": serve["launches"],
-        # per launch, averaged over the six (C, shift) variants that each
-        # run 8 times in one forward: the main path's own mix at bucket 64
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(r["ms"] for r in rows) / k,
-        "plain_ms": sum(r["plain_ms"] for r in rows) / k,
-        "bound_ms": sum(r["bound_ms"] for r in rows) / k,
-        "bound_by": ("operations" if sum(r["bound_by"] == "operations"
-                                         for r in rows) * 2 >= k else "bytes"),
-        "library_ms": None,
-    }]
-
-    def row(name, source, replaces, launches, rs):
-        # per launch, averaged over the variants the main path runs
-        n = len(rs)
-        return {"name": name, "route": "cuda",
-                "source": f"rdst_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches,
-                "max_abs_err": max(r["max_abs_err"] for r in rs),
-                "ms": sum(r["ms"] for r in rs) / n,
-                "plain_ms": sum(r["plain_ms"] for r in rs) / n,
-                "bound_ms": sum(r["bound_ms"] for r in rs) / n,
-                "bound_by": ("operations" if sum(
-                    r["bound_by"] == "operations" for r in rs) * 2 >= n
-                    else "bytes"),
-                "library_ms": None}
+    train = train_phase(data_dir, tmp)
+    prof_train = train_profile_phase(train.pop("trainer"))
 
     main_softmax = live16.model.softmax
-    kernels += [
-        row("fused_swin_block_fast", "swin_block_fast.cu",
-            "rdst_tpu/kernels/swin_block.py:757",
-            whole16["swin"]["launches_per_forward"],
-            [r for r in kern16["block"] if r["softmax"] == main_softmax]),
-        row("fused_swin_pair", "swin_pair.cu",
-            "rdst_tpu/kernels/swin_block.py:1001",
-            whole16["pair"]["launches_per_forward"], kern16["pair"]),
-        row("fused_rdstb", "rdstb_block.cu",
-            "rdst_tpu/kernels/rdstb_block.py:334", serve16["launches"],
-            kern16["rdstb"]),
-    ]
-    # the train pair at the main path's (clamp, no factor columns)
-    # variants, one row for the forward kernel and one for the backward
-    timed = [r for r in kern_train["variants"] if "ms" in r]
-    # (max_abs_err: the output for the forward, the largest absolute
-    # error of any gradient for the backward; relative errors are logged)
-    train_rows = {
-        "forward": ("ms", "plain_ms", "bound_ms", "bound_by",
-                    train["forward_launches"], "out_abs_err"),
-        "backward": ("bwd_ms", "plain_bwd_ms", "bwd_bound_ms",
-                     "bwd_bound_by", train["backward_launches"],
-                     "grad_abs_err"),
-    }
-    for part, (ms, plain, bound, by, launches, err) in train_rows.items():
-        kernels.append(row(
-            f"fused_swin_pair_train ({part})", "pair_train.cu",
-            "rdst_tpu/kernels/pair_train.py:293", launches,
-            [dict(max_abs_err=max(v[err] for v in kern_train["variants"]),
-                  ms=r[ms], plain_ms=r[plain], bound_ms=r[bound],
-                  bound_by=r[by]) for r in timed]))
-    results = {"card": card, "device": torch.cuda.get_device_name(0),
-               "torch": torch.__version__, "libs": libs, "kernel": kern,
-               "model": whole, "serving": serve, "profile": prof,
+    kernels = [
+        # averaged over the six (C, shift) variants that each run 8 times
+        # in one forward: the main path's own mix at bucket 64
+        _row("fused_swin_block", "swin_block.cu",
+             "rdst_tpu/kernels/swin_block.py:757", serve["launches"],
+             kern["variants"]),
+        _row("fused_swin_block_fast", "swin_block_fast.cu",
+             "rdst_tpu/kernels/swin_block.py:757",
+             whole16["swin"]["launches_per_forward"],
+             [r for r in kern16["block"] if r["softmax"] == main_softmax]),
+        _row("fused_swin_pair", "swin_pair.cu",
+             "rdst_tpu/kernels/swin_block.py:1001",
+             whole16["pair"]["launches_per_forward"], kern16["pair"]),
+        _row("fused_rdstb", "rdstb_block.cu",
+             "rdst_tpu/kernels/rdstb_block.py:334", serve16["launches"],
+             kern16["rdstb"]),
+    ] + _train_rows("fused_swin_pair_train", "pair_train.cu",
+                    "rdst_tpu/kernels/pair_train.py:293", kern_train, train)
+    results = {"kernel": kern, "model": whole, "serving": serve,
+               "profile": prof,
                "bf16": {"manifest": live16.manifest, "kernel": kern16,
                         "model": whole16, "serving": serve16,
                         "profile": prof16},
                "train": {"kernel": kern_train, "step": train,
-                         "profile": prof_train},
-               "kernels": kernels,
-               "total_s": time.perf_counter() - t_start}
+                         "profile": prof_train}}
+    return results, kernels
+
+
+def run_swinir(data_dir: str, tmp: str):
+    """Phases 14-19, SwinIR-std; returns (results, kernel rows)."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.kernels import swin_block
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    def paras(**kw):
+        p = ParametersLoader(SWINIR_CONFIG)
+        p.set("well_trained_single_scale_model_g", SWINIR_WEIGHTS)
+        for k, v in kw.items():
+            p.set(k, v)
+        return p
+
+    t0 = time.perf_counter()
+    live16 = LiveModel(paras(), max_batch=64, device="cuda")
+    m = live16.manifest
+    log(f"loaded {SWINIR_CONFIG} + {SWINIR_WEIGHTS} in "
+        f"{time.perf_counter() - t0:.3f} s ({m['dtype']}, kernel mode "
+        f"{m['pallas_kernels']}, softmax {m['pallas_softmax']}, int8 "
+        f"{m['pallas_quant']}, routes {m['routes']})")
+    if (m["dtype"], m["pallas_kernels"], m["pallas_softmax"],
+            m["pallas_quant"]) != ("bfloat16", "swin", "clamp", ["qkv"]):
+        raise AssertionError(f"SwinIR-std manifest {m}")
+    shifts = {b.resolved_window(LR_HW)[1] for layer in live16.model.layers
+              for b in layer.residual_group.blocks}
+    log(f"block shifts at the build resolution: {sorted(shifts)}")
+    if shifts != {0}:
+        raise AssertionError("SwinIR-std blocks are built shifted")
+    kern = swinir_kernel_phase(live16.model)
+    live32 = LiveModel(paras(inference_dtype="float32",
+                             pallas_kernels="off"), max_batch=8,
+                       device="cuda")
+    live_cpu = LiveModel(paras(), max_batch=8, device="cpu")
+    whole = swinir_model_phase(live16, live32, live_cpu)
+    del live32, live_cpu
+    serve = swinir_serving_phase(live16, swin_block.run_fast_block, 36,
+                                 "bfloat16", SERVE_TOL_BF16)
+    prof = swinir_profile_phase(live16, "swin_block_fast_kernel")
+    kern_train = block_train_kernel_phase(live16.model)
+    del live16
+    train = swinir_train_phase(data_dir, tmp)
+    prof_train = train_profile_phase(train.pop("trainer"))
+    kernels = [
+        _row("fused_swin_block_fast (SwinIR-std, C = 180, int8 qkv)",
+             "swin_block_fast.cu", "rdst_tpu/kernels/swin_block.py:757",
+             serve["launches"],
+             [r for r in kern["variants"] if r["softmax"] == "clamp"]),
+    ] + _train_rows("fused_swin_block_train", "block_train.cu",
+                    "rdst_tpu/kernels/block_train.py:307", kern_train, train)
+    results = {"kernel": kern, "model": whole, "serving": serve,
+               "profile": prof,
+               "train": {"kernel": kern_train, "step": train,
+                         "profile": prof_train}}
+    return results, kernels
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", default=None,
+                    help="also write every measurement to this JSON file")
+    ap.add_argument("--only", choices=("e1", "swinir"), default=None,
+                    help="run the card and build phases and one model's "
+                    "phases only (default: every phase)")
+    args = ap.parse_args(argv)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs a CUDA card", file=sys.stderr)
+        return 1
+
+    t_start = time.perf_counter()
+    card = card_phase()
+    libs = build_phase()
+    results = {"card": card, "device": torch.cuda.get_device_name(0),
+               "torch": torch.__version__, "libs": libs}
+    kernels = []
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = _make_corpus(tmp)
+        if args.only in (None, "e1"):
+            results["e1"], rows = run_e1(data_dir, tmp)
+            kernels += rows
+        if args.only in (None, "swinir"):
+            results["swinir"], rows = run_swinir(data_dir, tmp)
+            kernels += rows
+    results["kernels"] = kernels
+    results["total_s"] = time.perf_counter() - t_start
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

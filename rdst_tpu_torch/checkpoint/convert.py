@@ -1,9 +1,11 @@
-"""Weight carry-over: a JAX ``RDSTSR`` parameter tree -> the port's state_dict.
+"""Weight carry-over: a JAX ``RDSTSR`` or ``SwinIR`` parameter tree -> the
+port's state_dict.
 
 The port's modules are named so that their ``state_dict`` keys are the
-reference RDSTSR keys that ``rdst_tpu/checkpoint/torch_export.py::
-export_rdstsr`` emits. This module repeats that mapping on numpy trees
-(as ``checkpoint.msgpack_reader`` returns them), without flax:
+reference RDSTSR and SwinIR keys that ``rdst_tpu/checkpoint/
+torch_export.py::export_rdstsr`` and ``::export_swinir`` emit. This module
+repeats those mappings on numpy trees (as ``checkpoint.msgpack_reader``
+returns them), without flax:
 
 * conv kernels HWIO -> OIHW;
 * dense kernels (in, out) -> (out, in);
@@ -137,3 +139,71 @@ def export_rdstsr(params: dict, mean=(0.0,),
         else:
             raise KeyError(f"unmapped parameter path: {p}")
     return sd
+
+
+def export_swinir(params: dict) -> Dict[str, np.ndarray]:
+    """JAX SwinIR params (nested numpy dict, with or without the top
+    ``params`` level) -> the port's SwinIR state_dict (numpy values),
+    as ``torch_export.export_swinir`` maps them. SwinIR has no MeanShift
+    convs: its mean is not a parameter."""
+    flat = flatten(params["params"] if "params" in params else params)
+    sd: Dict[str, np.ndarray] = {}
+    for path, v in flat.items():
+        p = "/".join(path)
+        v = np.asarray(v)
+        m = re.match(r"^(conv_first|conv_after_body|conv_last)/conv/"
+                     r"(kernel|bias)$", p)
+        if m:
+            name, val = _conv_leaf(m.group(2), v)
+            sd[f"{m.group(1)}.{name}"] = val
+            continue
+        m = re.match(r"^conv_before_upsample/conv/(kernel|bias)$", p)
+        if m:
+            name, val = _conv_leaf(m.group(1), v)
+            sd[f"conv_before_upsample.0.{name}"] = val
+            continue
+        if p.startswith("patch_embed_norm/"):
+            leaf = "weight" if p.endswith("scale") else "bias"
+            sd[f"patch_embed.norm.{leaf}"] = v
+            continue
+        if p.startswith("norm/"):
+            leaf = "weight" if p.endswith("scale") else "bias"
+            sd[f"norm.{leaf}"] = v
+            continue
+        m = re.match(r"^upsample_conv/conv/(kernel|bias)$", p)
+        if m:  # pixelshuffledirect: one conv + shuffle
+            name, val = _conv_leaf(m.group(1), v)
+            sd[f"upsample.0.{name}"] = val
+            continue
+        m = re.match(r"^upsample_(\d+)/conv/(kernel|bias)$", p)
+        if m:  # pixelshuffle: convs at the even indices
+            name, val = _conv_leaf(m.group(2), v)
+            sd[f"upsample.{2 * int(m.group(1))}.{name}"] = val
+            continue
+        m = re.match(r"^layers_(\d+)/conv(?:_(\d+))?/conv/(kernel|bias)$", p)
+        if m:
+            idx = f".{m.group(2)}" if m.group(2) else ""
+            name, val = _conv_leaf(m.group(3), v)
+            sd[f"layers.{m.group(1)}.conv{idx}.{name}"] = val
+            continue
+        m = re.match(r"^layers_(\d+)/residual_group/(.+)$", p)
+        if m:
+            key, val = _swin_leaf("/" + m.group(2), v)
+            sd[f"layers.{m.group(1)}.residual_group" + key] = val
+            continue
+        raise KeyError(f"unmapped SwinIR parameter path: {p}")
+    return sd
+
+
+def export_params(params: dict, generator: str, mean=(0.0,),
+                  std=(1.0,)) -> Dict[str, np.ndarray]:
+    """The port's state_dict of a JAX parameter tree of ``generator``
+    ('rdst', or 'swinir'/'swin')."""
+    name = str(generator).strip().lower()
+    if name == "rdst":
+        return export_rdstsr(params, mean, std)
+    if name in ("swinir", "swin"):
+        return export_swinir(params)
+    raise NotImplementedError(
+        f"carrying {generator!r} snapshots over comes with the model-zoo "
+        "slice of the port")

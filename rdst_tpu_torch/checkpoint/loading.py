@@ -65,13 +65,13 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
     """Load a trained generator's weights into ``model`` (strictly: every
     key must match) and return it.
 
-    A ``.msgpack`` snapshot is read without flax
+    A ``.msgpack`` snapshot (RDST or SwinIR) is read without flax
     (``checkpoint.msgpack_reader``) and carried over by
-    ``checkpoint.convert``; the MeanShift entries come from the model's
+    ``checkpoint.convert``; RDST's MeanShift entries come from the model's
     own normalization. A ``.pt`` path whose ``.msgpack`` sibling exists
     takes the sibling, as in the JAX package; reference torch checkpoints
     themselves come with a later slice."""
-    from rdst_tpu_torch.checkpoint.convert import export_rdstsr
+    from rdst_tpu_torch.checkpoint.convert import export_params
     from rdst_tpu_torch.checkpoint.msgpack_reader import read_snapshot
 
     stem, ext = os.path.splitext(path)
@@ -83,9 +83,9 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
             "the port's torch-import slice")
     if ext != ".msgpack":
         raise ValueError(f"unknown checkpoint format: {path}")
-    if str(paras.get("feature_generator")).strip().lower() != "rdst":
-        raise NotImplementedError(
-            "only RDST snapshots are carried over in this slice")
-    sd = export_rdstsr(read_snapshot(path), model.mean, model.std)
+    generator = paras.get("feature_generator") or paras.get("sr_generator")
+    sd = export_params(read_snapshot(path), generator,
+                       getattr(model, "mean", (0.0,)),
+                       getattr(model, "std", (1.0,)))
     model.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in sd.items()})
     return model

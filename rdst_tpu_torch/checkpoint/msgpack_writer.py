@@ -1,10 +1,11 @@
 """Pure-stdlib writer of flax ``.msgpack`` parameter snapshots: the inverse
 of ``checkpoint.msgpack_reader`` and ``checkpoint.convert``.
 
-:func:`import_rdstsr` turns the port's RDSTSR ``state_dict`` back into the
-JAX package's parameter tree (conv kernels OIHW -> HWIO, dense kernels
-(out, in) -> (in, out), LayerNorm ``weight`` -> ``scale``; the MeanShift
-convs, which are not parameters there, are left out), and
+:func:`import_rdstsr` and :func:`import_swinir` turn the port's RDSTSR
+and SwinIR ``state_dict`` back into the JAX package's parameter trees
+(conv kernels OIHW -> HWIO, dense kernels (out, in) -> (in, out),
+LayerNorm ``weight`` -> ``scale``; the MeanShift convs, which are not
+parameters there, are left out), and
 :func:`to_bytes` encodes a nested dict of numpy arrays as
 ``flax.serialization.to_bytes`` does: a msgpack map tree whose leaves are
 ext records of type 1 holding ``[shape, dtype name, C-order bytes]``.
@@ -127,8 +128,7 @@ def import_rdstsr(state_dict: Dict[str, object]) -> dict:
     the inverse of ``checkpoint.convert.export_rdstsr``."""
     params: dict = {}
     for key, val in state_dict.items():
-        v = np.asarray(val.detach().cpu().float().numpy()
-                       if hasattr(val, "detach") else val, np.float32)
+        v = _f32(val)
         if key.startswith(("sub_mean.", "add_mean.")):
             continue  # the normalization, not a parameter in flax
         leaf = key.rsplit(".", 1)[-1]
@@ -182,18 +182,88 @@ def _import_body(params: dict, key: str, v: np.ndarray) -> None:
     m = re.match(r"body\.(\d+)\.body\.(\d+)\.body\.blocks\.(\d+)\.(.+)$", key)
     if m:
         i, j, k, rest = m.groups()
-        for dst, src in _SWIN_INV:
-            if rest == dst:
-                if v.ndim == 2 and src.endswith("kernel"):
-                    v = np.ascontiguousarray(v.T)
-                _set(params, (f"body_{i}", f"body_{j}", "body", f"blocks_{k}",
-                              *src.split("/")), v)
-                return
+        if _swin_block_leaf(params, (f"body_{i}", f"body_{j}", "body",
+                                     f"blocks_{k}"), rest, v):
+            return
     raise KeyError(f"unmapped state_dict key: {key}")
 
 
+def _swin_block_leaf(params: dict, prefix: tuple, rest: str,
+                     v: np.ndarray) -> bool:
+    """Set a Swin block's leaf ``rest`` (``attn.qkv.weight``, ...) under
+    ``prefix``; False when ``rest`` is not one."""
+    for dst, src in _SWIN_INV:
+        if rest == dst:
+            if v.ndim == 2 and src.endswith("kernel"):
+                v = np.ascontiguousarray(v.T)
+            _set(params, (*prefix, *src.split("/")), v)
+            return True
+    return False
+
+
+def _f32(val) -> np.ndarray:
+    return np.asarray(val.detach().cpu().float().numpy()
+                      if hasattr(val, "detach") else val, np.float32)
+
+
+def import_swinir(state_dict: Dict[str, object]) -> dict:
+    """The port's SwinIR ``state_dict`` -> the JAX package's variables
+    ``{"params": ...}``: the inverse of ``checkpoint.convert
+    .export_swinir``."""
+    params: dict = {}
+    for key, val in state_dict.items():
+        v = _f32(val)
+        leaf = key.rsplit(".", 1)[-1]
+        m = re.match(r"^(conv_first|conv_after_body|conv_last)\."
+                     r"(weight|bias)$", key)
+        if m:
+            k, val2 = _conv(m.group(2), v)
+            _set(params, (m.group(1), "conv", k), val2)
+            continue
+        m = re.match(r"^conv_before_upsample\.0\.(weight|bias)$", key)
+        if m:
+            k, val2 = _conv(m.group(1), v)
+            _set(params, ("conv_before_upsample", "conv", k), val2)
+            continue
+        if key.startswith(("patch_embed.norm.", "norm.")):
+            name = "patch_embed_norm" if key.startswith("patch") else "norm"
+            _set(params, (name, "scale" if leaf == "weight" else "bias"), v)
+            continue
+        m = re.match(r"^upsample\.(\d+)\.(weight|bias)$", key)
+        if m:
+            k, val2 = _conv(m.group(2), v)
+            name = ("upsample_conv" if "conv_last.weight" not in state_dict
+                    else f"upsample_{int(m.group(1)) // 2}")
+            _set(params, (name, "conv", k), val2)
+            continue
+        m = re.match(r"^layers\.(\d+)\.conv(?:\.(\d+))?\.(weight|bias)$",
+                     key)
+        if m:
+            name = "conv" if m.group(2) is None else f"conv_{m.group(2)}"
+            k, val2 = _conv(m.group(3), v)
+            _set(params, (f"layers_{m.group(1)}", name, "conv", k), val2)
+            continue
+        m = re.match(r"^layers\.(\d+)\.residual_group\.blocks\.(\d+)\."
+                     r"(.+)$", key)
+        if m and _swin_block_leaf(
+                params, (f"layers_{m.group(1)}", "residual_group",
+                         f"blocks_{m.group(2)}"), m.group(3), v):
+            continue
+        raise KeyError(f"unmapped SwinIR state_dict key: {key}")
+    return {"params": params}
+
+
+def import_state_dict(state_dict) -> dict:
+    """The JAX variables of an RDSTSR or SwinIR ``state_dict`` (told apart
+    by SwinIR's ``conv_first``)."""
+    if "conv_first.weight" in state_dict:
+        return import_swinir(state_dict)
+    return import_rdstsr(state_dict)
+
+
 def write_snapshot(path: str, state_dict) -> None:
-    """Write the port's RDSTSR weights as a flax ``.msgpack`` snapshot."""
-    data = to_bytes(import_rdstsr(state_dict))
+    """Write the port's RDSTSR or SwinIR weights as a flax ``.msgpack``
+    snapshot."""
+    data = to_bytes(import_state_dict(state_dict))
     with open(path, "wb") as f:
         f.write(data)

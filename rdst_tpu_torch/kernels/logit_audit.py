@@ -22,16 +22,17 @@ import torch
 
 
 def measure_logit_bound(model, x: torch.Tensor) -> Optional[float]:
-    """Max attention logit of ``model`` on ``x`` (NHWC LR), on the plain
-    path; None for a model without window attention. The model's
-    routes, mode and audit flags are restored afterwards."""
-    from rdst_tpu_torch.models.rdst import set_kernel_mode
+    """Max attention logit of ``model`` (RDST or SwinIR) on ``x`` (NHWC
+    LR), on the plain path; None for a model without window attention.
+    The model's routes (kernel mode, softmax, int8 groups) and audit flags
+    are restored afterwards."""
+    from rdst_tpu_torch.models.routes import set_kernel_mode
     from rdst_tpu_torch.nn.swin import WindowAttention
 
     attns = [m for m in model.modules() if isinstance(m, WindowAttention)]
     if not attns:
         return None
-    mode, softmax = model.kernel_mode, model.softmax
+    mode, softmax, quant = model.kernel_mode, model.softmax, model.quant
     was_training = model.training
     for a in attns:
         a.audit, a.logit_max = True, None
@@ -44,5 +45,5 @@ def measure_logit_bound(model, x: torch.Tensor) -> Optional[float]:
     finally:
         for a in attns:
             a.audit, a.logit_max = False, None
-        set_kernel_mode(model, mode, softmax)
+        set_kernel_mode(model, mode, softmax, quant)
         model.train(was_training)

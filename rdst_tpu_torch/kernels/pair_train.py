@@ -30,9 +30,9 @@ import torch
 
 from rdst_tpu_torch.kernels import _build
 from rdst_tpu_torch.kernels.swin_block import (
-    BF16, H100_SMEM_OPTIN, FastParams, check_fast_tokens, fast_body,
-    fast_kernel_supports, fast_params, fast_smem_bytes, kernel_layout,
-    launch, pack_bias_fast, softmax_code)
+    BF16, H100_SMEM_OPTIN, SHARED_MAX_C, FastParams, check_fast_tokens,
+    fast_body, fast_kernel_supports, fast_params, fast_smem_bytes,
+    kernel_layout, launch, pack_bias_fast, softmax_code)
 from rdst_tpu_torch.kernels.swin_pair import shift_relayout
 
 _SOURCE = "pair_train.cu"
@@ -202,8 +202,10 @@ def run_pair_train(x_windows, pa: FastParams, bias_a, pb: FastParams, bias_b,
             f"fused_swin_pair_train: the CUDA kernels do not take N={n}, "
             f"C={c}, heads={nh}, hidden={hidden}, {h}x{w} with window {ws} "
             f"and shift {shift} (needs whole windows of 16 or 64 tokens, C "
-            f"<= 128, head dim <= 32 and {fast_smem_bytes(n, c, nh, hidden)}"
-            f" <= {H100_SMEM_OPTIN} bytes of shared memory); build with "
+            f"<= {SHARED_MAX_C}, head dim <= 32 and "
+            f"{fast_smem_bytes(n, c, nh, hidden)} <= {H100_SMEM_OPTIN} bytes "
+            "of shared memory); wider blocks train one at a time "
+            "(pallas_train='block', kernels.block_train), or build with "
             "pallas_train='off'")
     nw = (h // ws) * (w // ws)
     if t % nw:

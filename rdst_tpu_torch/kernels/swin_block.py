@@ -18,9 +18,12 @@ the dtype of the tokens, as the JAX function does (``use_fast_path``):
   scale folded into the weights (:func:`prep_block_params`),
   normalize-only one-pass LayerNorm, a softmax stabilizer chosen by
   variant, approximate reciprocal, tanh GELU, bf16 roundings where the
-  TPU kernel rounds: ``csrc/swin_block_fast.cu`` (its window body is
-  ``csrc/fast_block.cuh``, shared with the pair and RDSTB kernels),
-  plain version :func:`swin_block_fast_reference`.
+  TPU kernel rounds, optionally int8 qkv operands (``pallas_quant=
+  'qkv'``, ``kernels.quant``): ``csrc/swin_block_fast.cu`` (its window
+  body is ``csrc/fast_block.cuh``, shared with the pair, RDSTB and train
+  kernels), plain version :func:`swin_block_fast_reference`. It takes C
+  up to ``FAST_MAX_C`` (SwinIR-std's 180); the pair, RDSTB and train-pair
+  kernels stay at the ``SHARED_MAX_C`` they were verified at.
 
 Both count their launches (``fused_swin_block.launches`` and
 ``run_fast_block.launches``). A CPU tensor takes the plain
@@ -37,12 +40,20 @@ from typing import NamedTuple, Optional
 import torch
 
 from rdst_tpu_torch.kernels import _build
+from rdst_tpu_torch.kernels.quant import (QX, QkvQuant, int8_matmul,
+                                          qkv_kernel_layout, qkv_quant,
+                                          quant_rows)
 
 _EPS = 1e-5  # torch-default LayerNorm epsilon
 _SOURCE = "swin_block.cu"
 _THREADS = 256  # smaller block size of csrc/swin_block.cu: N must divide it
 _MAX_HEAD_DIM = 32
 H100_SMEM_OPTIN = 232448  # bytes of shared memory one block may opt into
+# widest C of the fast block and the single-block train kernels
+# (``fastblk::kMaxC``), and of the pair, RDSTB and train-pair kernels
+# (``fastblk::kMaxCShared``)
+FAST_MAX_C = 192
+SHARED_MAX_C = 128
 
 # 'auto' picks clamp only when the checkpoint's stamped attn_logit_max
 # clears this margin (kept equal to the JAX package's policy).
@@ -335,7 +346,7 @@ def gelu_tanh(x):
 
 
 def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
-              dpf=None):
+              dpf=None, qkv: Optional[QkvQuant] = None):
     """The fast block body on float32 tokens (T, N, C) with its bf16
     roundings, as ``_body(fast=True)`` computes it; returns float32.
 
@@ -345,16 +356,27 @@ def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
     the training kernel divides exactly, as ``exact_recip=True``).
     ``dpf``: optional (attn, mlp) stochastic-depth factor columns, each
     (T*N,) float32, that scale the two residual branches (``_body``'s
-    ``dpf``). Differentiable with ``torch.autograd``."""
+    ``dpf``). ``qkv``: int8 qkv operands (``kernels.quant``); then the
+    float32 normalized rows are quantized, not their bf16 rounding, and
+    q, k, v = bf16(int32(xq @ wq) * ws + bqkv). Differentiable with
+    ``torch.autograd`` (without ``qkv``)."""
     code = softmax_code(softmax)
     t, n, c = xf.shape
     nh = num_heads
     hd = c // nh
-    xn = _bf(normalize(xf))
+    if qkv is None:
+        xn = _bf(normalize(xf))
 
-    def proj(i):
-        return _bf(_mm(xn, p.wqkv[:, i * c:(i + 1) * c])
-                   + p.bqkv[i * c:(i + 1) * c])
+        def proj(i):
+            return _bf(_mm(xn, p.wqkv[:, i * c:(i + 1) * c])
+                       + p.bqkv[i * c:(i + 1) * c])
+    else:
+        xq = quant_rows(normalize(xf), QX)
+
+        def proj(i):
+            cols = slice(i * c, (i + 1) * c)
+            return _bf(int8_matmul(xq, qkv.wq[:, cols]) * qkv.ws[cols]
+                       + p.bqkv[cols])
 
     def heads(u):  # (T, N, C) -> (T, nH, N, hd)
         return u.reshape(t, n, nh, hd).transpose(1, 2)
@@ -387,11 +409,13 @@ def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
 
 
 def swin_block_fast_reference(x_windows, p: FastParams, bias, *,
-                              num_heads: int, softmax: str):
+                              num_heads: int, softmax: str,
+                              qkv: Optional[QkvQuant] = None):
     """Plain PyTorch version of the fast block kernel: bf16 tokens
-    (B*nW, N, C), folded params, packed bias; returns bf16."""
+    (B*nW, N, C), folded params, packed bias, optional int8 qkv
+    operands; returns bf16."""
     return _bf(fast_body(x_windows.float(), p, bias, num_heads=num_heads,
-                         softmax=softmax))
+                         softmax=softmax, qkv=qkv))
 
 
 def _round_up(v: int, m: int) -> int:
@@ -415,13 +439,16 @@ def fast_smem_bytes(n: int, c: int, nh: int, hidden: int) -> int:
 
 
 def fast_kernel_supports(n: int, c: int, nh: int, hidden: int,
-                         smem: Optional[int] = None) -> bool:
+                         smem: Optional[int] = None,
+                         max_c: int = SHARED_MAX_C) -> bool:
     """Whether the fast-branch CUDA kernels take this block geometry:
     N a multiple of 16 up to 64 (windows of 4 or 8), head dim <= 32,
-    C <= 128, and one window's working set in an H100 block's shared
-    memory."""
+    C <= ``max_c`` (``FAST_MAX_C`` for the fast block and the
+    single-block train kernels, ``SHARED_MAX_C`` for the pair, RDSTB and
+    train-pair kernels), and one window's working set in an H100 block's
+    shared memory."""
     smem = fast_smem_bytes(n, c, nh, hidden) if smem is None else smem
-    return (0 < n <= 64 and n % 16 == 0 and 0 < c <= 128 and nh > 0
+    return (0 < n <= 64 and n % 16 == 0 and 0 < c <= max_c and nh > 0
             and c % nh == 0 and c // nh <= 32 and 0 < hidden <= 512
             and smem <= H100_SMEM_OPTIN)
 
@@ -502,20 +529,29 @@ class FastBlockPlan(NamedTuple):
     params: FastParams
     bias: torch.Tensor  # packed (bw, N, nH*N) bf16
     layout: tuple       # kernel_layout(params) on a CUDA device, else ()
+    qkv: Optional[QkvQuant] = None  # int8 qkv operands, or None
+    qkv_layout: tuple = ()  # their kernel layout on a CUDA device
 
 
-def plan_fast_block(params, bias, *, num_heads: int) -> FastBlockPlan:
+def plan_fast_block(params, bias, *, num_heads: int,
+                    quant=frozenset()) -> FastBlockPlan:
     """Fold a block's 12-param bundle (JAX layout) and pack its
-    head-major bias; on a CUDA device also lay the weights out for the
+    head-major bias; with ``'qkv'`` in ``quant`` also quantize the folded
+    qkv weight to int8; on a CUDA device lay the weights out for the
     kernel. Depends on the weights only, so a caller may keep it."""
+    from rdst_tpu_torch.kernels.quant import check_ported
+
     c, nh = params[0].shape[0], num_heads
     if bias.dim() != 3 or bias.shape[0] % nh or bias.shape[1] != bias.shape[2]:
         raise ValueError(f"bias must be head-major (nH*bw, N, N), got "
                          f"{tuple(bias.shape)}")
     p = fast_params(params, c, nh)
     packed = pack_bias_fast(bias, nh, bias.shape[1])
-    return FastBlockPlan(p, packed, kernel_layout(p)
-                         if packed.device.type == "cuda" else ())
+    q = qkv_quant(p.wqkv) if "qkv" in check_ported(quant) else None
+    cuda = packed.device.type == "cuda"
+    return FastBlockPlan(p, packed, kernel_layout(p) if cuda else (), q,
+                         qkv_kernel_layout(q, c, _round_up(c, 16))
+                         if cuda else ())
 
 
 def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
@@ -524,7 +560,8 @@ def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
     prepared plan. A CPU tensor takes :func:`swin_block_fast_reference`;
     a CUDA tensor launches ``csrc/swin_block_fast.cu`` (one thread block
     per window) or raises; geometry the kernel does not take raises on
-    either device."""
+    either device. The plan's int8 qkv operands, when it has them, go
+    with it."""
     if x_windows.dim() != 3:
         raise ValueError(f"x_windows must be (B*nW, N, C), got "
                          f"{tuple(x_windows.shape)}")
@@ -533,11 +570,11 @@ def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
     p = plan.params
     hidden = p.w1.shape[-1]
     code = softmax_code(softmax)
-    if not fast_kernel_supports(n, c, nh, hidden):
+    if not fast_kernel_supports(n, c, nh, hidden, max_c=FAST_MAX_C):
         raise ValueError(
             f"fused_swin_block (bf16): the CUDA kernel does not take N={n}, "
             f"C={c}, heads={nh}, hidden={hidden} (needs N a multiple of 16 "
-            "up to 64, C <= 128, head dim <= 32 and "
+            f"up to 64, C <= {FAST_MAX_C}, head dim <= 32 and "
             f"{fast_smem_bytes(n, c, nh, hidden)} <= {H100_SMEM_OPTIN} bytes"
             " of shared memory); build with pallas_kernels='off'")
     bw = plan.bias.shape[0]
@@ -554,12 +591,14 @@ def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
         raise ValueError(f"plan is on {plan.bias.device}, x_windows on {dev}")
     if dev.type == "cpu":
         return swin_block_fast_reference(x_windows, p, plan.bias,
-                                         num_heads=nh, softmax=softmax)
+                                         num_heads=nh, softmax=softmax,
+                                         qkv=plan.qkv)
     out = torch.empty_like(x_windows)
     if t == 0:
         return out
     launch(_build.load(_FAST_SOURCE), "swin_block_fast_bf16",
-           [x_windows, out, *plan.layout, plan.bias],
+           [x_windows, out, *plan.layout, plan.bias,
+            *(plan.qkv_layout or (0, 0))],
            [t, n, c, nh, hidden, bw, code], dev)
     run_fast_block.launches += 1
     return out

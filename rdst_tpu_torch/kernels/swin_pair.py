@@ -22,9 +22,9 @@ import torch
 
 from rdst_tpu_torch.kernels import _build
 from rdst_tpu_torch.kernels.swin_block import (
-    BF16, H100_SMEM_OPTIN, FastBlockPlan, check_fast_tokens, fast_body,
-    fast_kernel_supports, fast_smem_bytes, launch, plan_fast_block,
-    softmax_code)
+    BF16, H100_SMEM_OPTIN, SHARED_MAX_C, FastBlockPlan, check_fast_tokens,
+    fast_body, fast_kernel_supports, fast_smem_bytes, launch,
+    plan_fast_block, softmax_code)
 from rdst_tpu_torch.nn.swin import window_partition, window_reverse
 
 _SOURCE = "swin_pair.cu"
@@ -92,7 +92,7 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
             f"fused_swin_pair: the CUDA kernel does not take N={n}, C={c}, "
             f"heads={nh}, hidden={hidden}, {h}x{w} with window {ws} and "
             f"shift {shift} (needs whole windows of 16 or 64 tokens, C <= "
-            f"128, head dim <= 32 and {fast_smem_bytes(n, c, nh, hidden)} "
+            f"{SHARED_MAX_C}, head dim <= 32 and {fast_smem_bytes(n, c, nh, hidden)} "
             f"<= {H100_SMEM_OPTIN} bytes of shared memory); build with "
             "pallas_kernels='swin' or 'off'")
     nw = (h // ws) * (w // ws)

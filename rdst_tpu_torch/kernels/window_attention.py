@@ -6,8 +6,8 @@ keys keep their meaning:
 ``pallas_kernels`` -> ``RDST_TORCH_KERNELS``  (rdstb/pair/swin/pack/off)
 ``pallas_quant``   -> ``RDST_TORCH_QUANT``    (int8 groups, or off)
 ``pallas_softmax`` -> ``RDST_TORCH_SOFTMAX``  (auto/stable/clamp/...)
-``pallas_train``   -> ``RDST_TORCH_TRAIN``    (pair/off: the bf16 training
-                                              route, :func:`train_flag`)
+``pallas_train``   -> ``RDST_TORCH_TRAIN``    (pair/block/off: the bf16
+                                              training route, :func:`train_flag`)
 
 The JAX package exports a config's keys to its env flags, and the blocks
 read them at trace time, which freezes the choice into the compiled
@@ -29,7 +29,10 @@ What a mode runs depends on the model's dtype (``models.rdst
   fast block kernel: the JAX package's ``pack=2`` puts two windows in
   one lane row of the TPU, a layout with the same arithmetic.
 
-``off`` asks for the plain PyTorch path in either dtype. The softmax
+``off`` asks for the plain PyTorch path in either dtype. ``pallas_quant
+='qkv'`` runs the fast block's qkv product on int8 operands in bf16
+(``kernels.quant``); float32 drops int8, as the JAX precise path does, and
+the other groups raise (ROADMAP Queue B 7). The softmax
 variant (resolved once; ``auto`` against the checkpoint's stamp) selects
 the bf16 kernels' stabilizer: ``''``/``stable``/``stable_bc`` (exact,
 the per-head row max subtracted), ``stable_mm`` (the max rounded to
@@ -113,14 +116,16 @@ def kernel_flags(paras) -> KernelFlags:
 def train_flag(paras) -> str:
     """``pallas_train`` resolved once (config, then env): 'pair' (the
     default, as the JAX trainer turns it on for bf16 training) runs each
-    DSTL pair of a bf16 training step on the train-pair kernels, '' the
-    plain modules under autograd; 'block' (the JAX package's
-    single-block train kernel) is returned for the model builder to
-    refuse; anything else raises."""
+    layer of a bf16 training step on the train-pair kernels where the JAX
+    package's rule admits its pairs, else on the single-block train
+    kernel; 'block' runs every block on the single-block kernel (the JAX
+    package's forced A/B); '' the plain modules under autograd
+    (``models.routes.set_train_mode``); anything else raises."""
     raw, from_config = _lookup(paras, "pallas_train", ENV_TRAIN)
     if raw in _OFF and (raw or from_config):
         return ""
     mode = raw or "pair"
     if mode not in ("pair", "block"):
-        raise ValueError(f"pallas_train={raw!r}: expected 'pair' or off")
+        raise ValueError(f"pallas_train={raw!r}: expected 'pair', 'block' "
+                         "or off")
     return mode

@@ -1,3 +1,3 @@
-"""SR generators of the port (this slice: RDST)."""
+"""SR generators of the port: RDST and SwinIR."""
 
 from rdst_tpu_torch.models.registry import build_generator  # noqa: F401

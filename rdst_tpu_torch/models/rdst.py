@@ -27,8 +27,11 @@ Those routes serve (eval mode, no gradient). A model built here starts
 in eval mode; in training mode (``model.train()``) the blocks compute
 for autograd: float32 trains on the plain modules, as the JAX package
 does; bfloat16 runs each DSTL pair on the differentiable train-pair
-kernels (``pallas_train='pair'``, the default) or on the plain bf16
-modules (``'off'``), as decided once by :func:`set_train_mode`.
+kernels (``pallas_train='pair'``, the default), each block on the
+single-block train kernel (``'block'``) or the plain bf16 modules
+(``'off'``), as decided once by :func:`set_train_mode`. Both route
+functions live in ``models.routes`` (they serve any model of
+``BasicLayer`` s) and are imported here under their old names.
 """
 
 from __future__ import annotations
@@ -39,10 +42,12 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from rdst_tpu_torch.models.routes import (  # noqa: F401 (old names)
+    set_kernel_mode, set_train_mode)
 from rdst_tpu_torch.nn.common import Conv, MeanShift, UpSampler
 from rdst_tpu_torch.nn.layers import BF16, Dropout, LayerNorm, Linear
 from rdst_tpu_torch.nn.swin import (BasicLayer, kernel_plan, refuse_grad,
-                                    resolve_ws_shift, set_block_kernels)
+                                    resolve_ws_shift)
 
 
 def to_tokens(x: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, int]]:
@@ -293,6 +298,9 @@ class RDSTSR(nn.Module):
         # never hands it to its RDSTBs (rdst_tpu/models/rdst.py:410-428),
         # so stochastic depth stays off in RDST training
         self.train_mode = ""  # plain autograd until set_train_mode
+        self.train_routes = {"pair": 0, "block": 0}
+        # training patches are built at the build resolution (24x24 LR)
+        self.train_resolution = build_resolution
         if dtype not in (torch.float32, BF16):
             raise NotImplementedError(
                 f"RDST in {dtype}: the port computes in float32 or bfloat16")
@@ -329,6 +337,10 @@ class RDSTSR(nn.Module):
             else nn.Identity(),
             Conv(embed_dim, in_chans, 3))
 
+    def route_units(self):
+        """The units a kernel route is decided for: the RDSTBs."""
+        return [("RDSTB", b) for b in self.body]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """NHWC LR -> HR in the model's dtype (bf16: the input is rounded
         to bf16 first, as ``x.astype(infer_dtype)`` in the JAX serving
@@ -354,109 +366,13 @@ class RDSTSR(nn.Module):
         return out[:, : h0 * s, : w0 * s, :]
 
 
-def set_kernel_mode(model: RDSTSR, mode: str, softmax: str = "") -> list:
-    """Route ``model``'s blocks for kernel mode ``mode`` ('' for the plain
-    path) at the model's dtype, with the bf16 kernels' ``softmax``
-    variant; sets ``model.kernel_mode``, ``model.softmax`` and
-    ``model.routes`` (the kernel each RDSTB runs) and returns the routes.
-
-    float32: every mode runs each Swin block on the f32 block kernel.
-    bfloat16: 'rdstb' -> ``fused_rdstb`` per RDSTB, 'pair' ->
-    ``fused_swin_pair`` per DSTL, 'swin'/'pack' -> the fast
-    ``fused_swin_block`` per block ('pack', the TPU's two-windows-per-lane
-    layout, computes the same function). An RDSTB the mode's kernel
-    cannot take raises, naming the mode to choose instead."""
-    from rdst_tpu_torch.kernels.swin_block import softmax_code
-    from rdst_tpu_torch.kernels.window_attention import KERNEL_MODES
-
-    if mode and mode not in KERNEL_MODES:
-        raise ValueError(f"kernel mode {mode!r}: expected one of "
-                         f"{KERNEL_MODES} or ''")
-    bf16 = model.dtype == BF16
-    if bf16:
-        softmax_code(softmax)  # raises on a variant the kernels lack
-    set_block_kernels(model, False)
-    for m in model.modules():
-        if isinstance(m, BasicLayer):
-            m.use_pair = False
-        if isinstance(m, RDSTB):
-            m.use_rdstb = False
-        if hasattr(m, "softmax"):
-            m.softmax = softmax
-    routes = []
-    for i, block in enumerate(model.body):
-        if not mode:
-            routes.append("plain")
-        elif not bf16 or mode in ("swin", "pack"):
-            for layer in block.body:
-                for blk in layer.body.blocks:
-                    why = (blk.fast_unsupported() if bf16
-                           else blk.f32_unsupported())
-                    if why:
-                        kind = "fast" if bf16 else "f32"
-                        raise ValueError(
-                            f"RDSTB {i}: the {kind} block kernel cannot run "
-                            f"it ({why}); build with pallas_kernels='off'")
-            set_block_kernels(block, True)
-            routes.append("fused_swin_block")
-        elif mode == "pair":
-            for layer in block.body:
-                why = layer.body.pair_unsupported()
-                if why:
-                    raise ValueError(
-                        f"RDSTB {i}: the pair kernel cannot run it ({why}); "
-                        "build with pallas_kernels='swin' or 'off'")
-                layer.body.use_pair = True
-            routes.append("fused_swin_pair")
-        else:
-            why = block.rdstb_unsupported()
-            if why:
-                raise ValueError(
-                    f"RDSTB {i}: the RDSTB kernel cannot run it ({why}); "
-                    "build with pallas_kernels='pair' or 'off'")
-            block.use_rdstb = True
-            routes.append("fused_rdstb")
-    model.kernel_mode, model.softmax, model.routes = mode, softmax, routes
-    return routes
-
-
-def set_train_mode(model: RDSTSR, mode: str) -> str:
-    """Decide the training route of ``model`` once (``model.train_mode``,
-    returned). float32 trains on the plain modules whatever ``mode``
-    says (the JAX train kernels need bf16). bfloat16: 'pair' runs each
-    DSTL pair on the train-pair kernels and raises, naming
-    ``pallas_train='off'``, for a layer they cannot take (dropout rates
-    included); '' runs the plain bf16 modules; 'block' raises."""
-    layers = [m for m in model.modules() if isinstance(m, BasicLayer)]
-    for layer in layers:
-        layer.use_pair_train = False
-    if model.dtype != BF16:
-        mode = ""
-    if mode == "block":
-        raise NotImplementedError(
-            "pallas_train='block' (fused_swin_block_train, for widths a "
-            "pair cannot hold) comes with the wide-width slice of the port "
-            "(ROADMAP Queue B 6); use 'pair' or 'off'")
-    if mode not in ("", "pair"):
-        raise ValueError(f"pallas_train={mode!r}: expected 'pair' or ''")
-    if mode == "pair":
-        for layer in layers:
-            why = layer.pair_train_unsupported()
-            if why:
-                raise ValueError(f"the train-pair kernels cannot run a DSTL "
-                                 f"({why}); build with pallas_train='off'")
-            layer.use_pair_train = True
-    model.train_mode = mode
-    return mode
-
-
 def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
     """Factory keyed off the reference config names (the JAX package's
     ``make_rdst``), in float32 or bfloat16. The kernel mode
     (``pallas_kernels``, else ``RDST_TORCH_KERNELS``) and the softmax
     variant (``pallas_softmax``, 'auto' resolved against the configured
-    checkpoint's stats sidecar) are resolved here, once, and the routes
-    set by :func:`set_kernel_mode`."""
+    checkpoint's stats sidecar) and the int8 groups (``pallas_quant``) are
+    resolved here, once, and the routes set by :func:`set_kernel_mode`."""
     from rdst_tpu_torch.checkpoint.loading import (resolve_model_path,
                                                    resolve_pallas_softmax)
     from rdst_tpu_torch.kernels.window_attention import kernel_flags
@@ -502,5 +418,5 @@ def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
     )
     flags = kernel_flags(paras)
     softmax = resolve_pallas_softmax(resolve_model_path(paras), flags.softmax)
-    set_kernel_mode(model, flags.kernels, softmax)
+    set_kernel_mode(model, flags.kernels, softmax, flags.quant)
     return model.eval()

@@ -1,16 +1,15 @@
 """Model factory (counterpart of ``rdst_tpu/models/registry.py``).
 
-This slice ports ``'rdst'`` only; every other ``feature_generator`` of
-the JAX package raises and names the slice that will bring it.
+The port builds ``'rdst'`` and ``'swinir'`` (alias ``'swin'``, as in the
+JAX package); every other ``feature_generator`` of the JAX package raises
+and names the slice that will bring it.
 """
 
 from __future__ import annotations
 
 import torch
 
-LATER_SLICES = {
-    "swinir": "the SwinIR slice", "swin": "the SwinIR slice",
-}
+_ALIASES = {"swin": "swinir"}
 
 
 def build_generator(paras, mean=None, std=None, dtype=torch.float32):
@@ -19,11 +18,15 @@ def build_generator(paras, mean=None, std=None, dtype=torch.float32):
     to HR."""
     raw = paras.get("feature_generator") or paras.get("sr_generator")
     name = str(raw).strip().lower()
+    name = _ALIASES.get(name, name)
     if name == "rdst":
         from rdst_tpu_torch.models.rdst import make_rdst
 
         return make_rdst(paras, mean, std, dtype)
-    later = LATER_SLICES.get(name, "the model-zoo slice")
+    if name == "swinir":
+        from rdst_tpu_torch.models.swinir import make_swinir
+
+        return make_swinir(paras, mean, std, dtype)
     raise NotImplementedError(
-        f"feature_generator {raw!r} is not ported yet; it comes with "
-        f"{later} of the port (this slice serves 'rdst')")
+        f"feature_generator {raw!r} is not ported yet; it comes with the "
+        "model-zoo slice of the port (the port builds 'rdst' and 'swinir')")

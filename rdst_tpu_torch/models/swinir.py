@@ -1,0 +1,226 @@
+"""SwinIR (counterpart of ``rdst_tpu/models/swinir.py``): RSTBs of Swin
+blocks between a head conv and an upsampler.
+
+Module names give the reference SwinIR state_dict keys (the ones
+``checkpoint.convert.export_swinir`` writes): ``conv_first``,
+``patch_embed.norm``, ``layers.{i}.residual_group.blocks.{k}...``,
+``layers.{i}.conv`` (or ``conv.0/2/4`` for '3conv'), ``norm``,
+``conv_after_body``, then ``conv_before_upsample.0`` + ``upsample.{2i}`` +
+``conv_last`` ('pixelshuffle', SwinIR-std) or ``upsample.0``
+('pixelshuffledirect', SwinIR-light). Layouts are NHWC and (B, L, C)
+tokens; the model computes in its ``dtype`` as ``models.rdst`` does.
+
+The JAX factory's build-resolution quirk is kept: ``make_swinir`` builds
+every block at ``img_size = (patch_size // sr_scale // window + 1) *
+window``, which is one window (8) for the shipped configs, so
+``resolve_ws_shift`` gives every block shift 0 -- SwinIR as shipped runs
+no shifted window. Stochastic depth reaches the blocks (linear over all
+of them up to ``sir_drop_path_rate``), as the JAX RSTB passes it on.
+Routes are decided once by ``models.routes``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from rdst_tpu_torch.models.rdst import (pad_to_window_multiple, to_image,
+                                        to_tokens)
+from rdst_tpu_torch.nn.common import Conv, PixelShuffle, UpSampler
+from rdst_tpu_torch.nn.layers import BF16, Dropout, LayerNorm
+from rdst_tpu_torch.nn.swin import BasicLayer
+
+UPSAMPLERS = ("pixelshuffle", "pixelshuffledirect")
+
+
+class LeakyReLU(nn.Module):
+    """``jax.nn.leaky_relu``: x where x >= 0, else slope * x; on bf16 the
+    slope is rounded to bf16 first, as a weak-typed scalar is in JAX."""
+
+    def __init__(self, slope: float):
+        super().__init__()
+        self.slope = float(slope)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        slope = torch.tensor(self.slope, dtype=x.dtype, device=x.device)
+        return torch.where(x >= 0, x, x * slope)
+
+
+class RSTB(nn.Module):
+    """Residual Swin Transformer Block: a BasicLayer, a conv, a residual."""
+
+    def __init__(self, dim: int, depth: int, num_heads: int,
+                 window_size: int, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 drop: float = 0.0, attn_drop: float = 0.0,
+                 drop_path: Sequence[float] = (),
+                 resi_connection: str = "1conv",
+                 build_resolution: Optional[Tuple[int, int]] = None,
+                 layer_norm: bool = True):
+        super().__init__()
+        self.residual_group = BasicLayer(
+            dim, depth, num_heads, window_size, mlp_ratio, qkv_bias,
+            qk_scale, build_resolution, layer_norm, drop, attn_drop,
+            tuple(drop_path))
+        if resi_connection == "1conv":
+            self.conv = Conv(dim, dim, 3)
+        elif resi_connection == "3conv":
+            self.conv = nn.Sequential(
+                Conv(dim, dim // 4, 3), LeakyReLU(0.2),
+                Conv(dim // 4, dim // 4, 1), LeakyReLU(0.2),
+                Conv(dim // 4, dim, 3))
+        else:
+            raise ValueError(f"resi_connection {resi_connection!r}: expected "
+                             "'1conv' or '3conv'")
+
+    def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
+        y = self.residual_group(x, x_size)
+        y, _ = to_tokens(self.conv(to_image(y, x_size)))
+        return y + x
+
+
+class _PatchEmbed(nn.Module):
+    """Holds the patch-embedding LayerNorm (state_dict ``patch_embed.norm``)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = LayerNorm(dim)
+
+
+class SwinIR(nn.Module):
+    """SwinIR; forward maps NHWC LR (B, H, W, C) to HR."""
+
+    def __init__(self, in_chans: int = 1, embed_dim: int = 96,
+                 depths: Sequence[int] = (6, 6, 6, 6),
+                 num_heads: Sequence[int] = (6, 6, 6, 6),
+                 window_size: int = 7, mlp_ratio: float = 4.0,
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 drop_rate: float = 0.0, attn_drop_rate: float = 0.0,
+                 drop_path_rate: float = 0.1, patch_norm: bool = True,
+                 upscale: int = 2, img_range: float = 1.0,
+                 upsampler: str = "pixelshuffle",
+                 resi_connection: str = "1conv", num_feat: int = 64,
+                 build_resolution: Optional[Tuple[int, int]] = None,
+                 layer_norm: bool = True, dtype: torch.dtype = torch.float32,
+                 train_resolution: Optional[Tuple[int, int]] = None):
+        super().__init__()
+        if dtype not in (torch.float32, BF16):
+            raise NotImplementedError(
+                f"SwinIR in {dtype}: the port computes in float32 or bfloat16")
+        if upsampler not in UPSAMPLERS:
+            raise NotImplementedError(
+                f"sir_upsampler {upsampler!r}: the port builds "
+                f"{UPSAMPLERS} (every shipped SwinIR config); the others "
+                "come with the model-zoo slice")
+        self.dtype = dtype
+        self.window_size = int(window_size)
+        self.upscale, self.upsampler = int(upscale), upsampler
+        self.img_range = float(img_range)
+        # the DIV2K RGB mean for 3 channels, zero otherwise (:646-651)
+        self.rgb_mean = ((0.4488, 0.4371, 0.4040) if in_chans == 3
+                         else (0.0,) * in_chans)
+        self.train_mode = ""  # plain autograd until set_train_mode
+        self.train_routes = {"pair": 0, "block": 0}
+        self.train_resolution = train_resolution or build_resolution
+        self.conv_first = Conv(in_chans, embed_dim, 3)
+        self.patch_embed = (_PatchEmbed(embed_dim)
+                            if patch_norm and layer_norm else None)
+        self.pos_drop = Dropout(drop_rate)
+        dpr = [float(d) for d in np.linspace(0, drop_path_rate, sum(depths))]
+        self.layers = nn.ModuleList([
+            RSTB(embed_dim, depths[i], num_heads[i], window_size, mlp_ratio,
+                 qkv_bias, qk_scale, drop_rate, attn_drop_rate,
+                 dpr[sum(depths[:i]):sum(depths[:i + 1])], resi_connection,
+                 build_resolution, layer_norm)
+            for i in range(len(depths))])
+        self.norm = LayerNorm(embed_dim) if layer_norm else None
+        self.conv_after_body = Conv(embed_dim, embed_dim, 3)
+        if upsampler == "pixelshuffle":
+            self.conv_before_upsample = nn.Sequential(
+                Conv(embed_dim, num_feat, 3), LeakyReLU(0.01))
+            self.upsample = UpSampler(self.upscale, num_feat)
+            self.conv_last = Conv(num_feat, in_chans, 3)
+        else:
+            self.upsample = nn.Sequential(
+                Conv(embed_dim, self.upscale ** 2 * in_chans, 3),
+                PixelShuffle(self.upscale))
+
+    def route_units(self):
+        """The units a kernel route is decided for: the RSTBs."""
+        return [("RSTB", layer) for layer in self.layers]
+
+    def forward_features(self, x: torch.Tensor) -> torch.Tensor:
+        tokens, x_size = to_tokens(x)
+        if self.patch_embed is not None:
+            tokens = self.patch_embed.norm(tokens)
+        tokens = self.pos_drop(tokens)
+        for layer in self.layers:
+            tokens = layer(tokens, x_size)
+        if self.norm is not None:
+            tokens = self.norm(tokens)
+        return to_image(tokens, x_size)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """NHWC LR -> HR in the model's dtype (bf16: the input rounded to
+        bf16 first, as the JAX serving path does)."""
+        x = x.to(self.dtype)
+        x, (h0, w0) = pad_to_window_multiple(x, self.window_size)
+        mean = torch.tensor(self.rgb_mean, dtype=x.dtype, device=x.device)
+        x = (x - mean) * self.img_range
+        x = self.conv_first(x)
+        x = self.conv_after_body(self.forward_features(x)) + x
+        if self.upsampler == "pixelshuffle":
+            x = self.conv_last(self.upsample(self.conv_before_upsample(x)))
+        else:
+            x = self.upsample(x)
+        x = x / self.img_range + mean
+        s = self.upscale
+        return x[:, : h0 * s, : w0 * s, :]
+
+
+def make_swinir(paras, mean=None, std=None, dtype=torch.float32) -> SwinIR:
+    """Factory reading the ``sir_*`` config keys (the JAX package's
+    ``make_swinir``; ``mean``/``std`` are not used: SwinIR normalizes by
+    its own mean and ``sir_img_range``). Kernel keys are resolved once, as
+    in ``make_rdst``."""
+    from rdst_tpu_torch.checkpoint.loading import (resolve_model_path,
+                                                   resolve_pallas_softmax)
+    from rdst_tpu_torch.kernels.window_attention import kernel_flags
+    from rdst_tpu_torch.models.routes import set_kernel_mode
+
+    if paras.sir_ape:
+        raise NotImplementedError(
+            "sir_ape (absolute position embedding) is not ported; no "
+            "shipped SwinIR config sets it")
+    ws = paras.sir_window_size
+    img_size = int(paras.patch_size // paras.sr_scale // ws + 1) * ws
+    lr_patch = int(paras.patch_size)
+    model = SwinIR(
+        build_resolution=(img_size, img_size),
+        train_resolution=(lr_patch, lr_patch),
+        in_chans=paras.input_channel,
+        embed_dim=paras.sir_embed_dim,
+        depths=tuple(paras.sir_swintr_layers),
+        num_heads=tuple(paras.sir_num_heads),
+        window_size=ws,
+        mlp_ratio=paras.sir_hidden_ratio,
+        qkv_bias=paras.sir_qkv_bias,
+        qk_scale=paras.sir_qk_scale,
+        drop_rate=float(paras.sir_drop_rate or 0.0),
+        attn_drop_rate=float(paras.sir_attn_drop_rate or 0.0),
+        drop_path_rate=float(paras.sir_drop_path_rate or 0.0),
+        patch_norm=paras.sir_patch_norm,
+        layer_norm=bool(paras.get("sir_layer_norm", True)),
+        upscale=int(paras.sr_scale),
+        img_range=paras.sir_img_range,
+        upsampler=paras.sir_upsampler,
+        resi_connection=paras.sir_res_connection,
+        dtype=dtype,
+    )
+    flags = kernel_flags(paras)
+    softmax = resolve_pallas_softmax(resolve_model_path(paras), flags.softmax)
+    set_kernel_mode(model, flags.kernels, softmax, flags.quant)
+    return model.eval()

@@ -20,11 +20,13 @@ tokens the plain path computes as the JAX package's flax modules do at
 Those are the serving routes, taken in eval mode; they have no gradient
 and raise when reached with autograd recording. In training mode
 (``module.train()``) every block runs the plain path with dropout and
-stochastic depth, differentiated by autograd, unless its
-:class:`BasicLayer`'s ``use_pair_train`` is set (bf16 training, set by
-``models.rdst.set_train_mode``): then each pair of blocks runs as one
-differentiable ``kernels.pair_train`` call, whose CUDA forward and
-backward take the place of autograd's.
+stochastic depth, differentiated by autograd, unless a bf16 training
+route was set by ``models.routes.set_train_mode`` (by the JAX package's
+admission rules, :meth:`BasicLayer.train_route`): a
+:class:`BasicLayer`'s ``use_pair_train`` runs each pair of blocks as one
+differentiable ``kernels.pair_train`` call, a block's ``use_block_train``
+runs the block as one ``kernels.block_train`` call; their CUDA forward
+and backward take the place of autograd's.
 """
 
 from __future__ import annotations
@@ -248,7 +250,10 @@ class SwinTransformerBlock(nn.Module):
         self.build_resolution = build_resolution
         self.layer_norm = layer_norm
         self.use_kernel = False  # see set_block_kernels
+        self.use_block_train = False  # see models.routes.set_train_mode
         self.softmax = ""  # bf16 kernels' softmax variant, set with the mode
+        self.quant = frozenset()  # int8 groups of the fast kernel route
+        self.generator: Optional[torch.Generator] = None  # factor columns
         # the table's window is decided from the build resolution, as the
         # reference's constructor does; the runtime window must match it
         ws = (min(window_size, *build_resolution) if build_resolution
@@ -262,14 +267,15 @@ class SwinTransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
         h, w = x_size
-        ws, shift = resolve_ws_shift(self.build_resolution or (h, w), h, w,
-                                     self.window_size, self.shift_size)
+        ws, shift = self.resolved_window(x_size)
         if ws != self.attn.window_size:
             raise ValueError(
                 f"input {h}x{w} resolves to window {ws}, but the block was "
                 f"built for window {self.attn.window_size}")
         if self.use_kernel and not self.training:
             return self._fused_block(x, (h, w), ws, shift)
+        if self.use_block_train and self.training:
+            return self._train_block(x, (h, w), ws, shift)
 
         b, l, c = x.shape
         shortcut = x
@@ -284,6 +290,14 @@ class SwinTransformerBlock(nn.Module):
             x = torch.roll(x, (shift, shift), dims=(1, 2))
         x = shortcut + self.drop_path(x.reshape(b, h * w, c))
         return x + self.drop_path(self.mlp(self.norm2(x)))
+
+    def resolved_window(self, x_size: Tuple[int, int]) -> Tuple[int, int]:
+        """(window, shift) this block runs at on ``x_size``: decided from
+        the build resolution, as the reference's constructor does (a
+        build resolution of one window means no shift at all)."""
+        h, w = x_size
+        return resolve_ws_shift(self.build_resolution or (h, w), h, w,
+                                self.window_size, self.shift_size)
 
     def kernel_inputs(self, x_size: Tuple[int, int], ws: int, shift: int):
         """(params 12-tuple in the kernel's (in, out) layout, bias).
@@ -332,11 +346,13 @@ class SwinTransformerBlock(nn.Module):
             from rdst_tpu_torch.kernels.swin_block import (plan_fast_block,
                                                            run_fast_block)
 
-            plan = kernel_plan(self, (x_size, ws, shift, x.device),
+            plan = kernel_plan(self, (x_size, ws, shift, x.device,
+                                      self.quant),
                                lambda: plan_fast_block(
                                    *self.fast_kernel_inputs(x_size, ws,
                                                             shift),
-                                   num_heads=self.num_heads))
+                                   num_heads=self.num_heads,
+                                   quant=self.quant))
             y = run_fast_block(x_windows.contiguous(), plan,
                                num_heads=self.num_heads,
                                windows_per_image=nw, softmax=self.softmax)
@@ -350,16 +366,63 @@ class SwinTransformerBlock(nn.Module):
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         return y.reshape(b, l, c)
 
-    def fast_unsupported(self) -> Optional[str]:
+    def dp_factor_cols(self, b: int, rows_per_image: int):
+        """(B*nW*N, 2) float32 stochastic-depth factor columns [attn,
+        mlp] of this block (``_block_dp_cols``): two independent
+        per-sample draws, kept with probability 1 - rate and scaled by
+        1 / keep; None at rate 0."""
+        rate = self.drop_path.rate
+        if rate == 0.0:
+            return None
+        dev = self.attn.qkv.weight.device
+        keep = 1.0 - rate
+        cols = [torch.where(torch.rand(b, generator=self.generator,
+                                       device=dev) < keep, 1.0 / keep, 0.0)
+                for _ in range(2)]
+        return torch.stack(cols, -1).repeat_interleave(rows_per_image, 0)
+
+    def _train_block(self, x, x_size, ws: int, shift: int):
+        """The single-block training route: the block through
+        ``kernels.block_train.fused_swin_block_train`` (raw parameters
+        folded in plain torch, so autograd reaches them); roll, partition,
+        reverse in plain torch."""
+        from rdst_tpu_torch.kernels.block_train import fused_swin_block_train
+
+        h, w = x_size
+        b, l, c = x.shape
+        if x.dtype != BF16 or h % ws or w % ws:
+            raise ValueError(
+                f"the block-train kernel takes bf16 tokens on whole "
+                f"windows; got {x.dtype}, {h}x{w} with window {ws}")
+        xi = x.reshape(b, h, w, c)
+        if shift > 0:
+            xi = torch.roll(xi, (-shift, -shift), dims=(1, 2))
+        xw = window_partition(xi, ws).reshape(-1, ws * ws, c)
+        nw = (h // ws) * (w // ws)
+        params, bias = self.fast_kernel_inputs(x_size, ws, shift)
+        y = fused_swin_block_train(
+            xw.contiguous(), params, bias,
+            self.dp_factor_cols(b, nw * ws * ws), num_heads=self.num_heads,
+            windows_per_image=nw, softmax=self.softmax)
+        y = window_reverse(y.reshape(-1, ws, ws, c), ws, h, w)
+        if shift > 0:
+            y = torch.roll(y, (shift, shift), dims=(1, 2))
+        return y.reshape(b, l, c)
+
+    def fast_unsupported(self, max_c: Optional[int] = None) -> Optional[str]:
         """Why the bf16 fast kernels cannot run this block at its built
-        window (None when they can); checked when the model is built."""
-        from rdst_tpu_torch.kernels.swin_block import fast_kernel_supports
+        window (None when they can): the fast block kernel up to
+        ``FAST_MAX_C`` channels, or ``max_c`` (the pair and RDSTB kernels'
+        ``SHARED_MAX_C``); checked when the model is built."""
+        from rdst_tpu_torch.kernels.swin_block import (FAST_MAX_C,
+                                                       fast_kernel_supports)
 
         if not self.layer_norm or self.qk_scale is not None:
             return "the block has no LayerNorm or a custom q scale"
         n = self.attn.window_size ** 2
         hidden = self.mlp.fc1.out_features
-        if not fast_kernel_supports(n, self.dim, self.num_heads, hidden):
+        if not fast_kernel_supports(n, self.dim, self.num_heads, hidden,
+                                    max_c=max_c or FAST_MAX_C):
             return (f"N={n}, C={self.dim}, {self.num_heads} heads, hidden "
                     f"{hidden} exceed what the CUDA kernels take")
         return None
@@ -415,8 +478,8 @@ class BasicLayer(nn.Module):
         self.window_size = window_size
         self.build_resolution = build_resolution
         self.drop, self.attn_drop = float(drop), float(attn_drop)
-        self.use_pair = False  # see models.rdst.set_kernel_mode
-        self.use_pair_train = False  # see models.rdst.set_train_mode
+        self.use_pair = False  # see models.routes.set_kernel_mode
+        self.use_pair_train = False  # see models.routes.set_train_mode
         self.softmax = ""
         self.generator: Optional[torch.Generator] = None  # factor columns
 
@@ -424,32 +487,61 @@ class BasicLayer(nn.Module):
         """Why the pair kernel cannot run this layer's blocks (None when
         it can): what ``BasicLayer``'s ``pair_eligible`` asks in the JAX
         package, checked when the model is built."""
+        from rdst_tpu_torch.kernels.swin_block import SHARED_MAX_C
+
         if not self.blocks or len(self.blocks) % 2:
             return f"depth {len(self.blocks)} is not a whole number of pairs"
-        return self.blocks[0].fast_unsupported()
+        return self.blocks[0].fast_unsupported(max_c=SHARED_MAX_C)
 
-    def pair_train_unsupported(self) -> Optional[str]:
-        """Why the train-pair kernels cannot run this layer (None when
-        they can): the pair's structure, no dropout (the kernels apply
-        stochastic depth only, as the JAX kernel does), and what the
-        CUDA kernels take at the built window."""
+    def train_route(self, mode: str, x_size: Tuple[int, int],
+                    softmax: str = "") -> str:
+        """The bf16 training route of this layer for ``pallas_train=mode``
+        at training patches of ``x_size``, as the JAX package chooses it
+        (``BasicLayer.__call__`` and ``SwinTransformerBlock.__call__``):
+        'pair' when the mode is 'pair', the pair's structure holds and
+        ``fused_pair_train_fits`` admits it; else 'block' when
+        ``fused_block_train_fits`` does. The JAX package's admission
+        rules decide, not what the CUDA kernels could take; a layer the
+        rule admits but the CUDA kernels do not take, and a layer neither
+        route takes, raise and name ``pallas_train='off'``."""
+        from rdst_tpu_torch.kernels.block_train import (
+            block_train_kernel_supports, fused_block_train_fits,
+            fused_pair_train_fits)
         from rdst_tpu_torch.kernels.pair_train import (
             pair_train_kernel_supports)
 
-        if not self.blocks or len(self.blocks) % 2:
-            return f"depth {len(self.blocks)} is not a whole number of pairs"
+        h, w = x_size
+        ws, _ = resolve_ws_shift(self.build_resolution or (h, w), h, w,
+                                 self.window_size, self.window_size // 2)
         blk = self.blocks[0]
-        if not blk.layer_norm or blk.qk_scale is not None:
-            return "the block has no LayerNorm or a custom q scale"
-        if self.drop or self.attn_drop:
-            return (f"dropout rates {self.drop}/{self.attn_drop} (the "
-                    "kernels apply stochastic depth only)")
-        n = blk.attn.window_size ** 2
+        n, c, nh = ws * ws, blk.dim, blk.num_heads
         hidden = blk.mlp.fc1.out_features
-        if not pair_train_kernel_supports(n, blk.dim, blk.num_heads, hidden):
-            return (f"N={n}, C={blk.dim}, {blk.num_heads} heads, hidden "
-                    f"{hidden} exceed what the CUDA kernels take")
-        return None
+        nw = (h // ws) * (w // ws)
+        off = "; build with pallas_train='off'"
+        if not blk.layer_norm or blk.qk_scale is not None:
+            raise ValueError("the train kernels take LayerNorm blocks with "
+                             "the default q scale" + off)
+        if self.drop or self.attn_drop:
+            raise ValueError(f"dropout rates {self.drop}/{self.attn_drop} "
+                             "(the train kernels apply stochastic depth "
+                             "only)" + off)
+        if h % ws or w % ws:
+            raise ValueError(f"training patches {h}x{w} are not whole "
+                             f"windows of {ws}" + off)
+        geom = (f"N={n}, C={c}, {nh} heads, hidden {hidden}, {nw} windows "
+                "per image")
+        if (mode == "pair" and len(self.blocks) % 2 == 0
+                and fused_pair_train_fits(nw, n, c, nh, hidden, 2, softmax)):
+            if not pair_train_kernel_supports(n, c, nh, hidden):
+                raise ValueError(f"the train-pair CUDA kernels do not take "
+                                 f"{geom}" + off)
+            return "pair"
+        if not fused_block_train_fits(nw, n, c, nh, hidden, 2, softmax):
+            raise ValueError(f"no train kernel admits {geom}" + off)
+        if not block_train_kernel_supports(n, c, nh, hidden):
+            raise ValueError(f"the block-train CUDA kernels do not take "
+                             f"{geom}" + off)
+        return "block"
 
     def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
         if self.training and self.use_pair_train:

@@ -13,7 +13,8 @@ One optimizer step per "epoch", as in the JAX package:
 
 * the batch sampler runs in a thread, a few batches ahead;
 * the forward in ``training_dtype`` (bf16: float32 master parameters,
-  bf16 activations; each DSTL pair on the train-pair kernels unless
+  bf16 activations; each layer on the train-pair or single-block train
+  kernels, as ``models.routes.set_train_mode`` decides, unless
   ``pallas_train='off'``), the loss in float32, the gradients by
   autograd;
 * the guarded update: the step is skipped on a non-finite loss or
@@ -113,7 +114,7 @@ class SRTrainer:
         from rdst_tpu_torch.kernels.window_attention import (kernel_flags,
                                                              train_flag)
         from rdst_tpu_torch.models import build_generator
-        from rdst_tpu_torch.models.rdst import set_kernel_mode, set_train_mode
+        from rdst_tpu_torch.models.routes import set_kernel_mode, set_train_mode
         from rdst_tpu_torch.nn.layers import set_generator
 
         self.paras = paras
@@ -158,7 +159,8 @@ class SRTrainer:
             bound = ((read_stats_sidecar(pre) or {}).get("attn_logit_max")
                      if pre else 0.0)
             softmax = resolve_softmax_auto(bound)
-        set_kernel_mode(self.model, self.model.kernel_mode, softmax)
+        set_kernel_mode(self.model, self.model.kernel_mode, softmax,
+                        self.model.quant)
         set_generator(self.model, self.generator)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.opt = Optimizer(self.params, paras)
@@ -211,9 +213,10 @@ class SRTrainer:
         else:
             self.write_log(fancy_print("Model initialized from scratch"))
         self.write_log(f"device {self.device}, dtype {self.dtype}, train "
-                       f"route {self.model.train_mode or 'plain'}, eval "
-                       f"routes {self.model.routes}, softmax "
-                       f"{self.model.softmax}")
+                       f"route {self.model.train_mode or 'plain'} "
+                       f"{self.model.train_routes}, eval routes "
+                       f"{self.model.routes}, softmax {self.model.softmax}, "
+                       f"int8 {sorted(self.model.quant)}")
 
     def weights_init(self) -> str:
         """Warm start from ``pre_trained_g`` (a flax ``.msgpack``
@@ -462,13 +465,14 @@ class SRTrainer:
         """'auto': once the audited bound reaches the margin, the clamp
         variant gives way to the stable softmax, for training and eval."""
         from rdst_tpu_torch.kernels.swin_block import AUTO_CLAMP_MARGIN
-        from rdst_tpu_torch.models.rdst import set_kernel_mode
+        from rdst_tpu_torch.models.routes import set_kernel_mode
 
         if not (self._softmax_auto and self.model.softmax == "clamp"):
             return False
         if self._logit_bound is None or self._logit_bound < AUTO_CLAMP_MARGIN:
             return False
-        set_kernel_mode(self.model, self.model.kernel_mode, "stable")
+        set_kernel_mode(self.model, self.model.kernel_mode, "stable",
+                        self.model.quant)
         self.write_log(
             f"pallas_softmax=auto: audited logit bound "
             f"{self._logit_bound:.1f} >= margin {AUTO_CLAMP_MARGIN:.0f} -- "

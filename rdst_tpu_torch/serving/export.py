@@ -6,9 +6,10 @@ batch padded to a bucket of a sparse ladder (default 1, 8, 64), so a
 server sees a few fixed batch shapes. Normalization (MeanShift) is part
 of the model. ``inference_dtype = 'bfloat16'`` serves the bf16 model
 (float32 parameter masters; inputs and outputs stay float32 numpy) on
-the fast kernels of its kernel mode. The exported bundle of the JAX
-package waits for a later slice; so do int8 matmuls and MetaSR's
-residual blend, which raise.
+the fast kernels of its kernel mode, with int8 qkv operands where
+``pallas_quant='qkv'`` asks for them (mode swin). The exported bundle of
+the JAX package waits for a later slice; so do the other int8 groups and
+MetaSR's residual blend, which raise.
 """
 
 from __future__ import annotations
@@ -85,28 +86,22 @@ def _bucketed_predict(fn: Callable[[np.ndarray], np.ndarray], x: np.ndarray,
 def build_serving_model(paras, device="cuda"):
     """Build the generator + trained weights exactly like the tester, on
     ``device``. Returns ``(model, meta)``; ``meta`` is the manifest
-    identity (generator, scales, dtype, kernel mode, softmax variant, the
-    kernel each RDSTB runs...). The kernel keys are resolved once, in the
+    identity (generator, scales, dtype, kernel mode, softmax variant, int8
+    groups, the kernel each route unit runs...). The kernel keys are resolved once, in the
     model builder; the model keeps its mode, so another model built later
     in the process cannot change it."""
     from rdst_tpu_torch.checkpoint.loading import (load_well_trained_params,
                                                    resolve_model_path,
                                                    resolve_norm_stats)
     from rdst_tpu_torch.device import resolve_device
-    from rdst_tpu_torch.kernels.window_attention import kernel_flags
     from rdst_tpu_torch.models import build_generator
 
     dev = resolve_device(device)
-    flags = kernel_flags(paras)
     path = resolve_model_path(paras)
     idt = str(paras.get("inference_dtype", "float32")).lower()
     dtype = torch.bfloat16 if idt in ("bfloat16", "bf16") else torch.float32
-    # int8 rides the bf16 fast path only; the f32 precise path drops it,
-    # as the JAX precise branch does
-    if flags.quant and dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"pallas_quant {sorted(flags.quant)}: int8 matmuls come with "
-            "the int8 slice of the port")
+    # int8 rides the bf16 fast path only (the f32 precise path drops it,
+    # as the JAX precise branch does); the model factory routes it
     residual_scale = float(paras.get("residual_scale", 0.0) or 0.0)
     if residual_scale > 0:
         raise NotImplementedError(
@@ -136,6 +131,7 @@ def build_serving_model(paras, device="cuda"):
         "residual_scale": residual_scale,
         "pallas_kernels": model.kernel_mode or None,
         "pallas_softmax": model.softmax or None,
+        "pallas_quant": sorted(model.quant) or None,
         "routes": list(model.routes),
         "device": str(dev),
         "torch_version": torch.__version__,

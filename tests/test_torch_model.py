@@ -169,7 +169,7 @@ def test_pad_to_window_multiple_reflects():
     ("scale_free", True, "MetaSR"),
     ("rdst_ape", True, "absolute position"),
     ("rdst_res_connection", "3conv", "1conv"),
-    ("feature_generator", "swinir", "SwinIR"),
+    ("feature_generator", "estsr", "model-zoo"),
     ("feature_generator", "edsr", "model-zoo"),
 ])
 def test_unported_options_raise(key, value, match):

@@ -154,10 +154,11 @@ def test_pair_mode_refuses_odd_depth():
 @pytest.mark.parametrize("mode,instead", [("rdstb", "pair"),
                                            ("pair", "swin"), ("swin", "off")])
 def test_modes_refuse_widths_the_kernels_do_not_take(mode, instead):
-    """Widths past the kernels' 128 channels (embed 96 growing by 48:
-    96 and 144) raise when the model is built in a kernel mode, naming the
-    mode to choose instead; the plain path builds."""
-    wide = dict(SMALL, embed_dim=96, growth_rate=48, num_heads=(6, 6))
+    """Widths past the kernels' channels (embed 96 growing by 102: 96 and
+    198, past the pair and RDSTB kernels' 128 and the fast block's 192)
+    raise when the model is built in a kernel mode, naming the mode to
+    choose instead; the plain path builds."""
+    wide = dict(SMALL, embed_dim=96, growth_rate=102, num_heads=(6, 6))
     model = RDSTSR(**wide, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match=f"pallas_kernels='{instead}'"):
         set_kernel_mode(model, mode)

@@ -168,11 +168,16 @@ def _tiny(**kw):
 
 
 def test_route_decisions_at_build():
+    """Routes are decided once, at build: 'pair' where the JAX package's
+    rule admits the pair, 'block' (the single-block train kernel, the
+    JAX package's forced A/B) for every block; a layer that no train
+    kernel takes raises, naming pallas_train='off'."""
     model = build_generator(_tiny(rdst_growth_rate=6), dtype=torch.bfloat16)
     assert set_train_mode(model, "pair") == "pair"
+    assert model.train_routes == {"pair": 4, "block": 0}
     assert set_train_mode(model, "") == ""
-    with pytest.raises(NotImplementedError, match="Queue B 6"):
-        set_train_mode(model, "block")
+    assert set_train_mode(model, "block") == "block"
+    assert model.train_routes == {"pair": 0, "block": 8}
     f32 = build_generator(_tiny(rdst_growth_rate=6))
     assert set_train_mode(f32, "pair") == ""  # f32 trains on autograd
     dropped = build_generator(_tiny(rdst_growth_rate=6, swin_drop_rate=0.1),
@@ -180,7 +185,8 @@ def test_route_decisions_at_build():
     with pytest.raises(ValueError, match="pallas_train='off'"):
         set_train_mode(dropped, "pair")
     assert set_train_mode(dropped, "") == ""
-    wide = build_generator(_tiny(rdst_embed_dim=132, rdst_growth_rate=6,
+    # head dim 33: past what either train kernel takes
+    wide = build_generator(_tiny(rdst_embed_dim=198, rdst_growth_rate=6,
                                  rdst_num_heads=[6, 6], pallas_kernels="off"),
                            dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="pallas_train='off'"):
