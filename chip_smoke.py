@@ -45,6 +45,11 @@ PyTorch version on the card. Phases, each printed with its seconds (the
     60): relative max error of the output, the input cotangent and every
     weight and bias gradient (bar 0.02); CUDA-event times, plain times
     (the plain backward alone, through a graph built once) and bounds;
+    for the timed variant, the backward launch alone: two launches on
+    the same inputs bitwise equal, the kernels a call (26: 13 a block),
+    the result against the staged plain VJP (``block_bwd_reference``,
+    the two blocks chained through the relayout; bar 0.02), and the
+    device time of each phase of the backward (torch.profiler);
 12. the bf16 training step: the 20-phantom corpus made by the port's
     generator, then ``python -m rdst_tpu_torch.train`` (in process) on
     ``config_files/rdst_e1_100k_oasis20_x4.ini`` for 20 steps with a
@@ -76,7 +81,8 @@ PyTorch version on the card. Phases, each printed with its seconds (the
     and a shifted case, with and without factor columns, 'clamp' and
     'stable'): the output and every gradient (tokens, the 12 parameters
     through the fold, the bias), bar 0.02; CUDA-event times, plain
-    times, bounds;
+    times, bounds; the backward's extras as phase 11 (13 kernels a
+    call);
 18. SwinIR-std bf16 training (``config_files/swinir_std_100k_oasis20_x4
     .ini``, 20 steps, a quick evaluation every 10): ``train_routes`` 36
     block / 0 pair, 36 + 36 block-train wrapper calls a step and none of
@@ -717,13 +723,102 @@ def _pair_train_grads(fn, ops, x, dz, dpf, kw):
     return out.detach(), [t.grad for t in leaves]
 
 
+# The backward's kernels by phase (csrc/block_bwd.cuh), as the profiler
+# names them: (part of the kernel's name, phase)
+BWD_PHASES = (
+    ("prep_weights", "weights padded"),
+    ("rows_kernel", "LN1 rows, fm dz"),
+    ("EpiQkv", "qkv GEMM"),
+    ("attn_fwd", "attention forward"),
+    ("EpiProjLn", "proj GEMM + residual + LN2"),
+    ("EpiFc1", "fc1 GEMM + GELU"),
+    ("EpiDu", "dh2 W2^T GEMM -> du"),
+    ("EpiLn2Bwd", "du W1^T GEMM + LN2 VJP"),
+    ("EpiDout", "dy Wproj^T GEMM -> dO"),
+    ("attn_vjp", "attention VJP"),
+    ("EpiLn1Bwd", "dqkv Wqkv^T GEMM + LN1 VJP"),
+    ("wgrad", "weight gradients (split K)"),
+    ("reduce_kernel", "fixed-order sums"),
+)
+
+
+def _flat(tree):
+    """The tensors of a nested tuple, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for part in tree for t in _flat(part)]
+
+
+def _phase_ms(call, iters: int = 5) -> dict:
+    """Device time of one call by backward phase (torch.profiler, CUPTI),
+    ms per call; {} when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        t = float(e.self_device_time_total or 0.0)
+        if e.device_type != DeviceType.CUDA or t <= 0:
+            continue
+        label = next((ph for key, ph in BWD_PHASES if key in e.key), "other")
+        out[label] = out.get(label, 0.0) + t / iters / 1e3
+    return out
+
+
+def _backward_extras(label: str, call, counter, vjp: int, staged) -> dict:
+    """The backward launch alone at the timed variant: two launches on
+    the same inputs bitwise equal; kernels per call (``reductions`` counts
+    those beside the ``vjp`` attention VJP kernels of a call); the result
+    against the staged plain VJP (``block_bwd_reference``), bar BF16_TOL;
+    device time per phase."""
+    counter.launches = counter.reductions = 0
+    first = _flat(call())
+    torch.cuda.synchronize()
+    kernels = (counter.reductions + vjp * counter.launches) / counter.launches
+    second = _flat(call())
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{label}: two backward launches on the same "
+                             "inputs differ")
+    want = _flat(staged())
+    errs = [_rel(a, b)[0] for a, b in zip(first, want)]
+    finite = all(bool(torch.isfinite(a.float()).all()) for a in first)
+    if not finite or max(errs) > BF16_TOL:
+        raise AssertionError(f"{label}: backward vs the staged plain VJP "
+                             f"{errs} (finite={finite})")
+    phases = _phase_ms(call)
+    log(f"  {label} backward: two launches bitwise equal; {kernels:g} "
+        f"kernels a call; vs the staged plain VJP rel max {max(errs):.3e} "
+        f"(bar {BF16_TOL})")
+    if phases:
+        total = sum(phases.values())
+        log(f"  {label} backward by phase (torch.profiler, ms a call; "
+            f"{total:.4f} in all):")
+        for ph, ms in phases.items():
+            log(f"    {ms:8.4f}  {ph}")
+    else:
+        log("  torch.profiler recorded no device time: phases not measured")
+    return {"deterministic": True, "kernels_per_call": kernels,
+            "staged_rel_max": max(errs), "phases_ms": phases}
+
+
 @phase("train-pair kernels vs plain")
 def train_kernel_phase(model) -> dict:
     """Forward and backward kernels against the plain version and its
     autograd gradient, at the training geometry of the flagship."""
+    from rdst_tpu_torch.kernels import block_train as bt
     from rdst_tpu_torch.kernels import pair_train as pt
     from rdst_tpu_torch.kernels.swin_block import (FastParams, kernel_layout,
                                                    softmax_code)
+    from rdst_tpu_torch.kernels.swin_pair import (shift_relayout,
+                                                  unshift_relayout)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     names = (["x"] + [f"a.{f}" for f in FastParams._fields] + ["bias_a"]
@@ -792,6 +887,23 @@ def train_kernel_phase(model) -> dict:
                                                 retain_graph=True),
                     warmup=1, iters=5)
                 del twin, leaves
+
+                def staged():  # block b's staged VJP, then block a's
+                    ya = bt.block_train_reference(x, pa, ba, None,
+                                                  num_heads=6,
+                                                  softmax=softmax)
+                    y2 = shift_relayout(ya, (24, 24), 8, 4)
+                    dxb, gb, dbb = bt.block_bwd_reference(
+                        y2, dz, pb, bb, None, num_heads=6, softmax=softmax)
+                    dy = unshift_relayout(dxb, (24, 24), 8, 4)
+                    dxa, ga, dba = bt.block_bwd_reference(
+                        x, dy, pa, ba, None, num_heads=6, softmax=softmax)
+                    return dxa, ga, dba, gb, dbb
+
+                row.update(_backward_extras(
+                    f"C={c}", lambda: pt.launch_backward(
+                        x, dz, y, pa, ba, pb, bb, None, geom),
+                    pt.launch_backward, 2, staged))
                 windows = x.shape[0]
                 flops = 2 * _block_flops(windows, c)
                 wbytes = sum(t.numel() * t.element_size() for t in ops)
@@ -895,14 +1007,18 @@ def train_phase(data_dir: str, tmp: str) -> dict:
     from rdst_tpu_torch.kernels import block_train as bt
     bt.launch_forward.launches = bt.launch_backward.launches = 0
     pt.launch_forward.launches = pt.launch_backward.launches = 0  # main path
+    pt.launch_backward.reductions = 0
     t0 = time.perf_counter()
     trainer = train_main(_train_argv(data_dir, out_dir, TRAIN_STEPS))
     torch.cuda.synchronize()
     out["run_s"] = time.perf_counter() - t0
     fwd, bwd = pt.launch_forward.launches, pt.launch_backward.launches
-    out.update(forward_launches=fwd, backward_launches=bwd)
+    out.update(forward_launches=fwd, backward_launches=bwd,
+               reduction_launches=pt.launch_backward.reductions)
     log(f"{TRAIN_STEPS} steps in {out['run_s']:.3f} s (evaluations "
-        f"included): train-pair launches forward {fwd}, backward {bwd}")
+        f"included): train-pair launches forward {fwd}, backward {bwd} "
+        f"(+{pt.launch_backward.reductions} kernels beside the attention "
+        "VJPs)")
     if fwd != 24 * TRAIN_STEPS or bwd != 24 * TRAIN_STEPS or \
             bt.launch_forward.launches or bt.launch_backward.launches:
         raise AssertionError(f"expected {24 * TRAIN_STEPS} forward and "
@@ -984,7 +1100,7 @@ def train_profile_phase(trainer) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     groups = {"train kernels forward": 0.0,
-              "train kernels backward (VJP + reductions)": 0.0,
+              "train kernels backward (13 kernels a block)": 0.0,
               "convolution": 0.0, "matmul (adapters, optimizer)": 0.0,
               "other (LayerNorms, casts, elementwise)": 0.0}
     top = []
@@ -996,8 +1112,8 @@ def train_profile_phase(trainer) -> dict:
         name = e.key.lower()
         if "pair_train_fwd" in name or "block_train_fwd" in name:
             groups["train kernels forward"] += t
-        elif "block_bwd" in name or "sum_parts" in name:
-            groups["train kernels backward (VJP + reductions)"] += t
+        elif "trainblk::" in name:
+            groups["train kernels backward (13 kernels a block)"] += t
         elif any(w in name for w in CONV_KERNELS + ("wgrad", "dgrad")):
             groups["convolution"] += t
         elif any(w in name for w in ("gemm", "sm90", "cutlass")):
@@ -1266,6 +1382,13 @@ def block_train_kernel_phase(model) -> dict:
                                             retain_graph=True),
                 warmup=1, iters=5)
             del twin, leaves
+            row.update(_backward_extras(
+                "C=180", lambda: bt.launch_backward(x, dz, fp, pb, None, 6,
+                                                    code),
+                bt.launch_backward, 1,
+                lambda: bt.block_bwd_reference(x, dz, fp, pb, None,
+                                               num_heads=6,
+                                               softmax=softmax)))
             flops = _block_flops(288, 180)
             wbytes = sum(t.numel() * t.element_size() for t in [*fp, pb])
             tok = x.numel() * 2
@@ -1362,7 +1485,8 @@ def swinir_train_phase(data_dir: str, tmp: str) -> dict:
                pair_launches=pfwd + pbwd, eval_launches=evals)
     log(f"{TRAIN_STEPS} steps in {out['run_s']:.3f} s (evaluations "
         f"included): block-train wrapper calls forward {fwd}, backward "
-        f"{bwd} (+{bt.launch_backward.reductions} reduction kernels), "
+        f"{bwd} (+{bt.launch_backward.reductions} kernels beside the "
+        "attention VJPs), "
         f"train-pair {pfwd + pbwd}, fast-block launches in the quick "
         f"evaluations {evals}")
     if fwd != 36 * TRAIN_STEPS or bwd != 36 * TRAIN_STEPS or pfwd + pbwd:

@@ -2,29 +2,61 @@
 // shared by csrc/pair_train.cu (the two blocks of a DSTL pair) and
 // csrc/block_train.cu (one block).
 //
-// `block_bwd_kernel` runs one window per thread block (a grid-stride loop
-// over windows). Like the TPU kernels (`jax.vjp` of the body inside the
-// backward pallas_call), each window's forward is recomputed, then the
-// VJP of the same math runs in the window: the MLP (tanh-GELU
-// derivative), the affine-free normalize, the projection, the per-head
-// softmax (exact division; clamp: no gradient where s > 60; stable: the
-// gradient through the row max, split among its ties), q/k/v and the
-// packed bias. Cotangents are rounded to bf16 wherever the forward holds
-// a bf16 value, as autodiff of the bf16 body does. The block's input and
-// output cotangent are read and written in window layout, or gathered
-// from / scattered into an image-layout tensor at rolled positions (the
-// pair's relayout, a permutation). Weight and bias gradients are
-// accumulated in f32 per thread block and summed over thread blocks in a
-// fixed order by `sum_parts_kernel`, so a step is deterministic (no float
-// atomics); the per-window score cotangents are summed per bias window
-// the same way.
+// Replaces the backward pallas_calls of rdst_tpu/kernels/pair_train.py
+// (:232) and rdst_tpu/kernels/block_train.py (:220): `jax.vjp` of the
+// fast block body inside the kernel, which recomputes each window's
+// forward and runs its VJP in VMEM, one grid step per window chunk.
 //
-// What bounds it on an H100: operations (about twice the forward's
-// products, plus the recompute). The products run on the tensor cores
-// (block_gemm: mma.sync, f32 operands split into bf16 hi + lo), but the
-// window's intermediates live in an L2-backed global workspace of the
-// thread block and its row passes take a thread per row, so staging and
-// latency, not the products, bound this first version.
+// The math is the hand-derived VJP of the fast body with an exact
+// division of the softmax normalizer: the MLP (tanh-GELU derivative),
+// the affine-free normalize, the projection, the per-head softmax
+// (clamp: no gradient where s > 60; stable: the gradient through the row
+// max, split among its ties; stable_mm: that gradient rounded to bf16),
+// q/k/v and the packed bias. Cotangents are rounded to bf16 wherever the
+// forward holds a bf16 value, as autodiff of the bf16 body does.
+// kernels/block_train.py::block_bwd_reference is the same computation in
+// plain PyTorch, phase by phase, at the same rounding points.
+//
+// What bounds it on an H100: operations, about 4x the forward's products
+// (the recompute, twice the forward's products for the VJP, and the f32
+// cotangents taken as bf16 hi + lo pairs), but only if every product runs
+// on the tensor cores at a good share of their rate and the state between
+// products stays small. A window's own products are tiny (64 tokens,
+// head widths 10-30), so the design works over all T = windows x 64
+// tokens at once, in phases, each laid out for where its data lives:
+//
+//  * Dense products as token-parallel tensor-core GEMMs (`gemm_tile`:
+//    64 x BN tiles, BK = 32, a 3-stage cp.async ring, ldmatrix +
+//    mma.sync m16n8k16 bf16, f32 accumulation). The accumulator tile is
+//    parked in shared memory, and each use's epilogue reads it there:
+//    bias, GELU and its derivative, the bf16 roundings, and -- where one
+//    tile spans a whole row (BN >= C + 1) -- the row passes of the
+//    normalize (LN2's statistics after the projection; both normalize
+//    VJPs) and the residual adds, a warp per row.
+//  * f32 cotangent operands are written by the producing epilogue as two
+//    bf16 tensors (hi, lo = bf16(v - hi)); the consuming GEMM runs both
+//    against the same other operand into one accumulator: K doubled,
+//    about 16 bits of the f32 product.
+//  * Weight gradients are the same GEMM transposed, X^T dY with K = T,
+//    cut into fixed token chunks (`wgrad_kernel`, all four weights in one
+//    launch), the partials summed in chunk order (`reduce_kernel`): no
+//    float atomics, so a step is deterministic. Bias gradients come out
+//    of the same products: every activation buffer carries a column of
+//    ones in its padding, so row C (or hidden) of X^T dY is the column
+//    sum of dY.
+//  * Attention per (window, head), 4 warps of 16 query rows, q/k/v/dO in
+//    shared memory padded to 16 channels: the recomputed scores, softmax
+//    and P V in registers (`attn_fwd_kernel`), then the VJP
+//    (`attn_vjp_kernel`): dP, the normalizer's cotangent, the score
+//    cotangent with the clamp mask and the tie split of the row max, dq
+//    from registers, dk and dv through shared memory. The score
+//    cotangents are written per window and summed per bias window.
+//  * The pair's relayouts (block b's input gathered from block a's
+//    output at rolled positions, its input cotangent scattered back) are
+//    row maps (`Rows`) in the row kernel and the row-wise epilogues.
+//
+// 13 kernels per block (`kBwdKernels`); the state between them is
+// token-major bf16/f32 buffers in device memory (`work_floats`).
 
 #pragma once
 
@@ -33,6 +65,7 @@
 namespace trainblk {
 
 using fastblk::bf16;
+using fastblk::round_up;
 
 // One block's folded weights in the plain (in, out) layout of
 // kernels.swin_block.FastParams, and its packed bias.
@@ -48,31 +81,6 @@ struct BlockW {
   const bf16* bias;   // (bw, n, nh * n)
   int bw;
 };
-
-// Offsets (floats) of one thread block's workspace.
-struct Work {
-  int x, xn, qkv, s, e, den, o, x1, x1n, u, h1, st, g, du, dt, dqkv, dden,
-      da;
-  int total;
-};
-
-__host__ __device__ inline Work work_layout(int n, int c, int nh, int hid) {
-  Work L;
-  int off = 0;
-  int* const fields[] = {&L.x, &L.xn, &L.qkv, &L.s, &L.e, &L.den, &L.o,
-                         &L.x1, &L.x1n, &L.u, &L.h1, &L.st, &L.g, &L.du,
-                         &L.dt, &L.dqkv, &L.dden, &L.da};
-  const int sizes[] = {n * c, n * c, 3 * n * c, nh * n * n, nh * n * n,
-                       nh * n, n * c, n * c, n * c, n * hid, n * hid, 4 * n,
-                       n * c, n * hid, n * c, 3 * n * c, nh * n,
-                       nh * n * n};
-  for (int i = 0; i < 18; ++i) {
-    *fields[i] = off;
-    off += (sizes[i] + 31) / 32 * 32;  // 128-byte aligned buffers
-  }
-  L.total = off;
-  return L;
-}
 
 // Offsets (floats) of one block's weight gradients: FastParams order.
 struct Grads {
@@ -93,23 +101,148 @@ __host__ __device__ inline Grads grad_layout(int c, int hid) {
   return G;
 }
 
+constexpr int kChunkTokens = 1024;  // tokens of one weight-gradient partial
+constexpr int kBwdKernels = 13;     // kernels of one block's backward
+
+// Widths of the token-major buffers. A C-wide buffer has rows of kp =
+// round_up(c + 1, 16) elements: column c holds ones in the activations
+// (the bias-gradient column), the rest of the padding zeros; likewise hp
+// for the hidden width. q/k/v rows hold each head in hdg = round_up(hd,
+// 8) channels (16-byte rows per head).
+struct Dims {
+  int windows, n, c, nh, hidden, tokens;
+  int hd, hdg, hds;  // head width; in the q/k/v rows; in shared memory
+  int kp, hp, n3;
+  int chunks;        // token chunks of the weight-gradient products
+};
+
+__host__ __device__ inline Dims make_dims(int windows, int n, int c, int nh,
+                                          int hidden) {
+  Dims d;
+  d.windows = windows;
+  d.n = n;
+  d.c = c;
+  d.nh = nh;
+  d.hidden = hidden;
+  d.tokens = windows * n;
+  d.hd = c / nh;
+  d.hdg = round_up(d.hd, 8);
+  d.hds = round_up(d.hd, 16);
+  d.kp = round_up(c + 1, 16);
+  d.hp = round_up(hidden + 1, 16);
+  d.n3 = 3 * nh * d.hdg;
+  d.chunks = (d.tokens + kChunkTokens - 1) / kChunkTokens;
+  return d;
+}
+
+// Elements of one chunk's weight-gradient partials: dWqkv (kp, n3),
+// dWproj (kp, kp), dW1 (kp, hp), dW2 (hp, kp), in that order.
+inline long long part_size(const Dims& d) {
+  return static_cast<long long>(d.kp) * d.n3 +
+         static_cast<long long>(d.kp) * d.kp +
+         2ll * static_cast<long long>(d.kp) * d.hp;
+}
+
+// The workspace's buffers (token-major; T = tokens).
+struct Bufs {
+  bf16 *wqkv, *wproj, *w1, *w2;  // weights padded: (kp, n3) (kp, kp)
+                                 // (kp, hp) (hp, kp)
+  float* bqkv;                   // (n3) the qkv bias by head, padded
+  float2 *st1, *st2;             // (T) mean and rsqrt of LN1 / LN2
+  bf16* xn;                      // (T, kp) bf16(normalize(x)), ones at c
+  bf16 *dh2h, *dh2l;             // (T, kp) fm dz as hi + lo
+  bf16* qkv;                     // (T, n3) q, k, v by head
+  bf16* ao;                      // (T, kp) bf16 attention output, ones at c
+  float* x1;                     // (T, c) the residual after attention
+  bf16* x1n;                     // (T, kp) bf16(normalize(x1)), ones at c
+  float* gd;                     // (T, hp) gelu'(u)
+  bf16* h1;                      // (T, hp) bf16(gelu(u)), ones at hidden
+  bf16 *duh, *dul;               // (T, hp) du as hi + lo
+  float* g2;                     // (T, c) the residual's cotangent after LN2
+  bf16 *dyh, *dyl;               // (T, kp) fa g2 as hi + lo
+  bf16* dout;                    // (T, kp) the attention output's cotangent
+  bf16* dqkv;                    // (T, n3)
+  float* dsw;                    // (windows, n, nh n) score cotangents
+  float* part;                   // (chunks, part_size) weight partials
+};
+
+// Floats of the workspace, and its buffers carved from `base` (each
+// 128-byte aligned).
+inline long long carve(const Dims& d, float* base, Bufs* b) {
+  long long off = 0;
+  const long long T = d.tokens;
+  auto take = [&](long long floats) {
+    float* p = base ? base + off : nullptr;
+    off += (floats + 31) / 32 * 32;
+    return p;
+  };
+  auto bf = [&](long long elems) {
+    return reinterpret_cast<bf16*>(take((elems + 1) / 2));
+  };
+  Bufs z;
+  z.wqkv = bf(static_cast<long long>(d.kp) * d.n3);
+  z.wproj = bf(static_cast<long long>(d.kp) * d.kp);
+  z.w1 = bf(static_cast<long long>(d.kp) * d.hp);
+  z.w2 = bf(static_cast<long long>(d.hp) * d.kp);
+  z.bqkv = take(d.n3);
+  z.st1 = reinterpret_cast<float2*>(take(2 * T));
+  z.st2 = reinterpret_cast<float2*>(take(2 * T));
+  z.xn = bf(T * d.kp);
+  z.dh2h = bf(T * d.kp);
+  z.dh2l = bf(T * d.kp);
+  z.qkv = bf(T * d.n3);
+  z.ao = bf(T * d.kp);
+  z.x1 = take(T * d.c);
+  z.x1n = bf(T * d.kp);
+  z.gd = take(T * d.hp);
+  z.h1 = bf(T * d.hp);
+  z.duh = bf(T * d.hp);
+  z.dul = bf(T * d.hp);
+  z.g2 = take(T * d.c);
+  z.dyh = bf(T * d.kp);
+  z.dyl = bf(T * d.kp);
+  z.dout = bf(T * d.kp);
+  z.dqkv = bf(T * d.n3);
+  z.dsw = take(T * d.nh * d.n);
+  z.part = take(d.chunks * part_size(d));
+  if (b) *b = z;
+  return off;
+}
+
+inline long long work_floats(const Dims& d) { return carve(d, nullptr, nullptr); }
+
+// Where token t (window t / n, row t % n) of a block's window order lives
+// in a caller's tensor: the same row (window layout), or the rolled image
+// position of the pair's relayout (image layout (images, ih, iw, c)).
+struct Rows {
+  int img, ih, iw, ws, shift;
+  __device__ __forceinline__ size_t operator()(int t, int n) const {
+    if (!img) return static_cast<size_t>(t);
+    const int win = t / n, r = t - win * n;
+    const int nww = iw / ws, nw = (ih / ws) * nww;
+    const int im = win / nw, wi = win - im * nw;
+    const int yy = ((wi / nww) * ws + shift + r / ws) % ih;
+    const int xx = ((wi % nww) * ws + shift + r % ws) % iw;
+    return (static_cast<size_t>(im) * ih + yy) * iw + xx;
+  }
+};
+
 struct BwdArgs {
   BlockW w;
-  // the block's input tokens: window layout (x_win) or gathered from an
-  // image-layout tensor (x_img) at the rolled positions of img_shift
-  const bf16* x_win;
-  const bf16* x_img;
-  const bf16* dz_win;  // cotangent of the output, window layout, or
-  const bf16* dz_img;  // gathered from an image-layout tensor
-  bf16* dx_win;        // cotangent of the input, window layout, or
-  bf16* dx_img;        // scattered into an image-layout tensor
-  const float* dpf;    // (windows * n, dp_stride) or null
-  int dp_col;          // the attn column; the mlp column follows
-  int dp_stride;       // columns of dpf: 4 (a pair's), 2 (one block's)
-  float* work;         // gridDim.x * work_layout(...).total
-  float* slab;         // gridDim.x * grad_layout(...).total, zeroed
-  float* dsw;          // (windows, n, nh * n) score cotangents
-  int windows, n, c, nh, hidden, ih, iw, ws, img_shift, softmax;
+  Dims d;
+  Bufs b;
+  const bf16* x;   // the block's input tokens (c per row) ...
+  Rows xr;         // ... at these rows
+  const bf16* dz;  // the output's cotangent
+  Rows dzr;
+  bf16* dx;        // the input's cotangent (out)
+  Rows dxr;
+  const float* dpf;  // (tokens, dp_stride) factor columns or null
+  int dp_col;        // the attn column; the mlp column follows
+  int dp_stride;
+  int softmax;
+  float* grads;  // grad_layout floats (out)
+  float* dbias;  // (bw, n, nh n) (out)
 };
 
 __device__ __forceinline__ float ldb(const bf16* p) {
@@ -120,438 +253,1334 @@ __device__ __forceinline__ float rb(float v) {
   return fastblk::round_bf16(v);
 }
 
-template <class F>
-__device__ __forceinline__ void each(int total, F f) {
-  for (int i = threadIdx.x; i < total; i += blockDim.x) f(i);
+__device__ __forceinline__ float fa_of(const BwdArgs& a, int t) {
+  return a.dpf ? a.dpf[static_cast<size_t>(t) * a.dp_stride + a.dp_col]
+               : 1.0f;
 }
 
-// The thread block's product: epi(m, n, sum_k a(m, k) b(k, n)) for
-// m < M, n < N, on the tensor cores. C tiles of 64 x 64: warp w owns rows
-// 16 (w / 2).. and columns 32 (w % 2).., four m16n8k16 tiles, f32
-// accumulators. Per 16-deep slice the operands are staged in shared
-// memory as bf16 (`tile`: kTileBytes) through the accessors a and b,
-// which read the workspace and the weights in whatever layout they have.
-// An operand that is not a bf16 value (SA, SB: the f32 cotangents) is
-// split into hi + lo bf16 parts and the product takes hi*hi + hi*lo +
-// lo*hi, about 16 bits of mantissa: f32 products to the rounding the
-// gradients need. Starts and ends with __syncthreads().
-constexpr int kTM = 64, kTK = 16, kLd = kTK + 8;  // 48-byte smem rows
-constexpr int kTileBytes = 4 * kTM * kLd * 2;
+__device__ __forceinline__ float fm_of(const BwdArgs& a, int t) {
+  return a.dpf ? a.dpf[static_cast<size_t>(t) * a.dp_stride + a.dp_col + 1]
+               : 1.0f;
+}
 
-template <bool SA, bool SB, class FA, class FB, class Epi>
-__device__ void block_gemm(int M, int N, int K, FA a, FB b, Epi epi,
-                           bf16* tile) {
-  bf16* Ah = tile;  // [64 m][kLd]
-  bf16* Al = Ah + kTM * kLd;
-  bf16* Bh = Al + kTM * kLd;  // [64 n][kLd]
-  bf16* Bl = Bh + kTM * kLd;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = (warp >> 1) * 16, wc = (warp & 1) * 32;
-  for (int m0 = 0; m0 < M; m0 += kTM) {
-    for (int n0 = 0; n0 < N; n0 += kTM) {
-      float acc[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += kTK) {
-        __syncthreads();
-        for (int i = tid; i < kTK * kTM; i += blockDim.x) {
-          const int mm = i >> 4, kk = i & 15;  // A: neighbours along k
-          const int k = k0 + kk;
-          const float va = (m0 + mm < M && k < K) ? a(m0 + mm, k) : 0.f;
-          const bf16 ha = __float2bfloat16_rn(va);
-          Ah[mm * kLd + kk] = ha;
-          if (SA) Al[mm * kLd + kk] =
-              __float2bfloat16_rn(va - __bfloat162float(ha));
-          const int kb = i >> 6, nn = i & 63;  // B: neighbours along n
-          const float vb =
-              (n0 + nn < N && k0 + kb < K) ? b(k0 + kb, n0 + nn) : 0.f;
-          const bf16 hb = __float2bfloat16_rn(vb);
-          Bh[nn * kLd + kb] = hb;
-          if (SB) Bl[nn * kLd + kb] =
-              __float2bfloat16_rn(vb - __bfloat162float(hb));
-        }
-        __syncthreads();
-        const bf16* ar = Ah + (wr + g) * kLd + 2 * t;
-        const uint32_t a0 = fastblk::ld32(ar), a1 = fastblk::ld32(ar + 8 * kLd),
-                       a2 = fastblk::ld32(ar + 8),
-                       a3 = fastblk::ld32(ar + 8 * kLd + 8);
-        uint32_t l0 = 0, l1 = 0, l2 = 0, l3 = 0;
-        if (SA) {
-          const bf16* lr = Al + (wr + g) * kLd + 2 * t;
-          l0 = fastblk::ld32(lr);
-          l1 = fastblk::ld32(lr + 8 * kLd);
-          l2 = fastblk::ld32(lr + 8);
-          l3 = fastblk::ld32(lr + 8 * kLd + 8);
-        }
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const bf16* br = Bh + (wc + nt * 8 + g) * kLd + 2 * t;
-          const uint32_t b0 = fastblk::ld32(br), b1 = fastblk::ld32(br + 8);
-          fastblk::mma16816(acc[nt], a0, a1, a2, a3, b0, b1);
-          if (SA) fastblk::mma16816(acc[nt], l0, l1, l2, l3, b0, b1);
-          if (SB) {
-            const bf16* bl = Bl + (wc + nt * 8 + g) * kLd + 2 * t;
-            fastblk::mma16816(acc[nt], a0, a1, a2, a3, fastblk::ld32(bl),
-                              fastblk::ld32(bl + 8));
-          }
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int r0 = m0 + wr + g, col = n0 + wc + nt * 8 + 2 * t;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int m = r0 + (u >> 1) * 8, nn = col + (u & 1);
-          if (m < M && nn < N) epi(m, nn, acc[nt][u]);
-        }
-      }
-    }
-  }
-  __syncthreads();
+// v as bf16 hi and lo = bf16(v - hi)
+__device__ __forceinline__ void split(float v, bf16* hi, bf16* lo) {
+  const bf16 h = __float2bfloat16_rn(v);
+  *hi = h;
+  *lo = __float2bfloat16_rn(v - __bfloat162float(h));
 }
 
 __device__ __forceinline__ float gelu_grad(float u) {
   const float k0 = 0.7978845608028654f, k1 = 0.044715f;
   const float t = tanhf(k0 * (u + k1 * u * u * u));
-  return 0.5f * (1.0f + t) + 0.5f * u * (1.0f - t * t) * k0 *
-                                 (1.0f + 3.0f * k1 * u * u);
+  return 0.5f * (1.0f + t) +
+         0.5f * u * (1.0f - t * t) * k0 * (1.0f + 3.0f * k1 * u * u);
 }
 
-// Per-row moments of the affine-free normalize (one thread per row):
-// st[r] = mean, st[n + r] = rsqrt(max(E[x^2] - mean^2, 0) + eps).
-__device__ inline void row_stats(const float* x, float* st, int n, int c) {
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    float s = 0.f, s2 = 0.f;
-    for (int k = 0; k < c; ++k) {
-      const float v = x[r * c + k];
-      s += v;
-      s2 += v * v;
+// ------------------------------------------------ fragments (ldmatrix)
+
+__device__ __forceinline__ void ldsm4(uint32_t* r, const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t* r, const bf16* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// The A operand (16 x 16 at rows m0, depth k0) of mma16816 from a matrix
+// stored [m][k] (frag_a) or [k][m] (frag_at) at row stride ld.
+__device__ __forceinline__ void frag_a(uint32_t* r, const bf16* s, int ld,
+                                       int m0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm4(r, s + (m0 + (l & 15)) * ld + k0 + (l >> 4) * 8);
+}
+
+__device__ __forceinline__ void frag_at(uint32_t* r, const bf16* s, int ld,
+                                        int m0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm4t(r, s + (k0 + (l & 7) + ((l >> 4) << 3)) * ld + m0 +
+                ((l >> 3) & 1) * 8);
+}
+
+// Two B operands (n-tiles n0 and n0 + 8, depth 16 at k0): r[0..1] and
+// r[2..3], from a matrix stored [n][k] (frag_b) or [k][n] (frag_bt).
+__device__ __forceinline__ void frag_b(uint32_t* r, const bf16* s, int ld,
+                                       int n0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm4(r, s + (n0 + (l & 7) + ((l >> 4) << 3)) * ld + k0 +
+               ((l >> 3) & 1) * 8);
+}
+
+__device__ __forceinline__ void frag_bt(uint32_t* r, const bf16* s, int ld,
+                                        int n0, int k0) {
+  const int l = threadIdx.x & 31;
+  ldsm4t(r, s + (k0 + (l & 7) + ((l >> 3) & 1) * 8) * ld + n0 + (l >> 4) * 8);
+}
+
+__device__ __forceinline__ void mma(float* d, const uint32_t* a,
+                                    uint32_t b0, uint32_t b1) {
+  fastblk::mma16816(d, a[0], a[1], a[2], a[3], b0, b1);
+}
+
+// A operand (16 x 16, depth k = 16 kk..) from accumulator tiles 2kk, 2kk+1
+// (rows g, g + 8; columns 2t, 2t + 1 of each 8-wide tile), as bf16.
+__device__ __forceinline__ void acc_to_a(uint32_t* a, const float* t0,
+                                         const float* t1) {
+  a[0] = fastblk::pack2(t0[0], t0[1]);
+  a[1] = fastblk::pack2(t0[2], t0[3]);
+  a[2] = fastblk::pack2(t1[0], t1[1]);
+  a[3] = fastblk::pack2(t1[2], t1[3]);
+}
+
+// the same as hi and lo parts
+__device__ __forceinline__ void acc_to_a2(uint32_t* hi, uint32_t* lo,
+                                          const float* t0, const float* t1) {
+  float l0[4], l1[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    l0[u] = t0[u] - rb(t0[u]);
+    l1[u] = t1[u] - rb(t1[u]);
+  }
+  acc_to_a(hi, t0, t1);
+  acc_to_a(lo, l0, l1);
+}
+
+__device__ __forceinline__ void st_bf2(bf16* p, float v0, float v1) {
+  *reinterpret_cast<uint32_t*>(p) = fastblk::pack2(v0, v1);
+}
+
+// ---------------------------------------------------------------- GEMM
+
+constexpr int kBM = 64, kBK = 32, kStages = 3, kGemmThreads = 256;
+
+// C (M, N) = sum over segments s of A_s (M, K) B_s (K, N): A stored
+// [M][K] (TA false) or [K][M] (TA true) at row stride lda, B stored
+// [N][K] (TB false) or [K][N] (TB true) at row stride ldb. Every stored
+// row is a multiple of 8 elements (16-byte chunks).
+struct GemmArgs {
+  const bf16* a[2];
+  const bf16* b[2];
+  int lda, ldb, M, N, K, nseg;
+};
+
+template <int BN, bool TA, bool TB>
+struct Tile {
+  static constexpr int kLdA = TA ? kBM + 8 : kBK + 8;
+  static constexpr int kAElems = TA ? kBK * (kBM + 8) : kBM * (kBK + 8);
+  static constexpr int kLdB = TB ? BN + 8 : kBK + 8;
+  static constexpr int kBElems = TB ? kBK * (BN + 8) : BN * (kBK + 8);
+  static constexpr int kStageElems = kAElems + kBElems;
+  static constexpr int kLdC = BN + 4;
+  static constexpr int kPipe = kStages * kStageElems * 2;
+  static constexpr int kSmem =
+      kPipe > kBM * kLdC * 4 ? kPipe : kBM * kLdC * 4;
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One 64 x BN tile of C at (m0, n0) over depth [kb, ke), left in shared
+// memory as f32 (row stride Tile::kLdC) after a __syncthreads(). Warps
+// 2 (m) x 4 (n), each 32 x BN/4.
+template <int BN, bool TA, bool TB>
+__device__ void gemm_tile(const GemmArgs& g, int m0, int n0, int kb, int ke,
+                          char* smem) {
+  using L = Tile<BN, TA, TB>;
+  constexpr int NT = BN / 32;
+  bf16* sm = reinterpret_cast<bf16*>(smem);
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;
+  float acc[2][NT][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+  const int nk = (ke - kb + kBK - 1) / kBK;
+  const int steps = nk * g.nseg;
+
+  auto load = [&](int step, int stage) {
+    const int seg = step >= nk ? 1 : 0;
+    const int k0 = kb + (step - seg * nk) * kBK;
+    const bf16* A = g.a[seg];
+    const bf16* B = g.b[seg];
+    bf16* As = sm + stage * L::kStageElems;
+    bf16* Bs = As + L::kAElems;
+    {
+      const int i = tid;  // kBM x kBK = 256 chunks of 8
+      int r, c8;
+      bool ok;
+      const bf16* src;
+      if (!TA) {
+        r = i >> 2;
+        c8 = (i & 3) * 8;
+        ok = m0 + r < g.M && k0 + c8 < ke;
+        src = A + static_cast<size_t>(m0 + r) * g.lda + k0 + c8;
+      } else {
+        r = i >> 3;
+        c8 = (i & 7) * 8;
+        ok = k0 + r < ke && m0 + c8 < g.M;
+        src = A + static_cast<size_t>(k0 + r) * g.lda + m0 + c8;
+      }
+      cp_async16(As + r * L::kLdA + c8, ok ? src : A, ok);
     }
-    const float mu = s / c;
-    st[r] = mu;
-    st[n + r] = rsqrtf(fmaxf(s2 / c - mu * mu, 0.f) + fastblk::kEps);
+    for (int i = tid; i < BN * 4; i += kGemmThreads) {
+      int r, c8;
+      bool ok;
+      const bf16* src;
+      if (!TB) {
+        r = i >> 2;
+        c8 = (i & 3) * 8;
+        ok = n0 + r < g.N && k0 + c8 < ke;
+        src = B + static_cast<size_t>(n0 + r) * g.ldb + k0 + c8;
+      } else {
+        r = i / (BN / 8);
+        c8 = (i % (BN / 8)) * 8;
+        ok = k0 + r < ke && n0 + c8 < g.N;
+        src = B + static_cast<size_t>(k0 + r) * g.ldb + n0 + c8;
+      }
+      cp_async16(Bs + r * L::kLdB + c8, ok ? src : B, ok);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();
+    const int nxt = s + kStages - 1;
+    if (nxt < steps) load(nxt, nxt % kStages);
+    cp_async_commit();
+    const bf16* As = sm + (s % kStages) * L::kStageElems;
+    const bf16* Bs = As + L::kAElems;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (TA)
+          frag_at(af[mt], As, L::kLdA, wm * 32 + mt * 16, kk);
+        else
+          frag_a(af[mt], As, L::kLdA, wm * 32 + mt * 16, kk);
+      }
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        uint32_t bq[4];
+        const int nb = wn * (BN / 4) + np * 16;
+        if (TB)
+          frag_bt(bq, Bs, L::kLdB, nb, kk);
+        else
+          frag_b(bq, Bs, L::kLdB, nb, kk);
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          mma(acc[mt][2 * np], af[mt], bq[0], bq[1]);
+          mma(acc[mt][2 * np + 1], af[mt], bq[2], bq[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* ct = reinterpret_cast<float*>(smem);
+  const int lane = tid & 31, gr = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int r = wm * 32 + mt * 16 + gr;
+      const int col = wn * (BN / 4) + nt * 8 + 2 * t4;
+      ct[r * L::kLdC + col] = acc[mt][nt][0];
+      ct[r * L::kLdC + col + 1] = acc[mt][nt][1];
+      ct[(r + 8) * L::kLdC + col] = acc[mt][nt][2];
+      ct[(r + 8) * L::kLdC + col + 1] = acc[mt][nt][3];
+    }
+  __syncthreads();
+}
+
+// A GEMM over the T token rows with epilogue epi(tile, ldc, m0, n0, BN).
+template <int BN, bool TA, bool TB, class Epi>
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    gemm_kernel(const GemmArgs g, const Epi epi) {
+  extern __shared__ __align__(16) char smem[];
+  const int m0 = blockIdx.x * kBM, n0 = blockIdx.y * BN;
+  gemm_tile<BN, TA, TB>(g, m0, n0, 0, g.K, smem);
+  epi.template run<BN>(reinterpret_cast<const float*>(smem), m0, n0);
+}
+
+// ------------------------------------------------------------ epilogues
+//
+// Each reads the 64 x BN f32 tile that gemm_tile left in shared memory
+// (row stride BN + 4): element-wise ones a column pair per thread, the
+// row-wise ones (where one tile spans the row) a warp per row.
+
+// f(m, j, v0, v1) for the tile's column pairs (j, j + 1), j < N, m < M
+template <int BN, class F>
+__device__ __forceinline__ void each_pair(const float* ct, int m0, int n0,
+                                          int M, int N, F f) {
+  constexpr int ldc = BN + 4, half = BN / 2;
+  for (int i = threadIdx.x; i < kBM * half; i += blockDim.x) {
+    const int r = i / half, cc = 2 * (i - r * half);
+    const int m = m0 + r, j = n0 + cc;
+    if (m < M && j < N) f(m, j, ct[r * ldc + cc], ct[r * ldc + cc + 1]);
   }
 }
 
-// dx += VJP of the normalize at x (stats st) for the cotangent dn of its
-// output: a (dn - mean(dn) - xhat mean(dn xhat)). One thread per row.
-__device__ inline void normalize_bwd(const float* x, const float* st,
-                                     const float* dn, float* dx, int n,
-                                     int c) {
-  for (int r = threadIdx.x; r < n; r += blockDim.x) {
-    const float mu = st[r], a = st[n + r];
-    float m1 = 0.f, m2 = 0.f;
-    for (int k = 0; k < c; ++k) {
-      const float xh = x[r * c + k] * a - mu * a;
-      m1 += dn[r * c + k];
-      m2 += dn[r * c + k] * xh;
+// q, k, v = bf16(xn Wqkv + bqkv), by head (pad channels 0: zero weights
+// and bias there)
+struct EpiQkv {
+  BwdArgs a;
+  template <int BN>
+  __device__ void run(const float* ct, int m0, int n0) const {
+    const Dims& d = a.d;
+    each_pair<BN>(ct, m0, n0, d.tokens, d.n3,
+                  [&](int m, int j, float v0, float v1) {
+                    st_bf2(a.b.qkv + static_cast<size_t>(m) * d.n3 + j,
+                           v0 + a.b.bqkv[j], v1 + a.b.bqkv[j + 1]);
+                  });
+  }
+};
+
+// x1 = x + (ao Wproj + bproj) fa; LN2's statistics; x1n (a warp per row)
+struct EpiProjLn {
+  BwdArgs a;
+  template <int BN>
+  __device__ void run(const float* ct, int m0, int) const {
+    constexpr int ldc = BN + 4;
+    const Dims& d = a.d;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < kBM; r += blockDim.x >> 5) {
+      const int m = m0 + r;
+      if (m >= d.tokens) break;
+      const bf16* xr = a.x + a.xr(m, d.n) * d.c;
+      const float f = fa_of(a, m);
+      float v[6], s = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int o = lane + 32 * i;
+        v[i] = 0.f;
+        if (o < d.c) {
+          v[i] = ldb(xr + o) + (ct[r * ldc + o] + ldb(a.w.bproj + o)) * f;
+          s += v[i];
+          s2 += v[i] * v[i];
+        }
+      }
+      s = fastblk::warp_sum(s);
+      s2 = fastblk::warp_sum(s2);
+      const float mu = s / d.c;
+      const float q = rsqrtf(fmaxf(s2 / d.c - mu * mu, 0.f) + fastblk::kEps);
+      const float mq = mu * q;
+      float* x1 = a.b.x1 + static_cast<size_t>(m) * d.c;
+      bf16* x1n = a.b.x1n + static_cast<size_t>(m) * d.kp;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int o = lane + 32 * i;
+        if (o < d.c) {
+          x1[o] = v[i];
+          x1n[o] = __float2bfloat16_rn(v[i] * q - mq);
+        }
+      }
+      for (int o = d.c + lane; o < d.kp; o += 32)
+        x1n[o] = __float2bfloat16_rn(o == d.c ? 1.f : 0.f);
+      if (lane == 0) a.b.st2[m] = make_float2(mu, q);
     }
-    m1 /= c;
-    m2 /= c;
-    for (int k = 0; k < c; ++k) {
-      const float xh = x[r * c + k] * a - mu * a;
-      dx[r * c + k] += a * (dn[r * c + k] - m1 - xh * m2);
+  }
+};
+
+// u = x1n W1 + bf1: h1 = bf16(gelu(u)) (ones at hidden), gd = gelu'(u)
+struct EpiFc1 {
+  BwdArgs a;
+  template <int BN>
+  __device__ void run(const float* ct, int m0, int n0) const {
+    const Dims& d = a.d;
+    each_pair<BN>(ct, m0, n0, d.tokens, d.hp,
+                  [&](int m, int j, float v0, float v1) {
+                    const float v[2] = {v0, v1};
+                    float h[2], gg[2];
+#pragma unroll
+                    for (int u = 0; u < 2; ++u) {
+                      h[u] = j + u == d.hidden ? 1.f : 0.f;
+                      gg[u] = 0.f;
+                      if (j + u < d.hidden) {
+                        const float uu = v[u] + a.w.bf1[j + u];
+                        h[u] = fastblk::gelu_tanh(uu);
+                        gg[u] = gelu_grad(uu);
+                      }
+                    }
+                    const size_t at = static_cast<size_t>(m) * d.hp + j;
+                    st_bf2(a.b.h1 + at, h[0], h[1]);
+                    *reinterpret_cast<float2*>(a.b.gd + at) =
+                        make_float2(gg[0], gg[1]);
+                  });
+  }
+};
+
+// du = bf16(dh2 W2^T) gelu'(u), as hi + lo
+struct EpiDu {
+  BwdArgs a;
+  template <int BN>
+  __device__ void run(const float* ct, int m0, int n0) const {
+    const Dims& d = a.d;
+    each_pair<BN>(ct, m0, n0, d.tokens, d.hp,
+                  [&](int m, int j, float v0, float v1) {
+                    const size_t at = static_cast<size_t>(m) * d.hp + j;
+                    const float2 gg =
+                        *reinterpret_cast<const float2*>(a.b.gd + at);
+                    const float u0 = rb(v0) * gg.x, u1 = rb(v1) * gg.y;
+                    st_bf2(a.b.duh + at, u0, u1);
+                    st_bf2(a.b.dul + at, u0 - rb(u0), u1 - rb(u1));
+                  });
+  }
+};
+
+// g2 = dz + normalize VJP of LN2 at x1 for bf16(du W1^T); dy = fa g2 as
+// hi + lo (a warp per row)
+struct EpiLn2Bwd {
+  BwdArgs a;
+  template <int BN>
+  __device__ void run(const float* ct, int m0, int) const {
+    constexpr int ldc = BN + 4;
+    const Dims& d = a.d;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < kBM; r += blockDim.x >> 5) {
+      const int m = m0 + r;
+      if (m >= d.tokens) break;
+      const float2 st = a.b.st2[m];
+      const float mq = st.x * st.y;
+      const float* x1 = a.b.x1 + static_cast<size_t>(m) * d.c;
+      float dn[6], xh[6], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int o = lane + 32 * i;
+        dn[i] = xh[i] = 0.f;
+        if (o < d.c) {
+          dn[i] = rb(ct[r * ldc + o]);
+          xh[i] = x1[o] * st.y - mq;
+          s1 += dn[i];
+          s2 += dn[i] * xh[i];
+        }
+      }
+      const float m1 = fastblk::warp_sum(s1) / d.c;
+      const float m2 = fastblk::warp_sum(s2) / d.c;
+      const bf16* dz = a.dz + a.dzr(m, d.n) * d.c;
+      const float f = fa_of(a, m);
+      float* g2 = a.b.g2 + static_cast<size_t>(m) * d.c;
+      const size_t at = static_cast<size_t>(m) * d.kp;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int o = lane + 32 * i;
+        if (o < d.c) {
+          const float g = ldb(dz + o) + st.y * (dn[i] - m1 - xh[i] * m2);
+          g2[o] = g;
+          split(f * g, a.b.dyh + at + o, a.b.dyl + at + o);
+        }
+      }
+      for (int o = d.c + lane; o < d.kp; o += 32)
+        split(0.f, a.b.dyh + at + o, a.b.dyl + at + o);
     }
+  }
+};
+
+// the attention output's cotangent bf16(dy Wproj^T) (pads 0)
+struct EpiDout {
+  BwdArgs a;
+  template <int BN>
+  __device__ void run(const float* ct, int m0, int n0) const {
+    const Dims& d = a.d;
+    each_pair<BN>(ct, m0, n0, d.tokens, d.kp,
+                  [&](int m, int j, float v0, float v1) {
+                    st_bf2(a.b.dout + static_cast<size_t>(m) * d.kp + j,
+                           j < d.c ? v0 : 0.f, j + 1 < d.c ? v1 : 0.f);
+                  });
+  }
+};
+
+// dx = bf16(g2 + normalize VJP of LN1 at x for bf16(dqkv Wqkv^T)), stored
+// at the caller's rows (a warp per row)
+struct EpiLn1Bwd {
+  BwdArgs a;
+  template <int BN>
+  __device__ void run(const float* ct, int m0, int) const {
+    constexpr int ldc = BN + 4;
+    const Dims& d = a.d;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int r = warp; r < kBM; r += blockDim.x >> 5) {
+      const int m = m0 + r;
+      if (m >= d.tokens) break;
+      const float2 st = a.b.st1[m];
+      const float mq = st.x * st.y;
+      const bf16* xr = a.x + a.xr(m, d.n) * d.c;
+      float dn[6], xh[6], s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int o = lane + 32 * i;
+        dn[i] = xh[i] = 0.f;
+        if (o < d.c) {
+          dn[i] = rb(ct[r * ldc + o]);
+          xh[i] = ldb(xr + o) * st.y - mq;
+          s1 += dn[i];
+          s2 += dn[i] * xh[i];
+        }
+      }
+      const float m1 = fastblk::warp_sum(s1) / d.c;
+      const float m2 = fastblk::warp_sum(s2) / d.c;
+      const float* g2 = a.b.g2 + static_cast<size_t>(m) * d.c;
+      bf16* dx = a.dx + a.dxr(m, d.n) * d.c;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const int o = lane + 32 * i;
+        if (o < d.c)
+          dx[o] = __float2bfloat16_rn(g2[o] +
+                                      st.y * (dn[i] - m1 - xh[i] * m2));
+      }
+    }
+  }
+};
+
+// ------------------------------------------------------ weight gradients
+
+// The four X^T dY products in one launch: blockIdx.x walks the output
+// tiles of every weight (64 x 128), blockIdx.z the token chunks; each
+// block writes its chunk's partial tile.
+struct WgradArgs {
+  GemmArgs p[4];
+  int first[5];  // first tile of each product; first[4] = all tiles
+  int tiles_n[4];
+  long long poff[4];
+  long long psize;
+  float* part;
+};
+
+constexpr int kWgradBN = 128;
+
+__global__ void __launch_bounds__(kGemmThreads, 2)
+    wgrad_kernel(const WgradArgs w) {
+  extern __shared__ __align__(16) char smem[];
+  int p = 0;
+  while (p < 3 && static_cast<int>(blockIdx.x) >= w.first[p + 1]) ++p;
+  const GemmArgs& g = w.p[p];
+  const int tile = blockIdx.x - w.first[p];
+  const int m0 = (tile / w.tiles_n[p]) * kBM;
+  const int n0 = (tile % w.tiles_n[p]) * kWgradBN;
+  const int kb = blockIdx.z * kChunkTokens;
+  const int ke = min(kb + kChunkTokens, g.K);
+  gemm_tile<kWgradBN, true, true>(g, m0, n0, kb, ke, smem);
+  const float* ct = reinterpret_cast<const float*>(smem);
+  constexpr int ldc = Tile<kWgradBN, true, true>::kLdC;
+  float* out = w.part + blockIdx.z * w.psize + w.poff[p];
+  for (int i = threadIdx.x; i < kBM * kWgradBN; i += blockDim.x) {
+    const int r = i / kWgradBN, cc = i - r * kWgradBN;
+    const int m = m0 + r, nn = n0 + cc;
+    if (m < g.M && nn < g.N)
+      out[static_cast<size_t>(m) * g.N + nn] = ct[r * ldc + cc];
   }
 }
 
-// Column sums of an (n, cols) workspace matrix, scaled per row by f(r),
-// added to out.
-template <class F>
-__device__ inline void col_sums(const float* x, int n, int cols, F f,
-                                float* out) {
-  each(cols, [&](int j) {
-    float acc = 0.f;
-    for (int r = 0; r < n; ++r) acc += f(r) * x[r * cols + j];
-    out[j] += acc;
-  });
-}
+// The gradients in FastParams order: each the chunk partials summed,
+// unpadded (a bias is its weight's ones row); then the bias cotangents,
+// each the score cotangents of its bias window's windows summed. A block
+// takes 32 outputs (a lane each); warp w sums the parts w, w + 8, ... in
+// order, then warp 0 adds the 8 warp sums in order: a fixed order.
+constexpr int kReduceOuts = 32;
 
-__global__ void __launch_bounds__(256, 3)
-    block_bwd_kernel(const BwdArgs a) {
-  __shared__ __align__(16) bf16 tile[kTileBytes / 2];
-  const int n = a.n, c = a.c, nh = a.nh, hid = a.hidden;
-  const int hd = c / nh, c3 = 3 * c, nn = n * n;
-  const Work L = work_layout(n, c, nh, hid);
-  const Grads GL = grad_layout(c, hid);
-  float* wk = a.work + static_cast<size_t>(blockIdx.x) * L.total;
-  float* slab = a.slab + static_cast<size_t>(blockIdx.x) * GL.total;
-  float *X = wk + L.x, *XN = wk + L.xn, *QKV = wk + L.qkv, *S = wk + L.s;
-  float *E = wk + L.e, *DEN = wk + L.den, *O = wk + L.o, *X1 = wk + L.x1;
-  float *X1N = wk + L.x1n, *U = wk + L.u, *H1 = wk + L.h1, *ST = wk + L.st;
-  float *G = wk + L.g, *DU = wk + L.du, *DT = wk + L.dt;
-  float *DQKV = wk + L.dqkv, *DDEN = wk + L.dden, *DA = wk + L.da;
-  const BlockW& W = a.w;
-  const int nww = a.iw / a.ws, nw = (a.ih / a.ws) * nww;
-  auto one = [](int) { return 1.0f; };
-
-  for (int win = blockIdx.x; win < a.windows; win += gridDim.x) {
-    const int img = win / nw, wi = win - img * nw;
-    const int oy = (wi / nww) * a.ws + a.img_shift;
-    const int ox = (wi % nww) * a.ws + a.img_shift;
-    // the image-layout element of (row r, channel ch) of this window
-    auto img_at = [&](int r, int ch) {
-      const int yy = (oy + r / a.ws) % a.ih, xx = (ox + r % a.ws) % a.iw;
-      return ((static_cast<size_t>(img) * a.ih + yy) * a.iw + xx) * c + ch;
+__global__ void __launch_bounds__(256)
+    reduce_kernel(const BwdArgs a, const WgradArgs w) {
+  __shared__ float sums[8][kReduceOuts];
+  const Dims& d = a.d;
+  const Grads G = grad_layout(d.c, d.hidden);
+  const int nb = d.n * d.nh * d.n;
+  const long long total = G.total + static_cast<long long>(a.w.bw) * nb;
+  const int c = d.c, hid = d.hidden;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long i = static_cast<long long>(blockIdx.x) * kReduceOuts + lane;
+  float acc = 0.f;
+  if (i >= G.total && i < total) {
+    const long long e = i - G.total;
+    const int b = static_cast<int>(e / nb), rest = static_cast<int>(e % nb);
+    for (int win = b + warp * a.w.bw; win < d.windows; win += 8 * a.w.bw)
+      acc += a.b.dsw[static_cast<size_t>(win) * nb + rest];
+  } else if (i < G.total) {
+    const int k = static_cast<int>(i);
+    auto qcol = [&](int j) {
+      const int part = j / c, ch = j - part * c, h = ch / d.hd;
+      return part * d.nh * d.hdg + h * d.hdg + ch - h * d.hd;
     };
-    const size_t wbase = static_cast<size_t>(win) * n * c;
-    const float* dp = a.dpf ? a.dpf + static_cast<size_t>(win) * n *
-                                      a.dp_stride + a.dp_col
-                            : nullptr;
-    auto fa = [&](int r) { return dp ? dp[a.dp_stride * r] : 1.0f; };
-    auto fm = [&](int r) { return dp ? dp[a.dp_stride * r + 1] : 1.0f; };
-    const int bwin = W.bw == 1 ? 0 : wi % W.bw;
-    const bf16* bias = W.bias + static_cast<size_t>(bwin) * n * nh * n;
-
-    // ---- the forward, recomputed
-    __syncthreads();
-    each(n * c, [&](int i) {
-      const int r = i / c, ch = i - r * c;
-      X[i] = a.x_win ? ldb(a.x_win + wbase + i) : ldb(a.x_img + img_at(r, ch));
-    });
-    __syncthreads();
-    row_stats(X, ST, n, c);
-    __syncthreads();
-    each(n * c, [&](int i) {
-      const int r = i / c;
-      const float mu = ST[r], s = ST[n + r];
-      XN[i] = rb(X[i] * s - mu * s);
-    });
-    block_gemm<false, false>(
-        n, c3, c, [&](int m, int k) { return XN[m * c + k]; },
-        [&](int k, int j) { return ldb(W.wqkv + k * c3 + j); },
-        [&](int m, int j, float v) { QKV[m * c3 + j] = rb(v + W.bqkv[j]); },
-        tile);
-    for (int hh = 0; hh < nh; ++hh)
-      block_gemm<false, false>(
-          n, n, hd,
-          [&](int r, int d) { return QKV[r * c3 + hh * hd + d]; },
-          [&](int d, int j) { return QKV[j * c3 + c + hh * hd + d]; },
-          [&](int r, int j, float v) {
-            S[(hh * n + r) * n + j] = v + ldb(bias + (r * nh + hh) * n + j);
-          },
-          tile);
-    each(nh * n, [&](int i) {
-      const float* s = S + i * n;
-      float m = -3.0e38f;
-      for (int j = 0; j < n; ++j) m = fmaxf(m, s[j]);
-      if (a.softmax == fastblk::kStableMM) m = rb(m);
-      float den = 0.f;
-      for (int j = 0; j < n; ++j) {
-        const float e = a.softmax == fastblk::kClampOnly
-                            ? expf(fminf(s[j], fastblk::kClamp))
-                            : expf(s[j] - m);
-        E[i * n + j] = e;
-        den += rb(e);
-      }
-      DEN[i] = rb(den);
-    });
-    for (int hh = 0; hh < nh; ++hh)
-      block_gemm<false, false>(
-          n, hd, n, [&](int r, int j) { return rb(E[(hh * n + r) * n + j]); },
-          [&](int j, int d) { return QKV[j * c3 + 2 * c + hh * hd + d]; },
-          [&](int r, int d, float v) {
-            O[r * c + hh * hd + d] = v / DEN[hh * n + r];
-          },
-          tile);
-    block_gemm<false, false>(
-        n, c, c, [&](int r, int k) { return rb(O[r * c + k]); },
-        [&](int k, int o) { return ldb(W.wproj + k * c + o); },
-        [&](int r, int o, float v) {
-          X1[r * c + o] = X[r * c + o] + (v + ldb(W.bproj + o)) * fa(r);
-        },
-        tile);
-    row_stats(X1, ST + 2 * n, n, c);
-    __syncthreads();
-    each(n * c, [&](int i) {
-      const int r = i / c;
-      const float mu = ST[2 * n + r], s = ST[3 * n + r];
-      X1N[i] = rb(X1[i] * s - mu * s);
-    });
-    block_gemm<false, false>(
-        n, hid, c, [&](int r, int k) { return X1N[r * c + k]; },
-        [&](int k, int o) { return ldb(W.w1 + k * hid + o); },
-        [&](int r, int o, float v) {
-          const float u = v + W.bf1[o];
-          U[r * hid + o] = u;
-          H1[r * hid + o] = rb(fastblk::gelu_tanh(u));
-        },
-        tile);
-
-    // ---- the VJP. G holds the cotangent of the residual stream.
-    each(n * c, [&](int i) {
-      const int r = i / c, ch = i - r * c;
-      G[i] = a.dz_win ? ldb(a.dz_win + wbase + i)
-                      : ldb(a.dz_img + img_at(r, ch));
-    });
-    __syncthreads();
-    // fc2: dh2 = fm * G
-    col_sums(G, n, c, fm, slab + GL.bf2);
-    block_gemm<false, true>(
-        hid, c, n, [&](int k, int r) { return H1[r * hid + k]; },
-        [&](int r, int j) { return fm(r) * G[r * c + j]; },
-        [&](int k, int j, float v) { slab[GL.w2 + k * c + j] += v; }, tile);
-    block_gemm<true, false>(
-        n, hid, c, [&](int r, int j) { return G[r * c + j]; },
-        [&](int j, int k) { return ldb(W.w2 + k * c + j); },
-        [&](int r, int k, float v) {
-          DU[r * hid + k] = rb(v * fm(r)) * gelu_grad(U[r * hid + k]);
-        },
-        tile);
-    // fc1
-    col_sums(DU, n, hid, one, slab + GL.bf1);
-    block_gemm<false, true>(
-        c, hid, n, [&](int k, int r) { return X1N[r * c + k]; },
-        [&](int r, int j) { return DU[r * hid + j]; },
-        [&](int k, int j, float v) { slab[GL.w1 + k * hid + j] += v; },
-        tile);
-    block_gemm<true, false>(
-        n, c, hid, [&](int r, int j) { return DU[r * hid + j]; },
-        [&](int j, int k) { return ldb(W.w1 + k * hid + j); },
-        [&](int r, int k, float v) { DT[r * c + k] = rb(v); }, tile);
-    normalize_bwd(X1, ST + 2 * n, DT, G, n, c);
-    __syncthreads();
-    // proj: dy = fa * G
-    col_sums(G, n, c, fa, slab + GL.bproj);
-    block_gemm<false, true>(
-        c, c, n, [&](int k, int r) { return rb(O[r * c + k]); },
-        [&](int r, int j) { return fa(r) * G[r * c + j]; },
-        [&](int k, int j, float v) { slab[GL.wproj + k * c + j] += v; },
-        tile);
-    // the cotangent of the bf16 attention output
-    block_gemm<true, false>(
-        n, c, c, [&](int r, int j) { return G[r * c + j]; },
-        [&](int j, int k) { return ldb(W.wproj + k * c + j); },
-        [&](int r, int k, float v) { DT[r * c + k] = rb(v * fa(r)); }, tile);
-    // o = A / den: the normalizer's cotangent
-    each(nh * n, [&](int i) {
-      const int hh = i / n, r = i - hh * n;
-      float acc = 0.f;
-      for (int d = 0; d < hd; ++d)
-        acc += DT[r * c + hh * hd + d] * O[r * c + hh * hd + d];
-      DDEN[i] = rb(-acc / DEN[i]);
-    });
-    // dv, and dA V^T (the cotangent of e through P V)
-    for (int hh = 0; hh < nh; ++hh) {
-      block_gemm<false, true>(
-          n, hd, n, [&](int j, int r) { return rb(E[(hh * n + r) * n + j]); },
-          [&](int r, int d) {
-            return DT[r * c + hh * hd + d] / DEN[hh * n + r];
-          },
-          [&](int j, int d, float v) {
-            DQKV[j * c3 + 2 * c + hh * hd + d] = rb(v);
-          },
-          tile);
-      block_gemm<true, false>(
-          n, n, hd,
-          [&](int r, int d) {
-            return DT[r * c + hh * hd + d] / DEN[hh * n + r];
-          },
-          [&](int d, int j) { return QKV[j * c3 + 2 * c + hh * hd + d]; },
-          [&](int r, int j, float v) { DA[(hh * n + r) * n + j] = v; },
-          tile);
+    int p, row, col;
+    if (k < G.bqkv) {
+      p = 0, row = k / (3 * c), col = qcol(k % (3 * c));
+    } else if (k < G.wproj) {
+      p = 0, row = c, col = qcol(k - G.bqkv);
+    } else if (k < G.bproj) {
+      p = 1, row = (k - G.wproj) / c, col = (k - G.wproj) % c;
+    } else if (k < G.w1) {
+      p = 1, row = c, col = k - G.bproj;
+    } else if (k < G.bf1) {
+      p = 2, row = (k - G.w1) / hid, col = (k - G.w1) % hid;
+    } else if (k < G.w2) {
+      p = 2, row = c, col = k - G.bf1;
+    } else if (k < G.bf2) {
+      p = 3, row = (k - G.w2) / c, col = (k - G.w2) % c;
+    } else {
+      p = 3, row = hid, col = k - G.bf2;
     }
-    // the scores' cotangent, one thread per (head, query row), kept in S
-    // and per window in dsw; the stable variants also carry the gradient
-    // through the row max, split evenly among its ties
-    each(nh * n, [&](int i) {
-      const int hh = i / n, r = i - hh * n;
-      float* srow = S + i * n;
-      const float* erow = E + i * n;
-      const float* darow = DA + i * n;
-      const bool clamp = a.softmax == fastblk::kClampOnly;
-      float m = -3.0e38f;
-      for (int j = 0; j < n; ++j) m = fmaxf(m, srow[j]);
-      unsigned long long ties = 0ull;
-      float tot = 0.f;
-      for (int j = 0; j < n; ++j) {
-        // e's two bf16 cotangents (through P V and the normalizer),
-        // added in bf16
-        float ds = rb(rb(darow[j]) + DDEN[i]) * erow[j];
-        if (clamp && srow[j] > fastblk::kClamp) ds = 0.f;
-        if (srow[j] == m) ties |= 1ull << j;
-        tot += ds;
-        srow[j] = ds;
-      }
-      if (!clamp) {
-        float dm = -tot;
-        if (a.softmax == fastblk::kStableMM) dm = rb(dm);
-        dm /= __popcll(ties);
-        for (int j = 0; j < n; ++j)
-          if (ties >> j & 1ull) srow[j] += dm;
-      }
-      float* dst = a.dsw + (static_cast<size_t>(win) * n + r) * nh * n +
-                   hh * n;
-      for (int j = 0; j < n; ++j) dst[j] = srow[j];
-    });
-    for (int hh = 0; hh < nh; ++hh) {
-      block_gemm<true, false>(
-          n, hd, n, [&](int r, int j) { return S[(hh * n + r) * n + j]; },
-          [&](int j, int d) { return QKV[j * c3 + c + hh * hd + d]; },
-          [&](int r, int d, float v) { DQKV[r * c3 + hh * hd + d] = rb(v); },
-          tile);
-      block_gemm<true, false>(
-          n, hd, n, [&](int j, int r) { return S[(hh * n + r) * n + j]; },
-          [&](int r, int d) { return QKV[r * c3 + hh * hd + d]; },
-          [&](int j, int d, float v) {
-            DQKV[j * c3 + c + hh * hd + d] = rb(v);
-          },
-          tile);
-    }
-    // qkv
-    col_sums(DQKV, n, c3, one, slab + GL.bqkv);
-    block_gemm<false, false>(
-        c, c3, n, [&](int k, int r) { return XN[r * c + k]; },
-        [&](int r, int j) { return DQKV[r * c3 + j]; },
-        [&](int k, int j, float v) { slab[GL.wqkv + k * c3 + j] += v; },
-        tile);
-    block_gemm<false, false>(
-        n, c, c3, [&](int r, int j) { return DQKV[r * c3 + j]; },
-        [&](int j, int k) { return ldb(W.wqkv + k * c3 + j); },
-        [&](int r, int k, float v) { DT[r * c + k] = rb(v); }, tile);
-    normalize_bwd(X, ST, DT, G, n, c);
-    __syncthreads();
-    each(n * c, [&](int i) {
-      const int r = i / c, ch = i - r * c;
-      const bf16 v = __float2bfloat16_rn(G[i]);
-      if (a.dx_win)
-        a.dx_win[wbase + i] = v;
-      else
-        a.dx_img[img_at(r, ch)] = v;
-    });
+    const float* src = w.part + w.poff[p] +
+                       static_cast<size_t>(row) * w.p[p].N + col;
+    for (int z = warp; z < d.chunks; z += 8) acc += src[z * w.psize];
+  }
+  sums[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && i < total) {
+    float v = 0.f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) v += sums[q][lane];
+    if (i < G.total)
+      a.grads[i] = v;
+    else
+      a.dbias[i - G.total] = v;
   }
 }
 
-// out[p] = sum over g < parts of in[g * size + p], in order of g.
-__global__ void sum_parts_kernel(const float* in, int parts, int size,
-                                 int stride, int period, float* out) {
-  // parts are strided by `stride` floats; with period > 1, out has
-  // `period` rows of `size` and part g adds to row g % period
-  const int total = period * size;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += gridDim.x * blockDim.x) {
-    const int row = i / size, p = i - row * size;
-    float acc = 0.f;
-    for (int g = row; g < parts; g += period)
-      acc += in[static_cast<size_t>(g) * stride + p];
-    out[i] = acc;
+// ------------------------------------------------------- row kernels
+
+// The weights padded: Wqkv (kp, n3) by head, Wproj (kp, kp), W1 (kp, hp),
+// W2 (hp, kp), and the qkv bias (n3) by head; zeros in every pad.
+__global__ void prep_weights_kernel(const BwdArgs a) {
+  const Dims& d = a.d;
+  const long long s0 = static_cast<long long>(d.kp) * d.n3;
+  const long long s1 = s0 + static_cast<long long>(d.kp) * d.kp;
+  const long long s2 = s1 + static_cast<long long>(d.kp) * d.hp;
+  const long long s3 = s2 + static_cast<long long>(d.hp) * d.kp;
+  const long long s4 = s3 + d.n3;
+  const int c = d.c, hid = d.hidden, hw = d.nh * d.hdg;
+  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       i < s4; i += static_cast<long long>(gridDim.x) * blockDim.x) {
+    float v = 0.f;
+    if (i < s0) {
+      const int row = static_cast<int>(i / d.n3), col = static_cast<int>(i % d.n3);
+      const int part = col / hw, h = (col - part * hw) / d.hdg;
+      const int dd = col - part * hw - h * d.hdg;
+      if (row < c && dd < d.hd)
+        v = ldb(a.w.wqkv + static_cast<size_t>(row) * 3 * c + part * c +
+                h * d.hd + dd);
+      a.b.wqkv[i] = __float2bfloat16_rn(v);
+    } else if (i < s1) {
+      const long long e = i - s0;
+      const int row = static_cast<int>(e / d.kp), col = static_cast<int>(e % d.kp);
+      if (row < c && col < c) v = ldb(a.w.wproj + row * c + col);
+      a.b.wproj[e] = __float2bfloat16_rn(v);
+    } else if (i < s2) {
+      const long long e = i - s1;
+      const int row = static_cast<int>(e / d.hp), col = static_cast<int>(e % d.hp);
+      if (row < c && col < hid) v = ldb(a.w.w1 + row * hid + col);
+      a.b.w1[e] = __float2bfloat16_rn(v);
+    } else if (i < s3) {
+      const long long e = i - s2;
+      const int row = static_cast<int>(e / d.kp), col = static_cast<int>(e % d.kp);
+      if (row < hid && col < c) v = ldb(a.w.w2 + row * c + col);
+      a.b.w2[e] = __float2bfloat16_rn(v);
+    } else {
+      const int col = static_cast<int>(i - s3);
+      const int part = col / hw, h = (col - part * hw) / d.hdg;
+      const int dd = col - part * hw - h * d.hdg;
+      a.b.bqkv[col] = dd < d.hd ? a.w.bqkv[part * c + h * d.hd + dd] : 0.f;
+    }
+  }
+}
+
+// LN1 (statistics and xn, ones at c) and dh2 = fm dz as hi + lo: a warp
+// per token, gathered at the caller's rows.
+__global__ void __launch_bounds__(256) rows_kernel(const BwdArgs a) {
+  const Dims& d = a.d;
+  const int lane = threadIdx.x & 31;
+  const int m = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (m >= d.tokens) return;
+  const bf16* xr = a.x + a.xr(m, d.n) * d.c;
+  float v[6], s = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const int o = lane + 32 * i;
+    v[i] = o < d.c ? ldb(xr + o) : 0.f;
+    s += v[i];
+    s2 += v[i] * v[i];
+  }
+  s = fastblk::warp_sum(s);
+  s2 = fastblk::warp_sum(s2);
+  const float mu = s / d.c;
+  const float q = rsqrtf(fmaxf(s2 / d.c - mu * mu, 0.f) + fastblk::kEps);
+  const float mq = mu * q;
+  const size_t at = static_cast<size_t>(m) * d.kp;
+  const bf16* dz = a.dz + a.dzr(m, d.n) * d.c;
+  const float f = fm_of(a, m);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const int o = lane + 32 * i;
+    if (o < d.c) {
+      a.b.xn[at + o] = __float2bfloat16_rn(v[i] * q - mq);
+      split(f * ldb(dz + o), a.b.dh2h + at + o, a.b.dh2l + at + o);
+    }
+  }
+  for (int o = d.c + lane; o < d.kp; o += 32) {
+    a.b.xn[at + o] = __float2bfloat16_rn(o == d.c ? 1.f : 0.f);
+    split(0.f, a.b.dh2h + at + o, a.b.dh2l + at + o);
+  }
+  if (lane == 0) a.b.st1[m] = make_float2(mu, q);
+}
+
+// ------------------------------------------------------------ attention
+
+constexpr int kAttnThreads = 128;  // 4 warps, 16 query rows each
+
+struct AttnSmem {
+  int q, k, v, dout, p, dsh, dsl, dah, dal, bytes;
+};
+
+__host__ __device__ inline AttnSmem attn_smem(const Dims& d, bool vjp) {
+  const int ldh = d.hds + 8, ldn = d.n + 8;
+  AttnSmem s;
+  int off = 0;
+  s.q = off, off += d.n * ldh;
+  s.k = off, off += d.n * ldh;
+  s.v = off, off += d.n * ldh;
+  s.dout = s.p = s.dsh = s.dsl = s.dah = s.dal = off;
+  if (vjp) {
+    s.dout = off, off += d.n * ldh;
+    s.p = off, off += d.n * ldn;
+    s.dsh = off, off += d.n * ldn;
+    s.dsl = off, off += d.n * ldn;
+    s.dah = off, off += d.n * ldh;
+    s.dal = off, off += d.n * ldh;
+  }
+  s.bytes = 2 * off;
+  return s;
+}
+
+// q, k, v of (window, head) into shared memory, each head padded to hds
+// channels with zeros.
+__device__ inline void load_qkv(const BwdArgs& a, bf16* sm,
+                                const AttnSmem& L, int win, int h) {
+  const Dims& d = a.d;
+  const int ldh = d.hds + 8, cpr = d.hds / 8;
+  const int base[3] = {L.q, L.k, L.v};
+  for (int i = threadIdx.x; i < 3 * d.n * cpr; i += blockDim.x) {
+    const int part = i / (d.n * cpr), rem = i - part * d.n * cpr;
+    const int r = rem / cpr, ch = rem - r * cpr;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (ch * 8 < d.hdg)
+      v = *reinterpret_cast<const uint4*>(
+          a.b.qkv + (static_cast<size_t>(win) * d.n + r) * d.n3 +
+          part * d.nh * d.hdg + h * d.hdg + ch * 8);
+    *reinterpret_cast<uint4*>(sm + base[part] + r * ldh + ch * 8) = v;
+  }
+}
+
+// The forward of one warp's 16 query rows r0.. of (window, head),
+// recomputed as the backward reads it: s = q k^T + bias (f32), e by the
+// softmax variant (f32), den = bf16(sum_j bf16(e)), o = (bf16(e) v) / den.
+// Returns s, e (8 n-tiles of 8 over the keys), the P = bf16(e) A operands
+// of the P V product, den and o (the unrounded quotient, 4 d-tiles).
+struct AttnRows {
+  float s[8][4], e[8][4], o[4][4];
+  uint32_t pa[4][4];
+  float den0, den1;
+};
+
+__device__ inline void attn_rows(const BwdArgs& a, const bf16* sm,
+                                 const AttnSmem& L, int win, int h, int r0,
+                                 AttnRows& R) {
+  const Dims& d = a.d;
+  const int ldh = d.hds + 8, n = d.n, nkt = n / 8;
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t4 = lane & 3;
+  // the bias first, so its latency overlaps the score products
+  const int bwin = win % a.w.bw;
+  const bf16* b0 = a.w.bias +
+                   (static_cast<size_t>(bwin) * n + r0 + gr) * d.nh * n +
+                   h * n + 2 * t4;
+  const bf16* b1 = b0 + static_cast<size_t>(8) * d.nh * n;
+  uint32_t bb[8][2];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < nkt) {
+      bb[j][0] = fastblk::ldg32(b0 + j * 8);
+      bb[j][1] = fastblk::ldg32(b1 + j * 8);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) R.s[j][0] = R.s[j][1] = R.s[j][2] = R.s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 32; kk += 16) {
+    if (kk < d.hds) {
+      uint32_t qa[4];
+      frag_a(qa, sm + L.q, ldh, r0, kk);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (2 * jp < nkt) {
+          uint32_t kb[4];
+          frag_b(kb, sm + L.k, ldh, jp * 16, kk);
+          mma(R.s[2 * jp], qa, kb[0], kb[1]);
+          mma(R.s[2 * jp + 1], qa, kb[2], kb[3]);
+        }
+      }
+    }
+  }
+  float m0 = -3.0e38f, m1 = -3.0e38f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < nkt) {
+      const uint32_t u0 = bb[j][0], u1 = bb[j][1];
+      R.s[j][0] += fastblk::lo_f(u0);
+      R.s[j][1] += fastblk::hi_f(u0);
+      R.s[j][2] += fastblk::lo_f(u1);
+      R.s[j][3] += fastblk::hi_f(u1);
+      m0 = fmaxf(m0, fmaxf(R.s[j][0], R.s[j][1]));
+      m1 = fmaxf(m1, fmaxf(R.s[j][2], R.s[j][3]));
+    }
+  }
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+  if (a.softmax == fastblk::kStableMM) {
+    m0 = rb(m0);
+    m1 = rb(m1);
+  }
+  const bool clamp = a.softmax == fastblk::kClampOnly;
+  float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (j < nkt) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float s = R.s[j][u];
+        R.e[j][u] = clamp ? expf(fminf(s, fastblk::kClamp))
+                          : expf(s - (u < 2 ? m0 : m1));
+      }
+      d0 += rb(R.e[j][0]) + rb(R.e[j][1]);
+      d1 += rb(R.e[j][2]) + rb(R.e[j][3]);
+    } else {
+      R.e[j][0] = R.e[j][1] = R.e[j][2] = R.e[j][3] = 0.f;
+    }
+  }
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+  R.den0 = rb(d0);
+  R.den1 = rb(d1);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) acc_to_a(R.pa[kk], R.e[2 * kk], R.e[2 * kk + 1]);
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) R.o[dt][0] = R.o[dt][1] = R.o[dt][2] = R.o[dt][3] = 0.f;
+#pragma unroll
+  for (int dp = 0; dp < 2; ++dp) {
+    if (dp * 16 < d.hds) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk * 16 < n) {
+          uint32_t vb[4];
+          frag_bt(vb, sm + L.v, ldh, dp * 16, kk * 16);
+          mma(R.o[2 * dp], R.pa[kk], vb[0], vb[1]);
+          mma(R.o[2 * dp + 1], R.pa[kk], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    R.o[dt][0] /= R.den0;
+    R.o[dt][1] /= R.den0;
+    R.o[dt][2] /= R.den1;
+    R.o[dt][3] /= R.den1;
+  }
+}
+
+// The attention output bf16(o) of (window, head) in the C-wide layout
+// (head 0 also writes the pad columns: ones at c).
+__global__ void __launch_bounds__(kAttnThreads)
+    attn_fwd_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  const Dims& d = a.d;
+  const AttnSmem L = attn_smem(d, false);
+  const int win = blockIdx.x / d.nh, h = blockIdx.x - win * d.nh;
+  const size_t t0 = static_cast<size_t>(win) * d.n;
+  load_qkv(a, sm, L, win, h);
+  if (h == 0) {
+    const int pad = d.kp - d.c;
+    for (int i = threadIdx.x; i < d.n * pad; i += blockDim.x) {
+      const int r = i / pad, o = d.c + i % pad;
+      a.b.ao[(t0 + r) * d.kp + o] = __float2bfloat16_rn(o == d.c ? 1.f : 0.f);
+    }
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = warp * 16;
+  if (r0 >= d.n) return;
+  AttnRows R;
+  attn_rows(a, sm, L, win, h, r0, R);
+  const int gr = lane >> 2, t4 = lane & 3;
+  bf16* o0 = a.b.ao + (t0 + r0 + gr) * d.kp + h * d.hd;
+  bf16* o1 = o0 + static_cast<size_t>(8) * d.kp;
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    const int dd = dt * 8 + 2 * t4;
+    if (dd < d.hd) {
+      o0[dd] = __float2bfloat16_rn(R.o[dt][0]);
+      o1[dd] = __float2bfloat16_rn(R.o[dt][2]);
+    }
+    if (dd + 1 < d.hd) {
+      o0[dd + 1] = __float2bfloat16_rn(R.o[dt][1]);
+      o1[dd + 1] = __float2bfloat16_rn(R.o[dt][3]);
+    }
   }
 }
 
 
-void set_block_weights(BlockW* w, const void* const* p, int bw) {
-  w->wqkv = static_cast<const bf16*>(p[0]);
-  w->bqkv = static_cast<const float*>(p[1]);
-  w->wproj = static_cast<const bf16*>(p[2]);
-  w->bproj = static_cast<const bf16*>(p[3]);
-  w->w1 = static_cast<const bf16*>(p[4]);
-  w->bf1 = static_cast<const float*>(p[5]);
-  w->w2 = static_cast<const bf16*>(p[6]);
-  w->bf2 = static_cast<const bf16*>(p[7]);
-  w->bias = static_cast<const bf16*>(p[8]);
-  w->bw = bw;
+// The VJP of (window, head): from the output cotangent dO, the
+// normalizer's cotangent dden = bf16(-sum_d dO o / den), dA = dO / den,
+// dP = dA V^T, the score cotangent ds = bf16(bf16(dP) + dden) e (clamp: 0
+// where s > 60; stable: minus its row sum added to the row max's ties,
+// split evenly; stable_mm: that sum rounded first), then dq = bf16(ds k),
+// dk = bf16(ds^T q), dv = bf16(bf16(e)^T dA). Products with an f32
+// operand (dA, ds) take it as bf16 hi + lo. The score cotangents go to
+// dsw per window, in the packed bias layout. Four blocks an SM where the
+// shared memory allows it (heads of up to 16 channels).
+__global__ void __launch_bounds__(kAttnThreads, 4)
+    attn_vjp_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  const Dims& d = a.d;
+  const AttnSmem L = attn_smem(d, true);
+  const int n = d.n, nkt = n / 8, ldh = d.hds + 8, ldn = n + 8;
+  const int win = blockIdx.x / d.nh, h = blockIdx.x - win * d.nh;
+  const size_t t0 = static_cast<size_t>(win) * n;
+  load_qkv(a, sm, L, win, h);
+  for (int i = threadIdx.x; i < n * d.hds; i += blockDim.x) {
+    const int r = i / d.hds, dd = i - r * d.hds;
+    sm[L.dout + r * ldh + dd] =
+        dd < d.hd ? a.b.dout[(t0 + r) * d.kp + h * d.hd + dd]
+                  : __float2bfloat16_rn(0.f);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gr = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16;
+  const size_t hw = static_cast<size_t>(d.nh) * d.hdg;
+  if (r0 < n) {
+    AttnRows R;
+    attn_rows(a, sm, L, win, h, r0, R);
+    // the masks: s past the clamp, s equal to its row's (raw) max
+    const bool clamp = a.softmax == fastblk::kClampOnly;
+    float mx0 = -3.0e38f, mx1 = -3.0e38f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nkt) {
+        mx0 = fmaxf(mx0, fmaxf(R.s[j][0], R.s[j][1]));
+        mx1 = fmaxf(mx1, fmaxf(R.s[j][2], R.s[j][3]));
+      }
+    }
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    uint32_t over = 0u, tie = 0u;  // bit 4 j + u
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nkt) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (R.s[j][u] > fastblk::kClamp) over |= 1u << (4 * j + u);
+          if (R.s[j][u] == (u < 2 ? mx0 : mx1)) tie |= 1u << (4 * j + u);
+        }
+      }
+    }
+    // P = bf16(e) for dv, kept in shared memory
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nkt) {
+        const int col = j * 8 + 2 * t4;
+        st_bf2(sm + L.p + (r0 + gr) * ldn + col, R.e[j][0], R.e[j][1]);
+        st_bf2(sm + L.p + (r0 + gr + 8) * ldn + col, R.e[j][2], R.e[j][3]);
+      }
+    }
+    // dO in the accumulator layout; dden; dA = dO / den
+    float da[4][4], q0 = 0.f, q1 = 0.f;
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt) {
+      const int dd = dt * 8 + 2 * t4;
+      if (dd < d.hds) {
+        const bf16* p0 = sm + L.dout + (r0 + gr) * ldh + dd;
+        const bf16* p1 = p0 + 8 * ldh;
+        const float g0 = ldb(p0), g1 = ldb(p0 + 1);
+        const float g2 = ldb(p1), g3 = ldb(p1 + 1);
+        q0 += g0 * R.o[dt][0] + g1 * R.o[dt][1];
+        q1 += g2 * R.o[dt][2] + g3 * R.o[dt][3];
+        da[dt][0] = g0 / R.den0;
+        da[dt][1] = g1 / R.den0;
+        da[dt][2] = g2 / R.den1;
+        da[dt][3] = g3 / R.den1;
+      } else {
+        da[dt][0] = da[dt][1] = da[dt][2] = da[dt][3] = 0.f;
+      }
+    }
+    q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+    q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+    q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+    q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+    const float dden0 = rb(-q0 / R.den0), dden1 = rb(-q1 / R.den1);
+    // dA as hi + lo: the A operands of dP = dA V^T, and stored for dv
+    uint32_t ah[2][4], al[2][4];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+      acc_to_a2(ah[ks], al[ks], da[2 * ks], da[2 * ks + 1]);
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt) {
+      const int dd = dt * 8 + 2 * t4;
+      if (dd < d.hds) {
+        const int i0 = (r0 + gr) * ldh + dd, i1 = i0 + 8 * ldh;
+        st_bf2(sm + L.dah + i0, da[dt][0], da[dt][1]);
+        st_bf2(sm + L.dah + i1, da[dt][2], da[dt][3]);
+        st_bf2(sm + L.dal + i0, da[dt][0] - rb(da[dt][0]),
+               da[dt][1] - rb(da[dt][1]));
+        st_bf2(sm + L.dal + i1, da[dt][2] - rb(da[dt][2]),
+               da[dt][3] - rb(da[dt][3]));
+      }
+    }
+    float ds[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ds[j][0] = ds[j][1] = ds[j][2] = ds[j][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      if (ks * 16 < d.hds) {
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          if (2 * jp < nkt) {
+            uint32_t vb[4];
+            frag_b(vb, sm + L.v, ldh, jp * 16, ks * 16);
+            mma(ds[2 * jp], ah[ks], vb[0], vb[1]);
+            mma(ds[2 * jp], al[ks], vb[0], vb[1]);
+            mma(ds[2 * jp + 1], ah[ks], vb[2], vb[3]);
+            mma(ds[2 * jp + 1], al[ks], vb[2], vb[3]);
+          }
+        }
+      }
+    }
+    // ds from dP, with the clamp mask or the tie split of the row max
+    float tot0 = 0.f, tot1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nkt) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float v = rb(rb(ds[j][u]) + (u < 2 ? dden0 : dden1)) * R.e[j][u];
+          if (clamp && (over >> (4 * j + u) & 1u)) v = 0.f;
+          ds[j][u] = v;
+          if (u < 2)
+            tot0 += v;
+          else
+            tot1 += v;
+        }
+      }
+    }
+    if (!clamp) {
+      int n0 = 0, n1 = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        n0 += (tie >> (4 * j) & 1u) + (tie >> (4 * j + 1) & 1u);
+        n1 += (tie >> (4 * j + 2) & 1u) + (tie >> (4 * j + 3) & 1u);
+      }
+      tot0 += __shfl_xor_sync(0xffffffffu, tot0, 1);
+      tot0 += __shfl_xor_sync(0xffffffffu, tot0, 2);
+      tot1 += __shfl_xor_sync(0xffffffffu, tot1, 1);
+      tot1 += __shfl_xor_sync(0xffffffffu, tot1, 2);
+      n0 += __shfl_xor_sync(0xffffffffu, n0, 1);
+      n0 += __shfl_xor_sync(0xffffffffu, n0, 2);
+      n1 += __shfl_xor_sync(0xffffffffu, n1, 1);
+      n1 += __shfl_xor_sync(0xffffffffu, n1, 2);
+      float dm0 = -tot0, dm1 = -tot1;
+      if (a.softmax == fastblk::kStableMM) {
+        dm0 = rb(dm0);
+        dm1 = rb(dm1);
+      }
+      dm0 /= n0;
+      dm1 /= n1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          if (tie >> (4 * j + u) & 1u) ds[j][u] += u < 2 ? dm0 : dm1;
+      }
+    }
+    // ds: to dsw, to shared memory as hi + lo (for dk), as A operands
+    // (for dq)
+    float* w0 = a.b.dsw + ((t0 + r0 + gr) * d.nh + h) * n;
+    float* w1 = w0 + static_cast<size_t>(8) * d.nh * n;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (j < nkt) {
+        const int col = j * 8 + 2 * t4;
+        *reinterpret_cast<float2*>(w0 + col) = make_float2(ds[j][0], ds[j][1]);
+        *reinterpret_cast<float2*>(w1 + col) = make_float2(ds[j][2], ds[j][3]);
+        const int i0 = (r0 + gr) * ldn + col, i1 = i0 + 8 * ldn;
+        st_bf2(sm + L.dsh + i0, ds[j][0], ds[j][1]);
+        st_bf2(sm + L.dsh + i1, ds[j][2], ds[j][3]);
+        st_bf2(sm + L.dsl + i0, ds[j][0] - rb(ds[j][0]),
+               ds[j][1] - rb(ds[j][1]));
+        st_bf2(sm + L.dsl + i1, ds[j][2] - rb(ds[j][2]),
+               ds[j][3] - rb(ds[j][3]));
+      }
+    }
+    float dq[4][4];
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk * 16 < n) {
+        uint32_t sh[4], sl[4];
+        acc_to_a2(sh, sl, ds[2 * kk], ds[2 * kk + 1]);
+#pragma unroll
+        for (int dp = 0; dp < 2; ++dp) {
+          if (dp * 16 < d.hds) {
+            uint32_t kb[4];
+            frag_bt(kb, sm + L.k, ldh, dp * 16, kk * 16);
+            mma(dq[2 * dp], sh, kb[0], kb[1]);
+            mma(dq[2 * dp], sl, kb[0], kb[1]);
+            mma(dq[2 * dp + 1], sh, kb[2], kb[3]);
+            mma(dq[2 * dp + 1], sl, kb[2], kb[3]);
+          }
+        }
+      }
+    }
+    bf16* q0p = a.b.dqkv + (t0 + r0 + gr) * d.n3 + h * d.hdg;
+#pragma unroll
+    for (int dt = 0; dt < 4; ++dt) {
+      const int dd = dt * 8 + 2 * t4;
+      if (dd < d.hdg) {
+        st_bf2(q0p + dd, dq[dt][0], dq[dt][1]);
+        st_bf2(q0p + 8 * d.n3 + dd, dq[dt][2], dq[dt][3]);
+      }
+    }
+  }
+  __syncthreads();
+  // dk and dv: warp w owns key rows j0 = 16 w
+  const int j0 = warp * 16;
+  if (j0 >= n) return;
+  float dk[4][4], dv[4][4];
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
+    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (kk * 16 < n) {
+      uint32_t sh[4], sl[4], pa[4];
+      frag_at(sh, sm + L.dsh, ldn, j0, kk * 16);
+      frag_at(sl, sm + L.dsl, ldn, j0, kk * 16);
+      frag_at(pa, sm + L.p, ldn, j0, kk * 16);
+#pragma unroll
+      for (int dp = 0; dp < 2; ++dp) {
+        if (dp * 16 < d.hds) {
+          uint32_t qb[4], ab[4], lb[4];
+          frag_bt(qb, sm + L.q, ldh, dp * 16, kk * 16);
+          frag_bt(ab, sm + L.dah, ldh, dp * 16, kk * 16);
+          frag_bt(lb, sm + L.dal, ldh, dp * 16, kk * 16);
+          mma(dk[2 * dp], sh, qb[0], qb[1]);
+          mma(dk[2 * dp], sl, qb[0], qb[1]);
+          mma(dk[2 * dp + 1], sh, qb[2], qb[3]);
+          mma(dk[2 * dp + 1], sl, qb[2], qb[3]);
+          mma(dv[2 * dp], pa, ab[0], ab[1]);
+          mma(dv[2 * dp], pa, lb[0], lb[1]);
+          mma(dv[2 * dp + 1], pa, ab[2], ab[3]);
+          mma(dv[2 * dp + 1], pa, lb[2], lb[3]);
+        }
+      }
+    }
+  }
+  bf16* k0p = a.b.dqkv + (t0 + j0 + gr) * d.n3 + hw + h * d.hdg;
+  bf16* v0p = k0p + hw;
+#pragma unroll
+  for (int dt = 0; dt < 4; ++dt) {
+    const int dd = dt * 8 + 2 * t4;
+    if (dd < d.hdg) {
+      st_bf2(k0p + dd, dk[dt][0], dk[dt][1]);
+      st_bf2(k0p + 8 * d.n3 + dd, dk[dt][2], dk[dt][3]);
+      st_bf2(v0p + dd, dv[dt][0], dv[dt][1]);
+      st_bf2(v0p + 8 * d.n3 + dd, dv[dt][2], dv[dt][3]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host
+
+inline GemmArgs gemm_args(const bf16* a0, const bf16* a1, int lda,
+                          const bf16* b0, const bf16* b1, int ldb, int M,
+                          int N, int K) {
+  GemmArgs g;
+  g.a[0] = a0;
+  g.a[1] = a1 ? a1 : a0;
+  g.b[0] = b0;
+  g.b[1] = b1 ? b1 : b0;
+  g.nseg = (a1 || b1) ? 2 : 1;
+  g.lda = lda;
+  g.ldb = ldb;
+  g.M = M;
+  g.N = N;
+  g.K = K;
+  return g;
+}
+
+template <int BN, bool TA, bool TB, class Epi>
+inline cudaError_t run_gemm(const GemmArgs& g, const Epi& epi,
+                            cudaStream_t s) {
+  constexpr int smem = Tile<BN, TA, TB>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_kernel<BN, TA, TB, Epi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.M + kBM - 1) / kBM, (g.N + BN - 1) / BN);
+  gemm_kernel<BN, TA, TB, Epi><<<grid, kGemmThreads, smem, s>>>(g, epi);
+  return cudaGetLastError();
+}
+
+// A GEMM whose epilogue works a row at a time: one tile spans the row.
+template <bool TA, bool TB, class Epi>
+inline cudaError_t run_rows(const GemmArgs& g, const Epi& epi,
+                            cudaStream_t s) {
+  if (g.N <= 64) return run_gemm<64, TA, TB>(g, epi, s);
+  if (g.N <= 128) return run_gemm<128, TA, TB>(g, epi, s);
+  if (g.N <= 192) return run_gemm<192, TA, TB>(g, epi, s);
+  return run_gemm<256, TA, TB>(g, epi, s);
+}
+
+inline WgradArgs wgrad_args(const BwdArgs& a) {
+  const Dims& d = a.d;
+  const Bufs& b = a.b;
+  const int T = d.tokens;
+  WgradArgs w;
+  w.p[0] = gemm_args(b.xn, nullptr, d.kp, b.dqkv, nullptr, d.n3, d.kp,
+                     d.n3, T);
+  w.p[1] = gemm_args(b.ao, nullptr, d.kp, b.dyh, b.dyl, d.kp, d.kp, d.kp, T);
+  w.p[2] = gemm_args(b.x1n, nullptr, d.kp, b.duh, b.dul, d.hp, d.kp, d.hp,
+                     T);
+  w.p[3] = gemm_args(b.h1, nullptr, d.hp, b.dh2h, b.dh2l, d.kp, d.hp, d.kp,
+                     T);
+  w.first[0] = 0;
+  long long off = 0;
+  for (int p = 0; p < 4; ++p) {
+    w.tiles_n[p] = (w.p[p].N + kWgradBN - 1) / kWgradBN;
+    w.first[p + 1] = w.first[p] + w.tiles_n[p] * ((w.p[p].M + kBM - 1) / kBM);
+    w.poff[p] = off;
+    off += static_cast<long long>(w.p[p].M) * w.p[p].N;
+  }
+  w.psize = off;
+  w.part = b.part;
+  return w;
+}
+
+// One block's backward: kBwdKernels launches on stream s, each checked.
+// Returns a cudaError_t.
+inline cudaError_t block_backward(const BwdArgs& a, cudaStream_t s) {
+  const Dims& d = a.d;
+  const Bufs& b = a.b;
+  const int T = d.tokens, kp = d.kp, hp = d.hp, n3 = d.n3;
+  cudaError_t err;
+#define RDST_CHECK(expr)                     \
+  do {                                       \
+    err = (expr);                            \
+    if (err != cudaSuccess) return err;      \
+  } while (0)
+  prep_weights_kernel<<<264, 256, 0, s>>>(a);
+  RDST_CHECK(cudaGetLastError());
+  rows_kernel<<<(T + 7) / 8, 256, 0, s>>>(a);
+  RDST_CHECK(cudaGetLastError());
+  RDST_CHECK((run_gemm<128, false, true>(
+      gemm_args(b.xn, nullptr, kp, b.wqkv, nullptr, n3, T, n3, kp),
+      EpiQkv{a}, s)));
+  const AttnSmem fw = attn_smem(d, false), bw = attn_smem(d, true);
+  RDST_CHECK(cudaFuncSetAttribute(
+      attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fw.bytes));
+  attn_fwd_kernel<<<d.windows * d.nh, kAttnThreads, fw.bytes, s>>>(a);
+  RDST_CHECK(cudaGetLastError());
+  RDST_CHECK((run_rows<false, true>(
+      gemm_args(b.ao, nullptr, kp, b.wproj, nullptr, kp, T, kp, kp),
+      EpiProjLn{a}, s)));
+  RDST_CHECK((run_gemm<128, false, true>(
+      gemm_args(b.x1n, nullptr, kp, b.w1, nullptr, hp, T, hp, kp),
+      EpiFc1{a}, s)));
+  RDST_CHECK((run_gemm<128, false, false>(
+      gemm_args(b.dh2h, b.dh2l, kp, b.w2, nullptr, kp, T, hp, kp),
+      EpiDu{a}, s)));
+  RDST_CHECK((run_rows<false, false>(
+      gemm_args(b.duh, b.dul, hp, b.w1, nullptr, hp, T, kp, hp),
+      EpiLn2Bwd{a}, s)));
+  RDST_CHECK((run_gemm<128, false, false>(
+      gemm_args(b.dyh, b.dyl, kp, b.wproj, nullptr, kp, T, kp, kp),
+      EpiDout{a}, s)));
+  RDST_CHECK(cudaFuncSetAttribute(
+      attn_vjp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bw.bytes));
+  attn_vjp_kernel<<<d.windows * d.nh, kAttnThreads, bw.bytes, s>>>(a);
+  RDST_CHECK(cudaGetLastError());
+  RDST_CHECK((run_rows<false, false>(
+      gemm_args(b.dqkv, nullptr, n3, b.wqkv, nullptr, n3, T, kp, n3),
+      EpiLn1Bwd{a}, s)));
+  const WgradArgs w = wgrad_args(a);
+  constexpr int wsmem = Tile<kWgradBN, true, true>::kSmem;
+  RDST_CHECK(cudaFuncSetAttribute(
+      wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wsmem));
+  wgrad_kernel<<<dim3(w.first[4], 1, d.chunks), kGemmThreads, wsmem, s>>>(w);
+  RDST_CHECK(cudaGetLastError());
+  const long long total = grad_layout(d.c, d.hidden).total +
+                          static_cast<long long>(a.w.bw) * d.n * d.nh * d.n;
+  reduce_kernel<<<static_cast<int>((total + kReduceOuts - 1) / kReduceOuts),
+                  256, 0, s>>>(a, w);
+  RDST_CHECK(cudaGetLastError());
+#undef RDST_CHECK
+  return cudaSuccess;
+}
+
+// Fills the parts of a block's BwdArgs that both train kernels share.
+inline void set_block(BwdArgs* a, const void* const* wp, int bw,
+                      const Dims& d, float* work, int softmax) {
+  a->w.wqkv = static_cast<const bf16*>(wp[0]);
+  a->w.bqkv = static_cast<const float*>(wp[1]);
+  a->w.wproj = static_cast<const bf16*>(wp[2]);
+  a->w.bproj = static_cast<const bf16*>(wp[3]);
+  a->w.w1 = static_cast<const bf16*>(wp[4]);
+  a->w.bf1 = static_cast<const float*>(wp[5]);
+  a->w.w2 = static_cast<const bf16*>(wp[6]);
+  a->w.bf2 = static_cast<const bf16*>(wp[7]);
+  a->w.bias = static_cast<const bf16*>(wp[8]);
+  a->w.bw = bw;
+  a->d = d;
+  carve(d, work, &a->b);
+  a->softmax = softmax;
 }
 
 }  // namespace trainblk

@@ -16,19 +16,20 @@
 // tokens in and out in window layout, the bias shared (1 window) or per
 // window (the block's nW, a shifted block).
 //
-// Backward (`block_train_bwd_bf16`): trainblk::block_bwd_kernel
-// (csrc/block_bwd.cuh: each window's forward recomputed, then its
-// hand-written VJP, gradients in f32 per thread block), then two fixed-
-// order reductions: the weight-gradient slabs, and the score cotangents
-// per bias window (1 window for an unshifted block, nW for a shifted one).
-// The TPU kernel's grid of window chunks (3 of 3 windows at C = 180) is a
-// VMEM device; the sums are the same.
+// Backward (`block_train_bwd_bf16`): trainblk::block_backward
+// (csrc/block_bwd.cuh), 13 kernels over all the launch's tokens: the
+// forward recomputed and the VJP as token-parallel tensor-core GEMMs with
+// fused epilogues, attention per (window, head), the weight gradients as
+// split-K products summed in a fixed order, the score cotangents summed
+// per bias window (1 window for an unshifted block, nW for a shifted
+// one). The TPU kernel's grid of window chunks (3 of 3 windows at C =
+// 180) is a VMEM device; the sums are the same.
 //
 // What bounds it on an H100: operations (16C^2 + 4NC flops per token
 // forward, about twice that backward, plus the recompute). The forward
 // runs every product on the tensor cores out of shared memory; the
-// backward stages its window state through device memory (about 1.25 MB
-// per thread block at C = 180), which bounds this first version.
+// backward's products run as GEMMs over 18,432 tokens at the training
+// geometry (see csrc/block_bwd.cuh for what each phase does about it).
 
 #include "fast_block.cuh"
 #include "block_bwd.cuh"
@@ -83,15 +84,14 @@ bool dims_ok(const fastblk::Geom& g, int windows, int bias_windows,
 
 extern "C" {
 
-// Floats of the backward's per-thread-block workspace and weight-gradient
-// partials; the wrapper allocates grid times each.
-int block_train_work_floats(int n, int c, int nh, int hidden) {
-  return trainblk::work_layout(n, c, nh, hidden).total;
+// Floats of the backward's workspace for `windows` windows.
+long long block_train_work_floats(int windows, int n, int c, int nh,
+                                  int hidden) {
+  return trainblk::work_floats(trainblk::make_dims(windows, n, c, nh, hidden));
 }
 
-int block_train_grad_floats(int c, int hidden) {
-  return trainblk::grad_layout(c, hidden).total;
-}
+// Kernels one backward call launches (one of them the attention VJP).
+int block_train_bwd_kernels() { return trainblk::kBwdKernels; }
 
 // ptrs: x, out, dpf (0 = none), then the block's kernel_layout weights and
 // packed bias (9). dims: windows, n, c, nh, hidden, bias_windows, softmax.
@@ -125,57 +125,36 @@ int block_train_fwd_bf16(const void* const* ptrs, const int* dims,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ptrs: x, dz, dx (out), dpf (0 = none), work, slab (zeroed), dsw
-// (windows, n, nh n) score cotangents, grad (grad_layout floats), dbias
-// (bias_windows, n, nh n), then the block's FastParams weights and packed
-// bias (9). dims: windows, n, c, nh, hidden, bias_windows, softmax, grid.
+// ptrs: x, dz, dx (out), dpf (0 = none), work (block_train_work_floats),
+// grad (grad_layout floats, out), dbias (bias_windows, n, nh n; out), then
+// the block's FastParams weights and packed bias (9). dims: windows, n, c,
+// nh, hidden, bias_windows, softmax.
 int block_train_bwd_bf16(const void* const* ptrs, const int* dims,
                          int device, void* stream) {
   const int windows = dims[0], n = dims[1], c = dims[2], nh = dims[3];
-  const int hid = dims[4], bw = dims[5], softmax = dims[6], grid = dims[7];
+  const int hid = dims[4], bw = dims[5], softmax = dims[6];
   const fastblk::Geom g = fastblk::make_geom(n, c, nh, hid);
-  if (!dims_ok(g, windows, bw, softmax) || grid < 1)
+  if (!dims_ok(g, windows, bw, softmax))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (windows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
 
   trainblk::BwdArgs b{};
-  trainblk::set_block_weights(&b.w, ptrs + 9, bw);
-  b.x_win = static_cast<const bf16*>(ptrs[0]);
-  b.dz_win = static_cast<const bf16*>(ptrs[1]);
-  b.dx_win = mut<bf16>(ptrs[2]);
+  trainblk::set_block(&b, ptrs + 7, bw,
+                      trainblk::make_dims(windows, n, c, nh, hid),
+                      mut<float>(ptrs[4]), softmax);
+  // window layout throughout: token t is row t of x, dz and dx
+  b.x = static_cast<const bf16*>(ptrs[0]);
+  b.dz = static_cast<const bf16*>(ptrs[1]);
+  b.dx = mut<bf16>(ptrs[2]);
   b.dpf = static_cast<const float*>(ptrs[3]);
   b.dp_col = 0;
   b.dp_stride = 2;
-  b.work = mut<float>(ptrs[4]);
-  b.slab = mut<float>(ptrs[5]);
-  b.dsw = mut<float>(ptrs[6]);
-  b.windows = windows;
-  b.n = n;
-  b.c = c;
-  b.nh = nh;
-  b.hidden = hid;
-  b.softmax = softmax;
-  // window layout throughout: one row of windows per bias period, so the
-  // kernel's window-in-image index is win % bw (no relayout, no shift)
-  int ws = 1;
-  while (ws * ws < n) ++ws;
-  b.ws = ws;
-  b.ih = ws;
-  b.iw = ws * bw;
-  b.img_shift = 0;
-
-  trainblk::block_bwd_kernel<<<grid, 256, 0, s>>>(b);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int gsize = trainblk::grad_layout(c, hid).total, bsize = n * nh * n;
-  trainblk::sum_parts_kernel<<<(gsize + 255) / 256, 256, 0, s>>>(
-      b.slab, grid, gsize, gsize, 1, mut<float>(ptrs[7]));
-  trainblk::sum_parts_kernel<<<(bw * bsize + 255) / 256, 256, 0, s>>>(
-      b.dsw, windows, bsize, bsize, bw, mut<float>(ptrs[8]));
-  return static_cast<int>(cudaGetLastError());
+  b.grads = mut<float>(ptrs[5]);
+  b.dbias = mut<float>(ptrs[6]);
+  return static_cast<int>(
+      trainblk::block_backward(b, static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -16,18 +16,20 @@
 // output stays in the image-layout scratch, which the caller keeps for
 // the backward.
 //
-// Backward (`pair_train_bwd_bf16`): block b's backward, then block a's
-// (trainblk::block_bwd_kernel, csrc/block_bwd.cuh: each window's forward
-// recomputed, then its hand-written VJP), then deterministic reductions.
-// Only tokens, cotangents and block a's output cross device memory
-// between the launches. Block b's input cotangent is scattered back
-// through the relayout (a permutation, so the scatter is conflict-free)
-// into an image-layout buffer, from which block a gathers its output
-// cotangent.
+// Backward (`pair_train_bwd_bf16`): block b's backward, then block a's,
+// each trainblk::block_backward (csrc/block_bwd.cuh: 13 kernels over all
+// the launch's tokens -- the forward recomputed and the VJP as
+// token-parallel tensor-core GEMMs with fused epilogues, attention per
+// (window, head), deterministic split-K weight gradients). The two blocks
+// share one workspace. The relayout is a row map: block b reads its input
+// from block a's output y (image layout) at the rolled positions and
+// scatters its input cotangent back there into an image-layout buffer
+// (a permutation, so the scatter is conflict-free), from which block a
+// reads its output cotangent.
 //
 // What bounds it on an H100: operations (the backward does about twice
-// the forward's products, plus the recompute); staging and latency bound
-// this first version (see csrc/block_bwd.cuh).
+// the forward's products, plus the recompute); see csrc/block_bwd.cuh
+// for what each phase of the backward does about it.
 
 #include "fast_block.cuh"
 #include "block_bwd.cuh"
@@ -35,12 +37,6 @@
 namespace {
 
 using fastblk::bf16;
-using trainblk::BwdArgs;
-using trainblk::block_bwd_kernel;
-using trainblk::grad_layout;
-using trainblk::set_block_weights;
-using trainblk::sum_parts_kernel;
-using trainblk::work_layout;
 
 // ---------------------------------------------------------------- forward
 
@@ -140,15 +136,15 @@ bool dims_ok(const fastblk::Geom& g, int images, int h, int w, int ws,
 
 extern "C" {
 
-// Floats of the backward's per-thread-block workspace and weight-gradient
-// partials; the wrapper allocates grid times each.
-int pair_train_work_floats(int n, int c, int nh, int hidden) {
-  return work_layout(n, c, nh, hidden).total;
+// Floats of the backward's workspace for `windows` windows (shared by
+// the two blocks).
+long long pair_train_work_floats(int windows, int n, int c, int nh,
+                                 int hidden) {
+  return trainblk::work_floats(trainblk::make_dims(windows, n, c, nh, hidden));
 }
 
-int pair_train_grad_floats(int c, int hidden) {
-  return grad_layout(c, hidden).total;
-}
+// Kernels one backward call launches (two of them attention VJPs).
+int pair_train_bwd_kernels() { return 2 * trainblk::kBwdKernels; }
 
 // ptrs: x, out, y scratch, counter, dpf (0 = none), then block a's and
 // block b's kernel_layout weights and packed bias (9 each). dims: images,
@@ -196,18 +192,17 @@ int pair_train_fwd_bf16(const void* const* ptrs, const int* dims, int device,
 
 // ptrs: x (unshifted windows), dz (shifted windows), y (block a's output,
 // image layout, from the forward), dx (out, windows), dy (scratch, image
-// layout), dpf (0 = none), work, slab_a, slab_b (zeroed), dsw_a, dsw_b,
-// grad_a, grad_b (grad_layout floats each), dbias_a (1, n, nh n), dbias_b
-// (bw_b, n, nh n), then block a's and block b's FastParams weights and
-// packed bias (9 each). dims: images, h, w, ws, shift, c, nh, hidden,
-// softmax, grid.
+// layout), dpf (0 = none), work (pair_train_work_floats), grad_a, grad_b
+// (grad_layout floats each, out), dbias_a (1, n, nh n), dbias_b (bw_b, n,
+// nh n), then block a's and block b's FastParams weights and packed bias
+// (9 each). dims: images, h, w, ws, shift, c, nh, hidden, softmax.
 int pair_train_bwd_bf16(const void* const* ptrs, const int* dims, int device,
                         void* stream) {
   const int images = dims[0], h = dims[1], w = dims[2], ws = dims[3];
   const int shift = dims[4], c = dims[5], nh = dims[6], hid = dims[7];
-  const int softmax = dims[8], grid = dims[9];
+  const int softmax = dims[8];
   const fastblk::Geom g = fastblk::make_geom(ws * ws, c, nh, hid);
-  if (!dims_ok(g, images, h, w, ws, shift, softmax) || grid < 1)
+  if (!dims_ok(g, images, h, w, ws, shift, softmax))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -215,60 +210,40 @@ int pair_train_bwd_bf16(const void* const* ptrs, const int* dims, int device,
   if (windows == 0) return 0;
   const int bw_b = shift > 0 ? nw : 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  BwdArgs b{};
-  b.dpf = static_cast<const float*>(ptrs[5]);
-  b.work = mut<float>(ptrs[6]);
-  b.windows = windows;
-  b.n = n;
-  b.c = c;
-  b.nh = nh;
-  b.hidden = hid;
-  b.ih = h;
-  b.iw = w;
-  b.ws = ws;
-  b.softmax = softmax;
-  BwdArgs a = b;
+  const trainblk::Dims d = trainblk::make_dims(windows, n, c, nh, hid);
+  float* work = mut<float>(ptrs[6]);
 
   // block b: input gathered from y at the rolled positions, cotangent in
   // the shifted window layout, input cotangent scattered back into dy
-  set_block_weights(&b.w, ptrs + 24, bw_b);
-  b.x_img = static_cast<const bf16*>(ptrs[2]);
-  b.dz_win = static_cast<const bf16*>(ptrs[1]);
-  b.dx_img = mut<bf16>(ptrs[4]);
-  b.img_shift = shift;
+  trainblk::BwdArgs b{};
+  trainblk::set_block(&b, ptrs + 20, bw_b, d, work, softmax);
+  const trainblk::Rows rolled{1, h, w, ws, shift};
+  b.x = static_cast<const bf16*>(ptrs[2]);
+  b.xr = rolled;
+  b.dz = static_cast<const bf16*>(ptrs[1]);
+  b.dx = mut<bf16>(ptrs[4]);
+  b.dxr = rolled;
+  b.dpf = static_cast<const float*>(ptrs[5]);
   b.dp_col = 2;
   b.dp_stride = 4;
-  b.slab = mut<float>(ptrs[8]);
-  b.dsw = mut<float>(ptrs[10]);
+  b.grads = mut<float>(ptrs[8]);
+  b.dbias = mut<float>(ptrs[10]);
+  err = trainblk::block_backward(b, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
   // block a: input in windows, cotangent gathered from dy unshifted
-  set_block_weights(&a.w, ptrs + 15, 1);
-  a.x_win = static_cast<const bf16*>(ptrs[0]);
-  a.dz_img = static_cast<const bf16*>(ptrs[4]);
-  a.dx_win = mut<bf16>(ptrs[3]);
-  a.img_shift = 0;
+  trainblk::BwdArgs a{};
+  trainblk::set_block(&a, ptrs + 11, 1, d, work, softmax);
+  a.x = static_cast<const bf16*>(ptrs[0]);
+  a.dz = static_cast<const bf16*>(ptrs[4]);
+  a.dzr = trainblk::Rows{1, h, w, ws, 0};
+  a.dx = mut<bf16>(ptrs[3]);
+  a.dpf = b.dpf;
   a.dp_col = 0;
   a.dp_stride = 4;
-  a.slab = mut<float>(ptrs[7]);
-  a.dsw = mut<float>(ptrs[9]);
-
-  block_bwd_kernel<<<grid, 256, 0, s>>>(b);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  block_bwd_kernel<<<grid, 256, 0, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int gsize = grad_layout(c, hid).total, bsize = n * nh * n;
-  sum_parts_kernel<<<(gsize + 255) / 256, 256, 0, s>>>(
-      a.slab, grid, gsize, gsize, 1, mut<float>(ptrs[11]));
-  sum_parts_kernel<<<(gsize + 255) / 256, 256, 0, s>>>(
-      b.slab, grid, gsize, gsize, 1, mut<float>(ptrs[12]));
-  sum_parts_kernel<<<(bsize + 255) / 256, 256, 0, s>>>(
-      a.dsw, windows, bsize, bsize, 1, mut<float>(ptrs[13]));
-  sum_parts_kernel<<<(bw_b * bsize + 255) / 256, 256, 0, s>>>(
-      b.dsw, windows, bsize, bsize, bw_b, mut<float>(ptrs[14]));
-  return static_cast<int>(cudaGetLastError());
+  a.grads = mut<float>(ptrs[7]);
+  a.dbias = mut<float>(ptrs[9]);
+  return static_cast<int>(trainblk::block_backward(a, s));
 }
 
 }  // extern "C"

@@ -18,11 +18,14 @@ parameters. On a CPU tensor :func:`run_block_train` computes
 :func:`block_train_reference` (autograd differentiates it); on a CUDA
 tensor it applies :class:`BlockTrainFunction`, whose forward launches
 ``block_train_fwd_bf16`` and whose backward ``block_train_bwd_bf16`` of
-``csrc/block_train.cu`` (the VJP kernel, then two reduction kernels),
-each wrapper call counted (``launch_forward.launches``,
-``launch_backward.launches``; ``launch_backward.reductions`` counts the
-reduction kernels apart). What the kernels do not take raises on either
-device; on the card nothing falls back to the plain version.
+``csrc/block_train.cu`` (13 kernels over all the launch's tokens, one of
+them the attention VJP), each wrapper call counted
+(``launch_forward.launches``, ``launch_backward.launches``;
+``launch_backward.reductions`` counts the backward's other kernels).
+:func:`block_bwd_reference` computes that backward by hand in plain
+PyTorch, phase by phase, at the kernel's bf16 rounding points: the CPU
+oracle of the kernel's phases. What the kernels do not take raises on
+either device; on the card nothing falls back to the plain version.
 
 The admission rules (:func:`vmem_estimate` ... :func:`fused_block_train_fits`)
 are own copies of the JAX package's VMEM models. They decide, as the
@@ -39,12 +42,12 @@ import torch
 
 from rdst_tpu_torch.kernels import _build
 from rdst_tpu_torch.kernels.swin_block import (
-    BF16, FAST_MAX_C, H100_SMEM_OPTIN, FastParams, check_fast_tokens,
-    fast_body, fast_kernel_supports, fast_params, fast_smem_bytes,
-    kernel_layout, launch, pack_bias_fast, softmax_code)
+    BF16, FAST_MAX_C, H100_SMEM_OPTIN, SOFTMAX_CODES, FastParams,
+    check_fast_tokens, fast_body, fast_kernel_supports, fast_params,
+    fast_smem_bytes, gelu_tanh, kernel_layout, launch, normalize,
+    pack_bias_fast, softmax_code)
 
 _SOURCE = "block_train.cu"
-_MAX_GRID = 1024  # thread blocks of one backward launch (one window each)
 
 # ------------------------------------------------------------------------
 # The JAX package's admission rules (pure arithmetic)
@@ -140,7 +143,7 @@ def fused_block_train_fits(nw, n, c, nh, hidden, es=2, softmax="") -> bool:
 def block_train_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
     """Whether the single-block train kernels take this block geometry:
     the forward's window body at up to ``FAST_MAX_C`` channels; the
-    backward keeps its per-window state in device memory."""
+    backward takes the same geometries."""
     return fast_kernel_supports(n, c, nh, hidden, max_c=FAST_MAX_C)
 
 
@@ -155,13 +158,135 @@ def block_train_reference(x_windows, p: FastParams, bias, dp_cols=None, *,
                      softmax=softmax, dpf=dpf).to(BF16)
 
 
+def _rb(v):
+    """Round float32 to bf16 and back."""
+    return v.to(BF16).float()
+
+
+def _hilo(v):
+    """A float32 operand as the kernel takes it: bf16 hi + bf16 lo,
+    lo = bf16(v - hi), summed (exactly) in float32."""
+    hi = _rb(v)
+    return hi + _rb(v - hi)
+
+
+def _gelu_grad(u):
+    """d/du of ``gelu_tanh``."""
+    k0, k1 = 0.7978845608028654, 0.044715
+    t = torch.tanh(k0 * (u + k1 * u * u * u))
+    return 0.5 * (1.0 + t) + 0.5 * u * (1.0 - t * t) * k0 * (
+        1.0 + 3.0 * k1 * u * u)
+
+
+def _normalize_bwd(x, dn):
+    """The VJP of ``normalize`` at x for the output cotangent dn."""
+    mu = x.mean(dim=-1, keepdim=True)
+    ex2 = (x * x).mean(dim=-1, keepdim=True)
+    a = torch.rsqrt(torch.clamp(ex2 - mu * mu, min=0.0) + 1e-5)
+    xh = x * a - mu * a
+    return a * (dn - dn.mean(dim=-1, keepdim=True)
+                - xh * (dn * xh).mean(dim=-1, keepdim=True))
+
+
+def block_bwd_reference(x, dz, p: FastParams, bias, dpf=None, *,
+                        num_heads: int, softmax: str):
+    """The block's backward by hand, in the phases and at the bf16
+    rounding points of ``csrc/block_bwd.cuh`` (no autograd): bf16 tokens
+    x and output cotangent dz (T, N, C), folded params, packed bias (bw,
+    N, nH*N), optional (T*N, 2) float32 factor columns. Returns (dx bf16,
+    the grads of p as float32 FastParams, dbias float32 (bw, N, nH*N)).
+
+    Where the kernel takes a float32 operand of a product as bf16 hi +
+    lo, so does this (``_hilo``); bias gradients are column sums of the
+    same operands (the kernel's ones rows)."""
+    code = softmax_code(softmax)
+    t, n, c = x.shape
+    nh = num_heads
+    hd = c // nh
+    tn = t * n
+    f32 = torch.float32
+    xf = x.float().reshape(tn, c)
+    dzf = dz.float().reshape(tn, c)
+    if dpf is None:
+        fa = fm = torch.ones(tn, 1, dtype=f32, device=x.device)
+    else:
+        fa, fm = dpf[:, 0:1].float(), dpf[:, 1:2].float()
+    w = [a.float() for a in p]
+    wqkv, bqkv, wproj, bproj, w1, bf1, w2, bf2 = w
+
+    def heads(u):  # (T*N, C) -> (T, nH, N, hd)
+        return u.reshape(t, n, nh, hd).transpose(1, 2)
+
+    def merge(u):  # (T, nH, N, hd) -> (T*N, C)
+        return u.transpose(1, 2).reshape(tn, c)
+
+    # the forward, recomputed: LN1 and qkv; attention; proj, residual and
+    # LN2; fc1
+    xn = _rb(normalize(xf))
+    qkv = _rb(xn @ wqkv + bqkv)
+    q, k, v = (heads(qkv[:, i * c:(i + 1) * c]) for i in range(3))
+    bw = bias.shape[0]
+    bh = bias.float().reshape(bw, n, nh, n).permute(0, 2, 1, 3)
+    s = (q @ k.transpose(-2, -1)).reshape(t // bw, bw, nh, n, n) + bh[None]
+    s = s.reshape(t, nh, n, n)
+    smax = s.amax(dim=-1, keepdim=True)
+    if code == SOFTMAX_CODES["clamp"]:
+        e = torch.exp(torch.clamp(s, max=60.0))
+    else:
+        m = _rb(smax) if code == SOFTMAX_CODES["stable_mm"] else smax
+        e = torch.exp(s - m)
+    pe = _rb(e)
+    den = _rb(pe.sum(dim=-1, keepdim=True))
+    o = (pe @ v) / den
+    ao = _rb(merge(o))
+    x1 = xf + (ao @ wproj + bproj) * fa
+    x1n = _rb(normalize(x1))
+    u = x1n @ w1 + bf1
+    h1 = _rb(gelu_tanh(u))
+    # the MLP's VJP: fc2, then fc1 through the GELU
+    dh2 = _hilo(fm * dzf)
+    g_w2, g_bf2 = h1.t() @ dh2, dh2.sum(0)
+    du = _hilo(_rb(dh2 @ w2.t()) * _gelu_grad(u))
+    g_w1, g_bf1 = x1n.t() @ du, du.sum(0)
+    # LN2's VJP and the residual; the projection's VJP
+    g2 = dzf + _normalize_bwd(x1, _rb(du @ w1.t()))
+    dy = _hilo(fa * g2)
+    g_wproj, g_bproj = ao.t() @ dy, dy.sum(0)
+    do = heads(_rb(dy @ wproj.t()))
+    # attention's VJP per head
+    dden = _rb(-(do * o).sum(dim=-1, keepdim=True) / den)
+    da = _hilo(do / den)
+    dv = _rb(pe.transpose(-2, -1) @ da)
+    ds = _rb(_rb(da @ v.transpose(-2, -1)) + dden) * e
+    if code == SOFTMAX_CODES["clamp"]:
+        ds = torch.where(s > 60.0, torch.zeros_like(ds), ds)
+    else:
+        tie = (s == smax).to(f32)
+        dm = -ds.sum(dim=-1, keepdim=True)
+        if code == SOFTMAX_CODES["stable_mm"]:
+            dm = _rb(dm)
+        ds = ds + tie * (dm / tie.sum(dim=-1, keepdim=True))
+    dsh = _hilo(ds)
+    dq = _rb(dsh @ k)
+    dk = _rb(dsh.transpose(-2, -1) @ q)
+    dqkv = torch.cat([merge(dq), merge(dk), merge(dv)], dim=1)
+    g_wqkv, g_bqkv = xn.t() @ dqkv, dqkv.sum(0)
+    # LN1's VJP and the residual
+    dx = g2 + _normalize_bwd(xf, _rb(dqkv @ wqkv.t()))
+    # the score cotangents in the packed layout, summed per bias window
+    dsw = ds.permute(0, 2, 1, 3).reshape(t // bw, bw, n, nh * n)
+    grads = FastParams(g_wqkv, g_bqkv, g_wproj, g_bproj, g_w1, g_bf1, g_w2,
+                       g_bf2)
+    return dx.reshape(t, n, c).to(BF16), grads, dsw.sum(0)
+
+
 def _lib():
     lib = _build.load(_SOURCE)
     if not getattr(lib, "_rdst_sizes", False):
-        lib.block_train_work_floats.argtypes = [ctypes.c_int] * 4
-        lib.block_train_work_floats.restype = ctypes.c_int
-        lib.block_train_grad_floats.argtypes = [ctypes.c_int] * 2
-        lib.block_train_grad_floats.restype = ctypes.c_int
+        lib.block_train_work_floats.argtypes = [ctypes.c_int] * 5
+        lib.block_train_work_floats.restype = ctypes.c_longlong
+        lib.block_train_bwd_kernels.argtypes = []
+        lib.block_train_bwd_kernels.restype = ctypes.c_int
         lib._rdst_sizes = True
     return lib
 
@@ -181,38 +306,40 @@ def launch_forward(x, layout, bias, dpf, nh: int, hidden: int, code: int):
 launch_forward.launches = 0  # wrapper calls (kernel launches) since reset
 
 
+def split_grads(flat, like: FastParams) -> FastParams:
+    """Views of a flat gradient buffer in FastParams order and shapes."""
+    out, at = [], 0
+    for a in like:
+        out.append(flat[at:at + a.numel()].view(a.shape))
+        at += a.numel()
+    return FastParams(*out)
+
+
 def launch_backward(x, dz, p: FastParams, bias, dpf, nh: int, code: int):
-    """Launch ``block_train_bwd_bf16`` (the VJP kernel and its two
-    reductions); returns (dx bf16, the grads of p as float32 FastParams,
-    dbias float32)."""
+    """Launch ``block_train_bwd_bf16`` (13 kernels); returns (dx bf16, the
+    grads of p as float32 FastParams, dbias float32)."""
     t, n, c = x.shape
     hidden = p.w1.shape[1]
     dev = x.device
     lib = _lib()
-    grid = min(t, _MAX_GRID)
-    work = torch.empty(grid * lib.block_train_work_floats(n, c, nh, hidden),
+    work = torch.empty(lib.block_train_work_floats(t, n, c, nh, hidden),
                        dtype=torch.float32, device=dev)
-    gsize = lib.block_train_grad_floats(c, hidden)
-    slab = torch.zeros(grid, gsize, dtype=torch.float32, device=dev)
-    dsw = torch.empty(t, n, nh * n, dtype=torch.float32, device=dev)
-    grads = torch.empty(gsize, dtype=torch.float32, device=dev)
+    grads = torch.empty(sum(a.numel() for a in p), dtype=torch.float32,
+                        device=dev)
     dbias = torch.empty(bias.shape, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     launch(lib, "block_train_bwd_bf16",
-           [x, dz, dx, 0 if dpf is None else dpf, work, slab, dsw, grads,
-            dbias, *[a.contiguous() for a in p], bias],
-           [t, n, c, nh, hidden, bias.shape[0], code, grid], dev)
+           [x, dz, dx, 0 if dpf is None else dpf, work, grads, dbias,
+            *[a.contiguous() for a in p], bias],
+           [t, n, c, nh, hidden, bias.shape[0], code], dev)
     launch_backward.launches += 1
-    launch_backward.reductions += 2
-    out, at = [], 0
-    for a in p:
-        out.append(grads[at:at + a.numel()].view(a.shape))
-        at += a.numel()
-    return dx, FastParams(*out), dbias
+    launch_backward.reductions += lib.block_train_bwd_kernels() - 1
+    return dx, split_grads(grads, p), dbias
 
 
-launch_backward.launches = 0  # wrapper calls (VJP kernel launches)
-launch_backward.reductions = 0  # reduction kernel launches, counted apart
+launch_backward.launches = 0  # wrapper calls since the last reset
+# the backward's kernels other than the attention VJP, since the last reset
+launch_backward.reductions = 0
 
 
 class BlockTrainFunction(torch.autograd.Function):

@@ -16,10 +16,13 @@ table. On a CPU tensor :func:`run_pair_train` computes
 :func:`pair_train_reference` (autograd differentiates it); on a CUDA
 tensor it applies :class:`PairTrainFunction`, whose forward launches
 ``pair_train_fwd_bf16`` and whose backward launches
-``pair_train_bwd_bf16`` of ``csrc/pair_train.cu``, each counted
-(``launch_forward.launches``, ``launch_backward.launches``). What the
-kernels do not take raises on either device; on the card nothing falls
-back to the plain version.
+``pair_train_bwd_bf16`` of ``csrc/pair_train.cu`` (block b's backward,
+then block a's: 13 kernels each, one of them the attention VJP), each
+wrapper call counted (``launch_forward.launches``,
+``launch_backward.launches``; ``launch_backward.reductions`` counts the
+backward's kernels other than the two attention VJPs). What the kernels
+do not take raises on either device; on the card nothing falls back to
+the plain version.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import ctypes
 import torch
 
 from rdst_tpu_torch.kernels import _build
+from rdst_tpu_torch.kernels.block_train import split_grads
 from rdst_tpu_torch.kernels.swin_block import (
     BF16, H100_SMEM_OPTIN, SHARED_MAX_C, FastParams, check_fast_tokens,
     fast_body, fast_kernel_supports, fast_params, fast_smem_bytes,
@@ -36,13 +40,12 @@ from rdst_tpu_torch.kernels.swin_block import (
 from rdst_tpu_torch.kernels.swin_pair import shift_relayout
 
 _SOURCE = "pair_train.cu"
-_MAX_GRID = 1024  # thread blocks of one backward launch (one window each)
 
 
 def pair_train_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
     """Whether the train-pair kernels take this block geometry: the
-    forward's window body (``fast_kernel_supports``); the backward keeps
-    its per-window state in device memory and takes the same geometries."""
+    forward's window body (``fast_kernel_supports``); the backward takes
+    the same geometries."""
     return fast_kernel_supports(n, c, nh, hidden)
 
 
@@ -67,10 +70,10 @@ def pair_train_reference(x_windows, pa: FastParams, bias_a, pb: FastParams,
 def _lib():
     lib = _build.load(_SOURCE)
     if not getattr(lib, "_rdst_sizes", False):
-        lib.pair_train_work_floats.argtypes = [ctypes.c_int] * 4
-        lib.pair_train_work_floats.restype = ctypes.c_int
-        lib.pair_train_grad_floats.argtypes = [ctypes.c_int] * 2
-        lib.pair_train_grad_floats.restype = ctypes.c_int
+        lib.pair_train_work_floats.argtypes = [ctypes.c_int] * 5
+        lib.pair_train_work_floats.restype = ctypes.c_longlong
+        lib.pair_train_bwd_kernels.argtypes = []
+        lib.pair_train_bwd_kernels.restype = ctypes.c_int
         lib._rdst_sizes = True
     return lib
 
@@ -111,36 +114,29 @@ def launch_backward(x, dz, y, pa: FastParams, bias_a, pb: FastParams, bias_b,
     hidden = pa.w1.shape[1]
     dev = x.device
     lib = _lib()
-    grid = min(t, _MAX_GRID)
-    work = torch.empty(grid * lib.pair_train_work_floats(n, c, nh, hidden),
+    work = torch.empty(lib.pair_train_work_floats(t, n, c, nh, hidden),
                        dtype=torch.float32, device=dev)
-    gsize = lib.pair_train_grad_floats(c, hidden)
-    slabs = torch.zeros(2, grid, gsize, dtype=torch.float32, device=dev)
-    dsw = torch.empty(2, t, n, nh * n, dtype=torch.float32, device=dev)
-    grads = torch.empty(2, gsize, dtype=torch.float32, device=dev)
+    grads = torch.empty(2, sum(p.numel() for p in pa), dtype=torch.float32,
+                        device=dev)
     dbias_a = torch.empty(bias_a.shape, dtype=torch.float32, device=dev)
     dbias_b = torch.empty(bias_b.shape, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     dy = torch.empty_like(y)
     launch(lib, "pair_train_bwd_bf16",
-           [x, dz, y, dx, dy, 0 if dpf is None else dpf, work, slabs[0],
-            slabs[1], dsw[0], dsw[1], grads[0], grads[1], dbias_a, dbias_b,
-            *_plain(pa), bias_a, *_plain(pb), bias_b],
-           [t // (h // ws * (w // ws)), h, w, ws, shift, c, nh, hidden, code,
-            grid], dev)
+           [x, dz, y, dx, dy, 0 if dpf is None else dpf, work, grads[0],
+            grads[1], dbias_a, dbias_b, *_plain(pa), bias_a, *_plain(pb),
+            bias_b],
+           [t // (h // ws * (w // ws)), h, w, ws, shift, c, nh, hidden,
+            code], dev)
     launch_backward.launches += 1
-
-    def split(g):
-        out, at = [], 0
-        for p in pa:
-            out.append(g[at:at + p.numel()].view(p.shape))
-            at += p.numel()
-        return FastParams(*out)
-
-    return dx, split(grads[0]), dbias_a, split(grads[1]), dbias_b
+    launch_backward.reductions += lib.pair_train_bwd_kernels() - 2
+    return (dx, split_grads(grads[0], pa), dbias_a,
+            split_grads(grads[1], pb), dbias_b)
 
 
-launch_backward.launches = 0  # kernel launches since the last reset
+launch_backward.launches = 0  # wrapper calls since the last reset
+# the backward's kernels other than the attention VJPs, since the last reset
+launch_backward.reductions = 0
 
 
 class PairTrainFunction(torch.autograd.Function):
