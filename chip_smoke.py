@@ -13,9 +13,12 @@ PyTorch version on the card. Phases, each printed with its seconds (the
 1. the card (``nvidia-smi`` name and power limit);
 2. build every kernel source with ``nvcc`` (one process per source, all
    started together), with each ptxas report of registers and spills;
-3. the f32 block kernel vs its plain version at the main path's shapes
-   (bucket 64: 64 slices x 20 windows), with CUDA-event times and the
-   bound;
+3. the f32 block kernel (six token-parallel kernels, 3xTF32 products)
+   vs its plain version and the staged plain version of its phases at
+   the main path's shapes (bucket 64: 64 slices x 20 windows): CUDA-event
+   times, both bounds (f32 FMA and 3xTF32, the row taking the smaller),
+   two launches bitwise equal, kernels a call and device time by phase
+   (torch.profiler);
 4. the f32 model on 8 seeded 40x32 LR slices: kernel path vs plain
    path, finite, and the launch count per forward;
 5. f32 serving: an ``InferenceServer`` on 127.0.0.1, warmed over the
@@ -27,10 +30,13 @@ PyTorch version on the card. Phases, each printed with its seconds (the
    (torch.profiler) and the device's idle share;
 7. the bf16 kernels vs their plain versions at bucket 64 with the
    flagship's own weights: the fast block at the six (C, shift) variants
-   under 'clamp' (the flagship's resolved variant) and 'stable_bc', the
-   pair at C = 60/90/120, the RDSTB on the flagship geometry; CUDA-event
-   times of the launch alone, plain time, bound, max and mean relative
-   error (bar 0.02);
+   under 'clamp' (the flagship's resolved variant) and 'stable_bc', in
+   the design its plan picks (the window body up to C = 120) and the
+   other (the token-parallel forward) timed beside it, with the
+   token-parallel forward's kernels a call, bitwise repeat and device
+   time by phase; the pair at C = 60/90/120, the RDSTB on the flagship
+   geometry; CUDA-event times of the launch alone, plain time, bound,
+   max and mean relative error (bar 0.02);
 8. the bf16 model in modes rdstb, pair and swin on 8 slices: launches per
    forward (8 / 24 / 48, counts set to 0 just before each and read just
    after), the kernel path vs the plain bf16 path, and vs the f32 kernel
@@ -66,9 +72,11 @@ PyTorch version on the card. Phases, each printed with its seconds (the
     committed weights, bf16, mode swin, int8 qkv; every block unshifted
     at the build resolution): the fast block at C = 180 with int8 qkv vs
     its plain version at bucket 64 (1280 windows), the path's unshifted
-    block and a shifted case, 'clamp' and 'stable_bc': CUDA-event times,
-    plain time, bound (the qkv product at the int8 peak), relative error
-    (bar 0.02);
+    block and a shifted case, 'clamp' and 'stable_bc': CUDA-event times
+    of the token-parallel forward and of the window body beside it, plain
+    time, bound (the qkv product at the int8 peak), relative error (bar
+    0.02), kernels a call, two launches bitwise equal and device time by
+    phase;
 15. the SwinIR-std model on 8 slices: 36 fast-block launches per forward
     (counts set to 0 just before, read just after), vs the same model on
     the CPU (the plain versions, bar 0.02) and vs the plain f32 path
@@ -123,6 +131,7 @@ SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): f32 on the CUDA cores, dense bf16 on
 # the tensor cores, HBM3 bandwidth
 F32_FLOPS = 67e12
+TF32_FLOPS = 494e12  # dense TF32 tensor cores: the f32 kernel's 3xTF32
 BF16_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 # Kernel vs plain, f32 on both sides: they differ only in summation order
@@ -237,11 +246,17 @@ def _block_work(block, c: int, windows: int):
 
 @phase("kernel vs plain")
 def kernel_phase(model) -> dict:
-    from rdst_tpu_torch.kernels.swin_block import (fused_swin_block,
-                                                   swin_block_reference)
+    """The f32 block kernel's launch alone (weights split once, as the
+    model keeps them) against its plain version and the staged plain
+    version of its phases, at bucket 64, for the six (C, shift) variants;
+    CUDA-event times, both bounds (f32 FMA and 3xTF32), and for each the
+    kernels a call, two launches bitwise equal and device time by
+    phase."""
+    from rdst_tpu_torch.kernels import swin_block as sb
 
     ws, nw, images, nh = 8, 20, 64, 6
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    kernels = sb.kernels_per_call("swin_block.cu", "swin_block_f32_kernels")
     rows = []
     rdstb = model.body[0]
     for j, c in enumerate((60, 90, 120)):
@@ -254,30 +269,49 @@ def kernel_phase(model) -> dict:
                             generator=gen)
             kw = dict(num_heads=nh, windows_per_image=nw)
             with torch.inference_mode():
-                want = swin_block_reference(x, *params, bias, **kw)
-                got = fused_swin_block(x, *params, bias, **kw)
+                plan = sb.plan_f32_block(params, bias, num_heads=nh)
+                got = sb.run_f32_block(x, plan, **kw)
+                want = sb.swin_block_reference(x, *plan.params, bias, **kw)
+                staged = sb.swin_block_staged_f32(x, *plan.params, bias, **kw)
                 torch.cuda.synchronize()
                 err = (got - want).abs().max().item()
-                if not (err <= KERNEL_TOL and torch.isfinite(got).all()):
+                err_staged = (got - staged).abs().max().item()
+                if not (max(err, err_staged) <= KERNEL_TOL
+                        and torch.isfinite(got).all()):
                     raise AssertionError(
                         f"fused_swin_block C={c} shift={shift}: max abs err "
-                        f"{err} > {KERNEL_TOL}")
-                ms = cuda_time_ms(lambda: fused_swin_block(x, *params, bias,
-                                                           **kw))
+                        f"{err} (staged {err_staged}) > {KERNEL_TOL}")
+
+                def call():
+                    return sb.run_f32_block(x, plan, **kw)
+
+                ms = cuda_time_ms(call)
                 plain_ms = cuda_time_ms(
-                    lambda: swin_block_reference(x, *params, bias, **kw))
-            flops, weights = _block_work(block, c, images * nw)
+                    lambda: sb.swin_block_reference(x, *plan.params, bias,
+                                                    **kw))
+                flops, weights = _block_work(block, c, images * nw)
+                extras = _forward_extras(
+                    f"f32 block C={c} shift={shift}", call, kernels,
+                    F32_PHASES, flops)
             nbytes = 4 * (2 * x.numel() + weights + bias.numel())
-            t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+            t_fma = flops / F32_FLOPS * 1e3
+            t_tf32 = 3 * flops / TF32_FLOPS * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = min(t_fma, t_tf32)
             row = dict(c=c, shift=shift, windows=images * nw,
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                       flops=flops, bytes=nbytes,
+                       max_abs_err=err, staged_max_abs_err=err_staged,
+                       ms=ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
+                       fma_bound_ms=max(t_fma, t_bytes),
+                       tf32_bound_ms=max(t_tf32, t_bytes),
                        bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes")
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       **extras)
             log(f"fused_swin_block C={c:3d} shift={shift}: err {err:.3e} "
-                f"(tol {KERNEL_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} "
-                f"ms bound {row['bound_ms']:.4f} ms ({row['bound_by']}, "
-                f"{flops / ms / 1e9:.1f} TFLOP/s achieved)")
+                f"(staged {err_staged:.3e}; tol {KERNEL_TOL}) kernel {ms:.4f}"
+                f" ms plain {plain_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']}, 3xTF32; f32 FMA "
+                f"{row['fma_bound_ms']:.4f} ms) "
+                f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
             rows.append(row)
     log("library yardstick: no single PyTorch call computes a whole Swin "
         "block (LN, qkv, biased softmax attention, proj, LN, GELU MLP)")
@@ -410,11 +444,14 @@ def _serve(live, counter=None, per_forward: int = 48,
 serving_phase = phase("serving")(_serve)
 
 
-def _profile(live, kernel: str = "swin_block_kernel") -> dict:
+def _profile(live, kernels=None, group: str = "f32 block kernels") -> dict:
     """Device time of one warm bucket-64 forward by kernel group
     (torch.profiler / CUPTI), and the device's idle share of the
-    forward's wall time (numpy in, numpy out); ``kernel`` names the
-    port's kernels' group."""
+    forward's wall time (numpy in, numpy out); a kernel whose name holds
+    one of ``kernels`` (default: the f32 block's, F32_PHASES) is in the
+    port's group ``group``."""
+    if kernels is None:
+        kernels = tuple(key for key, _ in F32_PHASES)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -428,7 +465,6 @@ def _profile(live, kernel: str = "swin_block_kernel") -> dict:
         live.predict(x, SCALE)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    group = kernel.replace("_kernel", " kernel")
     groups = {group: 0.0, "convolution": 0.0, "other": 0.0}
     top = []
     for e in prof.key_averages():
@@ -438,7 +474,7 @@ def _profile(live, kernel: str = "swin_block_kernel") -> dict:
         if e.device_type != DeviceType.CUDA or t <= 0:
             continue
         name = e.key.lower()
-        if kernel in name:
+        if any(k.lower() in name for k in kernels):
             groups[group] += t
         elif any(w in name for w in CONV_KERNELS):
             groups["convolution"] += t
@@ -510,48 +546,73 @@ def bf16_kernel_phase(model) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rdstb = model.body[0]
     out = {"block": [], "pair": [], "rdstb": []}
+    tok_kernels = swin_block.kernels_per_call(
+        "swin_block_fast.cu", "swin_block_fast_tokens_kernels")
     for softmax in ("clamp", "stable_bc"):
         for j, c in enumerate((60, 90, 120)):
             for k, shift in enumerate((0, ws // 2)):
                 blk = rdstb.body[j].body.blocks[k]
-                plan = swin_block.plan_fast_block(
-                    *blk.fast_kernel_inputs(LR_HW, ws, shift), num_heads=nh)
+                inputs = blk.fast_kernel_inputs(LR_HW, ws, shift)
+                plan = swin_block.plan_fast_block(*inputs, num_heads=nh)
+                # the other design at this width, timed beside the plan's
+                other = "tokens" if plan.route == "window" else "window"
+                plan_o = swin_block.plan_fast_block(*inputs, num_heads=nh,
+                                                    route=other)
                 x = torch.randn(images * nw, ws * ws, c, device="cuda",
                                 generator=gen).to(torch.bfloat16)
                 kw = dict(num_heads=nh, windows_per_image=nw, softmax=softmax)
                 with torch.inference_mode():
                     got = swin_block.run_fast_block(x, plan, **kw)
+                    got_o = swin_block.run_fast_block(x, plan_o, **kw)
                     want = swin_block.swin_block_fast_reference(
                         x, plan.params, plan.bias, num_heads=nh,
                         softmax=softmax)
                     torch.cuda.synchronize()
                     err = _check(f"fast block C={c} shift={shift} {softmax}",
                                  got, want)
+                    err_o = _check(f"fast block C={c} shift={shift} "
+                                   f"{softmax} ({other})", got_o, want)
                     ms = cuda_time_ms(lambda: swin_block.run_fast_block(
                         x, plan, **kw))
+                    ms_o = cuda_time_ms(lambda: swin_block.run_fast_block(
+                        x, plan_o, **kw))
                     plain_ms = cuda_time_ms(
                         lambda: swin_block.swin_block_fast_reference(
                             x, plan.params, plan.bias, num_heads=nh,
                             softmax=softmax))
-                flops = _block_flops(images * nw, c)
+                    flops = _block_flops(images * nw, c)
+                    extras = {}
+                    if softmax == "clamp" and shift == 0:
+                        tok = plan if plan.route == "tokens" else plan_o
+                        extras = _forward_extras(
+                            f"fast block C={c} (tokens)",
+                            lambda: swin_block.run_fast_block(x, tok, **kw),
+                            tok_kernels, FAST_PHASES, flops)
                 bound_ms, by = _bound(flops, 2 * 2 * x.numel()
                                       + _plan_bytes(plan))
                 row = dict(c=c, shift=shift, softmax=softmax, rel_max=err[0],
                            rel_mean=err[1], max_abs_err=err[2], ms=ms,
-                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+                           plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+                           route=plan.route, other_route=other,
+                           other_ms=ms_o, other_rel_max=err_o[0],
+                           tokens=extras)
                 out["block"].append(row)
                 log(f"fast block C={c:3d} shift={shift} {softmax:9s}: rel "
                     f"max {err[0]:.3e} mean {err[1]:.3e} (bar {BF16_TOL}) "
-                    f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-                    f"{bound_ms:.4f} ms ({by}, {flops / ms / 1e9:.1f} TFLOP/s)")
+                    f"kernel ({plan.route}) {ms:.4f} ms, {other} {ms_o:.4f} "
+                    f"ms (rel max {err_o[0]:.3e}); plain {plain_ms:.4f} ms "
+                    f"bound {bound_ms:.4f} ms ({by}, "
+                    f"{flops / ms / 1e9:.1f} TFLOP/s)")
     softmax = model.softmax
     for j, c in enumerate((60, 90, 120)):
         layer = rdstb.body[j].body
         a, b = layer.blocks
         plan_a = swin_block.plan_fast_block(
-            *a.fast_kernel_inputs(LR_HW, ws, 0), num_heads=nh)
+            *a.fast_kernel_inputs(LR_HW, ws, 0), num_heads=nh,
+            route="window")
         plan_b = swin_block.plan_fast_block(
-            *b.fast_kernel_inputs(LR_HW, ws, ws // 2), num_heads=nh)
+            *b.fast_kernel_inputs(LR_HW, ws, ws // 2), num_heads=nh,
+            route="window")
         x = torch.randn(images * nw, ws * ws, c, device="cuda",
                         generator=gen).to(torch.bfloat16)
         kw = dict(num_heads=nh, x_size=LR_HW, window_size=ws, shift=ws // 2,
@@ -749,9 +810,31 @@ def _flat(tree):
     return [t for part in tree for t in _flat(part)]
 
 
-def _phase_ms(call, iters: int = 5) -> dict:
-    """Device time of one call by backward phase (torch.profiler, CUPTI),
-    ms per call; {} when the profiler records no device time."""
+# The f32 block's kernels (csrc/swin_block.cu) and the token-parallel fast
+# block's (csrc/swin_block_fast.cu), as the profiler names them
+F32_PHASES = (
+    ("ln1_kernel", "LN1 rows"),
+    ("EpiQkv", "qkv GEMM (3xTF32) + bias, q scale"),
+    ("attn_kernel", "attention (f32 FMA)"),
+    ("EpiProjLn", "proj GEMM (3xTF32) + residual + LN2"),
+    ("EpiFc1", "fc1 GEMM (3xTF32) + erf GELU"),
+    ("EpiOut", "fc2 GEMM (3xTF32) + residual"),
+)
+FAST_PHASES = (
+    ("ln1_rows_kernel", "LN1 rows (int8 or bf16)"),
+    ("EpiQkvS8", "qkv GEMM (int8)"),
+    ("EpiQkv", "qkv GEMM (bf16)"),
+    ("attn_fwd_kernel", "attention"),
+    ("EpiProjLn", "proj GEMM + residual + LN2"),
+    ("EpiFc1Serve", "fc1 GEMM + tanh GELU"),
+    ("EpiOut", "fc2 GEMM + residual"),
+)
+
+
+def _phase_ms(call, iters: int = 5, phases=BWD_PHASES) -> dict:
+    """Device time of one call by phase (torch.profiler, CUPTI; a kernel
+    whose name holds a key of ``phases`` counts to its phase), ms per
+    call; {} when the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -767,7 +850,7 @@ def _phase_ms(call, iters: int = 5) -> dict:
         t = float(e.self_device_time_total or 0.0)
         if e.device_type != DeviceType.CUDA or t <= 0:
             continue
-        label = next((ph for key, ph in BWD_PHASES if key in e.key), "other")
+        label = next((ph for key, ph in phases if key in e.key), "other")
         out[label] = out.get(label, 0.0) + t / iters / 1e3
     return out
 
@@ -807,6 +890,34 @@ def _backward_extras(label: str, call, counter, vjp: int, staged) -> dict:
         log("  torch.profiler recorded no device time: phases not measured")
     return {"deterministic": True, "kernels_per_call": kernels,
             "staged_rel_max": max(errs), "phases_ms": phases}
+
+
+def _forward_extras(label: str, call, kernels: int, phases, flops: float):
+    """A redesigned forward's launch alone: two launches on the same
+    inputs bitwise equal, its kernels a call, device time per phase
+    (torch.profiler) and the achieved rate of the block's work."""
+    first = call()
+    torch.cuda.synchronize()
+    second = call()
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{label}: two launches on the same inputs "
+                             "differ")
+    ms = _phase_ms(call, phases=phases)
+    total = sum(ms.values())
+    rate = flops / total / 1e9 if total else None
+    if ms:
+        log(f"  {label}: two launches bitwise equal; {kernels} kernels a "
+            f"call; by phase (torch.profiler, ms a call; {total:.4f} in all, "
+            f"{rate:.1f} TFLOP/s of block work):")
+        for ph, t in ms.items():
+            log(f"    {t:8.4f}  {ph}")
+    else:
+        log(f"  {label}: two launches bitwise equal; {kernels} kernels a "
+            "call; torch.profiler recorded no device time: phases not "
+            "measured")
+    return {"deterministic": True, "kernels_per_call": kernels,
+            "phases_ms": ms, "phase_tflops": rate}
 
 
 @phase("train-pair kernels vs plain")
@@ -1112,7 +1223,9 @@ def train_profile_phase(trainer) -> dict:
         name = e.key.lower()
         if "pair_train_fwd" in name or "block_train_fwd" in name:
             groups["train kernels forward"] += t
-        elif "trainblk::" in name:
+        elif "trainblk::" in name or "tokpar::" in name:
+            # the backward's own kernels and those it shares with the
+            # serving forward (csrc/token_gemm.cuh)
             groups["train kernels backward (13 kernels a block)"] += t
         elif any(w in name for w in CONV_KERNELS + ("wgrad", "dgrad")):
             groups["convolution"] += t
@@ -1184,42 +1297,62 @@ def swinir_kernel_phase(model) -> dict:
     ws, nw, images, nh, c = 8, 20, 64, 6, 180
     gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
     quant = frozenset({"qkv"})
+    tok_kernels = swin_block.kernels_per_call(
+        "swin_block_fast.cu", "swin_block_fast_tokens_kernels")
     rows = []
     for k, shift in enumerate((0, ws // 2)):
         blk = model.layers[0].residual_group.blocks[k]
-        plan = swin_block.plan_fast_block(
-            *blk.fast_kernel_inputs(LR_HW, ws, shift), num_heads=nh,
-            quant=quant)
+        inputs = blk.fast_kernel_inputs(LR_HW, ws, shift)
+        plan = swin_block.plan_fast_block(*inputs, num_heads=nh, quant=quant)
+        if plan.route != "tokens":
+            raise AssertionError(f"C={c} planned for {plan.route}")
+        # the window body (the parent's design), timed beside it
+        plan_w = swin_block.plan_fast_block(*inputs, num_heads=nh,
+                                            quant=quant, route="window")
         x = torch.randn(images * nw, ws * ws, c, device="cuda",
                         generator=gen).to(torch.bfloat16)
         for softmax in ("clamp", "stable_bc"):
             kw = dict(num_heads=nh, windows_per_image=nw, softmax=softmax)
             with torch.inference_mode():
                 got = swin_block.run_fast_block(x, plan, **kw)
+                got_w = swin_block.run_fast_block(x, plan_w, **kw)
                 want = swin_block.swin_block_fast_reference(
                     x, plan.params, plan.bias, num_heads=nh,
                     softmax=softmax, qkv=plan.qkv)
                 torch.cuda.synchronize()
                 err = _check(f"fast block C={c} shift={shift} int8 qkv "
                              f"{softmax}", got, want)
-                ms = cuda_time_ms(lambda: swin_block.run_fast_block(x, plan,
-                                                                    **kw))
+                err_w = _check(f"fast block C={c} shift={shift} int8 qkv "
+                               f"{softmax} (window)", got_w, want)
+
+                def call():
+                    return swin_block.run_fast_block(x, plan, **kw)
+
+                ms = cuda_time_ms(call)
+                ms_w = cuda_time_ms(lambda: swin_block.run_fast_block(
+                    x, plan_w, **kw))
                 plain_ms = cuda_time_ms(
                     lambda: swin_block.swin_block_fast_reference(
                         x, plan.params, plan.bias, num_heads=nh,
                         softmax=softmax, qkv=plan.qkv), warmup=1, iters=5)
+                flops = _block_flops(images * nw, c)
+                extras = _forward_extras(
+                    f"fast block C={c} shift={shift} {softmax} (tokens)",
+                    call, tok_kernels, FAST_PHASES, flops)
             nbytes = 2 * 2 * x.numel() + _plan_bytes(plan) + sum(
                 t.numel() * t.element_size() for t in plan.qkv_layout)
             bound_ms, by = _int8_qkv_bound(x.shape[0] * 64, c, nbytes)
-            flops = _block_flops(images * nw, c)
             rows.append(dict(c=c, shift=shift, softmax=softmax,
                              rel_max=err[0], rel_mean=err[1],
                              max_abs_err=err[2], ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=by))
+                             bound_ms=bound_ms, bound_by=by, window_ms=ms_w,
+                             window_rel_max=err_w[0], **extras))
             log(f"fast block C={c} shift={shift} int8 qkv {softmax:9s}: rel "
                 f"max {err[0]:.3e} mean {err[1]:.3e} (bar {BF16_TOL}) kernel "
-                f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms"
-                f" ({by}; {flops / ms / 1e9:.1f} TFLOP/s of block work)")
+                f"(tokens) {ms:.4f} ms, window body {ms_w:.4f} ms (rel max "
+                f"{err_w[0]:.3e}); plain {plain_ms:.4f} ms bound "
+                f"{bound_ms:.4f} ms ({by}; {flops / ms / 1e9:.1f} TFLOP/s of "
+                "block work)")
     log("library yardstick: no single PyTorch call computes a Swin block")
     return {"variants": rows}
 
@@ -1593,7 +1726,7 @@ def run_e1(data_dir: str, tmp: str):
     whole16 = bf16_model_phase(live16, live, live_cpu)
     serve16 = bf16_serving_phase(live16, rdstb_block.run_rdstb, 8,
                                  "bfloat16", SERVE_TOL_BF16)
-    prof16 = bf16_profile_phase(live16, "rdstb_kernel")
+    prof16 = bf16_profile_phase(live16, ("rdstb_kernel",), "rdstb kernel")
     kern_train = train_kernel_phase(live16.model)
     train = train_phase(data_dir, tmp)
     prof_train = train_profile_phase(train.pop("trainer"))
@@ -1664,7 +1797,8 @@ def run_swinir(data_dir: str, tmp: str):
     del live32, live_cpu
     serve = swinir_serving_phase(live16, swin_block.run_fast_block, 36,
                                  "bfloat16", SERVE_TOL_BF16)
-    prof = swinir_profile_phase(live16, "swin_block_fast_kernel")
+    prof = swinir_profile_phase(live16, tuple(k for k, _ in FAST_PHASES),
+                                "fast block kernels")
     kern_train = block_train_kernel_phase(live16.model)
     del live16
     train = swinir_train_phase(data_dir, tmp)

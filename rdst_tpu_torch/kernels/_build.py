@@ -55,12 +55,17 @@ def find_nvcc() -> str:
 
 
 def _hashed_bytes(source: str) -> bytes:
-    """The source and the ``csrc/`` headers it includes (by quoted
-    ``#include``, one level: the headers include only system headers)."""
-    text = (CSRC_DIR / source).read_bytes()
-    out = text
-    for name in re.findall(rb'#include "([^"]+)"', text):
-        out += (CSRC_DIR / name.decode()).read_bytes()
+    """The source and every ``csrc/`` header it includes, directly or
+    through another header (by quoted ``#include``), each once."""
+    out, seen, todo = b"", set(), [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        seen.add(name)
+        text = (CSRC_DIR / name).read_bytes()
+        out += text
+        todo += [m.decode() for m in re.findall(rb'#include "([^"]+)"', text)]
     return out
 
 

@@ -13,23 +13,31 @@ LayerNorm affines (C,), and a head-major bias (nH*nW, N, N) per window
 the dtype of the tokens, as the JAX function does (``use_fast_path``):
 
 * float32 -> the precise branch (``_body`` with ``fast=False``):
-  ``csrc/swin_block.cu``, plain version :func:`swin_block_reference`;
+  ``csrc/swin_block.cu``, six token-parallel kernels whose four
+  projections run as 3xTF32 on the tensor cores, with the weights split
+  once in a plan (:func:`plan_f32_block`, :func:`run_f32_block`); plain
+  version :func:`swin_block_reference`, and :func:`swin_block_staged_f32`
+  for the kernel's phases at its split points;
 * bfloat16 -> the fast branch (``fast=True``): LN affines and the q
   scale folded into the weights (:func:`prep_block_params`),
   normalize-only one-pass LayerNorm, a softmax stabilizer chosen by
   variant, approximate reciprocal, tanh GELU, bf16 roundings where the
   TPU kernel rounds, optionally int8 qkv operands (``pallas_quant=
-  'qkv'``, ``kernels.quant``): ``csrc/swin_block_fast.cu`` (its window
-  body is ``csrc/fast_block.cuh``, shared with the pair, RDSTB and train
-  kernels), plain version :func:`swin_block_fast_reference`. It takes C
-  up to ``FAST_MAX_C`` (SwinIR-std's 180); the pair, RDSTB and train-pair
+  'qkv'``, ``kernels.quant``): ``csrc/swin_block_fast.cu`` in one of two
+  designs the plan picks by C (:func:`fast_route`): the window body
+  (``csrc/fast_block.cuh``, shared with the pair, RDSTB and train
+  kernels) up to ``WINDOW_MAX_C``, the token-parallel forward
+  (``csrc/token_gemm.cuh``, shared with the training backward) above;
+  plain version :func:`swin_block_fast_reference`. It takes C up to
+  ``FAST_MAX_C`` (SwinIR-std's 180); the pair, RDSTB and train-pair
   kernels stay at the ``SHARED_MAX_C`` they were verified at.
 
-Both count their launches (``fused_swin_block.launches`` and
-``run_fast_block.launches``). A CPU tensor takes the plain
-version; a CUDA tensor launches the kernel or raises. What a kernel does
-not take raises on either device, so the CPU path refuses what the card
-would; on the card nothing falls back to a plain version.
+Both count their launches, one a call whatever the kernels it runs
+(``fused_swin_block.launches`` and ``run_fast_block.launches``). A CPU
+tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. What a kernel does not take raises on either device, so the CPU
+path refuses what the card would; on the card nothing falls back to a
+plain version.
 """
 
 from __future__ import annotations
@@ -46,7 +54,6 @@ from rdst_tpu_torch.kernels.quant import (QX, QkvQuant, int8_matmul,
 
 _EPS = 1e-5  # torch-default LayerNorm epsilon
 _SOURCE = "swin_block.cu"
-_THREADS = 256  # smaller block size of csrc/swin_block.cu: N must divide it
 _MAX_HEAD_DIM = 32
 H100_SMEM_OPTIN = 232448  # bytes of shared memory one block may opt into
 # widest C of the fast block and the single-block train kernels
@@ -70,21 +77,29 @@ def resolve_softmax_auto(attn_logit_max) -> str:
             else "stable_bc")
 
 
-def smem_bytes(n: int, c: int, hidden: int) -> int:
-    """Dynamic shared memory of one launch (``swin_block_smem_bytes`` in
-    the CUDA source): x rows; LN/attention rows at a stride rounded up to
-    4; q/k/v at row stride C+1, reused by the MLP hidden state (stride
-    rounded up to 4); one head's scores."""
+def per_window_smem_bytes(n: int, c: int, hidden: int) -> int:
+    """The shared memory one window took in the per-window f32 design the
+    f32 route shipped with (x rows; LN/attention rows at a stride rounded
+    up to 4; q/k/v at row stride C+1, reused by the MLP hidden state; one
+    head's scores). The route still admits exactly what that design took
+    (:func:`block_kernel_supports`): up to C = 168 at N = 64 with MLP 2C,
+    so SwinIR-std (C = 180) and RDST-W96 (C = 192) stay on
+    ``pallas_kernels='off'``, as the JAX package's precise kernel refuses
+    them too. The token-parallel kernel itself takes C up to 192; lifting
+    the limit is ROADMAP Queue B 6b."""
     cs, hs = -(-c // 4) * 4, -(-hidden // 4) * 4
     return 4 * (n * c + n * cs + max(3 * n * (c + 1), n * hs) + n * n)
 
 
 def block_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
-    """Whether the CUDA kernel takes this block geometry on an H100."""
-    return (0 < n <= 64 and _THREADS % n == 0 and n % 8 == 0
+    """Whether the f32 route takes this block geometry: windows of N | 64
+    tokens with N % 8 == 0, even C and hidden, head dim <= 32, and the
+    per-window design's shared memory within an H100 block's
+    (:func:`per_window_smem_bytes`)."""
+    return (0 < n <= 64 and 64 % n == 0 and n % 8 == 0
             and c % 2 == 0 and c % nh == 0 and c // nh <= _MAX_HEAD_DIM
             and hidden % 2 == 0
-            and smem_bytes(n, c, hidden) <= H100_SMEM_OPTIN)
+            and per_window_smem_bytes(n, c, hidden) <= H100_SMEM_OPTIN)
 
 
 def _layernorm(x, gamma, beta):
@@ -95,22 +110,20 @@ def _layernorm(x, gamma, beta):
     return xc * torch.rsqrt(var + _EPS) * gamma + beta
 
 
-def swin_block_reference(x_windows, wqkv, bqkv, wproj, bproj,
-                         g1, b1, g2, b2, w1, bf1, w2, bf2, bias, *,
-                         num_heads: int, windows_per_image: int):
-    """Plain PyTorch version of the kernel (same arguments). x_windows:
-    (B*nW, N, C); returns (B*nW, N, C)."""
-    t, n, c = x_windows.shape
-    nh = num_heads
+def _attention(qkv, bias, nh: int, windows_per_image: int,
+               exp_floor: Optional[float] = None):
+    """Per-head softmax attention of (T, N, 3C) q/k/v rows (q scaled) with
+    the head-major bias (nH*bw or nH, N, N); ``exp_floor``: terms whose
+    max-subtracted score is below it are 0 (the kernel's)."""
+    t, n, c3 = qkv.shape
+    c = c3 // 3
     hd = c // nh
-    x = x_windows
-    if bqkv is None:
-        bqkv = x.new_zeros(3 * c)
-    xn = _layernorm(x, g1, b1)
-    qkv = xn @ wqkv + bqkv
-    q = (qkv[..., :c] * hd**-0.5).reshape(t, n, nh, hd).transpose(1, 2)
-    k = qkv[..., c:2 * c].reshape(t, n, nh, hd).transpose(1, 2)
-    v = qkv[..., 2 * c:].reshape(t, n, nh, hd).transpose(1, 2)
+
+    def heads(u):
+        return u.reshape(t, n, nh, hd).transpose(1, 2)
+
+    q, k, v = heads(qkv[..., :c]), heads(qkv[..., c:2 * c]), \
+        heads(qkv[..., 2 * c:])
     s = q @ k.transpose(-2, -1)  # (T, nH, N, N)
     if bias.shape[0] == nh:
         s = s + bias[None]
@@ -122,24 +135,117 @@ def swin_block_reference(x_windows, wqkv, bqkv, wproj, bproj,
         s = (s.reshape(t // bw, bw, nh, n, n)
              + bias.reshape(nh, bw, n, n).transpose(0, 1)[None]
              ).reshape(t, nh, n, n)
-    p = torch.softmax(s, dim=-1)
-    o = (p @ v).transpose(1, 2).reshape(t, n, c)
+    if exp_floor is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        d = s - s.amax(dim=-1, keepdim=True)
+        e = torch.where(d < exp_floor, torch.zeros_like(d), torch.exp(d))
+        p = e / e.sum(dim=-1, keepdim=True)
+    return (p @ v).transpose(1, 2).reshape(t, n, c)
+
+
+def _gelu_erf(h):
+    return 0.5 * h * (1.0 + torch.erf(h * 2.0**-0.5))
+
+
+def swin_block_reference(x_windows, wqkv, bqkv, wproj, bproj,
+                         g1, b1, g2, b2, w1, bf1, w2, bf2, bias, *,
+                         num_heads: int, windows_per_image: int):
+    """Plain PyTorch version of the kernel (same arguments). x_windows:
+    (B*nW, N, C); returns (B*nW, N, C)."""
+    c = x_windows.shape[-1]
+    hd = c // num_heads
+    x = x_windows
+    if bqkv is None:
+        bqkv = x.new_zeros(3 * c)
+    qkv = _layernorm(x, g1, b1) @ wqkv + bqkv
+    qkv = torch.cat([qkv[..., :c] * hd**-0.5, qkv[..., c:]], dim=-1)
+    o = _attention(qkv, bias, num_heads, windows_per_image)
     x1 = x + (o @ wproj + bproj)
-    h1 = _layernorm(x1, g2, b2) @ w1 + bf1
-    h1 = 0.5 * h1 * (1.0 + torch.erf(h1 * 2.0**-0.5))
+    h1 = _gelu_erf(_layernorm(x1, g2, b2) @ w1 + bf1)
     return x1 + (h1 @ w2 + bf2)
 
 
+_EXP_FLOOR = -80.0  # csrc/swin_block.cu kExpFloor
+
+
+# The f32 kernel's split of an operand into two TF32 parts (3xTF32).
+def tf32_round(x):
+    """x (float32) rounded to TF32, 10 explicit mantissa bits, to nearest
+    with ties away from zero (``cvt.rna.tf32.f32``), as float32."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """(big, small): big = tf32(x), small = tf32(x - big); big + small is
+    x to about 2^-22 of |x|."""
+    big = tf32_round(x)
+    return big, tf32_round(x.to(torch.float32) - big)
+
+
+def mm3(a, big, small):
+    """The kernel's 3xTF32 product a @ b from b's parts: a split as b is,
+    small * big' + big * small' + big * big' (small * small' dropped),
+    summed here in float64 and rounded to float32."""
+    ab, as_ = (t.double() for t in tf32_split(a))
+    bb, bs = big.double(), small.double()
+    return ((as_ @ bb + ab @ bs) + ab @ bb).float()
+
+
+def swin_block_staged_f32(x_windows, wqkv, bqkv, wproj, bproj,
+                          g1, b1, g2, b2, w1, bf1, w2, bf2, bias, *,
+                          num_heads: int, windows_per_image: int):
+    """The f32 kernel's phases in plain PyTorch, at its split points: LN1;
+    qkv as a 3xTF32 product, plus bias, q scaled; attention in f32 with
+    the kernel's exp floor; proj (3xTF32) + residual, LN2; fc1 (3xTF32),
+    erf GELU; fc2 (3xTF32) + residual. A second oracle beside
+    :func:`swin_block_reference` (same arguments)."""
+    c = x_windows.shape[-1]
+    hd = c // num_heads
+    x = x_windows.float()
+    if bqkv is None:
+        bqkv = x.new_zeros(3 * c)
+
+    def mm(a, w):
+        return mm3(a, *tf32_split(w))
+
+    qkv = mm(_layernorm(x, g1, b1), wqkv) + bqkv
+    qkv = torch.cat([qkv[..., :c] * hd**-0.5, qkv[..., c:]], dim=-1)
+    o = _attention(qkv, bias, num_heads, windows_per_image, _EXP_FLOOR)
+    x1 = x + (mm(o, wproj) + bproj)
+    h1 = _gelu_erf(mm(_layernorm(x1, g2, b2), w1) + bf1)
+    return x1 + (mm(h1, w2) + bf2)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def f32_kernel_layout(params):
+    """The f32 kernel's operands of a 12-param bundle (JAX layout, bqkv
+    not None): each weight (in, out) zero-padded to rows and columns of
+    multiples of 8 -- wqkv (kp, n3), wproj (kp, kp), w1 (kp, hp), w2 (hp,
+    kp) -- as its TF32 (big, small) parts; bqkv padded to n3; the other
+    vectors as they are."""
+    wqkv, bqkv, wproj, bproj, g1, b1, g2, b2, w1, bf1, w2, bf2 = params
+    c, hidden = wproj.shape[0], w1.shape[1]
+    kp, n3, hp = _round_up(c, 8), _round_up(3 * c, 8), _round_up(hidden, 8)
+
+    def padded(w, rows, cols):
+        out = w.new_zeros(rows, cols, dtype=torch.float32)
+        out[:w.shape[0], :w.shape[1]] = w
+        return tf32_split(out)
+
+    bq = bqkv.new_zeros(n3, dtype=torch.float32)
+    bq[:3 * c] = bqkv
+    return (*padded(wqkv, kp, n3), bq, *padded(wproj, kp, kp), bproj,
+            g1, b1, g2, b2, *padded(w1, kp, hp), bf1,
+            *padded(w2, hp, kp), bf2)
+
+
 def _lib():
-    lib = _build.load(_SOURCE)
-    if not getattr(lib, "_rdst_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.swin_block_f32.argtypes = [vp] * 15 + [ci] * 7 + [vp]
-        lib.swin_block_f32.restype = ci
-        lib.swin_block_error_string.argtypes = [ci]
-        lib.swin_block_error_string.restype = ctypes.c_char_p
-        lib._rdst_typed = True
-    return lib
+    return _build.load(_SOURCE)
 
 
 def _check(name, t, shape, device):
@@ -154,6 +260,91 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+class F32BlockPlan(NamedTuple):
+    """One block's f32 operands, prepared once (:func:`plan_f32_block`)."""
+    params: tuple        # the 12 weights (JAX layout), bqkv never None
+    bias: torch.Tensor   # head-major (nH*bw, N, N) float32
+    layout: tuple        # f32_kernel_layout(params) on a CUDA device, else ()
+
+
+def plan_f32_block(params, bias, *, num_heads: int) -> F32BlockPlan:
+    """Check a block's 12-param bundle (JAX layout) and head-major bias
+    against what the f32 route takes; on a CUDA device split the weights
+    for the kernel (:func:`f32_kernel_layout`). Depends on the weights
+    only, so a caller may keep it."""
+    wqkv, bqkv, wproj, bproj, g1, b1, g2, b2, w1, bf1, w2, bf2 = params
+    c, nh = wqkv.shape[0], num_heads
+    hidden = w1.shape[-1]
+    if bias.dim() != 3 or bias.shape[0] % nh or bias.shape[1] != bias.shape[2]:
+        raise ValueError(f"bias must be head-major (nH*bw, N, N), got "
+                         f"{tuple(bias.shape)}")
+    n = bias.shape[1]
+    if not block_kernel_supports(n, c, nh, hidden):
+        raise ValueError(
+            f"fused_swin_block: the CUDA kernel does not take N={n}, C={c}, "
+            f"heads={nh}, hidden={hidden} (the f32 route takes N | 64 with "
+            f"N % 8 == 0, even C and hidden, head dim <= "
+            f"{_MAX_HEAD_DIM}, and what the per-window design took: "
+            f"{per_window_smem_bytes(n, c, hidden)} <= {H100_SMEM_OPTIN} "
+            "bytes of shared memory a window)")
+    dev = bias.device
+    if bqkv is None:
+        bqkv = torch.zeros(3 * c, device=dev, dtype=torch.float32)
+    params = (wqkv, bqkv, wproj, bproj, g1, b1, g2, b2, w1, bf1, w2, bf2)
+    shapes = ((c, 3 * c), (3 * c,), (c, c), (c,), (c,), (c,), (c,), (c,),
+              (c, hidden), (hidden,), (hidden, c), (c,))
+    names = ("wqkv", "bqkv", "wproj", "bproj", "g1", "b1", "g2", "b2", "w1",
+             "bf1", "w2", "bf2")
+    for name, tensor, shape in zip(names, params, shapes):
+        _check(name, tensor, shape, dev)
+    _check("bias", bias, bias.shape, dev)
+    return F32BlockPlan(params, bias, f32_kernel_layout(params)
+                        if dev.type == "cuda" else ())
+
+
+def run_f32_block(x_windows, plan: F32BlockPlan, *, num_heads: int,
+                  windows_per_image: int):
+    """The f32 block on window-layout tokens (B*nW, N, C) with a prepared
+    plan. A CPU tensor takes :func:`swin_block_reference`; a CUDA tensor
+    launches ``csrc/swin_block.cu`` (six token-parallel kernels, one
+    count in ``fused_swin_block.launches``) or raises."""
+    if x_windows.dim() != 3:
+        raise ValueError(f"x_windows must be (B*nW, N, C), got "
+                         f"{tuple(x_windows.shape)}")
+    t, n, c = x_windows.shape
+    nh, nw = num_heads, windows_per_image
+    hidden = plan.params[8].shape[-1]
+    bias = plan.bias
+    if plan.params[0].shape[0] != c or bias.shape[1] != n:
+        raise ValueError(f"plan for C={plan.params[0].shape[0]}, N="
+                         f"{bias.shape[1]} does not fit N={n}, C={c}")
+    if bias.shape[0] not in (nh, nh * nw):
+        raise ValueError(f"bias must be ({nh}*{nw} or {nh}, {n}, {n}), got "
+                         f"{tuple(bias.shape)}")
+    bias_windows = bias.shape[0] // nh
+    if t % bias_windows:
+        raise ValueError(f"{t} windows are not whole images of {nw}")
+    dev = x_windows.device
+    _check("x_windows", x_windows, (t, n, c), bias.device)
+    if dev.type == "cpu":
+        return swin_block_reference(x_windows, *plan.params, bias,
+                                    num_heads=nh, windows_per_image=nw)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_swin_block: unsupported device {dev}")
+    out = torch.empty_like(x_windows)
+    if t == 0:
+        return out
+    lib = _lib()
+    dims = [t, n, c, nh, hidden, bias_windows]
+    work = torch.empty(work_bytes(lib, "swin_block_f32_work_bytes", dims),
+                       dtype=torch.uint8, device=dev)
+    launch(lib, "swin_block_f32",
+           [x_windows, out, *plan.layout, bias, work], dims, dev,
+           errors="swin_block_error_string")
+    fused_swin_block.launches += 1
+    return out
+
+
 def fused_swin_block(x_windows, wqkv, bqkv, wproj, bproj,
                      g1, b1, g2, b2, w1, bf1, w2, bf2, bias, *,
                      num_heads: int, windows_per_image: int,
@@ -162,70 +353,23 @@ def fused_swin_block(x_windows, wqkv, bqkv, wproj, bproj,
 
     bfloat16 tokens take the fast branch (:func:`plan_fast_block`, then
     :func:`run_fast_block`, with the softmax variant ``softmax``);
-    float32 tokens the precise branch below. Arguments the CUDA kernel does not take raise on every
-    device. Then a CPU tensor takes :func:`swin_block_reference`, and a
-    CUDA tensor launches the CUDA kernel (one thread block per window)
-    or raises."""
+    float32 tokens the precise branch (:func:`plan_f32_block`, then
+    :func:`run_f32_block`). Arguments the CUDA kernels do not take raise
+    on every device. Then a CPU tensor takes the plain version, and a
+    CUDA tensor launches the CUDA kernel or raises."""
+    params = (wqkv, bqkv, wproj, bproj, g1, b1, g2, b2, w1, bf1, w2, bf2)
     if x_windows.dtype == torch.bfloat16:
-        plan = plan_fast_block(
-            (wqkv, bqkv, wproj, bproj, g1, b1, g2, b2, w1, bf1, w2, bf2),
-            bias, num_heads=num_heads)
+        plan = plan_fast_block(params, bias, num_heads=num_heads)
         return run_fast_block(x_windows, plan, num_heads=num_heads,
                               windows_per_image=windows_per_image,
                               softmax=softmax)
-    dev = x_windows.device
     if x_windows.dim() != 3:
         raise ValueError(f"x_windows must be (B*nW, N, C), got "
                          f"{tuple(x_windows.shape)}")
-    t, n, c = x_windows.shape
-    nh, nw = num_heads, windows_per_image
-    hidden = w1.shape[-1]
-    if not block_kernel_supports(n, c, nh, hidden):
-        raise ValueError(
-            f"fused_swin_block: the CUDA kernel does not take N={n}, C={c}, "
-            f"heads={nh}, hidden={hidden} (needs N | {_THREADS}, N % 8 == 0,"
-            f" N <= 64, even C and hidden, head dim <= {_MAX_HEAD_DIM} and "
-            f"{smem_bytes(n, c, hidden)} <= {H100_SMEM_OPTIN} bytes of "
-            "shared memory)")
-    if bias.dim() != 3 or bias.shape[0] not in (nh, nh * nw):
-        raise ValueError(f"bias must be ({nh}*{nw} or {nh}, {n}, {n}), got "
-                         f"{tuple(bias.shape)}")
-    bias_windows = bias.shape[0] // nh
-    if t % bias_windows:
-        raise ValueError(f"{t} windows are not whole images of {nw}")
-    if bqkv is None:
-        bqkv = torch.zeros(3 * c, device=dev, dtype=torch.float32)
-    args = (("x_windows", x_windows, (t, n, c)), ("wqkv", wqkv, (c, 3 * c)),
-            ("bqkv", bqkv, (3 * c,)), ("wproj", wproj, (c, c)),
-            ("bproj", bproj, (c,)), ("g1", g1, (c,)), ("b1", b1, (c,)),
-            ("g2", g2, (c,)), ("b2", b2, (c,)), ("w1", w1, (c, hidden)),
-            ("bf1", bf1, (hidden,)), ("w2", w2, (hidden, c)),
-            ("bf2", bf2, (c,)), ("bias", bias, (nh * bias_windows, n, n)))
-    for name, tensor, shape in args:
-        _check(name, tensor, shape, dev)
-    if dev.type == "cpu":
-        return swin_block_reference(
-            x_windows, wqkv, bqkv, wproj, bproj, g1, b1, g2, b2,
-            w1, bf1, w2, bf2, bias, num_heads=num_heads,
-            windows_per_image=windows_per_image)
-    if dev.type != "cuda":
-        raise ValueError(f"fused_swin_block: unsupported device {dev}")
-    out = torch.empty_like(x_windows)
-    if t == 0:
-        return out
-    lib = _lib()
-    ptrs = [a[1].data_ptr() for a in args]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.swin_block_f32(
-        ptrs[0], out.data_ptr(), *ptrs[1:], t, n, c, nh, hidden,
-        bias_windows, dev.index if dev.index is not None
-        else torch.cuda.current_device(), stream)
-    if err != 0:
-        raise RuntimeError(
-            "swin_block_f32 launch failed: "
-            f"{lib.swin_block_error_string(err).decode()} (error {err})")
-    fused_swin_block.launches += 1
-    return out
+    return run_f32_block(x_windows,
+                         plan_f32_block(params, bias, num_heads=num_heads),
+                         num_heads=num_heads,
+                         windows_per_image=windows_per_image)
 
 
 fused_swin_block.launches = 0  # kernel launches since the last reset
@@ -418,10 +562,6 @@ def swin_block_fast_reference(x_windows, p: FastParams, bias, *,
                          softmax=softmax, qkv=qkv))
 
 
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
-
-
 def fast_smem_bytes(n: int, c: int, nh: int, hidden: int) -> int:
     """Dynamic shared memory of one window's fast block (``smem_layout``
     in ``csrc/fast_block.cuh``): x rows f32; the LN / attention-output
@@ -485,19 +625,22 @@ def kernel_layout(p: FastParams):
             bf1, w2, bf2)
 
 
-def launch(lib, entry: str, ptrs, dims, device) -> None:
-    """Call a fast-branch entry ``int entry(const void* const* ptrs,
-    const int* dims, int device, void* stream)`` on the current stream
-    and raise on a non-zero cudaError_t."""
+def launch(lib, entry: str, ptrs, dims, device,
+           errors: str = "fast_error_string") -> None:
+    """Call a kernel entry ``int entry(const void* const* ptrs, const int*
+    dims, int device, void* stream)`` on the current stream and raise on
+    a non-zero cudaError_t (named by the library's ``errors`` function).
+    A pointer given as an int is passed as it is (0 for none)."""
     fn = getattr(lib, entry)
     if not getattr(fn, "_rdst_typed", False):
         fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                        ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                        ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.fast_error_string.argtypes = [ctypes.c_int]
-        lib.fast_error_string.restype = ctypes.c_char_p
         fn._rdst_typed = True
+    err_fn = getattr(lib, errors)
+    err_fn.argtypes = [ctypes.c_int]
+    err_fn.restype = ctypes.c_char_p
     vals = [t if isinstance(t, int) else t.data_ptr() for t in ptrs]
     arr = (ctypes.c_void_p * len(vals))(*vals)
     dim = (ctypes.c_int * len(dims))(*[int(d) for d in dims])
@@ -507,8 +650,25 @@ def launch(lib, entry: str, ptrs, dims, device) -> None:
     err = fn(arr, dim, index, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed: "
-                           f"{lib.fast_error_string(err).decode()} "
-                           f"(error {err})")
+                           f"{err_fn(err).decode()} (error {err})")
+
+
+def work_bytes(lib, entry: str, dims) -> int:
+    """A kernel's workspace in bytes: ``long long entry(const int*
+    dims)``."""
+    fn = getattr(lib, entry)
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_longlong
+    return int(fn((ctypes.c_int * len(dims))(*[int(d) for d in dims])))
+
+
+def kernels_per_call(source: str, entry: str) -> int:
+    """Kernels one call of a multi-kernel entry launches (``int
+    entry()``), for measurements."""
+    fn = getattr(_build.load(source), entry)
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return int(fn())
 
 
 def check_fast_tokens(name: str, x, shape) -> None:
@@ -524,44 +684,122 @@ def check_fast_tokens(name: str, x, shape) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
+# The fast block's two designs (csrc/swin_block_fast.cu): "window", one
+# thread block per window (csrc/fast_block.cuh), and "tokens", the
+# token-parallel phases (csrc/token_gemm.cuh). The plan takes the window
+# body up to this width, where it beats the token-parallel forward on an
+# H100 (both are timed in chip_smoke.py phase 7; PERF.md section 6), and
+# the token-parallel forward above it (SwinIR-std's C = 180, phase 14).
+WINDOW_MAX_C = 120
+
+
+def fast_route(c: int) -> str:
+    """The fast block's design at width c: 'window' or 'tokens'."""
+    return "window" if c <= WINDOW_MAX_C else "tokens"
+
+
+def token_dims(c: int, nh: int, hidden: int):
+    """(kp, hp, hdg, n3, kq) of the token-parallel forward
+    (``tokpar::make_dims``): C rows round_up(C + 1, 16) wide, hidden rows
+    round_up(hidden + 1, 16), each head's q/k/v in round_up(hd, 8)
+    channels, int8 LN1 rows round_up(C, 32)."""
+    hdg = _round_up(c // nh, 8)
+    return (_round_up(c + 1, 16), _round_up(hidden + 1, 16), hdg,
+            3 * nh * hdg, _round_up(c, 32))
+
+
+def token_layout(p: FastParams, nh: int):
+    """The token-parallel forward's weights: wqkv (kp, n3) [k][n] with each
+    head's q, k, v in hdg columns, bqkv (n3) float32 in the same order;
+    wproj (kp, kp), w1 (kp, hp), w2 (hp, kp) [k][n]; bproj, bf1, bf2 as
+    they are. Pads are zero."""
+    c, hidden = p.wproj.shape[0], p.w1.shape[1]
+    hd = c // nh
+    kp, hp, hdg, n3, _ = token_dims(c, nh, hidden)
+    dev = p.wqkv.device
+
+    def z(*shape, dtype=BF16):
+        return torch.zeros(*shape, dtype=dtype, device=dev)
+
+    wqkv = z(kp, 3, nh, hdg)
+    wqkv[:c, :, :, :hd] = p.wqkv.reshape(c, 3, nh, hd)
+    bqkv = z(3, nh, hdg, dtype=torch.float32)
+    bqkv[:, :, :hd] = p.bqkv.reshape(3, nh, hd)
+    wproj = z(kp, kp)
+    wproj[:c, :c] = p.wproj
+    w1 = z(kp, hp)
+    w1[:c, :hidden] = p.w1
+    w2 = z(hp, kp)
+    w2[:hidden, :c] = p.w2
+    return (wqkv.reshape(kp, n3), bqkv.reshape(-1), wproj, p.bproj, w1,
+            p.bf1, w2, p.bf2)
+
+
+def qkv_token_layout(q: Optional[QkvQuant], c: int, nh: int):
+    """The token-parallel forward's int8 qkv operands: wq (n3, kq) int8
+    [n][k] by head, ws (n3) float32 in the same order; empty for bf16
+    qkv."""
+    if q is None:
+        return ()
+    hd = c // nh
+    _, _, hdg, n3, kq = token_dims(c, nh, 2 * c)
+    dev = q.wq.device
+    wq = torch.zeros(3, nh, hdg, kq, dtype=torch.int8, device=dev)
+    wq[:, :, :hd, :c] = q.wq.reshape(c, 3, nh, hd).permute(1, 2, 3, 0)
+    ws = torch.zeros(3, nh, hdg, dtype=torch.float32, device=dev)
+    ws[:, :, :hd] = q.ws.reshape(3, nh, hd)
+    return wq.reshape(n3, kq), ws.reshape(-1)
+
+
 class FastBlockPlan(NamedTuple):
     """One block's fast-branch operands, prepared once (:func:`plan_fast_block`)."""
     params: FastParams
     bias: torch.Tensor  # packed (bw, N, nH*N) bf16
-    layout: tuple       # kernel_layout(params) on a CUDA device, else ()
+    layout: tuple       # the route's weight layout on a CUDA device, else ()
     qkv: Optional[QkvQuant] = None  # int8 qkv operands, or None
-    qkv_layout: tuple = ()  # their kernel layout on a CUDA device
+    qkv_layout: tuple = ()  # their layout for the route on a CUDA device
+    route: str = "window"   # 'window' (kernel_layout) or 'tokens' (token_layout)
 
 
-def plan_fast_block(params, bias, *, num_heads: int,
-                    quant=frozenset()) -> FastBlockPlan:
+def plan_fast_block(params, bias, *, num_heads: int, quant=frozenset(),
+                    route: Optional[str] = None) -> FastBlockPlan:
     """Fold a block's 12-param bundle (JAX layout) and pack its
     head-major bias; with ``'qkv'`` in ``quant`` also quantize the folded
     qkv weight to int8; on a CUDA device lay the weights out for the
-    kernel. Depends on the weights only, so a caller may keep it."""
+    kernel. ``route``: the design the plan is for, by default the fast
+    block's own at this width (:func:`fast_route`); the pair and RDSTB
+    kernels, whose window body is the 'window' design, ask for that.
+    Depends on the weights only, so a caller may keep it."""
     from rdst_tpu_torch.kernels.quant import check_ported
 
     c, nh = params[0].shape[0], num_heads
     if bias.dim() != 3 or bias.shape[0] % nh or bias.shape[1] != bias.shape[2]:
         raise ValueError(f"bias must be head-major (nH*bw, N, N), got "
                          f"{tuple(bias.shape)}")
+    route = fast_route(c) if route is None else route
+    if route not in ("window", "tokens"):
+        raise ValueError(f"route {route!r}: expected 'window' or 'tokens'")
     p = fast_params(params, c, nh)
     packed = pack_bias_fast(bias, nh, bias.shape[1])
     q = qkv_quant(p.wqkv) if "qkv" in check_ported(quant) else None
-    cuda = packed.device.type == "cuda"
-    return FastBlockPlan(p, packed, kernel_layout(p) if cuda else (), q,
-                         qkv_kernel_layout(q, c, _round_up(c, 16))
-                         if cuda else ())
+    if packed.device.type != "cuda":
+        return FastBlockPlan(p, packed, (), q, (), route)
+    if route == "tokens":
+        return FastBlockPlan(p, packed, token_layout(p, nh), q,
+                             qkv_token_layout(q, c, nh), route)
+    return FastBlockPlan(p, packed, kernel_layout(p), q,
+                         qkv_kernel_layout(q, c, _round_up(c, 16)), route)
 
 
 def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
                    windows_per_image: int, softmax: str = ""):
     """The fast block on bf16 window-layout tokens (B*nW, N, C) with a
     prepared plan. A CPU tensor takes :func:`swin_block_fast_reference`;
-    a CUDA tensor launches ``csrc/swin_block_fast.cu`` (one thread block
-    per window) or raises; geometry the kernel does not take raises on
-    either device. The plan's int8 qkv operands, when it has them, go
-    with it."""
+    a CUDA tensor launches ``csrc/swin_block_fast.cu`` in the plan's
+    design (the token-parallel forward's six kernels, or one thread block
+    per window; one count either way) or raises; geometry the kernel does
+    not take raises on either device. The plan's int8 qkv operands, when
+    it has them, go with it."""
     if x_windows.dim() != 3:
         raise ValueError(f"x_windows must be (B*nW, N, C), got "
                          f"{tuple(x_windows.shape)}")
@@ -596,10 +834,18 @@ def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
     out = torch.empty_like(x_windows)
     if t == 0:
         return out
-    launch(_build.load(_FAST_SOURCE), "swin_block_fast_bf16",
-           [x_windows, out, *plan.layout, plan.bias,
-            *(plan.qkv_layout or (0, 0))],
-           [t, n, c, nh, hidden, bw, code], dev)
+    lib = _build.load(_FAST_SOURCE)
+    dims = [t, n, c, nh, hidden, bw, code]
+    int8 = plan.qkv_layout or (0, 0)
+    if plan.route == "tokens":
+        work = torch.empty(work_bytes(lib, "swin_block_fast_work_bytes", dims),
+                           dtype=torch.uint8, device=dev)
+        launch(lib, "swin_block_fast_tokens",
+               [x_windows, out, *plan.layout, plan.bias, *int8, work], dims,
+               dev)
+    else:
+        launch(lib, "swin_block_fast_bf16",
+               [x_windows, out, *plan.layout, plan.bias, *int8], dims, dev)
     run_fast_block.launches += 1
     return out
 

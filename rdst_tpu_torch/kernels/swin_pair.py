@@ -85,6 +85,9 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
     pa, pb = plan_a.params, plan_b.params
     hidden = pa.w1.shape[-1]
     code = softmax_code(softmax)
+    if (plan_a.route, plan_b.route) != ("window", "window"):
+        raise ValueError("fused_swin_pair runs the window body: plan both "
+                         "blocks with plan_fast_block(..., route='window')")
     if (n != ws * ws or h % ws or w % ws or not 0 <= shift < ws
             or pb.w1.shape[-1] != hidden
             or not fast_kernel_supports(n, c, nh, hidden)):
@@ -140,7 +143,10 @@ def fused_swin_pair(x_windows, params_a, bias_a, params_b, bias_b, *,
     bias_b (nH*nW, N, N) when shifted, else (nH, N, N). Returns (B*nW, N,
     C) in SHIFTED window layout (:func:`run_swin_pair`)."""
     return run_swin_pair(
-        x_windows, plan_fast_block(params_a, bias_a, num_heads=num_heads),
-        plan_fast_block(params_b, bias_b, num_heads=num_heads),
+        x_windows,
+        plan_fast_block(params_a, bias_a, num_heads=num_heads,
+                        route="window"),
+        plan_fast_block(params_b, bias_b, num_heads=num_heads,
+                        route="window"),
         num_heads=num_heads, x_size=x_size, window_size=window_size,
         shift=shift, softmax=softmax)

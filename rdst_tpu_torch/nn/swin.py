@@ -325,8 +325,6 @@ class SwinTransformerBlock(nn.Module):
         return params, bias
 
     def _fused_block(self, x, x_size, ws: int, shift: int):
-        from rdst_tpu_torch.kernels.swin_block import fused_swin_block
-
         h, w = x_size
         b, l, c = x.shape
         if not self.layer_norm or self.qk_scale is not None or h % ws or w % ws:
@@ -357,10 +355,15 @@ class SwinTransformerBlock(nn.Module):
                                num_heads=self.num_heads,
                                windows_per_image=nw, softmax=self.softmax)
         else:
-            params, bias = self.kernel_inputs(x_size, ws, shift)
-            y = fused_swin_block(x_windows.contiguous(), *params, bias,
-                                 num_heads=self.num_heads,
-                                 windows_per_image=nw)
+            from rdst_tpu_torch.kernels.swin_block import (plan_f32_block,
+                                                           run_f32_block)
+
+            plan = kernel_plan(self, (x_size, ws, shift, x.device),
+                               lambda: plan_f32_block(
+                                   *self.kernel_inputs(x_size, ws, shift),
+                                   num_heads=self.num_heads))
+            y = run_f32_block(x_windows.contiguous(), plan,
+                              num_heads=self.num_heads, windows_per_image=nw)
         y = window_reverse(y.reshape(-1, ws, ws, c), ws, h, w)
         if shift > 0:
             y = torch.roll(y, (shift, shift), dims=(1, 2))
@@ -430,8 +433,8 @@ class SwinTransformerBlock(nn.Module):
     def f32_unsupported(self) -> Optional[str]:
         """Why the f32 block kernel cannot run this block at its built
         window (None when it can); checked when the model is built."""
-        from rdst_tpu_torch.kernels.swin_block import (block_kernel_supports,
-                                                       smem_bytes)
+        from rdst_tpu_torch.kernels.swin_block import (
+            block_kernel_supports, per_window_smem_bytes)
 
         if not self.layer_norm or self.qk_scale is not None:
             return "the block has no LayerNorm or a custom q scale"
@@ -439,9 +442,11 @@ class SwinTransformerBlock(nn.Module):
         hidden = self.mlp.fc1.out_features
         if not block_kernel_supports(n, self.dim, self.num_heads, hidden):
             return (f"N={n}, C={self.dim}, {self.num_heads} heads, hidden "
-                    f"{hidden} exceed what the CUDA kernel takes ("
-                    f"{smem_bytes(n, self.dim, hidden)} bytes of shared "
-                    "memory)")
+                    f"{hidden} exceed what the f32 route admits: what its "
+                    "per-window design took, "
+                    f"{per_window_smem_bytes(n, self.dim, hidden)} bytes of "
+                    "shared memory a window at most 232448 (ROADMAP Queue B "
+                    "6b)")
         return None
 
     def fast_kernel_inputs(self, x_size: Tuple[int, int], ws: int,
@@ -625,10 +630,10 @@ class BasicLayer(nn.Module):
 
         def build():
             return [(plan_fast_block(*a.fast_kernel_inputs(x_size, ws, 0),
-                                     num_heads=nh),
+                                     num_heads=nh, route="window"),
                      plan_fast_block(*bb.fast_kernel_inputs(x_size, ws,
                                                             shift),
-                                     num_heads=nh))
+                                     num_heads=nh, route="window"))
                     for a, bb in zip(self.blocks[0::2], self.blocks[1::2])]
 
         plans = kernel_plan(self, ("pair", x_size, ws, shift, x.device),

@@ -119,17 +119,18 @@ def test_flagship_full_width_matches_jax(monkeypatch, mode):
 
 def test_kernel_path_routes_every_swin_block(monkeypatch):
     """48 Swin blocks per forward at the flagship geometry, all through
-    the kernel wrapper when the model was built in a kernel mode, none
-    when it was built with the kernels off. The mode is the model's own:
-    the env flag, read when the model is built, no longer matters after."""
+    the kernel wrapper (``run_f32_block``, with the plan each block keeps)
+    when the model was built in a kernel mode, none when it was built
+    with the kernels off. The mode is the model's own: the env flag, read
+    when the model is built, no longer matters after."""
     calls = []
-    real = swin_block.fused_swin_block
+    real = swin_block.run_f32_block
 
-    def spy(x, *a, **kw):
-        calls.append((x.shape[-1], a[-1].shape[0]))
-        return real(x, *a, **kw)
+    def spy(x, plan, **kw):
+        calls.append((x.shape[-1], plan.bias.shape[0]))
+        return real(x, plan, **kw)
 
-    monkeypatch.setattr(swin_block, "fused_swin_block", spy)
+    monkeypatch.setattr(swin_block, "run_f32_block", spy)
     monkeypatch.setenv("RDST_TORCH_KERNELS", "off")
     x = torch.zeros(1, 40, 32, 1)
     for mode, n in (("rdstb", 48), ("pack", 48), ("off", 0), (None, 0)):

@@ -99,15 +99,15 @@ def test_bias_window_mismatch_raises():
 @pytest.mark.parametrize("c", [60, 90, 120])
 def test_kernel_takes_flagship_geometry(c):
     assert sb.block_kernel_supports(N, c, NH, 2 * c)
-    assert sb.smem_bytes(N, c, 2 * c) <= sb.H100_SMEM_OPTIN
+    assert sb.per_window_smem_bytes(N, c, 2 * c) <= sb.H100_SMEM_OPTIN
 
 
 def test_kernel_shared_memory_budget():
     # x rows, LN/attention rows (stride C rounded up to 4), q/k/v at stride
     # C+1 holding the MLP hidden state later, one head's N x N scores
-    assert sb.smem_bytes(64, 120, 240) == 4 * (2 * 7680 + 3 * 64 * 121 + 4096)
-    assert sb.smem_bytes(64, 90, 180) == 4 * (5760 + 5888 + 3 * 64 * 91 + 4096)
-    assert sb.smem_bytes(64, 60, 120) == 93952
+    assert sb.per_window_smem_bytes(64, 120, 240) == 4 * (2 * 7680 + 3 * 64 * 121 + 4096)
+    assert sb.per_window_smem_bytes(64, 90, 180) == 4 * (5760 + 5888 + 3 * 64 * 91 + 4096)
+    assert sb.per_window_smem_bytes(64, 60, 120) == 93952
 
 
 @pytest.mark.parametrize("n,c,nh,hid", [
