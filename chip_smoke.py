@@ -36,11 +36,17 @@ PyTorch version on the card. Phases, each printed with its seconds (the
    token-parallel forward's kernels a call, bitwise repeat and device
    time by phase; the pair at C = 60/90/120, the RDSTB on the flagship
    geometry; CUDA-event times of the launch alone, plain time, bound,
-   max and mean relative error (bar 0.02);
+   max and mean relative error (bar 0.02); for the pair and the RDSTB
+   (stage kernels on ``csrc/window_body.cuh``) also the error against
+   their staged plain versions, kernels a call, two calls bitwise equal
+   and device time per stage kernel (torch.profiler); then both at
+   16-token windows (window 4, random weights, 8 images) against their
+   plain and staged versions;
 8. the bf16 model in modes rdstb, pair and swin on 8 slices: launches per
    forward (8 / 24 / 48, counts set to 0 just before each and read just
    after), the kernel path vs the plain bf16 path, and vs the f32 kernel
-   path (relative error and PSNR);
+   path (relative error and PSNR); and per mode the wall and device time
+   (torch.profiler) of one warm bucket-64 forward;
 9. bf16 serving (mode rdstb, the default): as phase 5;
 10. the profile of one warm bf16 bucket-64 forward, as phase 6;
 11. the train-pair kernels (``kernels.pair_train``, forward and
@@ -522,7 +528,15 @@ def _block_flops(windows: int, c: int, n: int = 64) -> float:
 
 
 def _plan_bytes(plan) -> int:
-    return sum(t.numel() * t.element_size() for t in plan.layout) + \
+    """A block's weights and bias as the work reads them once: the
+    kernel_layout arrays (the stage kernels' panels pad them further, and
+    their fragment-ordered bias repeats the packed one) and the packed
+    bias."""
+    from rdst_tpu_torch.kernels.swin_block import kernel_layout
+
+    layout = kernel_layout(plan.params) if plan.route == "stage" \
+        else plan.layout
+    return sum(t.numel() * t.element_size() for t in layout) + \
         plan.bias.numel() * plan.bias.element_size()
 
 
@@ -608,36 +622,44 @@ def bf16_kernel_phase(model) -> dict:
         layer = rdstb.body[j].body
         a, b = layer.blocks
         plan_a = swin_block.plan_fast_block(
-            *a.fast_kernel_inputs(LR_HW, ws, 0), num_heads=nh,
-            route="window")
+            *a.fast_kernel_inputs(LR_HW, ws, 0), num_heads=nh, route="stage")
         plan_b = swin_block.plan_fast_block(
             *b.fast_kernel_inputs(LR_HW, ws, ws // 2), num_heads=nh,
-            route="window")
+            route="stage")
         x = torch.randn(images * nw, ws * ws, c, device="cuda",
                         generator=gen).to(torch.bfloat16)
         kw = dict(num_heads=nh, x_size=LR_HW, window_size=ws, shift=ws // 2,
                   softmax=softmax)
+        args = (x, plan_a.params, plan_a.bias, plan_b.params, plan_b.bias)
         with torch.inference_mode():
             got = swin_pair.run_swin_pair(x, plan_a, plan_b, **kw)
-            want = swin_pair.swin_pair_reference(
-                x, plan_a.params, plan_a.bias, plan_b.params, plan_b.bias,
-                **kw)
+            want = swin_pair.swin_pair_reference(*args, **kw)
+            staged = swin_pair.swin_pair_staged_reference(*args, **kw)
             torch.cuda.synchronize()
             err = _check(f"pair C={c}", got, want)
+            err_s = _check(f"pair C={c} vs staged", got, staged)
             ms = cuda_time_ms(lambda: swin_pair.run_swin_pair(
                 x, plan_a, plan_b, **kw))
             plain_ms = cuda_time_ms(lambda: swin_pair.swin_pair_reference(
-                x, plan_a.params, plan_a.bias, plan_b.params, plan_b.bias,
-                **kw))
+                *args, **kw))
+            nt = (c + 31) // 32
+            extras = _stage_extras(
+                f"pair C={c}",
+                lambda: swin_pair.run_swin_pair(x, plan_a, plan_b, **kw),
+                swin_pair.run_swin_pair,
+                ((f"stage_kernel<{nt}, false>", f"stage A, C = {c}"),
+                 (f"stage_kernel<{nt}, true>", f"stage B, C = {c}")))
         flops = 2 * _block_flops(images * nw, c)
         bound_ms, by = _bound(flops, 2 * 2 * x.numel() + _plan_bytes(plan_a)
                               + _plan_bytes(plan_b))
         out["pair"].append(dict(c=c, rel_max=err[0], rel_mean=err[1],
-                                max_abs_err=err[2], ms=ms, plain_ms=plain_ms,
-                                bound_ms=bound_ms, bound_by=by))
+                                max_abs_err=err[2], staged_rel_max=err_s[0],
+                                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                bound_by=by, **extras))
         log(f"pair C={c:3d} {softmax}: rel max {err[0]:.3e} mean "
-            f"{err[1]:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-            f"{bound_ms:.4f} ms ({by}, {flops / ms / 1e9:.1f} TFLOP/s)")
+            f"{err[1]:.3e}, vs staged {err_s[0]:.3e}; kernels {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by}, "
+            f"{flops / ms / 1e9:.1f} TFLOP/s)")
     h, w = LR_HW
     plan = rdstb_block.plan_rdstb(
         *rdstb.rdstb_inputs(LR_HW, ws, ws // 2), num_heads=nh,
@@ -646,29 +668,45 @@ def bf16_kernel_phase(model) -> dict:
                     generator=gen).to(torch.bfloat16)
     kw = dict(num_heads=nh, x_size=LR_HW, window_size=ws, shift=ws // 2,
               softmax=softmax)
+    rkw = dict(growth=plan.growth, adapter_prenorm=plan.prenorm, **kw)
     with torch.inference_mode():
         got = rdstb_block.run_rdstb(x, plan, **kw)
-        want = rdstb_block.rdstb_reference(
-            x, plan.dstls, plan.wc, plan.bc, growth=plan.growth,
-            adapter_prenorm=plan.prenorm, **kw)
+        want = rdstb_block.rdstb_reference(x, plan.dstls, plan.wc, plan.bc,
+                                           **rkw)
+        staged = rdstb_block.rdstb_staged_reference(
+            x, plan.dstls, plan.wc, plan.bc, **rkw)
         torch.cuda.synchronize()
         err = _check("rdstb", got, want)
+        err_s = _check("rdstb vs staged", got, staged)
         ms = cuda_time_ms(lambda: rdstb_block.run_rdstb(x, plan, **kw))
         plain_ms = cuda_time_ms(lambda: rdstb_block.rdstb_reference(
-            x, plan.dstls, plan.wc, plan.bc, growth=plan.growth,
-            adapter_prenorm=plan.prenorm, **kw), warmup=1, iters=5)
-    # blocks of the three DSTLs, plus the 3x3 conv from 150 to 60 channels
+            x, plan.dstls, plan.wc, plan.bc, **rkw), warmup=1, iters=5)
+        phases = []
+        for c in (60, 90, 120):
+            nt = (c + 31) // 32
+            phases += [(f"stage_kernel<{nt}, false>", f"stage A, C = {c}"),
+                       (f"stage_kernel<{nt}, true>",
+                        f"stage B + adapter, C = {c}")]
+        extras = _stage_extras(
+            "rdstb", lambda: rdstb_block.run_rdstb(x, plan, **kw),
+            rdstb_block.run_rdstb, tuple(phases) + (("conv_kernel", "conv"),))
+    # blocks of the three DSTLs, plus the 3x3 conv from 150 to 60 channels;
+    # bytes: tokens in and out, every weight and bias once
     flops = sum(2 * _block_flops(images * nw, c) for c in (60, 90, 120)) \
         + images * h * w * 2 * 9 * 150 * 60
     nbytes = 2 * 2 * x.numel() + sum(
-        t.numel() * t.element_size() for t in plan.kernel_args)
+        t.numel() * t.element_size() for d in plan.dstls
+        for t in (*d.pa, *d.pb, d.bias_a, d.bias_b, *d.adapter)) + sum(
+        t.numel() * t.element_size() for t in (plan.wc, plan.bc))
     bound_ms, by = _bound(flops, nbytes)
     out["rdstb"].append(dict(rel_max=err[0], rel_mean=err[1],
-                             max_abs_err=err[2], ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=by, flops=flops))
-    log(f"rdstb {softmax}: rel max {err[0]:.3e} mean {err[1]:.3e} kernel "
-        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by}, "
-        f"{flops / ms / 1e9:.1f} TFLOP/s)")
+                             max_abs_err=err[2], staged_rel_max=err_s[0],
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=by, flops=flops, **extras))
+    log(f"rdstb {softmax}: rel max {err[0]:.3e} mean {err[1]:.3e}, vs "
+        f"staged {err_s[0]:.3e}; kernels {ms:.4f} ms plain {plain_ms:.4f} "
+        f"ms bound {bound_ms:.4f} ms ({by}, {flops / ms / 1e9:.1f} TFLOP/s)")
+    out["window16"] = _window16_cases(gen)
     log("library yardstick: no single PyTorch call computes a Swin block, "
         "a DSTL pair or an RDSTB")
     return out
@@ -686,6 +724,7 @@ def bf16_model_phase(live16, live32, live_cpu) -> dict:
 
     rng = np.random.default_rng(SEED + 4)
     x = rng.random((8,) + LR_HW + (1,), dtype=np.float32)
+    x64 = rng.random((64,) + LR_HW, dtype=np.float32)
     model = live16.model
     softmax = model.softmax
     y32 = live32.predict(x, SCALE)
@@ -736,11 +775,17 @@ def bf16_model_phase(live16, live32, live_cpu) -> dict:
                 raise AssertionError(f"mode {mode} vs plain versions: {kp}")
             if kf[0] >= BF16_VS_F32_MAX or kf[1] >= BF16_VS_F32_MEAN:
                 raise AssertionError(f"mode {mode} vs f32: {kf}")
+            wall, busy = _device_ms(lambda: live16.predict(x64, SCALE))
+            log(f"bf16 mode {mode}: one warm bucket-64 forward {wall:.3f} ms "
+                "wall, device " + (f"{busy:.3f} ms" if busy is not None
+                                   else "not measured (no profiler time)"))
             out[mode] = {"launches_per_forward": launches[counter.__name__],
                          "vs_plain_versions_rel_max": kp[0],
                          "vs_plain_modules_rel_max": ko[0],
                          "vs_f32_rel_max": kf[0], "vs_f32_rel_mean": kf[1],
-                         "psnr_vs_f32_db": kf[2]}
+                         "psnr_vs_f32_db": kf[2],
+                         "bucket64_wall_ms": wall,
+                         "bucket64_device_ms": busy}
     finally:
         set_kernel_mode(model, "rdstb", softmax)
     return out
@@ -918,6 +963,161 @@ def _forward_extras(label: str, call, kernels: int, phases, flops: float):
             "measured")
     return {"deterministic": True, "kernels_per_call": kernels,
             "phases_ms": ms, "phase_tflops": rate}
+
+
+def _stage_extras(label: str, call, counter, phases) -> dict:
+    """A stage-kernel call alone (the pair's or the RDSTB's): two calls on
+    the same inputs bitwise equal; the kernels a call (the wrapper's
+    ``kernels`` count over its ``launches``); device time per stage
+    kernel (torch.profiler)."""
+    counter.launches = counter.kernels = 0
+    first = call()
+    torch.cuda.synchronize()
+    kernels = counter.kernels / counter.launches
+    second = call()
+    torch.cuda.synchronize()
+    if not torch.equal(first, second):
+        raise AssertionError(f"{label}: two calls on the same inputs differ")
+    ms = _phase_ms(call, phases=phases)
+    total = sum(ms.values())
+    if ms:
+        log(f"  {label}: two calls bitwise equal; {kernels:g} kernels a "
+            f"call; by stage (torch.profiler, ms a call; {total:.4f} in "
+            "all):")
+        for ph, t in ms.items():
+            log(f"    {t:8.4f}  {ph}")
+    else:
+        log(f"  {label}: two calls bitwise equal; {kernels:g} kernels a "
+            "call; torch.profiler recorded no device time: stages not "
+            "measured")
+    return {"deterministic": True, "kernels_per_call": kernels,
+            "stages_ms": ms}
+
+
+def _random_block(rng, c: int, nh: int, ws: int, shifted: bool):
+    """A seeded 12-param bundle (JAX layout) and head-major bf16 bias
+    (rel-pos, + the shift mask per window when shifted) for window ws on
+    the LR_HW image, on the card."""
+    from rdst_tpu_torch.nn.swin import (relative_position_index,
+                                        shift_attention_mask)
+
+    n, hid = ws * ws, 2 * c
+    h, w = LR_HW
+
+    def f(*shape, scale=0.2):
+        return torch.from_numpy(rng.normal(0.0, scale, shape).astype(
+            np.float32)).cuda()
+
+    params = [f(c, 3 * c, scale=c ** -0.5), f(3 * c),
+              f(c, c, scale=c ** -0.5), f(c), 1.0 + f(c), f(c), 1.0 + f(c),
+              f(c), f(c, hid, scale=c ** -0.5), f(hid),
+              f(hid, c, scale=hid ** -0.5), f(c)]
+    table = rng.normal(0.0, 1.0, ((2 * ws - 1) ** 2, nh)).astype(np.float32)
+    rel = table[relative_position_index(ws, ws).reshape(-1)].reshape(
+        n, n, nh).transpose(2, 0, 1)
+    if shifted:
+        rel = (rel[:, None] + shift_attention_mask(h, w, ws, ws // 2)[None]
+               ).reshape(-1, n, n)
+    bias = torch.from_numpy(np.ascontiguousarray(rel, np.float32)).cuda()
+    return params, bias.to(torch.bfloat16)
+
+
+def _window16_cases(gen) -> dict:
+    """16-token windows (window 4, which both gates admit at the flagship
+    widths) on seeded random weights, 8 images: the pair at C = 60 and a
+    whole RDSTB (C0 = 60, growth 30, 3 DSTLs, pre-norm adapters), each
+    against its plain and staged versions (bar BF16_TOL), two calls
+    bitwise equal."""
+    from rdst_tpu_torch.kernels import rdstb_block, swin_block, swin_pair
+
+    ws, nh, images, c0, g = 4, 6, 8, 60, 30
+    h, w = LR_HW
+    nw = (h // ws) * (w // ws)
+    if not (swin_block.fast_kernel_supports(16, c0, nh, 2 * c0)
+            and rdstb_block.rdstb_kernel_supports(16, c0, g, 3, nh, 2.0)):
+        raise AssertionError("the gates refuse 16-token windows at C0 = 60")
+    rng = np.random.default_rng(SEED + 7)
+    kw = dict(num_heads=nh, x_size=LR_HW, window_size=ws, shift=ws // 2,
+              softmax="clamp")
+    out = {}
+    plan_a = swin_block.plan_fast_block(*_random_block(rng, c0, nh, ws, False),
+                                        num_heads=nh, route="stage")
+    plan_b = swin_block.plan_fast_block(*_random_block(rng, c0, nh, ws, True),
+                                        num_heads=nh, route="stage")
+    x = torch.randn(images * nw, ws * ws, c0, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    args = (x, plan_a.params, plan_a.bias, plan_b.params, plan_b.bias)
+    with torch.inference_mode():
+        got = swin_pair.run_swin_pair(x, plan_a, plan_b, **kw)
+        again = swin_pair.run_swin_pair(x, plan_a, plan_b, **kw)
+        want = swin_pair.swin_pair_reference(*args, **kw)
+        staged = swin_pair.swin_pair_staged_reference(*args, **kw)
+        torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("pair, window 4: two calls differ")
+    out["pair"] = {"rel_max": _check("pair window 4", got, want)[0],
+                   "staged_rel_max": _check("pair window 4 vs staged", got,
+                                            staged)[0]}
+    dstls, c = [], c0
+    for _ in range(3):
+        blocks = [_random_block(rng, c, nh, ws, s) for s in (False, True)]
+
+        def f(*shape, scale=0.2):
+            return torch.from_numpy(rng.normal(0.0, scale, shape).astype(
+                np.float32)).cuda()
+
+        dstls.append({"blocks": blocks, "adapter": (
+            f(c, g, scale=c ** -0.5), f(g), 1.0 + f(c), f(c))})
+        c += g
+    wconv = torch.from_numpy(rng.normal(0.0, (9 * c) ** -0.5, (3, 3, c, c0))
+                             .astype(np.float32)).cuda()
+    bconv = torch.from_numpy(rng.normal(0.0, 0.2, c0).astype(
+        np.float32)).cuda()
+    plan = rdstb_block.plan_rdstb(dstls, wconv, bconv, num_heads=nh,
+                                  growth=g, adapter_prenorm=True)
+    x = torch.randn(images, h * w, c0, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    rkw = dict(growth=g, adapter_prenorm=True, **kw)
+    with torch.inference_mode():
+        got = rdstb_block.run_rdstb(x, plan, **kw)
+        again = rdstb_block.run_rdstb(x, plan, **kw)
+        want = rdstb_block.rdstb_reference(x, plan.dstls, plan.wc, plan.bc,
+                                           **rkw)
+        staged = rdstb_block.rdstb_staged_reference(
+            x, plan.dstls, plan.wc, plan.bc, **rkw)
+        torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("rdstb, window 4: two calls differ")
+    out["rdstb"] = {"rel_max": _check("rdstb window 4", got, want)[0],
+                    "staged_rel_max": _check("rdstb window 4 vs staged", got,
+                                             staged)[0]}
+    log(f"window 4 (16-token windows, {images} images, random weights): "
+        f"pair rel max {out['pair']['rel_max']:.3e} (staged "
+        f"{out['pair']['staged_rel_max']:.3e}), rdstb rel max "
+        f"{out['rdstb']['rel_max']:.3e} (staged "
+        f"{out['rdstb']['staged_rel_max']:.3e}); two calls bitwise equal")
+    return out
+
+
+def _device_ms(fn):
+    """(wall ms, device ms) of one warm fn(): the host clock around it to
+    a synchronize, and the sum of its kernels' device time by
+    torch.profiler (None when the profiler records none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(float(e.self_device_time_total or 0.0)
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return wall, (busy / 1e3 if busy else None)
 
 
 @phase("train-pair kernels vs plain")
@@ -1726,7 +1926,9 @@ def run_e1(data_dir: str, tmp: str):
     whole16 = bf16_model_phase(live16, live, live_cpu)
     serve16 = bf16_serving_phase(live16, rdstb_block.run_rdstb, 8,
                                  "bfloat16", SERVE_TOL_BF16)
-    prof16 = bf16_profile_phase(live16, ("rdstb_kernel",), "rdstb kernel")
+    prof16 = bf16_profile_phase(live16, ("rdstb_stage_kernel",
+                                         "rdstb_conv_kernel"),
+                                "rdstb stage kernels")
     kern_train = train_kernel_phase(live16.model)
     train = train_phase(data_dir, tmp)
     prof_train = train_profile_phase(train.pop("trainer"))

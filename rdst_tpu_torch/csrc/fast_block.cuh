@@ -1,8 +1,8 @@
 // The bfloat16 fast Swin block body for Hopper (sm_90a), one window per
-// thread block, shared by the three fast-branch kernels:
-// swin_block_fast.cu (one block), swin_pair.cu (a DSTL pair) and
-// rdstb_block.cu (a whole RDSTB), and by the forwards of the two train
-// kernels (pair_train.cu, block_train.cu).
+// thread block, of the fast block up to C = 120 (swin_block_fast.cu) and
+// of the forwards of the two train kernels (pair_train.cu,
+// block_train.cu). The pair and RDSTB stage kernels run the body of
+// window_body.cuh instead.
 //
 // Replaces: the fast branch of `_body` in rdst_tpu/kernels/swin_block.py
 // (`fast=True`, :261-473). Per window of N tokens (C channels, nH heads):
@@ -57,8 +57,8 @@ constexpr float kEps = 1e-5f;
 constexpr float kClamp = 60.0f;
 constexpr int kMaxN = 64;
 // Widest C the window body takes: the fast block and the single-block
-// train kernels (SwinIR-std, C = 180). The pair, RDSTB and train-pair
-// kernels keep the C <= 128 they were verified at.
+// train kernels (SwinIR-std, C = 180). The train-pair kernels keep the
+// C <= 128 they were verified at.
 constexpr int kMaxC = 192;
 constexpr int kMaxCShared = 128;
 constexpr float kQX = 31.75f;  // int8 activation step: 127 / 4 sigma
@@ -372,8 +372,8 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // (stochastic-depth factor columns; null means 1). kInt8 runs the qkv
 // product on the int8 operands w.wq / w.wqs; it is a template argument so
 // that the kernels without int8 operands compile none of that code (the
-// pair and RDSTB kernels keep their register budget). Starts and ends
-// with __syncthreads().
+// train kernels keep their register budget). Starts and ends with
+// __syncthreads().
 template <bool kInt8 = false>
 __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
                            int bias_win, int softmax, bool exact = false,
@@ -663,7 +663,7 @@ inline cudaError_t cooperative_grid(Kernel kernel, int smem, int device,
 
 // The geometry the window body takes, up to width max_c (kMaxC for the
 // fast block and the single-block train kernels, kMaxCShared for the
-// pair, RDSTB and train-pair kernels).
+// train-pair kernels).
 inline bool geom_ok(const Geom& g, int max_c = kMaxCShared) {
   return g.n > 0 && g.n <= kMaxN && g.n % 16 == 0 && g.c > 0 &&
          g.c <= max_c && g.nh > 0 && g.c % g.nh == 0 && g.hd <= 32 &&

@@ -14,348 +14,517 @@
 //
 // The TPU kernel keeps one image's whole state in VMEM. Here an image's
 // dense features (H*W x 150 bf16 = 384 KB at the flagship) do not fit in
-// a thread block's shared memory, so the kernel is one cooperative grid of
-// co-resident thread blocks that walks the RDSTB in 2*nb + 1 stages with
-// a grid-wide barrier between them; the state between stages lives in
-// two global scratch buffers (the block-a output y at width <= C0 +
-// (nb-1)*g, and the grown features at nb*g), 25 MB at bucket 64, so it
-// stays in the 50 MB L2:
-// * stage A of DSTL d: per window, gather rows of x0 | feats, block a,
-//   scatter the bf16 rows into y at their image positions;
-// * stage B: per shifted window, gather y at (y + s mod H, x + s mod W)
+// a thread block's shared memory, so one call is 2*nb + 1 ordinary
+// kernels on the caller's stream, each with the shared memory and
+// occupancy of its own width; the state between them lives in two global
+// scratch buffers that stay in the 50 MB L2 (25 MB at bucket 64): the
+// dense rows (H*W, ccatp) = x0 | feats | zero pad, ccatp = C_cat to 16,
+// and the block-a output y (H*W, c8), c8 = c to 8:
+// * stage A of DSTL d: block a (csrc/window_body.cuh) on the unshifted
+//   windows of the dense rows (of x for the first DSTL, which also copies
+//   x0 into the dense rows); the bf16 rows into y at their image
+//   positions;
+// * stage B: per shifted window, y gathered at (y + s mod H, x + s mod W)
 //   (the roll and re-partition), block b, round to bf16, the adapter as
-//   one more tensor-core product, and scatter the growth channels into
-//   feats at the rows' unrolled positions (the un-shift relayout);
-// * conv: per 8 x 8 output tile, load a zero-padded (ws+2)^2 halo of
-//   x0 | feats into shared memory and run the 3x3 conv as an implicit
-//   GEMM over K = 9 * C_cat (tap-major, as `_conv3x3`'s (9*C_cat, C0)
-//   weight) on the tensor cores, then bias, residual, bf16.
-// Every SM takes windows of any image in every stage. Bound by operations
-// (the conv adds 2 * 1350 * 60 flops per pixel to the blocks' work).
+//   one more warpgroup product, and the growth channels into the dense
+//   rows at the windows' unrolled positions (the un-shift relayout);
+// * the conv: a tiled implicit GEMM, 8 x 16 output pixels a thread block
+//   (a warpgroup's 64 = wgmma's M), the zero-bordered halo of the dense
+//   rows read once with 16-byte copies into shared memory in wgmma's
+//   core-matrix order, so that each of the 9 taps is a shifted
+//   descriptor over it; the weights tap-major as `_conv3x3`'s (9*C_cat,
+//   C0), staged one tap (64 x 160 bf16 = 20 KB) at a time; then bias,
+//   residual, bf16.
+// Bound by operations (the conv adds 2 * 1350 * 60 flops per pixel to the
+// blocks' work at the flagship).
 
-#include "fast_block.cuh"
+#include "window_body.cuh"
 
 namespace {
 
-using fastblk::bf16;
+using wbody::bf16;
 
 constexpr int kMaxDstl = 4;
+constexpr int kConvRows = 8, kConvCols = 16;  // output pixels a block
+constexpr int kHaloRows = kConvRows + 2, kHaloCols = kConvCols + 2;
+constexpr int kConvSlots = 2;
 
-struct Dstl {
-  fastblk::Weights wa, wb;
-  fastblk::Geom g;
-  const bf16* wad;   // (gp, cp) adapter weight, (out, in), padded
-  const float* bad;  // (gp)
-  const float* gad;  // (g) post-norm LN scale (unused when pre-norm)
-  const float* bbad; // (g) post-norm LN bias
+struct StageArgs {
+  const bf16* x;   // (images, H*W, c0) image-major tokens
+  bf16* dense;     // (images, H*W, ccatp) x0 | feats | zero pad
+  bf16* y;         // (images, H*W, c8)
+  wbody::BlockW w;
+  wbody::Geom g;
+  const float* bad;   // (ng) adapter bias
+  const float* gad;   // (growth) post-norm LN scale
+  const float* bbad;  // (growth) post-norm LN bias
+  int windows, nw, h, w_img, ws, shift, softmax;
+  int c0, ccat, ccatp, dcol, growth, ng, prenorm, first;
+  int nslots, slot_bytes, wg_bytes;
 };
 
-struct Args {
-  const bf16* x;          // (images, H*W, c0) image-major tokens
-  bf16* out;              // (images, H*W, c0)
-  bf16* y;                // scratch (images, H*W, cmax)
-  bf16* f;                // scratch (images, H*W, nb * growth)
-  unsigned int* counter;  // grid barrier, zero at launch
-  const bf16* wc;         // (c0p, 9 * ccp) conv weight, (out, tap, in)
-  const float* bc;        // (c0)
-  Dstl d[kMaxDstl];
-  int images, h, w, ws, shift, c0, growth, nb, prenorm, softmax;
-  int cmax, ccat, ccp, c0p, gp;
-};
-
-__device__ __forceinline__ bf16 ldcg_bf16(const bf16* p) {
-  return __ushort_as_bfloat16(
-      __ldcg(reinterpret_cast<const unsigned short*>(p)));
+__device__ __forceinline__ int pixel(const StageArgs& a, int wi, int r,
+                                     int s) {
+  const int nww = a.w_img / a.ws;
+  const int yy = ((wi / nww) * a.ws + r / a.ws + s) % a.h;
+  const int xx = ((wi % nww) * a.ws + r % a.ws + s) % a.w_img;
+  return yy * a.w_img + xx;
 }
 
-// channel ch of pixel p (image-major over the batch) of x0 | feats
-__device__ __forceinline__ bf16 dense_at(const Args& a, size_t p, int ch) {
-  if (ch < a.c0) return a.x[p * a.c0 + ch];
-  return ldcg_bf16(a.f + p * (a.nb * a.growth) + (ch - a.c0));
+// the flat pixel index (over the batch) of row r of the tile
+__device__ __forceinline__ size_t tile_pixel(const StageArgs& a, int gw0,
+                                             int r, int s) {
+  const int gw = gw0 + r / a.g.n;
+  const int img = gw / a.nw, wi = gw - img * a.nw;
+  return static_cast<size_t>(img) * a.h * a.w_img +
+         pixel(a, wi, r % a.g.n, s);
 }
 
-__global__ void __launch_bounds__(fastblk::kThreads, 2)
-    rdstb_kernel(const Args a) {
-  extern __shared__ __align__(16) char smem[];
-  float* xs = reinterpret_cast<float*>(smem);
-  const int ws = a.ws, nww = a.w / ws, nw = (a.h / ws) * nww;
-  const int windows = a.images * nw;
-  const int hw = a.h * a.w;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  unsigned int epoch = 0;
-
-  for (int d = 0; d < a.nb; ++d) {
-    const Dstl& L = a.d[d];
-    const fastblk::Geom& g = L.g;
-    const int n = g.n, c = g.c;
-    const fastblk::Smem lay = fastblk::smem_layout(g);
-
-    // stage A: block a on unshifted windows of x0 | feats -> y
-    for (int win = blockIdx.x; win < windows; win += gridDim.x) {
-      const int img = win / nw, wi = win - img * nw;
-      const int oy = (wi / nww) * ws, ox = (wi % nww) * ws;
-      __syncthreads();
-      for (int r = warp; r < n; r += nwarps) {  // a warp per row
-        const size_t p = static_cast<size_t>(img) * hw +
-                         (oy + r / ws) * a.w + ox + r % ws;
-        for (int ch = lane; ch < c; ch += 32)
-          xs[r * c + ch] = __bfloat162float(dense_at(a, p, ch));
-      }
-      fastblk::fast_block(L.wa, g, smem, 0, a.softmax);
-      for (int r = warp; r < n; r += nwarps) {
-        bf16* dst = a.y + (static_cast<size_t>(img) * hw +
-                           (oy + r / ws) * a.w + ox + r % ws) * a.cmax;
-        for (int ch = lane; ch < c; ch += 32)
-          dst[ch] = __float2bfloat16_rn(xs[r * c + ch]);
-      }
+// x rounded to bf16 into A rows, core-matrix order
+template <int NT>
+__device__ __forceinline__ void bf16_into(const float (&x)[NT][16], int cp,
+                                          char* a) {
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int col = 32 * j + 8 * q + 2 * t;
+      if (col >= cp) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(
+            a + wbody::aoff(16 * wq + g + 8 * h, col, 16 * cp)) =
+            wbody::pack2(x[j][4 * q + 2 * h], x[j][4 * q + 2 * h + 1]);
     }
-    fastblk::grid_barrier(a.counter, epoch);
+}
 
-    // stage B: block b on the rolled windows of y, adapter -> feats
-    for (int win = blockIdx.x; win < windows; win += gridDim.x) {
-      const int img = win / nw, wi = win - img * nw;
-      const int oy = (wi / nww) * ws + a.shift;
-      const int ox = (wi % nww) * ws + a.shift;
-      __syncthreads();
-      for (int r = warp; r < n; r += nwarps) {
-        const int pix = ((oy + r / ws) % a.h) * a.w + (ox + r % ws) % a.w;
-        const bf16* src =
-            a.y + (static_cast<size_t>(img) * hw + pix) * a.cmax;
-        for (int ch = lane; ch < c; ch += 32)
-          xs[r * c + ch] = __bfloat162float(ldcg_bf16(src + ch));
-      }
-      fastblk::fast_block(L.wb, g, smem, wi % L.wb.bias_windows, a.softmax);
-      // adapter input: the bf16-rounded block output (the un-shift
-      // relayout rounds), normalized first when the LN precedes the Dense
-      bf16* xn = reinterpret_cast<bf16*>(smem + lay.xn);
-      for (int i = threadIdx.x; i < n * c; i += blockDim.x)
-        xs[i] = fastblk::round_bf16(xs[i]);
-      __syncthreads();
+template <int NT, bool kB>
+__global__ void __launch_bounds__(wbody::kWgs * 128 + 32, 1)
+    rdstb_stage_kernel(const StageArgs a) {
+  extern __shared__ __align__(128) char smem[];
+  const int nwg = (blockDim.x - 32) / 128;
+  const int wg = wbody::warpgroup();
+  const wbody::Geom& g = a.g;
+  char* ring_base = smem + nwg * a.wg_bytes;
+  char* ctrl = ring_base + a.nslots * a.slot_bytes;
+  wbody::Ring ring = wbody::make_ring(ring_base, a.nslots, a.slot_bytes,
+                                      ctrl);
+  int active = (a.windows * g.n + wbody::kRows - 1) / wbody::kRows -
+               blockIdx.x * nwg;
+  if (active > nwg) active = nwg;
+  if (threadIdx.x == 0) wbody::ring_init(ring, 4 * active);
+  __syncthreads();
+  if (wg == nwg) {  // the producer warp
+    if ((threadIdx.x & 31) == 0)
+      wbody::produce_block(ring, g, kB ? a.ng : 0, a.w.panels);
+    return;
+  }
+  const wbody::TileInfo ti =
+      wbody::tile_info(blockIdx.x, nwg, wg, g.n, a.windows);
+  if (ti.rows == 0) return;
+  char* wsm = smem + wg * a.wg_bytes;
+  bf16* stage = reinterpret_cast<bf16*>(wsm);
+  const int c = g.c, yb = 2 * g.c8, db = 2 * a.ccatp;
+  const int tid = threadIdx.x & 127;
+
+  float x[NT][16];
+  if (!kB && a.first) {  // x0 rows of the tokens, copied to the dense rows
+    const int xb = 2 * a.c0;
+    wbody::rows_in(
+        [&](int r) {
+          return reinterpret_cast<const char*>(
+              a.x + tile_pixel(a, ti.gw0, r, 0) * a.c0);
+        },
+        ti.rows, xb, reinterpret_cast<uintptr_t>(a.x) | xb, wsm, yb);
+    wbody::wg_sync(wg);
+    auto drow = [&](int r) {
+      return reinterpret_cast<char*>(a.dense +
+                                     tile_pixel(a, ti.gw0, r, 0) * a.ccatp);
+    };
+    wbody::rows_out(drow, ti.rows, xb,
+                    reinterpret_cast<uintptr_t>(a.dense) | db | xb, wsm, yb);
+    const int pad = a.ccatp - a.ccat;
+    for (int i = tid; i < ti.rows * pad; i += 128) {
+      const int r = i / pad;
+      reinterpret_cast<bf16*>(drow(r))[a.ccat + i - r * pad] =
+          __float2bfloat16_rn(0.f);
+    }
+  } else if (!kB) {  // x0 | feats so far, from the dense rows
+    wbody::rows_in(
+        [&](int r) {
+          return reinterpret_cast<const char*>(
+              a.dense + tile_pixel(a, ti.gw0, r, 0) * a.ccatp);
+        },
+        ti.rows, yb, reinterpret_cast<uintptr_t>(a.dense) | db | yb, wsm, yb);
+  } else {  // the rolled windows of y
+    wbody::rows_in(
+        [&](int r) {
+          return reinterpret_cast<const char*>(
+              a.y + tile_pixel(a, ti.gw0, r, a.shift) * g.c8);
+        },
+        ti.rows, yb, reinterpret_cast<uintptr_t>(a.y) | yb, wsm, yb);
+  }
+  wbody::wg_sync(wg);
+  wbody::regs_from_rows(x, stage, g.c8, c, ti.rows);
+  wbody::wg_sync(wg);
+
+  wbody::block(x, a.w, g, wsm, ring, a.softmax, ti.gw0, a.nw, wg);
+
+  if (!kB) {  // bf16 rows into y at their image positions
+    wbody::rows_from_regs(x, stage, g.c8, g.c8);
+    wbody::wg_sync(wg);
+    wbody::rows_out(
+        [&](int r) {
+          return reinterpret_cast<char*>(
+              a.y + tile_pixel(a, ti.gw0, r, 0) * g.c8);
+        },
+        ti.rows, yb, reinterpret_cast<uintptr_t>(a.y) | yb, wsm, yb);
+    return;
+  }
+
+  // the adapter on the bf16-rounded block output (the un-shift relayout
+  // rounds), normalized first when the LN precedes the Dense
+  if (a.prenorm)
+    wbody::normalize_into<true>(x, c, g.cp, wsm);
+  else
+    bf16_into(x, g.cp, wsm);
+  wbody::fence_async_smem();
+  wbody::wg_sync(wg);
+  float* ab = reinterpret_cast<float*>(wsm + wbody::wg_layout(g, a.ng).region);
+  {
+    const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+    const int gr = lane >> 2, t = lane & 3;
+    wbody::gemm_pieces(
+        ring, wbody::smem_u32(wsm), 16 * g.cp, a.ng, g.cp,
+        [&](int n0, int tiles, float (&acc)[2][16]) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            if (j >= tiles) continue;
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int o = n0 + 32 * j + 8 * q + 2 * t + e;
+                  ab[(16 * wq + gr + 8 * h) * a.ng + o] =
+                      acc[j][4 * q + 2 * h + e] + __ldg(a.bad + o);
+                }
+          }
+        });
+  }
+  wbody::wg_sync(wg);
+  {  // one warp per row: LN over the growth channels, into the dense rows
+    const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+    const int gr = a.growth;
+    for (int r = wq; r < ti.rows; r += 4) {
+      const float* row = ab + r * a.ng;
+      bf16* dst = a.dense + tile_pixel(a, ti.gw0, r, a.shift) * a.ccatp +
+                  a.dcol;
       if (a.prenorm) {
-        fastblk::normalize_rows(xs, xn, g.lda, n, c, g.cp);
-      } else {
-        for (int i = threadIdx.x; i < n * g.cp; i += blockDim.x) {
-          const int r = i / g.cp, ch = i - r * g.cp;
-          xn[r * g.lda + ch] = __float2bfloat16_rn(ch < c ? xs[r * c + ch]
-                                                          : 0.f);
-        }
+        for (int i = lane; i < gr; i += 32)
+          dst[i] = __float2bfloat16_rn(row[i]);
+        continue;
       }
-      __syncthreads();
-      float* ab = reinterpret_cast<float*>(smem + lay.region);  // (n, gp)
-      fastblk::gemm(xn, g.lda, n, g.cp / 16, L.wad, g.cp, a.gp / 8,
-                    [&](int m, int o, float v0, float v1) {
-                      ab[m * a.gp + o] = v0 + __ldg(L.bad + o);
-                      ab[m * a.gp + o + 1] = v1 + __ldg(L.bad + o + 1);
-                    });
-      __syncthreads();
-      {  // one warp per row: LN over the growth channels, store to feats
-        const int gr = a.growth;
-        for (int r = warp; r < n; r += nwarps) {
-          const float* row = ab + r * a.gp;
-          const int pix =
-              ((oy + r / ws) % a.h) * a.w + (ox + r % ws) % a.w;
-          bf16* dst = a.f + (static_cast<size_t>(img) * hw + pix) *
-                                (a.nb * gr) + d * gr;
-          if (a.prenorm) {
-            for (int i = lane; i < gr; i += 32)
-              dst[i] = __float2bfloat16_rn(row[i]);
-            continue;
-          }
-          float s = 0.f;
-          for (int i = lane; i < gr; i += 32) s += row[i];
-          const float mu = fastblk::warp_sum(s) / gr;
-          float v = 0.f;
-          for (int i = lane; i < gr; i += 32) {
-            const float q = row[i] - mu;
-            v += q * q;
-          }
-          const float rs = rsqrtf(fastblk::warp_sum(v) / gr + fastblk::kEps);
-          for (int i = lane; i < gr; i += 32)
-            dst[i] = __float2bfloat16_rn((row[i] - mu) * rs * __ldg(L.gad + i)
-                                         + __ldg(L.bbad + i));
-        }
+      float s = 0.f;
+      for (int i = lane; i < gr; i += 32) s += row[i];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float mu = s / gr;
+      float v = 0.f;
+      for (int i = lane; i < gr; i += 32) {
+        const float q = row[i] - mu;
+        v += q * q;
       }
-    }
-    fastblk::grid_barrier(a.counter, epoch);
-  }
-
-  // conv 3x3 (zero padding) over x0 | feats, + bias + x0, one ws x ws tile
-  // of output pixels per step
-  const int pw = ws + 2, ldp = a.ccp + 8;
-  bf16* patch = reinterpret_cast<bf16*>(smem);  // (pw * pw, ldp)
-  const int n = ws * ws;
-  const int gr = lane >> 2, t = lane & 3;
-  for (int win = blockIdx.x; win < windows; win += gridDim.x) {
-    const int img = win / nw, wi = win - img * nw;
-    const int oy = (wi / nww) * ws, ox = (wi % nww) * ws;
-    __syncthreads();
-    for (int p = warp; p < pw * pw; p += nwarps) {  // a warp per halo pixel
-      const int yy = oy + p / pw - 1, xx = ox + p % pw - 1;
-      const bool in = yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
-      const size_t q = static_cast<size_t>(img) * hw + yy * a.w + xx;
-      for (int ch = lane; ch < a.ccp; ch += 32)
-        patch[p * ldp + ch] = in && ch < a.ccat ? dense_at(a, q, ch)
-                                                : __float2bfloat16_rn(0.f);
-    }
-    __syncthreads();
-    for (int nt = warp; nt < a.c0p / 8; nt += nwarps) {
-      float acc[4][4];
-      int row[4][2];  // halo row of this lane's output pixels, tap (0, 0)
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        acc[mt][0] = acc[mt][1] = acc[mt][2] = acc[mt][3] = 0.f;
-        const int m0 = mt * 16 + gr, m1 = m0 + 8;
-        row[mt][0] = (m0 / ws) * pw + m0 % ws;
-        row[mt][1] = (m1 / ws) * pw + m1 % ws;
-      }
-      const bf16* wr = a.wc + static_cast<size_t>(nt * 8 + gr) * (9 * a.ccp) +
-                       2 * t;
-      for (int dy = 0; dy < 3; ++dy) {
-        for (int dx = 0; dx < 3; ++dx, wr += a.ccp) {
-          const bf16* tap = patch + (dy * pw + dx) * ldp + 2 * t;
-          for (int ch0 = 0; ch0 < a.ccp; ch0 += 16) {
-            const uint32_t b0 = fastblk::ldg32(wr + ch0);
-            const uint32_t b1 = fastblk::ldg32(wr + ch0 + 8);
-#pragma unroll
-            for (int mt = 0; mt < 4; ++mt) {
-              if (mt * 16 < n) {
-                const bf16* p0 = tap + row[mt][0] * ldp + ch0;
-                const bf16* p1 = tap + row[mt][1] * ldp + ch0;
-                fastblk::mma16816(acc[mt], fastblk::ld32(p0),
-                                  fastblk::ld32(p1), fastblk::ld32(p0 + 8),
-                                  fastblk::ld32(p1 + 8), b0, b1);
-              }
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt * 16 < n) {
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int m = mt * 16 + gr + 8 * half;
-            const size_t pix = static_cast<size_t>(img) * hw +
-                               (oy + m / ws) * a.w + ox + m % ws;
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              const int o = nt * 8 + 2 * t + u;
-              if (o < a.c0)
-                a.out[pix * a.c0 + o] = __float2bfloat16_rn(
-                    acc[mt][2 * half + u] + __ldg(a.bc + o) +
-                    __bfloat162float(a.x[pix * a.c0 + o]));
-            }
-          }
-        }
-      }
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      const float rs = rsqrtf(v / gr + wbody::kEps);
+      for (int i = lane; i < gr; i += 32)
+        dst[i] = __float2bfloat16_rn((row[i] - mu) * rs * __ldg(a.gad + i) +
+                                     __ldg(a.bbad + i));
     }
   }
 }
 
-void set_weights(fastblk::Weights* w, const void* const* p) {
-  w->wqkv = static_cast<const bf16*>(p[0]);
+struct ConvArgs {
+  const bf16* dense;   // (images, H*W, ccatp)
+  bf16* out;           // (images, H*W, c0)
+  const char* panels;  // per 64 outputs, per tap, per 256 inputs
+  const float* bias;   // (c0)
+  int images, h, w, c0, no, ccatp, slot_bytes, patch_bytes;
+};
+
+__global__ void __launch_bounds__(2 * 128 + 32, 1)
+    rdstb_conv_kernel(const ConvArgs a) {
+  extern __shared__ __align__(128) char smem[];
+  const int wg = wbody::warpgroup();
+  const int tiles_x = (a.w + kConvCols - 1) / kConvCols;
+  const int tiles_y = (a.h + kConvRows - 1) / kConvRows;
+  const int img = blockIdx.x / (tiles_x * tiles_y);
+  const int rest = blockIdx.x - img * tiles_x * tiles_y;
+  const int y0 = (rest / tiles_x) * kConvRows;
+  const int x0 = (rest % tiles_x) * kConvCols;
+  char* patch = smem;
+  wbody::Ring ring = wbody::make_ring(smem + a.patch_bytes, kConvSlots,
+                                      a.slot_bytes,
+                                      smem + a.patch_bytes +
+                                          kConvSlots * a.slot_bytes);
+  if (threadIdx.x == 0) wbody::ring_init(ring, 8);
+  __syncthreads();
+  if (wg == 2) {  // the producer warp: the panels in order
+    if ((threadIdx.x & 31) == 0) {
+      size_t off = 0;
+      int idx = 0;
+      for (int n0 = 0; n0 < a.no; n0 += wbody::kPanelN)
+        for (int tap = 0; tap < 9; ++tap)
+          for (int k0 = 0; k0 < a.ccatp; k0 += wbody::kPanelK) {
+            const int b = wbody::panel_bytes(a.no - n0, a.ccatp - k0);
+            wbody::ring_put(ring, idx++, a.panels + off, b);
+            off += b;
+          }
+    }
+    return;
+  }
+  // the halo: (kHaloRows x kHaloCols) pixels x ccatp channels, stored
+  // [row][8-channel chunk][col][8], zero outside the image
+  const int kc = a.ccatp / 8;
+  const int hw = a.h * a.w;
+  for (int i = threadIdx.x; i < kHaloRows * kHaloCols * kc; i += 256) {
+    const int p = i / kc, ch = i - p * kc;
+    const int pr = p / kHaloCols, pc = p - pr * kHaloCols;
+    const int yy = y0 + pr - 1, xx = x0 + pc - 1;
+    const bool in = yy >= 0 && yy < a.h && xx >= 0 && xx < a.w;
+    const bf16* src =
+        in ? a.dense + (static_cast<size_t>(img) * hw + yy * a.w + xx) *
+                           a.ccatp + ch * 8
+           : a.dense;
+    const uint32_t dst =
+        wbody::smem_u32(patch + ((pr * kc + ch) * kHaloCols + pc) * 16);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+  wbody::fence_async_smem();
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+  const int gr = lane >> 2, t = lane & 3;
+  const uint32_t patch_s = wbody::smem_u32(patch);
+  const uint32_t lbo = kHaloCols * 16, sbo = kc * kHaloCols * 16;
+  for (int n0 = 0; n0 < a.no; n0 += wbody::kPanelN) {
+    const bool two = a.no - n0 >= 64;
+    float acc[2][16];  // written by the products only
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+      for (int k0 = 0; k0 < a.ccatp; k0 += wbody::kPanelK) {
+        const int kw = a.ccatp - k0 < wbody::kPanelK ? a.ccatp - k0
+                                                     : wbody::kPanelK;
+        const uint32_t b = wbody::ring_get(ring);
+        wbody::wgmma_fence();
+        for (int ks = 0; ks < kw / 16; ++ks) {
+          // rows: output pixels (r, 8 wg + col) <- halo (r + dy, 8 wg +
+          // col + dx); K: channels k0 + 16 ks ..
+          const uint64_t da = wbody::desc(
+              patch_s + ((dy * kc + (k0 + 16 * ks) / 8) * kHaloCols +
+                         8 * wg + dx) * 16,
+              lbo, sbo);
+          const int add = tap > 0 || k0 > 0 || ks > 0;
+          wbody::wgmma32(acc[0], da,
+                         wbody::desc(b + ks * 256, 128, kw * 16), add);
+          if (two)
+            wbody::wgmma32(acc[1], da,
+                           wbody::desc(b + 64 * kw + ks * 256, 128, kw * 16),
+                           add);
+        }
+        wbody::wgmma_commit();
+        wbody::wgmma_wait0();
+        wbody::fence_acc(acc[0]);
+        wbody::fence_acc(acc[1]);
+        wbody::ring_done(ring);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 16 * wq + gr + 8 * h;
+          const int oy = y0 + m / 8, ox = x0 + 8 * wg + m % 8;
+          if (oy >= a.h || ox >= a.w) continue;
+          const size_t pix = static_cast<size_t>(img) * hw + oy * a.w + ox;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int o = n0 + 32 * j + 8 * q + 2 * t + e;
+            if (o < a.c0)
+              a.out[pix * a.c0 + o] = __float2bfloat16_rn(
+                  acc[j][4 * q + 2 * h + e] + __ldg(a.bias + o) +
+                  __bfloat162float(a.dense[pix * a.ccatp + o]));
+          }
+        }
+  }
+}
+
+void set_weights(wbody::BlockW* w, const void* const* p) {
+  w->panels = static_cast<const char*>(p[0]);
   w->bqkv = static_cast<const float*>(p[1]);
-  w->wproj = static_cast<const bf16*>(p[2]);
-  w->bproj = static_cast<const bf16*>(p[3]);
-  w->w1 = static_cast<const bf16*>(p[4]);
-  w->bf1 = static_cast<const float*>(p[5]);
-  w->w2 = static_cast<const bf16*>(p[6]);
-  w->bf2 = static_cast<const bf16*>(p[7]);
-  w->bias = static_cast<const bf16*>(p[8]);
+  w->bproj = static_cast<const bf16*>(p[2]);
+  w->bf1 = static_cast<const float*>(p[3]);
+  w->bf2 = static_cast<const bf16*>(p[4]);
+  w->bias = static_cast<const bf16*>(p[5]);
+}
+
+template <int NT, bool kB>
+cudaError_t launch(const StageArgs& base, const wbody::Fit& f,
+                   cudaStream_t s) {
+  auto kernel = rdstb_stage_kernel<NT, kB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f.smem);
+  if (err != cudaSuccess) return err;
+  StageArgs a = base;
+  a.nslots = f.nslots;
+  a.slot_bytes = f.slot_bytes;
+  a.wg_bytes = f.wg_bytes;
+  const int tiles = (a.windows * a.g.n + wbody::kRows - 1) / wbody::kRows;
+  kernel<<<(tiles + f.nwg - 1) / f.nwg, wbody::stage_threads(f.nwg), f.smem,
+           s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kB>
+cudaError_t launch_nt(const StageArgs& a, const wbody::Fit& f,
+                      cudaStream_t s) {
+  switch (a.g.no / 32) {
+    case 1: return launch<1, kB>(a, f, s);
+    case 2: return launch<2, kB>(a, f, s);
+    case 3: return launch<3, kB>(a, f, s);
+    case 4: return launch<4, kB>(a, f, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int conv_slot_bytes(int c0, int ccatp) {
+  return wbody::round_up(wbody::panel_bytes(wbody::round_up(c0, 32), ccatp),
+                         128);
+}
+
+int conv_patch_bytes(int ccatp) {
+  return wbody::round_up(kHaloRows * kHaloCols * ccatp * 2, 128);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of a launch: the widest DSTL's window body, the
-// adapter rows inside its region, and the conv halo.
-int rdstb_smem_bytes(int ws, int c0, int growth, int nb, int nh,
-                     const int* hidden) {
-  int smem = 0;
-  for (int d = 0; d < nb; ++d) {
-    const fastblk::Geom g =
-        fastblk::make_geom(ws * ws, c0 + d * growth, nh, hidden[d]);
-    const fastblk::Smem s = fastblk::smem_layout(g);
-    int need = s.total;
-    const int ad = s.region + 4 * g.n * fastblk::round_up(growth, 8);
-    if (ad > need) need = ad;
-    if (need > smem) smem = need;
+// Kernels one call launches.
+int rdstb_kernels(int nb) { return 2 * nb + 1; }
+
+// Dynamic shared memory of stage `k` of a call: 2 d for DSTL d's stage A,
+// 2 d + 1 for its stage B, 2 nb for the conv; 0 if it does not fit.
+int rdstb_stage_smem_bytes(int n, int c0, int growth, int nb, int nh,
+                           const int* hidden, int k) {
+  if (k == 2 * nb) {
+    const int ccatp = wbody::round_up(c0 + nb * growth, 16);
+    return conv_patch_bytes(ccatp) +
+           kConvSlots * conv_slot_bytes(c0, ccatp) + wbody::kCtrlBytes;
   }
-  const int ccp = fastblk::round_up(c0 + nb * growth, 16);
-  const int patch = 2 * (ws + 2) * (ws + 2) * (ccp + 8);
-  return patch > smem ? patch : smem;
+  const int d = k / 2;
+  const wbody::Geom g = wbody::make_geom(n, c0 + d * growth, nh, hidden[d]);
+  return wbody::stage_fit(g, (k & 1) ? wbody::round_up(growth, 32) : 0)
+      .smem;
 }
 
-// ptrs: x, out, y scratch, feats scratch, counter, conv weight, conv bias,
-// then per DSTL: block a (9: kernel_layout weights + packed bias), block b
-// (9), adapter weight, bias, LN scale, LN bias. dims: images, h, w, ws,
-// shift, c0, growth, nb, nh, prenorm, softmax, hidden[nb].
+// ptrs: x, out, y scratch, dense scratch, conv panels, conv bias, then per
+// DSTL: block a (6: panels, bqkv, bproj, bf1, bf2, packed bias), block b
+// (6, its panels followed by the adapter's), the adapter bias (ng) and
+// post-norm LN scale and bias. dims: images, h, w, ws, shift, c0, growth,
+// nb, nh, prenorm, softmax, hidden[nb].
 int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
                void* stream) {
-  Args a;
+  StageArgs a;
   a.x = static_cast<const bf16*>(ptrs[0]);
-  a.out = static_cast<bf16*>(const_cast<void*>(ptrs[1]));
+  bf16* out = static_cast<bf16*>(const_cast<void*>(ptrs[1]));
   a.y = static_cast<bf16*>(const_cast<void*>(ptrs[2]));
-  a.f = static_cast<bf16*>(const_cast<void*>(ptrs[3]));
-  a.counter = static_cast<unsigned int*>(const_cast<void*>(ptrs[4]));
-  a.wc = static_cast<const bf16*>(ptrs[5]);
-  a.bc = static_cast<const float*>(ptrs[6]);
-  a.images = dims[0];
+  a.dense = static_cast<bf16*>(const_cast<void*>(ptrs[3]));
+  const int images = dims[0];
   a.h = dims[1];
-  a.w = dims[2];
+  a.w_img = dims[2];
   a.ws = dims[3];
   a.shift = dims[4];
   a.c0 = dims[5];
   a.growth = dims[6];
-  a.nb = dims[7];
+  const int nb = dims[7];
   const int nh = dims[8];
   a.prenorm = dims[9];
   a.softmax = dims[10];
-  if (a.nb < 1 || a.nb > kMaxDstl || a.ws <= 0 || a.h % a.ws || a.w % a.ws ||
-      a.shift < 0 || a.shift >= a.ws || a.images < 0 || a.softmax < 0 ||
+  if (nb < 1 || nb > kMaxDstl || a.ws <= 0 || a.h % a.ws || a.w_img % a.ws ||
+      a.shift < 0 || a.shift >= a.ws || images < 0 || a.softmax < 0 ||
       a.softmax > 2 || a.growth <= 0 || a.c0 <= 0 || a.c0 > 128)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nw = (a.h / a.ws) * (a.w / a.ws);
-  a.cmax = a.c0 + (a.nb - 1) * a.growth;
-  a.ccat = a.c0 + a.nb * a.growth;
-  a.ccp = fastblk::round_up(a.ccat, 16);
-  a.c0p = fastblk::round_up(a.c0, 16);
-  a.gp = fastblk::round_up(a.growth, 8);
-  for (int d = 0; d < a.nb; ++d) {
-    const void* const* p = ptrs + 7 + 22 * d;
-    Dstl& L = a.d[d];
-    set_weights(&L.wa, p);
-    set_weights(&L.wb, p + 9);
-    L.wad = static_cast<const bf16*>(p[18]);
-    L.bad = static_cast<const float*>(p[19]);
-    L.gad = static_cast<const float*>(p[20]);
-    L.bbad = static_cast<const float*>(p[21]);
-    L.wa.bias_windows = 1;
-    L.wb.bias_windows = a.shift > 0 ? nw : 1;
-    L.g = fastblk::make_geom(a.ws * a.ws, a.c0 + d * a.growth, nh,
-                             dims[11 + d]);
-    if (!fastblk::geom_ok(L.g))
+  a.nw = (a.h / a.ws) * (a.w_img / a.ws);
+  a.windows = images * a.nw;
+  a.ccat = a.c0 + nb * a.growth;
+  a.ccatp = wbody::round_up(a.ccat, 16);
+  a.ng = wbody::round_up(a.growth, 32);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wbody::Fit fits[2 * kMaxDstl];
+  for (int d = 0; d < nb; ++d) {
+    const wbody::Geom g =
+        wbody::make_geom(a.ws * a.ws, a.c0 + d * a.growth, nh, dims[11 + d]);
+    if (!wbody::geom_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
+    fits[2 * d] = wbody::stage_fit(g, 0);
+    fits[2 * d + 1] = wbody::stage_fit(g, a.ng);
+    if (fits[2 * d].nwg == 0 || fits[2 * d + 1].nwg == 0)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int smem =
-      rdstb_smem_bytes(a.ws, a.c0, a.growth, a.nb, nh, dims + 11);
-  cudaError_t err = fastblk::prepare(rdstb_kernel, smem, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (a.images == 0) return 0;
-  int grid = 0;
-  err = fastblk::cooperative_grid(rdstb_kernel, smem, device, a.images * nw,
-                                  &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  ConvArgs cv;
+  cv.dense = a.dense;
+  cv.out = out;
+  cv.panels = static_cast<const char*>(ptrs[4]);
+  cv.bias = static_cast<const float*>(ptrs[5]);
+  cv.images = images;
+  cv.h = a.h;
+  cv.w = a.w_img;
+  cv.c0 = a.c0;
+  cv.no = wbody::round_up(a.c0, 32);
+  cv.ccatp = a.ccatp;
+  cv.slot_bytes = conv_slot_bytes(a.c0, a.ccatp);
+  cv.patch_bytes = conv_patch_bytes(a.ccatp);
+  const int conv_smem =
+      cv.patch_bytes + kConvSlots * cv.slot_bytes + wbody::kCtrlBytes;
+  if (conv_smem > wbody::kSmemOptin)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (images == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(a.counter, 0, sizeof(unsigned int), s);
+  for (int d = 0; d < nb; ++d) {
+    const void* const* p = ptrs + 6 + 15 * d;
+    a.g = wbody::make_geom(a.ws * a.ws, a.c0 + d * a.growth, nh,
+                           dims[11 + d]);
+    a.first = d == 0;
+    a.dcol = a.c0 + d * a.growth;
+    StageArgs sa = a;  // stage A: block a, shift 0, shared bias
+    set_weights(&sa.w, p);
+    sa.w.bias_windows = 1;
+    err = launch_nt<false>(sa, fits[2 * d], s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    StageArgs sb = a;  // stage B: block b, the adapter
+    set_weights(&sb.w, p + 6);
+    sb.w.bias_windows = a.shift > 0 ? a.nw : 1;
+    sb.bad = static_cast<const float*>(p[12]);
+    sb.gad = static_cast<const float*>(p[13]);
+    sb.bbad = static_cast<const float*>(p[14]);
+    err = launch_nt<true>(sb, fits[2 * d + 1], s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  err = cudaFuncSetAttribute(rdstb_conv_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             conv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(rdstb_kernel), dim3(grid),
-      dim3(fastblk::kThreads), params, smem, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = images * ((a.h + kConvRows - 1) / kConvRows) *
+                    ((a.w_img + kConvCols - 1) / kConvCols);
+  rdstb_conv_kernel<<<tiles, 2 * 128 + 32, conv_smem, s>>>(cv);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,146 +7,211 @@
 // bias); the output stays in the shifted window layout.
 //
 // The TPU kernel keeps a whole image's 20 windows in VMEM and does the
-// relayout there. An image does not fit in one thread block's shared
-// memory (20 x 64 x 120 bf16 = 307 KB at C = 120), so this kernel is one
-// cooperative grid of co-resident thread blocks, one window at a time per
-// block: stage A writes block a's bf16 output into an image-layout
-// scratch (B, H, W, C) in global memory (it stays in the 50 MB L2), a
-// grid-wide barrier follows, and stage B gathers each shifted window's
-// rows from the scratch at (y + s mod H, x + s mod W), which is the
-// roll -> partition of `_shift_relayout`. Every SM takes windows of any
-// image, so the card fills at bucket 64 (1280 windows). The window body
-// is fastblk::fast_block (csrc/fast_block.cuh): bound by operations, all
-// products on the tensor cores.
+// relayout there. An image does not fit in a thread block's shared memory
+// (20 x 64 x 120 bf16 = 307 KB at C = 120), so the pair is two ordinary
+// kernels on the caller's stream, each on the window body of
+// csrc/window_body.cuh (bound by operations; warpgroup products on
+// weight panels staged in shared memory and shared by the thread block's
+// two windows):
+// * stage A: block a on the unshifted windows; its bf16 rows go into an
+//   image-layout scratch (B, H, W, c8) in global memory (it stays in the
+//   50 MB L2);
+// * stage B: each shifted window's rows gathered from the scratch at
+//   (y + s mod H, x + s mod W), which is the roll -> partition of
+//   `_shift_relayout`; block b; the bf16 rows to the output.
+// Each stage takes the shared memory and occupancy of its own width, and
+// the kernel boundary is the only barrier between them.
 
-#include "fast_block.cuh"
+#include "window_body.cuh"
 
 namespace {
 
-using fastblk::bf16;
+using wbody::bf16;
 
 struct Args {
-  const bf16* x;           // (images * nW, n, c), unshifted window layout
-  bf16* out;               // (images * nW, n, c), shifted window layout
-  bf16* y;                 // scratch (images, H, W, c)
-  unsigned int* counter;   // grid barrier, zero at launch
-  fastblk::Weights wa, wb;
-  fastblk::Geom g;
-  int images, h, w, ws, shift, softmax;
+  const bf16* x;  // (windows, n, c), unshifted window layout
+  bf16* out;      // (windows, n, c), shifted window layout
+  bf16* y;        // scratch (images, H, W, c8)
+  wbody::BlockW w;
+  wbody::Geom g;
+  int windows, nw, h, w_img, ws, shift, softmax;
+  int nslots, slot_bytes, wg_bytes;
 };
 
-__device__ __forceinline__ float ldcg_bf16(const bf16* p) {
-  const unsigned short u = __ldcg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(static_cast<unsigned int>(u) << 16);
+// The pixel (row of image `img`, flattened) of row r of window wi,
+// rolled by s.
+__device__ __forceinline__ int pixel(const Args& a, int wi, int r, int s) {
+  const int nww = a.w_img / a.ws;
+  const int yy = ((wi / nww) * a.ws + r / a.ws + s) % a.h;
+  const int xx = ((wi % nww) * a.ws + r % a.ws + s) % a.w_img;
+  return yy * a.w_img + xx;
 }
 
-__global__ void __launch_bounds__(fastblk::kThreads, 2)
-    swin_pair_kernel(const Args a) {
-  extern __shared__ __align__(16) char smem[];
-  const fastblk::Geom& g = a.g;
-  float* xs = reinterpret_cast<float*>(smem);
-  const int n = g.n, c = g.c, ws = a.ws;
-  const int nww = a.w / ws, nw = (a.h / ws) * nww;
-  const int windows = a.images * nw;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  unsigned int epoch = 0;
-
-  // stage A: block a, output scattered into image layout
-  for (int win = blockIdx.x; win < windows; win += gridDim.x) {
-    const bf16* xg = a.x + static_cast<size_t>(win) * n * c;
-    __syncthreads();
-    for (int i = threadIdx.x; i < n * c; i += blockDim.x)
-      xs[i] = __bfloat162float(xg[i]);
-    fastblk::fast_block(a.wa, g, smem, 0, a.softmax);
-    const int img = win / nw, wi = win - img * nw;
-    const int oy = (wi / nww) * ws, ox = (wi % nww) * ws;
-    for (int r = warp; r < n; r += nwarps) {  // a warp per row
-      bf16* dst = a.y + ((static_cast<size_t>(img) * a.h + oy + r / ws) *
-                             a.w + ox + r % ws) * c;
-      for (int ch = lane; ch < c; ch += 32)
-        dst[ch] = __float2bfloat16_rn(xs[r * c + ch]);
-    }
+template <int NT, bool kB>
+__global__ void __launch_bounds__(wbody::kWgs * 128 + 32, 1)
+    pair_stage_kernel(const Args a) {
+  extern __shared__ __align__(128) char smem[];
+  const int nwg = (blockDim.x - 32) / 128;
+  const int wg = wbody::warpgroup();
+  const wbody::Geom& g = a.g;
+  char* ring_base = smem + nwg * a.wg_bytes;
+  char* ctrl = ring_base + a.nslots * a.slot_bytes;
+  wbody::Ring ring = wbody::make_ring(ring_base, a.nslots, a.slot_bytes,
+                                      ctrl);
+  int active = (a.windows * g.n + wbody::kRows - 1) / wbody::kRows -
+               blockIdx.x * nwg;
+  if (active > nwg) active = nwg;
+  if (threadIdx.x == 0) wbody::ring_init(ring, 4 * active);
+  __syncthreads();
+  if (wg == nwg) {  // the producer warp
+    if ((threadIdx.x & 31) == 0)
+      wbody::produce_block(ring, g, 0, a.w.panels);
+    return;
   }
-  fastblk::grid_barrier(a.counter, epoch);
+  const wbody::TileInfo ti =
+      wbody::tile_info(blockIdx.x, nwg, wg, g.n, a.windows);
+  if (ti.rows == 0) return;
+  char* wsm = smem + wg * a.wg_bytes;
+  bf16* stage = reinterpret_cast<bf16*>(wsm);
+  const int n = g.n, c = g.c;
+  const int rowb = 2 * c, yb = 2 * g.c8;
 
-  // stage B: gather the rolled windows, block b, shifted window layout out
-  for (int win = blockIdx.x; win < windows; win += gridDim.x) {
-    const int img = win / nw, wi = win - img * nw;
-    const int oy = (wi / nww) * ws + a.shift, ox = (wi % nww) * ws + a.shift;
-    __syncthreads();
-    for (int r = warp; r < n; r += nwarps) {
-      const int yy = (oy + r / ws) % a.h, xx = (ox + r % ws) % a.w;
-      const bf16* src =
-          a.y + ((static_cast<size_t>(img) * a.h + yy) * a.w + xx) * c;
-      for (int ch = lane; ch < c; ch += 32) xs[r * c + ch] = ldcg_bf16(src + ch);
-    }
-    fastblk::fast_block(a.wb, g, smem, wi % a.wb.bias_windows, a.softmax);
-    bf16* og = a.out + static_cast<size_t>(win) * n * c;
-    for (int i = threadIdx.x; i < n * c; i += blockDim.x)
-      og[i] = __float2bfloat16_rn(xs[i]);
+  float x[NT][16];
+  if (!kB) {  // the tile's windows are contiguous rows of x
+    const char* src = reinterpret_cast<const char*>(
+        a.x + static_cast<size_t>(ti.gw0) * n * c);
+    const int bytes = ti.rows * rowb;
+    wbody::rows_in([&](int) { return src; }, 1, bytes,
+                   reinterpret_cast<uintptr_t>(src) | bytes, wsm, 0);
+    wbody::wg_sync(wg);
+    wbody::regs_from_rows(x, stage, c, c, ti.rows);
+  } else {  // the rolled windows, gathered from the image-layout scratch
+    auto src = [&](int r) {
+      const int gw = ti.gw0 + r / n;
+      const int img = gw / a.nw, wi = gw - img * a.nw;
+      return reinterpret_cast<const char*>(
+          a.y + (static_cast<size_t>(img) * a.h * a.w_img +
+                 pixel(a, wi, r % n, a.shift)) * g.c8);
+    };
+    wbody::rows_in(src, ti.rows, yb,
+                   reinterpret_cast<uintptr_t>(a.y) | yb, wsm, yb);
+    wbody::wg_sync(wg);
+    wbody::regs_from_rows(x, stage, g.c8, c, ti.rows);
+  }
+  wbody::wg_sync(wg);
+
+  wbody::block(x, a.w, g, wsm, ring, a.softmax, ti.gw0, a.nw, wg);
+
+  if (!kB) {  // bf16 rows into the scratch at their image positions
+    wbody::rows_from_regs(x, stage, g.c8, g.c8);
+    wbody::wg_sync(wg);
+    auto dst = [&](int r) {
+      const int gw = ti.gw0 + r / n;
+      const int img = gw / a.nw, wi = gw - img * a.nw;
+      return reinterpret_cast<char*>(
+          a.y + (static_cast<size_t>(img) * a.h * a.w_img +
+                 pixel(a, wi, r % n, 0)) * g.c8);
+    };
+    wbody::rows_out(dst, ti.rows, yb, reinterpret_cast<uintptr_t>(a.y) | yb,
+                    wsm, yb);
+  } else {  // bf16 rows, shifted window layout
+    wbody::rows_from_regs(x, stage, c, c);
+    wbody::wg_sync(wg);
+    char* dst = reinterpret_cast<char*>(
+        a.out + static_cast<size_t>(ti.gw0) * n * c);
+    const int bytes = ti.rows * rowb;
+    wbody::rows_out([&](int) { return dst; }, 1, bytes,
+                    reinterpret_cast<uintptr_t>(dst) | bytes, wsm, 0);
   }
 }
 
-void set_weights(fastblk::Weights* w, const void* const* p) {
-  w->wqkv = static_cast<const bf16*>(p[0]);
+void set_weights(wbody::BlockW* w, const void* const* p) {
+  w->panels = static_cast<const char*>(p[0]);
   w->bqkv = static_cast<const float*>(p[1]);
-  w->wproj = static_cast<const bf16*>(p[2]);
-  w->bproj = static_cast<const bf16*>(p[3]);
-  w->w1 = static_cast<const bf16*>(p[4]);
-  w->bf1 = static_cast<const float*>(p[5]);
-  w->w2 = static_cast<const bf16*>(p[6]);
-  w->bf2 = static_cast<const bf16*>(p[7]);
-  w->bias = static_cast<const bf16*>(p[8]);
+  w->bproj = static_cast<const bf16*>(p[2]);
+  w->bf1 = static_cast<const float*>(p[3]);
+  w->bf2 = static_cast<const bf16*>(p[4]);
+  w->bias = static_cast<const bf16*>(p[5]);
+}
+
+template <int NT, bool kB>
+cudaError_t launch(const Args& base, const wbody::Fit& f, cudaStream_t s) {
+  auto kernel = pair_stage_kernel<NT, kB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f.smem);
+  if (err != cudaSuccess) return err;
+  Args a = base;
+  a.nslots = f.nslots;
+  a.slot_bytes = f.slot_bytes;
+  a.wg_bytes = f.wg_bytes;
+  const int tiles = (a.windows * a.g.n + wbody::kRows - 1) / wbody::kRows;
+  kernel<<<(tiles + f.nwg - 1) / f.nwg, wbody::stage_threads(f.nwg), f.smem,
+           s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kB>
+cudaError_t launch_nt(const Args& a, const wbody::Fit& f, cudaStream_t s) {
+  switch (a.g.no / 32) {
+    case 1: return launch<1, kB>(a, f, s);
+    case 2: return launch<2, kB>(a, f, s);
+    case 3: return launch<3, kB>(a, f, s);
+    case 4: return launch<4, kB>(a, f, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// ptrs: x, out, scratch, counter, then block a's and block b's
-// kernel_layout weights and packed bias (9 each). dims: images, h, w, ws,
-// shift, c, nh, hidden, softmax.
+// Kernels one call launches.
+int swin_pair_kernels() { return 2; }
+
+// Dynamic shared memory of the stage kernels (both take the same).
+int swin_pair_smem_bytes(int n, int c, int nh, int hidden) {
+  const wbody::Geom g = wbody::make_geom(n, c, nh, hidden);
+  return wbody::stage_fit(g, 0).smem;
+}
+
+// ptrs: x, out, scratch, then block a's and block b's weights (6 each:
+// panels, bqkv, bproj, bf1, bf2, packed bias; kernels.window_body
+// .stage_layout). dims: images, h, w, ws, shift, c, nh, hidden, softmax.
 int swin_pair_bf16(const void* const* ptrs, const int* dims, int device,
                    void* stream) {
   Args a;
   a.x = static_cast<const bf16*>(ptrs[0]);
   a.out = static_cast<bf16*>(const_cast<void*>(ptrs[1]));
   a.y = static_cast<bf16*>(const_cast<void*>(ptrs[2]));
-  a.counter = static_cast<unsigned int*>(const_cast<void*>(ptrs[3]));
-  set_weights(&a.wa, ptrs + 4);
-  set_weights(&a.wb, ptrs + 13);
-  a.images = dims[0];
+  const int images = dims[0];
   a.h = dims[1];
-  a.w = dims[2];
+  a.w_img = dims[2];
   a.ws = dims[3];
   a.shift = dims[4];
-  a.g = fastblk::make_geom(dims[3] * dims[3], dims[5], dims[6], dims[7]);
+  a.g = wbody::make_geom(dims[3] * dims[3], dims[5], dims[6], dims[7]);
   a.softmax = dims[8];
-  a.wa.bias_windows = 1;
-  const int nw = a.ws > 0 ? (a.h / a.ws) * (a.w / a.ws) : 0;
-  a.wb.bias_windows = a.shift > 0 ? nw : 1;
-  if (!fastblk::geom_ok(a.g) || a.ws <= 0 || a.h % a.ws || a.w % a.ws ||
-      a.shift < 0 || a.shift >= a.ws || a.images < 0 || a.softmax < 0 ||
+  if (!wbody::geom_ok(a.g) || a.ws <= 0 || a.h % a.ws || a.w_img % a.ws ||
+      a.shift < 0 || a.shift >= a.ws || images < 0 || a.softmax < 0 ||
       a.softmax > 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = fastblk::smem_layout(a.g).total;
-  cudaError_t err = fastblk::prepare(swin_pair_kernel, smem, device);
+  a.nw = (a.h / a.ws) * (a.w_img / a.ws);
+  a.windows = images * a.nw;
+  const wbody::Fit f = wbody::stage_fit(a.g, 0);
+  if (f.nwg == 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (a.images == 0) return 0;
-  int grid = 0;
-  err = fastblk::cooperative_grid(swin_pair_kernel, smem, device,
-                                  a.images * nw, &grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (images == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(a.counter, 0, sizeof(unsigned int), s);
+  Args sa = a;  // stage A: block a, shift 0, shared bias
+  set_weights(&sa.w, ptrs + 3);
+  sa.w.bias_windows = 1;
+  err = launch_nt<false>(sa, f, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(swin_pair_kernel), dim3(grid),
-      dim3(fastblk::kThreads), params, smem, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  Args sb = a;  // stage B: block b on the rolled windows
+  set_weights(&sb.w, ptrs + 9);
+  sb.w.bias_windows = a.shift > 0 ? a.nw : 1;
+  err = launch_nt<true>(sb, f, s);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -1,5 +1,5 @@
-"""A whole RDSTB in one launch: the CUDA kernel and its plain PyTorch
-version.
+"""A whole RDSTB in one call: the CUDA stage kernels and their plain
+PyTorch versions.
 
 Counterpart of ``rdst_tpu/kernels/rdstb_block.py::fused_rdstb`` (bf16 fast
 branch only, as there). On image-major tokens (B, H*W, C0), per DSTL:
@@ -10,13 +10,19 @@ dense concat; then the 3x3 conv from C0 + nb*growth channels back to C0
 (weights tap-major (9*C_cat, C0), as ``_conv3x3``) and the residual.
 
 :func:`fused_rdstb` prepares the weights (:func:`plan_rdstb`) and calls
-:func:`run_rdstb`, which launches ``csrc/rdstb_block.cu`` for a CUDA
-tensor and counts the launch in ``run_rdstb.launches``; for a CPU tensor
-it computes :func:`rdstb_reference`. What the kernel does not take raises on
-either device. The JAX package's ``fused_rdstb_probe`` (a Mosaic compile
-probe that let a geometry fall back quietly) has no counterpart: the
-port's gate is :func:`rdstb_kernel_supports`, checked when the model is
-built and again at every call, and a refusal raises.
+:func:`run_rdstb`, which launches the 2*nb + 1 stage kernels of
+``csrc/rdstb_block.cu`` for a CUDA tensor (per DSTL: stage A, block a
+into an image-layout scratch; stage B, block b on the rolled windows,
+the adapter, the growth channels into the dense rows; then the conv as a
+tiled implicit GEMM) and counts the call in ``run_rdstb.launches`` and
+its kernels in ``run_rdstb.kernels``; for a CPU tensor it computes
+:func:`rdstb_reference`. :func:`rdstb_staged_reference` computes stage by
+stage what the kernels compute, over their buffer layouts. What the
+kernels do not take raises on either device. The JAX package's
+``fused_rdstb_probe`` (a Mosaic compile probe that let a geometry fall
+back quietly) has no counterpart: the port's gate is
+:func:`rdstb_kernel_supports`, checked when the model is built and again
+at every call, and a refusal raises.
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ from rdst_tpu_torch.kernels.swin_block import (
     kernel_layout, launch, normalize, pack_bias_fast, softmax_code)
 from rdst_tpu_torch.kernels.swin_pair import (shift_relayout,
                                               unshift_relayout)
+from rdst_tpu_torch.kernels.window_body import (conv_panels,
+                                                conv_smem_bytes, make_geom,
+                                                stage_bias, stage_fit,
+                                                stage_layout, window_pixels)
 from rdst_tpu_torch.nn.swin import window_partition, window_reverse
 
 _SOURCE = "rdstb_block.cu"
@@ -137,12 +147,76 @@ def rdstb_reference(x_tokens, prepped: List[PreppedDstl], wc, bc, *,
     return (out + bc.float() + x0.float()).to(BF16)
 
 
-def rdstb_smem_bytes(n: int, c0: int, growth: int, nb: int, nh: int,
-                     hidden_ratio: float) -> int:
-    """Dynamic shared memory of one launch (``rdstb_smem_bytes`` in the
-    CUDA source): the widest DSTL's window body with the adapter rows in
-    its attention region, or the conv's (ws+2)^2 halo, whichever is
-    larger."""
+def rdstb_staged_reference(x_tokens, prepped: List[PreppedDstl], wc, bc,
+                           *, num_heads: int, x_size, window_size: int,
+                           shift: int, growth: int, adapter_prenorm: bool,
+                           softmax: str):
+    """The RDSTB's stage kernels in plain PyTorch (same arguments as
+    :func:`rdstb_reference`), over the kernels' buffers: the dense rows
+    (B, H*W, ccatp) = x0 | feats | zeros; per DSTL, stage A (block a on
+    the unshifted windows of the dense rows, gathered by the kernels'
+    index rule, :func:`window_pixels`; its bf16 rows into y (B, H*W, c8)
+    at their pixels) and stage B (the rolled windows gathered from y,
+    block b, bf16, the adapter, the growth channels into the dense rows at
+    the same pixels); then the conv as the kernel's implicit GEMM: per tap,
+    the zero-bordered dense rows shifted by the tap times the tap's
+    (ccatp, C0) weight, summed over the nine taps in f32, plus bias and
+    x0, bf16."""
+    b, l, c0 = x_tokens.shape
+    h, w = x_size
+    ws = window_size
+    nh = num_heads
+    n = ws * ws
+    nw = (h // ws) * (w // ws)
+    nb = len(prepped)
+    ccat = c0 + nb * growth
+    ccatp = _round_up(ccat, 16)
+    dev = x_tokens.device
+    dense = torch.zeros(b, l, ccatp, dtype=BF16, device=dev)
+    dense[..., :c0] = x_tokens
+    unshifted = window_pixels(h, w, ws, 0).reshape(-1)
+    rolled = window_pixels(h, w, ws, shift).reshape(-1)
+    for i, d in enumerate(prepped):
+        c = c0 + i * growth
+        c8 = make_geom(n, c, nh, d.pa.w1.shape[1]).c8
+        rows = dense[:, unshifted, :c].reshape(b * nw, n, c)
+        ya = fast_body(rows.float(), d.pa, d.bias_a, num_heads=nh,
+                       softmax=softmax).to(BF16)
+        y = torch.zeros(b, l, c8, dtype=BF16, device=dev)
+        y[:, unshifted, :c] = ya.reshape(b, nw * n, c)
+        rows = y[:, rolled, :c].reshape(b * nw, n, c)
+        z = fast_body(rows.float(), d.pb, d.bias_b, num_heads=nh,
+                      softmax=softmax).to(BF16).float()
+        ad = d.adapter
+        if adapter_prenorm:
+            a = normalize(z).to(BF16).float() @ ad.w.float() + ad.b
+        else:
+            a = z @ ad.w.float() + ad.b
+            mu = a.mean(dim=-1, keepdim=True)
+            ac = a - mu
+            var = (ac * ac).mean(dim=-1, keepdim=True)
+            a = ac * torch.rsqrt(var + _EPS) * ad.gamma + ad.beta
+        dense[:, rolled, c:c + growth] = a.to(BF16).reshape(b, nw * n,
+                                                            growth)
+    img = F.pad(dense.reshape(b, h, w, ccatp).float(), (0, 0, 1, 1, 1, 1))
+    taps = torch.zeros(9, ccatp, c0, dtype=torch.float32, device=dev)
+    taps[:, :ccat] = wc.float().reshape(9, ccat, c0)
+    out = torch.zeros(b, h, w, c0, dtype=torch.float32, device=dev)
+    for t in range(9):
+        dy, dx = divmod(t, 3)
+        out = out + img[:, dy:dy + h, dx:dx + w] @ taps[t]
+    out = out.reshape(b, l, c0) + bc.float() + dense[..., :c0].float()
+    return out.to(BF16)
+
+
+def admission_smem_bytes(n: int, c0: int, growth: int, nb: int, nh: int,
+                         hidden_ratio: float) -> int:
+    """The shared memory :func:`rdstb_kernel_supports` admits by: what the
+    one-window body of the first RDSTB kernel took (the widest DSTL's
+    window with the adapter rows in its attention region, or the conv's
+    (ws+2)^2 halo). The stage kernels keep this rule so that the gate
+    admits exactly the geometries it admitted; their own shared memory is
+    :func:`rdstb_smem_bytes`."""
     ws = int(round(n ** 0.5))
     need = 0
     for d in range(nb):
@@ -157,14 +231,34 @@ def rdstb_smem_bytes(n: int, c0: int, growth: int, nb: int, nh: int,
     return max(need, 2 * (ws + 2) ** 2 * (ccp + 8))
 
 
+def rdstb_stage_smem_bytes(n: int, c0: int, growth: int, nb: int, nh: int,
+                           hidden_ratio: float) -> List[int]:
+    """Dynamic shared memory of each of a call's 2*nb + 1 stage kernels
+    (``rdstb_stage_smem_bytes`` in the CUDA source), in launch order:
+    per DSTL stage A and stage B (with the adapter's rows), then the
+    conv; 0 for a stage whose window body does not fit."""
+    out = []
+    for d in range(nb):
+        c = c0 + d * growth
+        g = make_geom(n, c, nh, int(c * hidden_ratio))
+        out += [stage_fit(g).smem, stage_fit(g, _round_up(growth, 32)).smem]
+    return out + [conv_smem_bytes(c0, c0 + nb * growth)]
+
+
+def rdstb_smem_bytes(n: int, c0: int, growth: int, nb: int, nh: int,
+                     hidden_ratio: float) -> int:
+    """The most dynamic shared memory any stage kernel of a call takes."""
+    return max(rdstb_stage_smem_bytes(n, c0, growth, nb, nh, hidden_ratio))
+
+
 def rdstb_kernel_supports(n: int, c0: int, growth: int, nb: int, nh: int,
                           hidden_ratio: float) -> bool:
-    """Whether the RDSTB kernel takes this geometry: 1 to 4 DSTLs whose
+    """Whether the RDSTB kernels take this geometry: 1 to 4 DSTLs whose
     widths the window body takes, C0 <= 128 for the conv's output tiles,
-    and the shared memory of the widest stage within an H100 block's."""
+    and :func:`admission_smem_bytes` within an H100 block's."""
     if not (1 <= nb <= MAX_DSTLS and 0 < c0 <= 128 and growth > 0):
         return False
-    smem = rdstb_smem_bytes(n, c0, growth, nb, nh, hidden_ratio)
+    smem = admission_smem_bytes(n, c0, growth, nb, nh, hidden_ratio)
     return smem <= H100_SMEM_OPTIN and all(
         fast_kernel_supports(n, c0 + d * growth, nh,
                              int((c0 + d * growth) * hidden_ratio), smem)
@@ -199,20 +293,21 @@ def plan_rdstb(dstls, conv_kernel, conv_bias, *, num_heads: int,
     args = []
     dev = wc.device
     if dev.type == "cuda":
-        gp, ccp = _round_up(growth, 8), _round_up(ccat, 16)
-        wck = torch.zeros(_round_up(c0, 16), 9, ccp, dtype=BF16, device=dev)
-        wck[:c0, :, :ccat] = wc.reshape(9, ccat, c0).permute(2, 0, 1)
-        args = [wck, bc]
+        ng = _round_up(growth, 32)
+        args = [conv_panels(wc, c0, ccat), bc]
         for i, d in enumerate(prepped):
             c = c0 + i * growth
             ad = d.adapter
-            wad = torch.zeros(gp, _round_up(c, 16), dtype=BF16, device=dev)
-            wad[:growth, :c] = ad.w.t()
-            bad = torch.zeros(gp, dtype=torch.float32, device=dev)
+            wad = torch.zeros(growth, _round_up(c, 16), dtype=BF16,
+                              device=dev)
+            wad[:, :c] = ad.w.t()
+            bad = torch.zeros(ng, dtype=torch.float32, device=dev)
             bad[:growth] = ad.b
-            args += [*kernel_layout(d.pa), d.bias_a, *kernel_layout(d.pb),
-                     d.bias_b, wad, bad, ad.gamma.contiguous(),
-                     ad.beta.contiguous()]
+            args += [*stage_layout(kernel_layout(d.pa), c, num_heads),
+                     stage_bias(d.bias_a, num_heads),
+                     *stage_layout(kernel_layout(d.pb), c, num_heads, wad),
+                     stage_bias(d.bias_b, num_heads), bad,
+                     ad.gamma.contiguous(), ad.beta.contiguous()]
     return RdstbPlan(prepped, wc, bc, growth, bool(adapter_prenorm), args)
 
 
@@ -266,19 +361,25 @@ def run_rdstb(x_tokens, plan: RdstbPlan, *, num_heads: int, x_size,
     out = torch.empty_like(x_tokens)
     if b == 0:
         return out
-    cmax = c0 + (nb - 1) * growth
-    y = torch.empty(b * l * cmax, dtype=BF16, device=dev)
-    f = torch.empty(b * l * nb * growth, dtype=BF16, device=dev)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    if not all(rdstb_stage_smem_bytes(n, c0, growth, nb, nh, ratio)):
+        raise ValueError(f"fused_rdstb: a stage kernel's window body does "
+                         f"not fit C0={c0} growing by {growth}, heads={nh} "
+                         f"in {H100_SMEM_OPTIN} bytes")
+    c8 = _round_up(c0 + (nb - 1) * growth, 8)
+    y = torch.empty(b * l * c8, dtype=BF16, device=dev)
+    dense = torch.empty(b * l * _round_up(c0 + nb * growth, 16), dtype=BF16,
+                        device=dev)
     dims = [b, h, w, ws, shift, c0, growth, nb, nh, int(plan.prenorm),
             code] + [d.pa.w1.shape[1] for d in plan.dstls]
     launch(_build.load(_SOURCE), "rdstb_bf16",
-           [x_tokens, out, y, f, counter, *plan.kernel_args], dims, dev)
+           [x_tokens, out, y, dense, *plan.kernel_args], dims, dev)
     run_rdstb.launches += 1
+    run_rdstb.kernels += 2 * nb + 1
     return out
 
 
-run_rdstb.launches = 0  # kernel launches since the last reset
+run_rdstb.launches = 0  # calls that launched, since the last reset
+run_rdstb.kernels = 0   # stage kernels those calls launched
 
 
 def fused_rdstb(x_tokens, dstls, conv_kernel, conv_bias, *,

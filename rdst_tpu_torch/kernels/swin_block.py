@@ -25,8 +25,8 @@ the dtype of the tokens, as the JAX function does (``use_fast_path``):
   TPU kernel rounds, optionally int8 qkv operands (``pallas_quant=
   'qkv'``, ``kernels.quant``): ``csrc/swin_block_fast.cu`` in one of two
   designs the plan picks by C (:func:`fast_route`): the window body
-  (``csrc/fast_block.cuh``, shared with the pair, RDSTB and train
-  kernels) up to ``WINDOW_MAX_C``, the token-parallel forward
+  (``csrc/fast_block.cuh``, shared with the train kernels; the pair
+  and RDSTB stage kernels run ``csrc/window_body.cuh``) up to ``WINDOW_MAX_C``, the token-parallel forward
   (``csrc/token_gemm.cuh``, shared with the training backward) above;
   plain version :func:`swin_block_fast_reference`. It takes C up to
   ``FAST_MAX_C`` (SwinIR-std's 180); the pair, RDSTB and train-pair
@@ -758,7 +758,9 @@ class FastBlockPlan(NamedTuple):
     layout: tuple       # the route's weight layout on a CUDA device, else ()
     qkv: Optional[QkvQuant] = None  # int8 qkv operands, or None
     qkv_layout: tuple = ()  # their layout for the route on a CUDA device
-    route: str = "window"   # 'window' (kernel_layout) or 'tokens' (token_layout)
+    # 'window' (kernel_layout), 'tokens' (token_layout) or 'stage' (the
+    # pair's stage kernels: window_body.stage_layout and stage_bias)
+    route: str = "window"
 
 
 def plan_fast_block(params, bias, *, num_heads: int, quant=frozenset(),
@@ -767,9 +769,10 @@ def plan_fast_block(params, bias, *, num_heads: int, quant=frozenset(),
     head-major bias; with ``'qkv'`` in ``quant`` also quantize the folded
     qkv weight to int8; on a CUDA device lay the weights out for the
     kernel. ``route``: the design the plan is for, by default the fast
-    block's own at this width (:func:`fast_route`); the pair and RDSTB
-    kernels, whose window body is the 'window' design, ask for that.
-    Depends on the weights only, so a caller may keep it."""
+    block's own at this width (:func:`fast_route`); the pair's stage
+    kernels ask for 'stage' (``csrc/window_body.cuh``'s weight panels,
+    bf16 qkv only). Depends on the weights only, so a caller may keep
+    it."""
     from rdst_tpu_torch.kernels.quant import check_ported
 
     c, nh = params[0].shape[0], num_heads
@@ -777,13 +780,23 @@ def plan_fast_block(params, bias, *, num_heads: int, quant=frozenset(),
         raise ValueError(f"bias must be head-major (nH*bw, N, N), got "
                          f"{tuple(bias.shape)}")
     route = fast_route(c) if route is None else route
-    if route not in ("window", "tokens"):
-        raise ValueError(f"route {route!r}: expected 'window' or 'tokens'")
+    if route not in ("window", "tokens", "stage"):
+        raise ValueError(f"route {route!r}: expected 'window', 'tokens' or "
+                         "'stage'")
     p = fast_params(params, c, nh)
     packed = pack_bias_fast(bias, nh, bias.shape[1])
     q = qkv_quant(p.wqkv) if "qkv" in check_ported(quant) else None
+    if route == "stage" and q is not None:
+        raise ValueError("the stage kernels take bf16 qkv only")
     if packed.device.type != "cuda":
         return FastBlockPlan(p, packed, (), q, (), route)
+    if route == "stage":
+        from rdst_tpu_torch.kernels.window_body import (stage_bias,
+                                                        stage_layout)
+
+        return FastBlockPlan(p, packed,
+                             stage_layout(kernel_layout(p), c, nh)
+                             + (stage_bias(packed, nh),), q, (), route)
     if route == "tokens":
         return FastBlockPlan(p, packed, token_layout(p, nh), q,
                              qkv_token_layout(q, c, nh), route)
@@ -808,6 +821,9 @@ def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
     p = plan.params
     hidden = p.w1.shape[-1]
     code = softmax_code(softmax)
+    if plan.route == "stage":
+        raise ValueError("a 'stage' plan is the pair's: plan the fast block "
+                         "with route 'window' or 'tokens'")
     if not fast_kernel_supports(n, c, nh, hidden, max_c=FAST_MAX_C):
         raise ValueError(
             f"fused_swin_block (bf16): the CUDA kernel does not take N={n}, "

@@ -1,5 +1,5 @@
-"""A DSTL's Swin block pair in one launch: the CUDA kernel and its plain
-PyTorch version.
+"""A DSTL's Swin block pair in one call: the CUDA stage kernels and their
+plain PyTorch versions.
 
 Counterpart of ``rdst_tpu/kernels/swin_block.py::fused_swin_pair`` (bf16
 fast branch only, as there): block a (shift 0, shared bias) on
@@ -9,11 +9,16 @@ then block b (shift, per-window bias). The output stays in the SHIFTED
 window layout: the caller's window_reverse + roll(+shift) restores the
 image.
 
-:func:`fused_swin_pair` prepares both blocks (``plan_fast_block``) and
-calls :func:`run_swin_pair`, which launches ``csrc/swin_pair.cu`` for a
-CUDA tensor and counts the launch in ``run_swin_pair.launches``; for a
-CPU tensor it computes :func:`swin_pair_reference`. What the kernel does
-not take raises on either device.
+:func:`fused_swin_pair` prepares both blocks (``plan_fast_block`` with
+route 'stage') and calls :func:`run_swin_pair`, which launches the two
+stage kernels of ``csrc/swin_pair.cu`` for a CUDA tensor -- stage A,
+block a into an image-layout scratch; stage B, block b on the rolled
+windows gathered from it -- and counts the call in
+``run_swin_pair.launches`` and its kernels in ``run_swin_pair.kernels``;
+for a CPU tensor it computes :func:`swin_pair_reference`. What the
+kernels do not take raises on either device.
+:func:`swin_pair_staged_reference` computes stage by stage what the
+kernels compute, with their scratch layout and gather.
 """
 
 from __future__ import annotations
@@ -25,9 +30,12 @@ from rdst_tpu_torch.kernels.swin_block import (
     BF16, H100_SMEM_OPTIN, SHARED_MAX_C, FastBlockPlan, check_fast_tokens,
     fast_body, fast_kernel_supports, fast_smem_bytes, launch,
     plan_fast_block, softmax_code)
+from rdst_tpu_torch.kernels.window_body import (make_geom, stage_fit,
+                                                window_pixels)
 from rdst_tpu_torch.nn.swin import window_partition, window_reverse
 
 _SOURCE = "swin_pair.cu"
+KERNELS = 2  # stage kernels a call (``swin_pair_kernels`` in the source)
 
 
 def shift_relayout(y, x_size, window_size: int, shift: int):
@@ -67,6 +75,38 @@ def swin_pair_reference(x_windows, pa, bias_a, pb, bias_b, *,
     return z.to(BF16)
 
 
+def swin_pair_staged_reference(x_windows, pa, bias_a, pb, bias_b, *,
+                               num_heads: int, x_size, window_size: int,
+                               shift: int, softmax: str):
+    """The pair's stage kernels in plain PyTorch (same arguments as
+    :func:`swin_pair_reference`): stage A, block a on the unshifted
+    windows, its bf16 rows written into the image-layout scratch (B, H*W,
+    c8) at their pixels; stage B, each shifted window's rows gathered from
+    the scratch by the kernels' index rule (:func:`window_pixels`), block
+    b, bf16 rows in shifted window layout."""
+    h, w = x_size
+    ws = window_size
+    t, n, c = x_windows.shape
+    nw = (h // ws) * (w // ws)
+    b = t // nw
+    c8 = make_geom(n, c, num_heads, pa.w1.shape[1]).c8
+    ya = fast_body(x_windows.float(), pa, bias_a, num_heads=num_heads,
+                   softmax=softmax).to(BF16)
+    y = torch.zeros(b, h * w, c8, dtype=BF16, device=x_windows.device)
+    y[:, window_pixels(h, w, ws, 0).reshape(-1), :c] = ya.reshape(
+        b, nw * n, c)
+    rows = y[:, window_pixels(h, w, ws, shift).reshape(-1), :c]
+    z = fast_body(rows.reshape(t, n, c).float(), pb, bias_b,
+                  num_heads=num_heads, softmax=softmax)
+    return z.to(BF16)
+
+
+def pair_stage_smem_bytes(n: int, c: int, nh: int, hidden: int) -> int:
+    """Dynamic shared memory of each of the pair's stage kernels
+    (``swin_pair_smem_bytes``; 0 if the window body does not fit)."""
+    return stage_fit(make_geom(n, c, nh, hidden)).smem
+
+
 def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
                   *, num_heads: int, x_size, window_size: int, shift: int,
                   softmax: str = ""):
@@ -74,7 +114,7 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
     plans of both blocks (block a's bias shared, block b's per window
     when shifted). Returns (B*nW, N, C) in SHIFTED window layout. A CPU
     tensor takes :func:`swin_pair_reference`; a CUDA tensor launches the
-    kernel or raises."""
+    two stage kernels or raises."""
     h, w = x_size
     ws = window_size
     nh = num_heads
@@ -85,9 +125,9 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
     pa, pb = plan_a.params, plan_b.params
     hidden = pa.w1.shape[-1]
     code = softmax_code(softmax)
-    if (plan_a.route, plan_b.route) != ("window", "window"):
-        raise ValueError("fused_swin_pair runs the window body: plan both "
-                         "blocks with plan_fast_block(..., route='window')")
+    if (plan_a.route, plan_b.route) != ("stage", "stage"):
+        raise ValueError("fused_swin_pair runs the stage kernels: plan both "
+                         "blocks with plan_fast_block(..., route='stage')")
     if (n != ws * ws or h % ws or w % ws or not 0 <= shift < ws
             or pb.w1.shape[-1] != hidden
             or not fast_kernel_supports(n, c, nh, hidden)):
@@ -121,17 +161,22 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
     out = torch.empty_like(x_windows)
     if t == 0:
         return out
-    scratch = torch.empty(t * n * c, dtype=BF16, device=dev)
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    if pair_stage_smem_bytes(n, c, nh, hidden) == 0:
+        raise ValueError(f"fused_swin_pair: the stage kernels' window body "
+                         f"does not fit N={n}, C={c}, heads={nh}, hidden="
+                         f"{hidden} in {H100_SMEM_OPTIN} bytes")
+    c8 = make_geom(n, c, nh, hidden).c8
+    scratch = torch.empty(t * n * c8, dtype=BF16, device=dev)
     launch(_build.load(_SOURCE), "swin_pair_bf16",
-           [x_windows, out, scratch, counter, *plan_a.layout, plan_a.bias,
-            *plan_b.layout, plan_b.bias],
+           [x_windows, out, scratch, *plan_a.layout, *plan_b.layout],
            [t // nw, h, w, ws, shift, c, nh, hidden, code], dev)
     run_swin_pair.launches += 1
+    run_swin_pair.kernels += KERNELS
     return out
 
 
-run_swin_pair.launches = 0  # kernel launches since the last reset
+run_swin_pair.launches = 0  # calls that launched, since the last reset
+run_swin_pair.kernels = 0   # stage kernels those calls launched
 
 
 def fused_swin_pair(x_windows, params_a, bias_a, params_b, bias_b, *,
@@ -145,8 +190,8 @@ def fused_swin_pair(x_windows, params_a, bias_a, params_b, bias_b, *,
     return run_swin_pair(
         x_windows,
         plan_fast_block(params_a, bias_a, num_heads=num_heads,
-                        route="window"),
+                        route="stage"),
         plan_fast_block(params_b, bias_b, num_heads=num_heads,
-                        route="window"),
+                        route="stage"),
         num_heads=num_heads, x_size=x_size, window_size=window_size,
         shift=shift, softmax=softmax)

@@ -630,10 +630,10 @@ class BasicLayer(nn.Module):
 
         def build():
             return [(plan_fast_block(*a.fast_kernel_inputs(x_size, ws, 0),
-                                     num_heads=nh, route="window"),
+                                     num_heads=nh, route="stage"),
                      plan_fast_block(*bb.fast_kernel_inputs(x_size, ws,
                                                             shift),
-                                     num_heads=nh, route="window"))
+                                     num_heads=nh, route="stage"))
                     for a, bb in zip(self.blocks[0::2], self.blocks[1::2])]
 
         plans = kernel_plan(self, ("pair", x_size, ws, shift, x.device),
