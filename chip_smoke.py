@@ -1,14 +1,16 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--only e1|swinir]
+    python3 chip_smoke.py [--out results.json] [--only e1|swinir|w96]
 
 Drives the port's main paths -- the shipped RDST-E1 x4 config with its
 committed weights, served over HTTP by ``rdst_tpu_torch.serving`` in
 float32 and in bfloat16 (``inference_dtype='bfloat16'``) and trained in
 bfloat16; the shipped SwinIR-std x4 configs, served and trained in
-bfloat16 -- and holds every CUDA kernel of those paths against its plain
-PyTorch version on the card. Phases, each printed with its seconds (the
-20-phantom corpus is generated once, after the build):
+bfloat16; the shipped RDST-W96 x4 config, served in float32 as shipped
+and in bfloat16 with int8 qkv -- and holds every CUDA kernel of those
+paths against its plain PyTorch version on the card. Phases, each
+printed with its seconds (the 20-phantom corpus is generated once,
+after the build):
 
 1. the card (``nvidia-smi`` name and power limit);
 2. build every kernel source with ``nvcc`` (one process per source, all
@@ -18,7 +20,8 @@ PyTorch version on the card. Phases, each printed with its seconds (the
    the main path's shapes (bucket 64: 64 slices x 20 windows): CUDA-event
    times, both bounds (f32 FMA and 3xTF32, the row taking the smaller),
    two launches bitwise equal, kernels a call and device time by phase
-   (torch.profiler);
+   (torch.profiler); then the same at C = 192 (RDST-W96's widest DSTL)
+   and C = 180 (SwinIR-std's first RSTB), with their committed weights;
 4. the f32 model on 8 seeded 40x32 LR slices: kernel path vs plain
    path, finite, and the launch count per forward;
 5. f32 serving: an ``InferenceServer`` on 127.0.0.1, warmed over the
@@ -106,7 +109,26 @@ PyTorch version on the card. Phases, each printed with its seconds (the
     plain bf16 route from the same generator state (the same
     stochastic-depth draws; loss rtol 2e-2, gradients < 0.08);
 19. steps/s and the profile of one warm SwinIR-std training step, as
-    phase 13.
+    phase 13;
+20. RDST-W96 (``config_files/rdst_w96_40k_oasis20_x4.ini``, its
+    committed 40k weights) kernels at bucket 64: the f32 block at C =
+    96 / 144 / 192 as phase 3; the RDSTB with int8 qkv (three DSTLs on
+    the token-parallel stages, the conv 240 -> 96) and the pair at C =
+    96 / 144 / 192 with int8 qkv, each against its plain and staged
+    versions (bar 0.02), two calls bitwise equal, kernels a call,
+    CUDA-event times beside the bound and the plain time, device time
+    by stage kernel; the pair at C = 96 with bf16 qkv in both stage
+    designs (window body, token-parallel) side by side;
+21. the W96 model on 8 slices: f32 as shipped (48 f32 block launches a
+    forward) against the plain f32 path (bar 1e-4); bf16 with int8 qkv
+    in modes swin, rdstb and pair (48 / 8 / 24 launches a forward, counts
+    set to 0 just before each and read just after) against the f32
+    model (< 0.05 max, < 0.005 mean, relative) and against mode swin;
+    per mode (and f32) the wall and device time of one bucket-64
+    forward;
+22. W96 f32 serving over HTTP, as phase 5;
+23. W96 bf16 serving (mode rdstb, int8 qkv) over HTTP, as phase 5; then
+    the profile of one warm bucket-64 forward in each dtype, as phase 6.
 
 Any failed phase raises and the script exits non-zero. It needs a CUDA
 card: without one it exits non-zero and prints no result. The last two
@@ -131,6 +153,8 @@ import torch
 
 CONFIG = "config_files/rdst_e1_40k_oasis20_x4.ini"
 WEIGHTS = "weights/rdst_e1_40k_best_oasis20_x4.msgpack"
+W96_CONFIG = "config_files/rdst_w96_40k_oasis20_x4.ini"
+W96_WEIGHTS = "weights/rdst_w96_40k_best_oasis20_x4.msgpack"
 LR_HW = (40, 32)
 SCALE = 4.0
 SEED = 0
@@ -250,78 +274,127 @@ def _block_work(block, c: int, windows: int):
     return flops, weights
 
 
-@phase("kernel vs plain")
-def kernel_phase(model) -> dict:
-    """The f32 block kernel's launch alone (weights split once, as the
-    model keeps them) against its plain version and the staged plain
-    version of its phases, at bucket 64, for the six (C, shift) variants;
-    CUDA-event times, both bounds (f32 FMA and 3xTF32), and for each the
-    kernels a call, two launches bitwise equal and device time by
-    phase."""
+def _f32_variant(block, shift: int, gen, kernels: int) -> dict:
+    """The f32 block kernel's launch alone for one block of a model
+    (weights split once, as the model keeps them) at bucket 64 (64 slices
+    x 20 windows): against its plain version and the staged plain version
+    of its phases (bar KERNEL_TOL), CUDA-event times, both bounds (f32 FMA
+    and 3xTF32), kernels a call, two launches bitwise equal and device
+    time by phase."""
     from rdst_tpu_torch.kernels import swin_block as sb
 
-    ws, nw, images, nh = 8, 20, 64, 6
+    ws, nw, images, nh = 8, 20, 64, block.num_heads
+    c = block.dim
+    params, bias = block.kernel_inputs(LR_HW, ws, shift)
+    x = torch.randn(images * nw, ws * ws, c, device="cuda", generator=gen)
+    kw = dict(num_heads=nh, windows_per_image=nw)
+    with torch.inference_mode():
+        plan = sb.plan_f32_block(params, bias, num_heads=nh)
+        got = sb.run_f32_block(x, plan, **kw)
+        want = sb.swin_block_reference(x, *plan.params, bias, **kw)
+        staged = sb.swin_block_staged_f32(x, *plan.params, bias, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        err_staged = (got - staged).abs().max().item()
+        if not (max(err, err_staged) <= KERNEL_TOL
+                and torch.isfinite(got).all()):
+            raise AssertionError(
+                f"fused_swin_block C={c} shift={shift}: max abs err {err} "
+                f"(staged {err_staged}) > {KERNEL_TOL}")
+
+        def call():
+            return sb.run_f32_block(x, plan, **kw)
+
+        ms = cuda_time_ms(call)
+        plain_ms = cuda_time_ms(
+            lambda: sb.swin_block_reference(x, *plan.params, bias, **kw))
+        flops, weights = _block_work(block, c, images * nw)
+        extras = _forward_extras(f"f32 block C={c} shift={shift}", call,
+                                 kernels, F32_PHASES, flops)
+    nbytes = 4 * (2 * x.numel() + weights + bias.numel())
+    row = dict(c=c, shift=shift, windows=images * nw, max_abs_err=err,
+               staged_max_abs_err=err_staged, ms=ms, plain_ms=plain_ms,
+               **_f32_bound(flops, nbytes), **extras)
+    log(f"fused_swin_block C={c:3d} shift={shift}: err {err:.3e} (staged "
+        f"{err_staged:.3e}; tol {KERNEL_TOL}) kernel {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}, 3xTF32; f32 FMA {row['fma_bound_ms']:.4f} ms) "
+        f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
+    return row
+
+
+def _f32_kernels() -> int:
+    from rdst_tpu_torch.kernels import swin_block as sb
+
+    return sb.kernels_per_call("swin_block.cu", "swin_block_f32_kernels")
+
+
+def _rdst_blocks(model):
+    """(block, shift) of the first RDSTB's DSTLs: block a unshifted,
+    block b at shift 4, widths ascending."""
+    return [(blk, k * 4) for dstl in model.body[0].body
+            for k, blk in enumerate(dstl.body.blocks)]
+
+
+@phase("kernel vs plain")
+def kernel_phase(model) -> dict:
+    """The f32 block kernel (``_f32_variant``) for the six (C, shift)
+    variants of the flagship's first RDSTB, C = 60/90/120."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = sb.kernels_per_call("swin_block.cu", "swin_block_f32_kernels")
-    rows = []
-    rdstb = model.body[0]
-    for j, c in enumerate((60, 90, 120)):
-        for k, shift in enumerate((0, ws // 2)):
-            block = rdstb.body[j].body.blocks[k]
-            if (block.dim, block.shift_size) != (c, shift):
-                raise AssertionError(f"block {j}/{k} is not C={c} shift={shift}")
-            params, bias = block.kernel_inputs(LR_HW, ws, shift)
-            x = torch.randn(images * nw, ws * ws, c, device="cuda",
-                            generator=gen)
-            kw = dict(num_heads=nh, windows_per_image=nw)
-            with torch.inference_mode():
-                plan = sb.plan_f32_block(params, bias, num_heads=nh)
-                got = sb.run_f32_block(x, plan, **kw)
-                want = sb.swin_block_reference(x, *plan.params, bias, **kw)
-                staged = sb.swin_block_staged_f32(x, *plan.params, bias, **kw)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                err_staged = (got - staged).abs().max().item()
-                if not (max(err, err_staged) <= KERNEL_TOL
-                        and torch.isfinite(got).all()):
-                    raise AssertionError(
-                        f"fused_swin_block C={c} shift={shift}: max abs err "
-                        f"{err} (staged {err_staged}) > {KERNEL_TOL}")
-
-                def call():
-                    return sb.run_f32_block(x, plan, **kw)
-
-                ms = cuda_time_ms(call)
-                plain_ms = cuda_time_ms(
-                    lambda: sb.swin_block_reference(x, *plan.params, bias,
-                                                    **kw))
-                flops, weights = _block_work(block, c, images * nw)
-                extras = _forward_extras(
-                    f"f32 block C={c} shift={shift}", call, kernels,
-                    F32_PHASES, flops)
-            nbytes = 4 * (2 * x.numel() + weights + bias.numel())
-            t_fma = flops / F32_FLOPS * 1e3
-            t_tf32 = 3 * flops / TF32_FLOPS * 1e3
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = min(t_fma, t_tf32)
-            row = dict(c=c, shift=shift, windows=images * nw,
-                       max_abs_err=err, staged_max_abs_err=err_staged,
-                       ms=ms, plain_ms=plain_ms, flops=flops, bytes=nbytes,
-                       fma_bound_ms=max(t_fma, t_bytes),
-                       tf32_bound_ms=max(t_tf32, t_bytes),
-                       bound_ms=max(t_ops, t_bytes),
-                       bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       **extras)
-            log(f"fused_swin_block C={c:3d} shift={shift}: err {err:.3e} "
-                f"(staged {err_staged:.3e}; tol {KERNEL_TOL}) kernel {ms:.4f}"
-                f" ms plain {plain_ms:.4f} ms bound {row['bound_ms']:.4f} ms "
-                f"({row['bound_by']}, 3xTF32; f32 FMA "
-                f"{row['fma_bound_ms']:.4f} ms) "
-                f"{flops / ms / 1e9:.1f} TFLOP/s achieved")
-            rows.append(row)
+    kernels = _f32_kernels()
+    rows = [_f32_variant(blk, shift, gen, kernels)
+            for blk, shift in _rdst_blocks(model)]
     log("library yardstick: no single PyTorch call computes a whole Swin "
         "block (LN, qkv, biased softmax attention, proj, LN, GELU MLP)")
     return {"variants": rows}
+
+
+@phase("kernel vs plain at C = 180 / 192")
+def wide_kernel_phase() -> dict:
+    """Phase 3 at the widths the f32 route admits since the kernel's own
+    limits became its rule (``_f32_variant``): C = 192 (RDST-W96's widest
+    DSTL, its committed weights) and C = 180 (SwinIR-std's first RSTB,
+    its committed weights), each an unshifted and a shifted block."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    kernels = _f32_kernels()
+    w96 = _build_f32(W96_CONFIG, W96_WEIGHTS)
+    swinir = _build_f32(SWINIR_CONFIG, SWINIR_WEIGHTS, pallas_kernels="swin")
+    cases = _rdst_blocks(w96)[4:] + [
+        (blk, k * 4) for k, blk in
+        enumerate(swinir.layers[0].residual_group.blocks[:2])]
+    return {"variants": [_f32_variant(blk, shift, gen, kernels)
+                         for blk, shift in cases]}
+
+
+def _f32_bound(flops: float, nbytes: float) -> dict:
+    """The f32 block's bounds: its work at the f32 FMA peak and at the
+    TF32 tensor-core peak counted three times (3xTF32), each against the
+    bytes; the row takes the smaller operations time."""
+    t_fma = flops / F32_FLOPS * 1e3
+    t_tf32 = 3 * flops / TF32_FLOPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = min(t_fma, t_tf32)
+    return dict(flops=flops, bytes=nbytes, fma_bound_ms=max(t_fma, t_bytes),
+                tf32_bound_ms=max(t_tf32, t_bytes),
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _build_f32(config: str, weights: str, **overrides):
+    """A shipped config's float32 model with its committed weights on the
+    card (``build_serving_model``)."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.serving.export import build_serving_model
+
+    p = ParametersLoader(config)
+    p.set("well_trained_single_scale_model_g", weights)
+    p.set("inference_dtype", "float32")
+    for k, v in overrides.items():
+        p.set(k, v)
+    model, meta = build_serving_model(p, device="cuda")
+    if set(meta["routes"]) != {"fused_swin_block"}:
+        raise AssertionError(f"{config} in f32: routes {meta['routes']}")
+    return model
 
 
 @phase("whole model")
@@ -1853,6 +1926,315 @@ def swinir_train_phase(data_dir: str, tmp: str) -> dict:
 
 
 
+# ---------------------------------------------------------------- RDST-W96
+
+# The pair's and the RDSTB's kernels as the profiler names them: the
+# token-parallel stages (csrc/token_fwd.cuh), the window body's stage
+# kernels and the RDSTB's conv
+STAGE_PHASES = (
+    ("ln1_rows_kernel", "LN1 rows (int8 or bf16), pre-norm adapter rows"),
+    ("EpiQkvS8", "qkv GEMM (int8)"),
+    ("EpiQkv", "qkv GEMM (bf16)"),
+    ("attn_fwd_kernel", "attention"),
+    ("EpiProjLn", "proj GEMM + residual + LN2"),
+    ("EpiFc1Serve", "fc1 GEMM + tanh GELU"),
+    ("EpiOut", "fc2 GEMM + residual"),
+    ("EpiAdapter", "adapter GEMM + LN into the dense rows"),
+    ("stage_kernel<", "window-body stage kernels"),
+    ("rdstb_conv_kernel", "conv"),
+)
+
+
+def _stage_bound(tokens: int, widths, int8: bool, extra_flops: float,
+                 nbytes: float, n: int = 64):
+    """Bound of a pair or RDSTB launch: two blocks a width (16C^2 + 4NC
+    flops a token), with int8 qkv their qkv products (6C^2) at the int8
+    peak, the rest and ``extra_flops`` (adapters, conv) at the bf16
+    peak."""
+    q = sum(2 * 6 * c * c for c in widths) * tokens
+    rest = sum(2 * (10 * c * c + 4 * n * c) for c in widths) * tokens
+    if not int8:
+        rest, q = rest + q, 0
+    t_ops = ((rest + extra_flops) / BF16_FLOPS + q / INT8_OPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if isinstance(t, torch.Tensor))
+
+
+@phase("W96 kernels vs plain")
+def w96_kernel_phase(model32, model16) -> dict:
+    """RDST-W96's kernels at bucket 64 (64 images of 40x32) with its
+    committed weights (the first RDSTB): the f32 block at C = 96 / 144 /
+    192 (``_f32_variant``); the RDSTB with int8 qkv (its pre-norm
+    adapters, shift 4, the checkpoint's resolved softmax) and the pair at
+    C = 96 / 144 / 192 with int8 qkv, each against its plain and staged
+    versions (bar BF16_TOL), two calls bitwise equal, kernels a call,
+    CUDA-event ms of the launch alone beside its bound (the qkv products
+    at the int8 peak) and the plain version's, device time per stage
+    kernel; the pair at C = 96 with bf16 qkv in both stage designs (the
+    window body, the token-parallel stages) side by side."""
+    from rdst_tpu_torch.kernels import rdstb_block, swin_pair
+
+    ws, nw, images, nh = 8, 20, 64, 6
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    quant = frozenset({"qkv"})
+    softmax = model16.softmax
+    f32_kernels = _f32_kernels()
+    out = {"f32": [_f32_variant(blk, shift, gen, f32_kernels)
+                   for blk, shift in _rdst_blocks(model32)],
+           "pair": [], "rdstb": []}
+    rdstb = model16.body[0]
+    kw = dict(num_heads=nh, x_size=LR_HW, window_size=ws, shift=ws // 2,
+              softmax=softmax)
+    for c, dstl in zip((96, 144, 192), rdstb.body):
+        a, b = dstl.body.blocks
+        x = torch.randn(images * nw, ws * ws, c, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        designs = [("tokens", quant)] + ([("window", frozenset()),
+                                          ("tokens", frozenset())]
+                                         if c == 96 else [])
+        for design, q in designs:
+            route = {"window": "stage", "tokens": "tokens"}[design]
+            plan_a = _pair_plan(a, LR_HW, ws, 0, q, route)
+            plan_b = _pair_plan(b, LR_HW, ws, ws // 2, q, route)
+            args = (x, plan_a.params, plan_a.bias, plan_b.params,
+                    plan_b.bias)
+            qkw = dict(qkv_a=plan_a.qkv, qkv_b=plan_b.qkv, **kw)
+            label = f"pair C={c} {'int8' if q else 'bf16'} qkv ({design})"
+
+            def call():
+                return swin_pair.run_swin_pair(x, plan_a, plan_b, **kw)
+
+            with torch.inference_mode():
+                got = call()
+                want = swin_pair.swin_pair_reference(*args, **qkw)
+                staged = swin_pair.swin_pair_staged_reference(*args, **qkw)
+                torch.cuda.synchronize()
+                err = _check(label, got, want)
+                err_s = _check(f"{label} vs staged", got, staged)
+                ms = cuda_time_ms(call)
+                plain_ms = cuda_time_ms(
+                    lambda: swin_pair.swin_pair_reference(*args, **qkw),
+                    warmup=1, iters=5)
+                extras = _stage_extras(label, call, swin_pair.run_swin_pair,
+                                       STAGE_PHASES)
+            bound_ms, by = _stage_bound(
+                images * nw * ws * ws, (c,), bool(q), 0.0,
+                2 * 2 * x.numel() + _plan_bytes(plan_a) + _plan_bytes(plan_b)
+                + _nbytes(*plan_a.qkv_layout, *plan_b.qkv_layout))
+            row = dict(c=c, int8=bool(q), design=design, rel_max=err[0],
+                       rel_mean=err[1], max_abs_err=err[2],
+                       staged_rel_max=err_s[0], ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound_ms, bound_by=by, **extras)
+            out["pair"].append(row)
+            log(f"{label} {softmax}: rel max {err[0]:.3e} mean {err[1]:.3e},"
+                f" vs staged {err_s[0]:.3e}; kernels {ms:.4f} ms plain "
+                f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by})")
+    h, w = LR_HW
+    plan = rdstb_block.plan_rdstb(
+        *rdstb.rdstb_inputs(LR_HW, ws, ws // 2), num_heads=nh,
+        growth=rdstb.growth_rate, adapter_prenorm=rdstb.pre_norm,
+        quant=quant)
+    if plan.routes != ["tokens"] * 3:
+        raise AssertionError(f"W96 RDSTB with int8 qkv: routes {plan.routes}")
+    x = torch.randn(images, h * w, 96, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    rkw = dict(growth=plan.growth, adapter_prenorm=plan.prenorm, **kw)
+
+    def call():
+        return rdstb_block.run_rdstb(x, plan, **kw)
+
+    with torch.inference_mode():
+        got = call()
+        want = rdstb_block.rdstb_reference(x, plan.dstls, plan.wc, plan.bc,
+                                           **rkw)
+        staged = rdstb_block.rdstb_staged_reference(
+            x, plan.dstls, plan.wc, plan.bc, **rkw)
+        torch.cuda.synchronize()
+        err = _check("W96 rdstb int8 qkv", got, want)
+        err_s = _check("W96 rdstb int8 qkv vs staged", got, staged)
+        ms = cuda_time_ms(call)
+        plain_ms = cuda_time_ms(lambda: rdstb_block.rdstb_reference(
+            x, plan.dstls, plan.wc, plan.bc, **rkw), warmup=1, iters=3)
+        extras = _stage_extras("W96 rdstb int8 qkv", call,
+                               rdstb_block.run_rdstb, STAGE_PHASES)
+    ccat = 96 + 3 * 48
+    adapter_conv = (sum(2 * c * 48 for c in (96, 144, 192)) * images * h * w
+                    + images * h * w * 2 * 9 * ccat * 96)
+    nbytes = 2 * 2 * x.numel() + sum(
+        _nbytes(*d.pa, *d.pb, d.bias_a, d.bias_b, *d.adapter, *d.qa, *d.qb)
+        for d in plan.dstls) + _nbytes(plan.wc, plan.bc)
+    bound_ms, by = _stage_bound(images * h * w, (96, 144, 192), True,
+                                adapter_conv, nbytes)
+    out["rdstb"].append(dict(rel_max=err[0], rel_mean=err[1],
+                             max_abs_err=err[2], staged_rel_max=err_s[0],
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=by, **extras))
+    log(f"W96 rdstb int8 qkv {softmax}: rel max {err[0]:.3e} mean "
+        f"{err[1]:.3e}, vs staged {err_s[0]:.3e}; kernels {ms:.4f} ms plain "
+        f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by})")
+    log("library yardstick: no single PyTorch call computes a DSTL pair or "
+        "an RDSTB")
+    return out
+
+
+def _pair_plan(block, x_size, ws: int, shift: int, quant, route: str):
+    """A model block's fast-branch plan for a pair stage design."""
+    from rdst_tpu_torch.kernels.swin_block import plan_fast_block
+
+    return plan_fast_block(*block.fast_kernel_inputs(x_size, ws, shift),
+                           num_heads=block.num_heads, quant=quant,
+                           route=route)
+
+
+@phase("W96 whole model")
+def w96_model_phase(live32, live16) -> dict:
+    """RDST-W96 with its committed 40k weights on 8 seeded 40x32 slices:
+    f32 as shipped on the f32 block kernel (48 launches a forward) against
+    the plain f32 path (bar MODEL_TOL); bf16 with int8 qkv in modes rdstb
+    (the default), pair and swin (8 / 24 / 48 launches a forward, counts
+    set to 0 just before each and read just after), each against the f32
+    model (< BF16_VS_F32_MAX max, < BF16_VS_F32_MEAN mean, relative) and
+    modes rdstb and pair against mode swin, whose kernel was ported
+    before; per mode the wall and device time of one warm bucket-64
+    forward."""
+    from rdst_tpu_torch.kernels import rdstb_block, swin_block, swin_pair
+    from rdst_tpu_torch.models.rdst import set_kernel_mode
+    from rdst_tpu_torch.nn.swin import set_block_kernels
+
+    rng = np.random.default_rng(SEED + 13)
+    x = rng.random((8,) + LR_HW + (1,), dtype=np.float32)
+    x64 = rng.random((64,) + LR_HW, dtype=np.float32)
+    swin_block.fused_swin_block.launches = 0  # the f32 path starts here
+    y32 = live32.predict(x, SCALE)
+    launches = swin_block.fused_swin_block.launches  # and ends here
+    set_block_kernels(live32.model, False)
+    try:
+        y32_plain = live32.predict(x, SCALE)
+    finally:
+        set_block_kernels(live32.model, True)
+    err = float(np.abs(y32 - y32_plain).max())
+    log(f"W96 f32: {launches} fused_swin_block launches per forward; kernel "
+        f"path vs plain path max abs err {err:.3e} (tol {MODEL_TOL})")
+    if launches != 48 or err > MODEL_TOL or not np.isfinite(y32).all():
+        raise AssertionError(f"W96 f32: {launches} launches, err {err}")
+    wall, busy = _device_ms(lambda: live32.predict(x64, SCALE))
+    out = {"f32": {"launches_per_forward": launches, "max_abs_err": err,
+                   "bucket64_wall_ms": wall, "bucket64_device_ms": busy}}
+    log(f"W96 f32: one warm bucket-64 forward {wall:.3f} ms wall, device "
+        + (f"{busy:.3f} ms" if busy is not None else "not measured"))
+
+    def versus(y, ref):
+        r = _rel(torch.from_numpy(y), torch.from_numpy(ref))
+        return r[0], r[1], float(10 * np.log10(1.0 / np.mean((y - ref) ** 2)))
+
+    model, softmax, quant = live16.model, live16.model.softmax, \
+        live16.model.quant
+    counters = {"swin": (swin_block.run_fast_block, 48),
+                "rdstb": (rdstb_block.run_rdstb, 8),
+                "pair": (swin_pair.run_swin_pair, 24)}
+    ys = {}
+    try:
+        for mode, (counter, want_launches) in counters.items():
+            set_kernel_mode(model, mode, softmax, quant)
+            for c, _ in counters.values():
+                c.launches = 0  # this mode's path starts here
+            y = live16.predict(x, SCALE)
+            launches = {c.__name__: c.launches for c, _ in counters.values()}
+            if launches[counter.__name__] != want_launches or sum(
+                    launches.values()) != want_launches:
+                raise AssertionError(f"W96 mode {mode}: launches {launches}")
+            if not np.isfinite(y).all():
+                raise AssertionError(f"W96 mode {mode}: non-finite output")
+            ys[mode] = y
+            kf = versus(y, y32)
+            ks = versus(y, ys["swin"]) if mode != "swin" else (None, None)
+            log(f"W96 bf16 int8 qkv mode {mode}: {want_launches} launches of "
+                f"{counter.__name__} per forward; vs the f32 model rel max "
+                f"{kf[0]:.3e} mean {kf[1]:.3e}, PSNR {kf[2]:.2f} dB" + (
+                    f"; vs mode swin rel max {ks[0]:.3e} mean {ks[1]:.3e}"
+                    if ks[0] is not None else ""))
+            if kf[0] >= BF16_VS_F32_MAX or kf[1] >= BF16_VS_F32_MEAN:
+                raise AssertionError(f"W96 mode {mode} vs f32: {kf}")
+            wall, busy = _device_ms(lambda: live16.predict(x64, SCALE))
+            log(f"W96 bf16 mode {mode}: one warm bucket-64 forward "
+                f"{wall:.3f} ms wall, device " + (
+                    f"{busy:.3f} ms" if busy is not None else "not measured"))
+            out[mode] = {"launches_per_forward": want_launches,
+                         "vs_f32_rel_max": kf[0], "vs_f32_rel_mean": kf[1],
+                         "psnr_vs_f32_db": kf[2], "vs_swin_rel_max": ks[0],
+                         "vs_swin_rel_mean": ks[1],
+                         "bucket64_wall_ms": wall, "bucket64_device_ms": busy}
+    finally:
+        set_kernel_mode(model, "rdstb", softmax, quant)
+    return out
+
+
+w96_serving_phase = phase("W96 f32 serving")(_serve)
+w96_bf16_serving_phase = phase("W96 bf16 serving")(_serve)
+w96_profile_phase = phase("W96 f32 profile")(_profile)
+w96_bf16_profile_phase = phase("W96 bf16 profile")(_profile)
+
+
+def run_w96():
+    """Phases 20-23, RDST-W96; returns (results, kernel rows)."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.kernels import rdstb_block
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    def paras(**kw):
+        p = ParametersLoader(W96_CONFIG)
+        p.set("well_trained_single_scale_model_g", W96_WEIGHTS)
+        for k, v in kw.items():
+            p.set(k, v)
+        return p
+
+    t0 = time.perf_counter()
+    live32 = LiveModel(paras(), max_batch=64, device="cuda")
+    live16 = LiveModel(paras(inference_dtype="bfloat16"), max_batch=64,
+                       device="cuda")
+    m32, m16 = live32.manifest, live16.manifest
+    log(f"loaded {W96_CONFIG} + {W96_WEIGHTS} in f32 (routes "
+        f"{m32['routes']}) and bf16 (kernel mode {m16['pallas_kernels']}, "
+        f"softmax {m16['pallas_softmax']}, int8 {m16['pallas_quant']}) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    if (m32["dtype"], m32["routes"]) != ("float32", ["fused_swin_block"] * 8):
+        raise AssertionError(f"W96 f32 manifest {m32}")
+    if (m16["dtype"], m16["pallas_kernels"], m16["pallas_quant"],
+            m16["routes"]) != ("bfloat16", "rdstb", ["qkv"],
+                               ["fused_rdstb"] * 8):
+        raise AssertionError(f"W96 bf16 manifest {m16}")
+    kern = w96_kernel_phase(live32.model, live16.model)
+    whole = w96_model_phase(live32, live16)
+    serve32 = w96_serving_phase(live32)
+    serve16 = w96_bf16_serving_phase(live16, rdstb_block.run_rdstb, 8,
+                                     "bfloat16", SERVE_TOL_BF16)
+    prof32 = w96_profile_phase(live32)
+    prof16 = w96_bf16_profile_phase(
+        live16, tuple(k for k, _ in STAGE_PHASES), "rdstb stage kernels")
+    kernels = [
+        _row("fused_swin_block (W96 f32, C = 96/144/192)", "swin_block.cu",
+             "rdst_tpu/kernels/swin_block.py:757", serve32["launches"],
+             kern["f32"]),
+        _row("fused_rdstb (W96, int8 qkv)", "rdstb_block.cu",
+             "rdst_tpu/kernels/rdstb_block.py:334", serve16["launches"],
+             kern["rdstb"]),
+        _row("fused_swin_pair (W96, C = 96/144/192, int8 qkv)",
+             "swin_pair.cu", "rdst_tpu/kernels/swin_block.py:1001",
+             whole["pair"]["launches_per_forward"],
+             [r for r in kern["pair"] if r["int8"]]),
+    ]
+    results = {"manifest": {"f32": m32, "bf16": m16}, "kernel": kern,
+               "model": whole, "serving": {"f32": serve32, "bf16": serve16},
+               "profile": {"f32": prof32, "bf16": prof16}}
+    return results, kernels
+
+
 def _row(name, source, replaces, launches, rs):
     """One kernel of the JSON line: per launch, averaged over the variants
     the main path runs."""
@@ -1905,6 +2287,7 @@ def run_e1(data_dir: str, tmp: str):
         f"{live.manifest['pallas_kernels']}, softmax "
         f"{live.manifest['pallas_softmax']})")
     kern = kernel_phase(live.model)
+    kern["wide"] = wide_kernel_phase()["variants"]
     whole = model_phase(live)
     serve = serving_phase(live)
     prof = profile_phase(live)
@@ -2023,7 +2406,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--only", choices=("e1", "swinir"), default=None,
+    ap.add_argument("--only", choices=("e1", "swinir", "w96"), default=None,
                     help="run the card and build phases and one model's "
                     "phases only (default: every phase)")
     args = ap.parse_args(argv)
@@ -2046,6 +2429,9 @@ def main(argv=None) -> int:
             kernels += rows
         if args.only in (None, "swinir"):
             results["swinir"], rows = run_swinir(data_dir, tmp)
+            kernels += rows
+        if args.only in (None, "w96"):
+            results["w96"], rows = run_w96()
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

@@ -922,7 +922,7 @@ inline cudaError_t block_backward(const BwdArgs& a, cudaStream_t s) {
   RDST_CHECK((run_rows<false, true>(
       gemm_args(b.ao, nullptr, kp, b.wproj, nullptr, kp, T, kp, kp),
       EpiProjLn{d, a.x, a.xr, a.w.bproj, a.dpf, a.dp_col, a.dp_stride, b.x1,
-                b.x1n, b.st2},
+                b.x1n, b.st2, d.c},
       s)));
   RDST_CHECK((run_gemm<128, false, true>(
       gemm_args(b.x1n, nullptr, kp, b.w1, nullptr, hp, T, hp, kp),

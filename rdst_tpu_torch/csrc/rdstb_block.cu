@@ -37,7 +37,22 @@
 //   residual, bf16.
 // Bound by operations (the conv adds 2 * 1350 * 60 flops per pixel to the
 // blocks' work at the flagship).
+//
+// A DSTL whose blocks the window body does not take (C above 120, or int8
+// qkv: RDST-W96's C = 96 / 144 / 192 with `pallas_quant = 'qkv'`) runs its
+// two stages on the token-parallel forward of csrc/token_fwd.cuh instead,
+// six kernels a stage over all the call's tokens, with the same buffers:
+// stage A reads the dense rows (x for the first DSTL, whose LN1 pass also
+// copies x0 in) through a row map and writes its rows into y at their
+// image positions; stage B reads the rolled windows of y, writes its bf16
+// rows token-major, and the adapter (pre-norm: LN rows, then) one GEMM C
+// -> growth with the post-norm LN in a row-spanning epilogue puts the
+// growth channels into the dense rows at the un-shifted pixels. The route
+// of each DSTL comes with the call (kernels.swin_block.stage_route: the
+// window body up to C = 120 without int8, the token-parallel stages
+// otherwise). The conv is the same for both.
 
+#include "token_fwd.cuh"
 #include "window_body.cuh"
 
 namespace {
@@ -413,12 +428,30 @@ int conv_patch_bytes(int ccatp) {
   return wbody::round_up(kHaloRows * kHaloCols * ccatp * 2, 128);
 }
 
+// The token-parallel stages' geometry of DSTL d (dims as rdstb_bf16's).
+tokpar::Dims token_dims(const int* dims, int d) {
+  const int nw = (dims[1] / dims[3]) * (dims[2] / dims[3]);
+  return tokpar::make_dims(dims[0] * nw, dims[3] * dims[3],
+                           dims[5] + d * dims[6], dims[8], dims[11 + d]);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Kernels one call launches.
-int rdstb_kernels(int nb) { return 2 * nb + 1; }
+// The token-parallel stages' workspace in bytes (dims as rdstb_bf16's):
+// the widest of the DSTLs that run them, 0 if none does.
+long long rdstb_work_bytes(const int* dims) {
+  const int nb = dims[7];
+  long long most = 0;
+  for (int d = 0; d < nb; ++d) {
+    if (!dims[11 + nb + d]) continue;
+    const long long b = tokfwd::carve_fwd(token_dims(dims, d), nullptr,
+                                          nullptr);
+    if (b > most) most = b;
+  }
+  return most;
+}
 
 // Dynamic shared memory of stage `k` of a call: 2 d for DSTL d's stage A,
 // 2 d + 1 for its stage B, 2 nb for the conv; 0 if it does not fit.
@@ -435,11 +468,15 @@ int rdstb_stage_smem_bytes(int n, int c0, int growth, int nb, int nh,
       .smem;
 }
 
-// ptrs: x, out, y scratch, dense scratch, conv panels, conv bias, then per
-// DSTL: block a (6: panels, bqkv, bproj, bf1, bf2, packed bias), block b
-// (6, its panels followed by the adapter's), the adapter bias (ng) and
-// post-norm LN scale and bias. dims: images, h, w, ws, shift, c0, growth,
-// nb, nh, prenorm, softmax, hidden[nb].
+// ptrs: x, out, y scratch, dense scratch, the token-parallel stages'
+// workspace (rdstb_work_bytes; 0 when no DSTL runs them), conv panels,
+// conv bias, then per DSTL, on the window body (route 0): block a (6:
+// panels, bqkv, bproj, bf1, bf2, packed bias), block b (6, its panels
+// followed by the adapter's), the adapter bias (ng) and post-norm LN scale
+// and bias; on the token-parallel stages (route 1): block a and block b
+// (tokfwd::kBlockPtrs each), the adapter (tokfwd::kAdapterPtrs). dims:
+// images, h, w, ws, shift, c0, growth, nb, nh, prenorm, softmax,
+// hidden[nb], route[nb].
 int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
                void* stream) {
   StageArgs a;
@@ -447,6 +484,7 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
   bf16* out = static_cast<bf16*>(const_cast<void*>(ptrs[1]));
   a.y = static_cast<bf16*>(const_cast<void*>(ptrs[2]));
   a.dense = static_cast<bf16*>(const_cast<void*>(ptrs[3]));
+  char* work = static_cast<char*>(const_cast<void*>(ptrs[4]));
   const int images = dims[0];
   a.h = dims[1];
   a.w_img = dims[2];
@@ -469,10 +507,19 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
   a.ng = wbody::round_up(a.growth, 32);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int* route = dims + 11 + nb;
   wbody::Fit fits[2 * kMaxDstl];
   for (int d = 0; d < nb; ++d) {
-    const wbody::Geom g =
-        wbody::make_geom(a.ws * a.ws, a.c0 + d * a.growth, nh, dims[11 + d]);
+    const int c = a.c0 + d * a.growth;
+    if (route[d]) {
+      if (!fastblk::geom_ok(fastblk::make_geom(a.ws * a.ws, c, nh,
+                                               dims[11 + d]),
+                            fastblk::kMaxC) ||
+          !work)
+        return static_cast<int>(cudaErrorInvalidValue);
+      continue;
+    }
+    const wbody::Geom g = wbody::make_geom(a.ws * a.ws, c, nh, dims[11 + d]);
     if (!wbody::geom_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
     fits[2 * d] = wbody::stage_fit(g, 0);
     fits[2 * d + 1] = wbody::stage_fit(g, a.ng);
@@ -482,8 +529,8 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
   ConvArgs cv;
   cv.dense = a.dense;
   cv.out = out;
-  cv.panels = static_cast<const char*>(ptrs[4]);
-  cv.bias = static_cast<const float*>(ptrs[5]);
+  cv.panels = static_cast<const char*>(ptrs[5]);
+  cv.bias = static_cast<const float*>(ptrs[6]);
   cv.images = images;
   cv.h = a.h;
   cv.w = a.w_img;
@@ -498,12 +545,43 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
     return static_cast<int>(cudaErrorInvalidValue);
   if (images == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* const* p = ptrs + 7;
   for (int d = 0; d < nb; ++d) {
-    const void* const* p = ptrs + 6 + 15 * d;
-    a.g = wbody::make_geom(a.ws * a.ws, a.c0 + d * a.growth, nh,
-                           dims[11 + d]);
     a.first = d == 0;
     a.dcol = a.c0 + d * a.growth;
+    if (route[d]) {  // the token-parallel stages
+      const tokpar::Dims td = token_dims(dims, d);
+      const int c = td.c, c8 = wbody::round_up(c, 8);
+      const tokpar::Rows img{1, a.h, a.w_img, a.ws, 0};
+      const tokpar::Rows rolled{1, a.h, a.w_img, a.ws, a.shift};
+      tokfwd::FwdBufs b;
+      tokfwd::carve_fwd(td, work, &b);
+      // stage A: block a on the dense rows (on x for the first DSTL, with
+      // x0 copied into the dense rows and their pad zeroed)
+      tokfwd::RowsIn in = tokfwd::rows_in(a.dense, img, a.ccatp);
+      if (a.first)
+        in = tokfwd::RowsIn{a.x, img, a.c0, a.dense, a.ccatp, a.ccat};
+      err = tokfwd::forward(td, in, a.y, img, c8, tokfwd::block_w(p), 1,
+                            a.softmax, b, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      // stage B: block b on the rolled windows of y, its bf16 rows
+      // token-major into the attention-output rows (free by then), the
+      // adapter into the dense rows at the windows' un-shifted pixels
+      const void* const* pb = p + tokfwd::kBlockPtrs;
+      err = tokfwd::forward(td, tokfwd::rows_in(a.y, rolled, c8), b.ao,
+                            tokfwd::kSameRows, c8, tokfwd::block_w(pb),
+                            a.shift > 0 ? a.nw : 1, a.softmax, b, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = tokfwd::adapter(
+          td, b.ao, c8, static_cast<bf16*>(b.xin), a.prenorm != 0,
+          tokfwd::adapter_w(pb + tokfwd::kBlockPtrs), a.growth, a.dense,
+          rolled, a.ccatp, a.dcol, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      p += 2 * tokfwd::kBlockPtrs + tokfwd::kAdapterPtrs;
+      continue;
+    }
+    a.g = wbody::make_geom(a.ws * a.ws, a.c0 + d * a.growth, nh,
+                           dims[11 + d]);
     StageArgs sa = a;  // stage A: block a, shift 0, shared bias
     set_weights(&sa.w, p);
     sa.w.bias_windows = 1;
@@ -517,6 +595,7 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
     sb.bbad = static_cast<const float*>(p[14]);
     err = launch_nt<true>(sb, fits[2 * d + 1], s);
     if (err != cudaSuccess) return static_cast<int>(err);
+    p += 15;
   }
   err = cudaFuncSetAttribute(rdstb_conv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -21,7 +21,18 @@
 //   `_shift_relayout`; block b; the bf16 rows to the output.
 // Each stage takes the shared memory and occupancy of its own width, and
 // the kernel boundary is the only barrier between them.
+//
+// Where the window body does not take the block (C above 120, where its
+// f32 residual of a 64-token tile outgrows the registers that two
+// consumer warpgroups and a producer warp leave, or int8 qkv, which it
+// has no product for), `swin_pair_tokens` runs the same two stages on the
+// token-parallel forward of csrc/token_fwd.cuh (six kernels a stage over
+// all the call's tokens, the int8 qkv product included): stage A reads
+// the windows and writes its rows into the image-layout scratch through a
+// row map, stage B reads the rolled windows through another; the kernels
+// pick the design by (C, int8) as kernels.swin_block.stage_route does.
 
+#include "token_fwd.cuh"
 #include "window_body.cuh"
 
 namespace {
@@ -165,7 +176,7 @@ cudaError_t launch_nt(const Args& a, const wbody::Fit& f, cudaStream_t s) {
 
 extern "C" {
 
-// Kernels one call launches.
+// Kernels one call launches on the window body.
 int swin_pair_kernels() { return 2; }
 
 // Dynamic shared memory of the stage kernels (both take the same).
@@ -212,6 +223,58 @@ int swin_pair_bf16(const void* const* ptrs, const int* dims, int device,
   sb.w.bias_windows = a.shift > 0 ? a.nw : 1;
   err = launch_nt<true>(sb, f, s);
   return static_cast<int>(err);
+}
+
+// The token-parallel stages' workspace in bytes (dims as
+// swin_pair_tokens').
+long long swin_pair_tokens_work_bytes(const int* dims) {
+  const int nw = (dims[1] / dims[3]) * (dims[2] / dims[3]);
+  return tokfwd::carve_fwd(tokpar::make_dims(dims[0] * nw, dims[3] * dims[3],
+                                             dims[5], dims[6], dims[7]),
+                           nullptr, nullptr);
+}
+
+// The pair on the token-parallel stages: 2 tokfwd::kFwdKernels launches,
+// each checked. ptrs: x, out, scratch (images, H*W, c8), block a's and
+// block b's operands (11 each, tokfwd::BlockW: the
+// kernels.swin_block.token_layout order, the packed bias, the int8 qkv
+// weights and steps or 0, 0), the workspace. dims as swin_pair_bf16's.
+int swin_pair_tokens(const void* const* ptrs, const int* dims, int device,
+                     void* stream) {
+  const int images = dims[0], h = dims[1], w = dims[2], ws = dims[3];
+  const int shift = dims[4], c = dims[5], nh = dims[6], hidden = dims[7];
+  const int softmax = dims[8];
+  const fastblk::Geom geom = fastblk::make_geom(ws * ws, c, nh, hidden);
+  const void* const* pa = ptrs + 3;
+  const void* const* pb = pa + tokfwd::kBlockPtrs;
+  if (!fastblk::geom_ok(geom, fastblk::kMaxC) || ws <= 0 || h % ws ||
+      w % ws || shift < 0 || shift >= ws || images < 0 || softmax < 0 ||
+      softmax > 2 || !pa[9] != !pa[10] || !pb[9] != !pb[10])
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nw = (h / ws) * (w / ws);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || images == 0) return static_cast<int>(err);
+  const tokpar::Dims d =
+      tokpar::make_dims(images * nw, ws * ws, c, nh, hidden);
+  tokfwd::FwdBufs b;
+  tokfwd::carve_fwd(
+      d, static_cast<char*>(const_cast<void*>(pb[tokfwd::kBlockPtrs])), &b);
+  bf16* y = static_cast<bf16*>(const_cast<void*>(ptrs[2]));
+  const int c8 = wbody::round_up(c, 8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // stage A: block a, shift 0, shared bias; rows into the scratch at
+  // their image positions
+  err = tokfwd::forward(
+      d, tokfwd::rows_in(static_cast<const bf16*>(ptrs[0]), tokfwd::kSameRows,
+                         c),
+      y, tokpar::Rows{1, h, w, ws, 0}, c8, tokfwd::block_w(pa), 1, softmax,
+      b, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // stage B: block b on the rolled windows, shifted window layout out
+  return static_cast<int>(tokfwd::forward(
+      d, tokfwd::rows_in(y, tokpar::Rows{1, h, w, ws, shift}, c8),
+      static_cast<bf16*>(const_cast<void*>(ptrs[1])), tokfwd::kSameRows, c,
+      tokfwd::block_w(pb), shift > 0 ? nw : 1, softmax, b, s));
 }
 
 }  // extern "C"

@@ -372,7 +372,7 @@ struct EpiQkv {
 // without them; st2 (mean, rsqrt) is written where it is not null.
 struct EpiProjLn {
   Dims d;
-  const bf16* x;  // the block's input tokens (c per row) ...
+  const bf16* x;  // the block's input tokens (the first c of ldx a row) ...
   Rows xr;        // ... at these rows
   const bf16* bproj;
   const float* dpf;
@@ -380,6 +380,7 @@ struct EpiProjLn {
   float* x1;    // (tokens, c)
   bf16* x1n;    // (tokens, kp), ones at c
   float2* st2;  // (tokens) or null
+  int ldx;
   template <int BN>
   __device__ void run(const float* ct, int m0, int) const {
     constexpr int ldc = BN + 4;
@@ -387,7 +388,7 @@ struct EpiProjLn {
     for (int r = warp; r < kBM; r += blockDim.x >> 5) {
       const int m = m0 + r;
       if (m >= d.tokens) break;
-      const bf16* xrow = x + xr(m, d.n) * d.c;
+      const bf16* xrow = x + xr(m, d.n) * ldx;
       const float f =
           dpf ? dpf[static_cast<size_t>(m) * dp_stride + dp_col] : 1.0f;
       float v[6], s = 0.f, s2 = 0.f;

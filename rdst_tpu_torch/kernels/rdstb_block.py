@@ -7,18 +7,23 @@ block a on the windows of the dense features, the shift relayout, block
 b, the inverse relayout, the tail adapter (Dense C->growth then LN, or
 with ``adapter_prenorm`` the LN(C) affine folded into the Dense), and the
 dense concat; then the 3x3 conv from C0 + nb*growth channels back to C0
-(weights tap-major (9*C_cat, C0), as ``_conv3x3``) and the residual.
+(weights tap-major (9*C_cat, C0), as ``_conv3x3``) and the residual. With
+``quant={'qkv'}`` each block's qkv product takes int8 operands
+(``kernels.quant``).
 
 :func:`fused_rdstb` prepares the weights (:func:`plan_rdstb`) and calls
-:func:`run_rdstb`, which launches the 2*nb + 1 stage kernels of
+:func:`run_rdstb`, which launches the stage kernels of
 ``csrc/rdstb_block.cu`` for a CUDA tensor (per DSTL: stage A, block a
 into an image-layout scratch; stage B, block b on the rolled windows,
 the adapter, the growth channels into the dense rows; then the conv as a
 tiled implicit GEMM) and counts the call in ``run_rdstb.launches`` and
 its kernels in ``run_rdstb.kernels``; for a CPU tensor it computes
-:func:`rdstb_reference`. :func:`rdstb_staged_reference` computes stage by
-stage what the kernels compute, over their buffer layouts. What the
-kernels do not take raises on either device. The JAX package's
+:func:`rdstb_reference`. Each DSTL's stages run in the design
+``stage_route`` picks by width and int8 (:func:`dstl_routes`): one kernel
+a stage on the window body, or six a stage (and the adapter's one or two)
+on the token-parallel forward. :func:`rdstb_staged_reference` computes
+stage by stage what the kernels compute, over their buffer layouts. What
+the kernels do not take raises on either device. The JAX package's
 ``fused_rdstb_probe`` (a Mosaic compile probe that let a geometry fall
 back quietly) has no counterpart: the port's gate is
 :func:`rdstb_kernel_supports`, checked when the model is built and again
@@ -27,19 +32,22 @@ at every call, and a refusal raises.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple
+from typing import List, NamedTuple, Optional
 
 import torch
 from torch.nn import functional as F
 
 from rdst_tpu_torch.kernels import _build
+from rdst_tpu_torch.kernels.quant import QkvQuant, check_ported, qkv_quant
 from rdst_tpu_torch.kernels.swin_block import (
-    BF16, H100_SMEM_OPTIN, FastParams, _EPS, _round_up, check_fast_tokens,
-    fast_body, fast_kernel_supports, fast_params, fast_smem_bytes,
-    kernel_layout, launch, normalize, pack_bias_fast, softmax_code)
+    BF16, FAST_MAX_C, H100_SMEM_OPTIN, FastParams, _EPS, _round_up,
+    check_fast_tokens, fast_body, fast_params, kernel_layout, launch,
+    normalize, pack_bias_fast, qkv_token_layout, softmax_code, stage_route,
+    token_kernel_supports, token_layout, token_smem_bytes, work_bytes)
 from rdst_tpu_torch.kernels.swin_pair import (shift_relayout,
                                               unshift_relayout)
-from rdst_tpu_torch.kernels.window_body import (conv_panels,
+from rdst_tpu_torch.kernels.window_body import (BODY_MAX_C, body_supports,
+                                                conv_panels,
                                                 conv_smem_bytes, make_geom,
                                                 stage_bias, stage_fit,
                                                 stage_layout, window_pixels)
@@ -47,6 +55,7 @@ from rdst_tpu_torch.nn.swin import window_partition, window_reverse
 
 _SOURCE = "rdstb_block.cu"
 MAX_DSTLS = 4  # DSTLs one launch takes (kMaxDstl in the CUDA source)
+CONV_MAX_C0 = 128  # C0 the conv's output tiles take
 
 
 class Adapter(NamedTuple):
@@ -63,6 +72,8 @@ class PreppedDstl(NamedTuple):
     pb: FastParams
     bias_b: torch.Tensor  # packed (nW or 1, N, nH*N) bf16
     adapter: Adapter
+    qa: Optional[QkvQuant] = None  # int8 qkv operands of block a, or None
+    qb: Optional[QkvQuant] = None
 
 
 def prep_adapter(wa, ba, ga, bba, prenorm: bool) -> Adapter:
@@ -82,17 +93,22 @@ def prep_adapter(wa, ba, ga, bba, prenorm: bool) -> Adapter:
 
 
 def prep_dstls(dstls, c0: int, growth: int, nh: int, n: int,
-               prenorm: bool) -> List[PreppedDstl]:
+               prenorm: bool, int8: bool = False) -> List[PreppedDstl]:
     """Fold every DSTL's two blocks (``prep_block_params``), pack their
-    biases and prepare the adapters."""
+    biases and prepare the adapters; with ``int8`` also the int8 qkv
+    operands of each block from its folded qkv weight (the JAX
+    ``mm_quant_extras``)."""
     out = []
     c = c0
     for d in dstls:
         (pa, bias_a), (pb, bias_b) = d["blocks"]
+        fa, fb = fast_params(pa, c, nh), fast_params(pb, c, nh)
         out.append(PreppedDstl(
-            fast_params(pa, c, nh), pack_bias_fast(bias_a, nh, n),
-            fast_params(pb, c, nh), pack_bias_fast(bias_b, nh, n),
-            prep_adapter(*d["adapter"], prenorm)))
+            fa, pack_bias_fast(bias_a, nh, n), fb,
+            pack_bias_fast(bias_b, nh, n),
+            prep_adapter(*d["adapter"], prenorm),
+            qkv_quant(fa.wqkv) if int8 else None,
+            qkv_quant(fb.wqkv) if int8 else None))
         c += growth
     return out
 
@@ -123,10 +139,10 @@ def rdstb_reference(x_tokens, prepped: List[PreppedDstl], wc, bc, *,
     for d in prepped:
         xin = torch.cat(feats, dim=-1) if len(feats) > 1 else feats[0]
         y = fast_body(xin.float(), d.pa, d.bias_a, num_heads=num_heads,
-                      softmax=softmax).to(BF16)
+                      softmax=softmax, qkv=d.qa).to(BF16)
         y = shift_relayout(y, x_size, ws, shift)
         y = fast_body(y.float(), d.pb, d.bias_b, num_heads=num_heads,
-                      softmax=softmax).to(BF16)
+                      softmax=softmax, qkv=d.qb).to(BF16)
         y = unshift_relayout(y, x_size, ws, shift)
         ad = d.adapter
         if adapter_prenorm:
@@ -161,7 +177,7 @@ def rdstb_staged_reference(x_tokens, prepped: List[PreppedDstl], wc, bc,
     the same pixels); then the conv as the kernel's implicit GEMM: per tap,
     the zero-bordered dense rows shifted by the tap times the tap's
     (ccatp, C0) weight, summed over the nine taps in f32, plus bias and
-    x0, bf16."""
+    x0, bf16. Both stage designs compute this."""
     b, l, c0 = x_tokens.shape
     h, w = x_size
     ws = window_size
@@ -181,12 +197,12 @@ def rdstb_staged_reference(x_tokens, prepped: List[PreppedDstl], wc, bc,
         c8 = make_geom(n, c, nh, d.pa.w1.shape[1]).c8
         rows = dense[:, unshifted, :c].reshape(b * nw, n, c)
         ya = fast_body(rows.float(), d.pa, d.bias_a, num_heads=nh,
-                       softmax=softmax).to(BF16)
+                       softmax=softmax, qkv=d.qa).to(BF16)
         y = torch.zeros(b, l, c8, dtype=BF16, device=dev)
         y[:, unshifted, :c] = ya.reshape(b, nw * n, c)
         rows = y[:, rolled, :c].reshape(b * nw, n, c)
         z = fast_body(rows.float(), d.pb, d.bias_b, num_heads=nh,
-                      softmax=softmax).to(BF16).float()
+                      softmax=softmax, qkv=d.qb).to(BF16).float()
         ad = d.adapter
         if adapter_prenorm:
             a = normalize(z).to(BF16).float() @ ad.w.float() + ad.b
@@ -209,60 +225,60 @@ def rdstb_staged_reference(x_tokens, prepped: List[PreppedDstl], wc, bc,
     return out.to(BF16)
 
 
-def admission_smem_bytes(n: int, c0: int, growth: int, nb: int, nh: int,
-                         hidden_ratio: float) -> int:
-    """The shared memory :func:`rdstb_kernel_supports` admits by: what the
-    one-window body of the first RDSTB kernel took (the widest DSTL's
-    window with the adapter rows in its attention region, or the conv's
-    (ws+2)^2 halo). The stage kernels keep this rule so that the gate
-    admits exactly the geometries it admitted; their own shared memory is
-    :func:`rdstb_smem_bytes`."""
-    ws = int(round(n ** 0.5))
-    need = 0
-    for d in range(nb):
-        c = c0 + d * growth
-        hidden = int(c * hidden_ratio)
-        total = fast_smem_bytes(n, c, nh, hidden)
-        # the adapter's f32 rows start at the attention region
-        cp = _round_up(c, 16)
-        region = _round_up(4 * n * c, 16) + _round_up(2 * n * (cp + 8), 16)
-        need = max(need, total, region + 4 * n * _round_up(growth, 8))
-    ccp = _round_up(c0 + nb * growth, 16)
-    return max(need, 2 * (ws + 2) ** 2 * (ccp + 8))
+def dstl_routes(c0: int, growth: int, nb: int, int8: bool) -> List[str]:
+    """Each DSTL's stage design (``stage_route`` of its width): 'window'
+    or 'tokens'."""
+    return [stage_route(c0 + d * growth, int8) for d in range(nb)]
 
 
 def rdstb_stage_smem_bytes(n: int, c0: int, growth: int, nb: int, nh: int,
-                           hidden_ratio: float) -> List[int]:
-    """Dynamic shared memory of each of a call's 2*nb + 1 stage kernels
-    (``rdstb_stage_smem_bytes`` in the CUDA source), in launch order:
-    per DSTL stage A and stage B (with the adapter's rows), then the
-    conv; 0 for a stage whose window body does not fit."""
+                           hidden_ratio: float, int8: bool = False
+                           ) -> List[int]:
+    """The most dynamic shared memory a kernel of each of a call's stages
+    takes (``rdstb_stage_smem_bytes`` in the CUDA source for the window
+    body), in launch order: per DSTL stage A and stage B (with the
+    adapter's rows or tile), then the conv; 0 for a window-body stage
+    that does not fit."""
     out = []
-    for d in range(nb):
+    for d, route in enumerate(dstl_routes(c0, growth, nb, int8)):
         c = c0 + d * growth
-        g = make_geom(n, c, nh, int(c * hidden_ratio))
+        hidden = int(c * hidden_ratio)
+        if route == "tokens":
+            out += [token_smem_bytes(n, c, nh, hidden),
+                    token_smem_bytes(n, c, nh, hidden, growth)]
+            continue
+        g = make_geom(n, c, nh, hidden)
         out += [stage_fit(g).smem, stage_fit(g, _round_up(growth, 32)).smem]
     return out + [conv_smem_bytes(c0, c0 + nb * growth)]
 
 
-def rdstb_smem_bytes(n: int, c0: int, growth: int, nb: int, nh: int,
-                     hidden_ratio: float) -> int:
-    """The most dynamic shared memory any stage kernel of a call takes."""
-    return max(rdstb_stage_smem_bytes(n, c0, growth, nb, nh, hidden_ratio))
-
-
 def rdstb_kernel_supports(n: int, c0: int, growth: int, nb: int, nh: int,
-                          hidden_ratio: float) -> bool:
-    """Whether the RDSTB kernels take this geometry: 1 to 4 DSTLs whose
-    widths the window body takes, C0 <= 128 for the conv's output tiles,
-    and :func:`admission_smem_bytes` within an H100 block's."""
-    if not (1 <= nb <= MAX_DSTLS and 0 < c0 <= 128 and growth > 0):
+                          hidden_ratio: float, int8: bool = False) -> bool:
+    """Whether the RDSTB's stage kernels take this geometry: 1 to 4
+    DSTLs, C0 <= ``CONV_MAX_C0`` for the conv's output tiles, each DSTL
+    within the limits of its stage design (:func:`dstl_routes`: the
+    window body's, ``window_body.body_supports``; the token-parallel
+    forward's, ``token_kernel_supports``), and every stage's shared
+    memory (:func:`rdstb_stage_smem_bytes`) within an H100 block's."""
+    if not (1 <= nb <= MAX_DSTLS and 0 < c0 <= CONV_MAX_C0 and growth > 0):
         return False
-    smem = admission_smem_bytes(n, c0, growth, nb, nh, hidden_ratio)
-    return smem <= H100_SMEM_OPTIN and all(
-        fast_kernel_supports(n, c0 + d * growth, nh,
-                             int((c0 + d * growth) * hidden_ratio), smem)
-        for d in range(nb))
+    for d, route in enumerate(dstl_routes(c0, growth, nb, int8)):
+        c = c0 + d * growth
+        hidden = int(c * hidden_ratio)
+        ok = (token_kernel_supports(n, c, nh, hidden, growth)
+              if route == "tokens" else body_supports(n, c, nh, hidden))
+        if not ok:
+            return False
+    smem = rdstb_stage_smem_bytes(n, c0, growth, nb, nh, hidden_ratio, int8)
+    return all(0 < b <= H100_SMEM_OPTIN for b in smem)
+
+
+def rdstb_kernel_count(routes: List[str], prenorm: bool) -> int:
+    """Kernels one call launches: per DSTL two on the window body, or six
+    a block and the adapter's one (two pre-norm) on the token-parallel
+    forward; then the conv."""
+    return 1 + sum(2 if r == "window" else 13 + int(prenorm)
+                   for r in routes)
 
 
 class RdstbPlan(NamedTuple):
@@ -273,42 +289,73 @@ class RdstbPlan(NamedTuple):
     growth: int
     prenorm: bool
     kernel_args: list    # the kernel's weight operands on CUDA, else []
+    routes: List[str]    # each DSTL's stage design (dstl_routes)
+
+
+def _window_args(d: PreppedDstl, c: int, growth: int, nh: int) -> list:
+    """A DSTL's operands on the window body: both blocks' panels (block
+    b's followed by the adapter's) and fragment-ordered biases, the
+    adapter's bias (ng) and post-norm LN scale and bias."""
+    ad = d.adapter
+    dev = ad.w.device
+    wad = torch.zeros(growth, _round_up(c, 16), dtype=BF16, device=dev)
+    wad[:, :c] = ad.w.t()
+    bad = torch.zeros(_round_up(growth, 32), dtype=torch.float32,
+                      device=dev)
+    bad[:growth] = ad.b
+    return [*stage_layout(kernel_layout(d.pa), c, nh),
+            stage_bias(d.bias_a, nh),
+            *stage_layout(kernel_layout(d.pb), c, nh, wad),
+            stage_bias(d.bias_b, nh), bad, ad.gamma.contiguous(),
+            ad.beta.contiguous()]
+
+
+def _token_args(d: PreppedDstl, c: int, growth: int, nh: int) -> list:
+    """A DSTL's operands on the token-parallel forward: per block its
+    ``token_layout``, packed bias and int8 qkv operands (0, 0 for bf16
+    qkv); the adapter's (growth, c8) bf16 weight (the Dense transposed,
+    zero past c), bias and post-norm LN scale and bias."""
+    ad = d.adapter
+    wad = torch.zeros(growth, _round_up(c, 8), dtype=BF16,
+                      device=ad.w.device)
+    wad[:, :c] = ad.w.t()
+    out = []
+    for p, bias, q in ((d.pa, d.bias_a, d.qa), (d.pb, d.bias_b, d.qb)):
+        out += [*token_layout(p, nh), bias,
+                *(qkv_token_layout(q, c, nh) or (0, 0))]
+    return out + [wad, ad.b.contiguous(), ad.gamma.contiguous(),
+                  ad.beta.contiguous()]
 
 
 def plan_rdstb(dstls, conv_kernel, conv_bias, *, num_heads: int,
-               growth: int, adapter_prenorm: bool) -> RdstbPlan:
+               growth: int, adapter_prenorm: bool,
+               quant=frozenset()) -> RdstbPlan:
     """Fold and lay out an RDSTB's weights (the JAX ``fused_rdstb``
-    argument layout, see :func:`fused_rdstb`). Depends on the weights
-    only, so a caller may keep it."""
+    argument layout, see :func:`fused_rdstb`), with the int8 qkv operands
+    of every block when ``quant`` holds 'qkv'; on a CUDA device lay each
+    DSTL out for its stage design (:func:`dstl_routes`). Depends on the
+    weights only, so a caller may keep it."""
     ccat, c0 = conv_kernel.shape[2], conv_kernel.shape[3]
     nb = len(dstls)
     if nb < 1 or ccat != c0 + nb * growth or tuple(conv_bias.shape) != (c0,):
         raise ValueError(f"{nb} DSTLs growing by {growth} from {c0} do not "
                          f"fit conv {tuple(conv_kernel.shape)} / "
                          f"{tuple(conv_bias.shape)}")
+    int8 = "qkv" in check_ported(quant)
     n = dstls[0]["blocks"][0][1].shape[-1]
-    prepped = prep_dstls(dstls, c0, growth, num_heads, n, adapter_prenorm)
+    prepped = prep_dstls(dstls, c0, growth, num_heads, n, adapter_prenorm,
+                         int8)
+    routes = dstl_routes(c0, growth, nb, int8)
     wc = conv_rows(conv_kernel)
     bc = conv_bias.to(torch.float32)
     args = []
-    dev = wc.device
-    if dev.type == "cuda":
-        ng = _round_up(growth, 32)
+    if wc.device.type == "cuda":
         args = [conv_panels(wc, c0, ccat), bc]
-        for i, d in enumerate(prepped):
-            c = c0 + i * growth
-            ad = d.adapter
-            wad = torch.zeros(growth, _round_up(c, 16), dtype=BF16,
-                              device=dev)
-            wad[:, :c] = ad.w.t()
-            bad = torch.zeros(ng, dtype=torch.float32, device=dev)
-            bad[:growth] = ad.b
-            args += [*stage_layout(kernel_layout(d.pa), c, num_heads),
-                     stage_bias(d.bias_a, num_heads),
-                     *stage_layout(kernel_layout(d.pb), c, num_heads, wad),
-                     stage_bias(d.bias_b, num_heads), bad,
-                     ad.gamma.contiguous(), ad.beta.contiguous()]
-    return RdstbPlan(prepped, wc, bc, growth, bool(adapter_prenorm), args)
+        for i, (d, route) in enumerate(zip(prepped, routes)):
+            make = _token_args if route == "tokens" else _window_args
+            args += make(d, c0 + i * growth, growth, num_heads)
+    return RdstbPlan(prepped, wc, bc, growth, bool(adapter_prenorm), args,
+                     routes)
 
 
 def run_rdstb(x_tokens, plan: RdstbPlan, *, num_heads: int, x_size,
@@ -328,16 +375,25 @@ def run_rdstb(x_tokens, plan: RdstbPlan, *, num_heads: int, x_size,
     nb, growth = len(plan.dstls), plan.growth
     ratio = plan.dstls[0].pa.w1.shape[1] / c0
     code = softmax_code(softmax)
+    int8 = plan.dstls[0].qa is not None
     if (l != h * w or h % ws or w % ws or not 0 <= shift < ws
-            or not rdstb_kernel_supports(n, c0, growth, nb, nh, ratio)):
+            or not rdstb_kernel_supports(n, c0, growth, nb, nh, ratio,
+                                         int8)):
         raise ValueError(
             f"fused_rdstb: the CUDA kernel does not take {nb} DSTLs of "
             f"C0={c0} growing by {growth}, heads={nh}, MLP ratio {ratio}, "
-            f"{h}x{w} with window {ws} and shift {shift} (needs 1-"
-            f"{MAX_DSTLS} DSTLs, windows of 16 or 64 tokens, widths <= 128,"
-            " head dim <= 32 and the widest stage within "
+            f"{'int8' if int8 else 'bf16'} qkv, {h}x{w} with window {ws} "
+            f"and shift {shift} (needs 1-{MAX_DSTLS} DSTLs, C0 <= "
+            f"{CONV_MAX_C0}, windows of 16 or 64 tokens, head dim <= 32, "
+            f"widths <= {BODY_MAX_C} on the window body and <= {FAST_MAX_C}"
+            " on the token-parallel stages, every stage within "
             f"{H100_SMEM_OPTIN} bytes of shared memory); build with "
             "pallas_kernels='pair' or 'off'")
+    if plan.routes != dstl_routes(c0, growth, nb, int8) or any(
+            (q is not None) != int8 for d in plan.dstls for q in (d.qa, d.qb)):
+        raise ValueError(f"plan routes {plan.routes} do not fit C0={c0} "
+                         f"growing by {growth} with "
+                         f"{'int8' if int8 else 'bf16'} qkv")
     nw = (h // ws) * (w // ws)
     for i, d in enumerate(plan.dstls):
         c = c0 + i * growth
@@ -361,20 +417,21 @@ def run_rdstb(x_tokens, plan: RdstbPlan, *, num_heads: int, x_size,
     out = torch.empty_like(x_tokens)
     if b == 0:
         return out
-    if not all(rdstb_stage_smem_bytes(n, c0, growth, nb, nh, ratio)):
-        raise ValueError(f"fused_rdstb: a stage kernel's window body does "
-                         f"not fit C0={c0} growing by {growth}, heads={nh} "
-                         f"in {H100_SMEM_OPTIN} bytes")
     c8 = _round_up(c0 + (nb - 1) * growth, 8)
     y = torch.empty(b * l * c8, dtype=BF16, device=dev)
     dense = torch.empty(b * l * _round_up(c0 + nb * growth, 16), dtype=BF16,
                         device=dev)
-    dims = [b, h, w, ws, shift, c0, growth, nb, nh, int(plan.prenorm),
-            code] + [d.pa.w1.shape[1] for d in plan.dstls]
-    launch(_build.load(_SOURCE), "rdstb_bf16",
-           [x_tokens, out, y, dense, *plan.kernel_args], dims, dev)
+    dims = ([b, h, w, ws, shift, c0, growth, nb, nh, int(plan.prenorm),
+             code] + [d.pa.w1.shape[1] for d in plan.dstls]
+            + [int(r == "tokens") for r in plan.routes])
+    lib = _build.load(_SOURCE)
+    nwork = work_bytes(lib, "rdstb_work_bytes", dims)
+    work = (torch.empty(nwork, dtype=torch.uint8, device=dev) if nwork
+            else 0)
+    launch(lib, "rdstb_bf16",
+           [x_tokens, out, y, dense, work, *plan.kernel_args], dims, dev)
     run_rdstb.launches += 1
-    run_rdstb.kernels += 2 * nb + 1
+    run_rdstb.kernels += rdstb_kernel_count(plan.routes, plan.prenorm)
     return out
 
 
@@ -385,7 +442,7 @@ run_rdstb.kernels = 0   # stage kernels those calls launched
 def fused_rdstb(x_tokens, dstls, conv_kernel, conv_bias, *,
                 num_heads: int, x_size, window_size: int, shift: int,
                 growth: int, adapter_prenorm: bool = False,
-                softmax: str = ""):
+                softmax: str = "", quant=frozenset()):
     """One whole RDSTB on bf16 image-major tokens (B, H*W, C0), as the
     JAX function takes it.
 
@@ -393,8 +450,10 @@ def fused_rdstb(x_tokens, dstls, conv_kernel, conv_bias, *,
     'adapter': (wa, ba, gamma, beta)}`` in the JAX layout (block a
     unshifted with the shared (nH, N, N) bias, block b shifted; adapter
     Dense (C, growth)); conv_kernel (3, 3, C_cat, C0) HWIO; conv_bias
-    (C0,). :func:`plan_rdstb`, then :func:`run_rdstb`."""
+    (C0,); ``quant`` the int8 groups ({'qkv'} or none).
+    :func:`plan_rdstb`, then :func:`run_rdstb`."""
     plan = plan_rdstb(dstls, conv_kernel, conv_bias, num_heads=num_heads,
-                      growth=growth, adapter_prenorm=adapter_prenorm)
+                      growth=growth, adapter_prenorm=adapter_prenorm,
+                      quant=quant)
     return run_rdstb(x_tokens, plan, num_heads=num_heads, x_size=x_size,
                      window_size=window_size, shift=shift, softmax=softmax)

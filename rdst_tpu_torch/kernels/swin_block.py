@@ -15,9 +15,10 @@ the dtype of the tokens, as the JAX function does (``use_fast_path``):
 * float32 -> the precise branch (``_body`` with ``fast=False``):
   ``csrc/swin_block.cu``, six token-parallel kernels whose four
   projections run as 3xTF32 on the tensor cores, with the weights split
-  once in a plan (:func:`plan_f32_block`, :func:`run_f32_block`); plain
-  version :func:`swin_block_reference`, and :func:`swin_block_staged_f32`
-  for the kernel's phases at its split points;
+  once in a plan (:func:`plan_f32_block`, :func:`run_f32_block`), C up
+  to ``F32_MAX_C`` (:func:`f32_kernel_supports`); plain version
+  :func:`swin_block_reference`, and :func:`swin_block_staged_f32` for
+  the kernel's phases at its split points;
 * bfloat16 -> the fast branch (``fast=True``): LN affines and the q
   scale folded into the weights (:func:`prep_block_params`),
   normalize-only one-pass LayerNorm, a softmax stabilizer chosen by
@@ -29,8 +30,9 @@ the dtype of the tokens, as the JAX function does (``use_fast_path``):
   and RDSTB stage kernels run ``csrc/window_body.cuh``) up to ``WINDOW_MAX_C``, the token-parallel forward
   (``csrc/token_gemm.cuh``, shared with the training backward) above;
   plain version :func:`swin_block_fast_reference`. It takes C up to
-  ``FAST_MAX_C`` (SwinIR-std's 180); the pair, RDSTB and train-pair
-  kernels stay at the ``SHARED_MAX_C`` they were verified at.
+  ``FAST_MAX_C`` (SwinIR-std's 180, RDST-W96's 192); the train-pair
+  kernels stay at the ``SHARED_MAX_C`` they were verified at, and the
+  pair and RDSTB stages take the design :func:`stage_route` picks.
 
 Both count their launches, one a call whatever the kernels it runs
 (``fused_swin_block.launches`` and ``run_fast_block.launches``). A CPU
@@ -56,11 +58,12 @@ _EPS = 1e-5  # torch-default LayerNorm epsilon
 _SOURCE = "swin_block.cu"
 _MAX_HEAD_DIM = 32
 H100_SMEM_OPTIN = 232448  # bytes of shared memory one block may opt into
-# widest C of the fast block and the single-block train kernels
-# (``fastblk::kMaxC``), and of the pair, RDSTB and train-pair kernels
-# (``fastblk::kMaxCShared``)
+# widest C of the fast block, its token-parallel forward and the
+# single-block train kernels (``fastblk::kMaxC``), and of the train-pair
+# kernels (``fastblk::kMaxCShared``)
 FAST_MAX_C = 192
 SHARED_MAX_C = 128
+F32_MAX_C = 192  # widest C of the f32 block kernel (``kMaxC``)
 
 # 'auto' picks clamp only when the checkpoint's stamped attn_logit_max
 # clears this margin (kept equal to the JAX package's policy).
@@ -77,29 +80,45 @@ def resolve_softmax_auto(attn_logit_max) -> str:
             else "stable_bc")
 
 
-def per_window_smem_bytes(n: int, c: int, hidden: int) -> int:
-    """The shared memory one window took in the per-window f32 design the
-    f32 route shipped with (x rows; LN/attention rows at a stride rounded
-    up to 4; q/k/v at row stride C+1, reused by the MLP hidden state; one
-    head's scores). The route still admits exactly what that design took
-    (:func:`block_kernel_supports`): up to C = 168 at N = 64 with MLP 2C,
-    so SwinIR-std (C = 180) and RDST-W96 (C = 192) stay on
-    ``pallas_kernels='off'``, as the JAX package's precise kernel refuses
-    them too. The token-parallel kernel itself takes C up to 192; lifting
-    the limit is ROADMAP Queue B 6b."""
-    cs, hs = -(-c // 4) * 4, -(-hidden // 4) * 4
-    return 4 * (n * c + n * cs + max(3 * n * (c + 1), n * hs) + n * n)
+# The f32 kernel's tiles (csrc/swin_block.cu): 3xTF32 GEMM tiles of BM
+# tokens x BN outputs over a 3-stage ring of kF32BK-deep A and weight
+# slices (both TF32 parts), the accumulator tile parked for the epilogue.
+_F32_BK, _F32_STAGES = 16, 3
+_F32_TILES = ((64, 192), (64, 128), (64, 96), (64, 64), (128, 128),
+              (128, 96), (128, 64))
 
 
-def block_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
-    """Whether the f32 route takes this block geometry: windows of N | 64
-    tokens with N % 8 == 0, even C and hidden, head dim <= 32, and the
-    per-window design's shared memory within an H100 block's
-    (:func:`per_window_smem_bytes`)."""
+def f32_tile_smem_bytes(bm: int, bn: int) -> int:
+    """Shared memory of one f32 GEMM tile (``Tile<BM, BN>::kSmem``)."""
+    stage = bm * (_F32_BK + 4) + 2 * _F32_BK * (bn + 8)
+    return 4 * max(_F32_STAGES * stage, bm * (bn + 4))
+
+
+def f32_attn_smem_bytes(n: int, hd: int) -> int:
+    """Shared memory of one (window, head) of the f32 attention
+    (``attn_smem_bytes``): q^T, k^T, v and P^T in floats."""
+    return 4 * (2 * hd * (n + 4) + n * _round_up(hd, 4) + n * (n + 4))
+
+
+def f32_smem_bytes(n: int, c: int, nh: int) -> int:
+    """The most shared memory a kernel of the f32 block takes: its
+    widest GEMM tile or one (window, head) of its attention."""
+    return max(max(f32_tile_smem_bytes(bm, bn) for bm, bn in _F32_TILES),
+               f32_attn_smem_bytes(n, c // nh))
+
+
+def f32_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
+    """Whether the f32 block kernel (``csrc/swin_block.cu``, six
+    token-parallel kernels) takes this block geometry: windows of N | 64
+    tokens with N % 8 == 0, even C <= ``F32_MAX_C`` (its row kernels keep
+    six values a lane), head dim <= 32, and its own tiles in an H100
+    block's shared memory (:func:`f32_smem_bytes`): the limits
+    ``dims_ok`` checks in the source. RDST-W96 (C up to 192) and
+    SwinIR-std (C = 180) fit."""
     return (0 < n <= 64 and 64 % n == 0 and n % 8 == 0
-            and c % 2 == 0 and c % nh == 0 and c // nh <= _MAX_HEAD_DIM
-            and hidden % 2 == 0
-            and per_window_smem_bytes(n, c, hidden) <= H100_SMEM_OPTIN)
+            and 0 < c <= F32_MAX_C and c % 2 == 0 and nh > 0
+            and c % nh == 0 and c // nh <= _MAX_HEAD_DIM and hidden > 0
+            and f32_smem_bytes(n, c, nh) <= H100_SMEM_OPTIN)
 
 
 def _layernorm(x, gamma, beta):
@@ -279,14 +298,12 @@ def plan_f32_block(params, bias, *, num_heads: int) -> F32BlockPlan:
         raise ValueError(f"bias must be head-major (nH*bw, N, N), got "
                          f"{tuple(bias.shape)}")
     n = bias.shape[1]
-    if not block_kernel_supports(n, c, nh, hidden):
+    if not f32_kernel_supports(n, c, nh, hidden):
         raise ValueError(
             f"fused_swin_block: the CUDA kernel does not take N={n}, C={c}, "
-            f"heads={nh}, hidden={hidden} (the f32 route takes N | 64 with "
-            f"N % 8 == 0, even C and hidden, head dim <= "
-            f"{_MAX_HEAD_DIM}, and what the per-window design took: "
-            f"{per_window_smem_bytes(n, c, hidden)} <= {H100_SMEM_OPTIN} "
-            "bytes of shared memory a window)")
+            f"heads={nh}, hidden={hidden} (the f32 kernel takes N | 64 with "
+            f"N % 8 == 0, even C <= {F32_MAX_C} and head dim <= "
+            f"{_MAX_HEAD_DIM})")
     dev = bias.device
     if bqkv is None:
         bqkv = torch.zeros(3 * c, device=dev, dtype=torch.float32)
@@ -583,10 +600,10 @@ def fast_kernel_supports(n: int, c: int, nh: int, hidden: int,
                          max_c: int = SHARED_MAX_C) -> bool:
     """Whether the fast-branch CUDA kernels take this block geometry:
     N a multiple of 16 up to 64 (windows of 4 or 8), head dim <= 32,
-    C <= ``max_c`` (``FAST_MAX_C`` for the fast block and the
-    single-block train kernels, ``SHARED_MAX_C`` for the pair, RDSTB and
-    train-pair kernels), and one window's working set in an H100 block's
-    shared memory."""
+    C <= ``max_c`` (``FAST_MAX_C`` for the fast block, its token-parallel
+    forward and the single-block train kernels, ``SHARED_MAX_C`` for the
+    train-pair kernels), and ``smem`` (by default one window's working
+    set in the window body) in an H100 block's shared memory."""
     smem = fast_smem_bytes(n, c, nh, hidden) if smem is None else smem
     return (0 < n <= 64 and n % 16 == 0 and 0 < c <= max_c and nh > 0
             and c % nh == 0 and c // nh <= 32 and 0 < hidden <= 512
@@ -696,6 +713,54 @@ WINDOW_MAX_C = 120
 def fast_route(c: int) -> str:
     """The fast block's design at width c: 'window' or 'tokens'."""
     return "window" if c <= WINDOW_MAX_C else "tokens"
+
+
+def stage_route(c: int, int8: bool) -> str:
+    """The design of a pair or RDSTB stage at width c: 'window' (the
+    stage kernels on ``csrc/window_body.cuh``) up to ``WINDOW_MAX_C``
+    with bf16 qkv, as the fast block picks it; 'tokens' (the
+    token-parallel forward of ``csrc/token_fwd.cuh``) above, and for
+    int8 qkv, which the window body has no product for."""
+    return "window" if c <= WINDOW_MAX_C and not int8 else "tokens"
+
+
+def _bf16_tile_smem(bn: int, tb: bool) -> int:
+    """``tokpar::Tile<BN, false, TB>::kSmem``: a 3-stage ring of 64 x 32 A
+    and 32-deep B slices, the f32 accumulator tile parked after it."""
+    b = 32 * (bn + 8) if tb else bn * 40
+    return max(3 * (64 * 40 + b) * 2, 64 * (bn + 4) * 4)
+
+
+def token_smem_bytes(n: int, c: int, nh: int, hidden: int,
+                     growth: int = 0) -> int:
+    """The most shared memory a kernel of the token-parallel forward
+    (``csrc/token_fwd.cuh``) takes at this geometry: the row-spanning
+    tile of the projection (N = kp), the 128- and 64-wide tiles of the
+    other products, the int8 qkv tiles, the attention of one (window,
+    head), and with ``growth`` the adapter's row-spanning tile."""
+    kp, _, _, _, _ = token_dims(c, nh, hidden)
+    span = next(w for w in (64, 128, 192, 256) if kp <= w or w == 256)
+    hds = _round_up(c // nh, 16)
+    tiles = [_bf16_tile_smem(span, True), _bf16_tile_smem(128, True),
+             max(3 * (64 * 80 + 128 * 80), 64 * 132 * 4),  # S8Tile<128>
+             2 * 3 * n * (hds + 8)]
+    if growth:
+        tiles.append(_bf16_tile_smem(
+            next(w for w in (64, 128, 192, 256) if growth <= w), False))
+    return max(tiles)
+
+
+def token_kernel_supports(n: int, c: int, nh: int, hidden: int,
+                          growth: int = 0) -> bool:
+    """Whether the token-parallel forward takes this block geometry (the
+    fast block above ``WINDOW_MAX_C``; the pair and RDSTB stages that
+    :func:`stage_route` sends there): N a multiple of 16 up to 64, C <=
+    ``FAST_MAX_C`` (its row kernels keep six values a lane), head dim
+    <= 32, hidden <= 512, growth (the adapter) <= 256, its own tiles in
+    an H100 block's shared memory."""
+    return growth <= 256 and fast_kernel_supports(
+        n, c, nh, hidden, token_smem_bytes(n, c, nh, hidden, growth),
+        max_c=FAST_MAX_C)
 
 
 def token_dims(c: int, nh: int, hidden: int):

@@ -5,15 +5,19 @@ Counterpart of ``rdst_tpu/kernels/swin_block.py::fused_swin_pair`` (bf16
 fast branch only, as there): block a (shift 0, shared bias) on
 window-layout tokens, its output rounded to bf16, the relayout
 window_reverse -> roll(-shift) -> window_partition (``_shift_relayout``),
-then block b (shift, per-window bias). The output stays in the SHIFTED
-window layout: the caller's window_reverse + roll(+shift) restores the
-image.
+then block b (shift, per-window bias); with ``quant={'qkv'}`` each
+block's qkv product on int8 operands (``kernels.quant``). The output
+stays in the SHIFTED window layout: the caller's window_reverse +
+roll(+shift) restores the image.
 
 :func:`fused_swin_pair` prepares both blocks (``plan_fast_block`` with
-route 'stage') and calls :func:`run_swin_pair`, which launches the two
-stage kernels of ``csrc/swin_pair.cu`` for a CUDA tensor -- stage A,
+the route :func:`~rdst_tpu_torch.kernels.swin_block.stage_route` picks
+by width and int8: 'stage' for the window body, 'tokens' for the
+token-parallel forward) and calls :func:`run_swin_pair`, which launches
+the two stages of ``csrc/swin_pair.cu`` for a CUDA tensor -- stage A,
 block a into an image-layout scratch; stage B, block b on the rolled
-windows gathered from it -- and counts the call in
+windows gathered from it; one kernel a stage on the window body, six on
+the token-parallel forward -- and counts the call in
 ``run_swin_pair.launches`` and its kernels in ``run_swin_pair.kernels``;
 for a CPU tensor it computes :func:`swin_pair_reference`. What the
 kernels do not take raises on either device.
@@ -23,19 +27,26 @@ kernels compute, with their scratch layout and gather.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from rdst_tpu_torch.kernels import _build
+from rdst_tpu_torch.kernels.quant import QkvQuant, check_ported
 from rdst_tpu_torch.kernels.swin_block import (
-    BF16, H100_SMEM_OPTIN, SHARED_MAX_C, FastBlockPlan, check_fast_tokens,
-    fast_body, fast_kernel_supports, fast_smem_bytes, launch,
-    plan_fast_block, softmax_code)
-from rdst_tpu_torch.kernels.window_body import (make_geom, stage_fit,
+    BF16, FAST_MAX_C, H100_SMEM_OPTIN, FastBlockPlan, check_fast_tokens,
+    fast_body, launch, plan_fast_block, softmax_code, stage_route,
+    token_kernel_supports, work_bytes)
+from rdst_tpu_torch.kernels.window_body import (BODY_MAX_C, body_supports,
+                                                make_geom, stage_fit,
                                                 window_pixels)
 from rdst_tpu_torch.nn.swin import window_partition, window_reverse
 
 _SOURCE = "swin_pair.cu"
-KERNELS = 2  # stage kernels a call (``swin_pair_kernels`` in the source)
+# kernels a call by stage design: one a stage on the window body, six
+# (``tokfwd::kFwdKernels``) on the token-parallel forward
+KERNELS = {"window": 2, "tokens": 12}
+PLAN_ROUTE = {"window": "stage", "tokens": "tokens"}  # plan_fast_block's
 
 
 def shift_relayout(y, x_size, window_size: int, shift: int):
@@ -63,27 +74,33 @@ def unshift_relayout(y, x_size, window_size: int, shift: int):
 
 def swin_pair_reference(x_windows, pa, bias_a, pb, bias_b, *,
                         num_heads: int, x_size, window_size: int,
-                        shift: int, softmax: str):
+                        shift: int, softmax: str,
+                        qkv_a: Optional[QkvQuant] = None,
+                        qkv_b: Optional[QkvQuant] = None):
     """Plain PyTorch version of the pair kernel: bf16 tokens in unshifted
     window layout, folded params (``FastParams``) and packed biases of
-    both blocks; returns bf16 tokens in shifted window layout."""
+    both blocks, their int8 qkv operands or None; returns bf16 tokens in
+    shifted window layout."""
     y = fast_body(x_windows.float(), pa, bias_a, num_heads=num_heads,
-                  softmax=softmax)
+                  softmax=softmax, qkv=qkv_a)
     y2 = shift_relayout(y.to(BF16), x_size, window_size, shift)
     z = fast_body(y2.float(), pb, bias_b, num_heads=num_heads,
-                  softmax=softmax)
+                  softmax=softmax, qkv=qkv_b)
     return z.to(BF16)
 
 
 def swin_pair_staged_reference(x_windows, pa, bias_a, pb, bias_b, *,
                                num_heads: int, x_size, window_size: int,
-                               shift: int, softmax: str):
+                               shift: int, softmax: str,
+                               qkv_a: Optional[QkvQuant] = None,
+                               qkv_b: Optional[QkvQuant] = None):
     """The pair's stage kernels in plain PyTorch (same arguments as
     :func:`swin_pair_reference`): stage A, block a on the unshifted
     windows, its bf16 rows written into the image-layout scratch (B, H*W,
     c8) at their pixels; stage B, each shifted window's rows gathered from
     the scratch by the kernels' index rule (:func:`window_pixels`), block
-    b, bf16 rows in shifted window layout."""
+    b, bf16 rows in shifted window layout. Both stage designs compute
+    this."""
     h, w = x_size
     ws = window_size
     t, n, c = x_windows.shape
@@ -91,30 +108,62 @@ def swin_pair_staged_reference(x_windows, pa, bias_a, pb, bias_b, *,
     b = t // nw
     c8 = make_geom(n, c, num_heads, pa.w1.shape[1]).c8
     ya = fast_body(x_windows.float(), pa, bias_a, num_heads=num_heads,
-                   softmax=softmax).to(BF16)
+                   softmax=softmax, qkv=qkv_a).to(BF16)
     y = torch.zeros(b, h * w, c8, dtype=BF16, device=x_windows.device)
     y[:, window_pixels(h, w, ws, 0).reshape(-1), :c] = ya.reshape(
         b, nw * n, c)
     rows = y[:, window_pixels(h, w, ws, shift).reshape(-1), :c]
     z = fast_body(rows.reshape(t, n, c).float(), pb, bias_b,
-                  num_heads=num_heads, softmax=softmax)
+                  num_heads=num_heads, softmax=softmax, qkv=qkv_b)
     return z.to(BF16)
 
 
 def pair_stage_smem_bytes(n: int, c: int, nh: int, hidden: int) -> int:
-    """Dynamic shared memory of each of the pair's stage kernels
-    (``swin_pair_smem_bytes``; 0 if the window body does not fit)."""
+    """Dynamic shared memory of each of the pair's stage kernels on the
+    window body (``swin_pair_smem_bytes``; 0 if the body does not fit)."""
     return stage_fit(make_geom(n, c, nh, hidden)).smem
+
+
+def pair_design_supports(n: int, c: int, nh: int, hidden: int,
+                         design: str) -> bool:
+    """Whether the pair's stages in ``design`` take this block geometry:
+    'window', the window body's limits and shared memory
+    (:func:`pair_stage_smem_bytes`); 'tokens', the token-parallel
+    forward's (``token_kernel_supports``)."""
+    if design == "window":
+        return (body_supports(n, c, nh, hidden)
+                and 0 < pair_stage_smem_bytes(n, c, nh, hidden)
+                <= H100_SMEM_OPTIN)
+    return token_kernel_supports(n, c, nh, hidden)
+
+
+def pair_kernel_supports(n: int, c: int, nh: int, hidden: int,
+                         int8: bool = False) -> bool:
+    """Whether the pair kernel takes this block geometry in the design
+    :func:`stage_route` picks for its width and int8 group."""
+    return pair_design_supports(n, c, nh, hidden, stage_route(c, int8))
+
+
+def plan_pair_block(params, bias, *, num_heads: int, quant=frozenset()):
+    """One block of the pair, planned for the stage design of its width
+    and int8 group (:func:`stage_route`)."""
+    int8 = "qkv" in check_ported(quant)
+    route = stage_route(params[0].shape[0], int8)
+    return plan_fast_block(params, bias, num_heads=num_heads, quant=quant,
+                           route=PLAN_ROUTE[route])
 
 
 def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
                   *, num_heads: int, x_size, window_size: int, shift: int,
                   softmax: str = ""):
     """The pair on bf16 window-layout tokens (B*nW, N, C) with prepared
-    plans of both blocks (block a's bias shared, block b's per window
-    when shifted). Returns (B*nW, N, C) in SHIFTED window layout. A CPU
-    tensor takes :func:`swin_pair_reference`; a CUDA tensor launches the
-    two stage kernels or raises."""
+    plans of both blocks (block a's bias shared, block b's per window when
+    shifted), both in one stage design: :func:`plan_pair_block` picks the
+    route's, and a width both designs take may be planned for the other
+    (``plan_fast_block`` with route 'stage' or 'tokens'). Returns (B*nW,
+    N, C) in SHIFTED window layout. A CPU tensor takes
+    :func:`swin_pair_reference`; a CUDA tensor launches the two stages or
+    raises."""
     h, w = x_size
     ws = window_size
     nh = num_heads
@@ -125,18 +174,24 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
     pa, pb = plan_a.params, plan_b.params
     hidden = pa.w1.shape[-1]
     code = softmax_code(softmax)
-    if (plan_a.route, plan_b.route) != ("stage", "stage"):
-        raise ValueError("fused_swin_pair runs the stage kernels: plan both "
-                         "blocks with plan_fast_block(..., route='stage')")
+    int8 = plan_a.qkv is not None
+    route = {p: r for r, p in PLAN_ROUTE.items()}.get(plan_a.route)
+    if (route is None or plan_b.route != plan_a.route
+            or (plan_b.qkv is not None) != int8):
+        raise ValueError(
+            f"fused_swin_pair runs both blocks in one stage design: plan "
+            f"them with plan_pair_block (got routes {plan_a.route!r}, "
+            f"{plan_b.route!r})")
     if (n != ws * ws or h % ws or w % ws or not 0 <= shift < ws
             or pb.w1.shape[-1] != hidden
-            or not fast_kernel_supports(n, c, nh, hidden)):
+            or not pair_design_supports(n, c, nh, hidden, route)):
         raise ValueError(
             f"fused_swin_pair: the CUDA kernel does not take N={n}, C={c}, "
             f"heads={nh}, hidden={hidden}, {h}x{w} with window {ws} and "
-            f"shift {shift} (needs whole windows of 16 or 64 tokens, C <= "
-            f"{SHARED_MAX_C}, head dim <= 32 and {fast_smem_bytes(n, c, nh, hidden)} "
-            f"<= {H100_SMEM_OPTIN} bytes of shared memory); build with "
+            f"shift {shift} (needs whole windows of 16 or 64 tokens, head "
+            f"dim <= 32, C <= {BODY_MAX_C} on the window body with bf16 qkv "
+            f"(its shared memory within {H100_SMEM_OPTIN} bytes), C <= "
+            f"{FAST_MAX_C} on the token-parallel stages); build with "
             "pallas_kernels='swin' or 'off'")
     nw = (h // ws) * (w // ws)
     if t % nw:
@@ -157,21 +212,28 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
         return swin_pair_reference(x_windows, pa, plan_a.bias, pb,
                                    plan_b.bias, num_heads=nh, x_size=x_size,
                                    window_size=ws, shift=shift,
-                                   softmax=softmax)
+                                   softmax=softmax, qkv_a=plan_a.qkv,
+                                   qkv_b=plan_b.qkv)
     out = torch.empty_like(x_windows)
     if t == 0:
         return out
-    if pair_stage_smem_bytes(n, c, nh, hidden) == 0:
-        raise ValueError(f"fused_swin_pair: the stage kernels' window body "
-                         f"does not fit N={n}, C={c}, heads={nh}, hidden="
-                         f"{hidden} in {H100_SMEM_OPTIN} bytes")
     c8 = make_geom(n, c, nh, hidden).c8
     scratch = torch.empty(t * n * c8, dtype=BF16, device=dev)
-    launch(_build.load(_SOURCE), "swin_pair_bf16",
-           [x_windows, out, scratch, *plan_a.layout, *plan_b.layout],
-           [t // nw, h, w, ws, shift, c, nh, hidden, code], dev)
+    lib = _build.load(_SOURCE)
+    dims = [t // nw, h, w, ws, shift, c, nh, hidden, code]
+    if route == "window":
+        launch(lib, "swin_pair_bf16",
+               [x_windows, out, scratch, *plan_a.layout, *plan_b.layout],
+               dims, dev)
+    else:
+        work = torch.empty(work_bytes(lib, "swin_pair_tokens_work_bytes",
+                                      dims), dtype=torch.uint8, device=dev)
+        blocks = [ptr for p in (plan_a, plan_b)
+                  for ptr in (*p.layout, p.bias, *(p.qkv_layout or (0, 0)))]
+        launch(lib, "swin_pair_tokens", [x_windows, out, scratch, *blocks,
+                                         work], dims, dev)
     run_swin_pair.launches += 1
-    run_swin_pair.kernels += KERNELS
+    run_swin_pair.kernels += KERNELS[route]
     return out
 
 
@@ -181,17 +243,16 @@ run_swin_pair.kernels = 0   # stage kernels those calls launched
 
 def fused_swin_pair(x_windows, params_a, bias_a, params_b, bias_b, *,
                     num_heads: int, x_size, window_size: int, shift: int,
-                    softmax: str = ""):
+                    softmax: str = "", quant=frozenset()):
     """One DSTL pair on bf16 window-layout tokens (B*nW, N, C), as the JAX
     function takes it: params_X the 12-param bundles of the two blocks
     (weights (in, out), LN affines), folded here; bias_a (nH, N, N);
-    bias_b (nH*nW, N, N) when shifted, else (nH, N, N). Returns (B*nW, N,
-    C) in SHIFTED window layout (:func:`run_swin_pair`)."""
+    bias_b (nH*nW, N, N) when shifted, else (nH, N, N); ``quant`` the
+    int8 groups ({'qkv'} or none). Returns (B*nW, N, C) in SHIFTED window
+    layout (:func:`run_swin_pair`)."""
     return run_swin_pair(
         x_windows,
-        plan_fast_block(params_a, bias_a, num_heads=num_heads,
-                        route="stage"),
-        plan_fast_block(params_b, bias_b, num_heads=num_heads,
-                        route="stage"),
+        plan_pair_block(params_a, bias_a, num_heads=num_heads, quant=quant),
+        plan_pair_block(params_b, bias_b, num_heads=num_heads, quant=quant),
         num_heads=num_heads, x_size=x_size, window_size=window_size,
         shift=shift, softmax=softmax)

@@ -84,6 +84,17 @@ def panel_bytes(nn: int, kk: int) -> int:
     return 2 * min(nn, PANEL_N) * min(kk, PANEL_K)
 
 
+# the widest C the body takes (``wbody::geom_ok``)
+BODY_MAX_C = 128
+
+
+def body_supports(n: int, c: int, nh: int, hidden: int) -> bool:
+    """``wbody::geom_ok``: windows of 16 or 64 tokens, C <= BODY_MAX_C,
+    head dim <= 32, hidden <= 512."""
+    return (n in (16, 64) and 0 < c <= BODY_MAX_C and nh > 0 and c % nh == 0
+            and c // nh <= 32 and 0 < hidden <= 512)
+
+
 class Fit(NamedTuple):
     nwg: int         # consumer warpgroups a thread block (0: does not fit)
     nslots: int

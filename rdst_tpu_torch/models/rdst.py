@@ -170,6 +170,7 @@ class RDSTB(nn.Module):
         self.dim_modify_mode = dim_modify_mode
         self.build_resolution = build_resolution
         self.use_rdstb = False  # see set_kernel_mode
+        self.quant = frozenset()  # int8 groups of the RDSTB kernel route
         self.softmax = ""
         self.body = nn.ModuleList([
             DenseSTLayer(input_dim + i * growth_rate, growth_rate,
@@ -185,12 +186,13 @@ class RDSTB(nn.Module):
         return resolve_ws_shift(self.build_resolution or (h, w), h, w,
                                 self.window_size, self.window_size // 2)
 
-    def rdstb_unsupported(self) -> Optional[str]:
-        """Why the RDSTB kernel cannot run this block (None when it can):
-        the structure ``RDSTB._use_fused_rdstb`` asks for in the JAX
-        package, and what the CUDA kernel takes at the build resolution.
-        Checked when the model is built; the wrapper checks the runtime
-        geometry again at every call."""
+    def rdstb_unsupported(self, quant=frozenset()) -> Optional[str]:
+        """Why the RDSTB kernel cannot run this block with the int8 groups
+        ``quant`` (None when it can): the structure
+        ``RDSTB._use_fused_rdstb`` asks for in the JAX package, and what
+        the CUDA kernels take at the build resolution. Checked when the
+        model is built; the wrapper checks the runtime geometry again at
+        every call."""
         from rdst_tpu_torch.kernels.rdstb_block import rdstb_kernel_supports
 
         nb = len(self.body)
@@ -210,7 +212,7 @@ class RDSTB(nn.Module):
         ws, _ = self._window(h, w)
         if not rdstb_kernel_supports(ws * ws, self.input_dim,
                                      self.growth_rate, nb, self.num_heads,
-                                     self.mlp_ratio):
+                                     self.mlp_ratio, "qkv" in quant):
             return (f"{nb} DSTLs of C0={self.input_dim} growing by "
                     f"{self.growth_rate} with window {ws} exceed what the "
                     "CUDA kernel takes")
@@ -243,11 +245,12 @@ class RDSTB(nn.Module):
                 f"{built}; got {x.dtype}, {h}x{w} resolving to window {ws} "
                 "(build with pallas_kernels='off')")
         plan = kernel_plan(
-            self, ("rdstb", x_size, ws, shift, x.device),
+            self, ("rdstb", x_size, ws, shift, x.device, self.quant),
             lambda: plan_rdstb(*self.rdstb_inputs(x_size, ws, shift),
                                num_heads=self.num_heads,
                                growth=self.growth_rate,
-                               adapter_prenorm=self.pre_norm))
+                               adapter_prenorm=self.pre_norm,
+                               quant=self.quant))
         return run_rdstb(x.contiguous(), plan, num_heads=self.num_heads,
                          x_size=x_size, window_size=ws, shift=shift,
                          softmax=self.softmax)

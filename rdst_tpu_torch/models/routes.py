@@ -10,10 +10,11 @@ the resolution its training patches have (``model.train_resolution``).
 * :func:`set_kernel_mode`: the serving routes. float32: every kernel mode
   runs each Swin block on the f32 block kernel (int8 is dropped, as the
   JAX precise path drops it). bfloat16: 'swin'/'pack' run each block on
-  the fast block kernel, with int8 qkv operands when ``quant`` asks for
-  them; 'pair' runs each DSTL pair of RDST on the pair kernel, 'rdstb'
-  each RDSTB on the RDSTB kernel. A unit the mode's kernel cannot take
-  raises and names the mode to choose; nothing falls back quietly.
+  the fast block kernel, 'pair' each DSTL pair of RDST on the pair
+  kernel, 'rdstb' each RDSTB on the RDSTB kernel, all three with int8
+  qkv operands when ``quant`` asks for them. A unit the mode's kernel
+  cannot take raises and names the mode to choose; nothing falls back
+  quietly.
 * :func:`set_train_mode`: the bf16 training route of each layer, by the
   JAX package's admission rules (``kernels.block_train``): a layer whose
   pair fits the train-pair kernel runs on it (``'pair'``, the default),
@@ -62,10 +63,12 @@ def set_kernel_mode(model: nn.Module, mode: str, softmax: str = "",
     for m in model.modules():
         if isinstance(m, BasicLayer):
             m.use_pair = False
+            m.quant = frozenset()
         if isinstance(m, SwinTransformerBlock):
             m.quant = frozenset()
         if hasattr(m, "use_rdstb"):
             m.use_rdstb = False
+            m.quant = frozenset()
         if hasattr(m, "softmax"):
             m.softmax = softmax
     routes = []
@@ -93,27 +96,24 @@ def set_kernel_mode(model: nn.Module, mode: str, softmax: str = "",
                 "the pair route of a plain Swin stack is decided by the "
                 "image size in the JAX package, which the port does not "
                 "copy: build with pallas_kernels='swin'")
-        elif quant:
-            raise NotImplementedError(
-                f"pallas_quant {sorted(quant)} in mode {mode!r}: int8 "
-                "operands in the pair and RDSTB kernels come with ROADMAP "
-                "Queue B 7; build with pallas_kernels='swin'")
         elif mode == "pair":
             for layer in _layers(unit):
-                why = layer.pair_unsupported()
+                why = layer.pair_unsupported(quant)
                 if why:
                     raise ValueError(
                         f"{where}: the pair kernel cannot run it ({why}); "
                         "build with pallas_kernels='swin' or 'off'")
                 layer.use_pair = True
+                layer.quant = quant
             routes.append("fused_swin_pair")
         else:
-            why = unit.rdstb_unsupported()
+            why = unit.rdstb_unsupported(quant)
             if why:
                 raise ValueError(
                     f"{where}: the RDSTB kernel cannot run it ({why}); "
                     "build with pallas_kernels='pair' or 'off'")
             unit.use_rdstb = True
+            unit.quant = quant
             routes.append("fused_rdstb")
     model.kernel_mode, model.softmax, model.routes = mode, softmax, routes
     model.quant = quant

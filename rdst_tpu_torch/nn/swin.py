@@ -412,11 +412,10 @@ class SwinTransformerBlock(nn.Module):
             y = torch.roll(y, (shift, shift), dims=(1, 2))
         return y.reshape(b, l, c)
 
-    def fast_unsupported(self, max_c: Optional[int] = None) -> Optional[str]:
-        """Why the bf16 fast kernels cannot run this block at its built
-        window (None when they can): the fast block kernel up to
-        ``FAST_MAX_C`` channels, or ``max_c`` (the pair and RDSTB kernels'
-        ``SHARED_MAX_C``); checked when the model is built."""
+    def fast_unsupported(self) -> Optional[str]:
+        """Why the bf16 fast block kernel cannot run this block at its
+        built window (None when it can): up to ``FAST_MAX_C`` channels;
+        checked when the model is built."""
         from rdst_tpu_torch.kernels.swin_block import (FAST_MAX_C,
                                                        fast_kernel_supports)
 
@@ -425,7 +424,7 @@ class SwinTransformerBlock(nn.Module):
         n = self.attn.window_size ** 2
         hidden = self.mlp.fc1.out_features
         if not fast_kernel_supports(n, self.dim, self.num_heads, hidden,
-                                    max_c=max_c or FAST_MAX_C):
+                                    max_c=FAST_MAX_C):
             return (f"N={n}, C={self.dim}, {self.num_heads} heads, hidden "
                     f"{hidden} exceed what the CUDA kernels take")
         return None
@@ -433,20 +432,18 @@ class SwinTransformerBlock(nn.Module):
     def f32_unsupported(self) -> Optional[str]:
         """Why the f32 block kernel cannot run this block at its built
         window (None when it can); checked when the model is built."""
-        from rdst_tpu_torch.kernels.swin_block import (
-            block_kernel_supports, per_window_smem_bytes)
+        from rdst_tpu_torch.kernels.swin_block import (F32_MAX_C,
+                                                       f32_kernel_supports)
 
         if not self.layer_norm or self.qk_scale is not None:
             return "the block has no LayerNorm or a custom q scale"
         n = self.attn.window_size ** 2
         hidden = self.mlp.fc1.out_features
-        if not block_kernel_supports(n, self.dim, self.num_heads, hidden):
+        if not f32_kernel_supports(n, self.dim, self.num_heads, hidden):
             return (f"N={n}, C={self.dim}, {self.num_heads} heads, hidden "
-                    f"{hidden} exceed what the f32 route admits: what its "
-                    "per-window design took, "
-                    f"{per_window_smem_bytes(n, self.dim, hidden)} bytes of "
-                    "shared memory a window at most 232448 (ROADMAP Queue B "
-                    "6b)")
+                    f"{hidden} exceed what the f32 kernel takes: N | 64 "
+                    f"with N % 8 == 0, even C <= {F32_MAX_C}, head dim "
+                    "<= 32")
         return None
 
     def fast_kernel_inputs(self, x_size: Tuple[int, int], ws: int,
@@ -484,19 +481,31 @@ class BasicLayer(nn.Module):
         self.build_resolution = build_resolution
         self.drop, self.attn_drop = float(drop), float(attn_drop)
         self.use_pair = False  # see models.routes.set_kernel_mode
+        self.quant = frozenset()  # int8 groups of the pair kernel route
         self.use_pair_train = False  # see models.routes.set_train_mode
         self.softmax = ""
         self.generator: Optional[torch.Generator] = None  # factor columns
 
-    def pair_unsupported(self) -> Optional[str]:
-        """Why the pair kernel cannot run this layer's blocks (None when
-        it can): what ``BasicLayer``'s ``pair_eligible`` asks in the JAX
-        package, checked when the model is built."""
-        from rdst_tpu_torch.kernels.swin_block import SHARED_MAX_C
+    def pair_unsupported(self, quant=frozenset()) -> Optional[str]:
+        """Why the pair kernel cannot run this layer's blocks with the
+        int8 groups ``quant`` (None when it can): what ``BasicLayer``'s
+        ``pair_eligible`` asks in the JAX package, and what the stage
+        design of the blocks' width takes; checked when the model is
+        built."""
+        from rdst_tpu_torch.kernels.swin_pair import pair_kernel_supports
 
         if not self.blocks or len(self.blocks) % 2:
             return f"depth {len(self.blocks)} is not a whole number of pairs"
-        return self.blocks[0].fast_unsupported(max_c=SHARED_MAX_C)
+        blk = self.blocks[0]
+        if not blk.layer_norm or blk.qk_scale is not None:
+            return "the block has no LayerNorm or a custom q scale"
+        n = blk.attn.window_size ** 2
+        hidden = blk.mlp.fc1.out_features
+        if not pair_kernel_supports(n, blk.dim, blk.num_heads, hidden,
+                                    "qkv" in quant):
+            return (f"N={n}, C={blk.dim}, {blk.num_heads} heads, hidden "
+                    f"{hidden} exceed what the pair's stage kernels take")
+        return None
 
     def train_route(self, mode: str, x_size: Tuple[int, int],
                     softmax: str = "") -> str:
@@ -619,8 +628,8 @@ class BasicLayer(nn.Module):
         return x
 
     def _fused_pairs(self, x, x_size):
-        from rdst_tpu_torch.kernels.swin_block import plan_fast_block
-        from rdst_tpu_torch.kernels.swin_pair import run_swin_pair
+        from rdst_tpu_torch.kernels.swin_pair import (plan_pair_block,
+                                                      run_swin_pair)
 
         h, w = x_size
         b, l, c = x.shape
@@ -629,15 +638,15 @@ class BasicLayer(nn.Module):
         nh = self.blocks[0].num_heads
 
         def build():
-            return [(plan_fast_block(*a.fast_kernel_inputs(x_size, ws, 0),
-                                     num_heads=nh, route="stage"),
-                     plan_fast_block(*bb.fast_kernel_inputs(x_size, ws,
+            return [(plan_pair_block(*a.fast_kernel_inputs(x_size, ws, 0),
+                                     num_heads=nh, quant=self.quant),
+                     plan_pair_block(*bb.fast_kernel_inputs(x_size, ws,
                                                             shift),
-                                     num_heads=nh, route="stage"))
+                                     num_heads=nh, quant=self.quant))
                     for a, bb in zip(self.blocks[0::2], self.blocks[1::2])]
 
-        plans = kernel_plan(self, ("pair", x_size, ws, shift, x.device),
-                            build)
+        plans = kernel_plan(self, ("pair", x_size, ws, shift, x.device,
+                                   self.quant), build)
         for plan_a, plan_b in plans:
             xw = window_partition(x.reshape(b, h, w, c), ws)
             y = run_swin_pair(xw.reshape(-1, ws * ws, c).contiguous(),

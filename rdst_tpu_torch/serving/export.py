@@ -7,7 +7,8 @@ server sees a few fixed batch shapes. Normalization (MeanShift) is part
 of the model. ``inference_dtype = 'bfloat16'`` serves the bf16 model
 (float32 parameter masters; inputs and outputs stay float32 numpy) on
 the fast kernels of its kernel mode, with int8 qkv operands where
-``pallas_quant='qkv'`` asks for them (mode swin). The exported bundle of
+``pallas_quant='qkv'`` asks for them (modes rdstb, pair and swin). The
+exported bundle of
 the JAX package waits for a later slice; so do the other int8 groups and
 MetaSR's residual blend, which raise.
 """

@@ -204,7 +204,8 @@ def test_conv_rows_are_tap_major():
     ((64, 12, 6, 3, 3, 2.0), True),
     ((64, 60, 30, 5, 6, 2.0), False),   # 5 DSTLs: over the kernel's 4
     ((49, 60, 30, 3, 6, 2.0), False),   # window 7
-    ((64, 96, 48, 3, 6, 2.0), False),   # widths up to 192 > 128
+    ((64, 96, 54, 3, 6, 2.0), False),   # widths up to 204 > 192
+    ((64, 96, 48, 3, 6, 2.0), True),    # RDST-W96: C = 96 / 144 / 192
 ])
 def test_rdstb_kernel_gate(args, ok):
     assert rb.rdstb_kernel_supports(*args) is ok

@@ -16,9 +16,10 @@ over the kernels' scratch layouts, gathers and the conv's implicit GEMM):
   gives ``kernel_layout``'s arrays and the tap-major rows back bitwise;
 * the kernels' gather rule (``window_pixels``) is the relayout;
 * the stage kernels' shared memory (the Python mirror of
-  ``wbody::stage_fit`` and the conv's) fits an H100 block for every
-  geometry the gate admits on a shipped RDST config, and the gate's
-  answer for each shipped config.
+  ``wbody::stage_fit``, the token-parallel tiles and the conv's) fits an
+  H100 block for every geometry the gate admits on a shipped RDST config,
+  bf16 or int8 qkv; the gate's answer and each DSTL's stage design for
+  each shipped config.
 """
 
 import pathlib
@@ -348,27 +349,38 @@ def _shipped(name):
             float(p.swin_hidden_ratio))
 
 
-# the gate's answer per shipped RDST config: W96 grows to C = 192 > 128
-GATE = {name: not name.startswith("rdst_w96") for name in RDST_CONFIGS}
+# the gate's answer per shipped RDST config, bf16 or int8 qkv: W96's
+# DSTLs at C = 144 / 192 (and every int8 stage) run the token-parallel
+# stages, so it is admitted too
+GATE = {name: True for name in RDST_CONFIGS}
 
 
 @pytest.mark.parametrize("name", RDST_CONFIGS)
 def test_shipped_rdst_gate_and_stage_smem(name):
     n, c0, g, nb, nh, ratio = _shipped(name)
-    assert rb.rdstb_kernel_supports(n, c0, g, nb, nh, ratio) is GATE[name]
+    for int8 in (False, True):
+        assert rb.rdstb_kernel_supports(n, c0, g, nb, nh, ratio,
+                                        int8) is GATE[name]
     for ws in (8, 4):  # the shipped window and the 16-token one
         n = ws * ws
-        if not rb.rdstb_kernel_supports(n, c0, g, nb, nh, ratio):
-            continue
-        smem = rb.rdstb_stage_smem_bytes(n, c0, g, nb, nh, ratio)
-        assert len(smem) == 2 * nb + 1
-        assert all(0 < s <= wb.SMEM_OPTIN for s in smem), smem
-        for d in range(nb):
-            c = c0 + d * g
-            hid = int(c * ratio)
-            if sb.fast_kernel_supports(n, c, nh, hid):  # the pair's gate
-                assert 0 < sp.pair_stage_smem_bytes(n, c, nh, hid) \
-                    <= wb.SMEM_OPTIN
+        for int8 in (False, True):
+            if not rb.rdstb_kernel_supports(n, c0, g, nb, nh, ratio, int8):
+                continue
+            smem = rb.rdstb_stage_smem_bytes(n, c0, g, nb, nh, ratio, int8)
+            assert len(smem) == 2 * nb + 1
+            assert all(0 < s <= wb.SMEM_OPTIN for s in smem), smem
+            routes = rb.dstl_routes(c0, g, nb, int8)
+            for d, route in enumerate(routes):
+                c = c0 + d * g
+                hid = int(c * ratio)
+                # the route rule: the window body up to C = 120 with bf16
+                # qkv, the token-parallel stages otherwise
+                assert route == ("window" if c <= 120 and not int8
+                                 else "tokens")
+                assert sp.pair_kernel_supports(n, c, nh, hid, int8)
+                if route == "window":
+                    assert 0 < sp.pair_stage_smem_bytes(n, c, nh, hid) \
+                        <= wb.SMEM_OPTIN
 
 
 def test_stage_fit_of_the_flagship_widths():

@@ -8,10 +8,12 @@ Queue C 1-5), each held against the JAX package on the CPU:
    was handed a non-contiguous window partition;
 3. LR sides of 4 or less: torch's reflect pad refuses a pad >= the side,
    ``jnp.pad(mode='reflect')`` reflects again;
-4. f32 routes are checked when the model is built (W96: C = 192 needs
-   262,912 B of shared memory), not at the first ``predict``;
+4. f32 routes are checked when the model is built, not at the first
+   ``predict``, by the f32 kernel's own limits (W96 as shipped builds;
+   a head dim over 32 raises);
 5. ``pallas_quant`` in f32 is dropped, as the JAX precise path drops
-   it; bf16 still raises.
+   it; in bf16 'qkv' runs on the kernels and the groups not ported
+   raise.
 """
 
 import pathlib
@@ -108,9 +110,12 @@ def test_small_sides_serve_like_jax(live, jax_live, side):
 def test_f32_routes_checked_at_build():
     p = ParametersLoader(W96)
     p.set("pallas_quant", "off")
+    assert build_generator(p).routes == ["fused_swin_block"] * 8
+    # 3 heads: head dims 32 / 48 / 64, over the kernel's 32
+    p.set("rdst_num_heads", [3] * 8)
     with pytest.raises(ValueError, match="pallas_kernels='off'") as e:
         build_generator(p)
-    assert "262912" in str(e.value)
+    assert "RDSTB 0" in str(e.value) and "C=144, 3 heads" in str(e.value)
     p.set("pallas_kernels", "off")
     assert build_generator(p).routes == ["plain"] * 8
 
@@ -123,7 +128,12 @@ def test_f32_serving_drops_int8(monkeypatch):
     x = _lr(8)
     np.testing.assert_array_equal(quant.predict(x, 4.0),
                                   plain.predict(x, 4.0))
+    model, meta = export.build_serving_model(
+        _paras(pallas_quant="qkv", inference_dtype="bfloat16"),
+        device="cpu")
+    assert meta["pallas_quant"] == ["qkv"]
+    assert meta["routes"] == ["fused_rdstb"] * 8
     with pytest.raises(NotImplementedError, match="int8"):
         export.build_serving_model(
-            _paras(pallas_quant="qkv", inference_dtype="bfloat16"),
+            _paras(pallas_quant="mlp", inference_dtype="bfloat16"),
             device="cpu")

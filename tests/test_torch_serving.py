@@ -230,7 +230,7 @@ def test_cuda_request_without_card_raises():
 @pytest.mark.parametrize("key,value,match", [
     ("pallas_quant", "mlp,conv", "int8"),
     ("residual_scale", 0.5, "MetaSR"),
-    ("pallas_quant", "qkv", "int8"),
+    ("pallas_quant", "qkv,proj", "int8"),
 ])
 def test_unported_serving_options_raise(monkeypatch, key, value, match):
     monkeypatch.setenv("RDST_TORCH_QUANT", "")

@@ -98,31 +98,43 @@ def test_bias_window_mismatch_raises():
 
 @pytest.mark.parametrize("c", [60, 90, 120])
 def test_kernel_takes_flagship_geometry(c):
-    assert sb.block_kernel_supports(N, c, NH, 2 * c)
-    assert sb.per_window_smem_bytes(N, c, 2 * c) <= sb.H100_SMEM_OPTIN
+    assert sb.f32_kernel_supports(N, c, NH, 2 * c)
+    assert sb.f32_smem_bytes(N, c, NH) <= sb.H100_SMEM_OPTIN
 
 
 def test_kernel_shared_memory_budget():
-    # x rows, LN/attention rows (stride C rounded up to 4), q/k/v at stride
-    # C+1 holding the MLP hidden state later, one head's N x N scores
-    assert sb.per_window_smem_bytes(64, 120, 240) == 4 * (2 * 7680 + 3 * 64 * 121 + 4096)
-    assert sb.per_window_smem_bytes(64, 90, 180) == 4 * (5760 + 5888 + 3 * 64 * 91 + 4096)
-    assert sb.per_window_smem_bytes(64, 60, 120) == 93952
+    # a GEMM tile: 3 stages of BM x (16 + 4) A floats and both TF32 parts
+    # of a 16 x (BN + 8) weight slice, or the BM x (BN + 4) accumulator
+    assert sb.f32_tile_smem_bytes(64, 192) == 4 * 3 * (64 * 20 + 2 * 16 * 200)
+    assert sb.f32_tile_smem_bytes(128, 128) == 4 * 3 * (128 * 20 + 2 * 16 * 136)
+    assert sb.f32_tile_smem_bytes(64, 64) == 4 * 3 * (64 * 20 + 2 * 16 * 72)
+    # one (window, head): q^T, k^T (hd rows of N + 4), v, P^T (N + 4)
+    assert sb.f32_attn_smem_bytes(64, 32) == 4 * (2 * 32 * 68 + 64 * 32
+                                                  + 64 * 68)
+    # the widest tile bounds every width the kernel takes, W96's and
+    # SwinIR-std's included
+    for c in (60, 90, 120, 180, 192):
+        assert sb.f32_smem_bytes(64, c, 6) == 92160 <= sb.H100_SMEM_OPTIN
 
 
 @pytest.mark.parametrize("n,c,nh,hid", [
     (49, 60, 6, 120),    # window 7: N does not divide the thread count
     (64, 61, 1, 122),    # odd C
-    (64, 180, 6, 360),   # SwinIR-std width: over the shared-memory budget
+    (64, 198, 6, 396),   # C = 198 > 192: the row kernels keep 6 values a lane
     (64, 66, 2, 132),    # head dim 33 > 32
 ])
 def test_kernel_refuses_geometry(n, c, nh, hid):
-    assert not sb.block_kernel_supports(n, c, nh, hid)
+    assert not sb.f32_kernel_supports(n, c, nh, hid)
+
+
+@pytest.mark.parametrize("c", [180, 192])
+def test_kernel_takes_w96_and_swinir_std_widths(c):
+    assert sb.f32_kernel_supports(N, c, NH, 2 * c)
 
 
 @pytest.mark.parametrize("n,c,nh,hid", [
-    (49, 60, 6, 120), (64, 180, 6, 360), (64, 66, 2, 132)],
-    ids=["window7", "swinir_std", "head_dim33"])
+    (49, 60, 6, 120), (64, 198, 6, 396), (64, 66, 2, 132)],
+    ids=["window7", "c198", "head_dim33"])
 def test_wrapper_refuses_geometry_on_cpu(n, c, nh, hid):
     """What the CUDA kernel does not take raises on the CPU too, so a
     CPU run refuses a geometry the card would refuse."""
