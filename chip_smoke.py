@@ -110,15 +110,25 @@ after the build):
     stochastic-depth draws; loss rtol 2e-2, gradients < 0.08);
 19. steps/s and the profile of one warm SwinIR-std training step, as
     phase 13;
-20. RDST-W96 (``config_files/rdst_w96_40k_oasis20_x4.ini``, its
-    committed 40k weights) kernels at bucket 64: the f32 block at C =
+20. the token-parallel forward's GEMMs alone (``csrc/token_wgmma.cuh``,
+    ``kernels.token_wgmma``: the qkv product in int8 and bf16, proj +
+    residual + LN2, fc1 + GELU + fc2 + residual fused, the adapter pre-
+    and post-norm) on seeded operands at C = 96 / 144 / 180 / 192 and
+    960 / 1280 / 81920 tokens: int8 bitwise against the exact integer
+    sums, bf16 within 0.02; at 81920 tokens each one's device time beside
+    its byte floor and a library product of the same shapes
+    (``torch.matmul``, ``torch._int_mm``: the products alone); the ptxas
+    registers of its kernels, no spills and no wgmma serialization
+    allowed. Then RDST-W96 (``config_files/rdst_w96_40k_oasis20_x4.ini``,
+    its committed 40k weights) kernels at bucket 64: the f32 block at C =
     96 / 144 / 192 as phase 3; the RDSTB with int8 qkv (three DSTLs on
     the token-parallel stages, the conv 240 -> 96) and the pair at C =
     96 / 144 / 192 with int8 qkv, each against its plain and staged
     versions (bar 0.02), two calls bitwise equal, kernels a call,
     CUDA-event times beside the bound and the plain time, device time
-    by stage kernel; the pair at C = 96 with bf16 qkv in both stage
-    designs (window body, token-parallel) side by side;
+    by stage kernel, each GEMM phase beside its byte floor; the pair at
+    C = 96 with bf16 qkv in both stage designs (window body,
+    token-parallel) side by side;
 21. the W96 model on 8 slices: f32 as shipped (48 f32 block launches a
     forward) against the plain f32 path (bar 1e-4); bf16 with int8 qkv
     in modes swin, rdstb and pair (48 / 8 / 24 launches a forward, counts
@@ -940,12 +950,11 @@ F32_PHASES = (
 )
 FAST_PHASES = (
     ("ln1_rows_kernel", "LN1 rows (int8 or bf16)"),
-    ("EpiQkvS8", "qkv GEMM (int8)"),
-    ("EpiQkv", "qkv GEMM (bf16)"),
+    ("EpiQkvS8", "qkv GEMM (int8, wgmma .s8)"),
+    ("EpiQkv", "qkv GEMM (bf16, wgmma)"),
     ("attn_fwd_kernel", "attention"),
-    ("EpiProjLn", "proj GEMM + residual + LN2"),
-    ("EpiFc1Serve", "fc1 GEMM + tanh GELU"),
-    ("EpiOut", "fc2 GEMM + residual"),
+    ("EpiProjLn", "proj GEMM + residual + LN2 (wgmma)"),
+    ("mlp_kernel", "fc1 + tanh GELU + fc2 + residual (wgmma, fused)"),
 )
 
 
@@ -1933,16 +1942,45 @@ def swinir_train_phase(data_dir: str, tmp: str) -> dict:
 # kernels and the RDSTB's conv
 STAGE_PHASES = (
     ("ln1_rows_kernel", "LN1 rows (int8 or bf16), pre-norm adapter rows"),
-    ("EpiQkvS8", "qkv GEMM (int8)"),
-    ("EpiQkv", "qkv GEMM (bf16)"),
+    ("EpiQkvS8", "qkv GEMM (int8, wgmma .s8)"),
+    ("EpiQkv", "qkv GEMM (bf16, wgmma)"),
     ("attn_fwd_kernel", "attention"),
-    ("EpiProjLn", "proj GEMM + residual + LN2"),
-    ("EpiFc1Serve", "fc1 GEMM + tanh GELU"),
-    ("EpiOut", "fc2 GEMM + residual"),
-    ("EpiAdapter", "adapter GEMM + LN into the dense rows"),
+    ("EpiProjLn", "proj GEMM + residual + LN2 (wgmma)"),
+    ("mlp_kernel", "fc1 + tanh GELU + fc2 + residual (wgmma, fused)"),
+    ("EpiAdapter", "adapter GEMM + LN into the dense rows (wgmma)"),
     ("stage_kernel<", "window-body stage kernels"),
     ("rdstb_conv_kernel", "conv"),
 )
+
+
+def _gemm_floors(tokens: int, widths, growth: int, int8: bool) -> dict:
+    """Byte floors (ms at HBM bandwidth) of the token-parallel GEMM phases
+    of a call, by STAGE_PHASES label: two blocks a width, each phase's
+    token-major inputs read once and outputs written once, and its
+    weights (the f32 x1 4 bytes a value, the rest bf16, int8 rows 1);
+    the adapter once a width when ``growth``."""
+    t = tokens
+    q = p = m = a = 0
+    for c in widths:
+        q += 2 * (t * c * (1 if int8 else 2) + 3 * c * c + 2 * t * 3 * c)
+        p += 2 * (4 * t * c + 2 * c * c + 4 * t * c + 2 * t * (c + 16))
+        m += 2 * (8 * t * c + 8 * c * c)
+        if growth:
+            a += 2 * t * c + 2 * growth * c + 2 * t * growth
+    ms = 1e3 / HBM_BYTES_PER_S
+    out = {STAGE_PHASES[1 if int8 else 2][1]: q * ms,
+           STAGE_PHASES[4][1]: p * ms, STAGE_PHASES[5][1]: m * ms}
+    if growth:
+        out[STAGE_PHASES[6][1]] = a * ms
+    return out
+
+
+def _log_floors(label: str, stages_ms: dict, floors: dict) -> None:
+    for ph, floor in floors.items():
+        ms = stages_ms.get(ph)
+        log(f"  {label} {ph}: " + (f"{ms:.4f} ms" if ms else "not measured")
+            + f" against its byte floor {floor:.4f} ms"
+            + (f" ({floor / ms:.2f} of HBM bandwidth)" if ms else ""))
 
 
 def _stage_bound(tokens: int, widths, int8: bool, extra_flops: float,
@@ -1964,6 +2002,280 @@ def _stage_bound(tokens: int, widths, int8: bool, extra_flops: float,
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if isinstance(t, torch.Tensor))
+
+
+# The token-parallel forward's GEMMs (csrc/token_wgmma.cuh) alone: the
+# widths of RDST-W96's DSTLs and SwinIR-std's blocks; 15 windows (a
+# partial last 128-row tile), bucket 1 and bucket 64 of 40x32 slices
+GEMM_WIDTHS = (96, 144, 180, 192)
+GEMM_TOKENS = (15 * 64, 1280, 81920)
+GEMM_GROWTH = 48
+INT8_OPS = 1979e12  # dense int8 tensor-core peak (TOP/s)
+
+
+def _ptxas_kernels(source: str) -> dict:
+    """The ptxas report of one library by kernel (mangled name): registers,
+    spill bytes (stores + loads), and every wgmma serialization warning
+    (C7515 / C7520) naming it."""
+    from rdst_tpu_torch.kernels import _build
+
+    out, cur = {}, None
+    for line in _build.build_log(source).splitlines():
+        if "Compiling entry function" in line:
+            cur = line.split("'")[1]
+            out[cur] = {"registers": None, "spill_bytes": 0, "warnings": []}
+        elif cur and "Used" in line and "registers" in line:
+            out[cur]["registers"] = int(line.split("Used")[1].split()[0])
+        elif cur and "spill stores" in line:
+            parts = line.replace(",", "").split()
+            # "N bytes stack frame, S bytes spill stores, L bytes spill
+            # loads"
+            out[cur]["spill_bytes"] = (
+                int(parts[parts.index("stores") - 3])
+                + int(parts[parts.index("loads") - 3]))
+        if "wgmma" in line and ("C7515" in line or "C7520" in line
+                                or "serialized" in line):
+            for name, rec in out.items():
+                if name in line:
+                    rec["warnings"].append(line.strip())
+    return out
+
+
+def _gemm_operands(gen, t: int, c: int, nh: int, hidden: int, growth: int):
+    """Seeded operands of one forward's GEMMs at (tokens, C) in the
+    forward's buffer layouts (token_dims widths, zeros in the pads, ones
+    at column C of the normalized rows) and K-major weights."""
+    from rdst_tpu_torch.kernels.swin_block import token_dims
+
+    kp, hp, _, n3, kq = token_dims(c, nh, hidden)
+    c8 = -(-c // 8) * 8
+    bf = torch.bfloat16
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=gen) * scale
+
+    def rows(width, ones):
+        r = torch.zeros(t, width, dtype=bf, device="cuda")
+        r[:, :c] = rn(t, c).to(bf)
+        if ones:
+            r[:, c] = 1.0
+        return r
+
+    def mat(n, k, nv, kv, dtype=bf):
+        m = torch.zeros(n, k, dtype=dtype, device="cuda")
+        m[:nv, :kv] = rn(nv, kv, scale=kv ** -0.5).to(dtype)
+        return m
+
+    def i8(n, k):
+        m = torch.zeros(n, k, dtype=torch.int8, device="cuda")
+        m[:, :c] = torch.randint(-127, 128, (n, c), device="cuda",
+                                 generator=gen, dtype=torch.int8)
+        return m
+
+    return {
+        "xq": i8(t, kq), "wq": i8(n3, kq), "ws": rn(n3).abs() * 1e-4,
+        "bqkv": rn(n3, scale=0.1), "xn": rows(kp, True),
+        "wqkv": mat(n3, kp, n3, c), "ao": rows(kp, True),
+        "wproj": mat(kp, kp, c, c), "x": rn(t, c).to(bf),
+        "bproj": rn(c, scale=0.1).to(bf), "x1n": rows(kp, True),
+        "w1": mat(hp, kp, hidden, c), "w2": mat(kp, hp, c, hidden),
+        "bf1": rn(hidden, scale=0.1), "x1": rn(t, c),
+        "bf2": rn(c, scale=0.1).to(bf), "z": rows(c8, False),
+        "wad": mat(growth, c8, growth, c), "bad": rn(growth, scale=0.1),
+        "gad": 1.0 + rn(growth, scale=0.1), "bbad": rn(growth, scale=0.1),
+    }
+
+
+def _gemm_calls(o, c: int, hidden: int):
+    """Each GEMM phase as (name, kernel call, plain call, bytes it must
+    move, flops, int8, library yardstick of its products alone)."""
+    from rdst_tpu_torch.kernels import token_wgmma as tw
+
+    t, n3, growth = o["x"].shape[0], o["wq"].shape[0], o["wad"].shape[0]
+    w = {k: v[:, :c] for k, v in o.items() if k in ("wqkv", "wad")}
+    lib_w = {"qkv": w["wqkv"].t().contiguous(),
+             "proj": o["wproj"][:c, :c].t().contiguous(),
+             "fc1": o["w1"][:hidden, :c].t().contiguous(),
+             "fc2": o["w2"][:c, :hidden].t().contiguous(),
+             "adapter": w["wad"].t().contiguous()}
+    a_c = {k: o[k][:, :c].contiguous() for k in ("xn", "ao", "x1n", "z")}
+    h = torch.empty(t, hidden, dtype=torch.bfloat16, device="cuda")
+
+    def int_mm():
+        return torch._int_mm(o["xq"], o["wq"].t())
+
+    def mlp_mm():
+        torch.matmul(a_c["x1n"], lib_w["fc1"], out=h)
+        return torch.matmul(h, lib_w["fc2"])
+
+    return [
+        ("qkv int8", lambda: tw.qkv_gemm(o["xq"], o["wq"], o["bqkv"],
+                                         o["ws"], c=c),
+         lambda: tw.qkv_gemm_reference(o["xq"], o["wq"], o["bqkv"], o["ws"],
+                                       c=c),
+         t * c + n3 * c + 2 * t * n3, 2 * t * c * n3, True, int_mm),
+        ("qkv bf16", lambda: tw.qkv_gemm(o["xn"], o["wqkv"], o["bqkv"], c=c),
+         lambda: tw.qkv_gemm_reference(o["xn"], o["wqkv"], o["bqkv"], c=c),
+         2 * t * c + 2 * n3 * c + 2 * t * n3, 2 * t * c * n3, False,
+         lambda: torch.matmul(a_c["xn"], lib_w["qkv"])),
+        ("proj + LN2", lambda: tw.proj_ln(o["ao"], o["wproj"], o["x"],
+                                          o["bproj"], c=c),
+         lambda: tw.proj_ln_reference(o["ao"], o["wproj"], o["x"],
+                                      o["bproj"], c=c),
+         2 * t * c * 2 + 2 * c * c + 4 * t * c + 2 * t * o["ao"].shape[1],
+         2 * t * c * c, False,
+         lambda: torch.matmul(a_c["ao"], lib_w["proj"])),
+        ("fc1 + fc2", lambda: tw.mlp(o["x1n"], o["w1"], o["w2"], o["bf1"],
+                                     o["x1"], o["bf2"], c=c, hidden=hidden),
+         lambda: tw.mlp_reference(o["x1n"], o["w1"], o["w2"], o["bf1"],
+                                  o["x1"], o["bf2"], c=c, hidden=hidden),
+         2 * t * c + 4 * t * c + 2 * t * c + 4 * c * hidden,
+         4 * t * c * hidden, False, mlp_mm),
+        ("adapter (pre-norm)", lambda: tw.adapter(
+            o["z"], o["wad"], o["bad"], o["gad"], o["bbad"], c=c,
+            prenorm=True),
+         lambda: tw.adapter_reference(o["z"], o["wad"], o["bad"], o["gad"],
+                                      o["bbad"], c=c, prenorm=True),
+         2 * t * c + 2 * growth * c + 2 * t * growth, 2 * t * c * growth,
+         False, lambda: torch.matmul(a_c["z"], lib_w["adapter"])),
+        ("adapter (post-norm)", lambda: tw.adapter(
+            o["z"], o["wad"], o["bad"], o["gad"], o["bbad"], c=c,
+            prenorm=False),
+         lambda: tw.adapter_reference(o["z"], o["wad"], o["bad"], o["gad"],
+                                      o["bbad"], c=c, prenorm=False),
+         2 * t * c + 2 * growth * c + 2 * t * growth, 2 * t * c * growth,
+         False, lambda: torch.matmul(a_c["z"], lib_w["adapter"])),
+    ]
+
+
+def _gemm_launches(o, c: int, hidden: int) -> dict:
+    """Each GEMM phase's kernel launch alone, by name (outputs allocated
+    once, x1 packed once), for its CUDA-event time: the wrappers of
+    ``kernels.token_wgmma`` add x1's layout copies and allocations."""
+    from rdst_tpu_torch.kernels import _build
+    from rdst_tpu_torch.kernels import token_wgmma as tw
+    from rdst_tpu_torch.kernels.swin_block import launch
+
+    lib = _build.load("swin_block_fast.cu")
+    dev = o["x"].device
+    t, kp = o["ao"].shape
+    hp, n3, kq = o["w1"].shape[0], o["wq"].shape[0], o["wq"].shape[1]
+    growth, ldz = o["wad"].shape
+    bf = torch.bfloat16
+    q = torch.empty(t, n3, dtype=bf, device=dev)
+    x1 = tw.x1_pack(o["x1"])
+    x1_out = torch.empty_like(x1)
+    x1n = torch.empty(t, kp, dtype=bf, device=dev)
+    out = torch.empty(t, c, dtype=bf, device=dev)
+    ad = torch.empty(t, growth, dtype=bf, device=dev)
+
+    def run(entry, ptrs, dims):
+        return lambda: launch(lib, entry, ptrs, dims, dev)
+
+    adapter = [o["z"], o["wad"], o["bad"], o["gad"], o["bbad"], ad]
+    return {
+        "qkv int8": run("tokwg_qkv", [o["xq"], o["wq"], o["ws"], o["bqkv"],
+                                      q], [t, c, n3, kq]),
+        "qkv bf16": run("tokwg_qkv", [o["xn"], o["wqkv"], 0, o["bqkv"], q],
+                        [t, c, n3, kp]),
+        "proj + LN2": run("tokwg_proj_ln", [o["ao"], o["wproj"], o["x"],
+                                            o["bproj"], x1_out, x1n],
+                          [t, c, kp]),
+        "fc1 + fc2": run("tokwg_mlp", [o["x1n"], o["w1"], o["w2"], o["bf1"],
+                                       x1, o["bf2"], out],
+                         [t, c, hidden, kp, hp]),
+        "adapter (pre-norm)": run("tokwg_adapter", adapter,
+                                  [t, c, ldz, growth, 1]),
+        "adapter (post-norm)": run("tokwg_adapter", adapter,
+                                   [t, c, ldz, growth, 0]),
+    }
+
+
+@phase("token GEMMs vs plain")
+def token_gemm_phase() -> dict:
+    """The token-parallel forward's GEMMs (csrc/token_wgmma.cuh) one at a
+    time on seeded operands, at C = 96 / 144 / 180 / 192 and 960 / 1280
+    / 81920 tokens: the int8 qkv product bitwise against its plain
+    version (exact integer sums, then the epilogue's roundings), the
+    bf16 ones within BF16_TOL; at 81920 tokens each one's launch alone
+    (CUDA events over 30) beside its byte floor and bound, and a library
+    product of the same shapes as a yardstick of the products alone
+    (``torch.matmul``, ``torch._int_mm``), without the fused epilogue.
+    Then the ptxas report of the kernels: registers, spills (none
+    allowed) and wgmma serialization warnings (none allowed)."""
+    out = {"cases": [], "timed": [], "ptxas": {}}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    nh = 6
+    for c in GEMM_WIDTHS:
+        hidden = 2 * c
+        for t in GEMM_TOKENS:
+            o = _gemm_operands(gen, t, c, nh, hidden, GEMM_GROWTH)
+            raw = _gemm_launches(o, c, hidden)
+            for name, call, plain, nbytes, flops, int8, lib in _gemm_calls(
+                    o, c, hidden):
+                with torch.inference_mode():
+                    got, want = call(), plain()
+                    torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                want = want if isinstance(want, tuple) else (want,)
+                if int8:
+                    same = all(torch.equal(a, b) for a, b in zip(got, want))
+                    if not same:
+                        bad = int((got[0] != want[0]).sum())
+                        raise AssertionError(
+                            f"{name} C={c} T={t}: {bad} q/k/v values differ "
+                            "from the exact plain sums")
+                    err = (0.0, 0.0, 0.0)
+                else:
+                    errs = [_check(f"{name} C={c} T={t}", a, b)
+                            for a, b in zip(got, want)]
+                    err = tuple(max(e[i] for e in errs) for i in range(3))
+                case = dict(name=name, c=c, tokens=t, rel_max=err[0],
+                            rel_mean=err[1], max_abs_err=err[2],
+                            bitwise=int8)
+                out["cases"].append(case)
+                if t != GEMM_TOKENS[-1]:
+                    continue
+                with torch.inference_mode():
+                    ms = cuda_time_ms(raw[name], warmup=3, iters=30)
+                    try:
+                        lib_ms = cuda_time_ms(lib)
+                    except RuntimeError as exc:
+                        log(f"  {name} C={c}: library yardstick refused "
+                            f"({exc})")
+                        lib_ms = None
+                floor = nbytes / HBM_BYTES_PER_S * 1e3
+                ops = flops / (INT8_OPS if int8 else BF16_FLOPS) * 1e3
+                row = dict(case, ms=ms, byte_floor_ms=floor,
+                           bound_ms=max(floor, ops),
+                           bound_by="bytes" if floor >= ops else "operations",
+                           library_ms=lib_ms,
+                           hbm_share=floor / ms if ms else None)
+                out["timed"].append(row)
+                log(f"  {name} C={c} T={t}: "
+                    + (f"{ms:.4f} ms" if ms else "not measured")
+                    + f", byte floor {floor:.4f} ms (ops {ops:.4f})"
+                    + (f", {floor / ms:.2f} of HBM" if ms else "")
+                    + "; library yardstick (products alone) "
+                    + (f"{lib_ms:.4f} ms" if lib_ms else "none")
+                    + ("; bitwise" if int8 else f"; rel max {err[0]:.2e}"))
+            del o, raw
+        log(f"token GEMMs C={c}: every case at T = {GEMM_TOKENS} agrees "
+            "(int8 bitwise, bf16 within BF16_TOL)")
+    for src in ("swin_block_fast.cu", "swin_pair.cu", "rdstb_block.cu"):
+        kernels = {k: v for k, v in _ptxas_kernels(src).items()
+                   if "tokwg" in k}
+        out["ptxas"][src] = kernels
+        for name, rec in kernels.items():
+            log(f"  ptxas {src} {name}: {rec['registers']} registers, "
+                f"{rec['spill_bytes']} spill bytes, "
+                f"{len(rec['warnings'])} wgmma warnings")
+            if rec["spill_bytes"] or rec["warnings"]:
+                raise AssertionError(f"{src} {name}: {rec}")
+        if not kernels:
+            raise AssertionError(f"{src}: no token GEMM kernel in the "
+                                 "ptxas report")
+    return out
 
 
 @phase("W96 kernels vs plain")
@@ -2027,10 +2339,14 @@ def w96_kernel_phase(model32, model16) -> dict:
                 images * nw * ws * ws, (c,), bool(q), 0.0,
                 2 * 2 * x.numel() + _plan_bytes(plan_a) + _plan_bytes(plan_b)
                 + _nbytes(*plan_a.qkv_layout, *plan_b.qkv_layout))
+            floors = (_gemm_floors(images * nw * ws * ws, (c,), 0, bool(q))
+                      if design == "tokens" else {})
+            _log_floors(label, extras["stages_ms"], floors)
             row = dict(c=c, int8=bool(q), design=design, rel_max=err[0],
                        rel_mean=err[1], max_abs_err=err[2],
                        staged_rel_max=err_s[0], ms=ms, plain_ms=plain_ms,
-                       bound_ms=bound_ms, bound_by=by, **extras)
+                       bound_ms=bound_ms, bound_by=by, gemm_floor_ms=floors,
+                       **extras)
             out["pair"].append(row)
             log(f"{label} {softmax}: rel max {err[0]:.3e} mean {err[1]:.3e},"
                 f" vs staged {err_s[0]:.3e}; kernels {ms:.4f} ms plain "
@@ -2071,10 +2387,12 @@ def w96_kernel_phase(model32, model16) -> dict:
         for d in plan.dstls) + _nbytes(plan.wc, plan.bc)
     bound_ms, by = _stage_bound(images * h * w, (96, 144, 192), True,
                                 adapter_conv, nbytes)
+    floors = _gemm_floors(images * h * w, (96, 144, 192), 48, True)
+    _log_floors("W96 rdstb int8 qkv", extras["stages_ms"], floors)
     out["rdstb"].append(dict(rel_max=err[0], rel_mean=err[1],
                              max_abs_err=err[2], staged_rel_max=err_s[0],
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=by, **extras))
+                             bound_by=by, gemm_floor_ms=floors, **extras))
     log(f"W96 rdstb int8 qkv {softmax}: rel max {err[0]:.3e} mean "
         f"{err[1]:.3e}, vs staged {err_s[0]:.3e}; kernels {ms:.4f} ms plain "
         f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({by})")
@@ -2209,6 +2527,7 @@ def run_w96():
             m16["routes"]) != ("bfloat16", "rdstb", ["qkv"],
                                ["fused_rdstb"] * 8):
         raise AssertionError(f"W96 bf16 manifest {m16}")
+    gemm = token_gemm_phase()
     kern = w96_kernel_phase(live32.model, live16.model)
     whole = w96_model_phase(live32, live16)
     serve32 = w96_serving_phase(live32)
@@ -2229,7 +2548,8 @@ def run_w96():
              whole["pair"]["launches_per_forward"],
              [r for r in kern["pair"] if r["int8"]]),
     ]
-    results = {"manifest": {"f32": m32, "bf16": m16}, "kernel": kern,
+    results = {"manifest": {"f32": m32, "bf16": m16}, "gemm": gemm,
+               "kernel": kern,
                "model": whole, "serving": {"f32": serve32, "bf16": serve16},
                "profile": {"f32": prof32, "bf16": prof16}}
     return results, kernels

@@ -41,7 +41,7 @@
 // A DSTL whose blocks the window body does not take (C above 120, or int8
 // qkv: RDST-W96's C = 96 / 144 / 192 with `pallas_quant = 'qkv'`) runs its
 // two stages on the token-parallel forward of csrc/token_fwd.cuh instead,
-// six kernels a stage over all the call's tokens, with the same buffers:
+// five kernels a stage over all the call's tokens, with the same buffers:
 // stage A reads the dense rows (x for the first DSTL, whose LN1 pass also
 // copies x0 in) through a row map and writes its rows into y at their
 // image positions; stage B reads the rolled windows of y, writes its bf16

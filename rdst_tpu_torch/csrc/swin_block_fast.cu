@@ -15,18 +15,17 @@
 //
 //  * the token-parallel forward (`swin_block_fast_tokens`, the wide
 //    blocks; csrc/token_fwd.cuh, which the pair and RDSTB stages the
-//    window body does not take run too): six phases over all T = windows
-//    x n tokens, built from the pieces it shares with the training
-//    backward (csrc/token_gemm.cuh):
-//    LN1 rows (bf16, or int8 for the int8 qkv product), the qkv GEMM
-//    (bf16 mma.sync m16n8k16, or int8 m16n8k32 with an int32
-//    accumulator), attention per (window, head) with the approximate
-//    reciprocal, the projection with its residual and LN2 in one
-//    row-spanning tile, fc1 with the tanh GELU, fc2 with the residual and
-//    the bf16 output. Every GEMM tile of 64 tokens reads a weight tile
-//    once through a cp.async ring, where the window body reads all of a
-//    block's weights from L2 for every window of 64 tokens; the state
-//    between phases is token-major bf16/f32 rows in device memory.
+//    window body does not take run too): five phases over all T =
+//    windows x n tokens: LN1 rows (bf16, or int8 for the int8 qkv
+//    product), the qkv GEMM (bf16, or int8 on wgmma .s8), attention per
+//    (window, head) with the approximate reciprocal (csrc/token_gemm.cuh,
+//    shared with the training backward), the projection with its
+//    residual and LN2, and fc1 + tanh GELU + fc2 + residual with the bf16
+//    output in one kernel. The GEMMs (csrc/token_wgmma.cuh) are
+//    persistent wgmma kernels fed by TMA, one thread block an SM walking
+//    128-row tiles, so a tile's epilogue overlaps the next tile's loads;
+//    the state between phases is token-major bf16/f32 rows in device
+//    memory, except the MLP's hidden rows, which stay in shared memory.
 //  * the window body (`swin_block_fast_bf16`): one thread block per
 //    window, every intermediate in shared memory (csrc/fast_block.cuh,
 //    shared with the pair, RDSTB and train kernels); one launch.
@@ -125,9 +124,10 @@ long long swin_block_fast_work_bytes(const int* dims) {
 
 // The token-parallel forward (csrc/token_fwd.cuh): tokfwd::kFwdKernels
 // launches on `stream`, each checked. ptrs: x, out, then the
-// kernels.swin_block.token_layout order -- wqkv (kp, n3) bf16 [k][n] by
-// head, bqkv (n3) f32, wproj (kp, kp), bproj (c) bf16, w1 (kp, hp), bf1
-// (hidden) f32, w2 (hp, kp), bf2 (c) bf16 -- the packed bias (bw, n, nh
+// kernels.swin_block.token_wgmma_layout order -- wqkv (n3, kp) bf16 [n][k]
+// by head, bqkv (n3) f32, wproj (kp, kp) [n][k], bproj (c) bf16, w1 (hp,
+// kp) [n][k], bf1 (hidden) f32, w2 (kp, hp) [n][k], bf2 (c) bf16 -- the
+// packed bias (bw, n, nh
 // n), the int8 qkv weights (n3, kq) [n][k] and their steps (n3) (both 0
 // for bf16 qkv), and the workspace. dims: windows, n, c, nh, hidden,
 // bias_windows, softmax.
@@ -157,5 +157,93 @@ int swin_block_fast_tokens(const void* const* ptrs, const int* dims,
 
 // Kernels of one token-parallel call.
 int swin_block_fast_tokens_kernels() { return tokfwd::kFwdKernels; }
+
+// The token-parallel forward's GEMMs one at a time (csrc/token_wgmma.cuh),
+// for their checks and device times (kernels.token_wgmma): one launch
+// each on `stream`, checked; K = c. The qkv product: ptrs a (tokens, ld)
+// int8 or bf16 rows, w (n3, ld), ws (n3; 0 for bf16), bqkv (n3), out
+// (tokens, n3); dims tokens, c, n3, ld.
+int tokwg_qkv(const void* const* ptrs, const int* dims, int device,
+              void* stream) {
+  const int tokens = dims[0], c = dims[1], n3 = dims[2], ld = dims[3];
+  if (tokens < 0 || c <= 0 || c > fastblk::kMaxC || n3 <= 0 || n3 % 8 ||
+      ld < c)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tokwg::qkv(
+      ptrs[0], ptrs[1], ld, c,
+      tokwg::EpiQkv{static_cast<bf16*>(const_cast<void*>(ptrs[4])),
+                    static_cast<const float*>(ptrs[2]),
+                    static_cast<const float*>(ptrs[3]), tokens, n3},
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The projection + residual + LN2: ptrs ao (tokens, kp), wproj (kp, kp)
+// [n][k], x (tokens, c), bproj (c), x1 (tokwg::x1_floats f32, in
+// tokwg::x1_at's order), x1n (tokens, kp); dims tokens, c, kp.
+int tokwg_proj_ln(const void* const* ptrs, const int* dims, int device,
+                  void* stream) {
+  const int tokens = dims[0], c = dims[1], kp = dims[2];
+  if (tokens < 0 || c <= 0 || c > fastblk::kMaxC || kp <= c || kp % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tokwg::proj_ln(
+      static_cast<const bf16*>(ptrs[0]), static_cast<const bf16*>(ptrs[1]),
+      tokwg::EpiProjLn{static_cast<const bf16*>(ptrs[2]), tokfwd::kSameRows,
+                       c, 1, static_cast<const bf16*>(ptrs[3]),
+                       static_cast<float*>(const_cast<void*>(ptrs[4])),
+                       static_cast<bf16*>(const_cast<void*>(ptrs[5])),
+                       tokens, c, kp},
+      static_cast<cudaStream_t>(stream)));
+}
+
+// fc1 + GELU + fc2 + residual: ptrs x1n (tokens, kp), w1 (hp, kp), w2
+// (kp, hp) [n][k], bf1 (hidden) f32, x1 (as tokwg_proj_ln's), bf2 (c),
+// out (tokens, c); dims tokens, c, hidden, kp, hp.
+int tokwg_mlp(const void* const* ptrs, const int* dims, int device,
+              void* stream) {
+  const int tokens = dims[0], c = dims[1], hidden = dims[2], kp = dims[3];
+  const int hp = dims[4];
+  if (tokens < 0 || c <= 0 || c > fastblk::kMaxC || hidden <= 0 ||
+      hidden > 512 || kp < c || kp % 8 || hp < hidden || hp % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tokwg::mlp(
+      static_cast<const bf16*>(ptrs[0]), kp,
+      static_cast<const bf16*>(ptrs[1]), static_cast<const bf16*>(ptrs[2]),
+      hp,
+      tokwg::MlpEpi{static_cast<const float*>(ptrs[3]),
+                    static_cast<const float*>(ptrs[4]),
+                    static_cast<const bf16*>(ptrs[5]),
+                    static_cast<bf16*>(const_cast<void*>(ptrs[6])),
+                    tokfwd::kSameRows, c, 1, tokens, c, hidden},
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The RDSTB adapter: ptrs z (tokens, ldz), w (growth, ldz) [n][k], bad,
+// gad, bbad (growth) f32, out (tokens, growth); dims tokens, c, ldz,
+// growth, prenorm.
+int tokwg_adapter(const void* const* ptrs, const int* dims, int device,
+                  void* stream) {
+  const int tokens = dims[0], c = dims[1], ldz = dims[2], growth = dims[3];
+  if (tokens < 0 || c <= 0 || c > fastblk::kMaxC || ldz < c || ldz % 8 ||
+      growth <= 0 || growth > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tokwg::adapter(
+      static_cast<const bf16*>(ptrs[0]), ldz,
+      static_cast<const bf16*>(ptrs[1]), c,
+      tokwg::EpiAdapter{static_cast<const float*>(ptrs[2]),
+                        static_cast<const float*>(ptrs[3]),
+                        static_cast<const float*>(ptrs[4]),
+                        static_cast<bf16*>(const_cast<void*>(ptrs[5])),
+                        tokfwd::kSameRows, 1, growth, 0, growth, tokens,
+                        dims[4] ? 1 : 0},
+      static_cast<cudaStream_t>(stream)));
+}
 
 }  // extern "C"

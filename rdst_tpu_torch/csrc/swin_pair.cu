@@ -26,7 +26,7 @@
 // f32 residual of a 64-token tile outgrows the registers that two
 // consumer warpgroups and a producer warp leave, or int8 qkv, which it
 // has no product for), `swin_pair_tokens` runs the same two stages on the
-// token-parallel forward of csrc/token_fwd.cuh (six kernels a stage over
+// token-parallel forward of csrc/token_fwd.cuh (five kernels a stage over
 // all the call's tokens, the int8 qkv product included): stage A reads
 // the windows and writes its rows into the image-layout scratch through a
 // row map, stage B reads the rolled windows through another; the kernels
@@ -237,7 +237,7 @@ long long swin_pair_tokens_work_bytes(const int* dims) {
 // The pair on the token-parallel stages: 2 tokfwd::kFwdKernels launches,
 // each checked. ptrs: x, out, scratch (images, H*W, c8), block a's and
 // block b's operands (11 each, tokfwd::BlockW: the
-// kernels.swin_block.token_layout order, the packed bias, the int8 qkv
+// kernels.swin_block.token_wgmma_layout order, the packed bias, the int8 qkv
 // weights and steps or 0, 0), the workspace. dims as swin_pair_bf16's.
 int swin_pair_tokens(const void* const* ptrs, const int* dims, int device,
                      void* stream) {

@@ -20,8 +20,8 @@ tiled implicit GEMM) and counts the call in ``run_rdstb.launches`` and
 its kernels in ``run_rdstb.kernels``; for a CPU tensor it computes
 :func:`rdstb_reference`. Each DSTL's stages run in the design
 ``stage_route`` picks by width and int8 (:func:`dstl_routes`): one kernel
-a stage on the window body, or six a stage (and the adapter's one or two)
-on the token-parallel forward. :func:`rdstb_staged_reference` computes
+a stage on the window body, or five a stage (and the adapter's one or
+two) on the token-parallel forward. :func:`rdstb_staged_reference` computes
 stage by stage what the kernels compute, over their buffer layouts. What
 the kernels do not take raises on either device. The JAX package's
 ``fused_rdstb_probe`` (a Mosaic compile probe that let a geometry fall
@@ -43,7 +43,8 @@ from rdst_tpu_torch.kernels.swin_block import (
     BF16, FAST_MAX_C, H100_SMEM_OPTIN, FastParams, _EPS, _round_up,
     check_fast_tokens, fast_body, fast_params, kernel_layout, launch,
     normalize, pack_bias_fast, qkv_token_layout, softmax_code, stage_route,
-    token_kernel_supports, token_layout, token_smem_bytes, work_bytes)
+    token_kernel_supports, token_layout, token_smem_bytes, token_wgmma_layout,
+    work_bytes)
 from rdst_tpu_torch.kernels.swin_pair import (shift_relayout,
                                               unshift_relayout)
 from rdst_tpu_torch.kernels.window_body import (BODY_MAX_C, body_supports,
@@ -274,10 +275,10 @@ def rdstb_kernel_supports(n: int, c0: int, growth: int, nb: int, nh: int,
 
 
 def rdstb_kernel_count(routes: List[str], prenorm: bool) -> int:
-    """Kernels one call launches: per DSTL two on the window body, or six
+    """Kernels one call launches: per DSTL two on the window body, or five
     a block and the adapter's one (two pre-norm) on the token-parallel
     forward; then the conv."""
-    return 1 + sum(2 if r == "window" else 13 + int(prenorm)
+    return 1 + sum(2 if r == "window" else 11 + int(prenorm)
                    for r in routes)
 
 
@@ -312,7 +313,7 @@ def _window_args(d: PreppedDstl, c: int, growth: int, nh: int) -> list:
 
 def _token_args(d: PreppedDstl, c: int, growth: int, nh: int) -> list:
     """A DSTL's operands on the token-parallel forward: per block its
-    ``token_layout``, packed bias and int8 qkv operands (0, 0 for bf16
+    ``token_wgmma_layout``, packed bias and int8 qkv operands (0, 0 for bf16
     qkv); the adapter's (growth, c8) bf16 weight (the Dense transposed,
     zero past c), bias and post-norm LN scale and bias."""
     ad = d.adapter
@@ -321,7 +322,7 @@ def _token_args(d: PreppedDstl, c: int, growth: int, nh: int) -> list:
     wad[:, :c] = ad.w.t()
     out = []
     for p, bias, q in ((d.pa, d.bias_a, d.qa), (d.pb, d.bias_b, d.qb)):
-        out += [*token_layout(p, nh), bias,
+        out += [*token_wgmma_layout(token_layout(p, nh)), bias,
                 *(qkv_token_layout(q, c, nh) or (0, 0))]
     return out + [wad, ad.b.contiguous(), ad.gamma.contiguous(),
                   ad.beta.contiguous()]

@@ -506,6 +506,28 @@ def gelu_tanh(x):
     return x * cdf
 
 
+def fast_attention(q, k, v, bias, code: int):
+    """The fast branch's attention on bf16 q, k, v (T, nH, N, hd) with the
+    packed (bw, N, nH*N) bf16 bias: s = q k^T + bias (float32), e =
+    bf16(exp(...)) by softmax variant ``code``, o = (e v) / bf16(sum e)
+    with an exact division; returns o (T, nH, N, hd) float32."""
+    t, nh, n, _ = q.shape
+    s = _mm(q, k.transpose(-2, -1))  # (T, nH, N, N) f32
+    bw = bias.shape[0]
+    bh = bias.float().reshape(bw, n, nh, n).permute(0, 2, 1, 3)
+    s = (s.reshape(t // bw, bw, nh, n, n) + bh[None]).reshape(t, nh, n, n)
+    if code == SOFTMAX_CODES["clamp"]:
+        e = torch.exp(torch.clamp(s, max=_CLAMP))
+    else:
+        m = s.amax(dim=-1, keepdim=True)
+        if code == SOFTMAX_CODES["stable_mm"]:
+            m = _bf(m).float()  # the max broadcast through a bf16 product
+        e = torch.exp(s - m)
+    e = _bf(e)
+    den = _bf(e.float().sum(dim=-1, keepdim=True)).float()
+    return _mm(e, v) / den
+
+
 def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
               dpf=None, qkv: Optional[QkvQuant] = None):
     """The fast block body on float32 tokens (T, N, C) with its bf16
@@ -542,21 +564,8 @@ def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
     def heads(u):  # (T, N, C) -> (T, nH, N, hd)
         return u.reshape(t, n, nh, hd).transpose(1, 2)
 
-    q, k, v = heads(proj(0)), heads(proj(1)), heads(proj(2))
-    s = _mm(q, k.transpose(-2, -1))  # (T, nH, N, N) f32
-    bw = bias.shape[0]
-    bh = bias.float().reshape(bw, n, nh, n).permute(0, 2, 1, 3)
-    s = (s.reshape(t // bw, bw, nh, n, n) + bh[None]).reshape(t, nh, n, n)
-    if code == SOFTMAX_CODES["clamp"]:
-        e = torch.exp(torch.clamp(s, max=_CLAMP))
-    else:
-        m = s.amax(dim=-1, keepdim=True)
-        if code == SOFTMAX_CODES["stable_mm"]:
-            m = _bf(m).float()  # the max broadcast through a bf16 product
-        e = torch.exp(s - m)
-    e = _bf(e)
-    den = _bf(e.float().sum(dim=-1, keepdim=True)).float()
-    o = _mm(e, v) / den  # (T, nH, N, hd)
+    o = fast_attention(heads(proj(0)), heads(proj(1)), heads(proj(2)), bias,
+                       code)
     o = _bf(o.transpose(1, 2).reshape(t, n, c))
     y = _mm(o, p.wproj) + p.bproj.float()
     if dpf is not None:
@@ -724,30 +733,137 @@ def stage_route(c: int, int8: bool) -> str:
     return "window" if c <= WINDOW_MAX_C and not int8 else "tokens"
 
 
-def _bf16_tile_smem(bn: int, tb: bool) -> int:
-    """``tokpar::Tile<BN, false, TB>::kSmem``: a 3-stage ring of 64 x 32 A
-    and 32-deep B slices, the f32 accumulator tile parked after it."""
-    b = 32 * (bn + 8) if tb else bn * 40
-    return max(3 * (64 * 40 + b) * 2, 64 * (bn + 4) * 4)
+# The token-parallel forward's GEMMs (csrc/token_wgmma.cuh, ``tokwg``):
+# persistent thread blocks of one or two consumer warpgroups (64 token
+# rows each) and a producer warpgroup; 128-byte K slices of A (two
+# buffers) and of the weights (a ring of up to six slots), 64-column wgmma
+# pieces (a 64-row slice is 8 KB), staging rows of 128 bytes a tile row,
+# the epilogue's per-column f32 constants, a 1024-byte alignment pad, 16
+# bytes of barriers a slot and 32 for the A buffers.
+_WG_SLICE, _WG_PIECE, _WG_MAX_SLOTS, _WG_ALIGN = 128, 64, 6, 1024
+_WG_PIECE_BYTES = _WG_PIECE * _WG_SLICE
+_WG_QKV_PIECES = 3  # the qkv product's output columns a pass: 192
+H100_SMS = 132
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class TokenGemmSched(NamedTuple):
+    """One launch's schedule (``tokwg::Sched``): tiles of ``bm`` rows, A
+    in ``nks`` 128-byte slices, ``ksteps`` 32-byte K-steps of products,
+    the weight ring, ``na`` A buffers of ``a_bytes``, the bytes of the
+    staging rows (the MLP's hidden rows, the other kernels' output rows)
+    and of the epilogue's constants."""
+    tiles: int
+    bm: int
+    nks: int
+    ksteps: int
+    nslots: int
+    slot_bytes: int
+    na: int
+    a_bytes: int
+    h_bytes: int
+    c_bytes: int
+
+    @property
+    def smem(self) -> int:
+        """Dynamic shared memory of the launch (``tokwg::smem_bytes``)."""
+        return (_WG_ALIGN + self.na * self.a_bytes
+                + self.nslots * self.slot_bytes + self.h_bytes + self.c_bytes
+                + 32 + 16 * self.nslots)
+
+
+def token_tile_rows(tokens: int, sms: int = H100_SMS) -> int:
+    """Rows a tile of the token-parallel GEMMs (``tokwg::tile_rows``): 128,
+    two consumer warpgroups, once the call has at least as many 128-row
+    tiles as the card has SMs; else 64, one, so that a small call (bucket
+    1: 1,280 tokens) spreads over twice the SMs."""
+    return 128 if _cdiv(tokens, 128) >= sms else 64
+
+
+def token_gemm_sched(tokens: int, bm: int, kbytes: int, slot_bytes: int,
+                     consts: int, h_slices: int = 1,
+                     na: int = 2) -> TokenGemmSched:
+    """``tokwg::sched``: a GEMM over ``tokens`` rows in tiles of ``bm``,
+    K of ``kbytes`` bytes, weight stages of ``slot_bytes``, ``consts``
+    per-column f32 constants of its epilogue, ``h_slices`` 128-byte
+    columns of staging rows, ``na`` A buffers; as many ring slots (up to
+    six) as an H100 block's shared memory leaves."""
+    nks = _cdiv(kbytes, _WG_SLICE)
+    a_bytes = bm * nks * _WG_SLICE
+    h_bytes = h_slices * bm * _WG_SLICE
+    c_bytes = _cdiv(4 * consts, 16) * 16
+    n = ((H100_SMEM_OPTIN - _WG_ALIGN - na * a_bytes - h_bytes - c_bytes
+          - 32) // (slot_bytes + 16))
+    return TokenGemmSched(_cdiv(tokens, bm), bm, nks, _cdiv(kbytes, 32),
+                          min(n, _WG_MAX_SLOTS), slot_bytes, na, a_bytes,
+                          h_bytes, c_bytes)
+
+
+def token_gemm_scheds(tokens: int, c: int, nh: int, hidden: int,
+                      growth: int = 0, int8: bool = False,
+                      sms: int = H100_SMS) -> dict:
+    """The schedules of one forward's GEMMs at this geometry (and of the
+    adapter with ``growth``), as ``tokwg::qkv``, ``proj_ln``, ``mlp`` and
+    ``adapter`` make them: K = C (int8 or bf16 rows) for qkv, proj, fc1
+    and the adapter, 192 qkv columns a pass, one pass of ceil(N / 64)
+    pieces for the row-spanning epilogues (N = C, growth), fc1 + fc2
+    stages of max(K slices, fc2 pieces) 8 KB slices, the MLP's hidden rows
+    in shared memory with one A buffer (64-row tiles where 128 rows of
+    them leave fewer than two ring slots); constants bqkv (and the int8
+    steps), bproj, bf1 and bf2, and the adapter's three."""
+    bm = token_tile_rows(tokens, sms)
+    nt = _cdiv(c, _WG_PIECE)
+    nks = _cdiv(2 * c, _WG_SLICE)
+    n3 = token_dims(c, nh, hidden)[3]
+    out = {
+        "qkv": token_gemm_sched(tokens, bm, c * (1 if int8 else 2),
+                                _WG_QKV_PIECES * _WG_PIECE_BYTES,
+                                (2 if int8 else 1) * n3),
+        "proj": token_gemm_sched(tokens, bm, 2 * c, nt * _WG_PIECE_BYTES,
+                                 c),
+    }
+    chunks = _cdiv(hidden, _WG_PIECE)
+    mlp = token_gemm_sched(tokens, bm, 2 * c, max(nks, nt) * _WG_PIECE_BYTES,
+                           hidden + c, chunks, 1)
+    if mlp.nslots < 2:
+        mlp = token_gemm_sched(tokens, 64, 2 * c,
+                               max(nks, nt) * _WG_PIECE_BYTES, hidden + c,
+                               chunks, 1)
+    out["mlp"] = mlp
+    if growth:
+        out["adapter"] = token_gemm_sched(
+            tokens, bm, 2 * c, _cdiv(growth, _WG_PIECE) * _WG_PIECE_BYTES,
+            3 * growth)
+    return out
+
+
+def token_schedule(tokens: int, bm: int, sms: int = H100_SMS):
+    """Which token rows each persistent block of a launch takes: block b
+    of min(tiles, sms) walks tiles b, b + blocks, ...; returns a list of
+    (first row, end row) ranges per block, the last tile cut at
+    ``tokens``."""
+    tiles = _cdiv(tokens, bm)
+    blocks = min(tiles, sms)
+    return [[(t * bm, min((t + 1) * bm, tokens))
+             for t in range(b, tiles, blocks)] for b in range(blocks)]
 
 
 def token_smem_bytes(n: int, c: int, nh: int, hidden: int,
                      growth: int = 0) -> int:
-    """The most shared memory a kernel of the token-parallel forward
-    (``csrc/token_fwd.cuh``) takes at this geometry: the row-spanning
-    tile of the projection (N = kp), the 128- and 64-wide tiles of the
-    other products, the int8 qkv tiles, the attention of one (window,
-    head), and with ``growth`` the adapter's row-spanning tile."""
-    kp, _, _, _, _ = token_dims(c, nh, hidden)
-    span = next(w for w in (64, 128, 192, 256) if kp <= w or w == 256)
+    """The most shared memory a kernel of the token-parallel forward takes
+    at this geometry: its GEMMs' (``token_gemm_scheds`` at 128-row tiles,
+    int8 and bf16 qkv, with ``growth`` the adapter's) and the attention
+    of one (window, head)."""
     hds = _round_up(c // nh, 16)
-    tiles = [_bf16_tile_smem(span, True), _bf16_tile_smem(128, True),
-             max(3 * (64 * 80 + 128 * 80), 64 * 132 * 4),  # S8Tile<128>
-             2 * 3 * n * (hds + 8)]
-    if growth:
-        tiles.append(_bf16_tile_smem(
-            next(w for w in (64, 128, 192, 256) if growth <= w), False))
-    return max(tiles)
+    sizes = [2 * 3 * n * (hds + 8)]
+    for int8 in (False, True):
+        for s in token_gemm_scheds(H100_SMS * 128, c, nh, hidden, growth,
+                                   int8).values():
+            sizes.append(s.smem)
+    return max(sizes)
 
 
 def token_kernel_supports(n: int, c: int, nh: int, hidden: int,
@@ -755,10 +871,19 @@ def token_kernel_supports(n: int, c: int, nh: int, hidden: int,
     """Whether the token-parallel forward takes this block geometry (the
     fast block above ``WINDOW_MAX_C``; the pair and RDSTB stages that
     :func:`stage_route` sends there): N a multiple of 16 up to 64, C <=
-    ``FAST_MAX_C`` (its row kernels keep six values a lane), head dim
-    <= 32, hidden <= 512, growth (the adapter) <= 256, its own tiles in
-    an H100 block's shared memory."""
-    return growth <= 256 and fast_kernel_supports(
+    ``FAST_MAX_C`` (its row kernels keep six values a lane, its
+    row-spanning GEMM epilogues three 64-column pieces), head dim <= 32,
+    hidden <= 512, growth (the adapter) <= 256, every GEMM with at least
+    two ring slots at both tile heights, and its kernels in an H100
+    block's shared memory."""
+    if growth > 256:
+        return False
+    for bm_tokens in (1, H100_SMS * 128):
+        for int8 in (False, True):
+            if any(s.nslots < 2 for s in token_gemm_scheds(
+                    bm_tokens, c, nh, hidden, growth, int8).values()):
+                return False
+    return fast_kernel_supports(
         n, c, nh, hidden, token_smem_bytes(n, c, nh, hidden, growth),
         max_c=FAST_MAX_C)
 
@@ -800,6 +925,17 @@ def token_layout(p: FastParams, nh: int):
             p.bf1, w2, p.bf2)
 
 
+def token_wgmma_layout(layout):
+    """The weights as the token-parallel forward's GEMMs read them
+    (``csrc/token_wgmma.cuh``): :func:`token_layout`'s, every weight
+    matrix K-major -- wqkv (n3, kp), wproj (kp, kp), w1 (hp, kp), w2 (kp,
+    hp), each [n][k] -- and the biases as they are. The transposes give
+    :func:`token_layout`'s matrices back."""
+    wqkv, bqkv, wproj, bproj, w1, bf1, w2, bf2 = layout
+    return (wqkv.t().contiguous(), bqkv, wproj.t().contiguous(), bproj,
+            w1.t().contiguous(), bf1, w2.t().contiguous(), bf2)
+
+
 def qkv_token_layout(q: Optional[QkvQuant], c: int, nh: int):
     """The token-parallel forward's int8 qkv operands: wq (n3, kq) int8
     [n][k] by head, ws (n3) float32 in the same order; empty for bf16
@@ -823,7 +959,7 @@ class FastBlockPlan(NamedTuple):
     layout: tuple       # the route's weight layout on a CUDA device, else ()
     qkv: Optional[QkvQuant] = None  # int8 qkv operands, or None
     qkv_layout: tuple = ()  # their layout for the route on a CUDA device
-    # 'window' (kernel_layout), 'tokens' (token_layout) or 'stage' (the
+    # 'window' (kernel_layout), 'tokens' (token_wgmma_layout) or 'stage' (the
     # pair's stage kernels: window_body.stage_layout and stage_bias)
     route: str = "window"
 
@@ -863,8 +999,8 @@ def plan_fast_block(params, bias, *, num_heads: int, quant=frozenset(),
                              stage_layout(kernel_layout(p), c, nh)
                              + (stage_bias(packed, nh),), q, (), route)
     if route == "tokens":
-        return FastBlockPlan(p, packed, token_layout(p, nh), q,
-                             qkv_token_layout(q, c, nh), route)
+        return FastBlockPlan(p, packed, token_wgmma_layout(token_layout(
+            p, nh)), q, qkv_token_layout(q, c, nh), route)
     return FastBlockPlan(p, packed, kernel_layout(p), q,
                          qkv_kernel_layout(q, c, _round_up(c, 16)), route)
 
@@ -874,7 +1010,7 @@ def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
     """The fast block on bf16 window-layout tokens (B*nW, N, C) with a
     prepared plan. A CPU tensor takes :func:`swin_block_fast_reference`;
     a CUDA tensor launches ``csrc/swin_block_fast.cu`` in the plan's
-    design (the token-parallel forward's six kernels, or one thread block
+    design (the token-parallel forward's five kernels, or one thread block
     per window; one count either way) or raises; geometry the kernel does
     not take raises on either device. The plan's int8 qkv operands, when
     it has them, go with it."""

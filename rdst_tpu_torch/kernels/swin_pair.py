@@ -16,7 +16,7 @@ by width and int8: 'stage' for the window body, 'tokens' for the
 token-parallel forward) and calls :func:`run_swin_pair`, which launches
 the two stages of ``csrc/swin_pair.cu`` for a CUDA tensor -- stage A,
 block a into an image-layout scratch; stage B, block b on the rolled
-windows gathered from it; one kernel a stage on the window body, six on
+windows gathered from it; one kernel a stage on the window body, five on
 the token-parallel forward -- and counts the call in
 ``run_swin_pair.launches`` and its kernels in ``run_swin_pair.kernels``;
 for a CPU tensor it computes :func:`swin_pair_reference`. What the
@@ -43,9 +43,9 @@ from rdst_tpu_torch.kernels.window_body import (BODY_MAX_C, body_supports,
 from rdst_tpu_torch.nn.swin import window_partition, window_reverse
 
 _SOURCE = "swin_pair.cu"
-# kernels a call by stage design: one a stage on the window body, six
+# kernels a call by stage design: one a stage on the window body, five
 # (``tokfwd::kFwdKernels``) on the token-parallel forward
-KERNELS = {"window": 2, "tokens": 12}
+KERNELS = {"window": 2, "tokens": 10}
 PLAN_ROUTE = {"window": "stage", "tokens": "tokens"}  # plan_fast_block's
 
 

@@ -309,10 +309,10 @@ def test_bf16_routes_and_stage_designs(mode, route, per_forward, quant):
     units = [u for _, u in model.route_units()]
     if mode == "rdstb":
         assert all(u.use_rdstb and u.quant == model.quant for u in units)
-        # kernels a call: 6 a token-parallel stage, the pre-norm
+        # kernels a call: 5 a token-parallel stage, the pre-norm
         # adapter's 2, 2 a window-body DSTL, the conv
         assert rb.rdstb_kernel_count(want, True) == 1 + sum(
-            14 if r == "tokens" else 2 for r in want)
+            12 if r == "tokens" else 2 for r in want)
     else:
         layers = [dl.body for u in units for dl in u.body]
         assert len(layers) == per_forward
