@@ -34,17 +34,23 @@ after the build):
 7. the bf16 kernels vs their plain versions at bucket 64 with the
    flagship's own weights: the fast block at the six (C, shift) variants
    under 'clamp' (the flagship's resolved variant) and 'stable_bc', in
-   the design its plan picks (the window body up to C = 120) and the
-   other (the token-parallel forward) timed beside it, with the
-   token-parallel forward's kernels a call, bitwise repeat and device
-   time by phase; the pair at C = 60/90/120, the RDSTB on the flagship
+   the design its plan picks (the persistent window kernel up to C =
+   120: two launches bitwise equal at every variant) and the
+   token-parallel forward timed beside it, each with its kernels a call,
+   bitwise repeat and device time by phase; at C = 60 the window kernel
+   also without its tensor-core turns (bitwise the same, timed beside
+   it); the ptxas report of the window kernel (spills and wgmma
+   serialization refused); int8 qkv at C = 96 on a seeded block, which
+   the plan routes to the token-parallel forward, against its plain
+   version and timed; the pair at C = 60/90/120, the RDSTB on the flagship
    geometry; CUDA-event times of the launch alone, plain time, bound,
    max and mean relative error (bar 0.02); for the pair and the RDSTB
    (stage kernels on ``csrc/window_body.cuh``) also the error against
    their staged plain versions, kernels a call, two calls bitwise equal
    and device time per stage kernel (torch.profiler); then both at
    16-token windows (window 4, random weights, 8 images) against their
-   plain and staged versions;
+   plain and staged versions, and the fast block's window kernel there at
+   C = 60 and 120, unshifted and shifted;
 8. the bf16 model in modes rdstb, pair and swin on 8 slices: launches per
    forward (8 / 24 / 48, counts set to 0 just before each and read just
    after), the kernel path vs the plain bf16 path, and vs the f32 kernel
@@ -82,24 +88,29 @@ after the build):
     at the build resolution): the fast block at C = 180 with int8 qkv vs
     its plain version at bucket 64 (1280 windows), the path's unshifted
     block and a shifted case, 'clamp' and 'stable_bc': CUDA-event times
-    of the token-parallel forward and of the window body beside it, plain
-    time, bound (the qkv product at the int8 peak), relative error (bar
-    0.02), kernels a call, two launches bitwise equal and device time by
-    phase;
+    of the token-parallel forward, plain time, bound (the qkv product at
+    the int8 peak), relative error (bar 0.02), kernels a call, two
+    launches bitwise equal and device time by phase;
 15. the SwinIR-std model on 8 slices: 36 fast-block launches per forward
     (counts set to 0 just before, read just after), vs the same model on
     the CPU (the plain versions, bar 0.02) and vs the plain f32 path
     (``pallas_kernels='off'``): relative error and PSNR;
 16. SwinIR-std bf16 serving over HTTP, as phase 5, and the profile of
     one warm bucket-64 forward, as phase 6;
-17. the block-train kernels (``kernels.block_train``, forward and
-    backward) vs the plain version and its autograd gradient at 288
-    windows, C = 180 (the committed weights; the path's unshifted block
-    and a shifted case, with and without factor columns, 'clamp' and
-    'stable'): the output and every gradient (tokens, the 12 parameters
-    through the fold, the bias), bar 0.02; CUDA-event times, plain
-    times, bounds; the backward's extras as phase 11 (13 kernels a
-    call);
+17. the block-train kernels (``kernels.block_train``: the forward on
+    the token-parallel forward, five kernels, with the exact division and
+    the factor columns; the backward) vs the plain version and its
+    autograd gradient at 288 windows, C = 180 (the committed weights; the
+    path's unshifted block and a shifted case, with and without factor
+    columns, 'clamp' and 'stable'): the output and every gradient
+    (tokens, the 12 parameters through the fold, the bias), bar 0.02;
+    CUDA-event times, plain times, bounds; the forward launch alone (two
+    launches bitwise equal, kernels a call, device time by phase) and its
+    GEMMs at 18,432 tokens in tiles of 64 and 128 rows; the ptxas report
+    of its GEMM kernels; the backward's extras as phase 11 (13 kernels a
+    call); then RDST-W96's block-train widths C = 144 and 192 with its
+    committed weights (shift 0 and 4, with and without factor columns)
+    and their forward times;
 18. SwinIR-std bf16 training (``config_files/swinir_std_100k_oasis20_x4
     .ini``, 20 steps, a quick evaluation every 10): ``train_routes`` 36
     block / 0 pair, 36 + 36 block-train wrapper calls a step and none of
@@ -617,7 +628,7 @@ def _plan_bytes(plan) -> int:
     bias."""
     from rdst_tpu_torch.kernels.swin_block import kernel_layout
 
-    layout = kernel_layout(plan.params) if plan.route == "stage" \
+    layout = kernel_layout(plan.params) if plan.route != "tokens" \
         else plan.layout
     return sum(t.numel() * t.element_size() for t in layout) + \
         plan.bias.numel() * plan.bias.element_size()
@@ -651,24 +662,31 @@ def bf16_kernel_phase(model) -> dict:
                 blk = rdstb.body[j].body.blocks[k]
                 inputs = blk.fast_kernel_inputs(LR_HW, ws, shift)
                 plan = swin_block.plan_fast_block(*inputs, num_heads=nh)
+                if plan.route != "window":
+                    raise AssertionError(f"fast block C={c}: route "
+                                         f"{plan.route}")
                 # the other design at this width, timed beside the plan's
-                other = "tokens" if plan.route == "window" else "window"
                 plan_o = swin_block.plan_fast_block(*inputs, num_heads=nh,
-                                                    route=other)
+                                                    route="tokens")
                 x = torch.randn(images * nw, ws * ws, c, device="cuda",
                                 generator=gen).to(torch.bfloat16)
                 kw = dict(num_heads=nh, windows_per_image=nw, softmax=softmax)
                 with torch.inference_mode():
                     got = swin_block.run_fast_block(x, plan, **kw)
+                    again = swin_block.run_fast_block(x, plan, **kw)
                     got_o = swin_block.run_fast_block(x, plan_o, **kw)
                     want = swin_block.swin_block_fast_reference(
                         x, plan.params, plan.bias, num_heads=nh,
                         softmax=softmax)
                     torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"fast block C={c} shift="
+                                             f"{shift} {softmax}: two "
+                                             "launches differ")
                     err = _check(f"fast block C={c} shift={shift} {softmax}",
                                  got, want)
                     err_o = _check(f"fast block C={c} shift={shift} "
-                                   f"{softmax} ({other})", got_o, want)
+                                   f"{softmax} (tokens)", got_o, want)
                     ms = cuda_time_ms(lambda: swin_block.run_fast_block(
                         x, plan, **kw))
                     ms_o = cuda_time_ms(lambda: swin_block.run_fast_block(
@@ -678,28 +696,37 @@ def bf16_kernel_phase(model) -> dict:
                             x, plan.params, plan.bias, num_heads=nh,
                             softmax=softmax))
                     flops = _block_flops(images * nw, c)
-                    extras = {}
+                    extras, free = {}, {}
                     if softmax == "clamp" and shift == 0:
-                        tok = plan if plan.route == "tokens" else plan_o
-                        extras = _forward_extras(
-                            f"fast block C={c} (tokens)",
-                            lambda: swin_block.run_fast_block(x, tok, **kw),
-                            tok_kernels, FAST_PHASES, flops)
+                        extras = {
+                            "window": _forward_extras(
+                                f"fast block C={c} (window kernel)",
+                                lambda: swin_block.run_fast_block(
+                                    x, plan, **kw), 1, WINDOW_PHASES, flops),
+                            "tokens": _forward_extras(
+                                f"fast block C={c} (tokens)",
+                                lambda: swin_block.run_fast_block(
+                                    x, plan_o, **kw),
+                                tok_kernels, FAST_PHASES, flops)}
+                    if c == 60 and softmax == "clamp":
+                        free = _without_turns(x, plan, nh, softmax, got, ms)
                 bound_ms, by = _bound(flops, 2 * 2 * x.numel()
                                       + _plan_bytes(plan))
                 row = dict(c=c, shift=shift, softmax=softmax, rel_max=err[0],
                            rel_mean=err[1], max_abs_err=err[2], ms=ms,
                            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
-                           route=plan.route, other_route=other,
+                           route=plan.route, other_route=plan_o.route,
                            other_ms=ms_o, other_rel_max=err_o[0],
-                           tokens=extras)
+                           extras=extras, without_turns=free)
                 out["block"].append(row)
                 log(f"fast block C={c:3d} shift={shift} {softmax:9s}: rel "
                     f"max {err[0]:.3e} mean {err[1]:.3e} (bar {BF16_TOL}) "
-                    f"kernel ({plan.route}) {ms:.4f} ms, {other} {ms_o:.4f} "
+                    f"kernel ({plan.route}) {ms:.4f} ms, tokens {ms_o:.4f} "
                     f"ms (rel max {err_o[0]:.3e}); plain {plain_ms:.4f} ms "
                     f"bound {bound_ms:.4f} ms ({by}, "
                     f"{flops / ms / 1e9:.1f} TFLOP/s)")
+    out["ptxas"] = _ptxas_check("swin_block_fast.cu", "fast_window_kernel")
+    out["int8_c96"] = _int8_window_case(gen)
     softmax = model.softmax
     for j, c in enumerate((60, 90, 120)):
         layer = rdstb.body[j].body
@@ -957,6 +984,89 @@ FAST_PHASES = (
     ("mlp_kernel", "fc1 + tanh GELU + fc2 + residual (wgmma, fused)"),
 )
 
+# the persistent window kernel of the fast block at C <= 120
+WINDOW_PHASES = (("fast_window_kernel", "persistent window kernel"),)
+
+
+def _without_turns(x, plan, nh: int, softmax: str, got, ms: float) -> dict:
+    """The persistent window kernel with its warpgroups free of the
+    tensor-core turns (``window_kernel_without_turns``; every weight
+    resident): bitwise the kernel's output, and its time beside the
+    kernel's, which says what the turns overlap."""
+    from rdst_tpu_torch.kernels import swin_block
+
+    def call():
+        return swin_block.window_kernel_without_turns(
+            x, plan, num_heads=nh, softmax=softmax)
+
+    free = call()
+    torch.cuda.synchronize()
+    if not torch.equal(free, got):
+        raise AssertionError("the window kernel without turns differs from "
+                             "the kernel")
+    ms_free = cuda_time_ms(call)
+    log(f"  without turns: {ms_free:.4f} ms against {ms:.4f} ms with them "
+        f"({(ms_free - ms) / ms_free:+.1%} of the time taken off by the "
+        "turns); bitwise equal")
+    return {"ms": ms_free, "ms_with_turns": ms}
+
+
+def _ptxas_check(source: str, key: str) -> dict:
+    """The ptxas report of the kernels of ``source`` whose names hold
+    ``key``: registers, spill bytes and wgmma serialization warnings,
+    logged; a spill or a warning fails the phase."""
+    rep = {k: v for k, v in _ptxas_kernels(source).items() if key in k}
+    if not rep:
+        raise AssertionError(f"no ptxas report of {key} in {source}")
+    for name, r in rep.items():
+        log(f"  ptxas {source} {name}: {r['registers']} registers, "
+            f"{r['spill_bytes']} spill bytes, {len(r['warnings'])} wgmma "
+            "serialization warnings")
+        if r["spill_bytes"] or r["warnings"]:
+            raise AssertionError(f"{name} spills or serializes wgmma: {r}")
+    return rep
+
+
+def _int8_window_case(gen) -> dict:
+    """int8 qkv at C = 96 (RDST-W96's first DSTL width in mode swin) on a
+    seeded block, bucket 64: the plan routes it to the token-parallel
+    forward (the window body has no int8 product); against the plain
+    version with the same int8 operands, two launches bitwise equal, its
+    time beside the plain time and the bound."""
+    from rdst_tpu_torch.kernels import swin_block
+
+    c, nh, ws, nw, images = 96, 6, 8, 20, 64
+    rng = np.random.default_rng(SEED + 11)
+    plan = swin_block.plan_fast_block(*_random_block(rng, c, nh, ws, False),
+                                      num_heads=nh,
+                                      quant=frozenset({"qkv"}))
+    if plan.route != "tokens":
+        raise AssertionError(f"int8 qkv at C = 96: route {plan.route}")
+    x = torch.randn(images * nw, ws * ws, c, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    kw = dict(num_heads=nh, windows_per_image=nw, softmax="clamp")
+    with torch.inference_mode():
+        got = swin_block.run_fast_block(x, plan, **kw)
+        again = swin_block.run_fast_block(x, plan, **kw)
+        want = swin_block.swin_block_fast_reference(
+            x, plan.params, plan.bias, num_heads=nh, softmax="clamp",
+            qkv=plan.qkv)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError("int8 C = 96: two launches differ")
+        err = _check("fast block C=96 int8 qkv (tokens)", got, want)
+        ms = cuda_time_ms(lambda: swin_block.run_fast_block(x, plan, **kw))
+        plain_ms = cuda_time_ms(lambda: swin_block.swin_block_fast_reference(
+            x, plan.params, plan.bias, num_heads=nh, softmax="clamp",
+            qkv=plan.qkv))
+    bound_ms, by = _int8_qkv_bound(images * nw * ws * ws, c,
+                                   2 * 2 * x.numel() + _plan_bytes(plan))
+    log(f"fast block C= 96 int8 qkv (tokens): rel max {err[0]:.3e}; "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({by}); two launches bitwise equal")
+    return dict(rel_max=err[0], max_abs_err=err[2], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=by, route=plan.route)
+
 
 def _phase_ms(call, iters: int = 5, phases=BWD_PHASES) -> dict:
     """Device time of one call by phase (torch.profiler, CUPTI; a kernel
@@ -1109,7 +1219,8 @@ def _window16_cases(gen) -> dict:
     widths) on seeded random weights, 8 images: the pair at C = 60 and a
     whole RDSTB (C0 = 60, growth 30, 3 DSTLs, pre-norm adapters), each
     against its plain and staged versions (bar BF16_TOL), two calls
-    bitwise equal."""
+    bitwise equal; then the fast block's window kernel at C = 60 and 120,
+    unshifted and shifted, against its plain version."""
     from rdst_tpu_torch.kernels import rdstb_block, swin_block, swin_pair
 
     ws, nh, images, c0, g = 4, 6, 8, 60, 30
@@ -1173,11 +1284,33 @@ def _window16_cases(gen) -> dict:
     out["rdstb"] = {"rel_max": _check("rdstb window 4", got, want)[0],
                     "staged_rel_max": _check("rdstb window 4 vs staged", got,
                                              staged)[0]}
+    out["block"] = {}
+    for c in (60, 120):  # the window kernel, weights resident / streamed
+        for shifted in (False, True):
+            plan = swin_block.plan_fast_block(
+                *_random_block(rng, c, nh, ws, shifted), num_heads=nh)
+            if plan.route != "window":
+                raise AssertionError(f"window 4, C={c}: route {plan.route}")
+            x = torch.randn(images * nw, ws * ws, c, device="cuda",
+                            generator=gen).to(torch.bfloat16)
+            fkw = dict(num_heads=nh, windows_per_image=nw, softmax="clamp")
+            with torch.inference_mode():
+                got = swin_block.run_fast_block(x, plan, **fkw)
+                again = swin_block.run_fast_block(x, plan, **fkw)
+                want = swin_block.swin_block_fast_reference(
+                    x, plan.params, plan.bias, num_heads=nh, softmax="clamp")
+                torch.cuda.synchronize()
+            label = f"fast block window 4 C={c} shift={ws // 2 * shifted}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{label}: two launches differ")
+            out["block"][label] = _check(label, got, want)[0]
     log(f"window 4 (16-token windows, {images} images, random weights): "
         f"pair rel max {out['pair']['rel_max']:.3e} (staged "
         f"{out['pair']['staged_rel_max']:.3e}), rdstb rel max "
         f"{out['rdstb']['rel_max']:.3e} (staged "
-        f"{out['rdstb']['staged_rel_max']:.3e}); two calls bitwise equal")
+        f"{out['rdstb']['staged_rel_max']:.3e}), fast block rel max "
+        + ", ".join(f"{v:.3e}" for v in out["block"].values())
+        + "; two calls bitwise equal")
     return out
 
 
@@ -1503,8 +1636,16 @@ def train_profile_phase(trainer) -> dict:
         if e.device_type != DeviceType.CUDA or t <= 0:
             continue
         name = e.key.lower()
-        if "pair_train_fwd" in name or "block_train_fwd" in name:
+        if ("pair_train_fwd" in name or "tokwg::" in name
+                or "tokfwd::" in name):
+            # the train pair's forward; the block-train forward's GEMMs and
+            # LN1 rows (csrc/token_fwd.cuh)
             groups["train kernels forward"] += t
+        elif "attn_fwd_kernel<false>" in name:
+            # the block-train forward's attention and the backward's
+            # recompute: one launch each a block, on the same shapes
+            groups["train kernels forward"] += t / 2
+            groups["train kernels backward (13 kernels a block)"] += t / 2
         elif "trainblk::" in name or "tokpar::" in name:
             # the backward's own kernels and those it shares with the
             # serving forward (csrc/token_gemm.cuh)
@@ -1588,31 +1729,23 @@ def swinir_kernel_phase(model) -> dict:
         plan = swin_block.plan_fast_block(*inputs, num_heads=nh, quant=quant)
         if plan.route != "tokens":
             raise AssertionError(f"C={c} planned for {plan.route}")
-        # the window body (the parent's design), timed beside it
-        plan_w = swin_block.plan_fast_block(*inputs, num_heads=nh,
-                                            quant=quant, route="window")
         x = torch.randn(images * nw, ws * ws, c, device="cuda",
                         generator=gen).to(torch.bfloat16)
         for softmax in ("clamp", "stable_bc"):
             kw = dict(num_heads=nh, windows_per_image=nw, softmax=softmax)
             with torch.inference_mode():
                 got = swin_block.run_fast_block(x, plan, **kw)
-                got_w = swin_block.run_fast_block(x, plan_w, **kw)
                 want = swin_block.swin_block_fast_reference(
                     x, plan.params, plan.bias, num_heads=nh,
                     softmax=softmax, qkv=plan.qkv)
                 torch.cuda.synchronize()
                 err = _check(f"fast block C={c} shift={shift} int8 qkv "
                              f"{softmax}", got, want)
-                err_w = _check(f"fast block C={c} shift={shift} int8 qkv "
-                               f"{softmax} (window)", got_w, want)
 
                 def call():
                     return swin_block.run_fast_block(x, plan, **kw)
 
                 ms = cuda_time_ms(call)
-                ms_w = cuda_time_ms(lambda: swin_block.run_fast_block(
-                    x, plan_w, **kw))
                 plain_ms = cuda_time_ms(
                     lambda: swin_block.swin_block_fast_reference(
                         x, plan.params, plan.bias, num_heads=nh,
@@ -1627,12 +1760,10 @@ def swinir_kernel_phase(model) -> dict:
             rows.append(dict(c=c, shift=shift, softmax=softmax,
                              rel_max=err[0], rel_mean=err[1],
                              max_abs_err=err[2], ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=by, window_ms=ms_w,
-                             window_rel_max=err_w[0], **extras))
+                             bound_ms=bound_ms, bound_by=by, **extras))
             log(f"fast block C={c} shift={shift} int8 qkv {softmax:9s}: rel "
                 f"max {err[0]:.3e} mean {err[1]:.3e} (bar {BF16_TOL}) kernel "
-                f"(tokens) {ms:.4f} ms, window body {ms_w:.4f} ms (rel max "
-                f"{err_w[0]:.3e}); plain {plain_ms:.4f} ms bound "
+                f"(tokens) {ms:.4f} ms; plain {plain_ms:.4f} ms bound "
                 f"{bound_ms:.4f} ms ({by}; {flops / ms / 1e9:.1f} TFLOP/s of "
                 "block work)")
     log("library yardstick: no single PyTorch call computes a Swin block")
@@ -1682,18 +1813,16 @@ swinir_serving_phase = phase("SwinIR-std bf16 serving")(_serve)
 swinir_profile_phase = phase("SwinIR-std bf16 profile")(_profile)
 
 
-def _block_train_case(model, k: int, shift: int, gen):
-    """The k-th block of the first RSTB at the training geometry (32
-    images of 24x24, 288 windows): its raw 12 parameters and head-major
-    bias (shift 4: rel-pos + mask per window), bf16 tokens, cotangents
-    and factor columns."""
-    blk = model.layers[0].residual_group.blocks[k]
+def _block_train_case(blk, c: int, shift: int, gen):
+    """A block at the training geometry (32 images of 24x24, 288
+    windows): its raw 12 parameters and head-major bias (shift 4: rel-pos
+    + mask per window), bf16 tokens, cotangents and factor columns."""
     params, bias = blk.fast_kernel_inputs((24, 24), 8, shift)
     ops = [p.detach().float().contiguous() for p in params] + \
         [bias.detach().float().contiguous()]
-    x = torch.randn(288, 64, 180, device="cuda",
+    x = torch.randn(288, 64, c, device="cuda",
                     generator=gen).to(torch.bfloat16)
-    dz = torch.randn(288, 64, 180, device="cuda",
+    dz = torch.randn(288, 64, c, device="cuda",
                      generator=gen).to(torch.bfloat16)
     keep = 0.9
     cols = (torch.rand(32, 2, device="cuda", generator=gen) < keep)
@@ -1701,92 +1830,149 @@ def _block_train_case(model, k: int, shift: int, gen):
     return ops, x, dz, dpf
 
 
-def _block_train_grads(kernel: bool, ops, x, dz, dpf, softmax):
+def _block_train_grads(kernel: bool, ops, x, dz, dpf, softmax, nh=6):
     """Output and gradients (x, the 12 raw parameters, the head-major
     bias) of the block through the fold, on the kernels or the plain
     version."""
     from rdst_tpu_torch.kernels import block_train as bt
     from rdst_tpu_torch.kernels.swin_block import fast_params, pack_bias_fast
 
+    c = x.shape[-1]
     leaves = [t.detach().clone().requires_grad_(True) for t in [x] + ops]
     p, bias = leaves[1:13], leaves[13]
-    fp, pb = fast_params(p, 180, 6), pack_bias_fast(bias.to(torch.bfloat16),
-                                                    6, 64)
+    fp, pb = fast_params(p, c, nh), pack_bias_fast(bias.to(torch.bfloat16),
+                                                   nh, 64)
     if kernel:
-        out = bt.run_block_train(leaves[0], fp, pb, dpf, num_heads=6,
+        out = bt.run_block_train(leaves[0], fp, pb, dpf, num_heads=nh,
                                  windows_per_image=9, softmax=softmax)
     else:
-        out = bt.block_train_reference(leaves[0], fp, pb, dpf, num_heads=6,
+        out = bt.block_train_reference(leaves[0], fp, pb, dpf, num_heads=nh,
                                        softmax=softmax)
     out.backward(dz)
     return out.detach(), [t.grad for t in leaves]
 
 
-@phase("block-train kernels vs plain")
-def block_train_kernel_phase(model) -> dict:
-    """``fused_swin_block_train``'s forward and backward kernels against
-    the plain version and its autograd gradient at 288 windows, C = 180,
-    with the committed SwinIR-std weights: the path's unshifted block and
-    a shifted case, with and without factor columns, 'clamp' and
-    'stable'; the output and every gradient (x, the 12 parameters through
-    the fold, the bias), bar BF16_TOL."""
+BLOCK_TRAIN_NAMES = ["x", "wqkv", "bqkv", "wproj", "bproj", "g1", "b1", "g2",
+                     "b2", "w1", "bf1", "w2", "bf2", "bias"]
+
+
+def _block_train_variant(label: str, ops, x, dz, dpf, softmax: str,
+                         nh: int = 6) -> dict:
+    """The kernels' output and every gradient against the plain version
+    and its autograd, bar BF16_TOL."""
+    got, g_got = _block_train_grads(True, ops, x, dz, dpf, softmax, nh)
+    want, g_want = _block_train_grads(False, ops, x, dz, dpf, softmax, nh)
+    torch.cuda.synchronize()
+    errs = {"out": _rel(got, want)}
+    for nm, a, b in zip(BLOCK_TRAIN_NAMES, g_got, g_want):
+        if float(b.abs().max()) > 0:
+            errs[nm] = _rel(a, b)
+        elif float(a.abs().max()) > 0:
+            errs[nm] = (float("inf"), float("inf"), float(a.abs().max()))
+    worst = max(errs, key=lambda e: errs[e][0])
+    finite = all(bool(torch.isfinite(g).all()) for g in g_got) \
+        and bool(torch.isfinite(got.float()).all())
+    log(f"{label}: out rel max {errs['out'][0]:.3e}, dx "
+        f"{errs['x'][0]:.3e}, worst {worst} {errs[worst][0]:.3e} (bar "
+        f"{BF16_TOL})")
+    if not finite or errs[worst][0] > BF16_TOL:
+        raise AssertionError(f"{label}: {errs}")
+    return dict(rel_max={e: v[0] for e, v in errs.items()},
+                out_abs_err=errs["out"][2],
+                grad_abs_err=max(v[2] for e, v in errs.items()
+                                 if e != "out"))
+
+
+def _block_train_forward_times(x, ops, softmax: str, nh: int = 6) -> dict:
+    """The forward launch alone (weights laid out once): its time, the
+    plain time and the bound."""
     from rdst_tpu_torch.kernels import block_train as bt
-    from rdst_tpu_torch.kernels.swin_block import (fast_params, kernel_layout,
+    from rdst_tpu_torch.kernels.swin_block import (fast_params,
                                                    pack_bias_fast,
                                                    softmax_code)
 
+    c = x.shape[-1]
+    with torch.no_grad():
+        fp = fast_params(ops[:12], c, nh)
+        pb = pack_bias_fast(ops[12].to(torch.bfloat16), nh, 64)
+        layout = bt.forward_layout(fp, nh)
+    code = softmax_code(softmax)
+    hidden = fp.w1.shape[1]
+    out = {"ms": cuda_time_ms(lambda: bt.launch_forward(
+        x, layout, pb, None, nh, hidden, code), iters=10)}
+    with torch.no_grad():
+        out["plain_ms"] = cuda_time_ms(lambda: bt.block_train_reference(
+            x, fp, pb, None, num_heads=nh, softmax=softmax))
+    wbytes = sum(t.numel() * t.element_size() for t in [*fp, pb])
+    out["bound_ms"], out["bound_by"] = _bound(
+        _block_flops(x.shape[0], c), 2 * x.numel() * 2 + wbytes)
+    return out, fp, pb, layout, code
+
+
+def _tile_rows_times(gen) -> dict:
+    """The block-train forward's GEMMs alone at its geometry (18,432
+    tokens, C = 180) in tiles of 64 and of 128 rows: the data for the
+    schedule's rule (``token_tile_rows``)."""
+    from rdst_tpu_torch.kernels.swin_block import token_tile_rows
+
+    t, c, nh, hidden = 288 * 64, 180, 6, 360
+    o = _gemm_operands(gen, t, c, nh, hidden, GEMM_GROWTH)
+    out = {}
+    for bm in (64, 128):
+        launches = _gemm_launches(o, c, hidden, bm)
+        out[bm] = {k: cuda_time_ms(launches[k], iters=20)
+                   for k in ("qkv bf16", "proj + LN2", "fc1 + fc2")}
+    log(f"  tile rows at {t} tokens, C = {c} (ms; the schedule takes "
+        f"{token_tile_rows(t)}):")
+    for k in out[64]:
+        log(f"    {k:11s} 64 rows {out[64][k]:.4f}, 128 rows "
+            f"{out[128][k]:.4f}")
+    return {str(bm): v for bm, v in out.items()}
+
+
+@phase("block-train kernels vs plain")
+def block_train_kernel_phase(model) -> dict:
+    """``fused_swin_block_train``'s forward (the token-parallel forward,
+    exact division, factor columns) and backward kernels against the plain
+    version and its autograd gradient at 288 windows, C = 180, with the
+    committed SwinIR-std weights: the path's unshifted block and a
+    shifted case, with and without factor columns, 'clamp' and 'stable';
+    the output and every gradient (x, the 12 parameters through the fold,
+    the bias), bar BF16_TOL. The forward launch alone: two launches
+    bitwise equal, kernels a call, device time by phase; its GEMMs in
+    tiles of 64 and 128 rows; the ptxas report of its GEMM kernels. Then
+    RDST-W96's block-train widths, C = 144 and 192, with its committed
+    weights, as the training step's routes would send them."""
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels.swin_block import kernels_per_call
+
     gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
-    names = ["x", "wqkv", "bqkv", "wproj", "bproj", "g1", "b1", "g2", "b2",
-             "w1", "bf1", "w2", "bf2", "bias"]
     rows = []
+    fwd_kernels = kernels_per_call("block_train.cu",
+                                   "block_train_fwd_kernels")
     for k, shift in enumerate((0, 4)):
-        ops, x, dz, dpf0 = _block_train_case(model, k, shift, gen)
+        blk = model.layers[0].residual_group.blocks[k]
+        ops, x, dz, dpf0 = _block_train_case(blk, 180, shift, gen)
         for softmax in ("clamp", "stable"):
             for use_dpf in (False, True):
                 dpf = dpf0 if use_dpf else None
-                got, g_got = _block_train_grads(True, ops, x, dz, dpf,
-                                                softmax)
-                want, g_want = _block_train_grads(False, ops, x, dz, dpf,
-                                                  softmax)
-                torch.cuda.synchronize()
-                errs = {"out": _rel(got, want)}
-                for nm, a, b in zip(names, g_got, g_want):
-                    if float(b.abs().max()) > 0:
-                        errs[nm] = _rel(a, b)
-                    elif float(a.abs().max()) > 0:
-                        errs[nm] = (float("inf"), float("inf"),
-                                    float(a.abs().max()))
-                worst = max(errs, key=lambda e: errs[e][0])
-                finite = all(bool(torch.isfinite(g).all()) for g in g_got) \
-                    and bool(torch.isfinite(got.float()).all())
-                log(f"block train C=180 shift={shift} {softmax:6s} "
-                    f"dpf={use_dpf!s:5s}: out rel max {errs['out'][0]:.3e},"
-                    f" dx {errs['x'][0]:.3e}, worst {worst} "
-                    f"{errs[worst][0]:.3e} (bar {BF16_TOL})")
-                if not finite or errs[worst][0] > BF16_TOL:
-                    raise AssertionError(f"block train shift={shift} "
-                                         f"{softmax} dpf={use_dpf}: {errs}")
+                row = _block_train_variant(
+                    f"block train C=180 shift={shift} {softmax:6s} "
+                    f"dpf={use_dpf!s:5s}", ops, x, dz, dpf, softmax)
                 rows.append(dict(shift=shift, softmax=softmax, dpf=use_dpf,
-                                 rel_max={e: v[0] for e, v in errs.items()},
-                                 out_abs_err=errs["out"][2],
-                                 grad_abs_err=max(v[2] for e, v in
-                                                  errs.items() if e != "out")))
+                                 **row))
         if shift == 0:  # the path's case: times of the launches alone
             softmax = "clamp"
-            with torch.no_grad():
-                fp = fast_params(ops[:12], 180, 6)
-                pb = pack_bias_fast(ops[12].to(torch.bfloat16), 6, 64)
-                layout = kernel_layout(fp)
-            code = softmax_code(softmax)
+            times, fp, pb, layout, code = _block_train_forward_times(
+                x, ops, softmax)
             row = rows[-4]
-            row["ms"] = cuda_time_ms(lambda: bt.launch_forward(
-                x, layout, pb, None, 6, 360, code), iters=10)
+            row.update(times)
+            row["forward"] = _forward_extras(
+                "block train forward C=180",
+                lambda: bt.launch_forward(x, layout, pb, dpf0, 6, 360, code),
+                fwd_kernels, FAST_PHASES, _block_flops(288, 180))
             row["bwd_ms"] = cuda_time_ms(lambda: bt.launch_backward(
                 x, dz, fp, pb, None, 6, code), warmup=1, iters=5)
-            with torch.no_grad():
-                row["plain_ms"] = cuda_time_ms(
-                    lambda: bt.block_train_reference(
-                        x, fp, pb, None, num_heads=6, softmax=softmax))
             leaves = [t.detach().clone().requires_grad_(True)
                       for t in [x, *fp, pb]]
             twin = bt.block_train_reference(
@@ -1807,8 +1993,6 @@ def block_train_kernel_phase(model) -> dict:
             flops = _block_flops(288, 180)
             wbytes = sum(t.numel() * t.element_size() for t in [*fp, pb])
             tok = x.numel() * 2
-            row["bound_ms"], row["bound_by"] = _bound(flops,
-                                                      2 * tok + wbytes)
             # backward: x, dz in, dx out, the weights in, f32 grads out
             row["bwd_bound_ms"], row["bwd_bound_by"] = _bound(
                 2 * flops, 3 * tok + wbytes + 2 * wbytes)
@@ -1817,9 +2001,33 @@ def block_train_kernel_phase(model) -> dict:
                 f"{row['bound_by']}), backward {row['bwd_ms']:.4f} ms "
                 f"(plain {row['plain_bwd_ms']:.4f}, bound "
                 f"{row['bwd_bound_ms']:.4f} {row['bwd_bound_by']})")
+    tiles = _tile_rows_times(gen)
+    ptxas = _ptxas_check("block_train.cu", "tokwg")
+    w96 = []
+    w96_model = _build_f32(W96_CONFIG, W96_WEIGHTS)
+    rdstb = w96_model.body[0]
+    for j, c in ((1, 144), (2, 192)):
+        for k, shift in enumerate((0, 4)):
+            blk = rdstb.body[j].body.blocks[k]
+            ops, x, dz, dpf0 = _block_train_case(blk, c, shift, gen)
+            for use_dpf in (False, True):
+                row = _block_train_variant(
+                    f"block train W96 C={c} shift={shift} clamp  "
+                    f"dpf={use_dpf!s:5s}", ops, x, dz,
+                    dpf0 if use_dpf else None, "clamp")
+                w96.append(dict(c=c, shift=shift, softmax="clamp",
+                                dpf=use_dpf, **row))
+            if shift == 0:
+                times = _block_train_forward_times(x, ops, "clamp")[0]
+                w96[-2].update(times)
+                log(f"  W96 C={c}: forward {times['ms']:.4f} ms (plain "
+                    f"{times['plain_ms']:.4f}, bound {times['bound_ms']:.4f}"
+                    f" {times['bound_by']})")
+    del w96_model
     log("library yardstick: no single PyTorch call computes a Swin block or "
         "its gradient")
-    return {"variants": rows}
+    return {"variants": rows, "tile_rows": tiles, "ptxas": ptxas,
+            "w96": w96}
 
 
 def _swinir_train_argv(data_dir: str, out_dir: str, steps: int) -> list:
@@ -2148,10 +2356,12 @@ def _gemm_calls(o, c: int, hidden: int):
     ]
 
 
-def _gemm_launches(o, c: int, hidden: int) -> dict:
+def _gemm_launches(o, c: int, hidden: int, bm: int = 0) -> dict:
     """Each GEMM phase's kernel launch alone, by name (outputs allocated
     once, x1 packed once), for its CUDA-event time: the wrappers of
-    ``kernels.token_wgmma`` add x1's layout copies and allocations."""
+    ``kernels.token_wgmma`` add x1's layout copies and allocations. bm:
+    the qkv, proj and MLP kernels' tile rows (64, 128; 0: the
+    schedule's)."""
     from rdst_tpu_torch.kernels import _build
     from rdst_tpu_torch.kernels import token_wgmma as tw
     from rdst_tpu_torch.kernels.swin_block import launch
@@ -2175,15 +2385,15 @@ def _gemm_launches(o, c: int, hidden: int) -> dict:
     adapter = [o["z"], o["wad"], o["bad"], o["gad"], o["bbad"], ad]
     return {
         "qkv int8": run("tokwg_qkv", [o["xq"], o["wq"], o["ws"], o["bqkv"],
-                                      q], [t, c, n3, kq]),
+                                      q], [t, c, n3, kq, bm]),
         "qkv bf16": run("tokwg_qkv", [o["xn"], o["wqkv"], 0, o["bqkv"], q],
-                        [t, c, n3, kp]),
+                        [t, c, n3, kp, bm]),
         "proj + LN2": run("tokwg_proj_ln", [o["ao"], o["wproj"], o["x"],
                                             o["bproj"], x1_out, x1n],
-                          [t, c, kp]),
+                          [t, c, kp, bm]),
         "fc1 + fc2": run("tokwg_mlp", [o["x1n"], o["w1"], o["w2"], o["bf1"],
                                        x1, o["bf2"], out],
-                         [t, c, hidden, kp, hp]),
+                         [t, c, hidden, kp, hp, bm]),
         "adapter (pre-norm)": run("tokwg_adapter", adapter,
                                   [t, c, ldz, growth, 1]),
         "adapter (post-norm)": run("tokwg_adapter", adapter,

@@ -11,10 +11,19 @@
 // residual branches. The TPU kernel's bias adds through a ones-column
 // matmul (`mm_bias`) are a Mosaic lowering device: a plain f32 add here.
 //
-// Forward (`block_train_fwd_bf16`): one thread block per window running
-// fastblk::fast_block (csrc/fast_block.cuh) in its exact-division form;
-// tokens in and out in window layout, the bias shared (1 window) or per
-// window (the block's nW, a shifted block).
+// Forward (`block_train_fwd_bf16`): the token-parallel forward of
+// csrc/token_fwd.cuh (five kernels over all the launch's tokens: LN1 rows,
+// the qkv GEMM, attention per (window, head), proj + residual + LN2, fc1 +
+// GELU + fc2 + residual), its GEMMs the persistent TMA-fed wgmma kernels of
+// csrc/token_wgmma.cuh, with the two training differences: the attention
+// divides exactly (`attn_fwd_kernel<false>`, the kernel the backward's
+// recompute runs) and the factor columns scale the two residual branches
+// in the proj and fc2 epilogues. Tokens in and out in window layout, the
+// bias shared (1 window) or per window (the block's nW, a shifted block);
+// the weights as kernels.swin_block.token_wgmma_layout lays them out; the
+// scratch between the phases carved by tokfwd::carve_fwd from one buffer
+// the caller keeps. Nothing is saved for the backward: it recomputes from
+// x.
 //
 // Backward (`block_train_bwd_bf16`): trainblk::block_backward
 // (csrc/block_bwd.cuh), 13 kernels over all the launch's tokens: the
@@ -26,47 +35,17 @@
 // 180) is a VMEM device; the sums are the same.
 //
 // What bounds it on an H100: operations (16C^2 + 4NC flops per token
-// forward, about twice that backward, plus the recompute). The forward
-// runs every product on the tensor cores out of shared memory; the
-// backward's products run as GEMMs over 18,432 tokens at the training
-// geometry (see csrc/block_bwd.cuh for what each phase does about it).
+// forward, about twice that backward, plus the recompute). Both run their
+// products as GEMMs over all 18,432 tokens of the training geometry (see
+// csrc/token_wgmma.cuh and csrc/block_bwd.cuh for what each phase does
+// about it).
 
-#include "fast_block.cuh"
 #include "block_bwd.cuh"
+#include "token_fwd.cuh"
 
 namespace {
 
 using fastblk::bf16;
-
-struct FwdArgs {
-  const bf16* x;      // (windows, n, c), window layout
-  bf16* out;          // (windows, n, c)
-  const float* dpf;   // (windows * n, 2) or null
-  fastblk::Weights w;
-  fastblk::Geom g;
-  int windows, softmax;
-};
-
-__global__ void __launch_bounds__(fastblk::kThreads)
-    block_train_fwd_kernel(const FwdArgs a) {
-  extern __shared__ __align__(16) char smem[];
-  const fastblk::Geom& g = a.g;
-  float* xs = reinterpret_cast<float*>(smem);
-  const int rows = g.n * g.c;
-  for (int win = blockIdx.x; win < a.windows; win += gridDim.x) {
-    const bf16* xg = a.x + static_cast<size_t>(win) * rows;
-    const float* dp =
-        a.dpf ? a.dpf + static_cast<size_t>(win) * g.n * 2 : nullptr;
-    __syncthreads();  // the previous window's output is stored
-    for (int i = threadIdx.x; i < rows; i += blockDim.x)
-      xs[i] = __bfloat162float(xg[i]);
-    fastblk::fast_block(a.w, g, smem, win % a.w.bias_windows, a.softmax,
-                        true, dp, dp ? dp + 1 : nullptr, 2);
-    bf16* og = a.out + static_cast<size_t>(win) * rows;
-    for (int i = threadIdx.x; i < rows; i += blockDim.x)
-      og[i] = __float2bfloat16_rn(xs[i]);
-  }
-}
 
 template <class T>
 T* mut(const void* p) {
@@ -93,36 +72,51 @@ long long block_train_work_floats(int windows, int n, int c, int nh,
 // Kernels one backward call launches (one of them the attention VJP).
 int block_train_bwd_kernels() { return trainblk::kBwdKernels; }
 
-// ptrs: x, out, dpf (0 = none), then the block's kernel_layout weights and
-// packed bias (9). dims: windows, n, c, nh, hidden, bias_windows, softmax.
+// The forward's scratch in bytes (dims as block_train_fwd_bf16's).
+long long block_train_fwd_work_bytes(const int* dims) {
+  return tokfwd::carve_fwd(
+      tokpar::make_dims(dims[0], dims[1], dims[2], dims[3], dims[4]),
+      nullptr, nullptr);
+}
+
+// Kernels one forward call launches.
+int block_train_fwd_kernels() { return tokfwd::kFwdKernels; }
+
+// ptrs: x, out, dpf (0 = none), the block's weights in the
+// kernels.swin_block.token_wgmma_layout order (wqkv, bqkv, wproj, bproj,
+// w1, bf1, w2, bf2), the packed bias, the scratch
+// (block_train_fwd_work_bytes). dims: windows, n, c, nh, hidden,
+// bias_windows, softmax.
 int block_train_fwd_bf16(const void* const* ptrs, const int* dims,
                          int device, void* stream) {
-  FwdArgs a;
-  a.x = static_cast<const bf16*>(ptrs[0]);
-  a.out = mut<bf16>(ptrs[1]);
-  a.dpf = static_cast<const float*>(ptrs[2]);
-  a.w.wqkv = static_cast<const bf16*>(ptrs[3]);
-  a.w.bqkv = static_cast<const float*>(ptrs[4]);
-  a.w.wproj = static_cast<const bf16*>(ptrs[5]);
-  a.w.bproj = static_cast<const bf16*>(ptrs[6]);
-  a.w.w1 = static_cast<const bf16*>(ptrs[7]);
-  a.w.bf1 = static_cast<const float*>(ptrs[8]);
-  a.w.w2 = static_cast<const bf16*>(ptrs[9]);
-  a.w.bf2 = static_cast<const bf16*>(ptrs[10]);
-  a.w.bias = static_cast<const bf16*>(ptrs[11]);
-  a.windows = dims[0];
-  a.g = fastblk::make_geom(dims[1], dims[2], dims[3], dims[4]);
-  a.w.bias_windows = dims[5];
-  a.softmax = dims[6];
-  if (!dims_ok(a.g, a.windows, a.w.bias_windows, a.softmax))
+  const int windows = dims[0], n = dims[1], c = dims[2], nh = dims[3];
+  const int hid = dims[4], bw = dims[5], softmax = dims[6];
+  if (!dims_ok(fastblk::make_geom(n, c, nh, hid), windows, bw, softmax))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = fastblk::smem_layout(a.g).total;
-  cudaError_t err = fastblk::prepare(block_train_fwd_kernel, smem, device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (a.windows == 0) return 0;
-  block_train_fwd_kernel<<<a.windows, fastblk::kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess || windows == 0) return static_cast<int>(err);
+  const tokpar::Dims d = tokpar::make_dims(windows, n, c, nh, hid);
+  tokfwd::FwdBufs b;
+  tokfwd::carve_fwd(d, mut<char>(ptrs[12]), &b);
+  const void* const* w = ptrs + 3;
+  const tokfwd::BlockW wts{static_cast<const bf16*>(w[0]),
+                           static_cast<const float*>(w[1]),
+                           static_cast<const bf16*>(w[2]),
+                           static_cast<const bf16*>(w[3]),
+                           static_cast<const bf16*>(w[4]),
+                           static_cast<const float*>(w[5]),
+                           static_cast<const bf16*>(w[6]),
+                           static_cast<const bf16*>(w[7]),
+                           static_cast<const bf16*>(w[8]),
+                           nullptr,
+                           nullptr};
+  return static_cast<int>(tokfwd::forward(
+      d,
+      tokfwd::rows_in(static_cast<const bf16*>(ptrs[0]), tokfwd::kSameRows,
+                      c),
+      mut<bf16>(ptrs[1]), tokfwd::kSameRows, c, wts, bw, softmax, b,
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(ptrs[2]),
+      true));
 }
 
 // ptrs: x, dz, dx (out), dpf (0 = none), work (block_train_work_floats),

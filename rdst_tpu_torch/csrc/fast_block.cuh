@@ -1,8 +1,10 @@
 // The bfloat16 fast Swin block body for Hopper (sm_90a), one window per
-// thread block, of the fast block up to C = 120 (swin_block_fast.cu) and
-// of the forwards of the two train kernels (pair_train.cu,
-// block_train.cu). The pair and RDSTB stage kernels run the body of
-// window_body.cuh instead.
+// thread block, of the train-pair forward (pair_train.cu), and the
+// primitives (bf16 pairs, the mma.sync products and softmax variants of
+// the attention, the launch checks) that csrc/window_body.cuh and the
+// token-parallel kernels share. The fast block, the block-train forward
+// and the pair and RDSTB stages run other designs (csrc/swin_block_fast
+// .cu, csrc/block_train.cu, csrc/window_body.cuh, csrc/token_fwd.cuh).
 //
 // Replaces: the fast branch of `_body` in rdst_tpu/kernels/swin_block.py
 // (`fast=True`, :261-473). Per window of N tokens (C channels, nH heads):
@@ -15,13 +17,6 @@
 //   x1 = x + (bf16(o) @ Wproj + bproj)
 //   h = bf16(gelu_tanh(bf16(normalize(x1)) @ W1' + b1'))
 //   out = x1 + (h @ W2 + b2)                   f32; the caller rounds
-//
-// With int8 qkv operands (`Weights::wq`, the JAX package's `pallas_quant
-// ='qkv'`, :300-317), LN1's output is quantized instead of rounded to
-// bf16: xq = clip(round(normalize(x) * 31.75), +-127) (f32 rows, round half
-// to even), and q, k, v = bf16(int32(xq Wq) * ws + bqkv'), the integer
-// product on `mma.sync.m16n8k32.s8` (exact, so only the f32 epilogue
-// rounds).
 //
 // What bounds it on an H100: operations (about 16C^2 + 4NC flops per
 // token against 4C bytes of tokens in and out). The design runs every
@@ -56,12 +51,13 @@ constexpr int kThreads = 256;  // threads per block of every fast kernel
 constexpr float kEps = 1e-5f;
 constexpr float kClamp = 60.0f;
 constexpr int kMaxN = 64;
-// Widest C the window body takes: the fast block and the single-block
-// train kernels (SwinIR-std, C = 180). The train-pair kernels keep the
-// C <= 128 they were verified at.
+// Widest C of the fast block's and the single-block train kernels'
+// token-parallel designs (SwinIR-std, C = 180). The train-pair kernels keep
+// the C <= 128 they were verified at.
 constexpr int kMaxC = 192;
 constexpr int kMaxCShared = 128;
 constexpr float kQX = 31.75f;  // int8 activation step: 127 / 4 sigma
+                               // (csrc/token_fwd.cuh's int8 LN1 rows)
 
 enum Softmax { kStable = 0, kClampOnly = 1, kStableMM = 2 };
 
@@ -79,19 +75,12 @@ struct Weights {
   const bf16* bf2;    // (cp)
   const bf16* bias;   // (bias_windows, n, nh * n), bf16
   int bias_windows;
-  // int8 qkv (null: bf16 qkv): (3 cp, kq) int8 (out, in), kq = c rounded
-  // up to 32, and the per-output-channel dequant step (3 cp) f32, the
-  // activation step 1 / kQX folded in
-  const int8_t* wq = nullptr;
-  const float* wqs = nullptr;
 };
 
 struct Geom {
   int n, c, nh, hidden;
   int cp, hp, hd, hdq, hdv;  // padded widths
-  int kq;                    // int8 qkv depth: c rounded up to 32
   int lda, ldq, ldv, ldh;    // shared-memory row strides (elements)
-  int ldi;                   // int8 LN1 rows (bytes), aliasing the xn rows
 };
 
 __host__ __device__ inline int round_up(int v, int m) {
@@ -110,9 +99,7 @@ __host__ __device__ inline Geom make_geom(int n, int c, int nh,
   g.hd = c / nh;
   g.hdq = round_up(g.hd, 8);
   g.hdv = round_up(g.hd, 8);
-  g.kq = round_up(c, 32);
   g.lda = g.cp + 8;
-  g.ldi = g.kq + 16;  // 4 words (mod 32) past a multiple of 128 bytes
   g.ldq = nh * g.hdq + 8;
   g.ldv = n + 8;
   g.ldh = g.hp + 8;
@@ -194,19 +181,6 @@ __device__ __forceinline__ void mma1688(float* d, uint32_t a0, uint32_t a1,
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
-// d += a * b: m16n8k32, int8 operands, int32 accumulation. a0: (row g,
-// k 4t..4t+3), a1: (row g+8, same k), a2: (row g, k 16+4t..), a3: (row
-// g+8, k 16+4t..); b0: (k 4t..4t+3, col g), b1: k + 16; d as mma16816.
-__device__ __forceinline__ void mma16832s8(int* d, uint32_t a0, uint32_t a1,
-                                           uint32_t a2, uint32_t a3,
-                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -254,52 +228,6 @@ __device__ void gemm(const bf16* A, int lda, int M, int ksteps,
   }
 }
 
-// gemm with int8 operands: A (M rows, stride lda bytes) in shared memory,
-// W int8 (out, in) in global memory, k < ksteps * 32; epi gets the exact
-// int32 sums as floats (|sum| <= 127 * 127 * 192 < 2^24).
-template <class Epi>
-__device__ void gemm_s8(const int8_t* A, int lda, int M, int ksteps,
-                        const int8_t* __restrict__ W, int ldw, int ntiles,
-                        Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nwarps = blockDim.x >> 5;
-  const int mts = M >> 4;
-  for (int nt = warp; nt < ntiles; nt += nwarps) {
-    int acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0;
-    const int8_t* wr = W + static_cast<size_t>(nt * 8 + g) * ldw + 4 * t;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      const uint32_t b0 = __ldg(reinterpret_cast<const unsigned int*>(
-                         wr + ks * 32)),
-                     b1 = __ldg(reinterpret_cast<const unsigned int*>(
-                         wr + ks * 32 + 16));
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        if (mt < mts) {
-          const int8_t* ar = A + (mt * 16 + g) * lda + ks * 32 + 4 * t;
-          mma16832s8(acc[mt], *reinterpret_cast<const uint32_t*>(ar),
-                     *reinterpret_cast<const uint32_t*>(ar + 8 * lda),
-                     *reinterpret_cast<const uint32_t*>(ar + 16),
-                     *reinterpret_cast<const uint32_t*>(ar + 8 * lda + 16),
-                     b0, b1);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      if (mt < mts) {
-        epi(mt * 16 + g, nt * 8 + 2 * t, static_cast<float>(acc[mt][0]),
-            static_cast<float>(acc[mt][1]));
-        epi(mt * 16 + g + 8, nt * 8 + 2 * t, static_cast<float>(acc[mt][2]),
-            static_cast<float>(acc[mt][3]));
-      }
-    }
-  }
-}
-
 // Affine-free one-pass LayerNorm of n rows of c f32 (stride c) into bf16
 // rows at stride ldd, columns c..cpad-1 set to 0. Every row at once:
 // blockDim.x / n neighbouring threads per row (a power of two <= 32, as
@@ -326,38 +254,6 @@ __device__ inline void normalize_rows(const float* src, bf16* dst, int ldd,
     dst[r * ldd + i] = __float2bfloat16_rn(i < c ? row[i] * a - ma : 0.f);
 }
 
-// normalize_rows quantized to int8 (`_quant_rows(normalize(x), kQX)`):
-// clip(round_half_even((x a - mu a) * kQX), +-127), each product and the
-// difference rounded on its own (no fused multiply-add), as the plain
-// version computes them; columns c..kpad-1 set to 0.
-__device__ inline void quantize_rows(const float* src, int8_t* dst, int ldd,
-                                     int n, int c, int kpad) {
-  const int tpr = blockDim.x / n;
-  const int r = threadIdx.x / tpr, j = threadIdx.x - r * tpr;
-  const float* row = src + r * c;
-  float s = 0.f, s2 = 0.f;
-  for (int i = j; i < c; i += tpr) {
-    const float v = row[i];
-    s += v;
-    s2 += v * v;
-  }
-  for (int o = tpr >> 1; o > 0; o >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, o);
-    s2 += __shfl_xor_sync(0xffffffffu, s2, o);
-  }
-  const float mu = s / c, ex2 = s2 / c;
-  const float a = rsqrtf(fmaxf(ex2 - mu * mu, 0.f) + kEps);
-  const float ma = __fmul_rn(mu, a);
-  for (int i = j; i < kpad; i += tpr) {
-    float q = 0.f;
-    if (i < c) {
-      const float xn = __fsub_rn(__fmul_rn(row[i], a), ma);
-      q = fminf(fmaxf(rintf(__fmul_rn(xn, kQX)), -127.f), 127.f);
-    }
-    dst[r * ldd + i] = static_cast<int8_t>(static_cast<int>(q));
-  }
-}
-
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float u = 0.7978845608028654f * (x + 0.044715f * (x * x * x));
   return x * (0.5f * (1.0f + tanhf(u)));
@@ -369,13 +265,9 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 // bias slice. The training kernel (pair_train.cu) asks for an exact
 // division of the softmax normalizer (`exact`) and scales the residual
 // branches of row m by dp_attn[dp_stride m] and dp_mlp[dp_stride m]
-// (stochastic-depth factor columns; null means 1). kInt8 runs the qkv
-// product on the int8 operands w.wq / w.wqs; it is a template argument so
-// that the kernels without int8 operands compile none of that code (the
-// train kernels keep their register budget). Starts and ends with
+// (stochastic-depth factor columns; null means 1). Starts and ends with
 // __syncthreads().
-template <bool kInt8 = false>
-__device__ void fast_block(const Weights& w, const Geom& g, char* smem,
+__device__ inline void fast_block(const Weights& w, const Geom& g, char* smem,
                            int bias_win, int softmax, bool exact = false,
                            const float* dp_attn = nullptr,
                            const float* dp_mlp = nullptr,
@@ -390,13 +282,8 @@ __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
   const int n = g.n, c = g.c;
   __syncthreads();
 
-  // LN1 (bf16 rows, or int8 rows over the same bytes); q/k/v pads must
-  // read as zero
-  int8_t* xq = reinterpret_cast<int8_t*>(xn);
-  if (kInt8)
-    quantize_rows(xs, xq, g.ldi, n, c, g.kq);
-  else
-    normalize_rows(xs, xn, g.lda, n, c, g.cp);
+  // LN1; q/k/v pads must read as zero
+  normalize_rows(xs, xn, g.lda, n, c, g.cp);
   {
     uint4* z = reinterpret_cast<uint4*>(smem + L.region);
     for (int i = threadIdx.x; i < L.region_bytes / 16; i += blockDim.x)
@@ -407,8 +294,7 @@ __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
   // head of a channel without an integer division: (ch + 0.5) / hd is at
   // least 0.5 / hd from an integer, far beyond the float error
   const float inv_hd = 1.0f / g.hd;
-  // the q/k/v scatter of output columns o, o + 1 (the int8 product's
-  // exact sums take their per-channel step first)
+  // the q/k/v scatter of output columns o, o + 1
   auto qkv_epi = [&](int m, int o, float v0, float v1) {
     const int part = o < g.cp ? 0 : (o < 2 * g.cp ? 1 : 2);
     const float vv[2] = {v0, v1};
@@ -416,8 +302,8 @@ __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
     for (int u = 0; u < 2; ++u) {
       const int ch = o + u - part * g.cp;
       if (ch >= c) continue;
-      const float y = kInt8 ? __fmul_rn(vv[u], __ldg(w.wqs + o + u)) : vv[u];
-      const bf16 val = __float2bfloat16_rn(__fadd_rn(y, __ldg(w.bqkv + o + u)));
+      const bf16 val =
+          __float2bfloat16_rn(__fadd_rn(vv[u], __ldg(w.bqkv + o + u)));
       const int h = static_cast<int>((ch + 0.5f) * inv_hd);
       const int d = ch - h * g.hd;
       if (part == 0)
@@ -428,20 +314,12 @@ __device__ void fast_block(const Weights& w, const Geom& g, char* smem,
         vt[(h * g.hdv + d) * g.ldv + m] = val;
     }
   };
-  if (kInt8)
-    gemm_s8(xq, g.ldi, n, g.kq / 32, w.wq, g.kq, 3 * g.cp / 8, qkv_epi);
-  else
-    gemm(xn, g.lda, n, g.cp / 16, w.wqkv, g.cp, 3 * g.cp / 8, qkv_epi);
+  gemm(xn, g.lda, n, g.cp / 16, w.wqkv, g.cp, 3 * g.cp / 8, qkv_epi);
   __syncthreads();
 
   // attention: a warp owns (head h, 16 query rows); ao overwrites xn.
   // The projection reads columns c..cp-1 of ao as zeros: normalize_rows
-  // left them so, the int8 rows did not.
-  if (kInt8) {
-    const int pad = g.cp - c;
-    for (int i = threadIdx.x; i < n * pad; i += blockDim.x)
-      xn[(i / pad) * g.lda + c + i % pad] = __float2bfloat16_rn(0.f);
-  }
+  // left them so.
   {
     bf16* ao = xn;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;

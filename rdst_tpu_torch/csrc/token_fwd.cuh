@@ -1,7 +1,9 @@
 // The token-parallel bf16 Swin-block forward for Hopper (sm_90a), shared by
-// the fast block above the window body's widths (csrc/swin_block_fast.cu)
-// and the pair and RDSTB stage kernels that the window body does not take
-// (csrc/swin_pair.cu, csrc/rdstb_block.cu: C above 120, or int8 qkv).
+// the fast block that the window kernel does not take (csrc/swin_block_fast
+// .cu: C above 120, or int8 qkv), the pair and RDSTB stage kernels that the
+// window body does not take (csrc/swin_pair.cu, csrc/rdstb_block.cu: the
+// same rule), and the forward of the training step's single block
+// (csrc/block_train.cu, with its exact division and factor columns).
 //
 // Five kernels over all T = windows x n tokens: LN1 rows (bf16, or int8
 // for the int8 qkv product), the qkv GEMM, attention per (window, head)
@@ -53,9 +55,10 @@ inline RowsIn rows_in(const bf16* x, tp::Rows xr, int ldx) {
 constexpr tp::Rows kSameRows{0, 0, 0, 0, 0};  // token m at row m
 
 // LN1 of every token, a warp per token (one-pass moments, eps 1e-5):
-// bf16(normalize(x)) rows, or with int8 qkv the rows quantized as
-// fastblk::quantize_rows does (each product and the difference rounded on
-// its own, round half to even); ld elements a row, zeros past c.
+// bf16(normalize(x)) rows, or with int8 qkv the rows quantized,
+// clip(round(normalize(x) * kQX), +-127) (each product and the difference
+// rounded on its own, round half to even, as kernels.quant.quant_rows);
+// ld elements a row, zeros past c.
 template <bool kInt8>
 __global__ void __launch_bounds__(256)
     ln1_rows_kernel(const RowsIn in, void* dst, const tp::Dims d, int ld) {
@@ -182,10 +185,15 @@ inline BlockW block_w(const void* const* p) {
 // One block over d.tokens tokens: kFwdKernels launches on s, each checked.
 // Token m reads in's row in.xr(m, n) and writes bf16 row orow(m, n) of out
 // (ldo a row; zeros in its columns [c, ldo)). bw: bias windows (1, or the
-// windows of an image); softmax: the kernels' code.
+// windows of an image); softmax: the kernels' code. The training step's
+// block (csrc/block_train.cu) adds its two differences: dpf, the (tokens,
+// 2) stochastic-depth factor columns [attn, mlp] on the residual
+// branches, and `exact`, the exact division of the softmax normalizer
+// (the backward's recompute divides so too).
 inline cudaError_t forward(const tp::Dims& d, const RowsIn& in, bf16* out,
                            tp::Rows orow, int ldo, const BlockW& w, int bw,
-                           int softmax, const FwdBufs& b, cudaStream_t s) {
+                           int softmax, const FwdBufs& b, cudaStream_t s,
+                           const float* dpf = nullptr, bool exact = false) {
   const int T = d.tokens, kp = d.kp;
   const int kq = fastblk::round_up(d.c, 32);
   bf16* xn = static_cast<bf16*>(b.xin);
@@ -202,22 +210,22 @@ inline cudaError_t forward(const tp::Dims& d, const RowsIn& in, bf16* out,
                             s));
   }
   const tp::AttnSmem al = tp::attn_smem(d, false);
+  auto attn =
+      exact ? &tp::attn_fwd_kernel<false> : &tp::attn_fwd_kernel<true>;
   TOKFWD_CHECK(cudaFuncSetAttribute(
-      tp::attn_fwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      al.bytes));
-  tp::attn_fwd_kernel<true><<<d.windows * d.nh, tp::kAttnThreads, al.bytes,
-                              s>>>(
+      attn, cudaFuncAttributeMaxDynamicSharedMemorySize, al.bytes));
+  attn<<<d.windows * d.nh, tp::kAttnThreads, al.bytes, s>>>(
       tp::Attn{d, b.qkv, w.bias, bw, softmax, b.ao});
   TOKFWD_CHECK(cudaGetLastError());
   // LN2's rows take the LN1 rows' place
   TOKFWD_CHECK(tokwg::proj_ln(
       b.ao, w.wproj,
       tokwg::EpiProjLn{in.x, in.xr, in.ldx, d.n, w.bproj, b.x1, xn, T, d.c,
-                       kp},
+                       kp, dpf},
       s));
   return tokwg::mlp(xn, kp, w.w1, w.w2, d.hp,
                     tokwg::MlpEpi{w.bf1, b.x1, w.bf2, out, orow, ldo, d.n, T,
-                                  d.c, d.hidden},
+                                  d.c, d.hidden, dpf},
                     s);
 }
 

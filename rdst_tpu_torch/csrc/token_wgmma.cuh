@@ -468,13 +468,15 @@ struct EpiQkv {
   }
 };
 
-// x1 = x + (ao Wproj + bproj) (f32, the input token at row xr(m, n) of x,
-// ldx a row); LN2 with one-pass moments (eps 1e-5) over the c columns;
-// x1n = bf16(normalize(x1)), ones at column c, zeros to kp. A warp's rows
-// are whole in its accumulator, so the moments are quad sums. The
-// residual comes in and x1n goes out through the staging rows where the
-// strides allow (x1's f32 pairs already fill a quad's 32-byte sector).
-// Constants: bproj (f32).
+// x1 = x + (ao Wproj + bproj) f (f32, the input token at row xr(m, n) of
+// x, ldx a row; f = dpf[2 m], the training step's stochastic-depth factor
+// of the attention branch, or 1 without dpf, which changes no bit); LN2
+// with one-pass moments (eps 1e-5) over the c columns; x1n =
+// bf16(normalize(x1)), ones at column c, zeros to kp. A warp's rows are
+// whole in its accumulator, so the moments are quad sums. The residual
+// comes in and x1n goes out through the staging rows where the strides
+// allow (x1's f32 pairs already fill a quad's 32-byte sector). Constants:
+// bproj (f32).
 struct EpiProjLn {
   const bf16* x;
   tp::Rows xr;
@@ -483,6 +485,7 @@ struct EpiProjLn {
   float* x1;  // x1_floats(tokens, c), in x1_at's order
   bf16* x1n;  // (tokens, kp)
   int tokens, c, kp;
+  const float* dpf = nullptr;  // (tokens, 2) factor columns [attn, mlp]
   __host__ __device__ int consts() const { return c; }
   __device__ void fill_consts(float* cs) const {
     const bf16* b = bproj;
@@ -552,7 +555,13 @@ struct EpiProjLn {
         }
       }
     }
-    float mu[2], rs[2];
+    float mu[2], rs[2], fa[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + f.g + 8 * h;
+      fa[h] = dpf && m < tokens ? __ldg(dpf + 2 * static_cast<size_t>(m))
+                                : 1.f;
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float s1 = 0.f, s2 = 0.f;
@@ -566,7 +575,8 @@ struct EpiProjLn {
             if (col < c) {
               const float xv = e ? fastblk::hi_f(xp[h][q][j])
                                  : fastblk::lo_f(xp[h][q][j]);
-              const float v = xv + (acc[q][4 * j + 2 * h + e] + cs[col]);
+              const float v =
+                  xv + (acc[q][4 * j + 2 * h + e] + cs[col]) * fa[h];
               s1 += v;
               s2 += v * v;
             }
@@ -592,7 +602,8 @@ struct EpiProjLn {
             const float xv = e ? fastblk::hi_f(xp[h][q][j])
                                : fastblk::lo_f(xp[h][q][j]);
             v[e] = col + e < c
-                       ? xv + (acc[q][4 * j + 2 * h + e] + cs[col + e])
+                       ? xv + (acc[q][4 * j + 2 * h + e] + cs[col + e]) *
+                                  fa[h]
                        : 0.f;
             nv[e] = col + e < c ? v[e] * rs[h] - mr
                                 : (col + e == c ? 1.f : 0.f);
@@ -804,8 +815,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // fc1 + tanh GELU + fc2 + residual: per tile, for each 64 hidden columns
 // j, h_j = bf16(gelu_tanh(x1n W1_j^T + bf1)) (zeros past hidden) into the
-// hidden slice, then acc += h_j W2[:, j]^T; out = bf16(x1 + (acc + bf2)) at
-// row orow(m, n) of out (ldo a row, zeros in its columns [c, ldo)).
+// hidden slice, then acc += h_j W2[:, j]^T; out = bf16(x1 + (acc + bf2) f)
+// at row orow(m, n) of out (ldo a row, zeros in its columns [c, ldo)); f =
+// dpf[2 m + 1], the MLP branch's stochastic-depth factor, or 1.
 struct MlpEpi {
   const float* bf1;  // (hidden)
   const float* x1;   // x1_floats(tokens, c), in x1_at's order
@@ -813,6 +825,7 @@ struct MlpEpi {
   bf16* out;
   tp::Rows orow;
   int ldo, n, tokens, c, hidden;
+  const float* dpf = nullptr;  // (tokens, 2) factor columns [attn, mlp]
   // constants: bf1, then bf2 (f32)
   __host__ __device__ int consts() const { return hidden + c; }
   __device__ void fill_consts(float* cs) const {
@@ -970,6 +983,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     // where the stride allows
     const float* bf2 = L.cs + e.hidden;
     const int r0 = m0 + f.r0, blk = r0 >> 4, pc = cdiv(e.c, kPiece);
+    float fm[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + f.g + 8 * h;
+      fm[h] = e.dpf && m < e.tokens
+                  ? __ldg(e.dpf + 2 * static_cast<size_t>(m) + 1)
+                  : 1.f;
+    }
     auto value = [&](int q, int j, int h) {
       const int m = r0 + f.g + 8 * h, col = kPiece * q + 8 * j + 2 * f.t;
       float2 x = make_float2(0.f, 0.f);
@@ -977,9 +998,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         x = __ldg(reinterpret_cast<const float2*>(
             e.x1 + x1_at(blk, pc, q, j, h, f.lane)));
       return make_float2(
-          col < e.c ? x.x + (acc[q][4 * j + 2 * h] + bf2[col]) : 0.f,
-          col + 1 < e.c ? x.y + (acc[q][4 * j + 2 * h + 1] + bf2[col + 1])
-                        : 0.f);
+          col < e.c ? x.x + (acc[q][4 * j + 2 * h] + bf2[col]) * fm[h] : 0.f,
+          col + 1 < e.c
+              ? x.y + (acc[q][4 * j + 2 * h + 1] + bf2[col + 1]) * fm[h]
+              : 0.f);
     };
     const int vb = vec_bytes(e.out, e.ldo);
     if (vb) {
@@ -1127,12 +1149,18 @@ inline cudaError_t launch(Kernel kernel, const P& p, cudaStream_t s) {
 // name of its own
 struct EpiQkvS8 : EpiQkv {};
 
+// A launch's tile rows: bm where the caller names it (64 or 128: the
+// measurements of each height), else tile_rows's.
+inline int pick_rows(int m, int bm) {
+  return bm ? bm : tile_rows(m, sm_count());
+}
+
 template <bool kS8, class Epi>
 inline cudaError_t qkv_es(const void* a, const void* w, int ld, int c,
-                          const Epi& epi, cudaStream_t s) {
+                          const Epi& epi, int bm, cudaStream_t s) {
   constexpr int es = kS8 ? 1 : 2;
   GemmP<Epi> p;
-  p.s = sched(epi.tokens, tile_rows(epi.tokens, sm_count()), c * es,
+  p.s = sched(epi.tokens, pick_rows(epi.tokens, bm), c * es,
               kQkvPieces * kPieceBytes, epi.consts());
   p.n = epi.n3;
   p.kel = kSlice / es;
@@ -1144,11 +1172,11 @@ inline cudaError_t qkv_es(const void* a, const void* w, int ld, int c,
 
 // The qkv product: int8 rows (tokens, ld) [m][k] and weights wq (n3, ld)
 // when epi.ws is set (the steps), else bf16 rows and weights (n3, ld);
-// K = c; q/k/v by head into qkv (tokens, n3).
+// K = c; q/k/v by head into qkv (tokens, n3). bm: pick_rows's.
 inline cudaError_t qkv(const void* a, const void* w, int ld, int c,
-                       const EpiQkv& epi, cudaStream_t s) {
-  if (epi.ws) return qkv_es<true>(a, w, ld, c, EpiQkvS8{epi}, s);
-  return qkv_es<false>(a, w, ld, c, epi, s);
+                       const EpiQkv& epi, cudaStream_t s, int bm = 0) {
+  if (epi.ws) return qkv_es<true>(a, w, ld, c, EpiQkvS8{epi}, bm, s);
+  return qkv_es<false>(a, w, ld, c, epi, bm, s);
 }
 
 // A GEMM whose epilogue spans a row: N <= 256 in one pass of NT pieces.
@@ -1162,12 +1190,12 @@ inline cudaError_t rows_nt(GemmP<Epi>& p, const void* w, int ldw, int k,
 template <class Epi, int kMaxNt>
 inline cudaError_t rows(const void* a, int lda, const void* w, int ldw,
                         int tokens, int n, int k, const Epi& epi,
-                        cudaStream_t s) {
+                        cudaStream_t s, int bm = 0) {
   const int nt = cdiv(n, kPiece);
   if (nt > kMaxNt) return cudaErrorInvalidValue;
   GemmP<Epi> p;
-  p.s = sched(tokens, tile_rows(tokens, sm_count()), 2 * k,
-              nt * kPieceBytes, epi.consts());
+  p.s = sched(tokens, pick_rows(tokens, bm), 2 * k, nt * kPieceBytes,
+              epi.consts());
   p.n = n;
   p.kel = kSlice / 2;
   p.epi = epi;
@@ -1182,11 +1210,12 @@ inline cudaError_t rows(const void* a, int lda, const void* w, int ldw,
 }
 
 // The projection + residual + LN2: ao (tokens, kp) bf16, wproj (kp, kp)
-// [n][k]; K = N = c.
+// [n][k]; K = N = c. bm: pick_rows's.
 inline cudaError_t proj_ln(const bf16* ao, const bf16* wproj,
-                           const EpiProjLn& epi, cudaStream_t s) {
+                           const EpiProjLn& epi, cudaStream_t s,
+                           int bm = 0) {
   return rows<EpiProjLn, 3>(ao, epi.kp, wproj, epi.kp, epi.tokens, epi.c,
-                            epi.c, epi, s);
+                            epi.c, epi, s, bm);
 }
 
 // The adapter: z (tokens, ldz) bf16, w (growth, ldz) [n][k]; K = c.
@@ -1203,17 +1232,17 @@ inline cudaError_t mlp_nt(MlpP& p, const bf16* w2, int hp, cudaStream_t s) {
 }
 
 // fc1 + GELU + fc2 + residual: x1n (tokens, kp) bf16, w1 (hp, kp) and w2
-// (kp, hp) [n][k]; K = c for fc1, hidden for fc2.
+// (kp, hp) [n][k]; K = c for fc1, hidden for fc2. bm: pick_rows's.
 inline cudaError_t mlp(const bf16* x1n, int kp, const bf16* w1,
                        const bf16* w2, int hp, const MlpEpi& e,
-                       cudaStream_t s) {
+                       cudaStream_t s, int bm = 0) {
   const int nt = cdiv(e.c, kPiece), nks = cdiv(2 * e.c, kSlice);
   if (nt > 3) return cudaErrorInvalidValue;
   MlpP p;
   p.chunks = cdiv(e.hidden, kPiece);
   const int slot = (nks > nt ? nks : nt) * kPieceBytes;
-  p.s = sched(e.tokens, tile_rows(e.tokens, sm_count()), 2 * e.c, slot,
-              e.consts(), p.chunks, 1);
+  p.s = sched(e.tokens, pick_rows(e.tokens, bm), 2 * e.c, slot, e.consts(),
+              p.chunks, 1);
   if (p.s.nslots < 2)  // the hidden rows of 128 do not fit: 64 a tile
     p.s = sched(e.tokens, 64, 2 * e.c, slot, e.consts(), p.chunks, 1);
   p.e = e;

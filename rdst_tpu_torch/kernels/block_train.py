@@ -17,9 +17,12 @@ plain torch, so autograd carries the folded gradients back to the raw
 parameters. On a CPU tensor :func:`run_block_train` computes
 :func:`block_train_reference` (autograd differentiates it); on a CUDA
 tensor it applies :class:`BlockTrainFunction`, whose forward launches
-``block_train_fwd_bf16`` and whose backward ``block_train_bwd_bf16`` of
-``csrc/block_train.cu`` (13 kernels over all the launch's tokens, one of
-them the attention VJP), each wrapper call counted
+``block_train_fwd_bf16`` (the token-parallel forward, five kernels over
+all the launch's tokens, its GEMMs on ``csrc/token_wgmma.cuh``; the
+weights as :func:`forward_layout` lays them out) and whose backward
+``block_train_bwd_bf16`` of ``csrc/block_train.cu`` (13 kernels over all
+the launch's tokens, one of them the attention VJP), each wrapper call
+counted
 (``launch_forward.launches``, ``launch_backward.launches``;
 ``launch_backward.reductions`` counts the backward's other kernels).
 :func:`block_bwd_reference` computes that backward by hand in plain
@@ -43,9 +46,9 @@ import torch
 from rdst_tpu_torch.kernels import _build
 from rdst_tpu_torch.kernels.swin_block import (
     BF16, FAST_MAX_C, H100_SMEM_OPTIN, SOFTMAX_CODES, FastParams,
-    check_fast_tokens, fast_body, fast_kernel_supports, fast_params,
-    fast_smem_bytes, gelu_tanh, kernel_layout, launch, normalize,
-    pack_bias_fast, softmax_code)
+    check_fast_tokens, fast_body, fast_params, gelu_tanh, launch, normalize,
+    pack_bias_fast, softmax_code, token_kernel_supports, token_layout,
+    token_smem_bytes, token_wgmma_layout, work_bytes)
 
 _SOURCE = "block_train.cu"
 
@@ -142,9 +145,10 @@ def fused_block_train_fits(nw, n, c, nh, hidden, es=2, softmax="") -> bool:
 
 def block_train_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
     """Whether the single-block train kernels take this block geometry:
-    the forward's window body at up to ``FAST_MAX_C`` channels; the
-    backward takes the same geometries."""
-    return fast_kernel_supports(n, c, nh, hidden, max_c=FAST_MAX_C)
+    the forward's, the token-parallel forward's at up to ``FAST_MAX_C``
+    channels (``token_kernel_supports``); the backward takes the same
+    geometries."""
+    return token_kernel_supports(n, c, nh, hidden)
 
 
 def block_train_reference(x_windows, p: FastParams, bias, dp_cols=None, *,
@@ -291,19 +295,40 @@ def _lib():
     return lib
 
 
+# The forward's scratch between its phases, one buffer per (device,
+# geometry), kept for the process: each step's calls reuse it (they run in
+# order on one stream), so a step allocates none.
+_fwd_work = {}
+
+
+def forward_layout(p: FastParams, nh: int):
+    """The forward kernels' weights (``token_wgmma_layout``)."""
+    return token_wgmma_layout(token_layout(p, nh))
+
+
 def launch_forward(x, layout, bias, dpf, nh: int, hidden: int, code: int):
-    """Launch ``block_train_fwd_bf16`` with the block's weights in the
-    kernels' layout (``kernel_layout``); returns the output tokens."""
+    """Launch ``block_train_fwd_bf16`` (the token-parallel forward, five
+    kernels) with the block's weights as :func:`forward_layout` lays them
+    out; returns the output tokens."""
     t, n, c = x.shape
+    dims = [t, n, c, nh, hidden, bias.shape[0], code]
+    lib = _lib()
+    key = (x.device, t, n, c, nh, hidden)
+    work = _fwd_work.get(key)
+    if work is None:
+        work = torch.empty(work_bytes(lib, "block_train_fwd_work_bytes",
+                                      dims), dtype=torch.uint8,
+                           device=x.device)
+        _fwd_work[key] = work
     out = torch.empty_like(x)
-    launch(_lib(), "block_train_fwd_bf16",
-           [x, out, 0 if dpf is None else dpf, *layout, bias],
-           [t, n, c, nh, hidden, bias.shape[0], code], x.device)
+    launch(lib, "block_train_fwd_bf16",
+           [x, out, 0 if dpf is None else dpf, *layout, bias, work], dims,
+           x.device)
     launch_forward.launches += 1
     return out
 
 
-launch_forward.launches = 0  # wrapper calls (kernel launches) since reset
+launch_forward.launches = 0  # wrapper calls since the last reset
 
 
 def split_grads(flat, like: FastParams) -> FastParams:
@@ -353,7 +378,7 @@ class BlockTrainFunction(torch.autograd.Function):
     def forward(ctx, x, dpf, geom, *tensors):
         nh, code = geom
         p, bias = FastParams(*tensors[:8]), tensors[8]
-        out = launch_forward(x, kernel_layout(p), bias, dpf, nh,
+        out = launch_forward(x, forward_layout(p, nh), bias, dpf, nh,
                              p.w1.shape[1], code)
         ctx.geom = geom
         ctx.has_dpf = dpf is not None
@@ -391,9 +416,9 @@ def run_block_train(x_windows, p: FastParams, bias, dp_cols=None, *,
         raise ValueError(
             f"fused_swin_block_train: the CUDA kernels do not take N={n}, "
             f"C={c}, heads={nh}, hidden={hidden} (needs N a multiple of 16 "
-            f"up to 64, C <= {FAST_MAX_C}, head dim <= 32 and "
-            f"{fast_smem_bytes(n, c, nh, hidden)} <= {H100_SMEM_OPTIN} bytes "
-            "of shared memory); build with pallas_train='off'")
+            f"up to 64, C <= {FAST_MAX_C}, head dim <= 32, hidden <= 512 "
+            f"and {token_smem_bytes(n, c, nh, hidden)} <= {H100_SMEM_OPTIN} "
+            "bytes of shared memory); build with pallas_train='off'")
     if (bias.dim() != 3 or bias.shape[0] not in (1, nw)
             or tuple(bias.shape[1:]) != (n, nh * n)
             or p.wqkv.shape[0] != c):

@@ -16,7 +16,7 @@ asked for.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -78,18 +78,3 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     """Exact int8 x int8 -> int32 product, as float32 (every sum stays
     below 2^24 for C <= 1040, so float64 products round nowhere)."""
     return (xq.double() @ wq.double()).float()
-
-
-def qkv_kernel_layout(q: Optional[QkvQuant], c: int, cp: int):
-    """The fast kernel's int8 operands: wq as (3 cp, kq) int8 (out, in),
-    kq = C rounded up to 32, zero-padded; ws as (3 cp,) float32. Empty for
-    bf16 qkv."""
-    if q is None:
-        return ()
-    kq = -(-c // 32) * 32
-    dev = q.wq.device
-    wq = torch.zeros(3, cp, kq, dtype=torch.int8, device=dev)
-    wq[:, :c, :c] = q.wq.reshape(c, 3, c).permute(1, 2, 0)
-    ws = torch.zeros(3, cp, dtype=torch.float32, device=dev)
-    ws[:, :c] = q.ws.reshape(3, c)
-    return wq.reshape(3 * cp, kq), ws.reshape(-1)

@@ -25,14 +25,16 @@ the dtype of the tokens, as the JAX function does (``use_fast_path``):
   variant, approximate reciprocal, tanh GELU, bf16 roundings where the
   TPU kernel rounds, optionally int8 qkv operands (``pallas_quant=
   'qkv'``, ``kernels.quant``): ``csrc/swin_block_fast.cu`` in one of two
-  designs the plan picks by C (:func:`fast_route`): the window body
-  (``csrc/fast_block.cuh``, shared with the train kernels; the pair
-  and RDSTB stage kernels run ``csrc/window_body.cuh``) up to ``WINDOW_MAX_C``, the token-parallel forward
-  (``csrc/token_gemm.cuh``, shared with the training backward) above;
-  plain version :func:`swin_block_fast_reference`. It takes C up to
-  ``FAST_MAX_C`` (SwinIR-std's 180, RDST-W96's 192); the train-pair
-  kernels stay at the ``SHARED_MAX_C`` they were verified at, and the
-  pair and RDSTB stages take the design :func:`stage_route` picks.
+  designs the plan picks by C and the qkv operands (:func:`fast_route`):
+  the persistent window kernel on the window body of
+  ``csrc/window_body.cuh`` (which the pair and RDSTB stage kernels run
+  too) up to ``WINDOW_MAX_C`` with bf16 qkv, the token-parallel forward
+  (``csrc/token_fwd.cuh``, its GEMMs on ``csrc/token_wgmma.cuh``) above
+  and for int8 qkv; plain version :func:`swin_block_fast_reference`. It
+  takes C up to ``FAST_MAX_C`` (SwinIR-std's 180, RDST-W96's 192); the
+  train-pair kernels stay at the ``SHARED_MAX_C`` they were verified at,
+  and the pair and RDSTB stages take the design :func:`stage_route`
+  picks.
 
 Both count their launches, one a call whatever the kernels it runs
 (``fused_swin_block.launches`` and ``run_fast_block.launches``). A CPU
@@ -51,8 +53,7 @@ import torch
 
 from rdst_tpu_torch.kernels import _build
 from rdst_tpu_torch.kernels.quant import (QX, QkvQuant, int8_matmul,
-                                          qkv_kernel_layout, qkv_quant,
-                                          quant_rows)
+                                          qkv_quant, quant_rows)
 
 _EPS = 1e-5  # torch-default LayerNorm epsilon
 _SOURCE = "swin_block.cu"
@@ -710,18 +711,34 @@ def check_fast_tokens(name: str, x, shape) -> None:
         raise ValueError(f"unsupported device {x.device}")
 
 
-# The fast block's two designs (csrc/swin_block_fast.cu): "window", one
-# thread block per window (csrc/fast_block.cuh), and "tokens", the
-# token-parallel phases (csrc/token_gemm.cuh). The plan takes the window
-# body up to this width, where it beats the token-parallel forward on an
-# H100 (both are timed in chip_smoke.py phase 7; PERF.md section 6), and
-# the token-parallel forward above it (SwinIR-std's C = 180, phase 14).
+# The fast block's two designs (csrc/swin_block_fast.cu): "window", the
+# persistent window kernel on the window body (csrc/window_body.cuh: two
+# warpgroups a thread block taking the tensor cores in turns, weights
+# resident where they fit), and "tokens", the token-parallel forward
+# (csrc/token_fwd.cuh). The plan takes the window kernel up to this width
+# with bf16 qkv, where the window body beats the token-parallel forward on
+# an H100 (both are timed in chip_smoke.py phase 7; PERF.md section 6),
+# and the token-parallel forward above it (SwinIR-std's C = 180, phase 14)
+# and for int8 qkv, which the window body has no product for.
 WINDOW_MAX_C = 120
 
 
-def fast_route(c: int) -> str:
-    """The fast block's design at width c: 'window' or 'tokens'."""
-    return "window" if c <= WINDOW_MAX_C else "tokens"
+def fast_route(c: int, int8: bool = False) -> str:
+    """The fast block's design at width c: 'window' up to
+    ``WINDOW_MAX_C`` with bf16 qkv, else 'tokens' (:func:`stage_route`'s
+    rule)."""
+    return stage_route(c, int8)
+
+
+def window_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
+    """Whether the persistent window kernel takes this geometry: the
+    window body's (``window_body.body_supports``: windows of 16 or 64
+    tokens), C <= ``WINDOW_MAX_C``, and its plan in an H100 block's shared
+    memory (``window_body.persist_fit``)."""
+    from rdst_tpu_torch.kernels import window_body as wb
+
+    return (c <= WINDOW_MAX_C and wb.body_supports(n, c, nh, hidden)
+            and wb.persist_fit(wb.make_geom(n, c, nh, hidden)).smem > 0)
 
 
 def stage_route(c: int, int8: bool) -> str:
@@ -959,8 +976,9 @@ class FastBlockPlan(NamedTuple):
     layout: tuple       # the route's weight layout on a CUDA device, else ()
     qkv: Optional[QkvQuant] = None  # int8 qkv operands, or None
     qkv_layout: tuple = ()  # their layout for the route on a CUDA device
-    # 'window' (kernel_layout), 'tokens' (token_wgmma_layout) or 'stage' (the
-    # pair's stage kernels: window_body.stage_layout and stage_bias)
+    # 'window' (the persistent window kernel) or 'stage' (the pair's stage
+    # kernels), both window_body.stage_layout and stage_bias; 'tokens'
+    # (token_wgmma_layout)
     route: str = "window"
 
 
@@ -970,39 +988,45 @@ def plan_fast_block(params, bias, *, num_heads: int, quant=frozenset(),
     head-major bias; with ``'qkv'`` in ``quant`` also quantize the folded
     qkv weight to int8; on a CUDA device lay the weights out for the
     kernel. ``route``: the design the plan is for, by default the fast
-    block's own at this width (:func:`fast_route`); the pair's stage
-    kernels ask for 'stage' (``csrc/window_body.cuh``'s weight panels,
-    bf16 qkv only). Depends on the weights only, so a caller may keep
-    it."""
+    block's own (:func:`fast_route`, and 'tokens' where the window kernel
+    does not take the geometry); the pair's stage kernels ask for 'stage'.
+    'window' and 'stage' take ``csrc/window_body.cuh``'s weight panels and
+    bf16 qkv only: asked for where the card's kernel would refuse them,
+    they raise on either device. Depends on the weights only, so a caller
+    may keep it."""
     from rdst_tpu_torch.kernels.quant import check_ported
 
     c, nh = params[0].shape[0], num_heads
     if bias.dim() != 3 or bias.shape[0] % nh or bias.shape[1] != bias.shape[2]:
         raise ValueError(f"bias must be head-major (nH*bw, N, N), got "
                          f"{tuple(bias.shape)}")
-    route = fast_route(c) if route is None else route
-    if route not in ("window", "tokens", "stage"):
+    if route not in (None, "window", "tokens", "stage"):
         raise ValueError(f"route {route!r}: expected 'window', 'tokens' or "
                          "'stage'")
+    n, hidden = bias.shape[1], params[8].shape[1]
+    int8 = "qkv" in check_ported(quant)
+    if route is None:
+        route = fast_route(c, int8)
+        if route == "window" and not window_kernel_supports(n, c, nh,
+                                                            hidden):
+            route = "tokens"
+    if route != "tokens" and int8:
+        raise ValueError(f"the {route} kernels take bf16 qkv only")
+    if route == "window" and not window_kernel_supports(n, c, nh, hidden):
+        raise ValueError(f"the window kernel does not take N={n}, C={c}, "
+                         f"heads={nh}, hidden={hidden}")
     p = fast_params(params, c, nh)
-    packed = pack_bias_fast(bias, nh, bias.shape[1])
-    q = qkv_quant(p.wqkv) if "qkv" in check_ported(quant) else None
-    if route == "stage" and q is not None:
-        raise ValueError("the stage kernels take bf16 qkv only")
+    packed = pack_bias_fast(bias, nh, n)
+    q = qkv_quant(p.wqkv) if int8 else None
     if packed.device.type != "cuda":
         return FastBlockPlan(p, packed, (), q, (), route)
-    if route == "stage":
-        from rdst_tpu_torch.kernels.window_body import (stage_bias,
-                                                        stage_layout)
-
-        return FastBlockPlan(p, packed,
-                             stage_layout(kernel_layout(p), c, nh)
-                             + (stage_bias(packed, nh),), q, (), route)
     if route == "tokens":
         return FastBlockPlan(p, packed, token_wgmma_layout(token_layout(
             p, nh)), q, qkv_token_layout(q, c, nh), route)
-    return FastBlockPlan(p, packed, kernel_layout(p), q,
-                         qkv_kernel_layout(q, c, _round_up(c, 16)), route)
+    from rdst_tpu_torch.kernels.window_body import stage_bias, stage_layout
+
+    return FastBlockPlan(p, packed, stage_layout(kernel_layout(p), c, nh)
+                         + (stage_bias(packed, nh),), q, (), route)
 
 
 def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
@@ -1010,10 +1034,10 @@ def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
     """The fast block on bf16 window-layout tokens (B*nW, N, C) with a
     prepared plan. A CPU tensor takes :func:`swin_block_fast_reference`;
     a CUDA tensor launches ``csrc/swin_block_fast.cu`` in the plan's
-    design (the token-parallel forward's five kernels, or one thread block
-    per window; one count either way) or raises; geometry the kernel does
-    not take raises on either device. The plan's int8 qkv operands, when
-    it has them, go with it."""
+    design (the token-parallel forward's five kernels, or the persistent
+    window kernel; one count either way) or raises; geometry the kernel
+    does not take raises on either device. The plan's int8 qkv operands,
+    when it has them, go with it (the token-parallel forward's)."""
     if x_windows.dim() != 3:
         raise ValueError(f"x_windows must be (B*nW, N, C), got "
                          f"{tuple(x_windows.shape)}")
@@ -1053,18 +1077,49 @@ def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
         return out
     lib = _build.load(_FAST_SOURCE)
     dims = [t, n, c, nh, hidden, bw, code]
-    int8 = plan.qkv_layout or (0, 0)
     if plan.route == "tokens":
+        int8 = plan.qkv_layout or (0, 0)
         work = torch.empty(work_bytes(lib, "swin_block_fast_work_bytes", dims),
                            dtype=torch.uint8, device=dev)
         launch(lib, "swin_block_fast_tokens",
                [x_windows, out, *plan.layout, plan.bias, *int8, work], dims,
                dev)
     else:
-        launch(lib, "swin_block_fast_bf16",
-               [x_windows, out, *plan.layout, plan.bias, *int8], dims, dev)
+        _launch_window(lib, x_windows, out, plan, dims, True)
     run_fast_block.launches += 1
     return out
 
 
 run_fast_block.launches = 0  # kernel launches since the last reset
+
+
+def _launch_window(lib, x, out, plan, dims, turns: bool) -> None:
+    if x.data_ptr() % 16:  # its tiles come in by bulk copies
+        x = x.clone()
+    launch(lib, "swin_block_fast_window", [x, out, *plan.layout],
+           dims + [int(turns)], x.device)
+
+
+def window_kernel_without_turns(x_windows, plan: FastBlockPlan, *,
+                                num_heads: int, softmax: str = ""):
+    """A measurement, not a path of the model: the persistent window
+    kernel with its two warpgroups running free of the tensor-core turns
+    (``chip_smoke.py`` phase 7 times it beside the kernel to see what the
+    turns overlap). Only where every weight is resident (the streamed
+    panels' ring needs the turns' order): C = 60. Bias shared or per
+    window of one image, as ``run_fast_block``; CUDA only, not
+    counted."""
+    from rdst_tpu_torch.kernels import window_body as wb
+
+    t, n, c = x_windows.shape
+    hidden = plan.params.w1.shape[-1]
+    g = wb.make_geom(n, c, num_heads, hidden)
+    if (plan.route != "window" or x_windows.device.type != "cuda"
+            or wb.persist_fit(g).nslots):
+        raise ValueError("the window kernel runs without turns only on the "
+                         "card, where every weight is resident")
+    out = torch.empty_like(x_windows)
+    _launch_window(_build.load(_FAST_SOURCE), x_windows, out, plan,
+                   [t, n, c, num_heads, hidden, plan.bias.shape[0],
+                    softmax_code(softmax)], False)
+    return out

@@ -59,6 +59,13 @@ def _width(c: int) -> None:
                          f"{FAST_MAX_C}")
 
 
+def _rows(bm: int) -> int:
+    if bm not in (0, 64, 128):
+        raise ValueError(f"bm={bm}: tiles of 64 or 128 rows (0: the "
+                         "schedule's)")
+    return bm
+
+
 def qkv_gemm_reference(a, w, bqkv, ws=None, *, c: int):
     """q/k/v rows (tokens, n3) bf16 from rows a (tokens, ld) and weights w
     (n3, ld), K = c. int8 (``ws`` given): the exact integer sums (float64
@@ -71,9 +78,10 @@ def qkv_gemm_reference(a, w, bqkv, ws=None, *, c: int):
     return (a[:, :c].float() @ w[:, :c].float().t() + bqkv).to(BF16)
 
 
-def qkv_gemm(a, w, bqkv, ws=None, *, c: int):
+def qkv_gemm(a, w, bqkv, ws=None, *, c: int, bm: int = 0):
     """The qkv product (:func:`qkv_gemm_reference`) on the card, or its
-    plain version for CPU tensors."""
+    plain version for CPU tensors. ``bm``: the card's tile rows (64 or
+    128; 0: the schedule's own, ``token_tile_rows``), for timing both."""
     _width(c)
     t, ld = a.shape
     n3 = w.shape[0]
@@ -85,8 +93,8 @@ def qkv_gemm(a, w, bqkv, ws=None, *, c: int):
         return qkv_gemm_reference(a, w, bqkv, ws, c=c)
     out = torch.empty(t, n3, dtype=BF16, device=a.device)
     launch(_build.load(_SOURCE), "tokwg_qkv",
-           [a, w, ws if ws is not None else 0, bqkv, out], [t, c, n3, ld],
-           a.device)
+           [a, w, ws if ws is not None else 0, bqkv, out],
+           [t, c, n3, ld, _rows(bm)], a.device)
     qkv_gemm.launches += 1
     return out
 
@@ -115,21 +123,25 @@ def x1_unpack(flat, tokens: int, c: int):
         0, 3, 4, 1, 2, 5, 6).reshape(tp, 64 * pc)[:tokens, :c]
 
 
-def proj_ln_reference(ao, wproj, x, bproj, *, c: int):
-    """x1 = x + (ao Wproj^T + bproj) (float32, K = N = c) and x1n =
-    bf16(normalize(x1)) with ones at column c and zeros to kp."""
+def proj_ln_reference(ao, wproj, x, bproj, dpf=None, *, c: int):
+    """x1 = x + (ao Wproj^T + bproj) f (float32, K = N = c; f the
+    attention column of the (T, 2) factor columns ``dpf``, or 1) and x1n
+    = bf16(normalize(x1)) with ones at column c and zeros to kp."""
     t, kp = ao.shape
-    x1 = x.float() + (ao[:, :c].float() @ wproj[:c, :c].float().t()
-                      + bproj.float())
+    y = ao[:, :c].float() @ wproj[:c, :c].float().t() + bproj.float()
+    if dpf is not None:
+        y = y * dpf[:, 0:1]
+    x1 = x.float() + y
     x1n = torch.zeros(t, kp, dtype=BF16, device=ao.device)
     x1n[:, :c] = normalize(x1).to(BF16)
     x1n[:, c] = 1.0
     return x1, x1n
 
 
-def proj_ln(ao, wproj, x, bproj, *, c: int):
+def proj_ln(ao, wproj, x, bproj, *, c: int, bm: int = 0):
     """The projection + residual + LN2 (:func:`proj_ln_reference`) on the
-    card, or its plain version for CPU tensors."""
+    card, or its plain version for CPU tensors; ``bm`` as
+    :func:`qkv_gemm`'s."""
     _width(c)
     t, kp = ao.shape
     if (tuple(wproj.shape) != (kp, kp) or tuple(x.shape) != (t, c)
@@ -142,7 +154,7 @@ def proj_ln(ao, wproj, x, bproj, *, c: int):
                      dtype=torch.float32, device=ao.device)
     x1n = torch.empty(t, kp, dtype=BF16, device=ao.device)
     launch(_build.load(_SOURCE), "tokwg_proj_ln",
-           [ao, wproj, x, bproj, x1, x1n], [t, c, kp], ao.device)
+           [ao, wproj, x, bproj, x1, x1n], [t, c, kp, _rows(bm)], ao.device)
     proj_ln.launches += 1
     return x1_unpack(x1, t, c), x1n
 
@@ -150,18 +162,23 @@ def proj_ln(ao, wproj, x, bproj, *, c: int):
 proj_ln.launches = 0
 
 
-def mlp_reference(x1n, w1, w2, bf1, x1, bf2, *, c: int, hidden: int):
-    """out = bf16(x1 + (h W2^T + bf2)) with h = bf16(gelu_tanh(x1n W1^T +
-    bf1)): K = c for fc1, hidden for fc2, float32 sums."""
+def mlp_reference(x1n, w1, w2, bf1, x1, bf2, dpf=None, *, c: int,
+                  hidden: int):
+    """out = bf16(x1 + (h W2^T + bf2) f) with h = bf16(gelu_tanh(x1n W1^T
+    + bf1)): K = c for fc1, hidden for fc2, float32 sums; f the MLP column
+    of the (T, 2) factor columns ``dpf``, or 1."""
     h = gelu_tanh(x1n[:, :c].float() @ w1[:hidden, :c].float().t()
                   + bf1).to(BF16)
     y = h.float() @ w2[:c, :hidden].float().t() + bf2.float()
+    if dpf is not None:
+        y = y * dpf[:, 1:2]
     return (x1 + y).to(BF16)
 
 
-def mlp(x1n, w1, w2, bf1, x1, bf2, *, c: int, hidden: int):
+def mlp(x1n, w1, w2, bf1, x1, bf2, *, c: int, hidden: int, bm: int = 0):
     """fc1 + GELU + fc2 + residual (:func:`mlp_reference`) on the card in
-    one kernel, or its plain version for CPU tensors."""
+    one kernel, or its plain version for CPU tensors; ``bm`` as
+    :func:`qkv_gemm`'s."""
     _width(c)
     t, kp = x1n.shape
     hp = w1.shape[0]
@@ -175,7 +192,7 @@ def mlp(x1n, w1, w2, bf1, x1, bf2, *, c: int, hidden: int):
     out = torch.empty(t, c, dtype=BF16, device=x1n.device)
     launch(_build.load(_SOURCE), "tokwg_mlp",
            [x1n, w1, w2, bf1, x1_pack(x1.float()), bf2, out],
-           [t, c, hidden, kp, hp], x1n.device)
+           [t, c, hidden, kp, hp, _rows(bm)], x1n.device)
     mlp.launches += 1
     return out
 
@@ -217,16 +234,20 @@ def adapter(z, w, bad, gad, bbad, *, c: int, prenorm: bool):
 adapter.launches = 0
 
 
-def token_block_staged(x_windows, layout, qkv_layout, bias, *,
+def token_block_staged(x_windows, layout, qkv_layout, bias, dpf=None, *,
                        num_heads: int, softmax: str):
     """One block of the token-parallel forward phase by phase on the plain
     versions above, over the kernels' buffers: bf16 tokens (T, N, C), the
     weights as ``token_wgmma_layout`` lays them out, the int8 qkv
     operands of ``qkv_token_layout`` (or ``()``), the packed (bw, N,
-    nH*N) bias. LN1 rows (bf16, or int8 kq wide), :func:`qkv_gemm`'s,
-    the attention of ``swin_block.fast_attention`` on each head's first
-    hd of its hdg channels, its rows kp wide with ones at column C,
-    :func:`proj_ln`'s and :func:`mlp`'s; returns bf16 (T, N, C)."""
+    nH*N) bias, and for the training step's block (``csrc/block_train
+    .cu``) its (T*N, 2) float32 factor columns ``dpf``. LN1 rows (bf16, or
+    int8 kq wide), :func:`qkv_gemm`'s, the attention of
+    ``swin_block.fast_attention`` (an exact division, the training
+    forward's; the serving forward's approximate reciprocal is within
+    its bar) on each head's first hd of its hdg channels, its rows kp
+    wide with ones at column C, :func:`proj_ln`'s and :func:`mlp`'s;
+    returns bf16 (T, N, C)."""
     t, n, c = x_windows.shape
     nh = num_heads
     hd = c // nh
@@ -251,6 +272,6 @@ def token_block_staged(x_windows, layout, qkv_layout, bias, *,
     ao = torch.zeros(t * n, kp, dtype=BF16, device=x.device)
     ao[:, :c] = o.transpose(1, 2).reshape(t * n, c).to(BF16)
     ao[:, c] = 1.0
-    x1, x1n = proj_ln_reference(ao, wproj, x, bproj, c=c)
-    return mlp_reference(x1n, w1, w2, bf1, x1, bf2, c=c,
+    x1, x1n = proj_ln_reference(ao, wproj, x, bproj, dpf, c=c)
+    return mlp_reference(x1n, w1, w2, bf1, x1, bf2, dpf, c=c,
                          hidden=hidden).reshape(t, n, c)

@@ -116,6 +116,101 @@ def stage_fit(g: Geom, ng: int = 0) -> Fit:
     return Fit(0, 0, slot, wb, 0)
 
 
+# The persistent fast-block kernel (csrc/swin_block_fast.cu): two consumer
+# warpgroups, and after the ring's barriers 32 bytes for the resident
+# panels' barrier and one a warpgroup for its input tiles
+PERSIST_WGS = 2
+PERSIST_CTRL = CTRL_BYTES + 32
+
+
+def panel_list(g: Geom, ng: int = 0) -> List[Tuple[int, int, int]]:
+    """(gemm, byte offset, bytes) of each panel of a block in order
+    (``wbody::for_panels``)."""
+    out, off = [], 0
+    for i, (nn, kk) in enumerate(gemm_shapes(g, ng)):
+        for n0 in range(0, nn, PANEL_N):
+            for k0 in range(0, kk, PANEL_K):
+                b = panel_bytes(nn - n0, kk - k0)
+                out.append((i, off, b))
+                off += b
+    return out
+
+
+class PersistFit(NamedTuple):
+    """``wbody::PFit``: how the persistent kernel fits an H100 block."""
+    res: int         # GEMMs resident (a prefix of qkv, proj, fc1, fc2)
+    res_panels: int
+    res_bytes: int
+    nin: int         # input buffers: 2 (one a warpgroup) or 0 (A rows)
+    in_bytes: int    # bytes of one
+    nslots: int      # ring slots for the streamed panels (0: none stream)
+    slot_bytes: int
+    wg_bytes: int
+    const_bytes: int  # the epilogues' constants: bqkv, bf1 f32, bproj, bf2
+    smem: int        # dynamic shared memory of the launch (0: no fit)
+
+
+def persist_fit(g: Geom) -> PersistFit:
+    """``wbody::persist_fit``: the most resident GEMMs, then the input
+    buffers, that leave at least two ring slots (up to MAX_SLOTS) for the
+    streamed panels within an H100 block's shared memory."""
+    wb = wg_bytes(g)
+    inb = _round_up(2 * ROWS * g.c, 128)
+    cb = _round_up(4 * (g.nq + g.hp) + 2 * 2 * g.cp, 128)
+    plist = panel_list(g)
+    for res in range(4, -1, -1):
+        mine = [b for i, _, b in plist if i < res]
+        slot = max([b for i, _, b in plist if i >= res], default=0)
+        for nin in (2, 0):
+            base = (PERSIST_WGS * wb + sum(mine) + nin * inb + PERSIST_CTRL
+                    + cb)
+            slots = 0
+            if res < 4:
+                slots = min((SMEM_OPTIN - base) // slot, MAX_SLOTS)
+                if slots < 2:
+                    continue
+            elif base > SMEM_OPTIN:
+                continue
+            return PersistFit(res, len(mine), sum(mine), nin, inb, slots,
+                              slot, wb, cb, base + slots * slot)
+    return PersistFit(0, 0, 0, 0, inb, 0, 0, wb, cb, 0)
+
+
+def section_of(gemm: int) -> int:
+    """``wbody::section_of``: qkv 0, proj 1, fc1 and fc2 2."""
+    return min(gemm, 2)
+
+
+def turn_order(g: Geom, res: int, pairs: int):
+    """The ring's order of the persistent kernel's streamed panels
+    (``wbody::produce_turns``) over ``pairs`` tile pairs of one thread
+    block: (pair, warpgroup, panel index in the block) per ring position;
+    and each warpgroup's own walk, as ``Turned::seq`` maps it, must land on
+    the same positions."""
+    plist = panel_list(g)
+    out = []
+    for pair in range(pairs):
+        for s in range(3):
+            for w in range(PERSIST_WGS):
+                out += [(pair, w, k) for k, (i, _, _) in enumerate(plist)
+                        if i >= res and section_of(i) == s]
+    return out
+
+
+def turned_seq(g: Geom, res: int, pair_it: int, wg: int, idx: int) -> int:
+    """``wbody::Turned::seq``: the ring position of streamed panel ``idx``
+    of warpgroup ``wg``'s tile in its ``pair_it``-th tile pair."""
+    plist = panel_list(g)
+    nres = sum(1 for i, _, _ in plist if i < res)
+    k = [sum(1 for i, _, _ in plist if i >= res and section_of(i) == s)
+         for s in range(3)]
+    before = [0, k[0], k[0] + k[1]]
+    total = sum(k)
+    u = idx - nres
+    s = 0 if u < before[1] else (1 if u < before[2] else 2)
+    return pair_it * 2 * total + 2 * before[s] + wg * k[s] + (u - before[s])
+
+
 def conv_smem_bytes(c0: int, ccat: int) -> int:
     """The conv kernel's shared memory: the (8+2) x (16+2) halo of ccatp
     channels and two slots of one tap's weights."""

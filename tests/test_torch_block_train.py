@@ -28,6 +28,7 @@ from rdst_tpu.kernels import pair_train as jpt
 from rdst_tpu.kernels import swin_block as jsb
 from rdst_tpu_torch.kernels import block_train as bt
 from rdst_tpu_torch.kernels import swin_block as sb
+from rdst_tpu_torch.kernels import token_wgmma as tw
 
 OUT_TOL, GRAD_TOL = 1e-2, 2e-2
 
@@ -185,3 +186,111 @@ def test_wrapper_refuses_geometry():
     with pytest.raises(ValueError, match="dp_cols"):
         bt.run_block_train(x, fp(180), bias, torch.ones(9 * 64, 4),
                            num_heads=6, windows_per_image=9)
+
+
+# ---------------------------------------------------------------------------
+# The forward on the token-parallel forward (csrc/block_train.cu ->
+# csrc/token_fwd.cuh): its phases over the kernels' buffers with the two
+# training differences, the exact division and the factor columns
+# ---------------------------------------------------------------------------
+
+STAGED_TOL = 0.02  # the port's bf16 bar (bf16 roundings in another order)
+
+
+def _staged_forward(cs, softmax):
+    """(token_block_staged, block_train_reference) on one case."""
+    c, nh = cs["x"].shape[-1], cs["nh"]
+    x = torch.from_numpy(cs["x"].copy()).to(torch.bfloat16)
+    p = sb.fast_params([torch.from_numpy(a) for a in cs["p"]], c, nh)
+    bias = sb.pack_bias_fast(torch.from_numpy(cs["bias"]).to(torch.bfloat16),
+                             nh, cs["x"].shape[1])
+    dpf = None if cs["dpf"] is None else torch.from_numpy(cs["dpf"])
+    got = tw.token_block_staged(x, bt.forward_layout(p, nh), (), bias, dpf,
+                                num_heads=nh, softmax=softmax)
+    plain = bt.block_train_reference(x, p, bias, dpf, num_heads=nh,
+                                     softmax=softmax)
+    return got.float().numpy(), plain.float().numpy()
+
+
+def _jax_forward(cs, softmax, monkeypatch):
+    monkeypatch.setenv("RDST_TPU_PALLAS_SOFTMAX", softmax)
+    clear_kernel_caches()
+    dt = jnp.bfloat16
+    dpf = None if cs["dpf"] is None else jnp.asarray(cs["dpf"])
+    y = jbt.fused_swin_block_train(
+        jnp.asarray(cs["x"], dt), [jnp.asarray(a) for a in cs["p"]],
+        jnp.asarray(cs["bias"]).astype(dt), dpf, num_heads=cs["nh"],
+        windows_per_image=cs["nw"], interpret=True)
+    clear_kernel_caches()
+    return np.asarray(y, np.float32)
+
+
+def _rel(a, b):
+    return float(np.abs(a - b).max() / np.abs(b).max())
+
+
+@pytest.mark.parametrize("softmax", ["clamp", "stable"])
+@pytest.mark.parametrize("with_dpf", [False, True], ids=["no_dpf", "dpf"])
+@pytest.mark.parametrize("c,nh,ws,per_window", [(12, 2, 4, True),
+                                                (60, 6, 8, False)],
+                         ids=["c12_per_window", "c60_shared"])
+def test_staged_token_forward_with_training_differences(
+        monkeypatch, c, nh, ws, per_window, with_dpf, softmax):
+    """``token_wgmma.token_block_staged`` with the factor columns, on the
+    weights ``forward_layout`` lays out for the kernels, against the plain
+    version and the JAX kernel's forward in interpret mode."""
+    cs = _case(4 + c, c, nh, ws, 4, 2, per_window, with_dpf)
+    got, plain = _staged_forward(cs, softmax)
+    assert _rel(got, plain) <= STAGED_TOL
+    assert _rel(got, _jax_forward(cs, softmax, monkeypatch)) <= STAGED_TOL
+
+
+def test_staged_token_forward_at_swinir_std_width(monkeypatch):
+    cs = _case(5, 180, 6, 8, 9, 1, False, True)
+    got, plain = _staged_forward(cs, "clamp")
+    assert _rel(got, plain) <= STAGED_TOL
+    assert _rel(got, _jax_forward(cs, "clamp", monkeypatch)) <= STAGED_TOL
+
+
+def test_factor_columns_scale_each_branch():
+    """A zero factor drops its branch: with the attention column 0 the
+    projection adds nothing to x1, with both 0 the block is the identity
+    (up to the output's bf16 rounding)."""
+    cs = _case(6, 12, 2, 4, 4, 1, False, False)
+    n = cs["x"].shape[0] * cs["x"].shape[1]
+    cs["dpf"] = np.zeros((n, 2), np.float32)
+    got, plain = _staged_forward(cs, "clamp")
+    assert np.array_equal(got, cs["x"]) and np.array_equal(plain, cs["x"])
+
+
+def test_training_geometry_schedule():
+    """18,432 tokens (32 images of 24x24 at C = 180): every GEMM of the
+    forward takes the tile rows of ``token_tile_rows`` (the source's
+    ``tokwg::tile_rows``), whose persistent blocks cover every row once."""
+    t = 288 * 64
+    bm = sb.token_tile_rows(t)
+    scheds = sb.token_gemm_scheds(t, 180, 6, 360)
+    assert {s.bm for s in scheds.values()} == {bm}
+    blocks = sb.token_schedule(t, bm)
+    covered = np.zeros(t, np.int64)
+    for b in blocks:
+        for lo, hi in b:
+            covered[lo:hi] += 1
+    assert (covered == 1).all()
+    assert sum(len(b) for b in blocks) == scheds["qkv"].tiles == -(-t // bm)
+    assert all(s.nslots >= 2 and s.smem <= sb.H100_SMEM_OPTIN
+               for s in scheds.values())
+
+
+@pytest.mark.parametrize("c", [144, 180, 192])
+def test_forward_admits_the_block_train_widths(c):
+    """SwinIR-std's C = 180 and RDST-W96's block-train layers (C = 144 and
+    192) at 64-token windows."""
+    assert bt.block_train_kernel_supports(64, c, 6, 2 * c)
+    layout = bt.forward_layout(sb.FastParams(
+        *[torch.zeros(*s) for s in ((c, 3 * c), (3 * c,), (c, c), (c,),
+                                    (c, 2 * c), (2 * c,), (2 * c, c),
+                                    (c,))]), 6)
+    kp, hp, _, n3, _ = sb.token_dims(c, 6, 2 * c)
+    assert [tuple(a.shape) for a in layout] == [
+        (n3, kp), (n3,), (kp, kp), (c,), (hp, kp), (2 * c,), (kp, hp), (c,)]

@@ -166,22 +166,3 @@ def test_unported_groups_raise():
     with pytest.raises(NotImplementedError, match="Queue B 7"):
         quant.check_ported({"qkv", "mlp"})
     assert quant.check_ported({"qkv", "conv"} - {"conv"}) == {"qkv"}
-
-
-def test_kernel_layout_of_int8_operands():
-    """(3 cp, kq) int8 (out, in) zero-padded to C rounded up to 16 rows
-    per part and 32 columns; steps (3 cp,) with zero pads."""
-    rng = np.random.default_rng(3)
-    c = 60
-    q = quant.qkv_quant(torch.from_numpy(rng.normal(
-        0, 0.1, (c, 3 * c)).astype(np.float32)).to(torch.bfloat16))
-    wq, ws = quant.qkv_kernel_layout(q, c, 64)
-    assert wq.shape == (192, 64) and ws.shape == (192,)
-    for part in range(3):
-        np.testing.assert_array_equal(
-            wq[part * 64:part * 64 + c, :c].numpy(),
-            q.wq[:, part * c:(part + 1) * c].t().numpy())
-        assert not wq[part * 64 + c:(part + 1) * 64].any()
-        assert not ws[part * 64 + c:(part + 1) * 64].any()
-    assert not wq[:, c:].any()
-    assert quant.qkv_kernel_layout(None, c, 64) == ()

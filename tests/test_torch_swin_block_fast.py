@@ -15,6 +15,9 @@ relative error ``max|port - jax| / max|jax|``:
   biases within 1e-6 relative (summation order of ``b @ W``).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -259,3 +262,152 @@ def test_smem_budget_flagship():
     assert sb.fast_smem_bytes(N, 120, 6, 240) == (
         4 * 64 * 120 + 2 * 64 * 136 + 2 * (2 * 64 * 152 + 144 * 72))
     assert 2 * (sb.fast_smem_bytes(N, 120, 6, 240) + 1024) <= 233472
+
+
+# ---------------------------------------------------------------------------
+# The persistent window kernel (csrc/swin_block_fast.cu) at C <= 120: its
+# plan (kernels.window_body.persist_fit, wbody::persist_fit), its turn
+# order and its route
+# ---------------------------------------------------------------------------
+
+_CSRC = Path(sb.__file__).resolve().parents[1] / "csrc"
+
+
+def _constexpr(name):
+    text = (_CSRC / "window_body.cuh").read_text()
+    return re.search(rf"constexpr int {name} = ([^;]+);", text).group(1)
+
+
+def test_persist_plan_mirrors_the_source():
+    from rdst_tpu_torch.kernels import window_body as wb
+
+    assert int(_constexpr("kPersistWgs")) == wb.PERSIST_WGS == 2
+    assert int(_constexpr("kMaxSlots")) == wb.MAX_SLOTS
+    assert int(_constexpr("kSmemOptin")) == wb.SMEM_OPTIN == \
+        sb.H100_SMEM_OPTIN
+    assert int(_constexpr("kRows")) == wb.ROWS
+    assert (int(_constexpr("kPanelN")), int(_constexpr("kPanelK"))) == (
+        wb.PANEL_N, wb.PANEL_K)
+    assert _constexpr("kCtrlBytes") == "16 * kMaxSlots"
+    assert _constexpr("kPersistCtrl") == "kCtrlBytes + 32"
+    assert wb.PERSIST_CTRL == 16 * wb.MAX_SLOTS + 32
+    assert int(_constexpr("kTurnBar")) == 3  # after __syncthreads, wg_sync
+
+
+# (C, resident GEMMs, input buffers): every weight resident at C = 60;
+# qkv and proj at C = 90, the next tile into the A rows; at C = 120 every
+# panel streams
+PERSIST = [(60, 4, 2), (90, 2, 0), (120, 0, 0)]
+
+
+@pytest.mark.parametrize("n", [64, 16])
+@pytest.mark.parametrize("c,res,nin", PERSIST)
+def test_persist_plan_budget(n, c, res, nin):
+    from rdst_tpu_torch.kernels import window_body as wb
+
+    g = wb.make_geom(n, c, 6, 2 * c)
+    f = wb.persist_fit(g)
+    assert (f.res, f.nin) == (res, nin)
+    plist = wb.panel_list(g)
+    mine = [b for i, _, b in plist if i < res]
+    assert (f.res_panels, f.res_bytes) == (len(mine), sum(mine))
+    assert f.slot_bytes == max([b for i, _, b in plist if i >= res],
+                               default=0)
+    assert f.nslots == (0 if res == 4 else 2)
+    assert f.wg_bytes == wb.wg_bytes(g)
+    assert f.in_bytes == -(-2 * 64 * c // 128) * 128
+    assert f.const_bytes == -(-(4 * (g.nq + g.hp) + 4 * g.cp) // 128) * 128
+    assert f.smem == (2 * f.wg_bytes + f.res_bytes + f.nin * f.in_bytes
+                      + f.nslots * f.slot_bytes + wb.PERSIST_CTRL
+                      + f.const_bytes)
+    assert 0 < f.smem <= sb.H100_SMEM_OPTIN
+    # the plan keeps the most it can: one more resident GEMM, or the input
+    # buffers beside these, would not fit
+    if res < 4:
+        more = sum(b for i, _, b in plist if i <= res) + f.const_bytes
+        assert 2 * f.wg_bytes + more + wb.PERSIST_CTRL + 2 * max(
+            [b for i, _, b in plist if i > res] or [0]) > sb.H100_SMEM_OPTIN
+    if nin == 0:
+        assert f.smem + 2 * f.in_bytes > sb.H100_SMEM_OPTIN
+    assert sb.window_kernel_supports(n, c, 6, 2 * c)
+
+
+@pytest.mark.parametrize("c,res,nin", PERSIST)
+def test_turn_order_is_each_warpgroups_walk(c, res, nin):
+    """The producer's ring order (both warpgroups' copies, section by
+    section, in turn order) and each warpgroup's own walk
+    (``Turned::seq``) name the same ring positions, each once."""
+    from rdst_tpu_torch.kernels import window_body as wb
+
+    g = wb.make_geom(64, c, 6, 2 * c)
+    order = wb.turn_order(g, res, 3)
+    nres = sum(1 for i, _, _ in wb.panel_list(g) if i < res)
+    total = len(wb.panel_list(g))
+    assert len(order) == 3 * 2 * (total - nres)
+    seen = set()
+    for it in range(3):
+        for w in range(2):
+            for k in range(nres, total):
+                q = wb.turned_seq(g, res, it, w, k)
+                assert order[q] == (it, w, k)
+                seen.add(q)
+    assert seen == set(range(len(order)))
+
+
+@pytest.mark.parametrize("c", [60, 90, 120])
+def test_window_layout_unpacks_to_the_plain_layout(c):
+    """The window kernel's weights (``stage_layout`` of ``kernel_layout``,
+    the resident prefix its first bytes) give the plain layout back
+    bitwise, and its bias in fragment order the packed bias."""
+    from rdst_tpu_torch.kernels import window_body as wb
+
+    _, params, bias = block_inputs(c, 6, True, seed=c)
+    p = sb.fast_params([torch.from_numpy(a) for a in params], c, 6)
+    layout = sb.kernel_layout(p)
+    stage = wb.stage_layout(layout, c, 6)
+    back = wb.unpack_stage_layout(stage, c, 6, layout[2].shape[0],
+                                  layout[4].shape[0])
+    for a, b in zip(back, layout):
+        assert torch.equal(a, b)
+    f = wb.persist_fit(wb.make_geom(N, c, 6, 2 * c))
+    assert f.res_bytes <= 2 * stage[0].numel()
+    packed = sb.pack_bias_fast(torch.from_numpy(bias).bfloat16(), 6, N)
+    assert torch.equal(wb.unpack_stage_bias(wb.stage_bias(packed, 6), 6, N),
+                       packed)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_fast_route_table(int8):
+    """The window kernel up to C = 120 with bf16 qkv; the token-parallel
+    forward above it and for int8 qkv (the window body has no int8
+    product), as the pair's and the RDSTB's stages route."""
+    for c in (12, 60, 90, 96, 120, 128, 144, 180, 192):
+        want = "window" if c <= sb.WINDOW_MAX_C and not int8 else "tokens"
+        assert sb.fast_route(c, int8) == want == sb.stage_route(c, int8)
+
+
+def test_window_route_refuses_what_the_card_would():
+    x, params, bias = block_inputs(60, 6, False)
+    tp = [torch.from_numpy(a) for a in params]
+    tb = torch.from_numpy(bias).bfloat16()
+    assert sb.plan_fast_block(tp, tb, num_heads=6).route == "window"
+    plan = sb.plan_fast_block(tp, tb, num_heads=6, quant=frozenset({"qkv"}))
+    assert plan.route == "tokens" and plan.qkv is not None
+    with pytest.raises(ValueError, match="bf16 qkv only"):
+        sb.plan_fast_block(tp, tb, num_heads=6, route="window",
+                           quant=frozenset({"qkv"}))
+    with pytest.raises(ValueError, match="bf16 qkv only"):
+        sb.plan_fast_block(tp, tb, num_heads=6, route="stage",
+                           quant=frozenset({"qkv"}))
+    _, wide, wbias = block_inputs(180, 6, False)
+    wide = [torch.from_numpy(a) for a in wide]
+    wbias = torch.from_numpy(wbias).bfloat16()
+    assert sb.plan_fast_block(wide, wbias, num_heads=6).route == "tokens"
+    with pytest.raises(ValueError, match="window kernel does not take"):
+        sb.plan_fast_block(wide, wbias, num_heads=6, route="window")
+    assert not sb.window_kernel_supports(32, 60, 6, 120)  # not 16 or 64
+    assert not sb.window_kernel_supports(64, 128, 8, 256)  # C > 120
+    with pytest.raises(ValueError, match="without turns"):
+        sb.window_kernel_without_turns(
+            torch.from_numpy(x).bfloat16(), plan._replace(route="window"),
+            num_heads=6)
