@@ -58,19 +58,26 @@ after the build):
    (torch.profiler) of one warm bucket-64 forward;
 9. bf16 serving (mode rdstb, the default): as phase 5;
 10. the profile of one warm bf16 bucket-64 forward, as phase 6;
-11. the train-pair kernels (``kernels.pair_train``, forward and
-    backward) vs their plain version and its ``torch.autograd`` gradient,
-    with the flagship's weights at the training geometry (32 images of
-    24x24, C = 60/90/120), with and without stochastic-depth factor
-    columns, under 'clamp' and 'stable' (and 'stable_mm' once, at C =
-    60): relative max error of the output, the input cotangent and every
-    weight and bias gradient (bar 0.02); CUDA-event times, plain times
-    (the plain backward alone, through a graph built once) and bounds;
-    for the timed variant, the backward launch alone: two launches on
-    the same inputs bitwise equal, the kernels a call (26: 13 a block),
-    the result against the staged plain VJP (``block_bwd_reference``,
-    the two blocks chained through the relayout; bar 0.02), and the
-    device time of each phase of the backward (torch.profiler);
+11. the train-pair kernels (``kernels.pair_train``: the forward one
+    persistent launch on the window body in its training form, blocks a
+    and b chained; the backward) vs their plain version and its
+    ``torch.autograd`` gradient, with the flagship's weights at the
+    training geometry (32 images of 24x24, C = 60/90/120; RDST-W96's C =
+    96 with its committed weights in phase 24), with and without
+    stochastic-depth factor columns, under 'clamp' and 'stable' (and
+    'stable_mm' once, at C = 60): relative max error of the output, the
+    input cotangent and every weight and bias gradient (bar 0.02);
+    CUDA-event times, plain times (the plain backward alone, through a
+    graph built once) and bounds; for the timed variant the forward
+    launch alone (two launches bitwise equal, output and block a's y;
+    kernels a call, 1; its device time; at C = 60, where it runs without
+    the tensor-core turns, also with them) and the backward launch alone:
+    two launches on the same inputs bitwise equal, the kernels a call
+    (26: 13 a block), the result against the staged plain VJP
+    (``block_bwd_reference``, the two blocks chained through the
+    relayout; bar 0.02), and the device time of each phase of the
+    backward (torch.profiler); the forward's ptxas report (spills and
+    wgmma serialization refused); the forward's mean time over C;
 12. the bf16 training step: the 20-phantom corpus made by the port's
     generator, then ``python -m rdst_tpu_torch.train`` (in process) on
     ``config_files/rdst_e1_100k_oasis20_x4.ini`` for 20 steps with a
@@ -82,7 +89,7 @@ after the build):
     first step's loss and gradients on the kernel route against the
     plain bf16 route (loss rtol 2e-2, gradients relative max < 0.08);
 13. steps/s on the wall clock over 10 warm steps queued back to back,
-    and the profile of one warm training step;
+    and the profile of one warm training step with its kernel launches;
 14. SwinIR-std (``config_files/swinir_std_40k_oasis20_x4.ini``, its
     committed weights, bf16, mode swin, int8 qkv; every block unshifted
     at the build resolution): the fast block at C = 180 with int8 qkv vs
@@ -149,7 +156,16 @@ after the build):
     forward;
 22. W96 f32 serving over HTTP, as phase 5;
 23. W96 bf16 serving (mode rdstb, int8 qkv) over HTTP, as phase 5; then
-    the profile of one warm bucket-64 forward in each dtype, as phase 6.
+    the profile of one warm bucket-64 forward in each dtype, as phase 6;
+24. the train-pair kernels at W96's C = 96 with its committed weights, as
+    phase 11;
+25. W96 bf16 training (``config_files/rdst_w96_100k_oasis20_x4.ini`` with
+    ``training_dtype='bfloat16'``, 20 steps, a quick evaluation every 10):
+    ``train_routes`` 8 pair / 32 block, 8 + 8 train-pair and 32 + 32
+    block-train calls a step (counts set to 0 just before the run), a
+    finite loss that falls, the snapshot served in bf16 by ``LiveModel``;
+    the first step on the kernel route vs the plain bf16 route (loss rtol
+    2e-2, gradients < 0.08).
 
 Any failed phase raises and the script exits non-zero. It needs a CUDA
 card: without one it exits non-zero and prints no result. The last two
@@ -725,7 +741,10 @@ def bf16_kernel_phase(model) -> dict:
                     f"ms (rel max {err_o[0]:.3e}); plain {plain_ms:.4f} ms "
                     f"bound {bound_ms:.4f} ms ({by}, "
                     f"{flops / ms / 1e9:.1f} TFLOP/s)")
-    out["ptxas"] = _ptxas_check("swin_block_fast.cu", "fast_window_kernel")
+    # the instantiations the E1 blocks launch: 32 NT output columns, NT 2
+    # / 3 / 4 at C = 60 / 90 / 120
+    out["ptxas"] = _ptxas_check("swin_block_fast.cu", "fast_window_kernel",
+                                path=("ILi2E", "ILi3E", "ILi4E"))
     out["int8_c96"] = _int8_window_case(gen)
     softmax = model.softmax
     for j, c in enumerate((60, 90, 120)):
@@ -905,13 +924,12 @@ bf16_serving_phase = phase("bf16 serving")(_serve)
 bf16_profile_phase = phase("bf16 profile")(_profile)
 
 
-def _pair_train_operands(model, c: int, gen):
-    """Folded flagship weights of the first DSTL of width c at the
-    training geometry, with random bf16 tokens and cotangents."""
+def _pair_train_operands(model, j: int, c: int, gen):
+    """Folded weights of the first RDSTB's DSTL j (width c) of ``model`` at
+    the training geometry, with random bf16 tokens and cotangents."""
     from rdst_tpu_torch.kernels.swin_block import fast_params, pack_bias_fast
 
     ws, nh, images, nw = 8, 6, 32, 9
-    j = (60, 90, 120).index(c)
     a, b = model.body[0].body[j].body.blocks
     pa, ba = a.fast_kernel_inputs((24, 24), ws, 0)
     pb, bb = b.fast_kernel_inputs((24, 24), ws, ws // 2)
@@ -1011,18 +1029,22 @@ def _without_turns(x, plan, nh: int, softmax: str, got, ms: float) -> dict:
     return {"ms": ms_free, "ms_with_turns": ms}
 
 
-def _ptxas_check(source: str, key: str) -> dict:
+def _ptxas_check(source: str, key: str, path=None) -> dict:
     """The ptxas report of the kernels of ``source`` whose names hold
     ``key``: registers, spill bytes and wgmma serialization warnings,
-    logged; a spill or a warning fails the phase."""
+    logged; a spill or a warning fails the phase for a kernel on the main
+    path (every one, or those whose names hold an item of ``path``); one
+    off the path is logged as such."""
     rep = {k: v for k, v in _ptxas_kernels(source).items() if key in k}
     if not rep:
         raise AssertionError(f"no ptxas report of {key} in {source}")
     for name, r in rep.items():
+        on = path is None or any(p in name for p in path)
         log(f"  ptxas {source} {name}: {r['registers']} registers, "
             f"{r['spill_bytes']} spill bytes, {len(r['warnings'])} wgmma "
-            "serialization warnings")
-        if r["spill_bytes"] or r["warnings"]:
+            "serialization warnings" + ("" if on else " (not on the path)"))
+        r["on_path"] = on
+        if on and (r["spill_bytes"] or r["warnings"]):
             raise AssertionError(f"{name} spills or serializes wgmma: {r}")
     return rep
 
@@ -1335,14 +1357,46 @@ def _device_ms(fn):
     return wall, (busy / 1e3 if busy else None)
 
 
-@phase("train-pair kernels vs plain")
-def train_kernel_phase(model) -> dict:
-    """Forward and backward kernels against the plain version and its
-    autograd gradient, at the training geometry of the flagship."""
+# the train pair's forward (csrc/pair_train.cu), as the profiler names it
+TRAIN_FWD_PHASES = (("pair_train_fwd_kernel", "persistent chained window "
+                     "kernel"),)
+
+
+def _kernels_per_call(call, iters: int = 5) -> dict:
+    """The CUDA kernels of a call by torch.profiler (memory sets and
+    copies apart): ``kernels``, the distinct kernels launched (each call
+    is the same), and ``events``, the kernel events recorded a call; 0
+    when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    names = {e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA
+             and "memset" not in e.key.lower()
+             and "memcpy" not in e.key.lower()}
+    return {"kernels": len(names),
+            "events": sum(names.values()) / iters, "names": sorted(names)}
+
+
+def _train_pair_widths(model, widths, label: str) -> list:
+    """The train-pair kernels at the training geometry (32 images of 24x24,
+    window 8, shift 4) with ``model``'s weights, the first RDSTB's DSTLs of
+    the given widths: each variant's output and every gradient against
+    the plain version and its autograd (bar BF16_TOL); at the timed variant
+    ('clamp', no factor columns) the forward launch alone (two launches
+    bitwise equal, output and y, kernels a call, device time), its time
+    by CUDA events beside its bound and the plain version's, at C = 60
+    also with the tensor-core turns; the backward's extras."""
     from rdst_tpu_torch.kernels import block_train as bt
     from rdst_tpu_torch.kernels import pair_train as pt
-    from rdst_tpu_torch.kernels.swin_block import (FastParams, kernel_layout,
-                                                   softmax_code)
+    from rdst_tpu_torch.kernels.swin_block import FastParams, softmax_code
     from rdst_tpu_torch.kernels.swin_pair import (shift_relayout,
                                                   unshift_relayout)
 
@@ -1350,8 +1404,8 @@ def train_kernel_phase(model) -> dict:
     names = (["x"] + [f"a.{f}" for f in FastParams._fields] + ["bias_a"]
              + [f"b.{f}" for f in FastParams._fields] + ["bias_b"])
     rows = []
-    for c in (60, 90, 120):
-        ops, x, dz, dpf0 = _pair_train_operands(model, c, gen)
+    for j, c in widths:
+        ops, x, dz, dpf0 = _pair_train_operands(model, j, c, gen)
         variants = [(s, d) for s in ("clamp", "stable") for d in (False, True)]
         if c == 60:  # the wrapper takes stable_mm too: hold it once
             variants.append(("stable_mm", False))
@@ -1371,14 +1425,14 @@ def train_kernel_phase(model) -> dict:
             finite = all(bool(torch.isfinite(g.float()).all())
                          for g in g_got) and bool(
                              torch.isfinite(got.float()).all())
-            log(f"train pair C={c:3d} {softmax:9s} dpf={use_dpf!s:5s}: "
-                f"out rel max {errs['out'][0]:.3e}, dx "
+            log(f"train pair {label} C={c:3d} {softmax:9s} "
+                f"dpf={use_dpf!s:5s}: out rel max {errs['out'][0]:.3e}, dx "
                 f"{errs['x'][0]:.3e}, worst {worst} "
                 f"{errs[worst][0]:.3e} (bar {BF16_TOL})")
             if not finite or errs[worst][0] > BF16_TOL:
-                raise AssertionError(f"train pair C={c} {softmax} "
+                raise AssertionError(f"train pair {label} C={c} {softmax} "
                                      f"dpf={use_dpf}: {errs}")
-            row = dict(c=c, softmax=softmax, dpf=use_dpf,
+            row = dict(c=c, model=label, softmax=softmax, dpf=use_dpf,
                        rel_max={k: v[0] for k, v in errs.items()},
                        out_abs_err=errs["out"][2],
                        grad_abs_err=max(v[2] for k, v in errs.items()
@@ -1388,11 +1442,37 @@ def train_kernel_phase(model) -> dict:
                 pa, pb = FastParams(*ops[:8]), FastParams(*ops[9:17])
                 ba, bb = ops[8], ops[17]
                 # the launch alone: weights laid out once
-                la, lb = kernel_layout(pa), kernel_layout(pb)
-                fwd = (x, la, ba, lb, bb, None, geom, 2 * c)
-                _, y = pt.launch_forward(*fwd)
-                row["ms"] = cuda_time_ms(
-                    lambda: pt.launch_forward(*fwd), iters=10)
+                oa, ob = pt.forward_layout(pa, ba, pb, bb, 6)
+
+                def fwd(turns=None):
+                    return pt.launch_forward(x, oa, ob, None, geom, 2 * c,
+                                             turns=turns)
+                first, y = fwd()
+                again, y2 = fwd()
+                torch.cuda.synchronize()
+                if not (torch.equal(first, again) and torch.equal(y, y2)
+                        and torch.equal(first, got)):
+                    raise AssertionError(f"train pair {label} C={c}: two "
+                                         "forward launches differ")
+                row["ms"] = cuda_time_ms(lambda: fwd(), iters=20)
+                row["turns"] = pt.forward_turns(64, c, 6, 2 * c)
+                if not row["turns"]:
+                    with_turns = fwd(True)[0]
+                    torch.cuda.synchronize()
+                    if not torch.equal(with_turns, first):
+                        raise AssertionError("the train pair with turns "
+                                             "differs")
+                    row["ms_with_turns"] = cuda_time_ms(
+                        lambda: fwd(True), iters=20)
+                kpc = _kernels_per_call(lambda: fwd())
+                row["fwd_kernels_per_call"] = kpc["kernels"]
+                if kpc["kernels"] not in (0, 1) or any(
+                        "pair_train_fwd_kernel" not in k
+                        for k in kpc["names"]):
+                    raise AssertionError(f"the train-pair forward launches "
+                                         f"{kpc}")
+                row["forward_phases_ms"] = _phase_ms(
+                    lambda: fwd(), phases=TRAIN_FWD_PHASES)
                 row["bwd_ms"] = cuda_time_ms(lambda: pt.launch_backward(
                     x, dz, y, pa, ba, pb, bb, None, geom), warmup=1,
                     iters=5)
@@ -1427,7 +1507,7 @@ def train_kernel_phase(model) -> dict:
                     return dxa, ga, dba, gb, dbb
 
                 row.update(_backward_extras(
-                    f"C={c}", lambda: pt.launch_backward(
+                    f"{label} C={c}", lambda: pt.launch_backward(
                         x, dz, y, pa, ba, pb, bb, None, geom),
                     pt.launch_backward, 2, staged))
                 windows = x.shape[0]
@@ -1440,19 +1520,42 @@ def train_kernel_phase(model) -> dict:
                 # backward: x, dz, y in, dx out, every gradient (f32)
                 row["bwd_bound_ms"], row["bwd_bound_by"] = _bound(
                     2 * flops, 4 * tok + wbytes + 2 * wbytes)
-                log(f"  C={c}: forward {row['ms']:.4f} ms (plain "
-                    f"{row['plain_ms']:.4f}, bound {row['bound_ms']:.4f}"
-                    f" {row['bound_by']}), backward {row['bwd_ms']:.4f} "
-                    f"ms (plain {row['plain_bwd_ms']:.4f}, bound "
+                fp = row["forward_phases_ms"]
+                log(f"  {label} C={c}: forward {row['ms']:.4f} ms (turns "
+                    f"{row['turns']}"
+                    + (f"; with turns {row['ms_with_turns']:.4f} ms, bitwise"
+                       " the same" if "ms_with_turns" in row else "")
+                    + f"; plain {row['plain_ms']:.4f}, bound "
+                    f"{row['bound_ms']:.4f} {row['bound_by']}); two launches "
+                    f"bitwise equal; {kpc['kernels']} kernel a call "
+                    f"({kpc['events']:g} events recorded a call); device "
+                    + (", ".join(f"{k} {v:.4f} ms" for k, v in fp.items())
+                       if fp else "not measured")
+                    + f"; backward {row['bwd_ms']:.4f} ms (plain "
+                    f"{row['plain_bwd_ms']:.4f}, bound "
                     f"{row['bwd_bound_ms']:.4f} {row['bwd_bound_by']})")
             rows.append(row)
-    log("library yardstick: no single PyTorch call computes a DSTL pair or "
-        "its gradient")
-    return {"variants": rows}
+    return rows
 
 
-def _train_argv(data_dir: str, out_dir: str, steps: int) -> list:
-    return ["--config-file", TRAIN_CONFIG,
+@phase("train-pair kernels vs plain")
+def train_kernel_phase(model) -> dict:
+    """Forward and backward kernels against the plain version and its
+    autograd gradient, at the training geometry of the flagship (C = 60 /
+    90 / 120); the forward's ptxas report."""
+    rows = _train_pair_widths(model, ((0, 60), (1, 90), (2, 120)), "E1")
+    ptxas = _ptxas_check("pair_train.cu", "pair_train_fwd_kernel")
+    timed = [r for r in rows if "ms" in r]
+    mean = sum(r["ms"] for r in timed) / len(timed)
+    log(f"train-pair forward, mean over C = 60/90/120 at 288 windows: "
+        f"{mean:.4f} ms; library yardstick: no single PyTorch call computes "
+        "a DSTL pair or its gradient")
+    return {"variants": rows, "ptxas": ptxas, "forward_mean_ms": mean}
+
+
+def _train_argv(data_dir: str, out_dir: str, steps: int,
+                config: str = TRAIN_CONFIG) -> list:
+    return ["--config-file", config,
             f"data_folder='{data_dir}'", f"output_dir='{out_dir}'",
             f"epochs_in_total={{'WarmUP': {steps}}}",
             f"check_every={TRAIN_CHECK}", "quick_eva_num_samples=8",
@@ -1468,6 +1571,59 @@ def _grads_of(trainer, batch):
         batch["out"]).to(dev)}, "WarmUP")
     grads = torch.autograd.grad(total, trainer.params)
     return float(total.detach()), [g.float() for g in grads]
+
+
+def _first_step_vs_plain(probe, batch) -> dict:
+    """The first step's loss and gradients on the kernel route against the
+    plain bf16 route (``set_train_mode(model, '')``), from the same
+    parameters and batch and the same stochastic-depth draws: the kernel
+    route's factor columns take the generator's numbers in the order the
+    plain route's DropPath layers take them. Loss rtol TRAIN_LOSS_RTOL,
+    gradients relative max < TRAIN_GRAD_TOL; leaves the probe on the
+    plain route."""
+    from rdst_tpu_torch.models.routes import set_train_mode
+
+    state = probe.generator.get_state()
+    loss_k, g_k = _grads_of(probe, batch)
+    set_train_mode(probe.model, "")
+    probe.generator.set_state(state)
+    loss_p, g_p = _grads_of(probe, batch)
+    gmax = max(float(g.abs().max()) for g in g_p)
+    rel = max(float((a - b).abs().max())
+              / max(1e-5, float(b.abs().max()), 0.12 * gmax)
+              for a, b in zip(g_k, g_p))
+    log(f"first step: loss kernel route {loss_k:.6f} vs plain bf16 route "
+        f"{loss_p:.6f} (rtol {TRAIN_LOSS_RTOL}); gradients rel max {rel:.4f}"
+        f" (bar {TRAIN_GRAD_TOL})")
+    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+            rel >= TRAIN_GRAD_TOL:
+        raise AssertionError("kernel route vs plain route on the first step")
+    return {"first_loss_kernel": loss_k, "first_loss_plain": loss_p,
+            "first_grad_rel_max": rel}
+
+
+def _serve_snapshot(config: str, trainer, **overrides) -> str:
+    """The run's last snapshot served by ``LiveModel`` on the card (the
+    config with ``overrides``): finite, of the x4 shape, on a validation
+    LR slice; returns the snapshot's path."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    snap = os.path.join(trainer.dirs["models"], "WarmUP_model_g.msgpack")
+    paras = ParametersLoader(config)
+    paras.set("well_trained_single_scale_model_g", snap)
+    for k, v in overrides.items():
+        paras.set(k, v)
+    live = LiveModel(paras, max_batch=1, device="cuda")
+    lr = trainer.ds_valid.get_test_pair(0)[4.0]["in"]
+    y = live.predict(lr, SCALE)
+    if not np.isfinite(y).all() or y.shape[1:3] != (lr.shape[1] * 4,
+                                                     lr.shape[2] * 4):
+        raise AssertionError(f"served {y.shape}")
+    log(f"the snapshot ({os.path.getsize(snap)} bytes) served by LiveModel "
+        f"({live.manifest['dtype']}, routes {live.manifest['routes'][:1]}..., "
+        f"int8 {live.manifest['pallas_quant']}): {lr.shape} -> {y.shape}")
+    return snap
 
 
 def _make_corpus(tmp: str) -> str:
@@ -1487,9 +1643,6 @@ def _make_corpus(tmp: str) -> str:
 def train_phase(data_dir: str, tmp: str) -> dict:
     from rdst_tpu_torch.cli import build_trainer, train_main
     from rdst_tpu_torch.kernels import pair_train as pt
-    from rdst_tpu_torch.models.routes import set_train_mode
-    from rdst_tpu_torch.serving.export import LiveModel
-    from rdst_tpu_torch.config import ParametersLoader
 
     out = {}
 
@@ -1507,26 +1660,7 @@ def train_phase(data_dir: str, tmp: str) -> dict:
                              f"{probe.model.train_routes}")
     out["train_routes"] = dict(probe.model.train_routes)
     log(f"train routes {probe.model.train_routes}")
-    # the same stochastic-depth draws on both routes: the kernel route's
-    # factor columns take the generator's numbers in the order the plain
-    # route's DropPath layers take them
-    state = probe.generator.get_state()
-    loss_k, g_k = _grads_of(probe, batch)
-    set_train_mode(probe.model, "")
-    probe.generator.set_state(state)
-    loss_p, g_p = _grads_of(probe, batch)
-    gmax = max(float(g.abs().max()) for g in g_p)
-    rel = max(float((a - b).abs().max())
-              / max(1e-5, float(b.abs().max()), 0.12 * gmax)
-              for a, b in zip(g_k, g_p))
-    out.update(first_loss_kernel=loss_k, first_loss_plain=loss_p,
-               first_grad_rel_max=rel)
-    log(f"first step: loss kernel route {loss_k:.6f} vs plain bf16 route "
-        f"{loss_p:.6f} (rtol {TRAIN_LOSS_RTOL}); gradients rel max {rel:.4f}"
-        f" (bar {TRAIN_GRAD_TOL})")
-    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
-            rel >= TRAIN_GRAD_TOL:
-        raise AssertionError("kernel route vs plain route on the first step")
+    out.update(_first_step_vs_plain(probe, batch))
     del probe
 
     out_dir = os.path.join(tmp, "outputs")
@@ -1574,15 +1708,7 @@ def train_phase(data_dir: str, tmp: str) -> dict:
         "parameters")
     if "attn_logit_max" not in stats:
         raise AssertionError(f"sidecar {stats}")
-    paras = ParametersLoader(TRAIN_CONFIG)
-    paras.set("well_trained_single_scale_model_g", snap)
-    live = LiveModel(paras, max_batch=1, device="cuda")
-    lr = trainer.ds_valid.get_test_pair(0)[4.0]["in"]
-    y = live.predict(lr, SCALE)
-    if not np.isfinite(y).all() or y.shape[1:3] != (lr.shape[1] * 4,
-                                                     lr.shape[2] * 4):
-        raise AssertionError(f"served {y.shape}")
-    log(f"the snapshot served by LiveModel: {lr.shape} -> {y.shape}")
+    _serve_snapshot(TRAIN_CONFIG, trainer)
     # resume: the same command with 2 more steps goes on from step 20
     resumed = train_main(_train_argv(data_dir, out_dir, TRAIN_STEPS + 2))
     with open(resumed.log_file) as f:
@@ -1661,17 +1787,23 @@ def train_profile_phase(trainer) -> dict:
     cpu = sorted(((float(e.self_cpu_time_total), e.count, e.key[:60])
                   for e in events
                   if e.device_type == DeviceType.CPU), reverse=True)
+    # kernels the step launches (memory sets and copies apart)
+    launches = sum(e.count for e in events
+                   if e.device_type == DeviceType.CUDA
+                   and "memset" not in e.key.lower()
+                   and "memcpy" not in e.key.lower())
     out = {"steps_per_s": steps_per_s, "wall_us": wall_us,
            "device_us": busy, "groups_us": groups,
            "top": sorted(top, reverse=True)[:12], "host_top": cpu[:12],
-           "host_ops": sum(n for _, n, _ in cpu)}
+           "host_ops": sum(n for _, n, _ in cpu),
+           "kernel_launches": launches}
     if busy == 0:
         log("torch.profiler recorded no device time: breakdown not measured")
         return out
     out["idle_share"] = 1.0 - busy / wall_us
     log(f"one training step under the profiler: wall {wall_us / 1e3:.3f} ms,"
         f" device busy {busy / 1e3:.3f} ms, idle share "
-        f"{out['idle_share']:.3f}")
+        f"{out['idle_share']:.3f}, {launches} kernel launches")
     for name, t in groups.items():
         log(f"  {name}: {t / 1e3:.3f} ms ({100 * t / busy:.1f} % of device "
             "time)")
@@ -2049,12 +2181,9 @@ def swinir_train_phase(data_dir: str, tmp: str) -> dict:
     ``LiveModel``; the first step on the kernel route against the plain
     bf16 route."""
     from rdst_tpu_torch.cli import build_trainer, train_main
-    from rdst_tpu_torch.config import ParametersLoader
     from rdst_tpu_torch.kernels import block_train as bt
     from rdst_tpu_torch.kernels import pair_train as pt
     from rdst_tpu_torch.kernels import swin_block
-    from rdst_tpu_torch.models.routes import set_train_mode
-    from rdst_tpu_torch.serving.export import LiveModel
 
     out = {}
     probe = build_trainer(_swinir_train_argv(
@@ -2070,26 +2199,7 @@ def swinir_train_phase(data_dir: str, tmp: str) -> dict:
             probe.model.quant != frozenset({"qkv"}):
         raise AssertionError(f"eval routes {probe.model.routes}")
     batch = probe.ds_train.sample(np.random.default_rng(17))
-    # the same stochastic-depth draws on both routes: the kernel route's
-    # factor columns take the generator's numbers in the order the plain
-    # route's DropPath layers take them
-    state = probe.generator.get_state()
-    loss_k, g_k = _grads_of(probe, batch)
-    set_train_mode(probe.model, "")
-    probe.generator.set_state(state)
-    loss_p, g_p = _grads_of(probe, batch)
-    gmax = max(float(g.abs().max()) for g in g_p)
-    rel = max(float((a - b).abs().max())
-              / max(1e-5, float(b.abs().max()), 0.12 * gmax)
-              for a, b in zip(g_k, g_p))
-    out.update(first_loss_kernel=loss_k, first_loss_plain=loss_p,
-               first_grad_rel_max=rel)
-    log(f"first step: loss kernel route {loss_k:.6f} vs plain bf16 route "
-        f"{loss_p:.6f} (rtol {TRAIN_LOSS_RTOL}); gradients rel max {rel:.4f}"
-        f" (bar {TRAIN_GRAD_TOL})")
-    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
-            rel >= TRAIN_GRAD_TOL:
-        raise AssertionError("kernel route vs plain route on the first step")
+    out.update(_first_step_vs_plain(probe, batch))
     del probe
 
     out_dir = os.path.join(tmp, "swinir_outputs")
@@ -2126,21 +2236,77 @@ def swinir_train_phase(data_dir: str, tmp: str) -> dict:
         f"{first:.5f}, last 3 mean {last:.5f})")
     if not last < first:
         raise AssertionError("the loss did not fall")
-    snap = os.path.join(trainer.dirs["models"], "WarmUP_model_g.msgpack")
-    paras = ParametersLoader(SWINIR_TRAIN_CONFIG)
-    paras.set("well_trained_single_scale_model_g", snap)
-    live = LiveModel(paras, max_batch=1, device="cuda")
-    lr = trainer.ds_valid.get_test_pair(0)[4.0]["in"]
-    y = live.predict(lr, SCALE)
-    if not np.isfinite(y).all() or y.shape[1:3] != (lr.shape[1] * 4,
-                                                     lr.shape[2] * 4):
-        raise AssertionError(f"served {y.shape}")
-    log(f"the snapshot ({os.path.getsize(snap)} bytes) served by LiveModel "
-        f"(routes {live.manifest['routes'][:1]}..., int8 "
-        f"{live.manifest['pallas_quant']}): {lr.shape} -> {y.shape}")
+    _serve_snapshot(SWINIR_TRAIN_CONFIG, trainer)
     out["trainer"] = trainer
     return out
 
+
+
+W96_TRAIN_CONFIG = "config_files/rdst_w96_100k_oasis20_x4.ini"
+
+
+@phase("W96 bf16 training step")
+def w96_train_phase(data_dir: str, tmp: str) -> dict:
+    """``python -m rdst_tpu_torch.train`` (in process) on
+    ``config_files/rdst_w96_100k_oasis20_x4.ini`` in bf16 for TRAIN_STEPS
+    steps with a quick evaluation every TRAIN_CHECK: the C = 96 DSTLs on
+    the train pair (8 forward and 8 backward calls a step), the C = 144 /
+    192 ones block by block (32 + 32 block-train calls), a finite loss that
+    falls, the snapshot served by ``LiveModel``; the first step on the
+    kernel route against the plain bf16 route."""
+    from rdst_tpu_torch.cli import build_trainer, train_main
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels import pair_train as pt
+
+    def argv(out_dir, steps):
+        return _train_argv(data_dir, out_dir, steps, W96_TRAIN_CONFIG) + [
+            "training_dtype='bfloat16'"]
+
+    out = {}
+    probe = build_trainer(argv(os.path.join(tmp, "w96_probe"), 1))
+    probe.setup()
+    routes = dict(probe.model.train_routes)
+    out["train_routes"] = routes
+    log(f"train routes {routes}, eval routes {probe.model.routes}, int8 "
+        f"{sorted(probe.model.quant)}, softmax {probe.model.softmax}")
+    if probe.model.train_mode != "pair" or routes != {"pair": 8,
+                                                      "block": 32}:
+        raise AssertionError(f"train routes {probe.model.train_mode} "
+                             f"{routes}")
+    batch = probe.ds_train.sample(np.random.default_rng(17))
+    out.update(_first_step_vs_plain(probe, batch))
+    del probe
+
+    counters = (pt.launch_forward, pt.launch_backward, bt.launch_forward,
+                bt.launch_backward)
+    for cnt in counters:
+        cnt.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    trainer = train_main(argv(os.path.join(tmp, "w96_outputs"), TRAIN_STEPS))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    pfwd, pbwd, bfwd, bbwd = (cnt.launches for cnt in counters)
+    out.update(forward_launches=pfwd, backward_launches=pbwd,
+               block_forward_launches=bfwd, block_backward_launches=bbwd)
+    log(f"{TRAIN_STEPS} steps in {out['run_s']:.3f} s (evaluations "
+        f"included): train-pair calls forward {pfwd}, backward {pbwd}; "
+        f"block-train forward {bfwd}, backward {bbwd}")
+    if (pfwd, pbwd, bfwd, bbwd) != (8 * TRAIN_STEPS, 8 * TRAIN_STEPS,
+                                    32 * TRAIN_STEPS, 32 * TRAIN_STEPS):
+        raise AssertionError("expected 8 train-pair and 32 block-train "
+                             "calls each way a step")
+    losses = trainer.training_loss_records.get("WarmUP", [])
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses}")
+    first, last = np.mean(losses[:3]), np.mean(losses[-3:])
+    out["losses"] = losses
+    log(f"loss {losses[0]:.5f} -> {losses[-1]:.5f} (first 3 mean "
+        f"{first:.5f}, last 3 mean {last:.5f})")
+    if not last < first:
+        raise AssertionError("the loss did not fall")
+    _serve_snapshot(W96_TRAIN_CONFIG, trainer, inference_dtype="bfloat16")
+    del trainer
+    return out
 
 
 # ---------------------------------------------------------------- RDST-W96
@@ -2228,7 +2394,8 @@ def _ptxas_kernels(source: str) -> dict:
     from rdst_tpu_torch.kernels import _build
 
     out, cur = {}, None
-    for line in _build.build_log(source).splitlines():
+    lines = _build.build_log(source).splitlines()
+    for line in lines:
         if "Compiling entry function" in line:
             cur = line.split("'")[1]
             out[cur] = {"registers": None, "spill_bytes": 0, "warnings": []}
@@ -2241,10 +2408,12 @@ def _ptxas_kernels(source: str) -> dict:
             out[cur]["spill_bytes"] = (
                 int(parts[parts.index("stores") - 3])
                 + int(parts[parts.index("loads") - 3]))
+    # ptxas prints its warnings before the kernels' reports: a second pass
+    for line in lines:
         if "wgmma" in line and ("C7515" in line or "C7520" in line
                                 or "serialized" in line):
             for name, rec in out.items():
-                if name in line:
+                if f"'{name}'" in line:
                     rec["warnings"].append(line.strip())
     return out
 
@@ -2709,8 +2878,16 @@ w96_profile_phase = phase("W96 f32 profile")(_profile)
 w96_bf16_profile_phase = phase("W96 bf16 profile")(_profile)
 
 
-def run_w96():
-    """Phases 20-23, RDST-W96; returns (results, kernel rows)."""
+@phase("W96 train-pair kernels vs plain")
+def w96_train_kernel_phase(model) -> dict:
+    """Phase 11 at RDST-W96's pair width, C = 96, with its committed
+    weights (the first RDSTB's first DSTL)."""
+    rows = _train_pair_widths(model, ((0, 96),), "W96")
+    return {"variants": rows}
+
+
+def run_w96(data_dir: str, tmp: str):
+    """Phases 20-25, RDST-W96; returns (results, kernel rows)."""
     from rdst_tpu_torch.config import ParametersLoader
     from rdst_tpu_torch.kernels import rdstb_block
     from rdst_tpu_torch.serving.export import LiveModel
@@ -2746,6 +2923,9 @@ def run_w96():
     prof32 = w96_profile_phase(live32)
     prof16 = w96_bf16_profile_phase(
         live16, tuple(k for k, _ in STAGE_PHASES), "rdstb stage kernels")
+    kern_train = w96_train_kernel_phase(live16.model)
+    del live32, live16
+    train = w96_train_phase(data_dir, tmp)
     kernels = [
         _row("fused_swin_block (W96 f32, C = 96/144/192)", "swin_block.cu",
              "rdst_tpu/kernels/swin_block.py:757", serve32["launches"],
@@ -2757,8 +2937,10 @@ def run_w96():
              "swin_pair.cu", "rdst_tpu/kernels/swin_block.py:1001",
              whole["pair"]["launches_per_forward"],
              [r for r in kern["pair"] if r["int8"]]),
-    ]
+    ] + _train_rows("fused_swin_pair_train (W96, C = 96)", "pair_train.cu",
+                    "rdst_tpu/kernels/pair_train.py:293", kern_train, train)
     results = {"manifest": {"f32": m32, "bf16": m16}, "gemm": gemm,
+               "train": {"kernel": kern_train, "step": train},
                "kernel": kern,
                "model": whole, "serving": {"f32": serve32, "bf16": serve16},
                "profile": {"f32": prof32, "bf16": prof16}}
@@ -2961,7 +3143,7 @@ def main(argv=None) -> int:
             results["swinir"], rows = run_swinir(data_dir, tmp)
             kernels += rows
         if args.only in (None, "w96"):
-            results["w96"], rows = run_w96()
+            results["w96"], rows = run_w96(data_dir, tmp)
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

@@ -15,38 +15,102 @@ the raw parameters, the LayerNorm affines and the relative-position
 table. On a CPU tensor :func:`run_pair_train` computes
 :func:`pair_train_reference` (autograd differentiates it); on a CUDA
 tensor it applies :class:`PairTrainFunction`, whose forward launches
-``pair_train_fwd_bf16`` and whose backward launches
-``pair_train_bwd_bf16`` of ``csrc/pair_train.cu`` (block b's backward,
-then block a's: 13 kernels each, one of them the attention VJP), each
-wrapper call counted (``launch_forward.launches``,
-``launch_backward.launches``; ``launch_backward.reductions`` counts the
-backward's kernels other than the two attention VJPs). What the kernels
-do not take raises on either device; on the card nothing falls back to
-the plain version.
+``pair_train_fwd_bf16`` of ``csrc/pair_train.cu`` (one persistent
+launch: the window body of ``csrc/window_body.cuh`` in its training
+form, block a's tiles then block b's in one chained walk,
+:func:`chained_walk`; its weights laid out by :func:`forward_layout`,
+one gather a call through an index made once per geometry) and whose
+backward launches ``pair_train_bwd_bf16`` (block b's backward, then
+block a's: 13 kernels each, one of them the attention VJP), each wrapper
+call counted (``launch_forward.launches``, ``launch_backward.launches``;
+``launch_backward.reductions`` counts the backward's kernels other than
+the two attention VJPs). What the kernels do not take raises on either
+device; on the card nothing falls back to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+import threading
+from typing import Dict, List, Tuple
 
 import torch
 
 from rdst_tpu_torch.kernels import _build
 from rdst_tpu_torch.kernels.block_train import split_grads
 from rdst_tpu_torch.kernels.swin_block import (
-    BF16, H100_SMEM_OPTIN, SHARED_MAX_C, FastParams, check_fast_tokens,
-    fast_body, fast_kernel_supports, fast_params, fast_smem_bytes,
+    BF16, FastParams, check_fast_tokens, fast_body, fast_params,
     kernel_layout, launch, pack_bias_fast, softmax_code)
 from rdst_tpu_torch.kernels.swin_pair import shift_relayout
+from rdst_tpu_torch.kernels.window_body import (
+    BODY_MAX_C, body_supports, make_geom, persist_fit, stage_bias,
+    stage_layout)
 
 _SOURCE = "pair_train.cu"
 
 
+def forward_plan(n: int, c: int, nh: int, hidden: int):
+    """The forward's shared-memory plan (``wbody::persist_fit(g, 2)``:
+    both blocks' epilogue constants, one block's panels resident)."""
+    return persist_fit(make_geom(n, c, nh, hidden), 2)
+
+
 def pair_train_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
-    """Whether the train-pair kernels take this block geometry: the
-    forward's window body (``fast_kernel_supports``); the backward takes
-    the same geometries."""
-    return fast_kernel_supports(n, c, nh, hidden)
+    """Whether the train-pair kernels take this block geometry: what the
+    forward's window body takes (``body_supports``) with a plan that fits
+    an H100 block (:func:`forward_plan`); the backward takes these
+    geometries too."""
+    return (body_supports(n, c, nh, hidden)
+            and forward_plan(n, c, nh, hidden).smem > 0)
+
+
+def forward_turns(n: int, c: int, nh: int, hidden: int) -> bool:
+    """Whether the forward's warpgroups take the tensor cores in turns:
+    where panels stream through the ring (C > 60 at the MLP ratio 2);
+    where every panel is resident they run free of them, which measured
+    faster in the serving window kernel (PERF.md §7)."""
+    return forward_plan(n, c, nh, hidden).nslots > 0
+
+
+def chained_walk(pairs_a: int, grid: int) -> List[List[Tuple[int, int]]]:
+    """The forward's walk, as each thread block runs it: block ``b`` takes
+    tile pairs b, b + grid, ... of the 2 * pairs_a pairs, block a's
+    (pairs 0 .. pairs_a - 1) before block b's; a pair p is (block, tile
+    pair within the block). Per thread block, its (block, pair) in
+    order."""
+    return [[(0, p) if p < pairs_a else (1, p - pairs_a)
+             for p in range(b, 2 * pairs_a, grid)] for b in range(grid)]
+
+
+def run_vectors(x_size, window_size: int, c: int, shift: int, gw0: int,
+                rows: int, y_addr: int = 0):
+    """The forward's moves between a tile's rows and y (``for_run_vectors``
+    in ``csrc/pair_train.cu``): y is (images, H, W, c) bf16 at byte
+    address ``y_addr``, the tile's first window gw0, its rows [0, rows).
+    Returns (v, moves): the vector bytes and, for every vector of every
+    thread, (byte offset in y, byte offset in the tile's rows). Rows go as
+    runs of ws pixels (a window row), rolled by ``shift``, each contiguous
+    in y but where it wraps at the image's edge, in vectors that never
+    cross a wrap."""
+    (h, w), ws, rb = x_size, window_size, 2 * c
+    run, nww = ws * rb, w // ws
+    nw = (h // ws) * nww
+    align = y_addr | run | rb * w | rb * shift
+    v = next(b for b in (16, 8, 4, 2) if align % b == 0)
+    per = run // v
+    moves = []
+    for i in range((rows // ws) * per):
+        q, off = i // per, (i % per) * v
+        gw, wr = gw0 + q // ws, q % ws
+        img, wi = gw // nw, gw % nw
+        yy = ((wi // nww) * ws + wr + shift) % h
+        px = off // rb
+        xx = (wi % nww) * ws + shift + px
+        xx -= w if xx >= w else 0
+        moves.append((((img * h + yy) * w + xx) * rb + off - px * rb,
+                      q * run + off))
+    return v, moves
 
 
 def pair_train_reference(x_windows, pa: FastParams, bias_a, pb: FastParams,
@@ -82,22 +146,107 @@ def _plain(p: FastParams):
     return [t.contiguous() for t in p]
 
 
-def launch_forward(x, layout_a, bias_a, layout_b, bias_b, dpf, geom,
-                   hidden: int):
-    """Launch ``pair_train_fwd_bf16`` with both blocks' weights in the
-    kernels' layout (``kernel_layout``) and MLP width ``hidden``; returns (out, y): the pair's
+# the FastParams operands' dtypes, in the order forward_layout reads them
+_PARAM_DTYPES = (BF16, torch.float32, BF16, BF16, BF16, torch.float32, BF16,
+                 BF16)
+# the forward's operands of a block (stage_layout's, then stage_bias) and
+# their dtypes
+_OPERAND_DTYPES = (BF16, torch.float32, BF16, torch.float32, BF16, BF16)
+_WORDS = 64  # each operand starts on 128 bytes
+_index_lock = threading.Lock()
+_indices: Dict[tuple, tuple] = {}
+
+
+def _param_shapes(n: int, c: int, nh: int, hidden: int, bw: int):
+    return ((c, 3 * c), (3 * c,), (c, c), (c,), (c, hidden), (hidden,),
+            (hidden, c), (c,), (bw, n, nh * n))
+
+
+def layout_index(n: int, c: int, nh: int, hidden: int, bws, device):
+    """The forward's weight layout of both blocks as one gather: (index,
+    parts, zero). The source is ``zero`` (two zero words on the device),
+    then, per block, the 16-bit words of its eight FastParams tensors and
+    its packed bias, in order (an f32 value two words); ``index`` picks
+    each word of the output, in which each block's
+    ``stage_layout(kernel_layout(p))`` operands and its ``stage_bias``
+    follow each other, each from a multiple of 64 words; ``parts`` gives
+    each operand's (first word, words, dtype). Made once per geometry and
+    device (the layout functions run on index tensors) and kept."""
+    key = (n, c, nh, hidden, tuple(bws), str(device))
+    with _index_lock:
+        if key in _indices:
+            return _indices[key]
+        off, picks, parts, at = 2, [], [], 0
+        for bw in bws:
+            srcs = []
+            for shape, dt in zip(_param_shapes(n, c, nh, hidden, bw),
+                                 _PARAM_DTYPES + (BF16,)):
+                w = dt.itemsize // 2
+                k = math.prod(shape)
+                srcs.append(torch.arange(off, off + w * k, w).reshape(shape))
+                off += w * k
+            lay = stage_layout(kernel_layout(FastParams(*srcs[:8]),
+                                             (torch.int64, torch.int64)),
+                               c, nh)
+            for t, dt in zip((*lay, stage_bias(srcs[8], nh)),
+                             _OPERAND_DTYPES):
+                t = t.reshape(-1)
+                if dt.itemsize == 4:  # a zero pad (0) takes words 0, 1
+                    t = torch.stack([t, t + 1], -1).reshape(-1)
+                pad = -t.numel() % _WORDS
+                picks += [t, t.new_zeros(pad)]
+                parts.append((at, t.numel(), dt))
+                at += t.numel() + pad
+        index = torch.cat(picks).to(device)
+        zero = torch.zeros(2, dtype=torch.int16, device=device)
+        _indices[key] = (index, tuple(parts), zero)
+        return _indices[key]
+
+
+def _words(t):
+    return t.contiguous().view(torch.int16).reshape(-1)
+
+
+def forward_layout(pa: FastParams, bias_a, pb: FastParams, bias_b,
+                   nh: int):
+    """The forward's operands of blocks a and b, 6 each:
+    ``stage_layout(kernel_layout(p), c, nh)`` (panels, bqkv, bproj, bf1,
+    bf2) and ``stage_bias(bias, nh)``, bitwise, made by one concatenation
+    and one gather (:func:`layout_index`), outside autograd."""
+    n, c, hidden = bias_a.shape[1], pa.wproj.shape[0], pa.w1.shape[1]
+    for p in (pa, pb):
+        if tuple(t.dtype for t in p) != _PARAM_DTYPES:
+            raise ValueError(f"params of dtypes {[t.dtype for t in p]}, "
+                             f"expected {_PARAM_DTYPES}")
+    index, parts, zero = layout_index(
+        n, c, nh, hidden, (bias_a.shape[0], bias_b.shape[0]), pa.wqkv.device)
+    with torch.no_grad():
+        src = torch.cat([zero] + [_words(t) for t in
+                                  (*pa, bias_a, *pb, bias_b)])
+        out = src[index]
+    ops = [out[at:at + k].view(dt) for at, k, dt in parts]
+    return ops[:6], ops[6:]
+
+
+def launch_forward(x, ops_a, ops_b, dpf, geom, hidden: int, turns=None):
+    """Launch ``pair_train_fwd_bf16`` with both blocks' operands
+    (:func:`forward_layout`) and MLP width ``hidden``; the warpgroups take
+    turns as :func:`forward_turns` says unless ``turns`` is given (False
+    only where every panel is resident). Returns (out, y): the pair's
     output and block a's bf16 output in image layout, kept for the
     backward."""
     (h, w), ws, shift, nh, code = geom
     t, n, c = x.shape
     nw = (h // ws) * (w // ws)
+    if turns is None:
+        turns = forward_turns(n, c, nh, hidden)
     out = torch.empty_like(x)
     y = torch.empty(t // nw, h, w, c, dtype=BF16, device=x.device)
-    counter = torch.zeros(1, dtype=torch.int32, device=x.device)
+    ready = torch.empty(t // nw, dtype=torch.int32, device=x.device)
     launch(_lib(), "pair_train_fwd_bf16",
-           [x, out, y, counter, 0 if dpf is None else dpf, *layout_a, bias_a,
-            *layout_b, bias_b],
-           [t // nw, h, w, ws, shift, c, nh, hidden, code], x.device)
+           [x, out, y, ready, 0 if dpf is None else dpf, *ops_a, *ops_b],
+           [t // nw, h, w, ws, shift, c, nh, hidden, code, int(turns)],
+           x.device)
     launch_forward.launches += 1
     return out, y
 
@@ -150,9 +299,8 @@ class PairTrainFunction(torch.autograd.Function):
     def forward(ctx, x, dpf, geom, *tensors):
         pa, bias_a = FastParams(*tensors[:8]), tensors[8]
         pb, bias_b = FastParams(*tensors[9:17]), tensors[17]
-        out, y = launch_forward(x, kernel_layout(pa), bias_a,
-                                kernel_layout(pb), bias_b, dpf, geom,
-                                pa.w1.shape[1])
+        ops_a, ops_b = forward_layout(pa, bias_a, pb, bias_b, geom[3])
+        out, y = launch_forward(x, ops_a, ops_b, dpf, geom, pa.w1.shape[1])
         ctx.geom = geom
         ctx.save_for_backward(x, y, *(() if dpf is None else (dpf,)),
                               *tensors)
@@ -198,11 +346,10 @@ def run_pair_train(x_windows, pa: FastParams, bias_a, pb: FastParams, bias_b,
             f"fused_swin_pair_train: the CUDA kernels do not take N={n}, "
             f"C={c}, heads={nh}, hidden={hidden}, {h}x{w} with window {ws} "
             f"and shift {shift} (needs whole windows of 16 or 64 tokens, C "
-            f"<= {SHARED_MAX_C}, head dim <= 32 and "
-            f"{fast_smem_bytes(n, c, nh, hidden)} <= {H100_SMEM_OPTIN} bytes "
-            "of shared memory); wider blocks train one at a time "
-            "(pallas_train='block', kernels.block_train), or build with "
-            "pallas_train='off'")
+            f"<= {BODY_MAX_C}, head dim <= 32, hidden <= 512 and the "
+            "forward's plan in an H100 block's shared memory); wider "
+            "blocks train one at a time (pallas_train='block', "
+            "kernels.block_train), or build with pallas_train='off'")
     nw = (h // ws) * (w // ws)
     if t % nw:
         raise ValueError(f"{t} windows are not whole images of {nw}")

@@ -32,9 +32,9 @@ the dtype of the tokens, as the JAX function does (``use_fast_path``):
   (``csrc/token_fwd.cuh``, its GEMMs on ``csrc/token_wgmma.cuh``) above
   and for int8 qkv; plain version :func:`swin_block_fast_reference`. It
   takes C up to ``FAST_MAX_C`` (SwinIR-std's 180, RDST-W96's 192); the
-  train-pair kernels stay at the ``SHARED_MAX_C`` they were verified at,
-  and the pair and RDSTB stages take the design :func:`stage_route`
-  picks.
+  train-pair kernels take what the window body takes
+  (``kernels.pair_train``), and the pair and RDSTB stages take the design
+  :func:`stage_route` picks.
 
 Both count their launches, one a call whatever the kernels it runs
 (``fused_swin_block.launches`` and ``run_fast_block.launches``). A CPU
@@ -590,11 +590,12 @@ def swin_block_fast_reference(x_windows, p: FastParams, bias, *,
 
 
 def fast_smem_bytes(n: int, c: int, nh: int, hidden: int) -> int:
-    """Dynamic shared memory of one window's fast block (``smem_layout``
-    in ``csrc/fast_block.cuh``): x rows f32; the LN / attention-output
-    rows (bf16, stride cp + 8); q and k with each head padded to 8
-    channels, v transposed and padded to 8, all bf16, sharing their
-    region with the MLP hidden rows."""
+    """One window's working set in shared memory, as the first fast-block
+    design (one window a thread block) laid it out: x rows f32; the LN /
+    attention-output rows (bf16, stride cp + 8); q and k with each head
+    padded to 8 channels, v transposed and padded to 8, all bf16, sharing
+    their region with the MLP hidden rows. No kernel lays it out any
+    more; it stays the bound :func:`fast_kernel_supports` admits by."""
     cp, hp = _round_up(c, 16), _round_up(hidden, 16)
     hd = c // nh
     hdq = hdv = _round_up(hd, 8)
@@ -611,30 +612,33 @@ def fast_kernel_supports(n: int, c: int, nh: int, hidden: int,
     """Whether the fast-branch CUDA kernels take this block geometry:
     N a multiple of 16 up to 64 (windows of 4 or 8), head dim <= 32,
     C <= ``max_c`` (``FAST_MAX_C`` for the fast block, its token-parallel
-    forward and the single-block train kernels, ``SHARED_MAX_C`` for the
-    train-pair kernels), and ``smem`` (by default one window's working
-    set in the window body) in an H100 block's shared memory."""
+    forward and the single-block train kernels; ``SHARED_MAX_C`` by
+    default), and ``smem`` (by default :func:`fast_smem_bytes`) in an
+    H100 block's shared memory."""
     smem = fast_smem_bytes(n, c, nh, hidden) if smem is None else smem
     return (0 < n <= 64 and n % 16 == 0 and 0 < c <= max_c and nh > 0
             and c % nh == 0 and c // nh <= 32 and 0 < hidden <= 512
             and smem <= H100_SMEM_OPTIN)
 
 
-def kernel_layout(p: FastParams):
+def kernel_layout(p: FastParams, dtypes=(BF16, torch.float32)):
     """The CUDA kernels' weight layout: each weight transposed to
     (out, in) and zero-padded to multiples of 16 (qkv as three (cp, cp)
     parts), biases zero-padded. Pads are zero, so padded channels come
-    out zero."""
+    out zero. ``dtypes``: of the bf16 arrays and of the f32 ones (an index
+    map of the layout, ``kernels.pair_train``, passes integer
+    tensors)."""
     c, hidden = p.wproj.shape[0], p.w1.shape[1]
     cp, hp = _round_up(c, 16), _round_up(hidden, 16)
     dev = p.wqkv.device
+    wdt, fdt = dtypes
 
-    def z(*shape, dtype=BF16):
+    def z(*shape, dtype=wdt):
         return torch.zeros(*shape, dtype=dtype, device=dev)
 
     wqkv = z(3, cp, cp)
     wqkv[:, :c, :c] = p.wqkv.reshape(c, 3, c).permute(1, 2, 0)
-    bqkv = z(3, cp, dtype=torch.float32)
+    bqkv = z(3, cp, dtype=fdt)
     bqkv[:, :c] = p.bqkv.reshape(3, c)
     wproj = z(cp, cp)
     wproj[:c, :c] = p.wproj.t()
@@ -642,7 +646,7 @@ def kernel_layout(p: FastParams):
     bproj[:c] = p.bproj
     w1 = z(hp, cp)
     w1[:hidden, :c] = p.w1.t()
-    bf1 = z(hp, dtype=torch.float32)
+    bf1 = z(hp, dtype=fdt)
     bf1[:hidden] = p.bf1
     w2 = z(cp, hp)
     w2[:c, :hidden] = p.w2.t()

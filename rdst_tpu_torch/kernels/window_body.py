@@ -116,9 +116,10 @@ def stage_fit(g: Geom, ng: int = 0) -> Fit:
     return Fit(0, 0, slot, wb, 0)
 
 
-# The persistent fast-block kernel (csrc/swin_block_fast.cu): two consumer
-# warpgroups, and after the ring's barriers 32 bytes for the resident
-# panels' barrier and one a warpgroup for its input tiles
+# The persistent window kernels (csrc/swin_block_fast.cu, the train-pair
+# forward of csrc/pair_train.cu): two consumer warpgroups, and after the
+# ring's barriers 32 bytes for the resident panels' barrier, one a
+# warpgroup for its input tiles and the train pair's swap barrier
 PERSIST_WGS = 2
 PERSIST_CTRL = CTRL_BYTES + 32
 
@@ -150,13 +151,27 @@ class PersistFit(NamedTuple):
     smem: int        # dynamic shared memory of the launch (0: no fit)
 
 
-def persist_fit(g: Geom) -> PersistFit:
+def const_stride(g: Geom) -> int:
+    """``wbody::const_stride``: a block's epilogue constants (bqkv, bf1
+    f32; bproj, bf2 bf16)."""
+    return _round_up(4 * (g.nq + g.hp) + 2 * 2 * g.cp, 128)
+
+
+# the train pair's factor rows of a warpgroup's tile: 64 x [attn, mlp] f32
+FACTOR_BYTES = ROWS * 2 * 4
+
+
+def persist_fit(g: Geom, blocks: int = 1) -> PersistFit:
     """``wbody::persist_fit``: the most resident GEMMs, then the input
     buffers, that leave at least two ring slots (up to MAX_SLOTS) for the
-    streamed panels within an H100 block's shared memory."""
+    streamed panels within an H100 block's shared memory. ``blocks`` 2 is
+    the train-pair forward's plan: blocks a's and b's epilogue constants
+    side by side, then each warpgroup's factor rows; one block's panels
+    resident at a time."""
     wb = wg_bytes(g)
     inb = _round_up(2 * ROWS * g.c, 128)
-    cb = _round_up(4 * (g.nq + g.hp) + 2 * 2 * g.cp, 128)
+    cb = blocks * const_stride(g) + (PERSIST_WGS * FACTOR_BYTES
+                                     if blocks > 1 else 0)
     plist = panel_list(g)
     for res in range(4, -1, -1):
         mine = [b for i, _, b in plist if i < res]
