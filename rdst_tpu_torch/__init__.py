@@ -13,7 +13,8 @@ data pipeline, the trainer, flax-readable snapshots) with each bf16
 DSTL pair on the train-pair forward and backward kernels. It serves
 SwinIR-std x4 in bfloat16 on the fast block kernel with int8 qkv
 operands and trains it with each Swin block on the block-train forward
-and backward kernels.
+and backward kernels. ``python -m rdst_tpu_torch.test`` scores a config's
+trained weights by the ``test.py`` protocol (``runners/tester.py``).
 """
 
 __version__ = "0.1.0"

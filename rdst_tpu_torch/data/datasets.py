@@ -22,6 +22,7 @@ Re-design of the reference dataset layer
 
 from __future__ import annotations
 
+import functools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -177,7 +178,7 @@ class MultiSRTestDataset(SliceStore):
         self.blur_method: Optional[str] = None
         self.lr_image_size_remain = False
         self.quick_eva_func = None
-        self.final_eva_func = None
+        self._final_eva = None
         self.hr_image_region = None
         self.input_channels = 1
 
@@ -201,7 +202,16 @@ class MultiSRTestDataset(SliceStore):
                 return MetaSREvaluation(metrics, self.test_sr_scales, paras.eva_gpu_id, mode)
 
         self.quick_eva_func = evaluation_factory(paras.quick_eva_metrics, "mean")
-        self.final_eva_func = evaluation_factory(paras.eva_metrics, "full")
+        self._final_eva = (evaluation_factory, paras.eva_metrics)
+
+    @functools.cached_property
+    def final_eva_func(self):
+        """The full report of ``eva_metrics``, built on first use: the
+        tester scores ``eva_metrics_for_testing`` and never builds it, so
+        a config whose ``eva_metrics`` lists a metric the port lacks
+        (the shipped configs list ``fid``) still tests."""
+        factory, metrics = self._final_eva
+        return factory(metrics, "full")
 
     def test_len(self) -> int:
         return len(self.hr_images)

@@ -327,11 +327,13 @@ def dice_coefficient(gt_label, pred_label, n_classes=None):
 
 
 def lpips(gt, p) -> float:
-    """LPIPS-style perceptual distance of the JAX package: not ported
-    yet (it needs the VGG feature stack)."""
-    raise NotImplementedError(
-        "metric 'lpips' (VGG features) comes with the port's "
-        "losses-and-metrics slice (ROADMAP Queue A 8)")
+    """LPIPS-style perceptual distance over the committed VGG feature
+    stack (``metrics/perceptual.py``; imported here on first use, so the
+    backbone loads only when a config asks for the metric). Lower is
+    better; comparable within this repo."""
+    from rdst_tpu_torch.metrics.perceptual import lpips as _lpips
+
+    return _lpips(gt, p)
 
 
 METRIC_FUNCS = {

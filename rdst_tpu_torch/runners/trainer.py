@@ -130,12 +130,13 @@ class SRTrainer:
         self.residual_scale = float(paras.get("residual_scale", 0.0) or 0.0)
         if self.residual_scale > 0:
             raise NotImplementedError(
-                "residual_scale > 0 (MetaSR's bicubic blend) comes with the "
-                "port's tester slice (ROADMAP Queue A 2)")
+                "training with residual_scale > 0 (MetaSR's bicubic blend) "
+                "comes with MetaSR and scale_free training in the model-zoo "
+                "slice (ROADMAP Queue A 8)")
         if paras.get("scale_free"):
             raise NotImplementedError(
                 "scale_free training comes with the model-zoo slice "
-                "(ROADMAP Queue A 9)")
+                "(ROADMAP Queue A 8)")
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 

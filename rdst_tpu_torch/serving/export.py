@@ -7,10 +7,11 @@ server sees a few fixed batch shapes. Normalization (MeanShift) is part
 of the model. ``inference_dtype = 'bfloat16'`` serves the bf16 model
 (float32 parameter masters; inputs and outputs stay float32 numpy) on
 the fast kernels of its kernel mode, with int8 qkv operands where
-``pallas_quant='qkv'`` asks for them (modes rdstb, pair and swin). The
-exported bundle of
-the JAX package waits for a later slice; so do the other int8 groups and
-MetaSR's residual blend, which raise.
+``pallas_quant='qkv'`` asks for them (modes rdstb, pair and swin). A
+config with ``residual_scale > 0`` gets MetaSR's bicubic blend after the
+buckets, as the JAX package applies it. The exported bundle of the JAX
+package waits for a later slice; so do the other int8 groups, which
+raise.
 """
 
 from __future__ import annotations
@@ -84,6 +85,19 @@ def _bucketed_predict(fn: Callable[[np.ndarray], np.ndarray], x: np.ndarray,
     return np.concatenate(out_chunks, 0)
 
 
+def residual_blend(out: np.ndarray, x: np.ndarray,
+                   residual_scale: float) -> np.ndarray:
+    """MetaSR's eval-time blend (meta_sr_trainer.py:171-172):
+    ``out * (1 - r) + bicubic(x) * r``, each LR slice of ``x`` resized to
+    the HR size of ``out``."""
+    from rdst_tpu_torch.data import ops
+
+    res = np.stack([
+        np.asarray(ops.resize(xi, out.shape[1:3])).reshape(out.shape[1:])
+        for xi in x])
+    return out * (1.0 - residual_scale) + res * residual_scale
+
+
 def build_serving_model(paras, device="cuda"):
     """Build the generator + trained weights exactly like the tester, on
     ``device``. Returns ``(model, meta)``; ``meta`` is the manifest
@@ -104,10 +118,6 @@ def build_serving_model(paras, device="cuda"):
     # int8 rides the bf16 fast path only (the f32 precise path drops it,
     # as the JAX precise branch does); the model factory routes it
     residual_scale = float(paras.get("residual_scale", 0.0) or 0.0)
-    if residual_scale > 0:
-        raise NotImplementedError(
-            "residual_scale > 0 (MetaSR's bicubic blend) needs the data "
-            "resize ops, which come with the port's tester slice")
     if not path:
         raise ValueError("no well-trained model path configured "
                          "(well_trained_single_scale_model_g)")
@@ -163,4 +173,6 @@ class LiveModel:
         if float(scale) not in self.manifest["scales"]:
             raise ValueError(f"scale {scale} not served; this model serves "
                              f"{self.manifest['scales']}")
-        return _bucketed_predict(self._run, x, self.buckets)
+        out = _bucketed_predict(self._run, x, self.buckets)
+        rs = self.manifest["residual_scale"]
+        return residual_blend(out, x, rs) if rs > 0 else out

@@ -130,7 +130,9 @@ def test_pt_path_prefers_msgpack_sibling(tmp_path):
     model = build_generator(paras)
     pt = str(SNAPSHOT.with_suffix(".pt"))
     loading.load_well_trained_params(model, paras, pt, [4.0])
-    with pytest.raises(NotImplementedError, match="torch-import"):
+    # a .pth path is read as a torch checkpoint, never swapped for a sibling
+    (tmp_path / "ref.msgpack").write_bytes(SNAPSHOT.read_bytes())
+    with pytest.raises(FileNotFoundError):
         loading.load_well_trained_params(model, paras,
                                          str(tmp_path / "ref.pth"), [4.0])
 
@@ -149,12 +151,84 @@ def test_model_path_precedence_matches_jax():
 
 
 def test_sidecar_and_norm_stats(tmp_path):
+    """The sidecar's stats; without a sidecar, the training volumes'
+    mean/std, equal to the JAX fallback on a small seeded corpus."""
+    from rdst_tpu_torch.data import synthetic
+
     assert loading.read_stats_sidecar(str(SNAPSHOT)) == json.loads(
         SNAPSHOT.with_suffix(".stats.json").read_text())
     assert loading.resolve_norm_stats(None, str(SNAPSHOT)) == ([0.0], [1.0])
     assert loading.read_stats_sidecar(None) is None
-    with pytest.raises(NotImplementedError, match="tester slice"):
-        loading.resolve_norm_stats(None, str(tmp_path / "none.msgpack"))
+    data = tmp_path / "OASIS" / "example"
+    synthetic.make_oasis_example(str(data), shape=(40, 48, 40))
+    tiny = str(REPO / "config_files" / "rdst_tiny_oasis_x4.ini")
+    mine, theirs = ParametersLoader(tiny), JaxParams(tiny)
+    for p in (mine, theirs):
+        p.set("data_folder", str(data))
+        p.set("normal_inputs", "zero_mean unit_std")
+    bare = str(tmp_path / "none.msgpack")
+    got = loading.resolve_norm_stats(mine, bare)
+    want = jax_loading.resolve_norm_stats(theirs, bare)
+    np.testing.assert_array_equal(np.asarray(got[0]), np.asarray(want[0]))
+    np.testing.assert_array_equal(np.asarray(got[1]), np.asarray(want[1]))
+    assert 0 < np.asarray(got[0]).max() < 1 and np.asarray(got[1]).min() > 0
+
+
+def _pt_case(generator):
+    if generator == "rdst":
+        return CONFIG, SNAPSHOT
+    return (REPO / "config_files" / "swinir_light_40k_oasis20_x4.ini",
+            REPO / "weights" / "swinir_light_40k_best_oasis20_x4.msgpack")
+
+
+@pytest.mark.parametrize("generator", ["rdst", "swinir"])
+def test_pt_import_matches_msgpack(tmp_path, generator):
+    """A ``.pt`` that the JAX package's ``save_torch_checkpoint`` writes
+    from the committed weights loads strictly, and the model gives
+    bitwise the outputs of the msgpack-loaded one; a wrapped
+    ``{'state_dict': ...}`` with window-index buffers loads too; the
+    file's MeanShift entries (written here with another normalization)
+    are rebuilt from the model's own."""
+    from rdst_tpu.checkpoint.torch_export import save_torch_checkpoint
+
+    from rdst_tpu_torch.models import build_generator
+
+    config, snapshot = _pt_case(generator)
+    paras = ParametersLoader(str(config))
+    params = serialization.msgpack_restore(snapshot.read_bytes())
+    pt = str(tmp_path / "ref.pt")
+    kw = {"mean": (0.3,), "std": (2.0,)} if generator == "rdst" else {}
+    save_torch_checkpoint(params, pt, generator, **kw)
+    ref = build_generator(paras)
+    loading.load_well_trained_params(ref, paras, str(snapshot), [4.0])
+    model = build_generator(paras)
+    loading.load_well_trained_params(model, paras, pt, [4.0])
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (2, 16, 24, 1), dtype=np.float32))
+    with torch.no_grad():
+        want, got = ref(x), model(x)
+    assert torch.equal(got, want)
+    sd = torch.load(pt, weights_only=True)
+    key = next(k for k in sd if k.endswith("attn.relative_position_bias_table"))
+    sd[key.replace("bias_table", "index")] = torch.zeros(64, 64,
+                                                         dtype=torch.long)
+    torch.save({"state_dict": sd, "epoch": 3}, str(tmp_path / "wrapped.pth"))
+    wrapped = build_generator(paras)
+    loading.load_well_trained_params(wrapped, paras,
+                                     str(tmp_path / "wrapped.pth"), [4.0])
+    for k, v in ref.state_dict().items():
+        assert torch.equal(wrapped.state_dict()[k], v), k
+
+
+def test_pickled_module_checkpoint_raises(tmp_path):
+    from rdst_tpu_torch.models import build_generator
+
+    paras = ParametersLoader(str(CONFIG))
+    path = str(tmp_path / "module.pt")
+    torch.save(torch.nn.Linear(2, 2), path)
+    with pytest.raises(ValueError, match="state dict"):
+        loading.load_well_trained_params(build_generator(paras), paras,
+                                         path, [4.0])
 
 
 @pytest.mark.parametrize("env,want", [("auto", "clamp"), ("stable", "stable"),

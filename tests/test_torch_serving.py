@@ -11,7 +11,9 @@
   the plain versions of its kernels; the manifest names the dtype, the
   mode, the resolved softmax variant and the kernel each RDSTB runs;
 * asking for the device ``cuda`` where there is none raises, and the
-  options this slice leaves out raise instead of running something else.
+  options this slice leaves out raise instead of running something else;
+* ``residual_scale > 0`` (MetaSR's bicubic blend) and ``sr_volume`` agree
+  with the JAX package's within 1e-5 (the tiny committed model).
 """
 
 import json
@@ -229,7 +231,6 @@ def test_cuda_request_without_card_raises():
 
 @pytest.mark.parametrize("key,value,match", [
     ("pallas_quant", "mlp,conv", "int8"),
-    ("residual_scale", 0.5, "MetaSR"),
     ("pallas_quant", "qkv,proj", "int8"),
 ])
 def test_unported_serving_options_raise(monkeypatch, key, value, match):
@@ -309,3 +310,61 @@ def test_server_main_config_arguments(monkeypatch):
           "inference_dtype='bfloat16'"])
     assert seen["meta"]["dtype"] == "bfloat16"
     assert seen["meta"]["routes"] == ["fused_rdstb"] * 8
+
+
+TINY = str(REPO / "config_files" / "rdst_tiny_oasis_x4.ini")
+TINY_WEIGHTS = str(REPO / "weights" / "rdst_tiny2k_oasis_x4.msgpack")
+
+
+@pytest.fixture(scope="module")
+def blended():
+    """The tiny model with ``residual_scale = 0.5`` in both packages."""
+    from rdst_tpu.config import ParametersLoader as JaxParams
+
+    def paras(cls):
+        p = cls(TINY)
+        p.set("well_trained_single_scale_model_g", TINY_WEIGHTS)
+        p.set("residual_scale", 0.5)
+        return p
+
+    return (export.LiveModel(paras(ParametersLoader), max_batch=8,
+                             device="cpu"),
+            jax_export.LiveModel(paras(JaxParams), max_batch=8))
+
+
+def test_residual_scale_blend_matches_jax(blended):
+    from rdst_tpu_torch.data import ops
+
+    live, ref = blended
+    assert live.manifest["residual_scale"] == 0.5
+    x = np.random.default_rng(3).random((3,) + LR + (1,), dtype=np.float32)
+    got, want = live.predict(x, 4.0), ref.predict(x, 4.0)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    plain = export._bucketed_predict(live._run, x, live.buckets)
+    bicubic = np.stack([ops.resize(xi, plain.shape[1:3]) for xi in x])
+    np.testing.assert_allclose(got, 0.5 * plain + 0.5 * bicubic, rtol=0,
+                               atol=1e-6)
+
+
+def test_sr_volume_matches_jax(blended):
+    from rdst_tpu.serving.volume import sr_volume as jax_sr_volume
+    from rdst_tpu_torch.serving.volume import sr_volume
+
+    live, ref = blended
+    vol = 100 + 50 * np.random.default_rng(4).random((12, 9, 5),
+                                                     dtype=np.float32)
+    for axis in (2, 0):
+        got = sr_volume(live, vol, 4.0, axis=axis)
+        want = jax_sr_volume(ref, vol, 4.0, axis=axis)
+        assert got.shape == want.shape
+        # 1e-5 of the volume's range (50)
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * 50)
+    with pytest.raises(ValueError, match="non-finite"):
+        sr_volume(live, np.full((4, 4, 2), np.nan, np.float32), 4.0)
+
+
+def test_volume_main_bundle_raises():
+    from rdst_tpu_torch.serving.volume import main as volume_main
+
+    with pytest.raises(NotImplementedError, match="Queue A 3"):
+        volume_main(["--bundle", "b", "--in", "x.nii", "--out", "y.nii"])
