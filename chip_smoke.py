@@ -196,7 +196,35 @@ after the build):
     per forward 48 / 8 / 24 / 36 / 48 / 8) and per patient the tester's
     inference wall time and one warm forward's wall and device time.
 
-Any failed phase raises and the script exits non-zero. It needs a CUDA
+27. (after phase 13) the seg fine-tune: ``config_files/
+    rdst_hrl_seg_ft_oasis20_x4.ini`` with ``--seg-loss`` as shipped (f32,
+    warm start, L1 + UNet-F), with ``unet_native_ckpt`` naming the
+    committed seg UNet ``weights/unet_tiny.pkl`` (checked: the term's
+    UNet holds its weights), for 12 steps with a quick evaluation every 6
+    (the f32 block kernel in each evaluation, 48 launches a forward): the
+    UNet-F term finite and above 0, the snapshot written; then the repo's
+    example recipe ``config_files/rdst_e1_oasis_x4.ini`` (WarmUP ->
+    UNet-F from scratch, the same UNet) for 3 steps a state; steps/s over
+    10 warm steps and one profiled step (device time by kernel group,
+    idle share, launches);
+28. the GAN fine-tune: ``config_files/rdst_gan_ft_oasis20_x4.ini`` as
+    shipped (RaGAN, CNN discriminator, f32, ``eva_metrics`` with FID)
+    for 12 steps with a quick evaluation every 6: every loss finite, the
+    discriminator's loss moving, the G and D snapshots written; the resume
+    for 2 more steps; FID of the final evaluation's images on the card
+    against the CPU (relative 1e-3) with both times; steps/s, one
+    profiled step and the D update's share of its device time;
+29. both recipes in bf16 (``training_dtype='bfloat16'``) for 6 steps:
+    24 train-pair backward launches a step and 24 forward launches a
+    generator forward (one a seg step, two a GAN step), no single-block
+    train launch; the first step (the discriminator's update included) on
+    the kernel route against the plain bf16 route from the same state and
+    batch: every loss rtol 2e-2, the generator's gradient < 0.08; steps/s
+    and one profiled step.
+
+Each training run's final evaluation scores the config's ``eva_metrics``
+as shipped (FID included). Any failed phase raises and the script exits
+non-zero. It needs a CUDA
 card: without one it exits non-zero and prints no result. The last two
 lines of standard output are the kernel table (JSON) and the device
 line (JSON).
@@ -1365,25 +1393,31 @@ def _window16_cases(gen) -> dict:
     return out
 
 
-def _device_ms(fn):
-    """(wall ms, device ms) of one warm fn(): the host clock around it to
-    a synchronize, and the sum of its kernels' device time by
-    torch.profiler (None when the profiler records none)."""
+def _profiled(fn):
+    """(wall us, the profiler's CUDA events) of one call of fn()."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(float(e.self_device_time_total or 0.0)
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    return wall, (busy / 1e3 if busy else None)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    return wall_us, events, [e for e in events
+                             if e.device_type == DeviceType.CUDA]
+
+
+def _device_ms(fn):
+    """(wall ms, device ms) of one warm fn(): the host clock around it to
+    a synchronize, and the sum of its kernels' device time by
+    torch.profiler (None when the profiler records none)."""
+    fn()
+    torch.cuda.synchronize()
+    wall, _, device = _profiled(fn)
+    busy = sum(float(e.self_device_time_total or 0.0) for e in device)
+    return wall / 1e3, (busy / 1e3 if busy else None)
 
 
 # the train pair's forward (csrc/pair_train.cu), as the profiler names it
@@ -1588,47 +1622,62 @@ def _train_argv(data_dir: str, out_dir: str, steps: int,
             f"data_folder='{data_dir}'", f"output_dir='{out_dir}'",
             f"epochs_in_total={{'WarmUP': {steps}}}",
             f"check_every={TRAIN_CHECK}", "quick_eva_num_samples=8",
-            "eva_metrics='psnr ssim'", "verbose=False"]
+            "verbose=False"]
 
 
-def _grads_of(trainer, batch):
-    """Loss and gradients of one step on trainer's model (no update)."""
-    dev = trainer.device
-    trainer.model.train()
-    pred = trainer.model(torch.from_numpy(batch["in"]).to(dev)).float()
-    total, _ = trainer.loss(pred, {"out": torch.from_numpy(
-        batch["out"]).to(dev)}, "WarmUP")
-    grads = torch.autograd.grad(total, trainer.params)
-    return float(total.detach()), [g.float() for g in grads]
+def _first_step_vs_plain(probe, batch, ts: str = "WarmUP") -> dict:
+    """The first step (``train_step``: in a GAN state the discriminator's
+    update, then the generator's) on the kernel route against the plain
+    bf16 route (``set_train_mode(model, '')``), from the same parameters,
+    optimizer and discriminator states, batch and stochastic-depth draws:
+    the kernel route's factor columns take the generator's numbers in the
+    order the plain route's DropPath layers take them. The generator's
+    gradient is read from its fresh optimizer's first moment, (1 - b1) g.
+    Loss and every reported term rtol TRAIN_LOSS_RTOL, gradients relative
+    max < TRAIN_GRAD_TOL; leaves the probe on the plain route."""
+    import copy
 
-
-def _first_step_vs_plain(probe, batch) -> dict:
-    """The first step's loss and gradients on the kernel route against the
-    plain bf16 route (``set_train_mode(model, '')``), from the same
-    parameters and batch and the same stochastic-depth draws: the kernel
-    route's factor columns take the generator's numbers in the order the
-    plain route's DropPath layers take them. Loss rtol TRAIN_LOSS_RTOL,
-    gradients relative max < TRAIN_GRAD_TOL; leaves the probe on the
-    plain route."""
     from rdst_tpu_torch.models.routes import set_train_mode
 
-    state = probe.generator.get_state()
-    loss_k, g_k = _grads_of(probe, batch)
+    opt, adv = probe.opt, probe.loss.adversarial
+    if opt.count:
+        raise AssertionError("the probe's optimizer has stepped already")
+    saved = copy.deepcopy({
+        "model": probe.model.state_dict(), "opt": opt.state_dict(),
+        "adv": adv.state_dict() if adv is not None else None,
+        "gen": probe.generator.get_state()})
+
+    def step():
+        total, rep, ok = probe.train_step(batch, ts)
+        grads = (opt.state["mu"] / (1.0 - opt.b1)).split(opt.numels)
+        return (float(total), {k: float(v) for k, v in rep.items()},
+                [g.clone() for g in grads], bool(ok))
+
+    loss_k, rep_k, g_k, ok_k = step()
+    probe.model.load_state_dict(saved["model"])
+    opt.load_state_dict(saved["opt"])
+    if adv is not None:
+        adv.load_state_dict(saved["adv"])
+    probe.generator.set_state(saved["gen"])
     set_train_mode(probe.model, "")
-    probe.generator.set_state(state)
-    loss_p, g_p = _grads_of(probe, batch)
+    loss_p, rep_p, g_p, ok_p = step()
     gmax = max(float(g.abs().max()) for g in g_p)
     rel = max(float((a - b).abs().max())
               / max(1e-5, float(b.abs().max()), 0.12 * gmax)
               for a, b in zip(g_k, g_p))
     log(f"first step: loss kernel route {loss_k:.6f} vs plain bf16 route "
-        f"{loss_p:.6f} (rtol {TRAIN_LOSS_RTOL}); gradients rel max {rel:.4f}"
-        f" (bar {TRAIN_GRAD_TOL})")
-    if abs(loss_k - loss_p) > TRAIN_LOSS_RTOL * abs(loss_p) or \
+        f"{loss_p:.6f} (rtol {TRAIN_LOSS_RTOL}); "
+        + "".join(f"{k} {rep_k[k]:.6f} / {rep_p[k]:.6f}; " for k in rep_p)
+        + f"gradients rel max {rel:.4f} (bar {TRAIN_GRAD_TOL})")
+    if not (ok_k and ok_p) or rep_k.keys() != rep_p.keys() or any(
+            abs(u - v) > TRAIN_LOSS_RTOL * abs(v)
+            for u, v in [(loss_k, loss_p)]
+            + [(rep_k[k], rep_p[k]) for k in rep_p]) or \
             rel >= TRAIN_GRAD_TOL:
         raise AssertionError("kernel route vs plain route on the first step")
     return {"first_loss_kernel": loss_k, "first_loss_plain": loss_p,
-            "first_grad_rel_max": rel}
+            "first_grad_rel_max": rel, "first_report_kernel": rep_k,
+            "first_report_plain": rep_p}
 
 
 def _serve_snapshot(config: str, trainer, **overrides) -> str:
@@ -1753,42 +1802,39 @@ def train_phase(data_dir: str, tmp: str) -> dict:
     return out
 
 
-@phase("training profile")
-def train_profile_phase(trainer) -> dict:
-    """Device time of one warm training step by kernel group, and the
-    device's idle share of the step's wall time."""
+def _step_profile(trainer, ts: str = "WarmUP", seed: int = SEED + 6,
+                  label: str = "training step") -> dict:
+    """Steps/s over WALL_STEPS warm steps of one batch on the wall clock;
+    the device time of one profiled step by kernel group, and the
+    device's idle share of the step's wall time; in a GAN state, the
+    device time of the discriminator's update alone (the generator
+    forward without gradient and ``d_step``, on the same batch) and its
+    share of the step's."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from rdst_tpu_torch.runners.trainer import pin_batch
 
-    batch = pin_batch(trainer.ds_train.sample(np.random.default_rng(SEED + 6)))
-    trainer.train_step(batch, "WarmUP")
+    batch = pin_batch(trainer.ds_train.sample(np.random.default_rng(seed)))
+    trainer.train_step(batch, ts)
     torch.cuda.synchronize()
     # steps/s on the wall clock: WALL_STEPS steps queued back to back, as
     # the training loop queues them, then one wait for the card
     t0 = time.perf_counter()
     for _ in range(WALL_STEPS):
-        trainer.train_step(batch, "WarmUP")
+        trainer.train_step(batch, ts)
     torch.cuda.synchronize()
     steps_per_s = WALL_STEPS / (time.perf_counter() - t0)
-    log(f"{steps_per_s:.3f} steps/s over {WALL_STEPS} warm steps (wall "
-        "clock, one batch)")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_step(batch, "WarmUP")
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+    log(f"{label}: {steps_per_s:.3f} steps/s over {WALL_STEPS} warm steps "
+        "(wall clock, one batch)")
+    wall_us, events, device = _profiled(lambda: trainer.train_step(batch, ts))
     groups = {"train kernels forward": 0.0,
               "train kernels backward (13 kernels a block)": 0.0,
               "convolution": 0.0, "matmul (adapters, optimizer)": 0.0,
               "other (LayerNorms, casts, elementwise)": 0.0}
     top = []
-    events = prof.key_averages()
-    for e in events:
+    for e in device:
         t = float(e.self_device_time_total or 0.0)
-        if e.device_type != DeviceType.CUDA or t <= 0:
+        if t <= 0:
             continue
         name = e.key.lower()
         if ("pair_train_fwd" in name or "tokwg::" in name
@@ -1817,9 +1863,8 @@ def train_profile_phase(trainer) -> dict:
                   for e in events
                   if e.device_type == DeviceType.CPU), reverse=True)
     # kernels the step launches (memory sets and copies apart)
-    launches = sum(e.count for e in events
-                   if e.device_type == DeviceType.CUDA
-                   and "memset" not in e.key.lower()
+    launches = sum(e.count for e in device
+                   if "memset" not in e.key.lower()
                    and "memcpy" not in e.key.lower())
     out = {"steps_per_s": steps_per_s, "wall_us": wall_us,
            "device_us": busy, "groups_us": groups,
@@ -1830,9 +1875,9 @@ def train_profile_phase(trainer) -> dict:
         log("torch.profiler recorded no device time: breakdown not measured")
         return out
     out["idle_share"] = 1.0 - busy / wall_us
-    log(f"one training step under the profiler: wall {wall_us / 1e3:.3f} ms,"
-        f" device busy {busy / 1e3:.3f} ms, idle share "
-        f"{out['idle_share']:.3f}, {launches} kernel launches")
+    log(f"{label} under the profiler: wall {wall_us / 1e3:.3f} ms, device "
+        f"busy {busy / 1e3:.3f} ms, idle share {out['idle_share']:.3f}, "
+        f"{launches} kernel launches")
     for name, t in groups.items():
         log(f"  {name}: {t / 1e3:.3f} ms ({100 * t / busy:.1f} % of device "
             "time)")
@@ -1842,8 +1887,309 @@ def train_profile_phase(trainer) -> dict:
         "(the profiler's own overhead included):")
     for t, count, key in out["host_top"]:
         log(f"  {t / 1e3:9.3f} ms x{count:5d} {key}")
+    adv = trainer.loss.adversarial
+    if adv is not None and trainer.gan_active(ts):
+        x = torch.as_tensor(batch["in"]).to(trainer.device)
+        db = trainer.device_batch(batch)
+
+        def d_update():
+            with torch.no_grad():
+                fake = trainer.model(x).float()
+            adv.d_step(fake, db["out"], db["sr_scales"], trainer.generator)
+
+        d_busy = _device_ms(d_update)[1] * 1e3
+        out.update(d_update_us=d_busy, d_update_share=d_busy / busy)
+        log(f"  D update (no-grad generator forward + d_step): "
+            f"{d_busy / 1e3:.3f} ms = {d_busy / busy:.3f} of the step's "
+            "device time")
     return out
 
+
+train_profile_phase = phase("training profile")(_step_profile)
+
+
+# ---------------------------------------------------------------------------
+# The fine-tune recipes: the seg-UNet perceptual loss and the RaGAN
+# discriminator, in f32 as shipped and in bf16 on the train-pair kernels
+# ---------------------------------------------------------------------------
+
+E1_RECIPE_CONFIG = "config_files/rdst_e1_oasis_x4.ini"
+# the committed seg UNet (a full-width SegUNet(1, 4)), which the seg
+# recipes name in place of their random UNet
+UNET_CKPT = "weights/unet_tiny.pkl"
+FT_STEPS, FT_CHECK, FT_BF16_STEPS = 12, 6, 6
+# FID of the same images on the card against the CPU: f32 features on both
+# sides (TF32 off), the Frechet distance in float64 on the host
+FID_RTOL = 1e-3
+
+
+def _card_line() -> str:
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(f"card: {line}")
+    return line
+
+
+def _ft_argv(config: str, data_dir: str, out_dir: str, epochs: dict,
+             check: int = FT_CHECK, seg: bool = False, **over) -> list:
+    """A shipped config with only the paths, the steps and the check
+    interval overridden (and ``over``); a recipe with the UNet-F term
+    names the committed seg UNet (``--seg-loss`` adds the segmentation
+    labels)."""
+    argv = ["--config-file", config] + (["--seg-loss"] if seg else [])
+    argv += [f"data_folder='{data_dir}'", f"output_dir='{out_dir}'",
+             f"epochs_in_total={epochs!r}", f"check_every={check}",
+             "verbose=False"]
+    if config in (HRL_CONFIG, E1_RECIPE_CONFIG):
+        over = {"unet_native_ckpt": UNET_CKPT, **over}
+    return argv + [f"{k}={v!r}" for k, v in over.items()]
+
+
+def _committed_unet(trainer) -> None:
+    """The UNet-F term scores with the committed seg UNet's weights."""
+    import pickle
+
+    with open(UNET_CKPT, "rb") as f:
+        want = pickle.load(f)["params"]["encoder"]["conv1"]["kernel"]
+    got = trainer.loss.terms["UNet-F"].model.encoder.conv1.weight
+    if not np.array_equal(got.detach().cpu().numpy(),
+                          np.transpose(want, (3, 2, 0, 1))):
+        raise AssertionError(f"the UNet-F term does not use {UNET_CKPT}")
+
+
+def _f32_forwards(label: str) -> int:
+    """The f32 block kernel's launches since the last reset, as whole
+    E1 forwards (48 blocks each)."""
+    from rdst_tpu_torch.kernels import swin_block
+
+    n = swin_block.fused_swin_block.launches
+    if n <= 0 or n % 48:
+        raise AssertionError(f"{label}: {n} f32 block launches, not a "
+                             "positive multiple of 48")
+    return n // 48
+
+
+def _ft_records(trainer, ts: str, names) -> dict:
+    rec = trainer.loss.records.get(ts, {})
+    for n in names:
+        v = rec.get(n) or []
+        if not v or not np.isfinite(v).all():
+            raise AssertionError(f"{ts} record {n}: {v}")
+    return {n: list(rec[n]) for n in names}
+
+
+def _snapshots(trainer, names) -> dict:
+    out = {}
+    for n in names:
+        path = os.path.join(trainer.dirs["models"], n)
+        if not os.path.isfile(path):
+            raise AssertionError(f"missing snapshot {path}")
+        out[n] = os.path.getsize(path)
+    log(f"snapshots {out} (bytes)")
+    return out
+
+
+def _fid_card_vs_cpu(trainer) -> dict:
+    """FID of the final evaluation's images (every validation slice, the
+    largest scale) on the card and on the CPU, timed."""
+    from rdst_tpu_torch.metrics.fid import FID
+
+    recs, pairs = trainer._infer_pairs(
+        list(range(trainer.ds_valid.test_len())))
+    s = sorted(pairs[0])[-1]
+    gts = [p[s]["gt"] for p in pairs]
+    preds = [r[s] for r in recs]
+    out = {}
+    for name, gpu in (("card", 0), ("cpu", -1)):
+        fid = FID(gpu_id=gpu)
+        fid(gts[:2], preds[:2])  # the extractor built and warm
+        if gpu >= 0:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fid(gts, preds)
+        if gpu >= 0:
+            torch.cuda.synchronize()
+        out[f"{name}_s"] = time.perf_counter() - t0
+    rel = abs(out["card"] - out["cpu"]) / max(abs(out["cpu"]), 1e-12)
+    out.update(images=len(gts), rel=rel)
+    log(f"FID of {len(gts)} validation slices (VGG substitute features): "
+        f"card {out['card']:.6f} in {out['card_s']:.3f} s, CPU "
+        f"{out['cpu']:.6f} in {out['cpu_s']:.3f} s, relative difference "
+        f"{rel:.2e} (bar {FID_RTOL})")
+    if not np.isfinite(out["card"]) or rel > FID_RTOL:
+        raise AssertionError("FID on the card vs on the CPU")
+    return out
+
+
+@phase("seg fine-tune")
+def seg_finetune_phase(data_dir: str, tmp: str) -> dict:
+    """``config_files/rdst_hrl_seg_ft_oasis20_x4.ini`` with ``--seg-loss``
+    (warm start from the 40k E1 weights, L1 + UNet-F, f32 as shipped) for
+    FT_STEPS steps with a quick evaluation every FT_CHECK; then the repo's
+    example recipe ``config_files/rdst_e1_oasis_x4.ini`` (WarmUP -> UNet-F
+    from scratch) for 3 steps a state on the same corpus (its patients 1-4
+    are the corpus's first four)."""
+    from rdst_tpu_torch.cli import train_main
+    from rdst_tpu_torch.kernels import swin_block
+
+    out = {"card": _card_line()}
+    swin_block.fused_swin_block.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_main(_ft_argv(HRL_CONFIG, data_dir,
+                                  os.path.join(tmp, "seg_ft"),
+                                  {"UNet-F": FT_STEPS}, seg=True))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["f32_forwards"] = _f32_forwards("seg fine-tune")
+    _committed_unet(trainer)
+    rec = _ft_records(trainer, "UNet-F", ("L1", "UNet-F"))
+    if len(rec["UNet-F"]) != FT_STEPS or min(rec["UNet-F"]) <= 0:
+        raise AssertionError(f"UNet-F records {rec['UNet-F']}")
+    unet = trainer.loss.terms["UNet-F"]
+    log(f"{FT_STEPS} steps in {out['run_s']:.3f} s (evaluations included): "
+        f"UNet-F {rec['UNet-F'][0]:.6f} -> {rec['UNet-F'][-1]:.6f}, L1 "
+        f"{rec['L1'][0]:.6f} -> {rec['L1'][-1]:.6f}; mode {unet.loss_mode} "
+        f"{unet.loss_layers}; {out['f32_forwards']} f32 forwards "
+        f"({48 * out['f32_forwards']} f32 block launches: the quick and "
+        "final evaluations)")
+    out["records"] = rec
+    out["snapshots"] = _snapshots(trainer, ["UNet-F_model_g.msgpack"])
+    out["profile"] = _step_profile(trainer, "UNet-F", SEED + 7,
+                                   "E1 seg step (f32)")
+    del trainer
+
+    t0 = time.perf_counter()
+    recipe = train_main(_ft_argv(E1_RECIPE_CONFIG, data_dir,
+                                 os.path.join(tmp, "e1_recipe"),
+                                 {"WarmUP": 3, "UNet-F": 3}, check=3))
+    torch.cuda.synchronize()
+    _committed_unet(recipe)
+    warm = _ft_records(recipe, "WarmUP", ("L1",))
+    seg = _ft_records(recipe, "UNet-F", ("L1", "UNet-F"))
+    if "UNet-F" in recipe.loss.records["WarmUP"] or \
+            len(warm["L1"]) != 3 or len(seg["UNet-F"]) != 3:
+        raise AssertionError(f"recipe records {recipe.loss.records}")
+    out["recipe"] = {"s": time.perf_counter() - t0, "WarmUP": warm,
+                     "UNet-F": seg, "snapshots": _snapshots(
+                         recipe, ["WarmUP_model_g.msgpack",
+                                  "UNet-F_model_g.msgpack"])}
+    log(f"{E1_RECIPE_CONFIG}: WarmUP L1 {warm['L1']}, then UNet-F L1 "
+        f"{seg['L1']} UNet-F {seg['UNet-F']} in {out['recipe']['s']:.3f} s")
+    return out
+
+
+@phase("GAN fine-tune")
+def gan_finetune_phase(data_dir: str, tmp: str) -> dict:
+    """``config_files/rdst_gan_ft_oasis20_x4.ini`` (RaGAN, warm start from
+    the 40k E1 weights, f32 as shipped, ``eva_metrics`` with FID) for
+    FT_STEPS steps with a quick evaluation every FT_CHECK; the resume for 2
+    more steps; the final evaluation's FID on the card against the CPU."""
+    from rdst_tpu_torch.cli import train_main
+    from rdst_tpu_torch.kernels import swin_block
+
+    out = {"card": _card_line()}
+    out_dir = os.path.join(tmp, "gan_ft")
+
+    def argv(steps):
+        return _ft_argv(GAN_CONFIG, data_dir, out_dir, {"GAN-FT": steps})
+
+    swin_block.fused_swin_block.launches = 0
+    t0 = time.perf_counter()
+    trainer = train_main(argv(FT_STEPS))
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["f32_forwards"] = _f32_forwards("GAN fine-tune")
+    rec = _ft_records(trainer, "GAN-FT",
+                      ("L1", "GAN", "Adv_D", "Adv_D Real", "Adv_D Fake"))
+    if len(rec["Adv_D"]) != FT_STEPS or len(set(rec["Adv_D"])) < 2:
+        raise AssertionError(f"the discriminator's loss {rec['Adv_D']}")
+    adv = trainer.loss.adversarial
+    log(f"{FT_STEPS} steps in {out['run_s']:.3f} s (evaluations included): "
+        f"L1 {rec['L1'][0]:.6f} -> {rec['L1'][-1]:.6f}, GAN "
+        f"{rec['GAN'][0]:.6f} -> {rec['GAN'][-1]:.6f}, Adv_D "
+        f"{rec['Adv_D'][0]:.6f} -> {rec['Adv_D'][-1]:.6f} (real "
+        f"{rec['Adv_D Real'][-1]:.6f}, fake {rec['Adv_D Fake'][-1]:.6f}); "
+        f"D {type(adv.discriminator).__name__} "
+        f"{sum(p.numel() for p in adv.params)} parameters, {adv.opt.count} "
+        f"updates; {out['f32_forwards']} f32 forwards")
+    out["records"] = rec
+    out["snapshots"] = _snapshots(trainer, ["GAN-FT_model_g.msgpack",
+                                            "GAN-FT_loss_d.msgpack"])
+    del trainer
+    resumed = train_main(argv(FT_STEPS + 2))
+    with open(resumed.log_file) as f:
+        if f"Resumed from checkpoint: state_id=0 epoch={FT_STEPS}" \
+                not in f.read() or resumed.step != FT_STEPS + 2:
+            raise AssertionError(f"resume: step {resumed.step}")
+    log(f"resumed from the step-{FT_STEPS} checkpoint to step "
+        f"{resumed.step} (D updates {resumed.loss.adversarial.opt.count})")
+    out["fid"] = _fid_card_vs_cpu(resumed)
+    out["profile"] = _step_profile(resumed, "GAN-FT", SEED + 7,
+                                   "E1 GAN step (f32)")
+    return out
+
+
+@phase("fine-tune bf16")
+def finetune_bf16_phase(data_dir: str, tmp: str) -> dict:
+    """Both recipes with ``training_dtype='bfloat16'`` for FT_BF16_STEPS
+    steps: every DSTL pair on the train-pair kernels (24 pairs), 24
+    backward calls a step and 24 forward calls a generator forward (the
+    seg step runs one, the GAN step two: the discriminator's fakes without
+    gradient, then the step); the first step's losses against the plain
+    bf16 route."""
+    from rdst_tpu_torch.cli import build_trainer, train_main
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels import pair_train as pt
+
+    out = {"card": _card_line()}
+    for label, config, ts, seg, forwards in (
+            ("seg", HRL_CONFIG, "UNet-F", True, 1),
+            ("GAN", GAN_CONFIG, "GAN-FT", False, 2)):
+        def argv(sub, steps):
+            return _ft_argv(config, data_dir,
+                            os.path.join(tmp, f"{label}_bf16_{sub}"),
+                            {ts: steps}, check=FT_BF16_STEPS, seg=seg,
+                            training_dtype="bfloat16")
+
+        probe = build_trainer(argv("probe", 1))
+        probe.setup()
+        if seg:
+            _committed_unet(probe)
+        routes = dict(probe.model.train_routes)
+        if probe.model.train_mode != "pair" or routes != {"pair": 24,
+                                                          "block": 0}:
+            raise AssertionError(f"{label}: train routes {routes}")
+        batch = probe.ds_train.sample(np.random.default_rng(SEED + 8))
+        res = {"train_routes": routes,
+               "first_step": _first_step_vs_plain(probe, batch, ts)}
+        del probe
+        bt.launch_forward.launches = bt.launch_backward.launches = 0
+        pt.launch_forward.launches = pt.launch_backward.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_main(argv("run", FT_BF16_STEPS))
+        torch.cuda.synchronize()
+        res["run_s"] = time.perf_counter() - t0
+        fwd, bwd = pt.launch_forward.launches, pt.launch_backward.launches
+        res.update(forward_launches=fwd, backward_launches=bwd)
+        log(f"{label} bf16: {FT_BF16_STEPS} steps in {res['run_s']:.3f} s "
+            f"(evaluations included): train-pair launches forward {fwd}, "
+            f"backward {bwd}")
+        if fwd != 24 * forwards * FT_BF16_STEPS or \
+                bwd != 24 * FT_BF16_STEPS or bt.launch_forward.launches or \
+                bt.launch_backward.launches:
+            raise AssertionError(
+                f"{label}: expected {24 * forwards} forward and 24 backward "
+                "train-pair launches a step and no single-block train launch")
+        names = ("L1", "UNet-F") if seg else ("L1", "GAN", "Adv_D")
+        res["records"] = _ft_records(trainer, ts, names)
+        res["profile"] = _step_profile(trainer, ts, SEED + 7,
+                                       f"E1 {label} step (bf16)")
+        out[label] = res
+        del trainer
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2196,7 +2542,7 @@ def _swinir_train_argv(data_dir: str, out_dir: str, steps: int) -> list:
             f"data_folder='{data_dir}'", f"output_dir='{out_dir}'",
             f"epochs_in_total={{'WarmUP': {steps}}}",
             f"check_every={TRAIN_CHECK}", "quick_eva_num_samples=8",
-            "eva_metrics='psnr ssim'", "verbose=False"]
+            "verbose=False"]
 
 
 @phase("SwinIR-std bf16 training")
@@ -3509,6 +3855,9 @@ def run_e1(data_dir: str, tmp: str, patients: dict):
     kern_train = train_kernel_phase(live16.model)
     train = train_phase(data_dir, tmp)
     prof_train = train_profile_phase(train.pop("trainer"))
+    finetune = {"seg": seg_finetune_phase(data_dir, tmp),
+                "gan": gan_finetune_phase(data_dir, tmp),
+                "bf16": finetune_bf16_phase(data_dir, tmp)}
     tester = e1_tester_phase(data_dir, tmp, patients, live, live16)
 
     main_softmax = live16.model.softmax
@@ -3537,6 +3886,7 @@ def run_e1(data_dir: str, tmp: str, patients: dict):
                         "profile": prof16},
                "train": {"kernel": kern_train, "step": train,
                          "profile": prof_train},
+               "finetune": finetune,
                "tester": tester}
     return results, kernels
 

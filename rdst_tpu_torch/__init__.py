@@ -2,7 +2,7 @@
 
 A second package beside the JAX one. It keeps the JAX package's module
 paths and names so each piece has an obvious counterpart, imports only
-``torch``, ``numpy``, ``scipy`` and the standard library, and runs its
+``torch``, ``numpy`` and the standard library, and runs its
 kernels as hand-written CUDA C++ for Hopper (``csrc/``), built with
 ``nvcc`` at first use and bound with ``ctypes``.
 
@@ -15,6 +15,9 @@ SwinIR-std x4 in bfloat16 on the fast block kernel with int8 qkv
 operands and trains it with each Swin block on the block-train forward
 and backward kernels. ``python -m rdst_tpu_torch.test`` scores a config's
 trained weights by the ``test.py`` protocol (``runners/tester.py``).
+The trainer also runs the fine-tune recipes: the VGG and seg-UNet
+perceptual losses and the GAN step with its discriminator
+(``losses/``), and FID scores the evaluations (``metrics/fid.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,7 @@
 """Weight carry-over: a JAX ``RDSTSR`` or ``SwinIR`` parameter tree -> the
-port's state_dict.
+port's state_dict; and both ways for the networks whose port modules
+carry the flax module names (the discriminators, the seg UNet,
+InceptionV3): :func:`export_flax_tree` / :func:`import_flax_tree`.
 
 The port's modules are named so that their ``state_dict`` keys are the
 reference RDSTSR and SwinIR keys that ``rdst_tpu/checkpoint/
@@ -207,3 +209,104 @@ def export_params(params: dict, generator: str, mean=(0.0,),
     raise NotImplementedError(
         f"carrying {generator!r} snapshots over comes with the model-zoo "
         "slice of the port")
+
+
+# -- networks named as their flax modules --------------------------------------
+
+_BN_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _torch_path(path) -> str:
+    """A flax module path as a state-dict prefix: a Swin stack's
+    ``blocks_i`` under ``residual_group`` is the port's ``blocks.i``."""
+    p = "/".join(path)
+    p = re.sub(r"residual_group/blocks_(\d+)", r"residual_group/blocks.\1", p)
+    return p.replace("/", ".")
+
+
+def export_flax_tree(variables: dict) -> Dict[str, np.ndarray]:
+    """JAX variables ``{'params', 'batch_stats'}`` (numpy) of a network
+    whose port modules carry the flax names (``models.seg_unet``,
+    ``metrics.inception``, the discriminators through
+    :func:`export_discriminator`) -> the port's state_dict:
+    conv kernels HWIO -> OIHW ``weight``, dense kernels (in, out) ->
+    (out, in), ``scale`` -> ``weight``, BN ``mean``/``var`` ->
+    ``running_mean``/``running_var``."""
+    sd: Dict[str, np.ndarray] = {}
+    for path, v in flatten(variables.get("params", {})).items():
+        v, leaf = np.asarray(v), path[-1]
+        key = _torch_path(path[:-1])
+        if leaf == "kernel":
+            sd[f"{key}.weight"] = _conv_w(v) if v.ndim == 4 else _linear_w(v)
+        elif leaf == "scale":
+            sd[f"{key}.weight"] = v
+        else:
+            sd[f"{key}.{leaf}"] = v
+    for path, v in flatten(variables.get("batch_stats", {})).items():
+        sd[f"{_torch_path(path[:-1])}.{_BN_STATS[path[-1]]}"] = np.asarray(v)
+    return sd
+
+
+def import_flax_tree(state_dict) -> dict:
+    """The inverse of :func:`export_flax_tree`: a state_dict (tensors or
+    arrays) -> ``{'params': ..., 'batch_stats': ...}`` numpy trees (the
+    ``batch_stats`` entry only when there are running statistics)."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    stats = {v: k for k, v in _BN_STATS.items()}
+    for key, v in state_dict.items():
+        v = np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach")
+                       else v, dtype=np.float32)
+        parts = key.split(".")
+        mod, leaf = re.sub(r"blocks/(\d+)", r"blocks_\1",
+                           "/".join(parts[:-1])).split("/"), parts[-1]
+        if leaf in stats:
+            tree, leaf = out["batch_stats"], stats[leaf]
+        else:
+            tree = out["params"]
+            if leaf == "weight":
+                leaf = "scale" if v.ndim == 1 else "kernel"
+                if v.ndim == 4:
+                    v = np.ascontiguousarray(v.transpose(2, 3, 1, 0))
+                elif v.ndim == 2:
+                    v = np.ascontiguousarray(v.T)
+        for m in mod:
+            tree = tree.setdefault(m, {})
+        tree[leaf] = v
+    if not out["batch_stats"]:
+        del out["batch_stats"]
+    return out
+
+
+def _nhwc_rows_to_nchw(kernel: np.ndarray, chw) -> np.ndarray:
+    """A dense kernel on an NHWC flatten, (H*W*C, out), as the rows of an
+    NCHW flatten, (C*H*W, out)."""
+    c, h, w = chw
+    out = kernel.shape[-1]
+    return np.ascontiguousarray(kernel.reshape(h, w, c, out)
+                                .transpose(2, 0, 1, 3).reshape(-1, out))
+
+
+def export_discriminator(variables: dict, map_chw=None) -> Dict[str, np.ndarray]:
+    """JAX discriminator variables -> the port's state_dict. The CNN
+    discriminator flattens its last (C, H, W) map in NCHW order in the
+    port, NHWC in the JAX package: pass ``map_chw`` and its first dense
+    kernel's rows are reordered to match (the Swin discriminator flattens
+    NHWC in both: ``map_chw=None``)."""
+    if map_chw is not None:
+        variables = dict(variables, params=dict(variables["params"]))
+        cls = dict(variables["params"]["classifier_0"])
+        cls["kernel"] = _nhwc_rows_to_nchw(np.asarray(cls["kernel"]), map_chw)
+        variables["params"]["classifier_0"] = cls
+    return export_flax_tree(variables)
+
+
+def import_discriminator(state_dict, map_chw=None) -> dict:
+    """The inverse of :func:`export_discriminator`."""
+    tree = import_flax_tree(state_dict)
+    if map_chw is not None:
+        c, h, w = map_chw
+        k = tree["params"]["classifier_0"]["kernel"]
+        tree["params"]["classifier_0"]["kernel"] = np.ascontiguousarray(
+            k.reshape(c, h, w, -1).transpose(1, 2, 0, 3).reshape(-1,
+                                                                 k.shape[-1]))
+    return tree

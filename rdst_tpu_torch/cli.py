@@ -8,7 +8,8 @@ import argparse
 
 
 def train_main(argv=None):
-    """``--config-file X.ini [--gpu-id N] [--seed S] [KEY=VALUE ...]``, as
+    """``--config-file X.ini [--gpu-id N] [--seg-loss] [--seed S]
+    [KEY=VALUE ...]``, as
     ``rdst_tpu.cli.train_main`` takes them: build the trainer
     (:func:`build_trainer`), set it up (resuming from its checkpoint when
     there is one) and train; returns the trainer."""
@@ -47,8 +48,7 @@ def build_trainer(argv=None):
     parser.add_argument("--gpu-id", type=int, metavar="GPU",
                         help="CUDA device id; -1 runs on the CPU.")
     parser.add_argument("--seg-loss", action="store_true",
-                        help="Use the segmentation-label training dataset "
-                             "(not ported yet: raises).")
+                        help="Use the segmentation-label training dataset.")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("overrides", nargs="*", metavar="KEY=VALUE",
                         help="Config overrides, e.g. batch_size=16 (values "
@@ -59,15 +59,12 @@ def build_trainer(argv=None):
     from rdst_tpu_torch.device import resolve_device
     from rdst_tpu_torch.runners.trainer import TransSRTrainer
 
-    if args.seg_loss:
-        raise NotImplementedError(
-            "--seg-loss (the seg-UNet loss) comes with the port's "
-            "losses-and-metrics slice (ROADMAP Queue A 8)")
     device = _device_of(args.gpu_id)
     resolve_device(device)  # no card and no --gpu-id -1: raise now
     paras = _load_paras(args)
 
-    ds_train, ds_valid = make_train_valid_datasets(paras)
+    ds_train, ds_valid = make_train_valid_datasets(paras,
+                                                   seg_loss=args.seg_loss)
     print(f"DS info: {len(ds_train)} training samples, and "
           f"{ds_valid.test_len()} testing cases.")
     return TransSRTrainer(paras, ds_train, ds_valid, seed=args.seed,

@@ -1,6 +1,6 @@
 """Dataset base classes: slice stores, multi-SR train sampling, test pairs.
 
-The port's own copy of ``rdst_tpu/data/datasets.py`` (numpy, scipy and the standard
+The port's own copy of ``rdst_tpu/data/datasets.py`` (numpy and the standard
 library only), kept so that the port imports nothing of ``rdst_tpu``.
 
 Re-design of the reference dataset layer

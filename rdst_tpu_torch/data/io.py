@@ -1,6 +1,6 @@
 """Minimal native NIfTI-1 / Analyze 7.5 volume IO (no nibabel dependency).
 
-The port's own copy of ``rdst_tpu/data/io.py`` (numpy, scipy and the standard
+The port's own copy of ``rdst_tpu/data/io.py`` (numpy and the standard
 library only), kept so that the port imports nothing of ``rdst_tpu``.
 
 The reference loads medical volumes via nibabel (e.g.

@@ -1,6 +1,6 @@
 """Concrete medical dataset families: OASIS, BraTS, ACDC, COVID-CT.
 
-The port's own copy of ``rdst_tpu/data/readers.py`` (numpy, scipy and the standard
+The port's own copy of ``rdst_tpu/data/readers.py`` (numpy and the standard
 library only), kept so that the port imports nothing of ``rdst_tpu``.
 
 Loading semantics follow the reference readers

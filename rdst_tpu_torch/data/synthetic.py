@@ -1,6 +1,6 @@
 """Synthetic medical-volume fixtures.
 
-The port's own copy of ``rdst_tpu/data/synthetic.py`` (numpy, scipy and the standard
+The port's own copy of ``rdst_tpu/data/synthetic.py`` (numpy and the standard
 library only), kept so that the port imports nothing of ``rdst_tpu``.
 
 The reference ships example OASIS data whose ``.img`` payloads are
@@ -28,7 +28,7 @@ from os.path import join
 from typing import Tuple
 
 import numpy as np
-from scipy.ndimage import gaussian_filter
+from rdst_tpu_torch.utils.ndfilters import gaussian_filter
 
 from rdst_tpu_torch.data import io
 

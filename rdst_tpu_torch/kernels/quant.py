@@ -10,8 +10,7 @@ static step of 4 sigma / 127. The product's int32 sums are exact, so the
 only roundings are the two quantizations (half to even, as ``jnp.round``
 and ``torch.round`` both round) and the f32 epilogue
 ``y = int32(xq @ wq) * ws + bqkv``. The other groups (``mlp``, ``proj``,
-``conv``) are not ported (ROADMAP Queue B 7) and raise where they are
-asked for.
+``conv``) are not ported and raise where they are asked for.
 """
 
 from __future__ import annotations
@@ -45,7 +44,7 @@ def check_ported(quant) -> frozenset:
     if missing:
         raise NotImplementedError(
             f"pallas_quant {missing}: only the 'qkv' int8 group is ported; "
-            "'mlp', 'proj' and 'conv' come with ROADMAP Queue B 7")
+            "int8 'mlp', 'proj' and 'conv' operands are not")
     return groups
 
 

@@ -32,7 +32,7 @@ What a mode runs depends on the model's dtype (``models.rdst
 ``off`` asks for the plain PyTorch path in either dtype. ``pallas_quant
 ='qkv'`` runs the fast block's qkv product on int8 operands in bf16
 (``kernels.quant``); float32 drops int8, as the JAX precise path does, and
-the other groups raise (ROADMAP Queue B 7). The softmax
+the other groups raise (not ported). The softmax
 variant (resolved once; ``auto`` against the checkpoint's stamp) selects
 the bf16 kernels' stabilizer: ``''``/``stable``/``stable_bc`` (exact,
 the per-head row max subtracted), ``stable_mm`` (the max rounded to

@@ -2,11 +2,13 @@
 ``rdst_tpu/losses/sr_loss.py``), in PyTorch.
 
 Built from ``training_losses`` with per-training-state scalars from
-``loss_scalars``; ``loss(pred, batch, state)`` returns the weighted total
-and a report of each term, as tensors. This slice ports the pixel terms
-L1 and L2/MSE. The VGG, GAN and seg-UNet terms raise and name the queue
-item that brings them (ROADMAP Queue A 8). Per-state records stay on the
-host, as in the JAX package.
+``loss_scalars``: the pixel terms L1 and L2/MSE, the VGG terms
+(``VGG22``/``VGG54``/``Minc_VGG*``, ``losses.vgg.VGGLoss``), the
+adversarial term (any ``*GAN*`` name; ``self.adversarial`` owns the
+discriminator, which the trainer updates) and the seg-UNet term
+``'UNet-F'``. ``loss(pred, batch, state)`` returns the weighted total and
+a report of each term, as tensors; every term is ``term(pred, target,
+batch)``. Per-state records stay on the host, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,21 +39,37 @@ class SRLoss:
         self.training_states = list(paras.training_states)
         self.current_state = self.training_states[0]
         self.terms: Dict[str, Callable] = {}
+        self.adversarial = None
         self.records: Dict[str, Dict[str, list]] = {
             s: {} for s in self.training_states}
         for name in paras.training_losses:
             if name == "L1":
-                self.terms[name] = l1_loss
+                self.terms[name] = lambda p, t, b=None: l1_loss(p, t)
             elif name in ("L2", "MSE"):
-                self.terms[name] = l2_loss
-            elif (name.startswith(("VGG", "Minc_VGG")) or "GAN" in name
-                  or name == "UNet-F"):
-                raise NotImplementedError(
-                    f"loss term {name!r} (VGG, GAN and seg-UNet losses) "
-                    "comes with the port's losses-and-metrics slice "
-                    "(ROADMAP Queue A 8)")
+                self.terms[name] = lambda p, t, b=None: l2_loss(p, t)
+            elif name.startswith(("VGG", "Minc_VGG")):
+                from rdst_tpu_torch.losses.vgg import VGGLoss
+
+                self.terms[name] = VGGLoss(name)
+            elif "GAN" in name:
+                from rdst_tpu_torch.losses.adversarial import ScaleAdversarial
+
+                self.adversarial = ScaleAdversarial(paras)
+                self.terms[name] = self.adversarial.generator_loss
+            elif name == "UNet-F":
+                from rdst_tpu_torch.losses.seg_unet import SegUNetLoss
+
+                self.terms[name] = SegUNetLoss(paras)
             else:
                 raise ValueError(f"unsupported loss term: {name}")
+
+    def to(self, device) -> "SRLoss":
+        """Move the terms' frozen networks (the discriminator moves at
+        ``adversarial.init``)."""
+        for term in self.terms.values():
+            if isinstance(term, torch.nn.Module):
+                term.to(device)
+        return self
 
     def set_training_state(self, state: str):
         if state not in self.loss_scalars:
@@ -69,7 +87,7 @@ class SRLoss:
         total = pred.new_zeros((), dtype=torch.float32)
         report = {}
         for name, scalar in self.loss_scalars[state].items():
-            value = self.terms[name](pred, batch["out"])
+            value = self.terms[name](pred, batch["out"], batch)
             total = total + scalar * value
             report[name] = value
         return total, report

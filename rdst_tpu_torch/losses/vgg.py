@@ -1,5 +1,6 @@
-"""The VGG19 feature stack (the port's copy of the feature part of
-``rdst_tpu/losses/vgg.py``), used by the ``lpips`` metric.
+"""VGG feature losses and the VGG19 feature stack (counterpart of
+``rdst_tpu/losses/vgg.py``), used by the ``VGG*``/``Minc_VGG*`` loss
+terms, the ``lpips`` metric and the FID's VGG substitute.
 
 ``VGG19Features`` is torchvision's ``vgg19().features`` truncated at a
 module index, with every conv's channel count scaled by ``width`` (the
@@ -8,7 +9,6 @@ trained at 0.25). Weights come from a torchvision-format ``vgg19`` state
 dict (``RDST_TPU_VGG19_PT`` or ``weights/vgg19.pt``) or from the native
 pickle (``RDST_TPU_VGG19_NATIVE`` or that path), both as the JAX package
 reads them: ``{'params': {'conv_i': {'kernel': HWIO, 'bias': (O,)}}}``.
-The VGG losses themselves wait for the losses slice (ROADMAP Queue A 7).
 """
 
 from __future__ import annotations
@@ -26,6 +26,9 @@ from torch import nn
 # VGG19 feature config: conv channel per layer, 'M' = maxpool
 _VGG19_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
               512, 512, 512, 512, "M", 512, 512, 512, 512, "M"]
+
+# torchvision module index of each tap (end-exclusive slice bound)
+_TAPS = {"22": 8, "54": 35}
 
 
 def _convs_below(tap: int) -> int:
@@ -146,3 +149,68 @@ def load_native_features(tap: int, path: Optional[str] = None):
             f"{sorted(keep - set(params))} for tap {tap}; ignoring it")
         return None, 1.0
     return {"params": params}, float(blob.get("width", 1.0))
+
+
+class VGGLoss(nn.Module):
+    """The ``VGG22``/``VGG54``/``Minc_VGG*`` loss term: MSE between the
+    frozen VGG19 features of the prediction and of the target (NHWC in
+    [0, 1], ImageNet-normalized; one channel repeated to three, more than
+    three scored channel by channel and summed). Weights as the JAX term
+    finds them: a torchvision ``vgg19`` state dict (``RDST_TPU_VGG19_PT``
+    or ``weights/vgg19.pt``; for ``Minc_*`` ``RDST_TPU_MINC_VGG19_PT`` or
+    ``weights/minc_vgg19.pt``), else the committed native substitute,
+    else a seeded random stack with a warning. No gradient reaches the
+    VGG weights; it flows through them to the prediction."""
+
+    IMAGENET_MEAN = (0.485, 0.456, 0.406)
+    IMAGENET_STD = (0.229, 0.224, 0.225)
+
+    def __init__(self, name: str, variables=None):
+        super().__init__()
+        self.tap = _TAPS["54" if "54" in name else "22"]
+        width = 1.0
+        if variables is None:
+            path = None
+            if name.startswith("Minc"):
+                path = os.environ.get("RDST_TPU_MINC_VGG19_PT",
+                                      "weights/minc_vgg19.pt")
+            variables = load_vgg19_params(self.tap, path)
+        if variables is None:
+            variables, width = load_native_features(self.tap)
+        self.model = VGG19Features(self.tap, width)
+        if variables is None:
+            warnings.warn(
+                f"VGGLoss({name}): no VGG19 weights found; using a frozen "
+                "random-initialized VGG (structured multi-scale prior). "
+                "Provide weights via RDST_TPU_VGG19_PT for the reference loss.")
+            gen = torch.Generator().manual_seed(0)
+            with torch.no_grad():
+                for conv in self.model.convs:
+                    bound = conv.weight[0].numel() ** -0.5
+                    conv.weight.copy_((2 * torch.rand(
+                        conv.weight.shape, generator=gen) - 1) * bound)
+                    conv.bias.zero_()
+        else:
+            self.model.load_variables(variables)
+        self.model.requires_grad_(False)
+        self.register_buffer("mean", torch.tensor(self.IMAGENET_MEAN))
+        self.register_buffer("std", torch.tensor(self.IMAGENET_STD))
+
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        return self.model(((x - self.mean) / self.std).permute(0, 3, 1, 2))
+
+    def forward(self, pred, target, batch=None) -> torch.Tensor:
+        c = pred.shape[-1]
+        if c in (1, 3):
+            chans = [(pred, target)] if c == 3 else [
+                (pred.repeat(1, 1, 1, 3), target.repeat(1, 1, 1, 3))]
+        else:
+            chans = [(pred[..., i:i + 1].repeat(1, 1, 1, 3),
+                      target[..., i:i + 1].repeat(1, 1, 1, 3))
+                     for i in range(c)]
+        loss = pred.new_zeros((), dtype=torch.float32)
+        for sr, hr in chans:
+            with torch.no_grad():
+                f_hr = self._features(hr)
+            loss = loss + torch.mean((self._features(sr) - f_hr) ** 2)
+        return loss

@@ -1,6 +1,6 @@
 """Evaluation harness: metric registries and per-scale SR reports.
 
-The port's own copy of ``rdst_tpu/metrics/evaluation.py`` (numpy, scipy and the standard
+The port's own copy of ``rdst_tpu/metrics/evaluation.py`` (numpy and the standard
 library only), kept so that the port imports nothing of ``rdst_tpu``.
 
 Re-designs the reference evaluation stack
@@ -70,10 +70,9 @@ class SRMetrics:
             if m in METRIC_FUNCS:
                 self.functions[m] = METRIC_FUNCS[m]
             elif m == "fid":
-                raise NotImplementedError(
-                    "metric 'fid' (InceptionV3 features) comes with the "
-                    "port's losses-and-metrics slice (ROADMAP Queue A 8); "
-                    "leave it out of eva_metrics")
+                from rdst_tpu_torch.metrics.fid import FID
+
+                self.fid_functions[m] = FID(gpu_id, *fid_paras)
             else:
                 raise ValueError(f"Do not support this metric: {m}")
 

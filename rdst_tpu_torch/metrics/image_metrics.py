@@ -16,7 +16,7 @@ multi-channel images by averaging per-channel scores (sewar convention).
 from __future__ import annotations
 
 import numpy as np
-from scipy.ndimage import uniform_filter
+from rdst_tpu_torch.utils.ndfilters import uniform_filter
 
 EPS = np.finfo(np.float64).eps
 
@@ -169,7 +169,7 @@ def rase(gt, p, ws: int = 8):
 
 def _scc_filter(x):
     # high-pass Laplacian (as used by the spatial correlation coefficient)
-    from scipy.ndimage import convolve
+    from rdst_tpu_torch.utils.ndfilters import convolve
 
     k = np.array([[-1, -1, -1], [-1, 8, -1], [-1, -1, -1]], dtype=np.float64)
     return convolve(x, k, mode="constant")
@@ -220,7 +220,7 @@ def _vifp_single(gt, p, sigma_nsq=2.0):
     """Exact sewar algorithm (full_ref.vifp / the original VIF MATLAB
     code): N = 2^(4-scale+1)+1 tap window with sigma N/5, 'valid'
     convolutions, 1e-10 thresholds, num/den without an extra eps."""
-    from scipy.signal import convolve2d
+    from rdst_tpu_torch.utils.ndfilters import convolve2d_valid
 
     eps = 1e-10
     num, den = 0.0, 0.0
@@ -232,16 +232,16 @@ def _vifp_single(gt, p, sigma_nsq=2.0):
                 break  # image exhausted: smaller slices keep the scales
                 # that fit (sewar itself crashes here; identical numbers
                 # wherever all four scales run)
-            gt = convolve2d(gt, win, mode="valid")[::2, ::2]
-            p = convolve2d(p, win, mode="valid")[::2, ::2]
+            gt = convolve2d_valid(gt, win)[::2, ::2]
+            p = convolve2d_valid(p, win)[::2, ::2]
         elif min(gt.shape) < n:
             break
-        mu1 = convolve2d(gt, win, mode="valid")
-        mu2 = convolve2d(p, win, mode="valid")
+        mu1 = convolve2d_valid(gt, win)
+        mu2 = convolve2d_valid(p, win)
         mu1_sq, mu2_sq, mu1mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
-        s1 = convolve2d(gt * gt, win, mode="valid") - mu1_sq
-        s2 = convolve2d(p * p, win, mode="valid") - mu2_sq
-        s12 = convolve2d(gt * p, win, mode="valid") - mu1mu2
+        s1 = convolve2d_valid(gt * gt, win) - mu1_sq
+        s2 = convolve2d_valid(p * p, win) - mu2_sq
+        s12 = convolve2d_valid(gt * p, win) - mu1mu2
         s1 = np.maximum(s1, 0)
         s2 = np.maximum(s2, 0)
         g = s12 / (s1 + eps)

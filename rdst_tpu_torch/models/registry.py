@@ -28,5 +28,5 @@ def build_generator(paras, mean=None, std=None, dtype=torch.float32):
 
         return make_swinir(paras, mean, std, dtype)
     raise NotImplementedError(
-        f"feature_generator {raw!r} is not ported yet; it comes with the "
-        "model-zoo slice of the port (the port builds 'rdst' and 'swinir')")
+        f"feature_generator {raw!r} is not ported (of the model-zoo "
+        "families the port builds 'rdst' and 'swinir')")

@@ -126,3 +126,61 @@ class Mlp(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.drop(self.fc2(self.drop(gelu_exact(self.fc1(x)))))
+
+
+def activation(name: Optional[str], slope: float = 0.2):
+    """``rdst_tpu.nn.layers.activation``: None/'none' the identity, 'relu',
+    'leaky_relu' (or 'leaky_relu:<slope>'), 'prelu' as a fixed 0.25 slope,
+    'gelu' exact."""
+    if name in (None, "none", "None"):
+        return lambda x: x
+    if name == "relu":
+        return F.relu
+    if isinstance(name, str) and name.startswith("leaky_relu"):
+        if ":" in name:
+            slope = float(name.split(":", 1)[1])
+        return lambda x: F.leaky_relu(x, negative_slope=slope)
+    if name == "prelu":
+        return lambda x: F.leaky_relu(x, negative_slope=0.25)
+    if name == "gelu":
+        return gelu_exact
+    raise ValueError(f"unknown activation: {name}")
+
+
+class BatchNorm(nn.Module):
+    """``flax.linen.BatchNorm`` over the channels of an NCHW tensor.
+
+    ``forward(x, train)``: with ``train`` the batch statistics normalize
+    (mean and the fast variance ``max(E[x^2] - E[x]^2, 0)`` over N, H, W,
+    in float32) and the running statistics move as flax moves them,
+    ``r = momentum * r + (1 - momentum) * batch`` with the *biased*
+    variance (flax's ``momentum=0.9`` is torch's 0.1); without it the
+    running statistics normalize. The running statistics are buffers
+    updated in place and carry no gradient. State-dict keys: ``weight``
+    (flax ``scale``), ``bias``, ``running_mean`` (``mean``),
+    ``running_var`` (``var``)."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
+        super().__init__()
+        self.eps, self.momentum = float(eps), float(momentum)
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.float()
+            mean = xf.mean(dim=(0, 2, 3))
+            var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(m).add_(mean.detach(), alpha=1 - m)
+                self.running_var.mul_(m).add_(var.detach(), alpha=1 - m)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])

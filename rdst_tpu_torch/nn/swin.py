@@ -670,3 +670,22 @@ def set_block_kernels(module: nn.Module, on: bool) -> int:
     for blk in blocks:
         blk.use_kernel = bool(on)
     return len(blocks)
+
+
+class PatchMerging(nn.Module):
+    """2x2 neighbourhood concat + LayerNorm + bias-free linear reduction to
+    2C (``rdst_tpu/nn/swin.py::PatchMerging``, the Swin discriminator's
+    downsampling): (B, H*W, C) tokens -> (B, H*W/4, 2C)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.norm = LayerNorm(4 * dim)
+        self.reduction = Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
+        h, w = x_size
+        b, _, c = x.shape
+        x = x.reshape(b, h, w, c)
+        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
+                       x[:, 1::2, 1::2]], dim=-1).reshape(b, -1, 4 * c)
+        return self.reduction(self.norm(x))

@@ -1,5 +1,5 @@
-"""Training orchestration (counterpart of ``rdst_tpu/runners/trainer.py``,
-``SRTrainer`` without the GAN path), in PyTorch on one device.
+"""Training orchestration (counterpart of ``rdst_tpu/runners/trainer.py``),
+in PyTorch on one device.
 
 Same artifacts as the JAX trainer: the output tree
 ``{output_dir}/{model_name}_{gan_type}/`` with ``training_log.txt``,
@@ -7,7 +7,10 @@ Same artifacts as the JAX trainer: the output tree
 ``checkpoint.msgpack_writer``) and its ``.stats.json`` sidecar (with the
 audited ``attn_logit_max``), the best quick-eval snapshot, and
 ``checkpoint/`` for resume (``torch.save`` of the parameters, the
-optimizer state and the generator state, plus ``host_state.json``).
+optimizer state and the generator state, plus ``host_state.json``); with
+an adversarial term also ``models/{state}_loss_d.msgpack``, the
+discriminator's ``params`` and ``batch_stats`` in the flax layout, and
+the discriminator with its optimizer in the checkpoint.
 
 One optimizer step per "epoch", as in the JAX package:
 
@@ -19,6 +22,10 @@ One optimizer step per "epoch", as in the JAX package:
   autograd;
 * the guarded update: the step is skipped on a non-finite loss or
   gradient, or a loss >= ``loss_threshold``;
+* in a training state with a GAN term, the JAX trainer's alternating
+  step: a generator forward without gradient, ``gan_k`` discriminator
+  updates on it (``losses.adversarial``), then the generator's forward,
+  loss and update against the refreshed discriminator;
 * the guard is decided on the device and loss scalars are fetched to the
   host in batches (``scalar_flush_steps``) and at every check, so the
   host does not wait for the card between checks;
@@ -27,9 +34,8 @@ One optimizer step per "epoch", as in the JAX package:
 
 ``pallas_softmax='auto'`` starts from the audited bound of
 ``pre_trained_g`` (0 for a fresh init: clamp) and escalates to the stable
-softmax once an audit reaches the margin. GAN terms, the segmentation
-loss and ``residual_scale > 0`` raise and name the queue item that brings
-them.
+softmax once an audit reaches the margin. ``residual_scale > 0`` and
+``scale_free`` training raise: MetaSR's training is not ported.
 """
 
 from __future__ import annotations
@@ -54,36 +60,38 @@ def fancy_print(msg: str) -> str:
     return f"\n{bar}\n#   {msg}\n{bar}\n"
 
 
+def truncated_normal(t: torch.Tensor, generator: torch.Generator,
+                     std: float) -> None:
+    """Fill ``t`` with standard normal draws cut at 2, times ``std``."""
+    v = torch.randn(t.shape, generator=generator, device=t.device)
+    while True:
+        bad = v.abs() > 2.0
+        if not bad.any():
+            break
+        v[bad] = torch.randn(int(bad.sum()), generator=generator,
+                             device=t.device)
+    t.copy_(std * v)
+
+
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers: dense kernels and relative-position
     tables truncated normal (std 0.02, cut at 2 std), dense biases zero,
     LayerNorms one and zero, convolution kernels uniform within
     sqrt(1 / fan_in) (torch's default) and their biases zero. The frozen
     MeanShift convs are left as they are."""
-    from rdst_tpu_torch.nn.common import Conv
     from rdst_tpu_torch.nn.layers import LayerNorm, Linear
     from rdst_tpu_torch.nn.swin import WindowAttention
-
-    def trunc_normal(t):
-        v = torch.randn(t.shape, generator=generator, device=t.device)
-        while True:
-            bad = v.abs() > 2.0
-            if not bad.any():
-                break
-            v[bad] = torch.randn(int(bad.sum()), generator=generator,
-                                 device=t.device)
-        t.copy_(0.02 * v)
 
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, Linear):
-                trunc_normal(m.weight)
+                truncated_normal(m.weight, generator, 0.02)
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-            elif isinstance(m, Conv):
+            elif isinstance(m, torch.nn.Conv2d):
                 fan_in = m.weight[0].numel()
                 bound = fan_in ** -0.5
                 u = torch.rand(m.weight.shape, generator=generator,
@@ -92,7 +100,8 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
                 if m.bias is not None:
                     m.bias.zero_()
             elif isinstance(m, WindowAttention):
-                trunc_normal(m.relative_position_bias_table)
+                truncated_normal(m.relative_position_bias_table,
+                                 generator, 0.02)
 
 
 def pin_batch(batch: dict) -> dict:
@@ -122,21 +131,16 @@ class SRTrainer:
         self.verbose = paras.verbose
         self.device = resolve_device(device)
         gan_type = paras.get("gan_type", "None")
-        if any("GAN" in n for n in paras.training_losses) or \
-                str(gan_type) not in ("None", "none", ""):
-            raise NotImplementedError(
-                "GAN training comes with the port's losses-and-metrics "
-                "slice (ROADMAP Queue A 8)")
         self.residual_scale = float(paras.get("residual_scale", 0.0) or 0.0)
         if self.residual_scale > 0:
             raise NotImplementedError(
-                "training with residual_scale > 0 (MetaSR's bicubic blend) "
-                "comes with MetaSR and scale_free training in the model-zoo "
-                "slice (ROADMAP Queue A 8)")
+                "training with residual_scale > 0 (MetaSR's bicubic blend "
+                "of the model embedding) is not ported")
         if paras.get("scale_free"):
             raise NotImplementedError(
-                "scale_free training comes with the model-zoo slice "
-                "(ROADMAP Queue A 8)")
+                "scale_free training (MetaSR's arbitrary scales) is not "
+                "ported")
+        self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
@@ -165,7 +169,7 @@ class SRTrainer:
         set_generator(self.model, self.generator)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
         self.opt = Optimizer(self.params, paras)
-        self.loss = SRLoss(paras)
+        self.loss = SRLoss(paras).to(self.device)
 
         self.training_states = list(paras.training_states)
         self.epochs_in_total: Dict[str, int] = dict(paras.epochs_in_total)
@@ -205,7 +209,12 @@ class SRTrainer:
             os.makedirs(d, exist_ok=True)
         self.write_log(str(self.paras))
         init_weights(self.model, self.generator)
-        self.write_log(self.weights_init().rstrip("\n"))
+        tl_log = self.weights_init()
+        if self.loss.adversarial is not None:
+            self.loss.adversarial.init(
+                self.device, torch.Generator().manual_seed(self.seed + 1))
+            tl_log += self._weights_init_d()
+        self.write_log(tl_log.rstrip("\n"))
         if exists(join(self.checkpoint_dir, "host_state.json")):
             self.load_checkpoint()
             self.write_log(fancy_print(
@@ -233,11 +242,42 @@ class SRTrainer:
             return f"Init G with pre-trained model: {g_path}\n"
         return "Initialize G by default (seeded init)\n"
 
+    def _weights_init_d(self) -> str:
+        """Weights-only warm start of the discriminator from a
+        ``{state}_loss_d.msgpack`` snapshot named by ``pre_trained_d``
+        (its ``params`` and ``batch_stats``; the optimizer starts anew)."""
+        from rdst_tpu_torch.checkpoint.convert import export_discriminator
+        from rdst_tpu_torch.checkpoint.msgpack_reader import read_snapshot
+
+        d_path = self.paras.get("pre_trained_d")
+        if not (isinstance(d_path, str) and d_path not in ("", "None")):
+            return "Initialize D by default (seeded init)\n"
+        if not exists(d_path):
+            raise FileNotFoundError(
+                f"pre_trained_d points at a missing file: {d_path}")
+        if d_path.endswith((".pt", ".pth")):
+            raise ValueError(
+                "pre_trained_d torch import is not mapped -- export the "
+                "discriminator to msgpack (models/{state}_loss_d.msgpack) "
+                "and point pre_trained_d at that instead")
+        adv = self.loss.adversarial
+        raw = read_snapshot(d_path)
+        sd = export_discriminator({"params": raw["params"],
+                                   "batch_stats": raw.get("batch_stats", {})},
+                                  adv.map_chw)
+        adv.discriminator.load_state_dict(
+            {k: torch.from_numpy(np.array(v, np.float32))
+             for k, v in sd.items()})
+        adv.reset_optimizer()
+        return f"Init Adversarial Loss with pre-trained model: {d_path}\n"
+
     def save_checkpoint(self):
-        torch.save({"model": self.model.state_dict(),
-                    "optimizer": self.opt.state_dict(),
-                    "generator": self.generator.get_state()},
-                   join(self.checkpoint_dir, "state.pt"))
+        state = {"model": self.model.state_dict(),
+                 "optimizer": self.opt.state_dict(),
+                 "generator": self.generator.get_state()}
+        if self.loss.adversarial is not None:
+            state["adversarial"] = self.loss.adversarial.state_dict()
+        torch.save(state, join(self.checkpoint_dir, "state.pt"))
         host = {
             "current_state_id": self.current_state_id,
             "current_epoch": self.current_epoch,
@@ -260,6 +300,8 @@ class SRTrainer:
         self.model.load_state_dict(state["model"])
         self.opt.load_state_dict(state["optimizer"])
         self.generator.set_state(state["generator"].cpu())
+        if self.loss.adversarial is not None:
+            self.loss.adversarial.load_state_dict(state["adversarial"])
         with open(join(self.checkpoint_dir, "host_state.json")) as f:
             host = json.load(f)
         self.current_state_id = host["current_state_id"]
@@ -304,21 +346,58 @@ class SRTrainer:
         path = join(self.dirs["models"], f"{training_state}_model_g.msgpack")
         self._write_snapshot(path)
         self.write_log(f"Saved model snapshot: {path}")
+        adv = self.loss.adversarial
+        if adv is not None:
+            from rdst_tpu_torch.checkpoint.convert import import_discriminator
+            from rdst_tpu_torch.checkpoint.msgpack_writer import to_bytes
+
+            dpath = join(self.dirs["models"],
+                         f"{training_state}_loss_d.msgpack")
+            with open(dpath, "wb") as f:
+                f.write(to_bytes(import_discriminator(
+                    adv.discriminator.state_dict(), adv.map_chw)))
+            self.write_log(f"Saved discriminator snapshot: {dpath}")
 
     # -- the step -------------------------------------------------------------
+
+    def gan_active(self, training_state: str) -> bool:
+        """The state has a GAN term: its step is the alternating one."""
+        return self.loss.adversarial is not None and any(
+            "GAN" in n for n in self.loss.loss_scalars[training_state])
+
+    def device_batch(self, batch) -> dict:
+        """The loss's batch on the device: ``out``, the dataset's labels
+        ``seg_gt`` when it has them, and with an adversary the (B, 1)
+        ``sr_scales`` column of the batch's scale (ScaleGAN's labels)."""
+        dev = self.device
+        out = {"out": torch.as_tensor(batch["out"]).to(dev, non_blocking=True)}
+        if "seg_gt" in batch:
+            out["seg_gt"] = torch.as_tensor(batch["seg_gt"]).to(
+                dev, non_blocking=True)
+        if self.loss.adversarial is not None:
+            out["sr_scales"] = torch.full((out["out"].shape[0], 1),
+                                          float(batch["sr_factor"]),
+                                          device=dev)
+        return out
 
     def train_step(self, batch, training_state: str):
         """One guarded optimizer step on a host batch; returns the total
         loss, the report and whether the update was applied, all as
         tensors on the device. The guard is decided there, as the JAX
         step decides it in the graph, so the host queues the next step
-        while the card runs this one."""
-        dev = self.device
-        x = torch.as_tensor(batch["in"]).to(dev, non_blocking=True)
-        y = torch.as_tensor(batch["out"]).to(dev, non_blocking=True)
+        while the card runs this one. In a GAN state the discriminator
+        is updated first, on a generator forward without gradient."""
+        x = torch.as_tensor(batch["in"]).to(self.device, non_blocking=True)
+        dbatch = self.device_batch(batch)
         self.model.train()
+        d_report = {}
+        if self.gan_active(training_state):
+            with torch.no_grad():
+                fake = self.model(x).float()
+            d_report = self.loss.adversarial.d_step(
+                fake, dbatch["out"], dbatch["sr_scales"], self.generator)
         pred = self.model(x).float()  # the loss in f32 whatever the dtype
-        total, report = self.loss(pred, {"out": y}, training_state)
+        total, report = self.loss(pred, dbatch, training_state)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
@@ -326,7 +405,9 @@ class SRTrainer:
         ok = (torch.isfinite(total) & (total < float(self.loss_threshold))
               & tree_finite(grads))
         self.opt.step(grads, ok)
-        return total, {k: v.detach() for k, v in report.items()}, ok
+        report = {k: v.detach() for k, v in report.items()}
+        report.update(d_report)
+        return total, report, ok
 
     def _sampler(self, n: int, out_q: "queue.Queue", seed: int,
                  stop: threading.Event):

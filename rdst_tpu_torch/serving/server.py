@@ -294,8 +294,8 @@ def main(argv=None):
 
     if args.bundle:
         raise NotImplementedError(
-            "--bundle: exported serving bundles come with a later slice of "
-            "the port; serve a config with --config-file")
+            "--bundle: exported serving bundles are not ported; serve a "
+            "config with --config-file")
     from rdst_tpu_torch.config import ParametersLoader
     from rdst_tpu_torch.serving.export import LiveModel
 

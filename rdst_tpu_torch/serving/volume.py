@@ -65,8 +65,8 @@ def main(argv=None):
 
     if args.bundle:
         raise NotImplementedError(
-            "--bundle: exported serving bundles come with a later slice of "
-            "the port (ROADMAP Queue A 3); use --config-file or --url")
+            "--bundle: exported serving bundles are not ported; use "
+            "--config-file or --url")
     if args.url:
         from rdst_tpu_torch.serving.client import SRClient
 

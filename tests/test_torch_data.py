@@ -6,7 +6,8 @@
   INTER_CUBIC) within 1e-5 max abs;
 * ``sample(rng)`` yields the JAX package's batch for the same generator
   seed (HR crops bitwise, LR inputs within the resize bar);
-* the evaluation harness reports the same numbers; FID raises.
+* the evaluation harness reports the same numbers; FID builds and scores
+  as the JAX package's does.
 """
 
 import pathlib
@@ -137,5 +138,16 @@ def test_evaluation_matches_jax():
 
 
 def test_fid_raises():
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        SRMetrics("psnr fid")
+    """FID used to raise here; it now builds and scores: the mean report
+    has its one batch-level score, the JAX package's within 1e-4."""
+    from rdst_tpu.metrics.evaluation import SRMetrics as JaxSRMetrics
+
+    rng = np.random.default_rng(3)
+    gts = rng.random((20, 32, 36, 1), dtype=np.float32)
+    preds = np.clip(gts + rng.normal(0, 0.1, gts.shape), 0, 1).astype(
+        np.float32)
+    got = SRMetrics("psnr fid", -1, "mean")(gts, preds)
+    want = JaxSRMetrics("psnr fid", -1, "mean")(gts, preds)
+    assert sorted(got) == ["fid", "psnr"]
+    assert np.isfinite(got["fid"]) and got["fid"] > 0
+    assert abs(got["fid"] - want["fid"]) <= 1e-4 * want["fid"]

@@ -163,6 +163,6 @@ def test_plain_fast_body_with_qkv_matches_jax(monkeypatch, softmax,
 
 
 def test_unported_groups_raise():
-    with pytest.raises(NotImplementedError, match="Queue B 7"):
+    with pytest.raises(NotImplementedError, match="int8 'mlp'"):
         quant.check_ported({"qkv", "mlp"})
     assert quant.check_ported({"qkv", "conv"} - {"conv"}) == {"qkv"}

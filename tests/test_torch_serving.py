@@ -366,5 +366,5 @@ def test_sr_volume_matches_jax(blended):
 def test_volume_main_bundle_raises():
     from rdst_tpu_torch.serving.volume import main as volume_main
 
-    with pytest.raises(NotImplementedError, match="Queue A 3"):
+    with pytest.raises(NotImplementedError, match="serving bundles"):
         volume_main(["--bundle", "b", "--in", "x.nii", "--out", "y.nii"])

@@ -229,7 +229,7 @@ def test_routes_at_build():
     for mode in ("pair", "rdstb"):
         with pytest.raises(ValueError, match="pallas_kernels='swin'"):
             set_kernel_mode(std, mode, "clamp")
-    with pytest.raises(NotImplementedError, match="Queue B 7"):
+    with pytest.raises(NotImplementedError, match="int8 'mlp'"):
         set_kernel_mode(std, "swin", "clamp", {"qkv", "mlp"})
 
 

@@ -200,14 +200,19 @@ def test_golden_quality_through_test_main(tmp_path):
 
 
 def test_fid_in_eva_metrics_does_not_stop_the_tester(corpus):
-    """The shipped configs list ``fid`` in ``eva_metrics``, which the port
-    lacks: the test dataset builds that report only on first use, which
-    the tester never makes (it scores ``eva_metrics_for_testing``)."""
+    """The shipped configs list ``fid`` in ``eva_metrics``: the test
+    dataset builds that report on first use (the tester itself scores
+    ``eva_metrics_for_testing``), and it scores FID with the rest."""
     p = _paras(ParametersLoader, corpus, "unused", eva_metrics="psnr ssim fid")
+    p.set("eva_gpu_id", -1)
     ds = make_test_dataset(p, [PID])
     assert ds.test_len() == 25
-    with pytest.raises(NotImplementedError, match="fid"):
-        ds.get_final_eva_func()
+    eva = ds.get_final_eva_func()
+    pairs = [ds.get_test_pair(i) for i in range(4)]
+    recs = [{4.0: pair[4.0]["gt"]} for pair in pairs]
+    report = eva(recs, pairs)
+    assert report["fid_4.0"] == [pytest.approx(0.0, abs=1e-6)]
+    assert len(report["psnr_4.0"]) == 4
 
 
 def test_test_main_without_a_card_raises(corpus, tmp_path):
