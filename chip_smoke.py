@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--only e1|swinir|w96]
+    python3 chip_smoke.py [--out results.json] [--only e1|swinir|w96|metasr]
 
 Drives the port's main paths -- the tester (``python -m
 rdst_tpu_torch.test``) on the committed weights of the README quality
@@ -9,8 +9,10 @@ committed weights, served over HTTP by ``rdst_tpu_torch.serving`` in
 float32 and in bfloat16 (``inference_dtype='bfloat16'``) and trained in
 bfloat16; the shipped SwinIR-std x4 configs, served and trained in
 bfloat16; the shipped RDST-W96 x4 config, served in float32 as shipped
-and in bfloat16 with int8 qkv -- and holds every CUDA kernel of those
-paths against its plain PyTorch version on the card. Phases, each
+and in bfloat16 with int8 qkv; the shipped MetaSR config, tested, served
+and trained at fractional scales, and RDST-E1 built scale-free on the
+same MetaUpSampler tail -- and holds every CUDA kernel of those paths
+against its plain PyTorch version on the card. Phases, each
 printed with its seconds (the 20-phantom corpus is generated once,
 after the build):
 
@@ -221,6 +223,40 @@ after the build):
     the kernel route against the plain bf16 route from the same state and
     batch: every loss rtol 2e-2, the generator's gradient < 0.08; steps/s
     and one profiled step.
+
+30. (``--only metasr``, after the other models) the MetaSR tester:
+    ``cli.test_main`` on the card with the committed
+    ``weights/metasr_20k_best_oasis20_x4.msgpack`` at 1.5 / 2 / 3 / 4
+    over patients 19-20, each scale's mean PSNR / SSIM within 0.02 dB /
+    0.002 of the JAX tester's own number (``TESTER_BARS``, beside the
+    README:185-187 figures); per patient and scale one whole-patient
+    forward's wall and device time;
+31. MetaSR served over HTTP (``POST /v1/predict?scale=1.5`` ...) at its
+    four scales, at 40x32 and at 37x29, each response equal to a direct
+    predict; one 8-slice forward's device time at each scale;
+32. MetaSR training: ``config_files/metasr_20k_oasis20_x4.ini`` as
+    shipped (f32, batch 32, EDSR 16 x 64) for 20 steps with a quick
+    evaluation every 10: every loss finite, the scales the batches drew,
+    the snapshot served at 1.5; steps/s and one profiled step;
+33. RDST-E1 built scale-free (the shipped serving config with
+    ``scale_free`` and scales 1.5 - 4 set; the committed E1 body, a seeded
+    ``tail_meta``) served at 1.5 and 4 on 8 slices of 40x32 and of 37x29
+    (padded to whole windows, cropped to ``int(orig * s)``): f32 through
+    the f32 block kernel (48 launches a forward) against the plain path
+    on the card (1e-4), bf16 mode rdstb (8 launches) against the same
+    model on the CPU (the plain versions, 0.02), against its plain
+    modules and against f32; the f32 block and the RDSTB alone at that
+    geometry against their plain versions with both times and the bound;
+    HTTP serving at both scales in both dtypes with the launches counted
+    (counts set to 0 just before the requests, read just after); one
+    bucket-64 forward's wall and device time at each scale beside the
+    shipped E1's at x4;
+34. scale-free E1 training in bf16 (``config_files/rdst_e1_100k_oasis20_x4
+    .ini`` with the same keys): the train-pair kernels at the training
+    geometry as phase 11, the first step on the kernel route against the
+    plain bf16 route, then 10 steps at the scales the batches draw with 24
+    + 24 train-pair launches a step (counts set to 0 just before the run,
+    read just after), every loss finite; steps/s and one profiled step.
 
 Each training run's final evaluation scores the config's ``eva_metrics``
 as shipped (FID included). Any failed phase raises and the script exits
@@ -707,6 +743,23 @@ def _plan_bytes(plan) -> int:
         plan.bias.numel() * plan.bias.element_size()
 
 
+def _rdstb_bound(plan, x, images: int, x_size):
+    """An RDSTB call's (bound ms, its kind, flops): the blocks of its DSTLs
+    (each DSTL's width is its adapter's input) and the 3x3 conv from the
+    concatenated channels; bytes: tokens in and out, every weight and
+    bias once."""
+    h, w = x_size
+    nw = (h // 8) * (w // 8)
+    flops = sum(2 * _block_flops(images * nw, d.adapter.w.shape[0])
+                for d in plan.dstls) \
+        + images * h * w * 2 * plan.wc.shape[0] * plan.wc.shape[1]
+    nbytes = 2 * 2 * x.numel() + sum(
+        t.numel() * t.element_size() for d in plan.dstls
+        for t in (*d.pa, *d.pb, d.bias_a, d.bias_b, *d.adapter)) + sum(
+        t.numel() * t.element_size() for t in (plan.wc, plan.bc))
+    return (*_bound(flops, nbytes), flops)
+
+
 def _check(name, got, want):
     rel_max, rel_mean, abs_max = _rel(got, want)
     finite = bool(torch.isfinite(got.float()).all())
@@ -798,10 +851,12 @@ def bf16_kernel_phase(model) -> dict:
                     f"ms (rel max {err_o[0]:.3e}); plain {plain_ms:.4f} ms "
                     f"bound {bound_ms:.4f} ms ({by}, "
                     f"{flops / ms / 1e9:.1f} TFLOP/s)")
-    # the instantiations the E1 blocks launch: 32 NT output columns, NT 2
-    # / 3 / 4 at C = 60 / 90 / 120
-    out["ptxas"] = _ptxas_check("swin_block_fast.cu", "fast_window_kernel",
-                                path=("ILi2E", "ILi3E", "ILi4E"))
+    # every instantiation the source builds: 32 NT output columns, NT 2 /
+    # 3 / 4 at C = 60 / 90 / 120 (NT 1, which serialized its wgmma, is not
+    # built: C <= 32 takes the token-parallel forward)
+    out["ptxas"] = _ptxas_check("swin_block_fast.cu", "fast_window_kernel")
+    if any("ILi1E" in name for name in out["ptxas"]):
+        raise AssertionError("fast_window_kernel<1> is built")
     out["int8_c96"] = _int8_window_case(gen)
     softmax = model.softmax
     for j, c in enumerate((60, 90, 120)):
@@ -876,15 +931,7 @@ def bf16_kernel_phase(model) -> dict:
         extras = _stage_extras(
             "rdstb", lambda: rdstb_block.run_rdstb(x, plan, **kw),
             rdstb_block.run_rdstb, tuple(phases) + (("conv_kernel", "conv"),))
-    # blocks of the three DSTLs, plus the 3x3 conv from 150 to 60 channels;
-    # bytes: tokens in and out, every weight and bias once
-    flops = sum(2 * _block_flops(images * nw, c) for c in (60, 90, 120)) \
-        + images * h * w * 2 * 9 * 150 * 60
-    nbytes = 2 * 2 * x.numel() + sum(
-        t.numel() * t.element_size() for d in plan.dstls
-        for t in (*d.pa, *d.pb, d.bias_a, d.bias_b, *d.adapter)) + sum(
-        t.numel() * t.element_size() for t in (plan.wc, plan.bc))
-    bound_ms, by = _bound(flops, nbytes)
+    bound_ms, by, flops = _rdstb_bound(plan, x, images, LR_HW)
     out["rdstb"].append(dict(rel_max=err[0], rel_mean=err[1],
                              max_abs_err=err[2], staged_rel_max=err_s[0],
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1894,7 +1941,7 @@ def _step_profile(trainer, ts: str = "WarmUP", seed: int = SEED + 6,
 
         def d_update():
             with torch.no_grad():
-                fake = trainer.model(x).float()
+                fake = trainer.model(x, trainer.batch_scale(batch)).float()
             adv.d_step(fake, db["out"], db["sr_scales"], trainer.generator)
 
         d_busy = _device_ms(d_update)[1] * 1e3
@@ -3306,6 +3353,15 @@ TESTER_BARS = {
     "SwinIR-std": {"readme": (28.49, 0.886), "psnr": 28.4746, "ssim": 0.8853},
     "W96 f32": {"readme": (28.21, 0.872), "psnr": 28.2068, "ssim": 0.8718},
     "W96 bf16": {"readme": None, "psnr": 28.1681, "ssim": 0.8710},
+    # one MetaSR model at four scales (README:185-187)
+    "MetaSR x1.5": {"readme": (27.34, 0.932), "psnr": 27.3448,
+                    "ssim": 0.9323},
+    "MetaSR x2.0": {"readme": (29.37, 0.945), "psnr": 29.3702,
+                    "ssim": 0.9448},
+    "MetaSR x3.0": {"readme": (27.70, 0.894), "psnr": 27.6993,
+                    "ssim": 0.8936},
+    "MetaSR x4.0": {"readme": (26.71, 0.843), "psnr": 26.7147,
+                    "ssim": 0.8425},
 }
 # vifp and lpips against their bars (host metrics on the card's outputs)
 TESTER_VIFP_TOL, TESTER_LPIPS_TOL = 0.002, 1e-4
@@ -3362,13 +3418,21 @@ def _f32_block_at(block, shift: int, images: int, x_size, gen) -> dict:
         err = (got - want).abs().max().item()
         ms = cuda_time_ms(lambda: sb.run_f32_block(x, plan, **kw),
                           warmup=1, iters=5)
+        plain_ms = cuda_time_ms(
+            lambda: sb.swin_block_reference(x, *plan.params, bias, **kw),
+            warmup=1, iters=5)
+    flops, weights = _block_work(block, c, images * nw)
+    bound = _f32_bound(flops, 4 * (2 * x.numel() + weights + bias.numel()))
     label = (f"f32 block C={c} shift={shift} at {images} x {x_size} "
              f"({images * nw} windows)")
-    log(f"{label}: max abs err {err:.3e} (tol {KERNEL_TOL}), {ms:.4f} ms")
+    log(f"{label}: max abs err {err:.3e} (tol {KERNEL_TOL}), {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+        f"({bound['bound_by']})")
     if not (err <= KERNEL_TOL and torch.isfinite(got).all()):
         raise AssertionError(f"{label}: {err} > {KERNEL_TOL}")
     return dict(c=c, shift=shift, images=images, x_size=list(x_size),
-                windows=images * nw, max_abs_err=err, ms=ms)
+                windows=images * nw, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, **bound)
 
 
 def _rdstb_at(rdstb, images: int, x_size, gen, softmax: str,
@@ -3400,10 +3464,16 @@ def _rdstb_at(rdstb, images: int, x_size, gen, softmax: str,
         err = _check(label, got, want)
         ms = cuda_time_ms(lambda: rdstb_block.run_rdstb(x, plan, **kw),
                           warmup=1, iters=5)
+        plain_ms = cuda_time_ms(lambda: rdstb_block.rdstb_reference(
+            x, plan.dstls, plan.wc, plan.bc, growth=plan.growth,
+            adapter_prenorm=plan.prenorm, **kw), warmup=1, iters=3)
+    bound_ms, by, _ = _rdstb_bound(plan, x, images, x_size)
     log(f"{label}: rel max {err[0]:.3e} mean {err[1]:.3e} (bar {BF16_TOL}), "
-        f"{ms:.4f} ms")
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({by})")
     return dict(images=images, x_size=list(x_size), windows=windows,
-                rel_max=err[0], rel_mean=err[1], max_abs_err=err[2], ms=ms)
+                rel_max=err[0], rel_mean=err[1], max_abs_err=err[2], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
 
 
 def _fast_block_at(block, images: int, x_size, gen, softmax: str,
@@ -3775,6 +3845,488 @@ def run_w96(data_dir: str, tmp: str, patients: dict):
     return results, kernels
 
 
+# ---------------------------------------------------------------------------
+# MetaSR and the scale-free tail: arbitrary scales on one model
+# ---------------------------------------------------------------------------
+
+METASR_CONFIG = "config_files/metasr_20k_oasis20_x4.ini"
+METASR_WEIGHTS = "weights/metasr_20k_best_oasis20_x4.msgpack"
+METASR_SCALES = (1.5, 2.0, 3.0, 4.0)
+METASR_STEPS = 20
+# RDST-E1 with the MetaUpSampler tail: the shipped serving config with
+# scale_free and these scales on the command line; its body takes the
+# committed E1 weights, its tail a seeded init
+SF_OVER = {"scale_free": True, "all_sr_scales": [1.5, 2.0, 2.5, 3.0, 3.5, 4.0],
+           "test_sr_scales": [1.5, 4.0],
+           "sr_scales_for_final_testing": [1.5, 4.0]}
+SF_SCALES = (1.5, 4.0)
+SF_ODD_HW = (37, 29)  # an LR that is not a window multiple: padded, cropped
+SF_STEPS = 10
+
+
+@phase("MetaSR tester")
+def metasr_tester_phase(data_dir: str, tmp: str) -> dict:
+    """``cli.test_main`` on the card with the committed MetaSR weights at
+    1.5 / 2 / 3 / 4 over patients 19-20: each scale's mean PSNR / SSIM
+    against the JAX tester's own number (``TESTER_BARS``, within
+    TESTER_PSNR_TOL / TESTER_SSIM_TOL) beside its README figure; per
+    patient and scale one warm whole-patient forward's wall and device
+    time."""
+    from rdst_tpu_torch.cli import test_main
+    from rdst_tpu_torch.data.readers import make_test_dataset
+
+    over = {"data_folder": data_dir, "verbose": False,
+            "output_dir": os.path.join(tmp, "tester", "MetaSR"),
+            "well_trained_model_metasr": METASR_WEIGHTS}
+    argv = ["--config-file", METASR_CONFIG] + [f"{k}={v!r}"
+                                               for k, v in over.items()]
+    t0 = time.perf_counter()
+    tester = test_main(argv)
+    wall = time.perf_counter() - t0
+    m = tester.manifest
+    log(f"MetaSR tester: {tester.paras.model_name}, manifest scales "
+        f"{m['scales']}, scale_free {m['scale_free']}, routes {m['routes']}, "
+        f"device {m['device']}; run {wall:.3f} s")
+    if (m["scales"], m["scale_free"], m["routes"], m["device"][:4]) != (
+            list(METASR_SCALES), True, [], "cuda"):
+        raise AssertionError(f"MetaSR manifest {m}")
+    stacked = np.load(os.path.join(tester.output_root,
+                                   "stacked_eva_reports.npy"),
+                      allow_pickle=True).item()
+    rows, off = {}, {}
+    tols = {"psnr": TESTER_PSNR_TOL, "ssim": TESTER_SSIM_TOL}
+    for s in METASR_SCALES:
+        bar = TESTER_BARS[f"MetaSR x{s}"]
+        scores = {k: float(np.mean(stacked[f"{k}_{s}"])) for k in tols}
+        delta = {k: scores[k] - bar[k] for k in tols}
+        rows[s] = {"scores": scores, "delta": delta,
+                   "slices": len(stacked[f"psnr_{s}"])}
+        log(f"MetaSR x{s}: psnr {scores['psnr']:.4f} ssim "
+            f"{scores['ssim']:.4f} over {rows[s]['slices']} slices (JAX "
+            f"tester {bar['psnr']} / {bar['ssim']}, README "
+            f"{bar['readme']}; delta {delta['psnr']:+.4f} dB, SSIM "
+            f"{delta['ssim']:+.5f})")
+        off.update({f"{k}_{s}": d for k, d in delta.items()
+                    if abs(d) > tols[k]})
+    times = []
+    for pid in tester.patient_ids:
+        ds = make_test_dataset(tester.paras, [pid])
+        pairs = [ds.get_test_pair(i) for i in range(ds.test_len())]
+        for s in METASR_SCALES:
+            lr = np.concatenate([p[s]["in"] for p in pairs])
+            scale = tester.model_scale(s, pairs)
+            fwd, dev = _device_ms(lambda: tester.forward(lr, scale))
+            times.append({"pid": pid, "scale": s, "model_scale": scale,
+                          "slices": len(pairs), "lr_hw": list(lr.shape[1:3]),
+                          "forward_ms": fwd, "device_ms": dev})
+            log(f"  {pid} x{s} (model at {scale}): {len(pairs)} slices of "
+                f"{lr.shape[1:3]}, one forward {fwd:.3f} ms wall / "
+                + (f"{dev:.3f} ms device" if dev else "device not measured"))
+    if off:
+        raise AssertionError(f"MetaSR tester: {off} past {tols}")
+    return {"rows": rows, "forwards": times, "wall_s": wall, "manifest": m}
+
+
+@phase("MetaSR training")
+def metasr_train_phase(data_dir: str, tmp: str) -> dict:
+    """``config_files/metasr_20k_oasis20_x4.ini`` as shipped (f32, batch
+    32, EDSR 16 x 64, a scale a batch from ``all_sr_scales``) for
+    METASR_STEPS steps with a quick evaluation every TRAIN_CHECK: every
+    loss finite, the scales the batches drew, the snapshot served at 1.5
+    by ``LiveModel``; then steps/s and one profiled step."""
+    from rdst_tpu_torch.cli import build_trainer
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    trainer = build_trainer(_train_argv(
+        data_dir, os.path.join(tmp, "metasr_train"), METASR_STEPS,
+        config=METASR_CONFIG))
+    p = trainer.paras
+    if (type(trainer.model).__name__, trainer.dtype, p.batch_size,
+            trainer.device.type) != ("MetaSR", torch.float32, 32, "cuda"):
+        raise AssertionError(f"MetaSR trainer: {type(trainer.model)} "
+                             f"{trainer.dtype} batch {p.batch_size}")
+    trainer.setup()
+    drawn = []
+    step = trainer.train_step
+
+    def counted(batch, ts):
+        drawn.append((float(batch["sr_factor"]),
+                      float(batch["real_sr_scale"]),
+                      tuple(batch["out"].shape[1:3])))
+        return step(batch, ts)
+
+    trainer.train_step = counted
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    trainer.train_step = step
+    losses = trainer.training_loss_records.get("WarmUP", [])
+    scales = sorted({d[0] for d in drawn})
+    log(f"{METASR_STEPS} steps in {run_s:.3f} s (quick evaluations "
+        f"included); loss {losses[0]:.5f} -> {losses[-1]:.5f}; scales drawn "
+        f"{[d[0] for d in drawn]} (HR patches "
+        f"{sorted({d[2] for d in drawn})})")
+    if len(losses) != METASR_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"MetaSR losses {losses}")
+    if len(drawn) != METASR_STEPS or len(scales) < 2 or not set(
+            scales) <= set(p.all_sr_scales):
+        raise AssertionError(f"MetaSR scales drawn {drawn}")
+    snap = os.path.join(trainer.dirs["models"], "WarmUP_model_g.msgpack")
+    sp = type(p)(METASR_CONFIG)
+    sp.set("well_trained_model_metasr", snap)
+    live = LiveModel(sp, max_batch=1, device="cuda")
+    lr = trainer.ds_valid.get_test_pair(0)[4.0]["in"]
+    y = live.predict(lr, 1.5)
+    want = (int(lr.shape[1] * 1.5), int(lr.shape[2] * 1.5))
+    log(f"the snapshot ({os.path.getsize(snap)} bytes) served at 1.5: "
+        f"{lr.shape} -> {y.shape}")
+    if y.shape[1:3] != want or not np.isfinite(y).all():
+        raise AssertionError(f"served {y.shape}, expected {want}")
+    prof = _step_profile(trainer, label="MetaSR training step")
+    return {"losses": losses, "scales_drawn": drawn, "run_s": run_s,
+            "profile": prof}
+
+
+def _scale_free_snapshot(tmp: str) -> str:
+    """RDST-E1 built scale-free, its body from the committed E1 weights,
+    its ``tail_meta`` from a seeded init, written as a flax snapshot with
+    the E1 stats sidecar beside it (its audited logit bound resolves the
+    bf16 softmax, as for E1)."""
+    import shutil
+
+    from rdst_tpu_torch.checkpoint.convert import export_rdstsr
+    from rdst_tpu_torch.checkpoint.msgpack_reader import read_snapshot
+    from rdst_tpu_torch.checkpoint.msgpack_writer import write_snapshot
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.models import build_generator
+    from rdst_tpu_torch.runners.trainer import init_weights
+
+    p = ParametersLoader(CONFIG)
+    for k, v in SF_OVER.items():
+        p.set(k, v)
+    model = build_generator(p)
+    init_weights(model.tail_meta, torch.Generator().manual_seed(SEED + 30))
+    body = export_rdstsr(read_snapshot(WEIGHTS), model.mean, model.std)
+    sd = model.state_dict()
+    kept = {k: torch.from_numpy(np.array(v)) for k, v in body.items()
+            if k in sd}
+    if set(sd) - set(kept) != {k for k in sd if k.startswith("tail_meta.")}:
+        raise AssertionError("the scale-free E1 body does not take the "
+                             "committed E1 weights")
+    sd.update(kept)
+    model.load_state_dict(sd)
+    path = os.path.join(tmp, "rdst_e1_scale_free.msgpack")
+    write_snapshot(path, model.state_dict())
+    shutil.copy(os.path.splitext(WEIGHTS)[0] + ".stats.json",
+                os.path.splitext(path)[0] + ".stats.json")
+    return path
+
+
+def _sf_paras(snap: str, **kw):
+    from rdst_tpu_torch.config import ParametersLoader
+
+    p = ParametersLoader(CONFIG)
+    p.set("well_trained_single_scale_model_g", snap)
+    for k, v in {**SF_OVER, **kw}.items():
+        p.set(k, v)
+    return p
+
+
+def _serve_scales(live, scales, counter=None, per_forward: int = 0,
+                  tol: float = SERVE_TOL) -> dict:
+    """``live`` over HTTP: warmed at 40x32 for each scale, then an 8-slice
+    ``POST /v1/predict?scale=s`` at each scale, at 40x32 and at SF_ODD_HW,
+    against a direct predict (``tol``); ``counter``'s launches (set to 0
+    just before the requests, read just after) are ``per_forward`` a
+    forward; p50 latency of a 1-slice request at each scale."""
+    from rdst_tpu_torch.serving.client import SRClient
+    from rdst_tpu_torch.serving.server import InferenceServer
+
+    srv = InferenceServer(live, "127.0.0.1", 0, max_batch=64,
+                          batch_wait_ms=5.0)
+    rng = np.random.default_rng(SEED + 31)
+    xs = {hw: rng.random((8,) + hw, dtype=np.float32)
+          for hw in (LR_HW, SF_ODD_HW)}
+    out = {"requests": []}
+    try:
+        for s in scales:
+            srv.warmup(lr_hw=LR_HW, scale=s)
+        srv.start_background()
+        client = SRClient(f"http://127.0.0.1:{srv.port}")
+        if client.metadata()["scales"] != [float(s) for s in scales]:
+            raise AssertionError(f"metadata {client.metadata()}")
+        direct = {(hw, s): live.predict(x, s) for hw, x in xs.items()
+                  for s in scales}
+        if counter is not None:
+            counter.launches = 0  # the served path starts here
+        for (hw, s), want in direct.items():
+            got = client.predict(xs[hw], s)
+            err = float(np.abs(got - want).max())
+            shape = (8, int(hw[0] * s), int(hw[1] * s), 1)
+            log(f"POST /v1/predict?scale={s}: 8 x {hw} -> {got.shape}, max "
+                f"abs err vs direct predict {err:.3e} (tol {tol})")
+            if got.shape != shape or err > tol:
+                raise AssertionError(f"served x{s} at {hw}: {got.shape} "
+                                     f"{err}")
+            out["requests"].append({"scale": s, "lr_hw": list(hw),
+                                    "max_abs_err": err})
+        if counter is not None:
+            out["launches"] = counter.launches  # and ends here
+            want = per_forward * len(direct)
+            log(f"{counter.__name__} launches while serving: "
+                f"{out['launches']} ({per_forward} a forward)")
+            if out["launches"] != want:
+                raise AssertionError(f"served launches {out['launches']}, "
+                                     f"expected {want}")
+        for s in scales:
+            ts = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                client.predict(xs[LR_HW][:1], s)
+                ts.append(time.perf_counter() - t0)
+            out[f"p50_ms_x{s}"] = float(np.median(ts)) * 1e3
+            log(f"1-slice request at x{s}: p50 {out[f'p50_ms_x{s}']:.2f} ms")
+    finally:
+        srv.close()
+    return out
+
+
+@phase("MetaSR serving")
+def metasr_serving_phase() -> dict:
+    """The committed MetaSR served by ``LiveModel`` over HTTP at its four
+    scales (no kernel: EDSR's convolutions are cuDNN's, the upsampler's
+    product plain PyTorch, as the JAX package leaves them to XLA); the
+    device time of one 8-slice forward at each scale."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    p = ParametersLoader(METASR_CONFIG)
+    p.set("well_trained_model_metasr", METASR_WEIGHTS)
+    live = LiveModel(p, max_batch=64, device="cuda")
+    out = _serve_scales(live, METASR_SCALES)
+    x = np.random.default_rng(SEED + 32).random((8,) + LR_HW,
+                                                dtype=np.float32)
+    for s in METASR_SCALES:
+        wall, dev = _device_ms(lambda: live.predict(x, s))
+        out[f"forward8_x{s}"] = {"wall_ms": wall, "device_ms": dev}
+        log(f"MetaSR 8 x {LR_HW} at x{s}: {wall:.3f} ms wall, device "
+            + (f"{dev:.3f} ms" if dev else "not measured"))
+    return out
+
+
+@phase("scale-free E1 forwards")
+def scale_free_forward_phase(tmp: str) -> dict:
+    """RDST-E1 built scale-free (``_scale_free_snapshot``) served at 1.5
+    and 4 on 8 seeded slices of 40x32 and of SF_ODD_HW: f32 as shipped
+    (48 f32 block launches a forward) against the same model's plain path
+    on the card (MODEL_TOL); bf16 mode rdstb (8 RDSTB launches a forward,
+    counts set to 0 just before each forward and read just after) against
+    the same model on the CPU (the kernels' plain versions, BF16_TOL),
+    against its plain modules on the card (mode off) and against the f32
+    kernel path (the bf16-vs-f32 bars); the kernels alone at the
+    forward's geometry; HTTP serving at both scales; and one bucket-64
+    forward's wall and device time at each scale beside the shipped E1's
+    at x4."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.kernels import rdstb_block, swin_block, swin_pair
+    from rdst_tpu_torch.models.routes import set_kernel_mode
+    from rdst_tpu_torch.nn.swin import set_block_kernels
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    snap = _scale_free_snapshot(tmp)
+    live32 = LiveModel(_sf_paras(snap), max_batch=64, device="cuda")
+    live16 = LiveModel(_sf_paras(snap, inference_dtype="bfloat16"),
+                       max_batch=64, device="cuda")
+    live_cpu = LiveModel(_sf_paras(snap, inference_dtype="bfloat16"),
+                         max_batch=8, device="cpu")
+    m32, m16 = live32.manifest, live16.manifest
+    log(f"scale-free E1: f32 routes {m32['routes']}, bf16 mode "
+        f"{m16['pallas_kernels']} softmax {m16['pallas_softmax']}, scales "
+        f"{m32['scales']}")
+    if (m32["routes"], m32["scale_free"], m32["scales"]) != (
+            ["fused_swin_block"] * 8, True, list(SF_SCALES)) or (
+            m16["pallas_kernels"], m16["pallas_softmax"]) != ("rdstb",
+                                                              "clamp"):
+        raise AssertionError(f"scale-free E1 manifests {m32} {m16}")
+    softmax = live16.model.softmax
+    f32, run = swin_block.fused_swin_block, rdstb_block.run_rdstb
+    counters = (f32, run, swin_pair.run_swin_pair, swin_block.run_fast_block)
+    rng = np.random.default_rng(SEED + 33)
+    out = {"forwards": []}
+    for hw in (LR_HW, SF_ODD_HW):
+        x = rng.random((8,) + hw, dtype=np.float32)
+        for s in SF_SCALES:
+            shape = (8, int(hw[0] * s), int(hw[1] * s), 1)
+            for c in counters:
+                c.launches = 0  # the f32 forward starts here
+            y32 = live32.predict(x, s)
+            n32 = f32.launches  # and ends here
+            set_block_kernels(live32.model, False)
+            try:
+                y_plain = live32.predict(x, s)
+            finally:
+                set_block_kernels(live32.model, True)
+            err = float(np.abs(y32 - y_plain).max())
+            for c in counters:
+                c.launches = 0  # the bf16 forward starts here
+            y16 = live16.predict(x, s)
+            n16 = {c.__name__: c.launches for c in counters}  # and ends
+            y_cpu = live_cpu.predict(x, s)
+            set_kernel_mode(live16.model, "", softmax)
+            try:
+                y_off = live16.predict(x, s)
+            finally:
+                set_kernel_mode(live16.model, "rdstb", softmax)
+
+            def rel(a, b):
+                return _rel(torch.from_numpy(a), torch.from_numpy(b))[:2]
+
+            kp, ko, kf = rel(y16, y_cpu), rel(y16, y_off), rel(y16, y32)
+            row = {"lr_hw": list(hw), "scale": s, "f32_launches": n32,
+                   "f32_vs_plain_max_abs_err": err, "bf16_launches": n16,
+                   "bf16_vs_plain_versions_rel_max": kp[0],
+                   "bf16_vs_plain_modules_rel": ko,
+                   "bf16_vs_f32_rel": kf}
+            out["forwards"].append(row)
+            log(f"scale-free E1 8 x {hw} at x{s} -> {y32.shape}: f32 "
+                f"{n32} launches, kernel vs plain {err:.3e} (tol "
+                f"{MODEL_TOL}); bf16 {n16[run.__name__]} RDSTB launches, vs "
+                f"the plain versions (CPU) rel max {kp[0]:.3e} (bar "
+                f"{BF16_TOL}), vs the plain modules rel max {ko[0]:.3e} mean "
+                f"{ko[1]:.3e}, vs f32 rel max {kf[0]:.3e} mean {kf[1]:.3e} "
+                f"(bars {BF16_VS_F32_MAX}, {BF16_VS_F32_MEAN})")
+            if y32.shape != shape or y16.shape != shape or not (
+                    np.isfinite(y32).all() and np.isfinite(y16).all()):
+                raise AssertionError(f"x{s} at {hw}: {y32.shape} "
+                                     f"{y16.shape}, expected {shape}")
+            if n32 != 48 or n16 != {c.__name__: (8 if c is run else 0)
+                                    for c in counters}:
+                raise AssertionError(f"x{s} at {hw}: launches {n32} {n16}")
+            if err > MODEL_TOL or kp[0] > BF16_TOL or max(
+                    ko[0], kf[0]) >= BF16_VS_F32_MAX or max(
+                    ko[1], kf[1]) >= BF16_VS_F32_MEAN:
+                raise AssertionError(f"x{s} at {hw}: {row}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 34)
+    out["kernels"] = {  # at the forward's geometry: 8 slices of 40x32
+        "f32": [_f32_block_at(blk, shift, 8, LR_HW, gen)
+                for blk, shift in _rdst_blocks(live32.model)],
+        "rdstb": [_rdstb_at(live16.model.body[0], 8, LR_HW, gen, softmax)]}
+    del live_cpu
+    out["serving"] = {"f32": _serve_scales(live32, SF_SCALES, f32, 48),
+                      "bf16": _serve_scales(live16, SF_SCALES, run, 8,
+                                            SERVE_TOL_BF16)}
+    x64 = rng.random((64,) + LR_HW, dtype=np.float32)
+    times = {}
+    shipped = {}
+    for dt in ("float32", "bfloat16"):  # the shipped E1: fixed x4
+        p = ParametersLoader(CONFIG)
+        p.set("well_trained_single_scale_model_g", WEIGHTS)
+        p.set("inference_dtype", dt)
+        shipped[dt] = LiveModel(p, max_batch=64, device="cuda")
+    for dt, live in (("float32", live32), ("bfloat16", live16)):
+        for s in SF_SCALES:
+            times[f"{dt} x{s}"] = _device_ms(lambda: live.predict(x64, s))
+        times[f"{dt} shipped x4"] = _device_ms(
+            lambda: shipped[dt].predict(x64, SCALE))
+    for k, (wall, dev) in times.items():
+        log(f"bucket-64 forward, {k}: {wall:.3f} ms wall, device "
+            + (f"{dev:.3f} ms" if dev else "not measured"))
+    out["bucket64"] = {k: {"wall_ms": w, "device_ms": d}
+                       for k, (w, d) in times.items()}
+    return out
+
+
+@phase("scale-free E1 training")
+def scale_free_train_phase(data_dir: str, tmp: str) -> dict:
+    """``config_files/rdst_e1_100k_oasis20_x4.ini`` (bf16) with SF_OVER:
+    the train-pair kernels at the training geometry (24x24 LR at every
+    scale) against their plain version and autograd, as phase 11; the
+    first step on the kernel route against the plain bf16 route; then
+    SF_STEPS steps, each batch at its own scale: 24 forward and 24
+    backward train-pair launches a step (counts set to 0 just before the
+    run, read just after), every loss finite; steps/s and one profiled
+    step."""
+    from rdst_tpu_torch.cli import build_trainer
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels import pair_train as pt
+
+    def argv(out_dir, steps):
+        return _train_argv(data_dir, os.path.join(tmp, out_dir), steps) + [
+            f"{k}={v!r}" for k, v in SF_OVER.items()]
+
+    probe = build_trainer(argv("sf_probe", 1))
+    probe.setup()
+    if not probe.model.scale_free or probe.model.train_routes != {
+            "pair": 24, "block": 0}:
+        raise AssertionError(f"scale-free train routes "
+                             f"{probe.model.train_routes}")
+    kern = {"variants": _train_pair_widths(
+        probe.model, ((0, 60), (1, 90), (2, 120)), "scale-free E1")}
+    batch = probe.ds_train.sample(np.random.default_rng(17))
+    log(f"first batch: x{batch['sr_factor']} (real "
+        f"{batch['real_sr_scale']}), LR {batch['in'].shape[1:3]} -> HR "
+        f"{batch['out'].shape[1:3]}")
+    out = {"kernel": kern, **_first_step_vs_plain(probe, batch)}
+    del probe
+    trainer = build_trainer(argv("sf_train", SF_STEPS))
+    trainer.setup()
+    drawn = []
+    step = trainer.train_step
+
+    def counted(b, ts):
+        drawn.append(float(b["real_sr_scale"]))
+        return step(b, ts)
+
+    trainer.train_step = counted
+    bt.launch_forward.launches = bt.launch_backward.launches = 0
+    pt.launch_forward.launches = pt.launch_backward.launches = 0  # main path
+    t0 = time.perf_counter()
+    trainer.train()
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    fwd, bwd = pt.launch_forward.launches, pt.launch_backward.launches  # ends
+    trainer.train_step = step
+    out.update(forward_launches=fwd, backward_launches=bwd, scales=drawn)
+    losses = trainer.training_loss_records.get("WarmUP", [])
+    log(f"{SF_STEPS} steps in {out['run_s']:.3f} s (evaluations at 1.5 and "
+        f"4 included): scales {drawn}, train-pair launches forward {fwd}, "
+        f"backward {bwd}; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+    if fwd != 24 * SF_STEPS or bwd != 24 * SF_STEPS or \
+            bt.launch_forward.launches or bt.launch_backward.launches:
+        raise AssertionError(f"expected {24 * SF_STEPS} train-pair launches "
+                             f"each way, got {fwd} / {bwd}")
+    if len(losses) != SF_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"losses {losses}")
+    out["losses"] = losses
+    out["profile"] = _step_profile(trainer,
+                                   label="scale-free E1 training step")
+    return out
+
+
+def run_metasr(data_dir: str, tmp: str):
+    """Phases 30-34, MetaSR and the scale-free tail; returns (results,
+    kernel rows: the kernels the scale-free E1 path runs)."""
+    tester = metasr_tester_phase(data_dir, tmp)
+    serve = metasr_serving_phase()
+    train = metasr_train_phase(data_dir, tmp)
+    fwd = scale_free_forward_phase(tmp)
+    sf_train = scale_free_train_phase(data_dir, tmp)
+    kern = fwd["kernels"]
+    kernels = [
+        _row("fused_swin_block (scale-free E1 f32)", "swin_block.cu",
+             "rdst_tpu/kernels/swin_block.py:757",
+             fwd["serving"]["f32"]["launches"], kern["f32"]),
+        _row("fused_rdstb (scale-free E1 bf16)", "rdstb_block.cu",
+             "rdst_tpu/kernels/rdstb_block.py:334",
+             fwd["serving"]["bf16"]["launches"], kern["rdstb"]),
+    ] + _train_rows("fused_swin_pair_train (scale-free E1)", "pair_train.cu",
+                    "rdst_tpu/kernels/pair_train.py:293", sf_train["kernel"],
+                    sf_train)
+    return {"tester": tester, "serving": serve, "train": train,
+            "scale_free": {"forward": fwd, "train": sf_train}}, kernels
+
+
 def _row(name, source, replaces, launches, rs):
     """One kernel of the JSON line: per launch, averaged over the variants
     the main path runs."""
@@ -3954,7 +4506,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--only", choices=("e1", "swinir", "w96"), default=None,
+    ap.add_argument("--only", choices=("e1", "swinir", "w96", "metasr"),
+                    default=None,
                     help="run the card and build phases and one model's "
                     "phases only (default: every phase)")
     args = ap.parse_args(argv)
@@ -3983,6 +4536,9 @@ def main(argv=None) -> int:
             kernels += rows
         if args.only in (None, "w96"):
             results["w96"], rows = run_w96(data_dir, tmp, patients)
+            kernels += rows
+        if args.only in (None, "metasr"):
+            results["metasr"], rows = run_metasr(data_dir, tmp)
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

@@ -1,7 +1,10 @@
 """Weight carry-over: a JAX ``RDSTSR`` or ``SwinIR`` parameter tree -> the
 port's state_dict; and both ways for the networks whose port modules
 carry the flax module names (the discriminators, the seg UNet,
-InceptionV3): :func:`export_flax_tree` / :func:`import_flax_tree`.
+InceptionV3): :func:`export_flax_tree` / :func:`import_flax_tree`; and
+for EDSR and MetaSR, named as flax names them but with each flax
+``Conv``'s inner ``conv`` level dropped: :func:`export_named` /
+:func:`import_named`.
 
 The port's modules are named so that their ``state_dict`` keys are the
 reference RDSTSR and SwinIR keys that ``rdst_tpu/checkpoint/
@@ -114,6 +117,8 @@ def export_rdstsr(params: dict, mean=(0.0,),
         elif p.startswith("tail_conv/"):
             name, val = _conv_leaf(path[-1], v)
             sd[f"tail.1.{name}"] = val
+        elif p.startswith("tail_meta/"):  # scale-free: the MetaUpSampler
+            sd.update(_named_leaf(path, v))
         elif p.startswith("body_"):
             # body_{i}/body_{j}/(head|tail)_{k} adapters,
             # body_{i}/body_{j}/body/blocks_{k}/... Swin blocks,
@@ -197,18 +202,74 @@ def export_swinir(params: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+def _named_leaf(path, v) -> Dict[str, np.ndarray]:
+    """One flax leaf of EDSR / MetaSR / a MetaUpSampler as the port's
+    entry: a ``Conv``'s ``conv`` level dropped (HWIO -> OIHW), the
+    ``UpSampler``'s ``conv_i`` at index 2i of its Sequential, dense
+    kernels (in, out) -> (out, in)."""
+    v = np.asarray(v)
+    mods, leaf = list(path[:-1]), path[-1]
+    if mods and mods[-1] == "conv":
+        mods = mods[:-1]
+    if len(mods) >= 2 and mods[-2] == "tail_up":
+        mods[-1] = str(2 * int(mods[-1].split("_")[1]))
+    if leaf == "kernel":
+        leaf, v = "weight", (_conv_w(v) if v.ndim == 4 else _linear_w(v))
+    return {".".join(mods + [leaf]): v}
+
+
+def export_named(params: dict) -> Dict[str, np.ndarray]:
+    """JAX EDSR or MetaSR params (with or without the top ``params``
+    level) -> the port's state_dict (numpy values). Neither has MeanShift
+    parameters: their mean shift is a function in both packages."""
+    flat = flatten(params["params"] if "params" in params else params)
+    sd: Dict[str, np.ndarray] = {}
+    for path, v in flat.items():
+        sd.update(_named_leaf(path, v))
+    return sd
+
+
+def import_named(state_dict) -> dict:
+    """The inverse of :func:`export_named`: the port's EDSR or MetaSR
+    ``state_dict`` (tensors or arrays) -> ``{"params": ...}`` numpy
+    trees in the flax layout."""
+    params: dict = {}
+    convs = {k.rsplit(".", 1)[0] for k, v in state_dict.items()
+             if k.endswith(".weight") and len(v.shape) == 4}
+    for key, val in state_dict.items():
+        v = np.asarray(val.detach().cpu().float().numpy()
+                       if hasattr(val, "detach") else val, np.float32)
+        *mods, leaf = key.split(".")
+        conv = key.rsplit(".", 1)[0] in convs
+        if len(mods) >= 2 and mods[-2] == "tail_up":
+            mods[-1] = f"conv_{int(mods[-1]) // 2}"
+        if conv:  # a flax Conv holds its kernel and bias under 'conv'
+            mods.append("conv")
+        if leaf == "weight":
+            leaf = "kernel"
+            v = np.ascontiguousarray(v.transpose(2, 3, 1, 0) if conv
+                                     else v.T)
+        tree = params
+        for m in mods:
+            tree = tree.setdefault(m, {})
+        tree[leaf] = v
+    return {"params": params}
+
+
 def export_params(params: dict, generator: str, mean=(0.0,),
                   std=(1.0,)) -> Dict[str, np.ndarray]:
     """The port's state_dict of a JAX parameter tree of ``generator``
-    ('rdst', or 'swinir'/'swin')."""
+    ('rdst', 'swinir'/'swin', 'edsr' or 'metasr')."""
     name = str(generator).strip().lower()
     if name == "rdst":
         return export_rdstsr(params, mean, std)
     if name in ("swinir", "swin"):
         return export_swinir(params)
+    if name in ("edsr", "metasr"):
+        return export_named(params)
     raise NotImplementedError(
-        f"carrying {generator!r} snapshots over comes with the model-zoo "
-        "slice of the port")
+        f"carrying {generator!r} snapshots over comes with the rest of the "
+        "model zoo (ROADMAP Queue A 8)")
 
 
 # -- networks named as their flax modules --------------------------------------

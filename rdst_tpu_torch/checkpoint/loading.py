@@ -96,7 +96,8 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
     """Load a trained generator's weights into ``model`` (strictly: every
     key must match) and return it.
 
-    A ``.msgpack`` snapshot (RDST or SwinIR) is read without flax
+    A ``.msgpack`` snapshot (RDST, SwinIR, EDSR or MetaSR) is read
+    without flax
     (``checkpoint.msgpack_reader``) and carried over by
     ``checkpoint.convert``. A reference torch checkpoint (``.pt``,
     ``.pth``, ``.tar``) already has the port's keys; its MeanShift and
@@ -114,6 +115,10 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
     generator = paras.get("feature_generator") or paras.get("sr_generator")
     mean, std = getattr(model, "mean", (0.0,)), getattr(model, "std", (1.0,))
     if ext in (".pt", ".tar", ".pth"):
+        if str(generator).strip().lower() in ("edsr", "metasr"):
+            raise NotImplementedError(
+                f"{path}: the reference torch EDSR / MetaSR key mapper is "
+                "not ported (ROADMAP Queue A 8); use the .msgpack snapshot")
         sd = {k: v for k, v in read_torch_state_dict(path).items()
               if not _REBUILT.search(k)}
         if str(generator).strip().lower() == "rdst":

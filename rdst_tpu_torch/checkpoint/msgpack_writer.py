@@ -1,8 +1,9 @@
 """Pure-stdlib writer of flax ``.msgpack`` parameter snapshots: the inverse
 of ``checkpoint.msgpack_reader`` and ``checkpoint.convert``.
 
-:func:`import_rdstsr` and :func:`import_swinir` turn the port's RDSTSR
-and SwinIR ``state_dict`` back into the JAX package's parameter trees
+:func:`import_rdstsr` and :func:`import_swinir` (and
+``checkpoint.convert.import_named`` for EDSR and MetaSR) turn the port's
+``state_dict`` back into the JAX package's parameter trees
 (conv kernels OIHW -> HWIO, dense kernels (out, in) -> (in, out),
 LayerNorm ``weight`` -> ``scale``; the MeanShift convs, which are not
 parameters there, are left out), and
@@ -22,7 +23,7 @@ from typing import Dict
 
 import numpy as np
 
-from rdst_tpu_torch.checkpoint.convert import _SWIN_LEAVES
+from rdst_tpu_torch.checkpoint.convert import _SWIN_LEAVES, import_named
 from rdst_tpu_torch.checkpoint.msgpack_reader import NDARRAY_EXT
 
 
@@ -127,6 +128,7 @@ def import_rdstsr(state_dict: Dict[str, object]) -> dict:
     package's variables ``{"params": ...}`` with float32 numpy leaves:
     the inverse of ``checkpoint.convert.export_rdstsr``."""
     params: dict = {}
+    meta: dict = {}
     for key, val in state_dict.items():
         v = _f32(val)
         if key.startswith(("sub_mean.", "add_mean.")):
@@ -156,10 +158,14 @@ def import_rdstsr(state_dict: Dict[str, object]) -> dict:
         elif key.startswith("tail.1."):
             k, val2 = _conv(leaf, v)
             _set(params, ("tail_conv", "conv", k), val2)
+        elif key.startswith("tail_meta."):  # scale-free: the MetaUpSampler
+            meta[key] = v
         elif key.startswith("body."):
             _import_body(params, key, v)
         else:
             raise KeyError(f"unmapped state_dict key: {key}")
+    if meta:
+        params.update(import_named(meta)["params"])
     return {"params": params}
 
 
@@ -254,16 +260,20 @@ def import_swinir(state_dict: Dict[str, object]) -> dict:
 
 
 def import_state_dict(state_dict) -> dict:
-    """The JAX variables of an RDSTSR or SwinIR ``state_dict`` (told apart
-    by SwinIR's ``conv_first``)."""
+    """The JAX variables of an RDSTSR, SwinIR, EDSR or MetaSR
+    ``state_dict`` (told apart by SwinIR's ``conv_first``, EDSR's
+    ``body_conv`` and MetaSR's ``extractor``)."""
     if "conv_first.weight" in state_dict:
         return import_swinir(state_dict)
+    if "body_conv.weight" in state_dict or any(
+            k.startswith("extractor.") for k in state_dict):
+        return import_named(state_dict)
     return import_rdstsr(state_dict)
 
 
 def write_snapshot(path: str, state_dict) -> None:
-    """Write the port's RDSTSR or SwinIR weights as a flax ``.msgpack``
-    snapshot."""
+    """Write the port's RDSTSR, SwinIR, EDSR or MetaSR weights as a flax
+    ``.msgpack`` snapshot."""
     data = to_bytes(import_state_dict(state_dict))
     with open(path, "wb") as f:
         f.write(data)

@@ -262,8 +262,10 @@ int swin_block_fast_window(const void* const* ptrs, const int* dims,
   const int tiles = (a.windows * a.g.n + wbody::kRows - 1) / wbody::kRows;
   a.pairs = (tiles + 1) / 2;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // no / 32 = 1 (C <= 32) is not built: ptxas serializes its wgmma, and
+  // kernels.swin_block.window_kernel_supports routes those widths to the
+  // token-parallel forward
   switch (a.g.no / 32) {
-    case 1: return static_cast<int>(launch_window<1>(a, s));
     case 2: return static_cast<int>(launch_window<2>(a, s));
     case 3: return static_cast<int>(launch_window<3>(a, s));
     case 4: return static_cast<int>(launch_window<4>(a, s));

@@ -21,9 +21,12 @@ from typing import Optional
 import torch
 
 
-def measure_logit_bound(model, x: torch.Tensor) -> Optional[float]:
+def measure_logit_bound(model, x: torch.Tensor,
+                        sr_scale=None) -> Optional[float]:
     """Max attention logit of ``model`` (RDST or SwinIR) on ``x`` (NHWC
-    LR), on the plain path; None for a model without window attention.
+    LR) at ``sr_scale`` (read by a scale-free model: the JAX probe passes
+    the nominal scale), on the plain path; None for a model without window
+    attention.
     The model's routes (kernel mode, softmax, int8 groups) and audit flags
     are restored afterwards."""
     from rdst_tpu_torch.models.routes import set_kernel_mode
@@ -40,7 +43,7 @@ def measure_logit_bound(model, x: torch.Tensor) -> Optional[float]:
         set_kernel_mode(model, "", softmax)
         model.eval()
         with torch.no_grad():
-            model(x)
+            model(x, sr_scale)
         return float(torch.stack([a.logit_max for a in attns]).max())
     finally:
         for a in attns:

@@ -734,15 +734,25 @@ def fast_route(c: int, int8: bool = False) -> str:
     return stage_route(c, int8)
 
 
+# The window kernel's narrowest instantiation: its output columns come in
+# NT = no / 32 pieces of 32 (``launch_window<NT>``), and at one piece (C <=
+# 32) ptxas serializes its wgmma (C7515), so it is not built; the
+# token-parallel forward takes those widths.
+WINDOW_MIN_NO = 64
+
+
 def window_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
     """Whether the persistent window kernel takes this geometry: the
     window body's (``window_body.body_supports``: windows of 16 or 64
-    tokens), C <= ``WINDOW_MAX_C``, and its plan in an H100 block's shared
-    memory (``window_body.persist_fit``)."""
+    tokens), ``WINDOW_MIN_NO`` output columns or more (C > 32), C <=
+    ``WINDOW_MAX_C``, and its plan in an H100 block's shared memory
+    (``window_body.persist_fit``)."""
     from rdst_tpu_torch.kernels import window_body as wb
 
-    return (c <= WINDOW_MAX_C and wb.body_supports(n, c, nh, hidden)
-            and wb.persist_fit(wb.make_geom(n, c, nh, hidden)).smem > 0)
+    if not (c <= WINDOW_MAX_C and wb.body_supports(n, c, nh, hidden)):
+        return False
+    g = wb.make_geom(n, c, nh, hidden)
+    return g.no >= WINDOW_MIN_NO and wb.persist_fit(g).smem > 0
 
 
 def stage_route(c: int, int8: bool) -> str:
@@ -1018,7 +1028,8 @@ def plan_fast_block(params, bias, *, num_heads: int, quant=frozenset(),
         raise ValueError(f"the {route} kernels take bf16 qkv only")
     if route == "window" and not window_kernel_supports(n, c, nh, hidden):
         raise ValueError(f"the window kernel does not take N={n}, C={c}, "
-                         f"heads={nh}, hidden={hidden}")
+                         f"heads={nh}, hidden={hidden} (route 'tokens', the "
+                         "token-parallel forward, takes C up to 192)")
     p = fast_params(params, c, nh)
     packed = pack_bias_fast(bias, nh, n)
     q = qkv_quant(p.wqkv) if int8 else None

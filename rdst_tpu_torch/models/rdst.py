@@ -6,7 +6,10 @@
 * RDSTB: DSTLs with the input dim growing by growth_rate, then a 3x3
   conv bottleneck back to embed_dim and a scaled residual;
 * RDSTSR: mean-shift -> head conv -> RDSTBs over tokens -> LayerNorm ->
-  conv_after_body -> global residual -> PixelShuffle tail.
+  conv_after_body -> global residual -> PixelShuffle tail, or with
+  ``scale_free`` the ``tail_meta`` MetaUpSampler at the scale the model
+  is called with (``forward(x, sr_scale)``), cropped to
+  ``int(orig_hw * s)``.
 
 Module names give the reference RDSTSR state_dict keys (the ones
 ``checkpoint.convert.export_rdstsr`` writes). Layouts are NHWC and
@@ -42,6 +45,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from rdst_tpu_torch.models.meta_upscale import MetaUpSampler, scale_value
 from rdst_tpu_torch.models.routes import (  # noqa: F401 (old names)
     set_kernel_mode, set_train_mode)
 from rdst_tpu_torch.nn.common import Conv, MeanShift, UpSampler
@@ -295,7 +299,7 @@ class RDSTSR(nn.Module):
                  feature_last_operation: bool = False,
                  build_resolution: Optional[Tuple[int, int]] = None,
                  dtype: torch.dtype = torch.float32, drop_rate: float = 0.0,
-                 attn_drop: float = 0.0):
+                 attn_drop: float = 0.0, scale_free: bool = False):
         super().__init__()
         # no drop path rate: the JAX RDSTSR takes swin_drop_path_rate but
         # never hands it to its RDSTBs (rdst_tpu/models/rdst.py:410-428),
@@ -335,19 +339,25 @@ class RDSTSR(nn.Module):
         self.norm = LayerNorm(embed_dim) if layer_norm else None
         self.conv_after_body = (Conv(embed_dim, embed_dim, 3)
                                 if feature_last_operation else None)
-        self.tail = nn.Sequential(
-            UpSampler(self.sr_scale, embed_dim) if self.sr_scale > 1
-            else nn.Identity(),
-            Conv(embed_dim, in_chans, 3))
+        self.scale_free = bool(scale_free)
+        if self.scale_free:
+            self.tail_meta = MetaUpSampler(embed_dim, in_chans)
+        else:
+            self.tail = nn.Sequential(
+                UpSampler(self.sr_scale, embed_dim) if self.sr_scale > 1
+                else nn.Identity(),
+                Conv(embed_dim, in_chans, 3))
 
     def route_units(self):
         """The units a kernel route is decided for: the RDSTBs."""
         return [("RDSTB", b) for b in self.body]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
         """NHWC LR -> HR in the model's dtype (bf16: the input is rounded
         to bf16 first, as ``x.astype(infer_dtype)`` in the JAX serving
-        path)."""
+        path). ``sr_scale`` is read by a scale-free model only, which
+        needs it."""
+        scale = scale_value(sr_scale) if self.scale_free else None
         x = x.to(self.dtype)
         x, (h0, w0) = pad_to_window_multiple(x, _lcm_all(self.window_size))
         x = self.head(self.sub_mean(x))
@@ -364,6 +374,10 @@ class RDSTSR(nn.Module):
             res = res * self.global_res_scale
         if self.conv_after_body is not None:
             res = self.conv_after_body(res)
+        if self.scale_free:
+            out = self.add_mean(self.tail_meta(res + x, scale))
+            # the padding cropped at the real scale, as the JAX package
+            return out[:, : int(h0 * scale), : int(w0 * scale), :]
         out = self.add_mean(self.tail(res + x))
         s = self.sr_scale
         return out[:, : h0 * s, : w0 * s, :]
@@ -383,9 +397,6 @@ def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
     if paras.rdst_global_bottleneck:
         raise NotImplementedError(
             "rdst_global_bottleneck (RDST-N) comes with the model-zoo slice")
-    if paras.scale_free:
-        raise NotImplementedError(
-            "scale_free RDST (MetaSR upsampler) comes with the model-zoo slice")
     if paras.rdst_ape:
         raise NotImplementedError(
             "rdst_ape (absolute position embedding) is not ported; no "
@@ -418,6 +429,7 @@ def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
         dtype=dtype,
         drop_rate=float(paras.get("swin_drop_rate", 0.0) or 0.0),
         attn_drop=float(paras.get("swin_attn_drop_rate", 0.0) or 0.0),
+        scale_free=bool(paras.scale_free),
     )
     flags = kernel_flags(paras)
     softmax = resolve_pallas_softmax(resolve_model_path(paras), flags.softmax)

@@ -45,7 +45,8 @@ def set_kernel_mode(model: nn.Module, mode: str, softmax: str = "",
     path) at the model's dtype, with the bf16 kernels' ``softmax``
     variant and int8 groups ``quant``; sets ``model.kernel_mode``,
     ``model.softmax``, ``model.quant`` and ``model.routes`` (the kernel
-    each route unit runs) and returns the routes."""
+    each route unit runs) and returns the routes. A model with no route
+    unit reads as the plain path: mode and softmax '', no int8 group."""
     from rdst_tpu_torch.kernels.quant import check_ported
     from rdst_tpu_torch.kernels.swin_block import softmax_code
     from rdst_tpu_torch.kernels.window_attention import KERNEL_MODES
@@ -53,6 +54,8 @@ def set_kernel_mode(model: nn.Module, mode: str, softmax: str = "",
     if mode and mode not in KERNEL_MODES:
         raise ValueError(f"kernel mode {mode!r}: expected one of "
                          f"{KERNEL_MODES} or ''")
+    if not model.route_units():  # no kernel to route (EDSR, MetaSR)
+        mode, softmax, quant = "", "", frozenset()
     bf16 = model.dtype == BF16
     if bf16:
         softmax_code(softmax)  # raises on a variant the kernels lack

@@ -163,9 +163,10 @@ class SwinIR(nn.Module):
             tokens = self.norm(tokens)
         return to_image(tokens, x_size)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
         """NHWC LR -> HR in the model's dtype (bf16: the input rounded to
-        bf16 first, as the JAX serving path does)."""
+        bf16 first, as the JAX serving path does); ``sr_scale`` is not
+        read (SwinIR has a fixed scale)."""
         x = x.to(self.dtype)
         x, (h0, w0) = pad_to_window_multiple(x, self.window_size)
         mean = torch.tensor(self.rgb_mean, dtype=x.dtype, device=x.device)

@@ -17,6 +17,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from rdst_tpu_torch.nn.layers import activation
+
 BF16 = torch.bfloat16
 
 
@@ -112,3 +114,21 @@ class UpSampler(nn.Sequential):
         else:
             raise NotImplementedError(f"SR scale {scale} is not valid.")
         super().__init__(*layers)
+
+
+class ResBlock(nn.Module):
+    """conv, activation, conv, then ``x + y * res_scale``
+    (``rdst_tpu/nn/common.py::ResBlock``); the convs keep the flax names
+    ``conv_0`` / ``conv_1``."""
+
+    def __init__(self, n_feats: int, kernel_size: int = 3, act: str = "relu",
+                 res_scale: float = 1.0):
+        super().__init__()
+        self.conv_0 = Conv(n_feats, n_feats, kernel_size)
+        self.conv_1 = Conv(n_feats, n_feats, kernel_size)
+        self.act = activation(act)
+        self.res_scale = float(res_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.conv_1(self.act(self.conv_0(x)))
+        return x + y * self.res_scale

@@ -128,6 +128,16 @@ class Mlp(nn.Module):
         return self.drop(self.fc2(self.drop(gelu_exact(self.fc1(x)))))
 
 
+def resolve_act(paras, act: Optional[str]) -> Optional[str]:
+    """``rdst_tpu.nn.layers.resolve_act``: 'leaky_relu' takes the config's
+    ``leaky_relu_slope`` as 'leaky_relu:<slope>' where it is not 0.2."""
+    if act == "leaky_relu":
+        s = float(paras.get("leaky_relu_slope", 0.2) or 0.2)
+        if s != 0.2:
+            return f"leaky_relu:{s}"
+    return act
+
+
 def activation(name: Optional[str], slope: float = 0.2):
     """``rdst_tpu.nn.layers.activation``: None/'none' the identity, 'relu',
     'leaky_relu' (or 'leaky_relu:<slope>'), 'prelu' as a fixed 0.25 slope,

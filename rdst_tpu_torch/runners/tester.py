@@ -9,6 +9,9 @@
   interpolated LR;
 * ``tiled_inference = True`` runs overlapping LR patches through the
   model in chunks and folds them back (``data.folding.ImageFolder``);
+* the model is called at each test scale: a scale-free model (MetaSR, a
+  scale-free RDST) at the pair's real scale, any other at the nominal
+  one;
 * ``residual_scale > 0`` blends in the bicubic LR (MetaSR's eval blend);
 * artifacts as the JAX tester writes them: the
   ``{model_name}_{gan_type}_Final_Predictions`` tree with
@@ -102,13 +105,21 @@ class SRTester:
 
     # -- inference -------------------------------------------------------------
 
-    def forward(self, x) -> torch.Tensor:
-        """The model on an NHWC batch (numpy or a tensor), as f32 on the
-        device."""
+    def forward(self, x, sr_scale=None) -> torch.Tensor:
+        """The model at ``sr_scale`` on an NHWC batch (numpy or a tensor),
+        as f32 on the device."""
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(x)
         with torch.inference_mode():
-            return self.model(x.to(self.device)).float()
+            return self.model(x.to(self.device), sr_scale).float()
+
+    def model_scale(self, s: float, pairs) -> float:
+        """The scale the model is called at for test scale ``s``: a
+        scale-free model takes the pairs' real scale (HR size over LR
+        size), any other the nominal one, as the JAX tester passes them."""
+        if self.paras.get("scale_free"):
+            return float(pairs[0][s]["real_sr_scale"])
+        return float(s)
 
     def inference_patient(self, ds):
         """SR all slices of a patient; returns (per-slice {scale: HWC},
@@ -129,7 +140,7 @@ class SRTester:
             elif tiled:
                 out = self._tiled_inference(lr, s, pairs)
             else:
-                out = self.forward(lr).cpu().numpy()
+                out = self.forward(lr, self.model_scale(s, pairs)).cpu().numpy()
             if self.residual_scale > 0 and not self.bicubic:
                 out = residual_blend(out, lr, self.residual_scale)
             for i in range(len(pairs)):
@@ -152,7 +163,8 @@ class SRTester:
                                 int(round(patch * r)), int(round(stride * r)))
         patches = lr_folder.unfold(torch.from_numpy(lr).to(self.device))
         chunk = max(self.paras.batch_size * 4, 8)
-        sr = torch.cat([self.forward(patches[i:i + chunk])
+        scale = self.model_scale(s, pairs)
+        sr = torch.cat([self.forward(patches[i:i + chunk], scale)
                         for i in range(0, patches.shape[0], chunk)])
         return hr_folder.fold(sr).cpu().numpy()
 

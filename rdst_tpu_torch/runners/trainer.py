@@ -34,8 +34,15 @@ One optimizer step per "epoch", as in the JAX package:
 
 ``pallas_softmax='auto'`` starts from the audited bound of
 ``pre_trained_g`` (0 for a fresh init: clamp) and escalates to the stable
-softmax once an audit reaches the margin. ``residual_scale > 0`` and
-``scale_free`` training raise: MetaSR's training is not ported.
+softmax once an audit reaches the margin.
+
+Arbitrary-scale training (MetaSR, a scale-free RDST): each batch draws
+one scale from ``all_sr_scales``; the model is called at the batch's
+real scale (``real_sr_scale``, HR size over LR size) where the config is
+``scale_free``, else at its nominal scale, as the JAX step takes it; with
+``residual_scale > 0`` the prediction is blended with the batch's
+bicubic ``res`` image before the loss, and the evaluations blend the
+same way.
 """
 
 from __future__ import annotations
@@ -132,14 +139,7 @@ class SRTrainer:
         self.device = resolve_device(device)
         gan_type = paras.get("gan_type", "None")
         self.residual_scale = float(paras.get("residual_scale", 0.0) or 0.0)
-        if self.residual_scale > 0:
-            raise NotImplementedError(
-                "training with residual_scale > 0 (MetaSR's bicubic blend "
-                "of the model embedding) is not ported")
-        if paras.get("scale_free"):
-            raise NotImplementedError(
-                "scale_free training (MetaSR's arbitrary scales) is not "
-                "ported")
+        self.scale_free = bool(paras.get("scale_free"))
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -190,7 +190,7 @@ class SRTrainer:
         self.training_epoch_costs: list = []
         self._last_total_f = float("nan")
         self._best_quick: Dict[str, float] = {}
-        self._probe_x = None
+        self._probe = None  # (validation LR, its scale)
 
         self.output_root = join(paras.output_dir,
                                 f"{paras.model_name}_{gan_type}")
@@ -365,18 +365,29 @@ class SRTrainer:
         return self.loss.adversarial is not None and any(
             "GAN" in n for n in self.loss.loss_scalars[training_state])
 
+    def batch_scale(self, batch) -> float:
+        """The scale the model is called at for ``batch``: its real scale
+        on a scale-free config, else its nominal one."""
+        return float(batch["real_sr_scale"] if self.scale_free
+                     else batch["sr_factor"])
+
     def device_batch(self, batch) -> dict:
         """The loss's batch on the device: ``out``, the dataset's labels
-        ``seg_gt`` when it has them, and with an adversary the (B, 1)
-        ``sr_scales`` column of the batch's scale (ScaleGAN's labels)."""
+        ``seg_gt`` when it has them, the bicubic ``res`` image where
+        ``residual_scale > 0`` blends it in, and with an adversary the
+        (B, 1) ``sr_scales`` column of the batch's scale (ScaleGAN's
+        labels)."""
         dev = self.device
         out = {"out": torch.as_tensor(batch["out"]).to(dev, non_blocking=True)}
         if "seg_gt" in batch:
             out["seg_gt"] = torch.as_tensor(batch["seg_gt"]).to(
                 dev, non_blocking=True)
+        if self.residual_scale > 0:
+            out["res"] = torch.as_tensor(batch["res"]).to(dev,
+                                                          non_blocking=True)
         if self.loss.adversarial is not None:
             out["sr_scales"] = torch.full((out["out"].shape[0], 1),
-                                          float(batch["sr_factor"]),
+                                          self.batch_scale(batch),
                                           device=dev)
         return out
 
@@ -389,14 +400,18 @@ class SRTrainer:
         is updated first, on a generator forward without gradient."""
         x = torch.as_tensor(batch["in"]).to(self.device, non_blocking=True)
         dbatch = self.device_batch(batch)
+        scale = self.batch_scale(batch)
         self.model.train()
         d_report = {}
         if self.gan_active(training_state):
-            with torch.no_grad():
-                fake = self.model(x).float()
+            with torch.no_grad():  # no blend: the JAX step's fakes
+                fake = self.model(x, scale).float()
             d_report = self.loss.adversarial.d_step(
                 fake, dbatch["out"], dbatch["sr_scales"], self.generator)
-        pred = self.model(x).float()  # the loss in f32 whatever the dtype
+        pred = self.model(x, scale).float()  # the loss in f32 whatever the dtype
+        rs = self.residual_scale
+        if rs > 0:  # the model embedding (meta_sr_trainer.py:111-112)
+            pred = pred * (1.0 - rs) + dbatch["res"] * rs
         total, report = self.loss(pred, dbatch, training_state)
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
@@ -511,19 +526,28 @@ class SRTrainer:
 
     # -- evaluation -----------------------------------------------------------
 
-    def _predict(self, lr: np.ndarray) -> np.ndarray:
+    def _predict(self, lr: np.ndarray, scale: float) -> np.ndarray:
         self.model.eval()
         with torch.no_grad():
-            out = self.model(torch.from_numpy(lr).to(self.device))
+            out = self.model(torch.from_numpy(lr).to(self.device), scale)
         return out.float().cpu().numpy()
 
     def _infer_pairs(self, ids):
-        """Batched whole-slice inference on the serving routes."""
+        """Batched whole-slice inference on the serving routes, at each
+        test scale (a scale-free model at the pairs' real scale), with
+        the bicubic blend where ``residual_scale > 0``
+        (meta_sr_trainer.py:171-172)."""
+        from rdst_tpu_torch.serving.export import residual_blend
+
         pairs = [self.ds_valid.get_test_pair(i) for i in ids]
         recs = [dict() for _ in ids]
         for s in sorted(pairs[0].keys()):
             lr = np.concatenate([p[s]["in"] for p in pairs], axis=0)
-            out = self._predict(lr)
+            scale = float(pairs[0][s]["real_sr_scale"] if self.scale_free
+                          else s)
+            out = self._predict(lr, scale)
+            if self.residual_scale > 0:
+                out = residual_blend(out, lr, self.residual_scale)
             for i in range(len(ids)):
                 recs[i][s] = out[i]
         return recs, pairs
@@ -533,11 +557,12 @@ class SRTrainer:
         keep the running max (stamped into the sidecar)."""
         from rdst_tpu_torch.kernels.logit_audit import measure_logit_bound
 
-        if self._probe_x is None:
+        if self._probe is None:
             pair = self.ds_valid.get_test_pair(0)
-            _, d = sorted(pair.items())[-1]
-            self._probe_x = torch.from_numpy(d["in"][:4]).to(self.device)
-        b = measure_logit_bound(self.model, self._probe_x)
+            scale, d = sorted(pair.items())[-1]
+            self._probe = (torch.from_numpy(d["in"][:4]).to(self.device),
+                           float(scale))
+        b = measure_logit_bound(self.model, *self._probe)
         if b is not None and (self._logit_bound is None
                               or b > self._logit_bound):
             self._logit_bound = float(b)

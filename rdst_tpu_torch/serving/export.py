@@ -3,8 +3,10 @@
 :class:`LiveModel` builds the generator and its trained weights from a
 config, as the tester does, and answers ``predict(x, scale)`` with the
 batch padded to a bucket of a sparse ladder (default 1, 8, 64), so a
-server sees a few fixed batch shapes. Normalization (MeanShift) is part
-of the model. ``inference_dtype = 'bfloat16'`` serves the bf16 model
+server sees a few fixed batch shapes. The model is called at the
+requested scale (read by scale-free models: MetaSR, a scale-free RDST;
+the manifest lists the scales served, fractional ones included).
+Normalization (MeanShift) is part of the model. ``inference_dtype = 'bfloat16'`` serves the bf16 model
 (float32 parameter masters; inputs and outputs stay float32 numpy) on
 the fast kernels of its kernel mode, with int8 qkv operands where
 ``pallas_quant='qkv'`` asks for them (modes rdstb, pair and swin). A
@@ -163,16 +165,23 @@ class LiveModel:
         self.buckets = resolve_buckets(max_batch, buckets)
         self._lock = threading.Lock()  # one forward at a time on the device
 
-    def _run(self, blk: np.ndarray) -> np.ndarray:
+    def _run(self, blk: np.ndarray, scale=None) -> np.ndarray:
+        """One padded bucket through the model at ``scale`` (read by a
+        scale-free model only, which needs it)."""
         with self._lock, torch.inference_mode():
-            y = self.model(torch.from_numpy(blk).to(self.device))
+            y = self.model(torch.from_numpy(blk).to(self.device), scale)
             return y.float().cpu().numpy()
 
     def predict(self, x, scale: float) -> np.ndarray:
+        """The model at ``scale`` (one of the manifest's) on each slice,
+        as the JAX ``LiveModel`` calls it: a scale-free model's output is
+        ``int(scale * size)`` a side."""
         x = _canon_input(x)
-        if float(scale) not in self.manifest["scales"]:
+        scale = float(scale)
+        if scale not in self.manifest["scales"]:
             raise ValueError(f"scale {scale} not served; this model serves "
                              f"{self.manifest['scales']}")
-        out = _bucketed_predict(self._run, x, self.buckets)
+        out = _bucketed_predict(lambda blk: self._run(blk, scale), x,
+                                self.buckets)
         rs = self.manifest["residual_scale"]
         return residual_blend(out, x, rs) if rs > 0 else out

@@ -25,7 +25,7 @@ seg UNet (``weights/unet_tiny.pkl``):
   same next step;
 * ``build_trainer`` takes every shipped RDST and SwinIR training config
   with nothing overridden but the data and output paths (FID in
-  ``eva_metrics`` included); the MetaSR config still raises;
+  ``eva_metrics`` included), the MetaSR config too;
 * the trainer runs two GAN steps with jax, flax, msgpack, scipy and
   ``rdst_tpu`` unimportable.
 """
@@ -390,10 +390,6 @@ def test_build_trainer_takes_the_shipped_config(config, corpora, tmp_path):
             f"data_folder='{corpora / folder}'", f"output_dir='{tmp_path}'"]
     if "UNet-F" in paras.training_losses:
         argv.append("--seg-loss")
-    if paras.get("feature_generator") == "metasr":
-        with pytest.raises(NotImplementedError, match="scale_free"):
-            build_trainer(argv)
-        return
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         trainer = build_trainer(argv)

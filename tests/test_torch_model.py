@@ -167,15 +167,17 @@ def test_pad_to_window_multiple_reflects():
 
 @pytest.mark.parametrize("key,value,match", [
     ("rdst_global_bottleneck", True, "RDST-N"),
-    ("scale_free", True, "MetaSR"),
+    ("meta_feature_generator", "RDN", "Queue A 8"),
     ("rdst_ape", True, "absolute position"),
     ("rdst_res_connection", "3conv", "1conv"),
     ("feature_generator", "estsr", "model-zoo"),
-    ("feature_generator", "edsr", "model-zoo"),
+    ("feature_generator", "rdn", "Queue A 8"),
 ])
 def test_unported_options_raise(key, value, match):
     p = ParametersLoader(CONFIG)
     p.set(key, value)
+    if key == "meta_feature_generator":  # MetaSR with another extractor
+        p.set("feature_generator", "metasr")
     with pytest.raises(NotImplementedError, match=match):
         build_generator(p)
 

@@ -1,5 +1,6 @@
 """Five places where ``rdst_tpu`` served and the port failed (ROADMAP
-Queue C 1-5), each held against the JAX package on the CPU:
+Queue C 1-5), each held against the JAX package on the CPU, and one
+kernel fault of the port (the last test):
 
 1. the f32 kernel route on an image of one window (LR 5x5, 8x8): the
    shifted bias kept the permuted strides of the relative-position
@@ -13,7 +14,13 @@ Queue C 1-5), each held against the JAX package on the CPU:
    a head dim over 32 raises);
 5. ``pallas_quant`` in f32 is dropped, as the JAX precise path drops
    it; in bf16 'qkv' runs on the kernels and the groups not ported
-   raise.
+   raise;
+6. the persistent window kernel at one 32-column output piece (C <= 32)
+   serialized its wgmma on the card: it is not built, and the plan sends
+   those widths to the token-parallel forward (``window_kernel_supports``
+   refuses them; asked for by name, the window route raises and names
+   the route that takes them), whose plain version agrees with the JAX
+   fast block.
 """
 
 import pathlib
@@ -137,3 +144,35 @@ def test_f32_serving_drops_int8(monkeypatch):
         export.build_serving_model(
             _paras(pallas_quant="mlp", inference_dtype="bfloat16"),
             device="cpu")
+
+
+@pytest.mark.parametrize("c,nh", [(16, 2), (24, 4), (32, 4), (36, 6),
+                                  (60, 6)])
+def test_window_kernel_refuses_one_output_piece(monkeypatch, c, nh):
+    from test_torch_swin_block_fast import NW, block_inputs, jax_fast_block
+
+    from rdst_tpu_torch.kernels import swin_block as sb
+    from rdst_tpu_torch.kernels import window_body as wb
+
+    narrow = wb.make_geom(64, c, nh, 2 * c).no < sb.WINDOW_MIN_NO
+    assert narrow == (c <= 32)
+    assert sb.window_kernel_supports(64, c, nh, 2 * c) == (not narrow)
+    assert sb.window_kernel_supports(16, c, nh, 2 * c) == (not narrow)
+    x, params, bias = block_inputs(c, nh, False)
+    tp = [torch.from_numpy(a) for a in params]
+    tb = torch.from_numpy(bias).bfloat16()
+    plan = sb.plan_fast_block(tp, tb, num_heads=nh)
+    assert plan.route == ("tokens" if narrow else "window")
+    if narrow:
+        with pytest.raises(ValueError, match="route 'tokens'"):
+            sb.plan_fast_block(tp, tb, num_heads=nh, route="window")
+        xb = torch.from_numpy(x).bfloat16()
+        got = sb.run_fast_block(xb, plan, num_heads=nh, windows_per_image=NW,
+                                softmax="clamp").float().numpy()
+        want = np.asarray(jax_fast_block(monkeypatch, x, params, bias, nh,
+                                         "clamp"), np.float32)
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err < 0.02, err
+    src = (REPO / "rdst_tpu_torch" / "csrc" / "swin_block_fast.cu").read_text()
+    assert "launch_window<1>" not in src
+    assert all(f"launch_window<{k}>" in src for k in (2, 3, 4))

@@ -9,7 +9,8 @@ corpus ``chip_smoke.py`` makes with the port's generator) unless
 ``rdst_tpu.runners.tester.SRTester`` on patients 19-20, each row in a
 fresh process: the JAX package's kernel flags are process-wide
 environment variables, so a config's ``pallas_quant`` would leak into the
-next one. Rows marked ``interpret`` run the JAX package's Pallas kernels
+next one. A row of a config with several test scales (MetaSR) keys its
+scores by scale (``psnr_1.5``, ...). Rows marked ``interpret`` run the JAX package's Pallas kernels
 in interpret mode (``RDST_TPU_PALLAS_INTERPRET=1``), the kernels'
 numerics as on a TPU; without it the JAX package runs plain XLA bf16 on
 the CPU. Prints one JSON line a row: its mean scores over the slices.
@@ -60,6 +61,9 @@ ROWS = {
     "W96 f32": (*W96, {}, False),
     "W96 bf16": (*W96, {"inference_dtype": "bfloat16"}, True),
     "W96 bf16 XLA": (*W96, {"inference_dtype": "bfloat16"}, False),
+    # one model at the four scales of its config: a score a scale
+    "MetaSR": ("config_files/metasr_20k_oasis20_x4.ini",
+               "weights/metasr_20k_best_oasis20_x4.msgpack", {}, False),
 }
 
 
@@ -83,6 +87,8 @@ def score(name: str, data: str, out: str) -> dict:
     tester = SRTester(p)
     tester.setup()
     stacked = tester.test()
+    if len(tester.sr_scales) > 1:  # 'psnr_1.5', ...: a score a scale
+        return {m: float(np.mean(v)) for m, v in stacked.items()}
     return {m.rsplit("_", 1)[0]: float(np.mean(v)) for m, v in stacked.items()}
 
 
