@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json] [--only e1|swinir|w96|metasr]
+    python3 chip_smoke.py [--out results.json]
+        [--only e1|swinir|w96|metasr|int8]
 
 Drives the port's main paths -- the tester (``python -m
 rdst_tpu_torch.test``) on the committed weights of the README quality
@@ -257,6 +258,39 @@ after the build):
     plain bf16 route, then 10 steps at the scales the batches draw with 24
     + 24 train-pair launches a step (counts set to 0 just before the run,
     read just after), every loss finite; steps/s and one profiled step.
+
+35. (``--only int8``, after the other models) the int8 groups
+    (``pallas_quant``: 'mlp', 'proj', 'conv' beside 'qkv', or 'all'): each
+    int8 design against its plain version at bucket 64 with the committed
+    weights -- the fast block at C = 60 / 120 (E1) and 180 (SwinIR-std),
+    the pair at E1's C = 60 / 90 / 120 and W96's 96 / 144 / 192, the RDSTB
+    of E1 and of W96 -- with 'all' and each group alone: relative max
+    error (bar 0.02) and mean error (bar 1e-3), and the share of each
+    control's departure from the plain version that the launch carries
+    (bar 0.5, the midpoint; the controls: the plain version with int8
+    off, and with one scale group for the whole call where a group takes
+    a dynamic scale); the same gate with each control in the plain version's
+    place must refuse the launch. Two launches bitwise equal, kernels a
+    call (the wrapper's count; for 'all' torch.profiler's count, its
+    session padded with spin kernels, must equal it), CUDA-event times of
+    the launch and of the plain version, the bound (the int8 groups'
+    products at the int8 peak, the rest at the bf16 peak, or the bytes);
+    then the model with 'all' on 8 slices in each mode (E1 rdstb / pair /
+    swin, 8 / 24 / 48 launches a forward; W96 rdstb / pair, 8 / 24;
+    SwinIR-std swin, 36; counts set to 0 just before each and read just
+    after), finite, against the card's bf16 model without int8 (mean bar
+    0.005), and each unit (RDSTB, RSTB) on the card's own input to it
+    against the same unit on the CPU (the plain int8 versions, two
+    slices): max 0.02, mean 0.005, and at least 0.75 as far from each
+    control as the plain version is (dynamic int8 steps rounded apart
+    spread through a unit's blocks, so a share is logged only there);
+    the card's model without int8 must fail that gate in every unit (the
+    whole output against the CPU's is logged only); one 8-slice HTTP
+    request against a direct predict;
+    and the tester row with 'all' (``E1 bf16 int8 all``, ``W96 bf16 int8
+    all``, ``SwinIR-std int8 all``) against the JAX tester's own number,
+    and for E1 and W96 outside the tolerance from the JAX tester's number
+    for the shipped groups.
 
 Each training run's final evaluation scores the config's ``eva_metrics``
 as shipped (FID included). Any failed phase raises and the script exits
@@ -1472,11 +1506,19 @@ TRAIN_FWD_PHASES = (("pair_train_fwd_kernel", "persistent chained window "
                      "kernel"),)
 
 
+# spin kernels (``torch.cuda._sleep``) around the calls a profiler session
+# counts: without them a session recorded about 16 fewer kernel events
+# than the calls launched; with them it records every one
+PROFILE_PAD = 32
+
+
 def _kernels_per_call(call, iters: int = 5) -> dict:
-    """The CUDA kernels of a call by torch.profiler (memory sets and
-    copies apart): ``kernels``, the distinct kernels launched (each call
-    is the same), and ``events``, the kernel events recorded a call; 0
-    when the profiler records no device time."""
+    """The CUDA kernels of a call by torch.profiler (memory sets, copies
+    and the pad apart): ``kernels``, the distinct kernels launched (each
+    call is the same), ``events``, the kernel events recorded a call, and
+    ``pad``, the share of the PROFILE_PAD spin kernels before and after
+    the calls that the session recorded; 0 when the profiler records no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1484,15 +1526,22 @@ def _kernels_per_call(call, iters: int = 5) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1000)
         for _ in range(iters):
             call()
+        for _ in range(PROFILE_PAD):
+            torch.cuda._sleep(1000)
         torch.cuda.synchronize()
     names = {e.key: e.count for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA
              and "memset" not in e.key.lower()
              and "memcpy" not in e.key.lower()}
+    pad = sum(v for k, v in names.items() if "spin_kernel" in k)
+    names = {k: v for k, v in names.items() if "spin_kernel" not in k}
     return {"kernels": len(names),
-            "events": sum(names.values()) / iters, "names": sorted(names)}
+            "events": sum(names.values()) / iters, "names": sorted(names),
+            "pad": pad / (2 * PROFILE_PAD)}
 
 
 def _train_pair_widths(model, widths, label: str) -> list:
@@ -3353,6 +3402,12 @@ TESTER_BARS = {
     "SwinIR-std": {"readme": (28.49, 0.886), "psnr": 28.4746, "ssim": 0.8853},
     "W96 f32": {"readme": (28.21, 0.872), "psnr": 28.2068, "ssim": 0.8718},
     "W96 bf16": {"readme": None, "psnr": 28.1681, "ssim": 0.8710},
+    # every int8 group (pallas_quant = 'all'): the JAX tester with its
+    # kernels in interpret mode
+    "E1 bf16 int8 all": {"readme": None, "psnr": 27.2630, "ssim": 0.8522},
+    "W96 bf16 int8 all": {"readme": None, "psnr": 27.9857, "ssim": 0.8586},
+    "SwinIR-std int8 all": {"readme": None, "psnr": 28.4583,
+                            "ssim": 0.8848},
     # one MetaSR model at four scales (README:185-187)
     "MetaSR x1.5": {"readme": (27.34, 0.932), "psnr": 27.3448,
                     "ssim": 0.9323},
@@ -4364,6 +4419,607 @@ def _train_rows(name, source, replaces, kern_train, train):
             for part, (ms, plain, bound, by, launches, err) in parts.items()]
 
 
+# --------------------------------------------------------------------------
+# Phase 35: the int8 groups (pallas_quant), at the end of each model's run
+
+INT8_ALL = frozenset(("qkv", "mlp", "proj", "conv"))
+
+
+def _groups(name: str) -> frozenset:
+    return INT8_ALL if name == "all" else frozenset({name})
+
+
+def _dynamic(name: str) -> bool:
+    """Whether the groups ``name`` take a scale over a scale group."""
+    return bool(_groups(name) & {"mlp", "proj", "conv"})
+
+
+def _int8_block_bound(tokens: int, c: int, quant, nbytes: float,
+                      n: int = 64):
+    """Bound of a block's work with int8 groups ``quant``: the products of
+    the int8 groups (qkv 6C^2, proj 2C^2, MLP 8C^2 ops a token) at the
+    int8 peak, the rest and the attention (4NC) at the bf16 peak."""
+    int8 = {"qkv": 6, "proj": 2, "mlp": 8}
+    q = sum(v for g, v in int8.items() if g in quant)
+    t_ops = tokens * (q * c * c / INT8_OPS
+                      + ((16 - q) * c * c + 4 * n * c) / BF16_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return t_ops, t_bytes
+
+
+# An int8 design against its plain version: relative mean error (the max
+# is held to BF16_TOL as every bf16 kernel is), and the share of a
+# control's departure from the plain version that the launch may carry.
+# A control is the plain version computed another way (int8 off, one
+# scale group for the whole call); a launch that computed it would carry
+# all of its departure (share 1), so the bar is the midpoint: the launch
+# lies nearer its plain version than the control along the line between
+# them. A right launch carries some of it: where it rounds an int8 step
+# apart from the plain version, the value it quantized lay between the
+# two steps, so the move is along the quantization error that int8 off
+# undoes, and such steps spread through the blocks after them.
+INT8_MEAN_TOL = 1e-3
+INT8_SHARE_TOL = 0.5
+
+
+def _share(got, want, alt) -> float:
+    """<got - want, alt - want> / |alt - want|^2 in float64: the part of
+    ``alt``'s departure from ``want`` that ``got`` carries."""
+    d = (alt.double() - want.double()).flatten()
+    return float((got.double() - want.double()).flatten().dot(d)
+                 / d.dot(d))
+
+
+def _int8_gate(got, want, controls: dict, mean_tol: float):
+    """(passes, stats) of ``got`` against ``want``: finite, relative max
+    within BF16_TOL, relative mean within ``mean_tol``, and a share of
+    each control's departure within INT8_SHARE_TOL."""
+    rel_max, rel_mean, abs_max = _rel(got, want)
+    shares = {k: _share(got, want, v) for k, v in controls.items()}
+    ok = (bool(torch.isfinite(got.float()).all()) and rel_max <= BF16_TOL
+          and rel_mean <= mean_tol
+          and all(v <= INT8_SHARE_TOL for v in shares.values()))
+    return ok, {"rel_max": rel_max, "rel_mean": rel_mean,
+                "max_abs_err": abs_max, "shares": shares}
+
+
+def _int8_held(label: str, got, want, controls: dict,
+               mean_tol: float = INT8_MEAN_TOL) -> dict:
+    """The gate on ``got`` against its plain version ``want``, which must
+    pass; then, for each control (``controls``: {name: tensor}; one equal
+    to ``want`` is dropped), the same gate with the control in the plain
+    version's place, which must refuse ``got``: the proof, on this run's
+    data, that the gate tells the int8 design from that control."""
+    controls = {k: v for k, v in controls.items() if not torch.equal(v, want)}
+    ok, out = _int8_gate(got, want, controls, mean_tol)
+    if not ok:
+        raise AssertionError(f"{label}: against its plain version {out}")
+    out["mean_tol"] = mean_tol
+    out["controls"] = {}
+    for name, ctl in controls.items():
+        refused, st = _int8_gate(got, ctl, {"the plain version": want},
+                                 mean_tol)
+        refused = not refused
+        st["refused"] = refused
+        out["controls"][name] = st
+        if not refused:
+            raise AssertionError(f"{label}: the gate does not tell the "
+                                 f"launch from the control '{name}': {st}")
+    return out
+
+
+def _int8_note(out: dict) -> str:
+    """The gate's numbers for a log line."""
+    s = (f"rel max {out['rel_max']:.3e} mean {out['rel_mean']:.3e} (bars "
+         f"{BF16_TOL}, {out['mean_tol']})")
+    for name, st in out["controls"].items():
+        s += (f"; control '{name}': share {out['shares'][name]:+.4f} (bar "
+              f"{INT8_SHARE_TOL}); the launch against it rel max "
+              f"{st['rel_max']:.3e} mean {st['rel_mean']:.3e} share "
+              f"{st['shares']['the plain version']:+.4f}: refused")
+    return s
+
+
+def _int8_case(label: str, call, plain, controls: dict, counter,
+               t_ops: float, t_bytes: float, profile_kernels: bool) -> dict:
+    """One int8 kernel case: the launch against its plain version and its
+    controls (``_int8_held``; ``controls``: {name: callable}), two
+    launches bitwise equal, CUDA-event times of both, the bound, the
+    kernels a call (the wrapper's count; where asked also torch.profiler's
+    count, which must equal it)."""
+    with torch.inference_mode():
+        before = counter.kernels
+        got = call()
+        kpc = counter.kernels - before
+        again = call()
+        want = plain()
+        ctl = {k: f() for k, f in controls.items()}
+        torch.cuda.synchronize()
+        held = _int8_held(label, got, want, ctl)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label}: two launches differ")
+        ms = cuda_time_ms(call, warmup=2, iters=10)
+        plain_ms = cuda_time_ms(plain, warmup=0, iters=1)
+        prof = _kernels_per_call(call) if profile_kernels else None
+    if prof and prof["events"] and prof["events"] != kpc:
+        raise AssertionError(f"{label}: the profiler recorded {prof} a "
+                             f"call, the wrapper counted {kpc}")
+    bound_ms = max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"{label}: {_int8_note(held)}, bitwise repeat, {kpc} kernels a call"
+        + (f" (the profiler: {prof['events']:g} kernel events a call of "
+           f"{prof['kernels']} kinds; {prof['pad']:.2f} of its pad)"
+           if prof else "")
+        + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({by})")
+    return dict(case=label, **held, bitwise_repeat=True,
+                kernels_per_call=kpc, profiler=prof, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by)
+
+
+def _int8_blocks(blocks, groups, gen, images: int = 64) -> list:
+    """The fast block with int8 groups at bucket 64 (``images`` 40x32
+    slices, 20 windows each) on model blocks (unshifted, the path's shared
+    bias)."""
+    from rdst_tpu_torch.kernels import quant as q8
+    from rdst_tpu_torch.kernels import swin_block
+
+    ws, nw = 8, 20
+    rows = []
+    for blk in blocks:
+        c, nh = blk.dim, blk.num_heads
+        inputs = blk.fast_kernel_inputs(LR_HW, ws, 0)
+        x = torch.randn(images * nw, ws * ws, c, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        for name in groups:
+            quant = _groups(name)
+            plan = swin_block.plan_fast_block(*inputs, num_heads=nh,
+                                              quant=quant)
+            if plan.route != "tokens":
+                raise AssertionError(f"C={c} int8 {name}: {plan.route}")
+            kw = dict(num_heads=nh, windows_per_image=nw, softmax="clamp")
+            gw = q8.block_group_windows(images * nw, nw, 64, c, nh, 2 * c, 1,
+                                        softmax="clamp")
+
+            def call():
+                return swin_block.run_fast_block(x, plan, **kw)
+
+            def plain(int8=True, gw=gw):
+                q = dict(qkv=plan.qkv, mlp=plan.mlp, proj=plan.proj) \
+                    if int8 else {}
+                return swin_block.swin_block_fast_reference(
+                    x, plan.params, plan.bias, num_heads=nh,
+                    softmax="clamp", group_windows=gw, **q)
+
+            controls = {"int8 off": lambda: plain(False)}
+            if _dynamic(name):
+                controls["one scale group"] = lambda: plain(gw=len(x))
+            nbytes = 2 * 2 * x.numel() + _nbytes(*plan.layout, plan.bias,
+                                                 *plan.qkv_layout,
+                                                 *plan.int8_layout)
+            rows.append(dict(c=c, groups=name, **_int8_case(
+                f"fast block C={c} int8 {name}", call, plain, controls,
+                swin_block.run_fast_block,
+                *_int8_block_bound(images * nw * 64, c, quant, nbytes),
+                name == "all")))
+    return rows
+
+
+def _int8_pairs(layers, groups, gen, images: int = 64) -> list:
+    """The pair with int8 groups at bucket 64 on model layers (block a
+    unshifted, block b at shift 4)."""
+    from rdst_tpu_torch.kernels import quant as q8
+    from rdst_tpu_torch.kernels import swin_pair
+
+    ws, nw = 8, 20
+    rows = []
+    for layer in layers:
+        a, b = layer.blocks[0], layer.blocks[1]
+        c, nh = a.dim, a.num_heads
+        ia, ib = a.fast_kernel_inputs(LR_HW, ws, 0), \
+            b.fast_kernel_inputs(LR_HW, ws, ws // 2)
+        x = torch.randn(images * nw, ws * ws, c, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        kw = dict(num_heads=nh, x_size=LR_HW, window_size=ws, shift=ws // 2,
+                  softmax="clamp")
+        for name in groups:
+            quant = _groups(name)
+            pa = swin_pair.plan_pair_block(*ia, num_heads=nh, quant=quant)
+            pb = swin_pair.plan_pair_block(*ib, num_heads=nh, quant=quant)
+            gw = q8.pair_group_windows(images * nw, nw, 64, c, nh, 2 * c,
+                                       softmax="clamp")
+
+            def call():
+                return swin_pair.run_swin_pair(x, pa, pb, **kw)
+
+            def plain(int8=True, gw=gw):
+                return swin_pair.swin_pair_reference(
+                    x, pa.params, pa.bias, pb.params, pb.bias,
+                    quant_a=pa.quant if int8 else None,
+                    quant_b=pb.quant if int8 else None, group_windows=gw,
+                    **kw)
+
+            controls = {"int8 off": lambda: plain(False)}
+            if _dynamic(name):
+                controls["one scale group"] = lambda: plain(gw=len(x))
+            nbytes = 2 * 2 * x.numel() + sum(
+                _nbytes(*p.layout, p.bias, *p.qkv_layout, *p.int8_layout)
+                for p in (pa, pb))
+            t_ops, t_bytes = _int8_block_bound(images * nw * 64, c, quant,
+                                               nbytes)
+            rows.append(dict(c=c, groups=name, **_int8_case(
+                f"pair C={c} int8 {name}", call, plain, controls,
+                swin_pair.run_swin_pair, 2 * t_ops, t_bytes,
+                name == "all")))
+    return rows
+
+
+def _int8_rdstbs(rdstb, groups, gen, images: int = 64) -> list:
+    """The RDSTB with int8 groups at bucket 64 on a model RDSTB."""
+    from rdst_tpu_torch.kernels import quant as q8
+    from rdst_tpu_torch.kernels import rdstb_block
+
+    ws, nh = 8, 6
+    c0 = rdstb.body[0].body.blocks[0].dim
+    inputs = rdstb.rdstb_inputs(LR_HW, ws, ws // 2)
+    x = torch.randn(images, LR_HW[0] * LR_HW[1], c0, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    kw = dict(num_heads=nh, x_size=LR_HW, window_size=ws, shift=ws // 2,
+              softmax="clamp")
+    rows = []
+    off = rdstb_block.plan_rdstb(
+        *inputs, num_heads=nh, growth=rdstb.growth_rate,
+        adapter_prenorm=rdstb.pre_norm, quant=frozenset())
+    for name in groups:
+        quant = _groups(name)
+        plan = rdstb_block.plan_rdstb(
+            *inputs, num_heads=nh, growth=rdstb.growth_rate,
+            adapter_prenorm=rdstb.pre_norm, quant=quant)
+        gi = q8.rdstb_group_images(
+            images, 20, 64, c0, rdstb.growth_rate, len(plan.dstls), nh,
+            plan.dstls[0].pa.w1.shape[1] / c0, softmax="clamp")
+
+        def call():
+            return rdstb_block.run_rdstb(x, plan, **kw)
+
+        def plain(p=plan, gi=gi):
+            return rdstb_block.rdstb_reference(
+                x, p.dstls, p.wc, p.bc, growth=p.growth,
+                adapter_prenorm=p.prenorm, conv=p.conv, group_images=gi,
+                **kw)
+
+        controls = {"int8 off": lambda: plain(off)}
+        if _dynamic(name):
+            controls["one scale group"] = lambda: plain(gi=images)
+
+        tokens = images * LR_HW[0] * LR_HW[1]
+        t_ops = sum(2 * _int8_block_bound(tokens, d.adapter.w.shape[0],
+                                          quant, 0)[0] for d in plan.dstls)
+        conv_ops = tokens * 2 * plan.wc.shape[0] * plan.wc.shape[1]
+        t_ops += conv_ops / (INT8_OPS if plan.conv is not None
+                             else BF16_FLOPS) * 1e3
+        nbytes = 2 * 2 * x.numel() + _nbytes(*[
+            t for t in plan.kernel_args if isinstance(t, torch.Tensor)])
+        rows.append(dict(c0=c0, groups=name, **_int8_case(
+            f"rdstb C0={c0} int8 {name}", call, plain, controls,
+            rdstb_block.run_rdstb,
+            t_ops, nbytes / HBM_BYTES_PER_S * 1e3, name == "all")))
+    return rows
+
+
+# A model unit (an RDSTB, an RSTB) chains six or more blocks with dynamic
+# int8 steps: where the card and the plain version round one step apart,
+# the blocks after it see other inputs and round others apart, so over a
+# unit the two decorrelate in part, and a right unit's share of a
+# control's departure grows toward 1, the share of a re-drawn rounding
+# (measured to 0.47 on the card). What stays is the size: a unit with
+# int8 departs from its int8-off version as far as its plain version
+# does, whatever its rounding (a ratio of 1); one without int8 departs by
+# its bf16 rounding alone, which over a unit's blocks reaches about half
+# the int8 departure (0.47 on the card). So a unit is held to the ratio
+# of those distances, at the midpoint between the two.
+INT8_UNIT_RATIO = 0.75
+
+
+def _ratio(got, want, alt) -> float:
+    """|got - alt| / |want - alt| in float64."""
+    return float((got.double() - alt.double()).norm()
+                 / (want.double() - alt.double()).norm())
+
+
+def _int8_units(label: str, live, live_cpu, x, mode: str, softmax: str,
+                refuse: bool = False, images: int = 2) -> dict:
+    """Each unit of the model's kernel routes (``route_units``: the
+    RDSTBs, the RSTBs) in the card's forward of ``x``, held against the
+    same unit on the CPU with 'all' (the plain int8 versions) on the
+    card's own input to it, the first ``images`` images (a scale group
+    holds images of one run of the batch, so theirs are the card's
+    groups): finite, relative max within BF16_TOL and mean within
+    BF16_VS_F32_MEAN (a bf16 model's bar), and as far from each control
+    (the unit with int8 off, and with one scale group for the ``images``
+    where that differs) as INT8_UNIT_RATIO of the plain version's
+    distance from it. Every unit must pass, or with ``refuse`` (the
+    card's model without int8) every unit must fail. The shares of
+    ``_int8_held`` are logged."""
+    from rdst_tpu_torch.kernels import quant as q8
+    from rdst_tpu_torch.models.routes import set_kernel_mode
+
+    seen = []
+
+    def hook(mod, args, out):
+        seen.append((args[0][:images].cpu(), args[1], out[:images].cpu()))
+
+    handles = [m.register_forward_hook(hook)
+               for _, m in live.model.route_units()]
+    try:
+        live.predict(x, SCALE)
+    finally:
+        for h in handles:
+            h.remove()
+    units = [m for _, m in live_cpu.model.route_units()]
+    if len(seen) != len(units):
+        raise AssertionError(f"{label}: {len(seen)} units ran of "
+                             f"{len(units)}")
+    what = "without int8" if refuse else "int8 all"
+    rows = []
+    with torch.inference_mode():
+        for i, ((xin, size, got), unit) in enumerate(zip(seen, units)):
+            ctl = {}
+            set_kernel_mode(live_cpu.model, mode, softmax, frozenset())
+            ctl["int8 off"] = unit(xin, size)
+            set_kernel_mode(live_cpu.model, mode, softmax, INT8_ALL)
+            want = unit(xin, size)
+            os.environ[q8.ENV_IPP] = str(images)
+            try:
+                one = unit(xin, size)
+            finally:
+                del os.environ[q8.ENV_IPP]
+            if not torch.equal(one, want):
+                ctl["one scale group"] = one
+            rel_max, rel_mean, _ = _rel(got, want)
+            r = {"rel_max": rel_max, "rel_mean": rel_mean,
+                 "ratios": {k: _ratio(got, want, v) for k, v in ctl.items()},
+                 "shares": {k: _share(got, want, v) for k, v in ctl.items()}}
+            r["passes"] = (bool(torch.isfinite(got.float()).all())
+                           and rel_max <= BF16_TOL
+                           and rel_mean <= BF16_VS_F32_MEAN
+                           and min(r["ratios"].values()) >= INT8_UNIT_RATIO)
+            rows.append(r)
+            if r["passes"] == refuse:
+                raise AssertionError(f"{label} {what} mode {mode} unit {i}: "
+                                     f"{'passes' if refuse else 'fails'} "
+                                     f"the unit gate: {r}")
+    worst = {"rel_max": max(r["rel_max"] for r in rows),
+             "rel_mean": max(r["rel_mean"] for r in rows),
+             "ratio": min(min(r["ratios"].values()) for r in rows),
+             "ratio_max": max(min(r["ratios"].values()) for r in rows),
+             "share": max(max(r["shares"].values()) for r in rows)}
+    log(f"{label} {what}, mode {mode}: every one of {len(units)} units "
+        f"{'refused by' if refuse else 'within'} the unit gate on the "
+        f"card's own input to it (rel max to {worst['rel_max']:.3e}, mean "
+        f"to {worst['rel_mean']:.3e} (bars {BF16_TOL}, {BF16_VS_F32_MEAN}); "
+        f"distance from a control over the plain version's "
+        f"{worst['ratio']:.3f}-{worst['ratio_max']:.3f} (bar >= "
+        f"{INT8_UNIT_RATIO}); share of a control's departure to "
+        f"{worst['share']:+.3f}; controls {sorted(rows[0]['ratios'])})")
+    return worst
+
+
+def _int8_model(label: str, lives: dict, modes: dict, default: str) -> dict:
+    """A shipped model in bf16 with ``pallas_quant='all'`` (``lives``: the
+    card's, the CPU's, and the card's without int8) on 8 slices, in each
+    kernel mode of ``modes`` ({mode: (counter, launches a forward)}): its
+    launches (counts set to 0 just before, read just after), finite, and
+    within BF16_VS_F32_MEAN of the card's bf16 model without int8; each
+    unit on two slices against its plain version (``_int8_units``), and
+    the same for the card's model without int8, which that gate must
+    refuse in every unit; then one HTTP request of the 8 slices against
+    a direct predict.
+
+    The whole output is also set beside the same model on the CPU (the
+    plain int8 versions, the first two slices, whose scale groups are
+    the card's) and logged only: a dynamic int8 step that the two round
+    apart moves its value by 1/127 of its group's amax, and such steps
+    compound over the model's blocks until the two differ about as much
+    as int8 differs from bf16, so the per-unit check carries the proof."""
+    from rdst_tpu_torch.models.routes import set_kernel_mode
+    from rdst_tpu_torch.serving.client import SRClient
+    from rdst_tpu_torch.serving.server import InferenceServer
+
+    live, live_cpu, live_bf16 = lives["all"], lives["cpu"], lives["bf16"]
+    rng = np.random.default_rng(SEED + 35)
+    x = rng.random((8,) + LR_HW + (1,), dtype=np.float32)
+    softmax = live.model.softmax
+    out = {"manifest": live.manifest}
+    counters = {c for c, _ in modes.values()}
+
+    def versus(y, ref):
+        r = _rel(torch.from_numpy(y), torch.from_numpy(ref))
+        return r[0], r[1], float(10 * np.log10(1.0 / np.mean((y - ref) ** 2)))
+
+    for mode, (counter, per_forward) in modes.items():
+        for lv in (live, live_cpu, live_bf16):
+            set_kernel_mode(lv.model, mode, softmax,
+                            frozenset() if lv is live_bf16 else INT8_ALL)
+        y_cpu = live_cpu.predict(x[:2], SCALE)
+        y16 = live_bf16.predict(x, SCALE)
+        for c in counters:
+            c.launches = 0  # this mode's path starts here
+        y = live.predict(x, SCALE)
+        launches = {c.__name__: c.launches for c in counters}  # and ends
+        if launches[counter.__name__] != per_forward or sum(
+                launches.values()) != per_forward:
+            raise AssertionError(f"{label} int8 all mode {mode}: "
+                                 f"launches {launches}")
+        if not np.isfinite(y).all():
+            raise AssertionError(f"{label} int8 all mode {mode}: "
+                                 "non-finite output")
+        kp, kb = versus(y[:2], y_cpu), versus(y, y16)
+        log(f"{label} int8 all, mode {mode}: {per_forward} launches of "
+            f"{counter.__name__} a forward; whole output vs the plain int8 "
+            f"versions (the CPU run, logged) rel max {kp[0]:.3e} mean "
+            f"{kp[1]:.3e}, PSNR {kp[2]:.2f} dB; vs bf16 without int8 rel "
+            f"max {kb[0]:.3e} mean {kb[1]:.3e} (bar {BF16_VS_F32_MEAN}), "
+            f"PSNR {kb[2]:.2f} dB")
+        if kb[1] >= BF16_VS_F32_MEAN:
+            raise AssertionError(f"{label} mode {mode} vs bf16: {kb}")
+        units = _int8_units(label, live, live_cpu, x, mode, softmax)
+        units_bf16 = _int8_units(label, live_bf16, live_cpu, x, mode,
+                                 softmax, refuse=True)
+        out[mode] = {"launches_per_forward": per_forward,
+                     "vs_plain_rel_max": kp[0], "vs_plain_rel_mean": kp[1],
+                     "vs_bf16_rel_max": kb[0], "vs_bf16_rel_mean": kb[1],
+                     "psnr_vs_bf16_db": kb[2], "units": units,
+                     "units_without_int8": units_bf16}
+    set_kernel_mode(live.model, default, softmax, INT8_ALL)
+    srv = InferenceServer(live, "127.0.0.1", 0, max_batch=8,
+                          batch_wait_ms=5.0)
+    try:
+        srv.start_background()
+        direct = live.predict(x[..., 0], SCALE)
+        got = SRClient(f"http://127.0.0.1:{srv.port}").predict(x[..., 0],
+                                                              SCALE)
+    finally:
+        srv.close()
+    err = float(np.abs(got - direct).max())
+    log(f"{label} int8 all over HTTP: 8-slice request vs direct predict max "
+        f"abs err {err:.3e} (tol {SERVE_TOL_BF16})")
+    if got.shape != direct.shape or err > SERVE_TOL_BF16:
+        raise AssertionError(f"{label} int8 all HTTP: {err}")
+    out["http_err"] = err
+    return out
+
+
+@phase("int8 groups")
+def int8_phase(label: str, config: str, weights: str, kernels,
+               modes: dict, default: str, tester) -> dict:
+    """Phase 35 for one shipped model: the model built in bf16 with
+    ``pallas_quant='all'`` (and on the CPU, and without int8); its int8
+    kernel cases (``kernels(model, gen)``: a dict of rows) on its
+    committed weights; the model checks (``_int8_model``); the tester
+    row (``tester()``)."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    def paras(quant):
+        p = ParametersLoader(config)
+        p.set("well_trained_single_scale_model_g", weights)
+        p.set("inference_dtype", "bfloat16")
+        p.set("pallas_quant", quant)
+        return p
+
+    lives = {"all": LiveModel(paras("all"), max_batch=8, device="cuda"),
+             "cpu": LiveModel(paras("all"), max_batch=8, device="cpu"),
+             "bf16": LiveModel(paras("off"), max_batch=8, device="cuda")}
+    m = lives["all"].manifest
+    log(f"{label} with pallas_quant='all': kernel mode "
+        f"{m['pallas_kernels']}, softmax {m['pallas_softmax']}, int8 "
+        f"{m['pallas_quant']}, routes {m['routes']}")
+    if m["pallas_quant"] != sorted(INT8_ALL) or m["pallas_kernels"] != default:
+        raise AssertionError(f"{label} int8 all manifest {m}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 36)
+    out = kernels(lives["all"].model, gen)
+    out["model"] = _int8_model(label, lives, modes, default)
+    del lives
+    out["tester"] = tester()
+    return out
+
+
+def run_int8(data_dir: str, tmp: str, patients: dict):
+    """Phase 35, the int8 groups, for E1, SwinIR-std and W96; returns
+    (results, kernel rows: each int8 design at 'all')."""
+    from rdst_tpu_torch.kernels import rdstb_block, swin_block, swin_pair
+
+    groups = ("all", "qkv", "mlp", "proj")
+    rdstb, pair = rdstb_block.run_rdstb, swin_pair.run_swin_pair
+    fast = swin_block.run_fast_block
+
+    def row(label, config, weights, counter, per_forward, shipped=None):
+        """The tester row with 'all'; where the JAX tester's number for the
+        shipped groups (``shipped``) lies more than twice the tolerance
+        from its 'all' number, the card's row must also lie outside the
+        tolerance from the shipped number."""
+        def run():
+            out = _tester_row(label, config, weights, data_dir, tmp,
+                              patients, counter, per_forward,
+                              TESTER_BARS[label], inference_dtype="bfloat16",
+                              pallas_quant="all")
+            if shipped is None:
+                return out
+            bar = TESTER_BARS[shipped]
+            gap = TESTER_BARS[label]["psnr"] - bar["psnr"]
+            got = out["scores"]["psnr"] - bar["psnr"]
+            log(f"tester {label}: {got:+.4f} dB from the JAX tester's "
+                f"'{shipped}' (the shipped groups; its 'all' is {gap:+.4f})")
+            if abs(gap) > 2 * TESTER_PSNR_TOL and \
+                    abs(got) <= TESTER_PSNR_TOL:
+                raise AssertionError(f"tester {label} does not tell 'all' "
+                                     f"from '{shipped}': {got:+.4f} dB")
+            out["vs_shipped_db"] = got
+            return out
+        return run
+
+    def e1_kernels(model, gen):
+        r = model.body[0]
+        return {"block": _int8_blocks([r.body[j].body.blocks[0]
+                                       for j in (0, 2)], groups, gen),
+                "pair": _int8_pairs([d.body for d in r.body], groups, gen),
+                "rdstb": _int8_rdstbs(r, groups + ("conv",), gen)}
+
+    def std_kernels(model, gen):
+        blk = model.layers[0].residual_group.blocks[0]
+        return {"block": _int8_blocks([blk], groups, gen)}
+
+    def w96_kernels(model, gen):
+        r = model.body[0]
+        return {"pair": _int8_pairs([d.body for d in r.body], groups, gen),
+                "rdstb": _int8_rdstbs(r, groups + ("conv",), gen)}
+
+    e1 = int8_phase("E1", CONFIG, WEIGHTS, e1_kernels,
+                    {"rdstb": (rdstb, 8), "pair": (pair, 24),
+                     "swin": (fast, 48)}, "rdstb",
+                    row("E1 bf16 int8 all", CONFIG, WEIGHTS, rdstb, 8,
+                        "E1 bf16"))
+    std = int8_phase("SwinIR-std", SWINIR_CONFIG, SWINIR_WEIGHTS,
+                     std_kernels, {"swin": (fast, 36)}, "swin",
+                     row("SwinIR-std int8 all", SWINIR_CONFIG,
+                         SWINIR_WEIGHTS, fast, 36))
+    w96 = int8_phase("W96", W96_CONFIG, W96_WEIGHTS, w96_kernels,
+                     {"rdstb": (rdstb, 8), "pair": (pair, 24)}, "rdstb",
+                     row("W96 bf16 int8 all", W96_CONFIG, W96_WEIGHTS,
+                         rdstb, 8, "W96 bf16"))
+    src = "rdst_tpu/kernels/"
+    kernels = [
+        _int8_rows("fused_swin_block_fast (E1, C = 60 / 120, int8 all)",
+                   "swin_block_fast.cu", src + "swin_block.py:757",
+                   e1["model"]["swin"]["launches_per_forward"], e1["block"]),
+        _int8_rows("fused_swin_block_fast (SwinIR-std, C = 180, int8 all)",
+                   "swin_block_fast.cu", src + "swin_block.py:757",
+                   std["tester"]["launches"], std["block"]),
+        _int8_rows("fused_swin_pair (E1, int8 all)", "swin_pair.cu",
+                   src + "swin_block.py:1001",
+                   e1["model"]["pair"]["launches_per_forward"], e1["pair"]),
+        _int8_rows("fused_swin_pair (W96, int8 all)", "swin_pair.cu",
+                   src + "swin_block.py:1001",
+                   w96["model"]["pair"]["launches_per_forward"], w96["pair"]),
+        _int8_rows("fused_rdstb (E1, int8 all)", "rdstb_block.cu",
+                   src + "rdstb_block.py:334", e1["tester"]["launches"],
+                   e1["rdstb"]),
+        _int8_rows("fused_rdstb (W96, int8 all)", "rdstb_block.cu",
+                   src + "rdstb_block.py:334", w96["tester"]["launches"],
+                   w96["rdstb"]),
+    ]
+    return {"E1": e1, "SwinIR-std": std, "W96": w96}, kernels
+
+
+def _int8_rows(name: str, source: str, replaces: str, launches: int,
+               rows: list) -> dict:
+    """A kernel row of the JSON line for an int8 design: the 'all' cases
+    (the main path's groups)."""
+    return _row(name, source, replaces, launches,
+                [r for r in rows if r["groups"] == "all"])
+
+
 def run_e1(data_dir: str, tmp: str, patients: dict):
     """Phases 3-13, RDST-E1; returns (results, kernel rows)."""
     from rdst_tpu_torch.config import ParametersLoader
@@ -4506,7 +5162,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
-    ap.add_argument("--only", choices=("e1", "swinir", "w96", "metasr"),
+    ap.add_argument("--only", choices=("e1", "swinir", "w96", "metasr",
+                                       "int8"),
                     default=None,
                     help="run the card and build phases and one model's "
                     "phases only (default: every phase)")
@@ -4539,6 +5196,9 @@ def main(argv=None) -> int:
             kernels += rows
         if args.only in (None, "metasr"):
             results["metasr"], rows = run_metasr(data_dir, tmp)
+            kernels += rows
+        if args.only in (None, "int8"):
+            results["int8"], rows = run_int8(data_dir, tmp, patients)
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

@@ -51,6 +51,20 @@
 // of each DSTL comes with the call (kernels.swin_block.stage_route: the
 // window body up to C = 120 without int8, the token-parallel stages
 // otherwise). The conv is the same for both.
+//
+// int8 groups (kernels.quant; `pallas_quant`): 'qkv', 'mlp' and 'proj'
+// send every DSTL to the token-parallel stages, which run those products
+// on wgmma .s8 (csrc/token_fwd.cuh), each dynamic scale over the windows
+// of `gimg` images (one program of the JAX kernel). 'conv' alone moves no
+// DSTL: after the last one, a pass takes the amax of each group's dense
+// rows x0 | feats (an atomicMax on the float bits a thread block), then
+// the conv kernel reads the halo quantized to int8 at its image's group
+// scale into shared memory, in wgmma's core-matrix order for 8-bit
+// operands (8 pixels x 16 channels contiguous, kq = C_cat to 32 channels
+// a pixel), runs the nine taps as m64n32k32 .s8 products into int32
+// accumulators, the weights staged one int8 tap (64 x kq bytes) at a
+// time, and dequantizes once in the epilogue, int32 (wcs dq) + bconv,
+// before the residual.
 
 #include "token_fwd.cuh"
 #include "window_body.cuh"
@@ -267,7 +281,189 @@ struct ConvArgs {
   const char* panels;  // per 64 outputs, per tap, per 256 inputs
   const float* bias;   // (c0)
   int images, h, w, c0, no, ccatp, slot_bytes, patch_bytes;
+  // int8 'conv': the weights' steps (c0), each group's amax bits of the
+  // dense rows, images a group, the halo's channels a pixel (C_cat to 32)
+  const float* scales;
+  const unsigned* amax;
+  int gimg, kq;
 };
+
+// d (64 x 32 int32, accumulator order) = A (64 x 32 int8) B^T (32 x 32
+// int8) (+ d when acc), exact sums
+__device__ __forceinline__ void wgmma32s8(int (&d)[16], uint64_t da,
+                                          uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, "
+      "%16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void fence_acc(int (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The amax of each group's dense rows (per_group elements, a multiple of
+// 8): grid (chunks, groups), one atomicMax a thread block.
+__global__ void __launch_bounds__(256)
+    dense_amax_kernel(const bf16* dense, long long per_group,
+                      unsigned* amax) {
+  __shared__ float part[8];
+  const bf16* base = dense + blockIdx.y * per_group;
+  float mx = 0.f;
+  for (long long i = (static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x) * 8;
+       i < per_group; i += static_cast<long long>(gridDim.x) * blockDim.x * 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(base + i);
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      mx = fmaxf(mx, fmaxf(fabsf(fastblk::lo_f(w[k])),
+                           fabsf(fastblk::hi_f(w[k]))));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int k = 1; k < 8; ++k) mx = fmaxf(mx, part[k]);
+    atomicMax(amax + blockIdx.y, __float_as_uint(mx));
+  }
+}
+
+// The conv with int8 'conv' (see the head of this file): the conv
+// kernel's tiling, its halo quantized to int8 at the image's group scale.
+__global__ void __launch_bounds__(2 * 128 + 32, 1)
+    rdstb_conv_s8_kernel(const ConvArgs a) {
+  extern __shared__ __align__(128) char smem[];
+  const int wg = wbody::warpgroup();
+  const int tiles_x = (a.w + kConvCols - 1) / kConvCols;
+  const int tiles_y = (a.h + kConvRows - 1) / kConvRows;
+  const int img = blockIdx.x / (tiles_x * tiles_y);
+  const int rest = blockIdx.x - img * tiles_x * tiles_y;
+  const int y0 = (rest / tiles_x) * kConvRows;
+  const int x0 = (rest % tiles_x) * kConvCols;
+  char* patch = smem;
+  wbody::Ring ring = wbody::make_ring(smem + a.patch_bytes, kConvSlots,
+                                      a.slot_bytes,
+                                      smem + a.patch_bytes +
+                                          kConvSlots * a.slot_bytes);
+  if (threadIdx.x == 0) wbody::ring_init(ring, 8);
+  __syncthreads();
+  if (wg == 2) {  // the producer warp: the int8 panels in order
+    if ((threadIdx.x & 31) == 0) {
+      size_t off = 0;
+      int idx = 0;
+      for (int n0 = 0; n0 < a.no; n0 += wbody::kPanelN)
+        for (int tap = 0; tap < 9; ++tap)
+          for (int k0 = 0; k0 < a.kq; k0 += wbody::kPanelK) {
+            const int b = wbody::panel_bytes(a.no - n0, a.kq - k0) / 2;
+            wbody::ring_put(ring, idx++, a.panels + off, b);
+            off += b;
+          }
+    }
+    return;
+  }
+  // the halo: (kHaloRows x kHaloCols) pixels x kq int8 channels, stored
+  // [row][16-channel chunk][col][16], zero outside the image and past
+  // C_cat (the dense rows' pad is zero)
+  const unsigned bits = a.amax[img / a.gimg];
+  const float sc = __fdiv_rn(127.f, fmaxf(__uint_as_float(bits), 1e-30f));
+  const int kc = a.kq / 16;
+  const int hw = a.h * a.w;
+  for (int i = threadIdx.x; i < kHaloRows * kHaloCols * kc; i += 256) {
+    const int p = i / kc, ch = i - p * kc;
+    const int pr = p / kHaloCols, pc = p - pr * kHaloCols;
+    const int yy = y0 + pr - 1, xx = x0 + pc - 1;
+    uint32_t q[4] = {0u, 0u, 0u, 0u};
+    if (yy >= 0 && yy < a.h && xx >= 0 && xx < a.w && 16 * ch < a.ccatp) {
+      const uint4* src = reinterpret_cast<const uint4*>(
+          a.dense + (static_cast<size_t>(img) * hw + yy * a.w + xx) *
+                        a.ccatp + ch * 16);
+      const uint4 v0 = src[0], v1 = src[1];
+      const uint32_t w[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const uint32_t lo = static_cast<uint8_t>(
+            tokwg::quant8(fastblk::lo_f(w[k]), sc));
+        const uint32_t hi = static_cast<uint8_t>(
+            tokwg::quant8(fastblk::hi_f(w[k]), sc));
+        q[k >> 1] |= (lo | (hi << 8)) << (16 * (k & 1));
+      }
+    }
+    *reinterpret_cast<uint4*>(patch + ((pr * kc + ch) * kHaloCols + pc) * 16) =
+        make_uint4(q[0], q[1], q[2], q[3]);
+  }
+  wbody::fence_async_smem();
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+
+  const int lane = threadIdx.x & 31, wq = (threadIdx.x >> 5) & 3;
+  const int gr = lane >> 2, t = lane & 3;
+  const uint32_t patch_s = wbody::smem_u32(patch);
+  const uint32_t lbo = kHaloCols * 16, sbo = kc * kHaloCols * 16;
+  const float dq = tokwg::dequant_step(bits);
+  for (int n0 = 0; n0 < a.no; n0 += wbody::kPanelN) {
+    const bool two = a.no - n0 >= 64;
+    int acc[2][16];  // written by the products only
+    for (int tap = 0; tap < 9; ++tap) {
+      const int dy = tap / 3, dx = tap - 3 * (tap / 3);
+      for (int k0 = 0; k0 < a.kq; k0 += wbody::kPanelK) {
+        const int kw = a.kq - k0 < wbody::kPanelK ? a.kq - k0
+                                                  : wbody::kPanelK;
+        const uint32_t b = wbody::ring_get(ring);
+        wbody::wgmma_fence();
+        for (int ks = 0; ks < kw / 32; ++ks) {
+          // rows: output pixels (r, 8 wg + col) <- halo (r + dy, 8 wg +
+          // col + dx); K: channels k0 + 32 ks ..
+          const uint64_t da = wbody::desc(
+              patch_s + ((dy * kc + (k0 + 32 * ks) / 16) * kHaloCols +
+                         8 * wg + dx) * 16,
+              lbo, sbo);
+          const int add = tap > 0 || k0 > 0 || ks > 0;
+          wgmma32s8(acc[0], da, wbody::desc(b + ks * 256, 128, kw * 8), add);
+          if (two)
+            wgmma32s8(acc[1], da,
+                      wbody::desc(b + 32 * kw + ks * 256, 128, kw * 8), add);
+        }
+        wbody::wgmma_commit();
+        wbody::wgmma_wait0();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        wbody::ring_done(ring);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 16 * wq + gr + 8 * h;
+          const int oy = y0 + m / 8, ox = x0 + 8 * wg + m % 8;
+          if (oy >= a.h || ox >= a.w) continue;
+          const size_t pix = static_cast<size_t>(img) * hw + oy * a.w + ox;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int o = n0 + 32 * j + 8 * q + 2 * t + e;
+            if (o < a.c0 && (j == 0 || two)) {
+              const float y = __fadd_rn(
+                  __fmul_rn(static_cast<float>(acc[j][4 * q + 2 * h + e]),
+                            __fmul_rn(__ldg(a.scales + o), dq)),
+                  __ldg(a.bias + o));
+              a.out[pix * a.c0 + o] = __float2bfloat16_rn(
+                  y + __bfloat162float(a.dense[pix * a.ccatp + o]));
+            }
+          }
+        }
+  }
+}
 
 __global__ void __launch_bounds__(2 * 128 + 32, 1)
     rdstb_conv_kernel(const ConvArgs a) {
@@ -428,6 +624,34 @@ int conv_patch_bytes(int ccatp) {
   return wbody::round_up(kHaloRows * kHaloCols * ccatp * 2, 128);
 }
 
+// the int8 conv's: a tap's int8 panel, and the int8 halo of kq channels
+int conv_s8_slot_bytes(int c0, int kq) {
+  return wbody::round_up(wbody::panel_bytes(wbody::round_up(c0, 32), kq) / 2,
+                         128);
+}
+
+int conv_s8_patch_bytes(int kq) {
+  return wbody::round_up(kHaloRows * kHaloCols * kq, 128);
+}
+
+// dims past route[nb] (as rdstb_bf16's): images of an int8 scale group,
+// the blocks' int8 groups (tokfwd::kInt8Proj | kInt8Mlp), int8 'conv'
+struct Int8Dims {
+  int gimg, mask, conv;
+};
+
+Int8Dims int8_dims(const int* dims) {
+  const int nb = dims[7];
+  return Int8Dims{dims[11 + 2 * nb], dims[12 + 2 * nb], dims[13 + 2 * nb]};
+}
+
+// the conv's amax slots (one an image group) at the head of the workspace
+long long conv_amax_bytes(const int* dims) {
+  const Int8Dims q = int8_dims(dims);
+  if (!q.conv || q.gimg <= 0) return 0;
+  return (4LL * ((dims[0] + q.gimg - 1) / q.gimg) + 255) / 256 * 256;
+}
+
 // The token-parallel stages' geometry of DSTL d (dims as rdstb_bf16's).
 tokpar::Dims token_dims(const int* dims, int d) {
   const int nw = (dims[1] / dims[3]) * (dims[2] / dims[3]);
@@ -439,18 +663,21 @@ tokpar::Dims token_dims(const int* dims, int d) {
 
 extern "C" {
 
-// The token-parallel stages' workspace in bytes (dims as rdstb_bf16's):
-// the widest of the DSTLs that run them, 0 if none does.
+// The workspace in bytes (dims as rdstb_bf16's): the int8 conv's amax
+// slots, then the token-parallel stages' (the widest of the DSTLs that run
+// them); 0 if neither is needed.
 long long rdstb_work_bytes(const int* dims) {
   const int nb = dims[7];
+  const int nw = (dims[1] / dims[3]) * (dims[2] / dims[3]);
+  const Int8Dims q = int8_dims(dims);
   long long most = 0;
   for (int d = 0; d < nb; ++d) {
     if (!dims[11 + nb + d]) continue;
     const long long b = tokfwd::carve_fwd(token_dims(dims, d), nullptr,
-                                          nullptr);
+                                          nullptr, q.gimg * nw, q.mask);
     if (b > most) most = b;
   }
-  return most;
+  return conv_amax_bytes(dims) + most;
 }
 
 // Dynamic shared memory of stage `k` of a call: 2 d for DSTL d's stage A,
@@ -468,15 +695,17 @@ int rdstb_stage_smem_bytes(int n, int c0, int growth, int nb, int nh,
       .smem;
 }
 
-// ptrs: x, out, y scratch, dense scratch, the token-parallel stages'
-// workspace (rdstb_work_bytes; 0 when no DSTL runs them), conv panels,
-// conv bias, then per DSTL, on the window body (route 0): block a (6:
-// panels, bqkv, bproj, bf1, bf2, packed bias), block b (6, its panels
-// followed by the adapter's), the adapter bias (ng) and post-norm LN scale
-// and bias; on the token-parallel stages (route 1): block a and block b
-// (tokfwd::kBlockPtrs each), the adapter (tokfwd::kAdapterPtrs). dims:
-// images, h, w, ws, shift, c0, growth, nb, nh, prenorm, softmax,
-// hidden[nb], route[nb].
+// ptrs: x, out, y scratch, dense scratch, the workspace (rdstb_work_bytes;
+// 0 when it is 0 bytes), conv panels (bf16, or int8 for int8 'conv'), conv
+// bias, the int8 conv's steps (c0; 0 for the bf16 conv), then per DSTL, on
+// the window body (route 0): block a (6: panels, bqkv, bproj, bf1, bf2,
+// packed bias), block b (6, its panels followed by the adapter's), the
+// adapter bias (ng) and post-norm LN scale and bias; on the token-parallel
+// stages (route 1): block a and block b (tokfwd::kBlockPtrs each), the
+// adapter (tokfwd::kAdapterPtrs). dims: images, h, w, ws, shift, c0,
+// growth, nb, nh, prenorm, softmax, hidden[nb], route[nb], then the images
+// of an int8 scale group, the blocks' int8 groups (tokfwd::kInt8Proj |
+// kInt8Mlp), int8 'conv' (0 / 1).
 int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
                void* stream) {
   StageArgs a;
@@ -502,6 +731,10 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
     return static_cast<int>(cudaErrorInvalidValue);
   a.nw = (a.h / a.ws) * (a.w_img / a.ws);
   a.windows = images * a.nw;
+  const Int8Dims q = int8_dims(dims);
+  if (q.gimg <= 0 || images % q.gimg || q.mask < 0 || q.mask > 3 ||
+      (q.conv && !ptrs[7]) || (!q.conv && ptrs[7]) || (q.conv && !ptrs[4]))
+    return static_cast<int>(cudaErrorInvalidValue);
   a.ccat = a.c0 + nb * a.growth;
   a.ccatp = wbody::round_up(a.ccat, 16);
   a.ng = wbody::round_up(a.growth, 32);
@@ -519,6 +752,7 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
         return static_cast<int>(cudaErrorInvalidValue);
       continue;
     }
+    if (q.mask) return static_cast<int>(cudaErrorInvalidValue);
     const wbody::Geom g = wbody::make_geom(a.ws * a.ws, c, nh, dims[11 + d]);
     if (!wbody::geom_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
     fits[2 * d] = wbody::stage_fit(g, 0);
@@ -537,15 +771,22 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
   cv.c0 = a.c0;
   cv.no = wbody::round_up(a.c0, 32);
   cv.ccatp = a.ccatp;
-  cv.slot_bytes = conv_slot_bytes(a.c0, a.ccatp);
-  cv.patch_bytes = conv_patch_bytes(a.ccatp);
+  cv.kq = wbody::round_up(a.ccat, 32);
+  cv.scales = static_cast<const float*>(ptrs[7]);
+  cv.gimg = q.gimg;
+  cv.amax = reinterpret_cast<const unsigned*>(work);
+  cv.slot_bytes = q.conv ? conv_s8_slot_bytes(a.c0, cv.kq)
+                         : conv_slot_bytes(a.c0, a.ccatp);
+  cv.patch_bytes = q.conv ? conv_s8_patch_bytes(cv.kq)
+                          : conv_patch_bytes(a.ccatp);
   const int conv_smem =
       cv.patch_bytes + kConvSlots * cv.slot_bytes + wbody::kCtrlBytes;
   if (conv_smem > wbody::kSmemOptin)
     return static_cast<int>(cudaErrorInvalidValue);
   if (images == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const void* const* p = ptrs + 7;
+  const void* const* p = ptrs + 8;
+  char* token_work = work ? work + conv_amax_bytes(dims) : nullptr;
   for (int d = 0; d < nb; ++d) {
     a.first = d == 0;
     a.dcol = a.c0 + d * a.growth;
@@ -555,7 +796,7 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
       const tokpar::Rows img{1, a.h, a.w_img, a.ws, 0};
       const tokpar::Rows rolled{1, a.h, a.w_img, a.ws, a.shift};
       tokfwd::FwdBufs b;
-      tokfwd::carve_fwd(td, work, &b);
+      tokfwd::carve_fwd(td, token_work, &b, q.gimg * a.nw, q.mask);
       // stage A: block a on the dense rows (on x for the first DSTL, with
       // x0 copied into the dense rows and their pad zeroed)
       tokfwd::RowsIn in = tokfwd::rows_in(a.dense, img, a.ccatp);
@@ -597,12 +838,32 @@ int rdstb_bf16(const void* const* ptrs, const int* dims, int device,
     if (err != cudaSuccess) return static_cast<int>(err);
     p += 15;
   }
+  const int tiles = images * ((a.h + kConvRows - 1) / kConvRows) *
+                    ((a.w_img + kConvCols - 1) / kConvCols);
+  if (q.conv) {  // each image group's amax, then the int8 conv
+    unsigned* amax = reinterpret_cast<unsigned*>(work);
+    const int groups = images / q.gimg;
+    err = cudaMemsetAsync(amax, 0, 4ull * groups, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long per = static_cast<long long>(q.gimg) * a.h * a.w_img *
+                          a.ccatp;
+    long long chunks = (per + 256 * 8 * 8 - 1) / (256 * 8 * 8);
+    if (chunks > 256) chunks = 256;
+    dense_amax_kernel<<<dim3(static_cast<unsigned>(chunks), groups), 256, 0,
+                        s>>>(a.dense, per, amax);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaFuncSetAttribute(rdstb_conv_s8_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               conv_smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rdstb_conv_s8_kernel<<<tiles, 2 * 128 + 32, conv_smem, s>>>(cv);
+    return static_cast<int>(cudaGetLastError());
+  }
   err = cudaFuncSetAttribute(rdstb_conv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              conv_smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = images * ((a.h + kConvRows - 1) / kConvRows) *
-                    ((a.w_img + kConvCols - 1) / kConvCols);
   rdstb_conv_kernel<<<tiles, 2 * 128 + 32, conv_smem, s>>>(cv);
   return static_cast<int>(cudaGetLastError());
 }

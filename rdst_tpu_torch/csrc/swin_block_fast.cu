@@ -277,32 +277,38 @@ int swin_block_fast_window(const void* const* ptrs, const int* dims,
 long long swin_block_fast_work_bytes(const int* dims) {
   return tokfwd::carve_fwd(
       tokpar::make_dims(dims[0], dims[1], dims[2], dims[3], dims[4]),
-      nullptr, nullptr);
+      nullptr, nullptr, dims[7], dims[8]);
 }
 
-// The token-parallel forward (csrc/token_fwd.cuh): tokfwd::kFwdKernels
+// The token-parallel forward (csrc/token_fwd.cuh): tokfwd::fwd_kernels
 // launches on `stream`, each checked. ptrs: x, out, then the
 // kernels.swin_block.token_wgmma_layout order -- wqkv (n3, kp) bf16 [n][k]
 // by head, bqkv (n3) f32, wproj (kp, kp) [n][k], bproj (c) bf16, w1 (hp,
 // kp) [n][k], bf1 (hidden) f32, w2 (kp, hp) [n][k], bf2 (c) bf16 -- the
 // packed bias (bw, n, nh n), the int8 qkv weights (n3, kq) [n][k] and
-// their steps (n3) (both 0 for bf16 qkv), and the workspace. dims:
-// windows, n, c, nh, hidden, bias_windows, softmax.
+// their steps (n3) (both 0 for bf16 qkv), the int8 fc1 / fc2 / projection
+// operands (kernels.swin_block.int8_token_layout: 6, 0 where a group is
+// off), and the workspace. dims: windows, n, c, nh, hidden, bias_windows,
+// softmax, the windows of an int8 scale group, the int8 groups
+// (tokfwd::kInt8Proj | kInt8Mlp).
 int swin_block_fast_tokens(const void* const* ptrs, const int* dims,
                            int device, void* stream) {
   const int windows = dims[0], bw = dims[5], softmax = dims[6];
   const fastblk::Geom geom = fastblk::make_geom(dims[1], dims[2], dims[3],
                                                 dims[4]);
-  if (!fastblk::geom_ok(geom, fastblk::kMaxC) || !ptrs[11] != !ptrs[12] ||
-      bw <= 0 || windows < 0 || windows % bw != 0 || softmax < 0 ||
-      softmax > 2)
+  if (!fastblk::geom_ok(geom, fastblk::kMaxC) ||
+      !tokfwd::block_w_ok(ptrs + 2) || bw <= 0 || windows < 0 ||
+      windows % bw != 0 || softmax < 0 || softmax > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess || windows == 0) return static_cast<int>(err);
   const tokpar::Dims d = tokpar::make_dims(windows, dims[1], dims[2],
                                            dims[3], dims[4]);
   tokfwd::FwdBufs b;
-  tokfwd::carve_fwd(d, static_cast<char*>(const_cast<void*>(ptrs[13])), &b);
+  tokfwd::carve_fwd(
+      d,
+      static_cast<char*>(const_cast<void*>(ptrs[2 + tokfwd::kBlockPtrs])),
+      &b, dims[7], dims[8]);
   return static_cast<int>(tokfwd::forward(
       d,
       tokfwd::rows_in(static_cast<const bf16*>(ptrs[0]), tokfwd::kSameRows,
@@ -312,8 +318,13 @@ int swin_block_fast_tokens(const void* const* ptrs, const int* dims,
       static_cast<cudaStream_t>(stream)));
 }
 
-// Kernels of one token-parallel call.
+// Kernels of one token-parallel call without int8 'mlp' / 'proj'.
 int swin_block_fast_tokens_kernels() { return tokfwd::kFwdKernels; }
+
+// Kernels of one token-parallel call with the int8 groups of `mask`.
+int swin_block_fast_tokens_kernels_int8(int mask) {
+  return tokfwd::fwd_kernels(mask);
+}
 
 // The token-parallel forward's GEMMs one at a time (csrc/token_wgmma.cuh),
 // for their checks and device times (kernels.token_wgmma): one launch

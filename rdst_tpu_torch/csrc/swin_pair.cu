@@ -231,14 +231,16 @@ long long swin_pair_tokens_work_bytes(const int* dims) {
   const int nw = (dims[1] / dims[3]) * (dims[2] / dims[3]);
   return tokfwd::carve_fwd(tokpar::make_dims(dims[0] * nw, dims[3] * dims[3],
                                              dims[5], dims[6], dims[7]),
-                           nullptr, nullptr);
+                           nullptr, nullptr, dims[9], dims[10]);
 }
 
-// The pair on the token-parallel stages: 2 tokfwd::kFwdKernels launches,
+// The pair on the token-parallel stages: 2 tokfwd::fwd_kernels launches,
 // each checked. ptrs: x, out, scratch (images, H*W, c8), block a's and
-// block b's operands (11 each, tokfwd::BlockW: the
+// block b's operands (tokfwd::kBlockPtrs each, tokfwd::BlockW: the
 // kernels.swin_block.token_wgmma_layout order, the packed bias, the int8 qkv
-// weights and steps or 0, 0), the workspace. dims as swin_pair_bf16's.
+// weights and steps or 0, 0, the int8 fc1 / fc2 / projection operands or
+// 0s), the workspace. dims as swin_pair_bf16's, then the windows of an
+// int8 scale group and the int8 groups (tokfwd::kInt8Proj | kInt8Mlp).
 int swin_pair_tokens(const void* const* ptrs, const int* dims, int device,
                      void* stream) {
   const int images = dims[0], h = dims[1], w = dims[2], ws = dims[3];
@@ -249,7 +251,7 @@ int swin_pair_tokens(const void* const* ptrs, const int* dims, int device,
   const void* const* pb = pa + tokfwd::kBlockPtrs;
   if (!fastblk::geom_ok(geom, fastblk::kMaxC) || ws <= 0 || h % ws ||
       w % ws || shift < 0 || shift >= ws || images < 0 || softmax < 0 ||
-      softmax > 2 || !pa[9] != !pa[10] || !pb[9] != !pb[10])
+      softmax > 2 || !tokfwd::block_w_ok(pa) || !tokfwd::block_w_ok(pb))
     return static_cast<int>(cudaErrorInvalidValue);
   const int nw = (h / ws) * (w / ws);
   cudaError_t err = cudaSetDevice(device);
@@ -258,7 +260,8 @@ int swin_pair_tokens(const void* const* ptrs, const int* dims, int device,
       tokpar::make_dims(images * nw, ws * ws, c, nh, hidden);
   tokfwd::FwdBufs b;
   tokfwd::carve_fwd(
-      d, static_cast<char*>(const_cast<void*>(pb[tokfwd::kBlockPtrs])), &b);
+      d, static_cast<char*>(const_cast<void*>(pb[tokfwd::kBlockPtrs])), &b,
+      dims[9], dims[10]);
   bf16* y = static_cast<bf16*>(const_cast<void*>(ptrs[2]));
   const int c8 = wbody::round_up(c, 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

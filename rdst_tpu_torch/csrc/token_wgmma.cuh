@@ -735,6 +735,267 @@ struct EpiAdapter {
   }
 };
 
+// ------------------------------------------------------ int8 epilogues
+//
+// The int8 'proj' and 'mlp' groups (kernels.quant): their products run on
+// wgmma .s8 with exact int32 sums; a dynamic scale is the amax of one scale
+// group of tokens (gtok of them: the windows one program of the JAX kernel
+// holds), kept as the bits of a non-negative float (atomicMax orders them
+// as the floats), its dequant step amax * (1 / 127) meeting the weight
+// step before the int32 sum, each product and sum rounded on its own (the
+// JAX epilogue's order). These are the epilogues' own code: the bf16 ones
+// above, which the training step's forward runs too, stay as they are.
+
+constexpr float kInv127 = 1.0f / 127.0f;
+
+// the dequant step of a group's amax bits (the floor 1e-30 of _quant_dyn)
+__device__ __forceinline__ float dequant_step(unsigned bits) {
+  return __fmul_rn(fmaxf(__uint_as_float(bits), 1e-30f), kInv127);
+}
+
+// a warp's max, then one atomicMax into the group of the warp's rows (a
+// warp's 16 rows lie in one window of n = 16 or 64 tokens, so in one
+// group)
+__device__ __forceinline__ void group_amax(float mx, unsigned* amax,
+                                           int row, int tokens, int gtok) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0 && row < tokens)
+    atomicMax(amax + row / gtok, __float_as_uint(mx));
+}
+
+__device__ __forceinline__ int8_t quant8(float v, float s) {
+  return static_cast<int8_t>(
+      static_cast<int>(fminf(fmaxf(rintf(__fmul_rn(v, s)), -127.f), 127.f)));
+}
+
+// The projection's epilogue with int8 operands in either place: y = acc +
+// bproj (bf16 product) or int32(acc) (wps dq) + bproj (int8 'proj', dq the
+// token's group step); x1 = x + y (f32, in x1_at's order, as EpiProjLn);
+// LN2 (one-pass moments, eps 1e-5) into bf16 rows x1n (ones at c, zeros
+// to kp) or, for int8 'mlp', int8 rows x1q = clip(round(normalize(x1)
+// kQX)) (zeros to kq). Constants: bproj (f32), then wps.
+struct EpiProjLnQ {
+  const bf16* x;
+  tp::Rows xr;
+  int ldx, n;
+  const bf16* bproj;
+  const float* ws;        // (c) wps, or null for the bf16 product
+  const unsigned* amax;   // the groups' amax bits of the attention output
+  int gtok;
+  float* x1;
+  bf16* x1n;              // (tokens, kp), or null
+  int kp;
+  int8_t* x1q;            // (tokens, kq), or null
+  int kq, tokens, c;
+  __host__ __device__ int consts() const { return ws ? 2 * c : c; }
+  __device__ void fill_consts(float* cs) const {
+    const bf16* b = bproj;
+    const float* w = ws;
+    const int cc = c;
+    fill(cs, consts(), [&](int i) {
+      return i < cc ? __bfloat162float(b[i]) : w[i - cc];
+    });
+  }
+  template <int NT, class Acc>
+  __device__ void run(const Acc (&acc)[NT][32], int, int m0, int,
+                      const float* cs, char*) const {
+    const Frag f = frag();
+    const int r0 = m0 + f.r0;
+    // the residual is read twice (moments, then the rows) from memory
+    // rather than held: the accumulator takes the registers
+    float dq[2];
+    const bf16* xrow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + f.g + 8 * h;
+      dq[h] = ws && m < tokens ? dequant_step(amax[m / gtok]) : 0.f;
+      xrow[h] = m < tokens ? x + xr(m, n) * ldx : nullptr;
+    }
+    auto value = [&](int q, int j, int h, int e) {
+      const int col = kPiece * q + 8 * j + 2 * f.t + e;
+      if (col >= c || !xrow[h]) return 0.f;
+      const float a = static_cast<float>(acc[q][4 * j + 2 * h + e]);
+      const float y =
+          ws ? __fadd_rn(__fmul_rn(a, __fmul_rn(cs[c + col], dq[h])), cs[col])
+             : a + cs[col];
+      return tp::ldb(xrow[h] + col) + y;
+    };
+    float mu[2], rs[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float v = value(q, j, h, e);
+            s1 += v;
+            s2 += v * v;
+          }
+      s1 = quad_sum(s1);
+      s2 = quad_sum(s2);
+      mu[h] = s1 / c;
+      rs[h] = rsqrtf(fmaxf(s2 / c - mu[h] * mu[h], 0.f) + fastblk::kEps);
+    }
+    const int blk = r0 >> 4, pc = cdiv(c, kPiece);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + f.g + 8 * h;
+      if (m >= tokens) continue;
+      const float mr = __fmul_rn(mu[h], rs[h]);
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = kPiece * q + 8 * j + 2 * f.t;
+          float v[2], nv[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] = value(q, j, h, e);
+            nv[e] = col + e < c
+                        ? __fsub_rn(__fmul_rn(v[e], rs[h]), mr)
+                        : (col + e == c ? 1.f : 0.f);
+          }
+          if (kPiece * q + 8 * j < c)
+            *reinterpret_cast<float2*>(x1 + x1_at(blk, pc, q, j, h, f.lane)) =
+                make_float2(v[0], v[1]);
+          if (x1n && col < kp)
+            *reinterpret_cast<uint32_t*>(x1n + static_cast<size_t>(m) * kp +
+                                         col) = fastblk::pack2(nv[0], nv[1]);
+          if (x1q && col < kq) {
+            const int8_t q0 = col < c ? quant8(nv[0], fastblk::kQX) : 0;
+            const int8_t q1 = col + 1 < c ? quant8(nv[1], fastblk::kQX) : 0;
+            *reinterpret_cast<uint16_t*>(x1q + static_cast<size_t>(m) * kq +
+                                         col) =
+                static_cast<uint16_t>(static_cast<uint8_t>(q0) |
+                                      (static_cast<uint8_t>(q1) << 8));
+          }
+        }
+      if (x1n)
+        for (int o = kPiece * NT + f.t; o < kp; o += 4)
+          x1n[static_cast<size_t>(m) * kp + o] =
+              __float2bfloat16_rn(o == c ? 1.f : 0.f);
+    }
+  }
+};
+
+// fc1 of int8 'mlp': h1 = gelu_tanh(int32(acc) w1s + bf1) (f32) into
+// (tokens, hidden) rows, and the amax of each scale group's h1 (its fc2
+// input's dynamic scale). Constants: bf1, then w1s.
+struct EpiFc1 {
+  const float* bf1;  // (hidden)
+  const float* w1s;  // (hidden)
+  float* h1;         // (tokens, hidden)
+  unsigned* amax;
+  int gtok, tokens, hidden;
+  __host__ __device__ int consts() const { return 2 * hidden; }
+  __device__ void fill_consts(float* cs) const {
+    const float *b = bf1, *w = w1s;
+    const int hd = hidden;
+    fill(cs, 2 * hd, [&](int i) { return i < hd ? b[i] : w[i - hd]; });
+  }
+  template <int NT, class Acc>
+  __device__ void run(const Acc (&acc)[NT][32], int np, int m0, int n0,
+                      const float* cs, char*) const {
+    const Frag f = frag();
+    const int r0 = m0 + f.r0;
+    float mx = 0.f;
+#pragma unroll
+    for (int q = 0; q < NT; ++q) {
+      if (q >= np) continue;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = n0 + kPiece * q + 8 * j + 2 * f.t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = r0 + f.g + 8 * h;
+          if (m >= tokens) continue;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cc = col + e;
+            v[e] = cc < hidden
+                       ? fastblk::gelu_tanh(__fadd_rn(
+                             __fmul_rn(static_cast<float>(
+                                           acc[q][4 * j + 2 * h + e]),
+                                       cs[hidden + cc]),
+                             cs[cc]))
+                       : 0.f;
+            mx = fmaxf(mx, fabsf(v[e]));
+          }
+          float* dst = h1 + static_cast<size_t>(m) * hidden + col;
+          if (col + 1 < hidden && (hidden & 1) == 0) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+          } else {
+            if (col < hidden) dst[0] = v[0];
+            if (col + 1 < hidden) dst[1] = v[1];
+          }
+        }
+      }
+    }
+    group_amax(mx, amax, r0, tokens, gtok);
+  }
+};
+
+// fc2 of int8 'mlp': out = bf16(x1 + (int32(acc) (w2s dq) + bf2)) at row
+// orow(m, n) of out (ldo a row, zeros in its columns [c, ldo)), dq the
+// token's group step of h1. Constants: bf2 (f32), then w2s.
+struct EpiFc2 {
+  const bf16* bf2;    // (c)
+  const float* w2s;   // (c)
+  const float* x1;    // x1_floats(tokens, c), in x1_at's order
+  const unsigned* amax;
+  int gtok;
+  bf16* out;
+  tp::Rows orow;
+  int ldo, n, tokens, c;
+  __host__ __device__ int consts() const { return 2 * c; }
+  __device__ void fill_consts(float* cs) const {
+    const bf16* b = bf2;
+    const float* w = w2s;
+    const int cc = c;
+    fill(cs, 2 * cc, [&](int i) {
+      return i < cc ? __bfloat162float(b[i]) : w[i - cc];
+    });
+  }
+  template <int NT, class Acc>
+  __device__ void run(const Acc (&acc)[NT][32], int, int m0, int,
+                      const float* cs, char*) const {
+    const Frag f = frag();
+    const int r0 = m0 + f.r0, blk = r0 >> 4, pc = cdiv(c, kPiece);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = r0 + f.g + 8 * h;
+      if (m >= tokens) continue;
+      const float dq = dequant_step(amax[m / gtok]);
+      bf16* o = out + orow(m, n) * ldo;
+#pragma unroll
+      for (int q = 0; q < NT; ++q)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = kPiece * q + 8 * j + 2 * f.t;
+          if (col >= c) continue;
+          const float2 xv = *reinterpret_cast<const float2*>(
+              x1 + x1_at(blk, pc, q, j, h, f.lane));
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            if (col + e >= c) continue;
+            const float a = static_cast<float>(acc[q][4 * j + 2 * h + e]);
+            const float y = __fadd_rn(
+                __fmul_rn(a, __fmul_rn(cs[c + col + e], dq)), cs[col + e]);
+            o[col + e] = __float2bfloat16_rn((e ? xv.y : xv.x) + y);
+          }
+        }
+      for (int col = c + f.t; col < ldo; col += 4)
+        o[col] = __float2bfloat16_rn(0.f);
+    }
+  }
+};
+
 // ------------------------------------------------------------ kernels
 
 // C (M, N) = A (M, K) B (N, K)^T: the A tile from map a, the weights from
@@ -1179,32 +1440,33 @@ inline cudaError_t qkv(const void* a, const void* w, int ld, int c,
   return qkv_es<false>(a, w, ld, c, epi, bm, s);
 }
 
-// A GEMM whose epilogue spans a row: N <= 256 in one pass of NT pieces.
-template <class Epi, int NT>
+// A GEMM whose epilogue spans a row: N <= 256 in one pass of NT pieces;
+// bf16 operands (kEs 2) or int8 (kEs 1, wgmma .s8).
+template <class Epi, int NT, int kEs = 2>
 inline cudaError_t rows_nt(GemmP<Epi>& p, const void* w, int ldw, int k,
                            cudaStream_t s) {
-  TOKWG_CHECK(make_map(&p.b, w, 2, k, ldw, p.n, kPiece * NT));
-  return launch(gemm_kernel<NT, false, Epi>, p, s);
+  TOKWG_CHECK(make_map(&p.b, w, kEs, k, ldw, p.n, kPiece * NT));
+  return launch(gemm_kernel<NT, kEs == 1, Epi>, p, s);
 }
 
-template <class Epi, int kMaxNt>
+template <class Epi, int kMaxNt, int kEs = 2>
 inline cudaError_t rows(const void* a, int lda, const void* w, int ldw,
                         int tokens, int n, int k, const Epi& epi,
                         cudaStream_t s, int bm = 0) {
   const int nt = cdiv(n, kPiece);
   if (nt > kMaxNt) return cudaErrorInvalidValue;
   GemmP<Epi> p;
-  p.s = sched(tokens, pick_rows(tokens, bm), 2 * k, nt * kPieceBytes,
+  p.s = sched(tokens, pick_rows(tokens, bm), kEs * k, nt * kPieceBytes,
               epi.consts());
   p.n = n;
-  p.kel = kSlice / 2;
+  p.kel = kSlice / kEs;
   p.epi = epi;
-  TOKWG_CHECK(make_map(&p.a, a, 2, k, lda, tokens, p.s.bm));
+  TOKWG_CHECK(make_map(&p.a, a, kEs, k, lda, tokens, p.s.bm));
   switch (nt) {
-    case 1: return rows_nt<Epi, 1>(p, w, ldw, k, s);
-    case 2: return rows_nt<Epi, 2>(p, w, ldw, k, s);
-    case 3: return rows_nt<Epi, 3>(p, w, ldw, k, s);
-    case 4: return rows_nt<Epi, kMaxNt < 4 ? 3 : 4>(p, w, ldw, k, s);
+    case 1: return rows_nt<Epi, 1, kEs>(p, w, ldw, k, s);
+    case 2: return rows_nt<Epi, 2, kEs>(p, w, ldw, k, s);
+    case 3: return rows_nt<Epi, 3, kEs>(p, w, ldw, k, s);
+    case 4: return rows_nt<Epi, kMaxNt < 4 ? 3 : 4, kEs>(p, w, ldw, k, s);
   }
   return cudaErrorInvalidValue;
 }
@@ -1254,6 +1516,44 @@ inline cudaError_t mlp(const bf16* x1n, int kp, const bf16* w1,
     case 3: return mlp_nt<3>(p, w2, hp, s);
   }
   return cudaErrorInvalidValue;
+}
+
+// The projection with int8 operands in either place (EpiProjLnQ): int8
+// 'proj', the int8 rows of the attention output a (tokens, lda) and wpq
+// (c, lda) [n][k]; else bf16 rows and wproj (kp, kp). K = N = c.
+inline cudaError_t proj_ln_q(const void* a, int lda, const void* w,
+                             const EpiProjLnQ& epi, cudaStream_t s,
+                             int bm = 0) {
+  if (epi.ws)
+    return rows<EpiProjLnQ, 3, 1>(a, lda, w, lda, epi.tokens, epi.c, epi.c,
+                                  epi, s, bm);
+  return rows<EpiProjLnQ, 3, 2>(a, lda, w, lda, epi.tokens, epi.c, epi.c,
+                                epi, s, bm);
+}
+
+// fc1 of int8 'mlp': x1q (tokens, kq) and w1q (hidden, kq) [n][k] int8; K
+// = c; the hidden columns in passes of kQkvPieces pieces.
+inline cudaError_t fc1_s8(const int8_t* x1q, int kq, const int8_t* w1q,
+                          int c, const EpiFc1& epi, cudaStream_t s,
+                          int bm = 0) {
+  GemmP<EpiFc1> p;
+  p.s = sched(epi.tokens, pick_rows(epi.tokens, bm), c,
+              kQkvPieces * kPieceBytes, epi.consts());
+  p.n = epi.hidden;
+  p.kel = kSlice;
+  p.epi = epi;
+  TOKWG_CHECK(make_map(&p.a, x1q, 1, c, kq, epi.tokens, p.s.bm));
+  TOKWG_CHECK(make_map(&p.b, w1q, 1, c, kq, epi.hidden, kPiece * kQkvPieces));
+  return launch(gemm_kernel<kQkvPieces, true, EpiFc1>, p, s);
+}
+
+// fc2 of int8 'mlp': h1q (tokens, kh) and w2q (c, kh) [n][k] int8; K =
+// hidden, N = c.
+inline cudaError_t fc2_s8(const int8_t* h1q, int kh, const int8_t* w2q,
+                          int hidden, const EpiFc2& epi, cudaStream_t s,
+                          int bm = 0) {
+  return rows<EpiFc2, 3, 1>(h1q, kh, w2q, kh, epi.tokens, epi.c, hidden, epi,
+                            s, bm);
 }
 
 #undef TOKWG_CHECK

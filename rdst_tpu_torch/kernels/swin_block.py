@@ -23,14 +23,16 @@ the dtype of the tokens, as the JAX function does (``use_fast_path``):
   scale folded into the weights (:func:`prep_block_params`),
   normalize-only one-pass LayerNorm, a softmax stabilizer chosen by
   variant, approximate reciprocal, tanh GELU, bf16 roundings where the
-  TPU kernel rounds, optionally int8 qkv operands (``pallas_quant=
-  'qkv'``, ``kernels.quant``): ``csrc/swin_block_fast.cu`` in one of two
-  designs the plan picks by C and the qkv operands (:func:`fast_route`):
-  the persistent window kernel on the window body of
-  ``csrc/window_body.cuh`` (which the pair and RDSTB stage kernels run
-  too) up to ``WINDOW_MAX_C`` with bf16 qkv, the token-parallel forward
-  (``csrc/token_fwd.cuh``, its GEMMs on ``csrc/token_wgmma.cuh``) above
-  and for int8 qkv; plain version :func:`swin_block_fast_reference`. It
+  TPU kernel rounds, optionally int8 operands (``pallas_quant``: 'qkv',
+  'mlp', 'proj', ``kernels.quant``; the dynamic scales of 'mlp' and
+  'proj' over the windows of one JAX program):
+  ``csrc/swin_block_fast.cu`` in one of two designs the plan picks by C
+  and the int8 groups (:func:`fast_route`): the persistent window kernel
+  on the window body of ``csrc/window_body.cuh`` (which the pair and
+  RDSTB stage kernels run too) up to ``WINDOW_MAX_C`` without int8, the
+  token-parallel forward (``csrc/token_fwd.cuh``, its GEMMs on
+  ``csrc/token_wgmma.cuh``) above and for any int8 group; plain version
+  :func:`swin_block_fast_reference`. It
   takes C up to ``FAST_MAX_C`` (SwinIR-std's 180, RDST-W96's 192); the
   train-pair kernels take what the window body takes
   (``kernels.pair_train``), and the pair and RDSTB stages take the design
@@ -52,8 +54,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from rdst_tpu_torch.kernels import _build
-from rdst_tpu_torch.kernels.quant import (QX, QkvQuant, int8_matmul,
-                                          qkv_quant, quant_rows)
+from rdst_tpu_torch.kernels.quant import (QX, BlockQuant, MlpQuant,
+                                          ProjQuant, QkvQuant, block_quant,
+                                          int8_matmul, quant_dyn, quant_rows)
 
 _EPS = 1e-5  # torch-default LayerNorm epsilon
 _SOURCE = "swin_block.cu"
@@ -530,7 +533,10 @@ def fast_attention(q, k, v, bias, code: int):
 
 
 def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
-              dpf=None, qkv: Optional[QkvQuant] = None):
+              dpf=None, qkv: Optional[QkvQuant] = None,
+              mlp: Optional[MlpQuant] = None,
+              proj: Optional[ProjQuant] = None,
+              group_windows: Optional[int] = None):
     """The fast block body on float32 tokens (T, N, C) with its bf16
     roundings, as ``_body(fast=True)`` computes it; returns float32.
 
@@ -540,24 +546,37 @@ def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
     the training kernel divides exactly, as ``exact_recip=True``).
     ``dpf``: optional (attn, mlp) stochastic-depth factor columns, each
     (T*N,) float32, that scale the two residual branches (``_body``'s
-    ``dpf``). ``qkv``: int8 qkv operands (``kernels.quant``); then the
-    float32 normalized rows are quantized, not their bf16 rounding, and
-    q, k, v = bf16(int32(xq @ wq) * ws + bqkv). Differentiable with
-    ``torch.autograd`` (without ``qkv``)."""
+    ``dpf``). int8 operands (``kernels.quant``): ``qkv``, the float32
+    normalized rows quantized (not their bf16 rounding) and q, k, v =
+    bf16(int32(xq @ wq) * ws + bqkv); ``proj``, the float32 attention
+    output quantized at a dynamic scale, y = int32(oq @ wq) * (ws * dq) +
+    bproj; ``mlp``, fc1 on LN2's float32 rows at the static step, h1 =
+    gelu_tanh(int32 * w1s + bf1) in float32, quantized at a dynamic scale
+    for fc2, int32 * (w2s * dq) + bf2. A dynamic scale is taken over each
+    run of ``group_windows`` windows (one JAX program; None: all T).
+    Differentiable with ``torch.autograd`` (without int8)."""
     code = softmax_code(softmax)
     t, n, c = xf.shape
+    gw = t if group_windows is None else group_windows
+    if gw <= 0 or t % gw:
+        raise ValueError(f"{t} windows are not whole scale groups of {gw}")
+    groups = t // gw
+
+    def dyn(v):  # (T, N, K) float32 -> int8 rows, dequant step per window
+        vq, dq = quant_dyn(v, groups)
+        return vq, dq.repeat_interleave(gw).reshape(t, 1, 1)
     nh = num_heads
     hd = c // nh
     if qkv is None:
         xn = _bf(normalize(xf))
 
-        def proj(i):
+        def part(i):
             return _bf(_mm(xn, p.wqkv[:, i * c:(i + 1) * c])
                        + p.bqkv[i * c:(i + 1) * c])
     else:
         xq = quant_rows(normalize(xf), QX)
 
-        def proj(i):
+        def part(i):
             cols = slice(i * c, (i + 1) * c)
             return _bf(int8_matmul(xq, qkv.wq[:, cols]) * qkv.ws[cols]
                        + p.bqkv[cols])
@@ -565,15 +584,25 @@ def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
     def heads(u):  # (T, N, C) -> (T, nH, N, hd)
         return u.reshape(t, n, nh, hd).transpose(1, 2)
 
-    o = fast_attention(heads(proj(0)), heads(proj(1)), heads(proj(2)), bias,
+    o = fast_attention(heads(part(0)), heads(part(1)), heads(part(2)), bias,
                        code)
-    o = _bf(o.transpose(1, 2).reshape(t, n, c))
-    y = _mm(o, p.wproj) + p.bproj.float()
+    o = o.transpose(1, 2).reshape(t, n, c)
+    if proj is None:
+        y = _mm(_bf(o), p.wproj) + p.bproj.float()
+    else:
+        oq, dq = dyn(o)
+        y = int8_matmul(oq, proj.wq) * (proj.ws * dq) + p.bproj.float()
     if dpf is not None:
         y = y * dpf[0].reshape(t, n, 1)
     x1 = xf + y
-    h1 = _bf(gelu_tanh(_mm(_bf(normalize(x1)), p.w1) + p.bf1))
-    h2 = _mm(h1, p.w2) + p.bf2.float()
+    if mlp is None:
+        h1 = _bf(gelu_tanh(_mm(_bf(normalize(x1)), p.w1) + p.bf1))
+        h2 = _mm(h1, p.w2) + p.bf2.float()
+    else:
+        x1q = quant_rows(normalize(x1), QX)
+        h1 = gelu_tanh(int8_matmul(x1q, mlp.w1q) * mlp.w1s + p.bf1)
+        h1q, dq = dyn(h1)
+        h2 = int8_matmul(h1q, mlp.w2q) * (mlp.w2s * dq) + p.bf2.float()
     if dpf is not None:
         h2 = h2 * dpf[1].reshape(t, n, 1)
     return x1 + h2
@@ -581,12 +610,17 @@ def fast_body(xf, p: FastParams, bias, *, num_heads: int, softmax: str,
 
 def swin_block_fast_reference(x_windows, p: FastParams, bias, *,
                               num_heads: int, softmax: str,
-                              qkv: Optional[QkvQuant] = None):
+                              qkv: Optional[QkvQuant] = None,
+                              mlp: Optional[MlpQuant] = None,
+                              proj: Optional[ProjQuant] = None,
+                              group_windows: Optional[int] = None):
     """Plain PyTorch version of the fast block kernel: bf16 tokens
-    (B*nW, N, C), folded params, packed bias, optional int8 qkv
-    operands; returns bf16."""
+    (B*nW, N, C), folded params, packed bias, optional int8 operands of
+    each group and the windows of a scale group (:func:`fast_body`);
+    returns bf16."""
     return _bf(fast_body(x_windows.float(), p, bias, num_heads=num_heads,
-                         softmax=softmax, qkv=qkv))
+                         softmax=softmax, qkv=qkv, mlp=mlp, proj=proj,
+                         group_windows=group_windows))
 
 
 def fast_smem_bytes(n: int, c: int, nh: int, hidden: int) -> int:
@@ -720,17 +754,19 @@ def check_fast_tokens(name: str, x, shape) -> None:
 # warpgroups a thread block taking the tensor cores in turns, weights
 # resident where they fit), and "tokens", the token-parallel forward
 # (csrc/token_fwd.cuh). The plan takes the window kernel up to this width
-# with bf16 qkv, where the window body beats the token-parallel forward on
+# without int8, where the window body beats the token-parallel forward on
 # an H100 (both are timed in chip_smoke.py phase 7; PERF.md section 6),
 # and the token-parallel forward above it (SwinIR-std's C = 180, phase 14)
-# and for int8 qkv, which the window body has no product for.
+# and for any int8 group ('qkv', 'mlp', 'proj'): the window body has no
+# int8 product, and a dynamic scale needs a pass over the whole group
+# between two products, which one persistent window kernel cannot give.
 WINDOW_MAX_C = 120
 
 
 def fast_route(c: int, int8: bool = False) -> str:
     """The fast block's design at width c: 'window' up to
-    ``WINDOW_MAX_C`` with bf16 qkv, else 'tokens' (:func:`stage_route`'s
-    rule)."""
+    ``WINDOW_MAX_C`` without int8 products, else 'tokens'
+    (:func:`stage_route`'s rule)."""
     return stage_route(c, int8)
 
 
@@ -758,9 +794,10 @@ def window_kernel_supports(n: int, c: int, nh: int, hidden: int) -> bool:
 def stage_route(c: int, int8: bool) -> str:
     """The design of a pair or RDSTB stage at width c: 'window' (the
     stage kernels on ``csrc/window_body.cuh``) up to ``WINDOW_MAX_C``
-    with bf16 qkv, as the fast block picks it; 'tokens' (the
-    token-parallel forward of ``csrc/token_fwd.cuh``) above, and for
-    int8 qkv, which the window body has no product for."""
+    without int8 products, as the fast block picks it; 'tokens' (the
+    token-parallel forward of ``csrc/token_fwd.cuh``) above, and for any
+    of the int8 groups 'qkv', 'mlp', 'proj' (``int8``), which the window
+    body has no product for."""
     return "window" if c <= WINDOW_MAX_C and not int8 else "tokens"
 
 
@@ -835,7 +872,7 @@ def token_gemm_sched(tokens: int, bm: int, kbytes: int, slot_bytes: int,
 
 def token_gemm_scheds(tokens: int, c: int, nh: int, hidden: int,
                       growth: int = 0, int8: bool = False,
-                      sms: int = H100_SMS) -> dict:
+                      sms: int = H100_SMS, int8_mm: bool = False) -> dict:
     """The schedules of one forward's GEMMs at this geometry (and of the
     adapter with ``growth``), as ``tokwg::qkv``, ``proj_ln``, ``mlp`` and
     ``adapter`` make them: K = C (int8 or bf16 rows) for qkv, proj, fc1
@@ -844,7 +881,10 @@ def token_gemm_scheds(tokens: int, c: int, nh: int, hidden: int,
     stages of max(K slices, fc2 pieces) 8 KB slices, the MLP's hidden rows
     in shared memory with one A buffer (64-row tiles where 128 rows of
     them leave fewer than two ring slots); constants bqkv (and the int8
-    steps), bproj, bf1 and bf2, and the adapter's three."""
+    steps), bproj, bf1 and bf2, and the adapter's three. ``int8_mm``: also
+    the int8 'proj' and 'mlp' products (``tokwg::proj_ln_q``, ``fc1_s8``,
+    ``fc2_s8``): int8 rows of K = C (fc2: hidden) bytes, each with its
+    bias and steps as constants."""
     bm = token_tile_rows(tokens, sms)
     nt = _cdiv(c, _WG_PIECE)
     nks = _cdiv(2 * c, _WG_SLICE)
@@ -868,6 +908,13 @@ def token_gemm_scheds(tokens: int, c: int, nh: int, hidden: int,
         out["adapter"] = token_gemm_sched(
             tokens, bm, 2 * c, _cdiv(growth, _WG_PIECE) * _WG_PIECE_BYTES,
             3 * growth)
+    if int8_mm:
+        out["proj_s8"] = token_gemm_sched(tokens, bm, c,
+                                          nt * _WG_PIECE_BYTES, 2 * c)
+        out["fc1_s8"] = token_gemm_sched(
+            tokens, bm, c, _WG_QKV_PIECES * _WG_PIECE_BYTES, 2 * hidden)
+        out["fc2_s8"] = token_gemm_sched(tokens, bm, hidden,
+                                         nt * _WG_PIECE_BYTES, 2 * c)
     return out
 
 
@@ -892,7 +939,7 @@ def token_smem_bytes(n: int, c: int, nh: int, hidden: int,
     sizes = [2 * 3 * n * (hds + 8)]
     for int8 in (False, True):
         for s in token_gemm_scheds(H100_SMS * 128, c, nh, hidden, growth,
-                                   int8).values():
+                                   int8, int8_mm=int8).values():
             sizes.append(s.smem)
     return max(sizes)
 
@@ -912,7 +959,8 @@ def token_kernel_supports(n: int, c: int, nh: int, hidden: int,
     for bm_tokens in (1, H100_SMS * 128):
         for int8 in (False, True):
             if any(s.nslots < 2 for s in token_gemm_scheds(
-                    bm_tokens, c, nh, hidden, growth, int8).values()):
+                    bm_tokens, c, nh, hidden, growth, int8,
+                    int8_mm=int8).values()):
                 return False
     return fast_kernel_supports(
         n, c, nh, hidden, token_smem_bytes(n, c, nh, hidden, growth),
@@ -983,6 +1031,39 @@ def qkv_token_layout(q: Optional[QkvQuant], c: int, nh: int):
     return wq.reshape(n3, kq), ws.reshape(-1)
 
 
+def int8_token_layout(mlp: Optional[MlpQuant], proj: Optional[ProjQuant],
+                      c: int, hidden: int):
+    """The token-parallel forward's int8 fc1, fc2 and projection operands,
+    every weight K-major [n][k] with rows of K rounded up to 32: w1q
+    (hidden, kq), w1s (hidden), w2q (c, kh), w2s (c), wpq (c, kq), wps (c),
+    kq = round_up(c, 32), kh = round_up(hidden, 32); 0 in place of a
+    group's two operands where it is off."""
+    kq, kh = _round_up(c, 32), _round_up(hidden, 32)
+
+    def kmajor(wq, rows, k):  # (in, out) int8 -> (out, k) [n][k]
+        out = torch.zeros(rows, k, dtype=torch.int8, device=wq.device)
+        out[:, :wq.shape[0]] = wq.t()
+        return out
+
+    out = []
+    if mlp is None:
+        out += [0, 0, 0, 0]
+    else:
+        out += [kmajor(mlp.w1q, hidden, kq), mlp.w1s.contiguous(),
+                kmajor(mlp.w2q, c, kh), mlp.w2s.contiguous()]
+    if proj is None:
+        out += [0, 0]
+    else:
+        out += [kmajor(proj.wq, c, kq), proj.ws.contiguous()]
+    return tuple(out)
+
+
+def int8_mask(mlp, proj) -> int:
+    """The token-parallel forward's int8 flags: 1 the projection, 2 the
+    MLP (``tokfwd::kInt8Proj``, ``kInt8Mlp``)."""
+    return (1 if proj is not None else 0) | (2 if mlp is not None else 0)
+
+
 class FastBlockPlan(NamedTuple):
     """One block's fast-branch operands, prepared once (:func:`plan_fast_block`)."""
     params: FastParams
@@ -994,20 +1075,40 @@ class FastBlockPlan(NamedTuple):
     # kernels), both window_body.stage_layout and stage_bias; 'tokens'
     # (token_wgmma_layout)
     route: str = "window"
+    mlp: Optional[MlpQuant] = None    # int8 fc1 / fc2 operands, or None
+    proj: Optional[ProjQuant] = None  # int8 projection operands, or None
+    int8_layout: tuple = ()  # int8_token_layout on a CUDA device
+
+    @property
+    def int8_mask(self) -> int:
+        return int8_mask(self.mlp, self.proj)
+
+    @property
+    def quant(self) -> BlockQuant:
+        """The plan's int8 operands by group."""
+        return BlockQuant(self.qkv, self.mlp, self.proj)
+
+    def token_ptrs(self) -> list:
+        """The block's operands as ``tokfwd::BlockW`` reads them (its
+        ``kBlockPtrs`` pointers, 0 for an int8 group that is off)."""
+        return [*self.layout, self.bias, *(self.qkv_layout or (0, 0)),
+                *(self.int8_layout or (0,) * 6)]
 
 
 def plan_fast_block(params, bias, *, num_heads: int, quant=frozenset(),
                     route: Optional[str] = None) -> FastBlockPlan:
     """Fold a block's 12-param bundle (JAX layout) and pack its
-    head-major bias; with ``'qkv'`` in ``quant`` also quantize the folded
-    qkv weight to int8; on a CUDA device lay the weights out for the
-    kernel. ``route``: the design the plan is for, by default the fast
-    block's own (:func:`fast_route`, and 'tokens' where the window kernel
-    does not take the geometry); the pair's stage kernels ask for 'stage'.
-    'window' and 'stage' take ``csrc/window_body.cuh``'s weight panels and
-    bf16 qkv only: asked for where the card's kernel would refuse them,
-    they raise on either device. Depends on the weights only, so a caller
-    may keep it."""
+    head-major bias; for the int8 groups of ``quant`` ('qkv', 'mlp',
+    'proj'; 'conv' is the RDSTB's and ignored) also quantize the folded
+    weights to int8 (``quant.block_quant``); on a CUDA device lay the
+    weights out for the kernel. ``route``: the design the plan is for, by
+    default the fast block's own (:func:`fast_route`, and 'tokens' where
+    the window kernel does not take the geometry); the pair's stage
+    kernels ask for 'stage'. 'window' and 'stage' take
+    ``csrc/window_body.cuh``'s weight panels and no int8 group: asked for
+    where the card's kernel would refuse them, they raise on either
+    device and name route 'tokens'. Depends on the weights only, so a
+    caller may keep it."""
     from rdst_tpu_torch.kernels.quant import check_ported
 
     c, nh = params[0].shape[0], num_heads
@@ -1018,41 +1119,49 @@ def plan_fast_block(params, bias, *, num_heads: int, quant=frozenset(),
         raise ValueError(f"route {route!r}: expected 'window', 'tokens' or "
                          "'stage'")
     n, hidden = bias.shape[1], params[8].shape[1]
-    int8 = "qkv" in check_ported(quant)
+    groups = check_ported(quant)
+    int8 = bool(groups)
     if route is None:
         route = fast_route(c, int8)
         if route == "window" and not window_kernel_supports(n, c, nh,
                                                             hidden):
             route = "tokens"
     if route != "tokens" and int8:
-        raise ValueError(f"the {route} kernels take bf16 qkv only")
+        raise ValueError(f"the {route} kernels take bf16 qkv only and no "
+                         f"int8 product (pallas_quant {sorted(groups)}): "
+                         "route 'tokens', the token-parallel forward, takes "
+                         "them")
     if route == "window" and not window_kernel_supports(n, c, nh, hidden):
         raise ValueError(f"the window kernel does not take N={n}, C={c}, "
                          f"heads={nh}, hidden={hidden} (route 'tokens', the "
                          "token-parallel forward, takes C up to 192)")
     p = fast_params(params, c, nh)
     packed = pack_bias_fast(bias, nh, n)
-    q = qkv_quant(p.wqkv) if int8 else None
+    q = block_quant(p, groups)
     if packed.device.type != "cuda":
-        return FastBlockPlan(p, packed, (), q, (), route)
+        return FastBlockPlan(p, packed, (), q.qkv, (), route, q.mlp, q.proj)
     if route == "tokens":
         return FastBlockPlan(p, packed, token_wgmma_layout(token_layout(
-            p, nh)), q, qkv_token_layout(q, c, nh), route)
+            p, nh)), q.qkv, qkv_token_layout(q.qkv, c, nh), route, q.mlp,
+            q.proj, int8_token_layout(q.mlp, q.proj, c, hidden))
     from rdst_tpu_torch.kernels.window_body import stage_bias, stage_layout
 
     return FastBlockPlan(p, packed, stage_layout(kernel_layout(p), c, nh)
-                         + (stage_bias(packed, nh),), q, (), route)
+                         + (stage_bias(packed, nh),), None, (), route)
 
 
 def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
-                   windows_per_image: int, softmax: str = ""):
+                   windows_per_image: int, softmax: str = "", pack: int = 1):
     """The fast block on bf16 window-layout tokens (B*nW, N, C) with a
     prepared plan. A CPU tensor takes :func:`swin_block_fast_reference`;
     a CUDA tensor launches ``csrc/swin_block_fast.cu`` in the plan's
-    design (the token-parallel forward's five kernels, or the persistent
+    design (the token-parallel forward's kernels, or the persistent
     window kernel; one count either way) or raises; geometry the kernel
-    does not take raises on either device. The plan's int8 qkv operands,
-    when it has them, go with it (the token-parallel forward's)."""
+    does not take raises on either device. The plan's int8 operands,
+    when it has them, go with it (the token-parallel forward's); the
+    dynamic scales of int8 'mlp' and 'proj' are taken over the windows
+    one program of the JAX kernel holds (``quant.block_group_windows``,
+    ``pack`` 2 for the 'pack' mode)."""
     if x_windows.dim() != 3:
         raise ValueError(f"x_windows must be (B*nW, N, C), got "
                          f"{tuple(x_windows.shape)}")
@@ -1083,29 +1192,46 @@ def run_fast_block(x_windows, plan: FastBlockPlan, *, num_heads: int,
     dev = x_windows.device
     if plan.bias.device != dev:
         raise ValueError(f"plan is on {plan.bias.device}, x_windows on {dev}")
+    gw = t
+    if plan.int8_mask and t:
+        from rdst_tpu_torch.kernels.quant import block_group_windows
+
+        gw = block_group_windows(t, nw, n, c, nh, hidden, bw,
+                                 softmax=softmax, pack=pack)
     if dev.type == "cpu":
         return swin_block_fast_reference(x_windows, p, plan.bias,
                                          num_heads=nh, softmax=softmax,
-                                         qkv=plan.qkv)
+                                         qkv=plan.qkv, mlp=plan.mlp,
+                                         proj=plan.proj, group_windows=gw)
     out = torch.empty_like(x_windows)
     if t == 0:
         return out
     lib = _build.load(_FAST_SOURCE)
     dims = [t, n, c, nh, hidden, bw, code]
     if plan.route == "tokens":
-        int8 = plan.qkv_layout or (0, 0)
+        dims += [gw, plan.int8_mask]
         work = torch.empty(work_bytes(lib, "swin_block_fast_work_bytes", dims),
                            dtype=torch.uint8, device=dev)
         launch(lib, "swin_block_fast_tokens",
-               [x_windows, out, *plan.layout, plan.bias, *int8, work], dims,
-               dev)
+               [x_windows, out, *plan.token_ptrs(), work], dims, dev)
+        run_fast_block.kernels += token_fwd_kernels(plan.int8_mask)
     else:
         _launch_window(lib, x_windows, out, plan, dims, True)
+        run_fast_block.kernels += 1
     run_fast_block.launches += 1
     return out
 
 
 run_fast_block.launches = 0  # kernel launches since the last reset
+run_fast_block.kernels = 0   # kernels those launches ran
+
+
+def token_fwd_kernels(mask: int = 0) -> int:
+    """Kernels of one token-parallel forward (``tokfwd::fwd_kernels``): LN1,
+    qkv, attention, the projection and the fused MLP; int8 'proj' adds the
+    attention output's quantize pass, int8 'mlp' runs fc1, the hidden
+    rows' quantize pass and fc2 in the fused MLP's place."""
+    return 5 + (mask & 1) + 2 * ((mask >> 1) & 1)
 
 
 def _launch_window(lib, x, out, plan, dims, turns: bool) -> None:

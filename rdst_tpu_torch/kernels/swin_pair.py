@@ -5,8 +5,10 @@ Counterpart of ``rdst_tpu/kernels/swin_block.py::fused_swin_pair`` (bf16
 fast branch only, as there): block a (shift 0, shared bias) on
 window-layout tokens, its output rounded to bf16, the relayout
 window_reverse -> roll(-shift) -> window_partition (``_shift_relayout``),
-then block b (shift, per-window bias); with ``quant={'qkv'}`` each
-block's qkv product on int8 operands (``kernels.quant``). The output
+then block b (shift, per-window bias); with ``quant`` (any of 'qkv',
+'mlp', 'proj') each block's products of those groups on int8 operands
+(``kernels.quant``), the dynamic scales of 'mlp' and 'proj' over the
+windows of one JAX program (``quant.pair_group_windows``). The output
 stays in the SHIFTED window layout: the caller's window_reverse +
 roll(+shift) restores the image.
 
@@ -16,8 +18,9 @@ by width and int8: 'stage' for the window body, 'tokens' for the
 token-parallel forward) and calls :func:`run_swin_pair`, which launches
 the two stages of ``csrc/swin_pair.cu`` for a CUDA tensor -- stage A,
 block a into an image-layout scratch; stage B, block b on the rolled
-windows gathered from it; one kernel a stage on the window body, five on
-the token-parallel forward -- and counts the call in
+windows gathered from it; one kernel a stage on the window body, five to
+eight on the token-parallel forward (``token_fwd_kernels``) -- and counts
+the call in
 ``run_swin_pair.launches`` and its kernels in ``run_swin_pair.kernels``;
 for a CPU tensor it computes :func:`swin_pair_reference`. What the
 kernels do not take raises on either device.
@@ -32,19 +35,21 @@ from typing import Optional
 import torch
 
 from rdst_tpu_torch.kernels import _build
-from rdst_tpu_torch.kernels.quant import QkvQuant, check_ported
+from rdst_tpu_torch.kernels.quant import (BlockQuant, QkvQuant,
+                                          check_ported, pair_group_windows)
 from rdst_tpu_torch.kernels.swin_block import (
     BF16, FAST_MAX_C, H100_SMEM_OPTIN, FastBlockPlan, check_fast_tokens,
     fast_body, launch, plan_fast_block, softmax_code, stage_route,
-    token_kernel_supports, work_bytes)
+    token_fwd_kernels, token_kernel_supports, work_bytes)
 from rdst_tpu_torch.kernels.window_body import (BODY_MAX_C, body_supports,
                                                 make_geom, stage_fit,
                                                 window_pixels)
 from rdst_tpu_torch.nn.swin import window_partition, window_reverse
 
 _SOURCE = "swin_pair.cu"
-# kernels a call by stage design: one a stage on the window body, five
-# (``tokfwd::kFwdKernels``) on the token-parallel forward
+# kernels a call by stage design without int8 'mlp' / 'proj': one a stage
+# on the window body, five (``tokfwd::fwd_kernels``) on the token-parallel
+# forward
 KERNELS = {"window": 2, "tokens": 10}
 PLAN_ROUTE = {"window": "stage", "tokens": "tokens"}  # plan_fast_block's
 
@@ -72,20 +77,32 @@ def unshift_relayout(y, x_size, window_size: int, shift: int):
     return window_partition(img, ws).reshape(-1, ws * ws, c)
 
 
+def _int8(qkv: Optional[QkvQuant], quant: Optional[BlockQuant]) -> dict:
+    """fast_body's int8 keywords: ``quant``'s groups, ``qkv`` over its."""
+    q = quant or BlockQuant()
+    return q._replace(qkv=qkv if qkv is not None else q.qkv)._asdict()
+
+
 def swin_pair_reference(x_windows, pa, bias_a, pb, bias_b, *,
                         num_heads: int, x_size, window_size: int,
                         shift: int, softmax: str,
                         qkv_a: Optional[QkvQuant] = None,
-                        qkv_b: Optional[QkvQuant] = None):
+                        qkv_b: Optional[QkvQuant] = None,
+                        quant_a: Optional[BlockQuant] = None,
+                        quant_b: Optional[BlockQuant] = None,
+                        group_windows: Optional[int] = None):
     """Plain PyTorch version of the pair kernel: bf16 tokens in unshifted
     window layout, folded params (``FastParams``) and packed biases of
-    both blocks, their int8 qkv operands or None; returns bf16 tokens in
-    shifted window layout."""
+    both blocks, their int8 operands by group (``quant_a``, ``quant_b``;
+    ``qkv_a``, ``qkv_b`` for the qkv group alone) and the windows of a
+    scale group (:func:`fast_body`); returns bf16 tokens in shifted window
+    layout."""
+    gw = group_windows
     y = fast_body(x_windows.float(), pa, bias_a, num_heads=num_heads,
-                  softmax=softmax, qkv=qkv_a)
+                  softmax=softmax, group_windows=gw, **_int8(qkv_a, quant_a))
     y2 = shift_relayout(y.to(BF16), x_size, window_size, shift)
     z = fast_body(y2.float(), pb, bias_b, num_heads=num_heads,
-                  softmax=softmax, qkv=qkv_b)
+                  softmax=softmax, group_windows=gw, **_int8(qkv_b, quant_b))
     return z.to(BF16)
 
 
@@ -93,7 +110,10 @@ def swin_pair_staged_reference(x_windows, pa, bias_a, pb, bias_b, *,
                                num_heads: int, x_size, window_size: int,
                                shift: int, softmax: str,
                                qkv_a: Optional[QkvQuant] = None,
-                               qkv_b: Optional[QkvQuant] = None):
+                               qkv_b: Optional[QkvQuant] = None,
+                               quant_a: Optional[BlockQuant] = None,
+                               quant_b: Optional[BlockQuant] = None,
+                               group_windows: Optional[int] = None):
     """The pair's stage kernels in plain PyTorch (same arguments as
     :func:`swin_pair_reference`): stage A, block a on the unshifted
     windows, its bf16 rows written into the image-layout scratch (B, H*W,
@@ -107,14 +127,17 @@ def swin_pair_staged_reference(x_windows, pa, bias_a, pb, bias_b, *,
     nw = (h // ws) * (w // ws)
     b = t // nw
     c8 = make_geom(n, c, num_heads, pa.w1.shape[1]).c8
+    gw = group_windows
     ya = fast_body(x_windows.float(), pa, bias_a, num_heads=num_heads,
-                   softmax=softmax, qkv=qkv_a).to(BF16)
+                   softmax=softmax, group_windows=gw,
+                   **_int8(qkv_a, quant_a)).to(BF16)
     y = torch.zeros(b, h * w, c8, dtype=BF16, device=x_windows.device)
     y[:, window_pixels(h, w, ws, 0).reshape(-1), :c] = ya.reshape(
         b, nw * n, c)
     rows = y[:, window_pixels(h, w, ws, shift).reshape(-1), :c]
     z = fast_body(rows.reshape(t, n, c).float(), pb, bias_b,
-                  num_heads=num_heads, softmax=softmax, qkv=qkv_b)
+                  num_heads=num_heads, softmax=softmax, group_windows=gw,
+                  **_int8(qkv_b, quant_b))
     return z.to(BF16)
 
 
@@ -140,14 +163,15 @@ def pair_design_supports(n: int, c: int, nh: int, hidden: int,
 def pair_kernel_supports(n: int, c: int, nh: int, hidden: int,
                          int8: bool = False) -> bool:
     """Whether the pair kernel takes this block geometry in the design
-    :func:`stage_route` picks for its width and int8 group."""
+    :func:`stage_route` picks for its width and int8 products (any of
+    'qkv', 'mlp', 'proj')."""
     return pair_design_supports(n, c, nh, hidden, stage_route(c, int8))
 
 
 def plan_pair_block(params, bias, *, num_heads: int, quant=frozenset()):
     """One block of the pair, planned for the stage design of its width
-    and int8 group (:func:`stage_route`)."""
-    int8 = "qkv" in check_ported(quant)
+    and int8 groups (:func:`stage_route`)."""
+    int8 = bool(check_ported(quant))
     route = stage_route(params[0].shape[0], int8)
     return plan_fast_block(params, bias, num_heads=num_heads, quant=quant,
                            route=PLAN_ROUTE[route])
@@ -163,7 +187,8 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
     (``plan_fast_block`` with route 'stage' or 'tokens'). Returns (B*nW,
     N, C) in SHIFTED window layout. A CPU tensor takes
     :func:`swin_pair_reference`; a CUDA tensor launches the two stages or
-    raises."""
+    raises. The dynamic int8 scales are taken over the windows of one JAX
+    program (``quant.pair_group_windows``)."""
     h, w = x_size
     ws = window_size
     nh = num_heads
@@ -174,10 +199,10 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
     pa, pb = plan_a.params, plan_b.params
     hidden = pa.w1.shape[-1]
     code = softmax_code(softmax)
-    int8 = plan_a.qkv is not None
+    int8 = plan_a.quant.qkv is not None, plan_a.int8_mask
     route = {p: r for r, p in PLAN_ROUTE.items()}.get(plan_a.route)
     if (route is None or plan_b.route != plan_a.route
-            or (plan_b.qkv is not None) != int8):
+            or (plan_b.qkv is not None, plan_b.int8_mask) != int8):
         raise ValueError(
             f"fused_swin_pair runs both blocks in one stage design: plan "
             f"them with plan_pair_block (got routes {plan_a.route!r}, "
@@ -208,12 +233,15 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
     if plan_a.bias.device != dev or plan_b.bias.device != dev:
         raise ValueError(f"plans are on {plan_a.bias.device}, x_windows on "
                          f"{dev}")
+    mask = plan_a.int8_mask
+    gw = (pair_group_windows(t, nw, n, c, nh, hidden, softmax=softmax)
+          if mask and t else t)
     if dev.type == "cpu":
         return swin_pair_reference(x_windows, pa, plan_a.bias, pb,
                                    plan_b.bias, num_heads=nh, x_size=x_size,
                                    window_size=ws, shift=shift,
-                                   softmax=softmax, qkv_a=plan_a.qkv,
-                                   qkv_b=plan_b.qkv)
+                                   softmax=softmax, quant_a=plan_a.quant,
+                                   quant_b=plan_b.quant, group_windows=gw)
     out = torch.empty_like(x_windows)
     if t == 0:
         return out
@@ -225,15 +253,16 @@ def run_swin_pair(x_windows, plan_a: FastBlockPlan, plan_b: FastBlockPlan,
         launch(lib, "swin_pair_bf16",
                [x_windows, out, scratch, *plan_a.layout, *plan_b.layout],
                dims, dev)
+        run_swin_pair.kernels += KERNELS[route]
     else:
+        dims += [gw, mask]
         work = torch.empty(work_bytes(lib, "swin_pair_tokens_work_bytes",
                                       dims), dtype=torch.uint8, device=dev)
-        blocks = [ptr for p in (plan_a, plan_b)
-                  for ptr in (*p.layout, p.bias, *(p.qkv_layout or (0, 0)))]
-        launch(lib, "swin_pair_tokens", [x_windows, out, scratch, *blocks,
-                                         work], dims, dev)
+        launch(lib, "swin_pair_tokens",
+               [x_windows, out, scratch, *plan_a.token_ptrs(),
+                *plan_b.token_ptrs(), work], dims, dev)
+        run_swin_pair.kernels += 2 * token_fwd_kernels(mask)
     run_swin_pair.launches += 1
-    run_swin_pair.kernels += KERNELS[route]
     return out
 
 
@@ -248,8 +277,9 @@ def fused_swin_pair(x_windows, params_a, bias_a, params_b, bias_b, *,
     function takes it: params_X the 12-param bundles of the two blocks
     (weights (in, out), LN affines), folded here; bias_a (nH, N, N);
     bias_b (nH*nW, N, N) when shifted, else (nH, N, N); ``quant`` the
-    int8 groups ({'qkv'} or none). Returns (B*nW, N, C) in SHIFTED window
-    layout (:func:`run_swin_pair`)."""
+    int8 groups (a subset of 'qkv', 'mlp', 'proj'; 'conv' is the RDSTB's
+    and ignored). Returns (B*nW, N, C) in SHIFTED window layout
+    (:func:`run_swin_pair`)."""
     return run_swin_pair(
         x_windows,
         plan_pair_block(params_a, bias_a, num_heads=num_heads, quant=quant),

@@ -29,10 +29,11 @@ What a mode runs depends on the model's dtype (``models.rdst
   fast block kernel: the JAX package's ``pack=2`` puts two windows in
   one lane row of the TPU, a layout with the same arithmetic.
 
-``off`` asks for the plain PyTorch path in either dtype. ``pallas_quant
-='qkv'`` runs the fast block's qkv product on int8 operands in bf16
-(``kernels.quant``); float32 drops int8, as the JAX precise path does, and
-the other groups raise (not ported). The softmax
+``off`` asks for the plain PyTorch path in either dtype. ``pallas_quant``
+(any comma list of ``qkv``, ``mlp``, ``proj``, ``conv``, or ``all``) runs
+those products on int8 operands in bf16 (``kernels.quant``; ``conv`` is
+the RDSTB's); float32 drops int8, as the JAX precise path does. The
+softmax
 variant (resolved once; ``auto`` against the checkpoint's stamp) selects
 the bf16 kernels' stabilizer: ``''``/``stable``/``stable_bc`` (exact,
 the per-head row max subtracted), ``stable_mm`` (the max rounded to
@@ -95,7 +96,7 @@ def quant_flags(raw: str) -> frozenset:
     flags = frozenset(p.strip() for p in raw.split(",") if p.strip())
     bad = flags - set(QUANT_GROUPS)
     if bad:
-        raise ValueError(f"pallas_quant: unknown groups {sorted(bad)}")
+        raise ValueError(f"pallas_quant: unknown int8 groups {sorted(bad)}")
     return flags
 
 

@@ -197,6 +197,7 @@ class RDSTB(nn.Module):
         the CUDA kernels take at the build resolution. Checked when the
         model is built; the wrapper checks the runtime geometry again at
         every call."""
+        from rdst_tpu_torch.kernels.quant import mm_quant_groups
         from rdst_tpu_torch.kernels.rdstb_block import rdstb_kernel_supports
 
         nb = len(self.body)
@@ -216,7 +217,8 @@ class RDSTB(nn.Module):
         ws, _ = self._window(h, w)
         if not rdstb_kernel_supports(ws * ws, self.input_dim,
                                      self.growth_rate, nb, self.num_heads,
-                                     self.mlp_ratio, "qkv" in quant):
+                                     self.mlp_ratio,
+                                     bool(mm_quant_groups(quant))):
             return (f"{nb} DSTLs of C0={self.input_dim} growing by "
                     f"{self.growth_rate} with window {ws} exceed what the "
                     "CUDA kernel takes")

@@ -12,9 +12,10 @@ the resolution its training patches have (``model.train_resolution``).
   JAX precise path drops it). bfloat16: 'swin'/'pack' run each block on
   the fast block kernel, 'pair' each DSTL pair of RDST on the pair
   kernel, 'rdstb' each RDSTB on the RDSTB kernel, all three with int8
-  qkv operands when ``quant`` asks for them. A unit the mode's kernel
-  cannot take raises and names the mode to choose; nothing falls back
-  quietly.
+  operands for the groups ``quant`` asks for (any subset of 'qkv',
+  'mlp', 'proj', 'conv'; 'conv' is the RDSTB's, the blocks take the
+  other three). A unit the mode's kernel cannot take raises and names
+  the mode to choose; nothing falls back quietly.
 * :func:`set_train_mode`: the bf16 training route of each layer, by the
   JAX package's admission rules (``kernels.block_train``): a layer whose
   pair fits the train-pair kernel runs on it (``'pair'``, the default),
@@ -57,9 +58,10 @@ def set_kernel_mode(model: nn.Module, mode: str, softmax: str = "",
     if not model.route_units():  # no kernel to route (EDSR, MetaSR)
         mode, softmax, quant = "", "", frozenset()
     bf16 = model.dtype == BF16
+    check_ported(quant)  # raises on a group it does not know
     if bf16:
         softmax_code(softmax)  # raises on a variant the kernels lack
-        quant = check_ported(quant) if mode else frozenset()
+        quant = frozenset(quant or ()) if mode else frozenset()
     else:
         quant = frozenset()  # int8 rides the bf16 fast path only
     set_block_kernels(model, False)
@@ -69,6 +71,7 @@ def set_kernel_mode(model: nn.Module, mode: str, softmax: str = "",
             m.quant = frozenset()
         if isinstance(m, SwinTransformerBlock):
             m.quant = frozenset()
+            m.pack = 1
         if hasattr(m, "use_rdstb"):
             m.use_rdstb = False
             m.quant = frozenset()
@@ -91,6 +94,9 @@ def set_kernel_mode(model: nn.Module, mode: str, softmax: str = "",
                         f"{where}: the {kind_k} block kernel cannot run it "
                         f"({why}); build with pallas_kernels='off'")
                 blk.quant = quant
+                # the JAX package pairs windows in 'pack' mode at C <= 64,
+                # which changes the windows of a dynamic int8 scale
+                blk.pack = 2 if mode == "pack" and blk.dim <= 64 else 1
             set_block_kernels(unit, True)
             routes.append("fused_swin_block")
         elif not hasattr(unit, "rdstb_unsupported"):

@@ -253,6 +253,7 @@ class SwinTransformerBlock(nn.Module):
         self.use_block_train = False  # see models.routes.set_train_mode
         self.softmax = ""  # bf16 kernels' softmax variant, set with the mode
         self.quant = frozenset()  # int8 groups of the fast kernel route
+        self.pack = 1  # 2: 'pack' mode's window pairs (the int8 scales')
         self.generator: Optional[torch.Generator] = None  # factor columns
         # the table's window is decided from the build resolution, as the
         # reference's constructor does; the runtime window must match it
@@ -353,7 +354,8 @@ class SwinTransformerBlock(nn.Module):
                                    quant=self.quant))
             y = run_fast_block(x_windows.contiguous(), plan,
                                num_heads=self.num_heads,
-                               windows_per_image=nw, softmax=self.softmax)
+                               windows_per_image=nw, softmax=self.softmax,
+                               pack=self.pack)
         else:
             from rdst_tpu_torch.kernels.swin_block import (plan_f32_block,
                                                            run_f32_block)
@@ -492,6 +494,7 @@ class BasicLayer(nn.Module):
         ``pair_eligible`` asks in the JAX package, and what the stage
         design of the blocks' width takes; checked when the model is
         built."""
+        from rdst_tpu_torch.kernels.quant import mm_quant_groups
         from rdst_tpu_torch.kernels.swin_pair import pair_kernel_supports
 
         if not self.blocks or len(self.blocks) % 2:
@@ -502,7 +505,7 @@ class BasicLayer(nn.Module):
         n = blk.attn.window_size ** 2
         hidden = blk.mlp.fc1.out_features
         if not pair_kernel_supports(n, blk.dim, blk.num_heads, hidden,
-                                    "qkv" in quant):
+                                    bool(mm_quant_groups(quant))):
             return (f"N={n}, C={blk.dim}, {blk.num_heads} heads, hidden "
                     f"{hidden} exceed what the pair's stage kernels take")
         return None

@@ -140,10 +140,20 @@ def test_f32_serving_drops_int8(monkeypatch):
         device="cpu")
     assert meta["pallas_quant"] == ["qkv"]
     assert meta["routes"] == ["fused_rdstb"] * 8
-    with pytest.raises(NotImplementedError, match="int8"):
-        export.build_serving_model(
-            _paras(pallas_quant="mlp", inference_dtype="bfloat16"),
-            device="cpu")
+    model, meta = export.build_serving_model(
+        _paras(pallas_quant="mlp", inference_dtype="bfloat16"),
+        device="cpu")
+    assert meta["pallas_quant"] == ["mlp"]
+    assert meta["routes"] == ["fused_rdstb"] * 8
+    # int8 'mlp' sends every DSTL's stages to the token-parallel forward
+    from rdst_tpu_torch.kernels.rdstb_block import plan_rdstb
+
+    unit = model.route_units()[0][1]
+    assert unit.quant == frozenset({"mlp"})
+    plan = plan_rdstb(*unit.rdstb_inputs((16, 16), 8, 4),
+                      num_heads=unit.num_heads, growth=unit.growth_rate,
+                      adapter_prenorm=unit.pre_norm, quant=unit.quant)
+    assert plan.routes == ["tokens"] * 3 and plan.int8_mask == 2
 
 
 @pytest.mark.parametrize("c,nh", [(16, 2), (24, 4), (32, 4), (36, 6),

@@ -234,13 +234,19 @@ def test_cuda_request_without_card_raises():
     ("pallas_quant", "qkv,proj", "int8"),
 ])
 def test_unported_serving_options_raise(monkeypatch, key, value, match):
+    """Every int8 group is ported: each subset builds in bf16 and the
+    metadata reports its groups; a group the JAX package does not know
+    raises (f32 drops int8, as the JAX precise path does:
+    test_torch_repairs.py)."""
     monkeypatch.setenv("RDST_TORCH_QUANT", "")
-    # int8 raises in bf16 only: the f32 precise path drops it, as in the
-    # JAX package (test_torch_repairs.py)
-    extra = {"inference_dtype": "bfloat16"} if key == "pallas_quant" else {}
-    with pytest.raises(NotImplementedError, match=match):
-        export.build_serving_model(_paras(**{key: value}, **extra),
-                                   device="cpu")
+    extra = {"inference_dtype": "bfloat16"}
+    _, meta = export.build_serving_model(_paras(**{key: value}, **extra),
+                                         device="cpu")
+    assert meta[key] == sorted(value.split(","))
+    assert meta["routes"] == ["fused_rdstb"] * 8
+    with pytest.raises(ValueError, match=match):
+        export.build_serving_model(
+            _paras(**{key: value + ",fc3"}, **extra), device="cpu")
 
 
 def test_bf16_live_model_serves_flagship():

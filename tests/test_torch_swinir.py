@@ -208,8 +208,8 @@ def test_routes_at_build():
     (C = 180) on the single-block kernel, RDST-E1's pairs (C <= 120) on
     the pair kernel, SwinIR-light's pairs (C = 60) on the pair kernel;
     'block' puts every block on the single-block kernel. Serving:
-    SwinIR-std in mode 'swin' with int8 qkv; the pair modes raise and
-    name 'swin'."""
+    SwinIR-std in mode 'swin' with int8 qkv, and with {'qkv', 'mlp'} and
+    every group; the pair modes raise and name 'swin'."""
     std = build_generator(_port(STD), dtype=torch.bfloat16)
     assert std.routes == ["fused_swin_block"] * 6
     assert std.quant == frozenset({"qkv"}) and std.softmax == "stable_bc"
@@ -229,8 +229,11 @@ def test_routes_at_build():
     for mode in ("pair", "rdstb"):
         with pytest.raises(ValueError, match="pallas_kernels='swin'"):
             set_kernel_mode(std, mode, "clamp")
-    with pytest.raises(NotImplementedError, match="int8 'mlp'"):
-        set_kernel_mode(std, "swin", "clamp", {"qkv", "mlp"})
+    for groups in ({"qkv", "mlp"}, frozenset(("qkv", "mlp", "proj",
+                                              "conv"))):
+        assert set_kernel_mode(std, "swin", "clamp", groups) == \
+            ["fused_swin_block"] * 6
+        assert std.quant == frozenset(groups)
 
 
 def test_block_route_matches_plain_route():

@@ -61,6 +61,14 @@ ROWS = {
     "W96 f32": (*W96, {}, False),
     "W96 bf16": (*W96, {"inference_dtype": "bfloat16"}, True),
     "W96 bf16 XLA": (*W96, {"inference_dtype": "bfloat16"}, False),
+    # every int8 group (pallas_quant = 'all') in the bf16 kernels
+    "E1 bf16 int8 all": (*E1, {"inference_dtype": "bfloat16",
+                               "pallas_quant": "all"}, True),
+    "W96 bf16 int8 all": (*W96, {"inference_dtype": "bfloat16",
+                                 "pallas_quant": "all"}, True),
+    "SwinIR-std int8 all": ("config_files/swinir_std_40k_oasis20_x4.ini",
+                            "weights/swinir_std_40k_best_oasis20_x4.msgpack",
+                            {"pallas_quant": "all"}, True),
     # one model at the four scales of its config: a score a scale
     "MetaSR": ("config_files/metasr_20k_oasis20_x4.ini",
                "weights/metasr_20k_best_oasis20_x4.msgpack", {}, False),
