@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
-        [--only e1|swinir|w96|metasr|int8]
+        [--only e1|swinir|w96|metasr|int8|xdata ...]
 
 Drives the port's main paths -- the tester (``python -m
 rdst_tpu_torch.test``) on the committed weights of the README quality
@@ -291,6 +291,46 @@ after the build):
     all``, ``SwinIR-std int8 all``) against the JAX tester's own number,
     and for E1 and W96 outside the tolerance from the JAX tester's number
     for the shipped groups.
+
+(``--only xdata``, after the other models) phase 26's cross-dataset rows,
+then phases 36 and 37:
+26. the f32 block (the first DSTL's two shifts) and the E1 RDSTB in bf16
+    at COVID's whole-patient geometry (its test patient: LR 128x128,
+    about 5,000 windows a call) against their plain versions (1e-4 /
+    0.02) with CUDA-event times and bounds, the committed COVID weights;
+    then ``cli.test_main`` on the card with the committed
+    ``rdst_e1_10k_{brats8,acdc8,covid8}_best_x4.msgpack`` and their
+    configs as shipped (f32), each on its 8-phantom corpus (only the
+    testing patient 8 generated): BraTS a row a modality (t1ce, t1, t2,
+    flair; 4 channels through the head and tail), ACDC (the 128 crop)
+    and COVID (the 512 crop, whole-slice), each against the JAX tester's
+    own number (``TESTER_BARS``, beside README:172-177; 0.02 dB / 0.002
+    SSIM), and COVID in bf16 (mode rdstb) against its f32 row; each
+    row's launches (48 / 8 a forward, counts set to 0 just before and
+    read just after) and per patient the tester's wall time and one
+    forward's device time;
+36. ``runners.seg_eval`` on the card with the committed
+    ``weights/unet_tiny.pkl`` over the SR volumes of the bicubic, E1 f32,
+    HRL, SwinIR-light, SwinIR-std and W96 f32 rows (phase 26's, or run
+    here with their bars where those phases did not run): each class's
+    mean Dice over patients 19-20 within 0.005 of the JAX ``seg_eval``'s
+    (``DICE_BARS``), printed beside the README figure (the README's c0 /
+    c1 / c2 are the UNet's classes 0-2); the UNet on the card against the
+    CPU on one
+    patient (logits 1e-4 relative; a label may differ only at a near-tie,
+    counted);
+37. the auxiliary trainers on the 20-phantom corpus:
+    ``runners.train_seg_unet`` (batch 8 of HR 96x96) and
+    ``runners.train_vgg_features`` (width 0.25, batch 16 of 64x64), 100
+    steps each: the first three steps on the card against the CPU from
+    the same variables and batches (the VGG autoencoder in float32, 1e-3;
+    the seg UNet in float64, 1e-6, and its float32 first step, 1e-3: its
+    train-mode BatchNorm makes two float32 runs drift apart within two
+    Adam steps), the loss falling, the pickles reloading into
+    ``seg_eval``, the UNet-F term and ``VGGLoss``; steps/s and one
+    profiled step (device time, idle share); then phase 12's training
+    run under ``stall_warn_s=2``: the heartbeat reaches the last step and
+    the log holds no WATCHDOG line.
 
 Each training run's final evaluation scores the config's ``eva_metrics``
 as shipped (FID included). Any failed phase raises and the script exits
@@ -1506,42 +1546,61 @@ TRAIN_FWD_PHASES = (("pair_train_fwd_kernel", "persistent chained window "
                      "kernel"),)
 
 
-# spin kernels (``torch.cuda._sleep``) around the calls a profiler session
-# counts: without them a session recorded about 16 fewer kernel events
-# than the calls launched; with them it records every one
-PROFILE_PAD = 32
+# spin kernels (``torch.cuda._sleep``, about 0.5 us each) before and
+# after the calls a profiler session counts. A session can lose the
+# first kernel records it should hold: none early in a process, 2-3 after
+# a few hundred sessions, and 71 once in a whole run (its 32 leading
+# spins and 39 of the calls' 80 kernels); at times it loses its tail
+# instead, trailing spins and the last call's kernels. The calls'
+# kernels are all recorded when the first and last kernels recorded (in
+# start order) are spins: such a session is whole. One that is not is
+# opened again, up to PROFILE_TRIES sessions
+PROFILE_PAD = 128
+PROFILE_TRIES = 4
 
 
 def _kernels_per_call(call, iters: int = 5) -> dict:
     """The CUDA kernels of a call by torch.profiler (memory sets, copies
     and the pad apart): ``kernels``, the distinct kernels launched (each
-    call is the same), ``events``, the kernel events recorded a call, and
+    call is the same), ``events``, the kernel events recorded a call,
     ``pad``, the share of the PROFILE_PAD spin kernels before and after
-    the calls that the session recorded; 0 when the profiler records no
-    device time."""
+    the calls that the session recorded, ``whole``, whether the calls lie
+    between recorded spins, and ``sessions``, the sessions opened to get
+    a whole one (the last is returned when none was whole); 0 kernels and
+    events when the profiler records no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_PAD):
-            torch.cuda._sleep(1000)
-        for _ in range(iters):
-            call()
-        for _ in range(PROFILE_PAD):
-            torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-    names = {e.key: e.count for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA
-             and "memset" not in e.key.lower()
-             and "memcpy" not in e.key.lower()}
-    pad = sum(v for k, v in names.items() if "spin_kernel" in k)
-    names = {k: v for k, v in names.items() if "spin_kernel" not in k}
-    return {"kernels": len(names),
-            "events": sum(names.values()) / iters, "names": sorted(names),
-            "pad": pad / (2 * PROFILE_PAD)}
+    for n in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1000)
+            for _ in range(iters):
+                call()
+            for _ in range(PROFILE_PAD):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        kernels = sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA
+             and "memset" not in e.name.lower()
+             and "memcpy" not in e.name.lower()),
+            key=lambda e: e.time_range.start)
+        spin = ["spin_kernel" in e.name for e in kernels]
+        names = {}
+        for e in kernels:
+            if "spin_kernel" not in e.name:
+                names[e.name] = names.get(e.name, 0) + 1
+        out = {"kernels": len(names),
+               "events": sum(names.values()) / iters, "names": sorted(names),
+               "pad": sum(spin) / (2 * PROFILE_PAD),
+               "whole": bool(spin) and spin[0] and spin[-1],
+               "sessions": n}
+        if out["whole"] or not kernels:
+            return out
+    return out
 
 
 def _train_pair_widths(model, widths, label: str) -> list:
@@ -3417,19 +3476,29 @@ TESTER_BARS = {
                     "ssim": 0.8936},
     "MetaSR x4.0": {"readme": (26.71, 0.843), "psnr": 26.7147,
                     "ssim": 0.8425},
+    # the cross-dataset layouts (README:172-177), f32 as shipped, test
+    # patient 8 of each 8-phantom corpus; BraTS a score a modality
+    "BraTS": {"readme": {"t1ce": (24.50, 0.785), "t1": (24.65, 0.782),
+                         "t2": (24.66, 0.767), "flair": (25.50, 0.789)},
+              "t1ce psnr": 24.5027, "t1ce ssim": 0.7847,
+              "t1 psnr": 24.6523, "t1 ssim": 0.7824,
+              "t2 psnr": 24.6575, "t2 ssim": 0.7674,
+              "flair psnr": 25.4983, "flair ssim": 0.7886},
+    "ACDC": {"readme": (32.32, 0.940), "psnr": 32.3168, "ssim": 0.9397},
+    "COVID": {"readme": (35.12, 0.937), "psnr": 35.1176, "ssim": 0.9370},
 }
 # vifp and lpips against their bars (host metrics on the card's outputs)
 TESTER_VIFP_TOL, TESTER_LPIPS_TOL = 0.002, 1e-4
 
 
-def _tester_patients(data_dir: str) -> dict:
+def _tester_patients(data_dir: str, config: str = CONFIG) -> dict:
     """{patient id: its test pairs}, as the tester builds them (every
     oasis20 config has the same data keys)."""
     from rdst_tpu_torch.config import ParametersLoader
     from rdst_tpu_torch.data.readers import (make_test_dataset,
                                              testing_patient_ids)
 
-    p = ParametersLoader(CONFIG)
+    p = ParametersLoader(config)
     p.set("data_folder", data_dir)
     out = {}
     for pid in testing_patient_ids(p):
@@ -3639,8 +3708,14 @@ def _tester_row(label: str, config: str, weights, data_dir: str, tmp: str,
     stacked = np.load(os.path.join(tester.output_root,
                                    "stacked_eva_reports.npy"),
                       allow_pickle=True).item()
-    scores = {m: float(np.mean(stacked[f"{m}_4.0"]))
-              for m in tester.eva_func.basic_metrics}
+    metrics = tester.eva_func.basic_metrics
+    if all(isinstance(v, dict) for v in stacked.values()):
+        # BraTS: a report a modality, scored as "{modality} {metric}"
+        scores = {f"{mod} {m}": float(np.mean(rep[f"{m}_4.0"]))
+                  for mod, rep in stacked.items() for m in metrics}
+        stacked = next(iter(stacked.values()))
+    else:
+        scores = {m: float(np.mean(stacked[f"{m}_4.0"])) for m in metrics}
     patients_out = []
     for pid in tester.patient_ids:
         rep = np.load(os.path.join(tester.dirs["eva_reports"],
@@ -3674,8 +3749,8 @@ def _tester_row(label: str, config: str, weights, data_dir: str, tmp: str,
         if launches != per_forward * forwards:
             raise AssertionError(f"tester {label}: {launches} launches, "
                                  f"expected {per_forward} x {forwards}")
-    text = " ".join(f"{m} {v:.4f}" if m != "lpips" else f"{m} {v:.6f}"
-                    for m, v in scores.items())
+    text = " ".join(f"{m} {v:.6f}" if m.endswith("lpips") else
+                    f"{m} {v:.4f}" for m, v in scores.items())
     per = "; ".join(
         f"{r['pid']} {r['slices']} slices inference {r['inference_s']:.3f} s"
         + (f", forward {r['forward_ms']:.3f} ms wall / "
@@ -3693,8 +3768,10 @@ def _tester_row(label: str, config: str, weights, data_dir: str, tmp: str,
     if bar is not None:
         tols = {"psnr": TESTER_PSNR_TOL, "ssim": TESTER_SSIM_TOL,
                 "vifp": TESTER_VIFP_TOL, "lpips": TESTER_LPIPS_TOL}
-        out["delta"] = {m: scores[m] - bar[m] for m in tols if m in bar}
-        off = {m: d for m, d in out["delta"].items() if abs(d) > tols[m]}
+        out["delta"] = {m: scores[m] - bar[m] for m in bar
+                        if m != "readme"}
+        off = {m: d for m, d in out["delta"].items()
+               if abs(d) > tols[m.split()[-1]]}
         if off:
             raise AssertionError(f"tester {label}: {scores} against bar "
                                  f"{bar}: {off} past {tols}")
@@ -4541,14 +4618,22 @@ def _int8_case(label: str, call, plain, controls: dict, counter,
         ms = cuda_time_ms(call, warmup=2, iters=10)
         plain_ms = cuda_time_ms(plain, warmup=0, iters=1)
         prof = _kernels_per_call(call) if profile_kernels else None
-    if prof and prof["events"] and prof["events"] != kpc:
+    # a whole session must count what the wrapper counted; one that
+    # lost events can only count fewer
+    if prof and (prof["events"] or prof["whole"]) and (
+            prof["events"] != kpc if prof["whole"]
+            else prof["events"] > kpc):
         raise AssertionError(f"{label}: the profiler recorded {prof} a "
                              f"call, the wrapper counted {kpc}")
     bound_ms = max(t_ops, t_bytes)
     by = "operations" if t_ops >= t_bytes else "bytes"
     log(f"{label}: {_int8_note(held)}, bitwise repeat, {kpc} kernels a call"
         + (f" (the profiler: {prof['events']:g} kernel events a call of "
-           f"{prof['kernels']} kinds; {prof['pad']:.2f} of its pad)"
+           f"{prof['kernels']} kinds; {prof['pad']:.2f} of its pad, "
+           f"{prof['sessions']} session(s)"
+           + ("" if prof["whole"] else
+              f"; no whole session in {PROFILE_TRIES}: held to at most "
+              f"{kpc}") + ")"
            if prof else "")
         + f"; {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({by})")
@@ -5158,14 +5243,482 @@ def run_swinir(data_dir: str, tmp: str, patients: dict):
     return results, kernels
 
 
+# --------------------------------------------------------------------------
+# Phase 26's cross-dataset rows, phase 36 (Dice) and phase 37 (the
+# auxiliary trainers): ``--only xdata``, after the other models
+
+# dataset: (config, committed 10k snapshot, maker, id format); each is an
+# 8-phantom corpus (train 1-6, valid 7, test 8) at the generator's sizes,
+# of which only the testing patient is written
+XDATA = {
+    "BraTS": ("config_files/rdst_e1_10k_brats8_x4.ini",
+              "weights/rdst_e1_10k_brats8_best_x4.msgpack",
+              "make_brats_example", "HGG_Brats17_SYN_{:03d}_1"),
+    "ACDC": ("config_files/rdst_e1_10k_acdc8_x4.ini",
+             "weights/rdst_e1_10k_acdc8_best_x4.msgpack",
+             "make_acdc_example", "patient{:03d}"),
+    "COVID": ("config_files/rdst_e1_10k_covid8_x4.ini",
+              "weights/rdst_e1_10k_covid8_best_x4.msgpack",
+              "make_covid_example", "volume-covid19-A-{:04d}"),
+}
+# Dice: the rows with a Dice entry in README:81-89, each held to the JAX
+# ``seg_eval``'s own mean per class over patients 19-20
+# (``tools/jax_tester_bars.py --dice``: the JAX tester, then
+# ``rdst_tpu.runners.seg_eval`` with the committed four-class
+# ``weights/unet_tiny.pkl``, on the CPU; SwinIR-std's SR with the JAX
+# kernels in interpret mode) and printed beside its README figure: the
+# README's c0/c1/c2 are this UNet's classes 0-2 (equal to every printed
+# digit); class 3 is in neither the GT's labels nor the SR's, a Dice of 1
+UNET_DICE = "weights/unet_tiny.pkl"
+DICE_TOL = 0.005
+DICE_BARS = {
+    "bicubic": {"readme": (0.967, 0.923, 0.938),
+                "dice": (0.9671, 0.9226, 0.9379, 1.0)},
+    "E1 f32": {"readme": (0.957, 0.901, 0.923),
+               "dice": (0.9570, 0.9009, 0.9229, 1.0)},
+    "HRL fine-tune": {"readme": (0.957, 0.901, 0.923),
+                      "dice": (0.9568, 0.9011, 0.9231, 1.0)},
+    "SwinIR-light": {"readme": (0.957, 0.915, 0.937),
+                     "dice": (0.9574, 0.9150, 0.9368, 1.0)},
+    "SwinIR-std": {"readme": (0.948, 0.886, 0.914),
+                   "dice": (0.9482, 0.8862, 0.9143, 1.0)},
+    "W96 f32": {"readme": (0.962, 0.898, 0.917),
+                "dice": (0.9622, 0.8982, 0.9167, 1.0)},
+}
+# the UNet's logits on the card against the CPU's (relative to the
+# largest logit)
+UNET_LOGIT_RTOL = 1e-4
+# the auxiliary trainers (phase 37): steps, and the card's first steps
+# against the CPU's from the same variables and batches
+AUX_STEPS, AUX_CHECK_STEPS = 100, 3
+AUX_F32_RTOL = 1e-3
+AUX_F64_RTOL = 1e-6
+# the phase-13 training run under a small stall_warn_s
+WATCHDOG_WARN_S = 2.0
+
+
+def _make_xdata_corpus(name: str, tmp: str) -> str:
+    """``name``'s corpus as the port's generator makes it from seed 0, its
+    testing patient only (its own seed: ``only``)."""
+    from rdst_tpu_torch.data import synthetic
+
+    _, _, maker, fmt = XDATA[name]
+    data_dir = os.path.join(tmp, name, "example8")
+    t0 = time.perf_counter()
+    getattr(synthetic, maker)(
+        data_dir, patient_ids=tuple(fmt.format(i) for i in range(1, 9)),
+        only=(fmt.format(8),))
+    log(f"generated the {name} testing patient in "
+        f"{time.perf_counter() - t0:.3f} s")
+    return data_dir
+
+
+def _xdata_kernels(config: str, weights: str, patients: dict,
+                   gen) -> dict:
+    """The f32 block (both shifts of the first DSTL) and the bf16 RDSTB at
+    one whole patient of ``config``'s geometry against their plain
+    versions, with the config's committed weights."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.serving.export import build_serving_model
+
+    (images,) = _images(patients)
+    h, w = _lr_hw(patients)
+    x_size = (-(-h // 8) * 8, -(-w // 8) * 8)
+    model32 = _build_f32(config, weights)
+    f32 = [_f32_block_at(blk, shift, images, x_size, gen)
+           for blk, shift in _rdst_blocks(model32)[:2]]
+    del model32
+    p = ParametersLoader(config)
+    p.set("well_trained_single_scale_model_g", weights)
+    p.set("inference_dtype", "bfloat16")
+    model16, meta = build_serving_model(p, device="cuda")
+    if meta["routes"] != ["fused_rdstb"] * 8:
+        raise AssertionError(f"{config} bf16 routes {meta['routes']}")
+    rdstb = [_rdstb_at(model16.body[0], images, x_size, gen,
+                       model16.softmax)]
+    return {"f32": f32, "rdstb": rdstb}
+
+
+@phase("cross-dataset tester")
+def xdata_tester_phase(tmp: str) -> dict:
+    """Phase 26's cross-dataset rows: the f32 block and the RDSTB at
+    COVID's whole-patient geometry against their plain versions, then
+    ``cli.test_main`` on the card for BraTS (a row a modality), ACDC and
+    COVID in f32 as shipped against the JAX tester's own numbers, and
+    COVID in bf16 (mode rdstb) against its f32 row."""
+    from rdst_tpu_torch.kernels import rdstb_block, swin_block
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    f32, run = swin_block.fused_swin_block, rdstb_block.run_rdstb
+    rows, kern = {}, {}
+    for name, (config, weights, _, _) in XDATA.items():
+        data_dir = _make_xdata_corpus(name, tmp)
+        patients = _tester_patients(data_dir, config)
+        log(f"{name} testing patients: "
+            f"{dict(zip(patients, _images(patients)))} slices of LR "
+            f"{tuple(_lr_hw(patients))}")
+        if name == "COVID":
+            kern = _xdata_kernels(config, weights, patients, gen)
+        rows[name] = _tester_row(name, config, weights, data_dir, tmp,
+                                 patients, f32, 48, TESTER_BARS[name])
+        if name == "COVID":
+            rows["COVID bf16"] = _tester_row(
+                "COVID bf16", config, weights, data_dir, tmp, patients, run,
+                8, inference_dtype="bfloat16")
+            _versus_f32("COVID bf16", rows["COVID bf16"], rows["COVID"])
+    return {"kernels": kern, "rows": rows}
+
+
+# Dice rows: label -> (config, weights, counter name, launches a forward,
+# overrides); their tester runs are phase 26's where those ran
+DICE_ROWS = {
+    "bicubic": (CONFIG, None, None, 0, {"feature_generator": "bicubic"}),
+    "E1 f32": (CONFIG, WEIGHTS, "fused_swin_block", 48, {}),
+    "HRL fine-tune": (HRL_CONFIG, HRL_WEIGHTS, "fused_swin_block", 48, {}),
+    "SwinIR-light": (LIGHT_CONFIG, LIGHT_WEIGHTS, "fused_swin_block", 24,
+                     {}),
+    "SwinIR-std": (SWINIR_CONFIG, SWINIR_WEIGHTS, "run_fast_block", 36, {}),
+    "W96 f32": (W96_CONFIG, W96_WEIGHTS, "fused_swin_block", 48, {}),
+}
+
+
+def _row_paras(label: str, data_dir: str, tmp: str):
+    """The paras of a tester row's run (its own output tree), as
+    ``_tester_row`` ran it."""
+    from rdst_tpu_torch.config import ParametersLoader
+
+    config, weights, _, _, over = DICE_ROWS[label]
+    p = ParametersLoader(config)
+    for k, v in {"data_folder": data_dir, "verbose": False,
+                 "output_dir": os.path.join(tmp, "tester",
+                                            label.replace(" ", "_")),
+                 **over}.items():
+        p.set(k, v)
+    return p
+
+
+def _unet_card_vs_cpu(sr_vol: np.ndarray) -> dict:
+    """The committed UNet's logits and labels of one SR volume on the card
+    against the CPU's: logits within UNET_LOGIT_RTOL of the largest; a
+    label may differ only where the CPU's two largest logits lie within
+    twice the largest logit difference of each other (a tie the card
+    breaks the other way), and those pixels are counted."""
+    import pickle
+
+    from rdst_tpu_torch.runners.seg_eval import load_unet, unet_logits
+
+    with open(UNET_DICE, "rb") as f:
+        variables = pickle.load(f)
+    card = unet_logits(load_unet(variables, 1, "cuda"), sr_vol).cpu()
+    cpu = unet_logits(load_unet(variables, 1, "cpu"), sr_vol)
+    diff = (card - cpu).abs().max().item()
+    scale = cpu.abs().max().item()
+    top2 = cpu.topk(2, dim=1).values
+    flips = card.argmax(1) != cpu.argmax(1)
+    near = (top2[:, 0] - top2[:, 1]) <= 2 * diff
+    out = {"max_abs_diff": diff, "rel": diff / scale,
+           "pixels": int(flips.numel()), "flips": int(flips.sum()),
+           "flips_not_ties": int((flips & ~near).sum())}
+    log(f"UNet on the card vs the CPU over {sr_vol.shape[0]} slices: "
+        f"logits max abs diff {diff:.3e} ({out['rel']:.3e} of the largest, "
+        f"bar {UNET_LOGIT_RTOL}); labels differ at {out['flips']} of "
+        f"{out['pixels']} pixels, {out['flips_not_ties']} of them not "
+        "near-ties")
+    if out["rel"] > UNET_LOGIT_RTOL or out["flips_not_ties"]:
+        raise AssertionError(f"UNet card vs CPU: {out}")
+    return out
+
+
+@phase("Dice of the tester's SR volumes")
+def dice_phase(data_dir: str, tmp: str, patients: dict) -> dict:
+    """``runners.seg_eval`` on the card over the SR volumes of phase 26's
+    oasis20 rows (run here where phase 26's did not run), each class's
+    mean Dice within DICE_TOL of the JAX ``seg_eval``'s; the UNet on the
+    card against the CPU on one patient."""
+    from rdst_tpu_torch.kernels import swin_block
+    from rdst_tpu_torch.runners.seg_eval import seg_eval
+    from rdst_tpu_torch.utils.figures import _load_sr_volume
+
+    rows = {}
+    for label, (config, weights, counter, per_fwd, over) in \
+            DICE_ROWS.items():
+        p = _row_paras(label, data_dir, tmp)
+        pid = next(iter(patients))
+        try:
+            _load_sr_volume(p, pid, SCALE)
+        except FileNotFoundError:
+            _tester_row(label, config, weights, data_dir, tmp, patients,
+                        getattr(swin_block, counter) if counter else None,
+                        per_fwd, TESTER_BARS[label], **over)
+        t0 = time.perf_counter()
+        dice, table = seg_eval(p, UNET_DICE, verbose=False, device="cuda")
+        seconds = time.perf_counter() - t0
+        mean = [float(d) for d in dice.mean(axis=0)]
+        bar = DICE_BARS[label]
+        delta = [m - b for m, b in zip(mean, bar["dice"])]
+        rows[label] = {"dice": mean, "per_patient": dice.tolist(),
+                       "delta": delta, "seconds": seconds}
+        log(f"Dice {label}: classes {' / '.join(f'{d:.4f}' for d in mean)} "
+            f"(JAX seg_eval {' / '.join(f'{d:.4f}' for d in bar['dice'])}, "
+            f"bar {DICE_TOL}; README c0/c1/c2 {bar['readme']}) in "
+            f"{seconds:.3f} s")
+        log(table)
+        if max(abs(d) for d in delta) > DICE_TOL:
+            raise AssertionError(f"Dice {label}: {mean} against "
+                                 f"{bar['dice']}")
+    sr = _load_sr_volume(_row_paras("E1 f32", data_dir, tmp),
+                         next(iter(patients)), SCALE)
+    return {"rows": rows, "unet_card_vs_cpu": _unet_card_vs_cpu(sr)}
+
+
+def _aux_profile(step, label: str) -> dict:
+    """Steps/s over WALL_STEPS warm steps on the wall clock, and one
+    profiled step's wall and device time and idle share."""
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(WALL_STEPS):
+        step()
+    torch.cuda.synchronize()
+    steps_per_s = WALL_STEPS / (time.perf_counter() - t0)
+    wall_us, _, device = _profiled(step)
+    busy = sum(float(e.self_device_time_total or 0.0) for e in device)
+    out = {"steps_per_s": steps_per_s, "wall_us": wall_us,
+           "device_us": busy,
+           "kernel_launches": sum(e.count for e in device
+                                  if "memset" not in e.key.lower()
+                                  and "memcpy" not in e.key.lower())}
+    if busy:
+        out["idle_share"] = 1.0 - busy / wall_us
+    log(f"{label}: {steps_per_s:.3f} steps/s over {WALL_STEPS} warm steps; "
+        f"one profiled step {wall_us / 1e3:.3f} ms wall, "
+        + (f"{busy / 1e3:.3f} ms device, idle share {out['idle_share']:.3f}"
+           if busy else "device time not measured")
+        + f", {out['kernel_launches']} kernel launches")
+    return out
+
+
+def _first_steps(make, batches, steps: int, dtype=torch.float32):
+    """The losses of ``steps`` updates of a fresh trainer (``make(device)``)
+    on the card and on the CPU over the same batches, in ``dtype``."""
+    from rdst_tpu_torch.utils.optim import adam
+
+    losses, params = {}, {}
+    for dev in ("cuda", "cpu"):
+        t = make(dev)
+        if dtype != torch.float32:
+            t.model.to(dtype)
+            t.params = list(t.model.parameters())
+            t.opt = adam(t.params, t.opt.schedule(0))
+        if t.params[0].device.type != dev:
+            raise AssertionError(f"trainer for {dev} on {t.params[0].device}")
+        losses[dev] = []
+        for batch in batches[:steps]:
+            loss = t.step(*batch)  # the seg UNet's: (loss, accuracy)
+            losses[dev].append(
+                (loss[0] if isinstance(loss, tuple) else loss).item())
+        params[dev] = [p.detach().cpu() for p in t.params]
+    diff = max((a - b).abs().max().item()
+               for a, b in zip(params["cuda"], params["cpu"]))
+    log(f"after {steps} {dtype} steps the card's parameters differ from "
+        f"the CPU's by at most {diff:.3e}")
+    return losses
+
+
+def _held(label: str, losses: dict, rtol: float) -> float:
+    err = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                  losses["cpu"]))
+    log(f"{label}: card {losses['cuda']} vs CPU {losses['cpu']}: relative "
+        f"{err:.3e} (bar {rtol})")
+    if err > rtol:
+        raise AssertionError(f"{label}: {err} > {rtol}")
+    return err
+
+
+@phase("auxiliary trainers")
+def aux_trainers_phase(data_dir: str, tmp: str) -> dict:
+    """``train_seg_unet`` (batch 8 of HR 96x96, its defaults) and
+    ``train_vgg_features`` (width 0.25, batch 16 of 64x64) on the card for
+    AUX_STEPS steps each: the first AUX_CHECK_STEPS on the card against
+    the CPU from the same initial variables and batches, the loss
+    falling, the pickle reloading into seg_eval, the UNet-F term and
+    VGGLoss; steps/s and one profiled step; then the phase-13 training
+    run under a small ``stall_warn_s``."""
+    import pickle
+
+    from rdst_tpu_torch.cli import train_main
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.losses.seg_unet import SegUNetLoss
+    from rdst_tpu_torch.losses.vgg import VGGLoss
+    from rdst_tpu_torch.runners.seg_eval import seg_eval
+    from rdst_tpu_torch.runners.train_seg_unet import SegUNetTrainer
+    from rdst_tpu_torch.runners.train_vgg_features import VGGFeatureTrainer
+
+    def paras(**kw):
+        p = ParametersLoader(CONFIG)
+        for k, v in {"data_folder": data_dir, "verbose": False,
+                     "output_dir": os.path.join(tmp, "aux"), **kw}.items():
+            p.set(k, v)
+        return p
+
+    out = {}
+    # -- the seg UNet: init and batches from the trainer's own seed
+    seg0 = SegUNetTrainer(paras(), device="cpu")
+    init = seg0.variables()
+    rng = np.random.default_rng(0)
+    seg_batches = [(seg0.ds.sample(rng),) for _ in range(AUX_CHECK_STEPS)]
+
+    def make_seg(dev):
+        return SegUNetTrainer(paras(), device=dev, init_variables=init)
+
+    # float32: the forward at the shared init within AUX_F32_RTOL (logged
+    # after it: the train-mode BatchNorm of the deepest stages makes two
+    # float32 runs drift apart by 1e-4 - 1e-3 in two Adam steps, in the
+    # JAX package as here); float64 (cuDNN's and the CPU's convolutions in
+    # double): every step within AUX_F64_RTOL
+    f32 = _first_steps(make_seg, seg_batches, AUX_CHECK_STEPS)
+    _held("seg UNet first step, float32", {k: v[:1] for k, v in f32.items()},
+          AUX_F32_RTOL)
+    log(f"seg UNet float32 steps 1-{AUX_CHECK_STEPS}: card {f32['cuda']}, "
+        f"CPU {f32['cpu']}")
+    f64 = _first_steps(make_seg, seg_batches, AUX_CHECK_STEPS,
+                       torch.float64)
+    out["seg_first_steps"] = {"f32": f32, "f64": f64,
+                              "f64_rel": _held("seg UNet float64", f64,
+                                               AUX_F64_RTOL)}
+    seg = make_seg("cuda")
+    t0 = time.perf_counter()
+    losses = [seg.step(seg.ds.sample(rng))[0] for _ in range(AUX_STEPS)]
+    losses = torch.stack(losses).tolist()
+    out["seg_run_s"] = time.perf_counter() - t0
+    log(f"seg UNet {AUX_STEPS} steps in {out['seg_run_s']:.3f} s: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}")
+    fifth = max(AUX_STEPS // 5, 1)  # the loss falls: last fifth vs first
+    if not (np.isfinite(losses).all() and
+            np.mean(losses[-fifth:]) < np.mean(losses[:fifth])):
+        raise AssertionError(f"seg UNet losses {losses}")
+    batch = seg.ds.sample(rng)
+    out["seg_profile"] = _aux_profile(lambda: seg.step(batch),
+                                      "seg UNet step")
+    unet_pkl = os.path.join(tmp, "aux_unet.pkl")
+    with open(unet_pkl, "wb") as f:
+        pickle.dump(seg.variables(), f)
+    # the pickle in the UNet-F term and in seg_eval
+    term = SegUNetLoss(paras(unet_native_ckpt=unet_pkl,
+                             unet_loss_layers={"encoder-L1": [1, 2]}))
+    term = term.to("cuda")
+    x = torch.from_numpy(batch["out"]).cuda()
+    with torch.no_grad():
+        value = term(x + 0.05, x).item()
+    state = seg.model.state_dict()
+    same = all(torch.equal(v.cpu(), state[k].cpu())
+               for k, v in term.model.state_dict().items())
+    log(f"UNet-F term of the trained UNet: {value:.6f}; weights reloaded "
+        f"bitwise: {same}")
+    if not (np.isfinite(value) and value > 0 and same):
+        raise AssertionError("UNet-F term of the trained UNet")
+    dice, _ = seg_eval(_row_paras("E1 f32", data_dir, tmp), unet_pkl,
+                       verbose=False, device="cuda")
+    log(f"seg_eval with the trained UNet over the E1 f32 row's SR volumes: "
+        f"mean Dice {dice.mean(axis=0).round(4).tolist()}")
+    out["seg_reload"] = {"unet_f": value, "dice": dice.tolist()}
+
+    # -- the VGG feature stack
+    def make_vgg(dev, seed=0):
+        return VGGFeatureTrainer(paras(), device=dev, seed=seed,
+                                 init_variables=vgg_init)
+
+    vgg_init = VGGFeatureTrainer(paras(), device="cpu").model.variables()
+    sampler = make_vgg("cpu", seed=1)
+    vgg_batches = [sampler.sample_batch() for _ in range(AUX_CHECK_STEPS)]
+    vf32 = _first_steps(make_vgg, vgg_batches, AUX_CHECK_STEPS)
+    out["vgg_first_steps"] = {"f32": vf32, "rel": _held(
+        "VGG autoencoder float32", vf32, AUX_F32_RTOL)}
+    vgg = make_vgg("cuda")
+    t0 = time.perf_counter()
+    vl = torch.stack([vgg.step(*vgg.sample_batch())
+                      for _ in range(AUX_STEPS)]).tolist()
+    out["vgg_run_s"] = time.perf_counter() - t0
+    log(f"VGG autoencoder {AUX_STEPS} steps in {out['vgg_run_s']:.3f} s: "
+        f"mse {vl[0]:.5f} -> {vl[-1]:.5f}")
+    if not (np.isfinite(vl).all() and
+            np.mean(vl[-fifth:]) < np.mean(vl[:fifth])):
+        raise AssertionError(f"VGG autoencoder losses {vl}")
+    vb = vgg.sample_batch()
+    out["vgg_profile"] = _aux_profile(lambda: vgg.step(*vb),
+                                      "VGG autoencoder step")
+    blob = {"width": vgg.width,
+            "params": vgg.model.variables()["params"]["encoder"],
+            "losses": vl}
+    vgg_pkl = os.path.join(tmp, "aux_vgg.pkl")
+    with open(vgg_pkl, "wb") as f:
+        pickle.dump(blob, f)
+    terms = {}
+    # the stack in the committed substitute's place (no torchvision vgg19
+    # in the repo)
+    before = os.environ.get("RDST_TPU_VGG19_NATIVE")
+    os.environ["RDST_TPU_VGG19_NATIVE"] = vgg_pkl
+    try:
+        for name in ("VGG22", "VGG54"):
+            loss = VGGLoss(name).to("cuda")
+            with torch.no_grad():
+                terms[name] = loss(x + 0.05, x).item()
+            if not (np.isfinite(terms[name]) and terms[name] > 0
+                    and loss.model.width == vgg.width):
+                raise AssertionError(f"{name} of the trained stack: {terms}")
+    finally:
+        if before is None:
+            os.environ.pop("RDST_TPU_VGG19_NATIVE")
+        else:
+            os.environ["RDST_TPU_VGG19_NATIVE"] = before
+    log(f"VGGLoss of the trained stack: {terms}")
+    out["vgg_reload"] = terms
+
+    # -- the watchdog over the phase-13 run: beats, and logs nothing
+    wd_out = os.path.join(tmp, "watchdog")
+    # (its final evaluation without FID: the watchdog is what this run
+    # checks, and this phase reads no VGG substitute)
+    trainer = train_main(_train_argv(data_dir, wd_out, TRAIN_STEPS)
+                         + [f"stall_warn_s={WATCHDOG_WARN_S}",
+                            "eva_metrics='psnr ssim'"])
+    with open(trainer.log_file) as f:
+        lines = [ln for ln in f if "WATCHDOG" in ln]
+    log(f"training run under stall_warn_s={WATCHDOG_WARN_S}: "
+        f"{trainer.step} steps, heartbeat at {trainer._wd_step}, "
+        f"{len(lines)} WATCHDOG lines")
+    if lines or trainer._wd_step != TRAIN_STEPS:
+        raise AssertionError(f"watchdog: {lines}, {trainer._wd_step}")
+    out["watchdog"] = {"stall_warn_s": WATCHDOG_WARN_S,
+                       "steps": trainer.step, "lines": len(lines)}
+    return out
+
+
+def run_xdata(data_dir: str, tmp: str, patients: dict):
+    """Phases 26 (the cross-dataset rows), 36 and 37; returns (results,
+    kernel rows: the f32 block and the RDSTB at COVID's geometry)."""
+    tester = xdata_tester_phase(tmp)
+    dice = dice_phase(data_dir, tmp, patients)
+    aux = aux_trainers_phase(data_dir, tmp)
+    kern, rows = tester["kernels"], tester["rows"]
+    kernels = [
+        _row("fused_swin_block (COVID f32 tester, whole patient)",
+             "swin_block.cu", "rdst_tpu/kernels/swin_block.py:757",
+             rows["COVID"]["launches"], kern["f32"]),
+        _row("fused_rdstb (COVID bf16 tester, whole patient)",
+             "rdstb_block.cu", "rdst_tpu/kernels/rdstb_block.py:334",
+             rows["COVID bf16"]["launches"], kern["rdstb"]),
+    ]
+    return {"tester": tester, "dice": dice, "aux": aux}, kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--only", choices=("e1", "swinir", "w96", "metasr",
-                                       "int8"),
-                    default=None,
-                    help="run the card and build phases and one model's "
+                                       "int8", "xdata"),
+                    nargs="+", default=None,
+                    help="run the card and build phases and these models' "
                     "phases only (default: every phase)")
     args = ap.parse_args(argv)
 
@@ -5185,20 +5738,23 @@ def main(argv=None) -> int:
         patients = _tester_patients(data_dir)
         log(f"held-out patients: {dict(zip(patients, _images(patients)))} "
             "slices")
-        if args.only in (None, "e1"):
+        if args.only is None or "e1" in args.only:
             results["e1"], rows = run_e1(data_dir, tmp, patients)
             kernels += rows
-        if args.only in (None, "swinir"):
+        if args.only is None or "swinir" in args.only:
             results["swinir"], rows = run_swinir(data_dir, tmp, patients)
             kernels += rows
-        if args.only in (None, "w96"):
+        if args.only is None or "w96" in args.only:
             results["w96"], rows = run_w96(data_dir, tmp, patients)
             kernels += rows
-        if args.only in (None, "metasr"):
+        if args.only is None or "metasr" in args.only:
             results["metasr"], rows = run_metasr(data_dir, tmp)
             kernels += rows
-        if args.only in (None, "int8"):
+        if args.only is None or "int8" in args.only:
             results["int8"], rows = run_int8(data_dir, tmp, patients)
+            kernels += rows
+        if args.only is None or "xdata" in args.only:
+            results["xdata"], rows = run_xdata(data_dir, tmp, patients)
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

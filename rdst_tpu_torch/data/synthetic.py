@@ -17,6 +17,10 @@ Layouts produced (matching what the reference datasets glob):
 * ACDC:    {root}/{pid}/{pid}_frame{XX}.nii.gz + _frame{XX}_gt.nii.gz
 * COVID:   {root}/{pid}.nii.gz + {root}/mask/{pid}_mask.nii.gz
 
+The BraTS, ACDC and COVID makers take ``only``: write just those of
+``patient_ids``, each with the volumes its place in ``patient_ids``
+seeds (a tester reads only its testing patients).
+
 Run as a script to create the OASIS example tree:
     python -m rdst_tpu_torch.data.synthetic [--root data/OASIS/example]
 """
@@ -110,8 +114,11 @@ def make_brats_example(
     modalities=("t1ce", "t1", "t2", "flair"),
     shape: Tuple[int, int, int] = (80, 96, 64),
     seed: int = 0,
+    only=None,
 ) -> None:
     for i, pid in enumerate(patient_ids):
+        if only is not None and pid not in only:
+            continue
         rng = np.random.default_rng(seed + 100 + i)
         # reference path layout: {root}/{group}/{name}/ for pid "{group}_{name}"
         group = pid.split("_")[0]
@@ -133,8 +140,11 @@ def make_acdc_example(
     patient_ids=("patient001", "patient002"),
     shape: Tuple[int, int, int] = (160, 160, 10),
     seed: int = 0,
+    only=None,
 ) -> None:
     for i, pid in enumerate(patient_ids):
+        if only is not None and pid not in only:
+            continue
         pdir = join(root, pid)
         os.makedirs(pdir, exist_ok=True)
         for frame in (1, 12):
@@ -149,9 +159,12 @@ def make_covid_example(
     patient_ids=("volume-covid19-A-0001", "volume-covid19-A-0002"),
     shape: Tuple[int, int, int] = (630, 630, 20),
     seed: int = 0,
+    only=None,
 ) -> None:
     os.makedirs(join(root, "mask"), exist_ok=True)
     for i, pid in enumerate(patient_ids):
+        if only is not None and pid not in only:
+            continue
         rng = np.random.default_rng(seed + 300 + i)
         # CT-like noise floor OUTSIDE the anatomy too: the 512 centre
         # crop keeps large air regions, and exactly-constant patches

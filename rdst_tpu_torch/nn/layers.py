@@ -162,7 +162,8 @@ class BatchNorm(nn.Module):
 
     ``forward(x, train)``: with ``train`` the batch statistics normalize
     (mean and the fast variance ``max(E[x^2] - E[x]^2, 0)`` over N, H, W,
-    in float32) and the running statistics move as flax moves them,
+    in float32, or float64 for a float64 input) and the running
+    statistics move as flax moves them,
     ``r = momentum * r + (1 - momentum) * batch`` with the *biased*
     variance (flax's ``momentum=0.9`` is torch's 0.1); without it the
     running statistics normalize. The running statistics are buffers
@@ -181,7 +182,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if train:
-            xf = x.float()
+            xf = x if x.dtype == torch.float64 else x.float()
             mean = xf.mean(dim=(0, 2, 3))
             var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean,
                               min=0.0)

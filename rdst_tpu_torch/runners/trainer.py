@@ -30,7 +30,12 @@ One optimizer step per "epoch", as in the JAX package:
   host in batches (``scalar_flush_steps``) and at every check, so the
   host does not wait for the card between checks;
 * every ``check_every`` steps: the logit audit, a quick evaluation on the
-  serving routes (eval mode, no gradient), a checkpoint.
+  serving routes (eval mode, no gradient), a checkpoint;
+* watchdogs (a thread over setup and each state's step loop, reading
+  only the host's step counter): ``stall_warn_s`` logs a stall,
+  ``stall_abort_s`` exits 17 on one, and ``rss_restart_gb`` makes the
+  loop checkpoint and exit 17 at the next step boundary once the host's
+  RSS passes it, for a supervisor to restart and resume.
 
 ``pallas_softmax='auto'`` starts from the audited bound of
 ``pre_trained_g`` (0 for a fresh init: clamp) and escalates to the stable
@@ -52,6 +57,7 @@ import os
 import queue
 import threading
 import time
+from contextlib import contextmanager
 from os.path import exists, join
 from typing import Dict, Optional
 
@@ -177,6 +183,20 @@ class SRTrainer:
         self.loss_threshold = paras.loss_threshold
         self.scalar_flush_steps = int(paras.get("scalar_flush_steps", 64)
                                       or 64)
+        # Stall watchdog: a wedged device call leaves the host blocked with
+        # no error. After ``stall_warn_s`` without a completed step it logs
+        # (600 s by default: a first build or compile can take minutes);
+        # with ``stall_abort_s`` > 0 it hard-exits 17 at that stall, so a
+        # supervisor restarts the run and it resumes from its checkpoint.
+        self.stall_warn_s = float(paras.get("stall_warn_s", 600) or 0)
+        self.stall_abort_s = float(paras.get("stall_abort_s", 0) or 0)
+        # RSS self-watch: with ``rss_restart_gb`` > 0 the watchdog flags a
+        # host RSS above it; the step loop then checkpoints at the next
+        # step boundary and exits 17 (never mid-save, as the OOM killer
+        # would).
+        self.rss_restart_gb = float(paras.get("rss_restart_gb", 0) or 0)
+        self._rss_exceeded = False
+        self._wd_step = -1  # heartbeat: the host's count of finished steps
         self._metrics_consumed: Dict[tuple, int] = {}
         self.quick_eva_func = ds_valid.get_quick_eva_func()
         self.final_eva_func = ds_valid.get_final_eva_func()
@@ -208,6 +228,12 @@ class SRTrainer:
         for d in list(self.dirs.values()) + [self.checkpoint_dir]:
             os.makedirs(d, exist_ok=True)
         self.write_log(str(self.paras))
+        # setup runs device work too (the init, a checkpoint restore) and
+        # can wedge as a step can
+        with self._stall_watchdog():
+            self._setup_inner()
+
+    def _setup_inner(self):
         init_weights(self.model, self.generator)
         tl_log = self.weights_init()
         if self.loss.adversarial is not None:
@@ -445,6 +471,69 @@ class SRTrainer:
             return
         out_q.put(None)
 
+    @contextmanager
+    def _stall_watchdog(self):
+        """Run the stall watchdog over the enclosed block; it stops on every
+        exit path, exceptions included (a leaked watchdog in abort mode
+        would later exit a healthy process)."""
+        stop = None
+        if self.stall_warn_s > 0:
+            stop = threading.Event()
+            threading.Thread(
+                target=self._watchdog, daemon=True,
+                args=(stop, self.stall_warn_s, self.stall_abort_s)).start()
+        try:
+            yield
+        finally:
+            if stop is not None:
+                stop.set()
+
+    @staticmethod
+    def _rss_gb() -> float:
+        """This process's resident set size in GiB (Linux ``/proc``; 0.0
+        elsewhere)."""
+        try:
+            with open("/proc/self/statm") as f:
+                pages = int(f.read().split()[1])
+            return pages * os.sysconf("SC_PAGE_SIZE") / 2**30
+        except (OSError, ValueError, IndexError):
+            return 0.0
+
+    def _watchdog(self, stop: threading.Event, warn_s: float,
+                  abort_s: float):
+        """Log (and with ``abort_s`` > 0 exit 17) when the step loop stops
+        beating. It reads only the host's step counter, never a device
+        tensor."""
+        last_step, last_t = self._wd_step, time.monotonic()
+        warned = False
+        poll = max(1.0, min(warn_s, 60.0))
+        while not stop.wait(poll):
+            if (self.rss_restart_gb > 0 and not self._rss_exceeded
+                    and self._rss_gb() > self.rss_restart_gb):
+                # a flag only: the step loop exits at a step boundary,
+                # after a checkpoint
+                self.write_log(
+                    f"WATCHDOG: host RSS {self._rss_gb():.1f} GiB > "
+                    f"rss_restart_gb={self.rss_restart_gb:g} -- will "
+                    "checkpoint and exit 17 at the next step boundary")
+                self._rss_exceeded = True
+            step, now = self._wd_step, time.monotonic()
+            if step != last_step:
+                last_step, last_t, warned = step, now, False
+                continue
+            stalled = now - last_t
+            if stalled >= warn_s and not warned:
+                self.write_log(
+                    f"WATCHDOG: no training progress for {stalled:.0f}s "
+                    f"(step {step}); likely a wedged device call")
+                warned = True
+            if abort_s > 0 and stalled >= abort_s:
+                self.write_log(
+                    f"WATCHDOG: aborting after {stalled:.0f}s stall -- "
+                    "restart to resume from the last checkpoint")
+                os._exit(17)
+                return  # reached only where a test stubs os._exit
+
     # -- main loop ------------------------------------------------------------
 
     def train(self):
@@ -472,33 +561,47 @@ class SRTrainer:
             t.start()
             timer = Timer()
             pending: list = []
+            # one watchdog a state loop, stopped on every exit path: the
+            # tail after the loop (final evaluation) is rightly slow
             try:
-                while True:
-                    batch = q.get()
-                    if batch is None:
-                        break
-                    if isinstance(batch, BaseException):
-                        raise batch
-                    timer.tic()
-                    total, report, _ = self.train_step(batch, ts)
-                    self.step += 1
-                    self.current_epoch += 1
-                    steps_this_run += 1
-                    pending.append((total, report))
-                    at_check = self.current_epoch % self.check_every == 0
-                    if len(pending) >= self.scalar_flush_steps or at_check:
-                        self._flush_scalar_records(pending, ts)
-                    self.training_epoch_costs.append(timer.toc())
-                    if at_check:
-                        plog = self.quick_eva()
-                        self.save_checkpoint()
-                        self.write_log(
-                            f"[{ts}] epoch {self.current_epoch}/"
-                            f"{self.epochs_in_total[ts]} "
-                            f"loss={self._last_total_f:.6f} ("
-                            f"{np.mean(self.training_epoch_costs[-self.check_every:]):.3f}"
-                            f"s/epoch)\n" + plog)
-                        self.log_metrics(ts)
+                with self._stall_watchdog():
+                    while True:
+                        batch = q.get()
+                        if batch is None:
+                            break
+                        if isinstance(batch, BaseException):
+                            raise batch
+                        timer.tic()
+                        total, report, _ = self.train_step(batch, ts)
+                        self.step += 1
+                        self.current_epoch += 1
+                        steps_this_run += 1
+                        pending.append((total, report))
+                        at_check = self.current_epoch % self.check_every == 0
+                        if len(pending) >= self.scalar_flush_steps or at_check:
+                            self._flush_scalar_records(pending, ts)
+                        self.training_epoch_costs.append(timer.toc())
+                        if at_check:
+                            plog = self.quick_eva()
+                            self.save_checkpoint()
+                            self.write_log(
+                                f"[{ts}] epoch {self.current_epoch}/"
+                                f"{self.epochs_in_total[ts]} "
+                                f"loss={self._last_total_f:.6f} ("
+                                f"{np.mean(self.training_epoch_costs[-self.check_every:]):.3f}"
+                                f"s/epoch)\n" + plog)
+                            self.log_metrics(ts)
+                        self._wd_step = self.step  # the watchdog's heartbeat
+                        if self._rss_exceeded:
+                            # the restart at a step boundary
+                            # (rss_restart_gb): flush, checkpoint, exit 17
+                            self._flush_scalar_records(pending, ts)
+                            self.save_checkpoint()
+                            self.write_log(
+                                f"RSS restart: checkpoint saved at step "
+                                f"{self.step}; exiting 17 for the "
+                                "supervisor to restart (resume)")
+                            os._exit(17)
             finally:
                 stop.set()
                 t.join(timeout=60)

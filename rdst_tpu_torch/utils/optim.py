@@ -142,6 +142,20 @@ class Optimizer:
             self.state[k].copy_(v)
 
 
+class _Keys(dict):
+    """A dict read as a config (``paras.key`` and ``paras.get``)."""
+
+    __getattr__ = dict.__getitem__
+
+
+def adam(params: List[torch.Tensor], lr: float, b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8) -> Optimizer:
+    """``optax.adam(lr)`` with its defaults (``eps_root`` 0) at a constant
+    rate, as an :class:`Optimizer` over ``params``."""
+    return Optimizer(params, _Keys(opt="Adam", learning_rate=lr, beta1=b1,
+                                   beta2=b2, epsilon=eps))
+
+
 class Timer:
     """tic/toc wall timer (the JAX package's ``Timer``)."""
 

@@ -185,15 +185,20 @@ def test_bucketed_predict_pads_and_slices():
 
 
 def test_import_isolation_serves_without_jax():
-    """A GPU host for the port need not have jax, flax or msgpack: the
-    port must import and serve with all of them (and rdst_tpu)
-    unimportable."""
+    """A GPU host for the port need not have jax, flax, optax, msgpack,
+    tabulate or matplotlib: the port must import (the evaluation and
+    auxiliary-trainer modules included) and serve with all of them (and
+    rdst_tpu) unimportable."""
     script = f"""
 import sys
-for name in ("jax", "jaxlib", "flax", "msgpack", "rdst_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "tabulate",
+             "matplotlib", "rdst_tpu"):
     sys.modules[name] = None
 import numpy as np
 import rdst_tpu_torch
+import rdst_tpu_torch.runners.seg_eval, rdst_tpu_torch.utils.figures
+import rdst_tpu_torch.runners.train_seg_unet
+import rdst_tpu_torch.runners.train_vgg_features
 from rdst_tpu_torch.config import ParametersLoader
 from rdst_tpu_torch.serving.export import LiveModel
 p = ParametersLoader({CONFIG!r})
@@ -208,8 +213,8 @@ y = live.predict(np.random.default_rng(0).random((1, 16, 24), dtype=np.float32),
 assert live.manifest["dtype"] == "bfloat16" and y.dtype == np.float32
 assert y.shape == (1, 64, 96, 1) and np.isfinite(y).all(), y.shape
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in
-                ("jax", "jaxlib", "flax", "msgpack", "rdst_tpu")
-                and sys.modules[m] is not None)
+                ("jax", "jaxlib", "flax", "optax", "msgpack", "tabulate",
+                 "matplotlib", "rdst_tpu") and sys.modules[m] is not None)
 print("LOADED", loaded)
 """
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(REPO),

@@ -11,9 +11,13 @@ a small synthetic corpus:
   does (f32, 1e-4);
 * the weights cross both ways: ``rdst_tpu`` params -> the port -> msgpack
   bytes -> flax, with the JAX forward matching the port's (1e-4);
-* the entry point runs with jax, flax, optax, orbax, msgpack, cv2,
-  tabulate and ``rdst_tpu`` unimportable, and refuses to run without a
-  card unless ``--gpu-id -1`` asks for the CPU.
+* the entry point, and those of ``seg_eval`` and the two auxiliary
+  trainers, run with jax, flax, optax, orbax, msgpack, cv2, tabulate,
+  matplotlib and ``rdst_tpu`` unimportable, and refuse to run without a
+  card unless ``--gpu-id -1`` asks for the CPU;
+* the stall and RSS watchdogs (``rdst_tpu``'s ``test_stall_watchdog`` and
+  ``test_rss_restart_guard``): the warning, the abort with ``os._exit``
+  stubbed, and the RSS flag leading to a checkpoint and exit 17.
 """
 
 import json
@@ -37,6 +41,7 @@ from rdst_tpu_torch.checkpoint.msgpack_writer import import_rdstsr, to_bytes
 from rdst_tpu_torch.cli import build_trainer, train_main
 from rdst_tpu_torch.config import ParametersLoader
 from rdst_tpu_torch.data import synthetic
+from rdst_tpu_torch.data.readers import make_test_dataset
 from rdst_tpu_torch.models import build_generator
 from rdst_tpu_torch.serving import export
 
@@ -47,7 +52,7 @@ SMALL = {"rdst_embed_dim": 12, "rdst_growth_rate": 6,
          "rdst_dense_layer_depths": [2, 2], "rdst_rdb_depths": [1, 1],
          "patch_size": 8}
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack", "cv2",
-           "tabulate", "rdst_tpu")
+           "tabulate", "matplotlib", "rdst_tpu")
 
 
 @pytest.fixture(scope="module")
@@ -165,9 +170,38 @@ def test_weights_cross_both_ways():
 
 
 def test_entry_point_without_jax_and_without_a_card(corpus, tmp_path):
+    """The training entry point, and the entry points of ``seg_eval`` and
+    the two auxiliary trainers (one step each), with jax, flax, optax,
+    tabulate, matplotlib and the rest of ``BLOCKED`` unimportable; each
+    refuses to run without a card unless ``--gpu-id -1`` asks for the
+    CPU."""
     argv = _argv(corpus, tmp_path / "iso", 1)
+    # a config of the corpus for the entry points that take no overrides,
+    # and an SR volume where the tester saves it
+    cfg = tmp_path / "aux.ini"
+    cfg.write_text("\n".join(
+        f"data_folder = '{corpus}'" if ln.startswith("data_folder")
+        else f"output_dir = '{tmp_path / 'aux'}'" if ln.startswith(
+            "output_dir") else ln
+        for ln in pathlib.Path(TINY).read_text().splitlines()))
+    p = ParametersLoader(str(cfg))
+    pid = p.testing_patient_ids_oasis[0]
+    ds = make_test_dataset(p, [pid])
+    sr = np.stack([ds.get_test_pair(i)[4.0]["gt"]
+                   for i in range(ds.test_len())])
+    inf = tmp_path / "aux" / "RDST_TINY_OASIS_SRx4_None_Final_Predictions" \
+        / "inference_results"
+    inf.mkdir(parents=True)
+    np.savez(inf / f"{pid}_inference_results.npz", **{"x4.0": sr})
+    unet, vgg = str(tmp_path / "unet.pkl"), str(tmp_path / "vgg.pkl")
+    aux = [("rdst_tpu_torch.runners.train_seg_unet",
+            ["--steps", "1", "--batch-size", "2", "--out", unet]),
+           ("rdst_tpu_torch.runners.seg_eval", ["--unet", unet]),
+           ("rdst_tpu_torch.runners.train_vgg_features",
+            ["--steps", "1", "--batch-size", "2", "--patch", "32",
+             "--out", vgg])]
     script = f"""
-import sys
+import importlib, sys
 for name in {BLOCKED!r}:
     sys.modules[name] = None
 import torch
@@ -182,6 +216,23 @@ if not torch.cuda.is_available():
         raise AssertionError("trained on the CPU without --gpu-id -1")
 t = train_main(argv)
 assert t.step == 1
+for mod, args in {aux!r}:
+    main = importlib.import_module(mod).main
+    args = ["--config-file", {str(cfg)!r}] + args
+    if not torch.cuda.is_available():
+        try:
+            main(args)
+        except RuntimeError as e:
+            assert "cuda" in str(e), e
+        else:
+            raise AssertionError(mod + " ran on the CPU without --gpu-id -1")
+    out = main(args + ["--gpu-id", "-1"])
+    print(mod, "ran")
+dice, _ = importlib.import_module(
+    "rdst_tpu_torch.runners.seg_eval").main(
+        ["--config-file", {str(cfg)!r}, "--unet", {unet!r}, "--gpu-id", "-1"])
+assert dice.shape == (1, 4) and (dice >= 0).all(), dice
+assert sorted(out) == ["losses", "params", "width"], sorted(out)
 loaded = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
                 and sys.modules[m] is not None)
 print("LOADED", loaded)
@@ -190,3 +241,67 @@ print("LOADED", loaded)
                           capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout
+    assert proc.stdout.count(" ran\n") == 3
+
+
+def test_stall_watchdog(corpus, tmp_path, monkeypatch):
+    """The stall watchdog (``rdst_tpu``'s ``test_stall_watchdog``): with no
+    step completed it logs after ``stall_warn_s`` and exits 17 at
+    ``stall_abort_s`` (``os._exit`` stubbed here); a run with the default
+    thresholds trains to its end and logs nothing more."""
+    import threading
+    import time
+
+    from rdst_tpu_torch.runners import trainer as trainer_mod
+
+    trainer = build_trainer(_argv(corpus, tmp_path, 1, stall_warn_s=0.5,
+                                  stall_abort_s=2.0))
+    assert trainer.stall_warn_s == 0.5 and trainer.stall_abort_s == 2.0
+    # setup runs under the watchdog too: the default thresholds for it,
+    # the abort driven on _watchdog directly below
+    trainer.stall_warn_s, trainer.stall_abort_s = 600.0, 0.0
+    trainer.setup()
+    exited = {}
+    monkeypatch.setattr(trainer_mod.os, "_exit",
+                        lambda code: exited.setdefault("code", code))
+    stop = threading.Event()
+    t = threading.Thread(target=trainer._watchdog, args=(stop, 0.5, 2.0))
+    t.start()
+    deadline = time.monotonic() + 30
+    while "code" not in exited and time.monotonic() < deadline:
+        time.sleep(0.1)
+    stop.set()
+    t.join(timeout=10)
+    assert exited.get("code") == 17
+    log = pathlib.Path(trainer.log_file).read_text()
+    assert "WATCHDOG: no training progress" in log
+    assert "WATCHDOG: aborting" in log
+    trainer.train()
+    log = pathlib.Path(trainer.log_file).read_text()
+    assert log.count("WATCHDOG: aborting") == 1  # only the frozen probe's
+    assert trainer.step == 1 and trainer._wd_step == 1
+
+
+def test_rss_restart_guard(corpus, tmp_path, monkeypatch):
+    """``rss_restart_gb`` (``rdst_tpu``'s ``test_rss_restart_guard``): the
+    watchdog flags a host RSS above it and the step loop checkpoints and
+    exits 17 at the next step boundary, so a restart resumes."""
+    from rdst_tpu_torch.runners import trainer as trainer_mod
+
+    trainer = build_trainer(_argv(corpus, tmp_path, 400, stall_warn_s=0.2,
+                                  rss_restart_gb=0.001, check_every=1000))
+    assert trainer.rss_restart_gb == 0.001
+    assert trainer._rss_gb() > 0.001  # /proc backs it on Linux
+    monkeypatch.setattr(trainer_mod.os, "_exit",
+                        lambda code: (_ for _ in ()).throw(SystemExit(code)))
+    trainer.setup()
+    with pytest.raises(SystemExit) as e:
+        trainer.train()
+    assert e.value.code == 17
+    assert 0 < trainer.step < 400
+    log = pathlib.Path(trainer.log_file).read_text()
+    assert "WATCHDOG: host RSS" in log
+    assert f"RSS restart: checkpoint saved at step {trainer.step}" in log
+    host = json.loads((pathlib.Path(trainer.checkpoint_dir)
+                       / "host_state.json").read_text())
+    assert host["step"] == host["current_epoch"] == trainer.step
