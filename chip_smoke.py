@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
-        [--only e1|swinir|w96|metasr|int8|xdata ...]
+        [--only e1|swinir|w96|metasr|int8|xdata|zoo ...]
 
 Drives the port's main paths -- the tester (``python -m
 rdst_tpu_torch.test``) on the committed weights of the README quality
@@ -332,8 +332,38 @@ then phases 36 and 37:
     run under ``stall_warn_s=2``: the heartbeat reaches the last step and
     the log holds no WATCHDOG line.
 
+(``--only zoo``, after the other models) the Swin-based model zoo, built
+from CONFIG / TRAIN_CONFIG with KEY=VALUE overrides on seeded weights
+(``zoo_weights``; no committed weights), phases 38-41:
+38. each ZOO family (RDST-N with both bottlenecks, ESTSR with both tails,
+    WaveletSR haar / db2, Swin-MLP, RDST 3conv, RDST ape) at full width in
+    f32 on 8 seeded slices: the kernel path against the JAX package's
+    forward on the CPU (``ZOO_BARS``, ``tools/jax_zoo_bars.py``: mean,
+    mean square and 64 pixels within 1e-4 of the largest magnitude) and
+    against its plain path (MODEL_TOL), f32 block launches a forward (48
+    / 144 / 8 / 0);
+39. bf16: RDST-N and ESTSR in modes rdstb / pair / swin (8 / 24 / 48 and
+    24 / 72 / 144 launches a forward), WaveletSR in mode swin (8; rdstb
+    and pair refused at build), RDST 3conv in pair / swin (rdstb refused),
+    each against its plain bf16 path (BF16_TOL) and its f32 output (the
+    bf16-vs-f32 bars);
+40. the kernels alone: WaveletSR's f32 and fast blocks at C = 64, 4 heads
+    (head dim 16), shift 0 and 4, at 384 windows (bucket 64 of 40x32:
+    DWT grid 24x16) and at the tester's 8x8 grid (the shift drops out),
+    its train pair at 32 grids of 16x16; ESTSR's and RDST-N's f32 block,
+    RDSTB and train pair at E1's geometries: each against its plain
+    version, two launches bitwise equal, CUDA-event times and bounds;
+41. ``cli.train_main`` of TRAIN_CONFIG for ZOO_STEPS steps of RDST-N,
+    ESTSR and WaveletSR in bf16 (24 / 72 / 4 train-pair launches a step)
+    and Swin-MLP in f32: the routes, the first step against the plain
+    bf16 route, a finite, falling loss, steps/s and one profiled step;
+    then each snapshot scored by ``cli.test_main`` on patients 19-20 (f32,
+    48 / 144 / 8 / 0 launches a forward, no quality bar: the weights are
+    10 steps old) and served over HTTP at 1 / 8 / 64 slices, each
+    response equal to a direct predict.
+
 Each training run's final evaluation scores the config's ``eva_metrics``
-as shipped (FID included). Any failed phase raises and the script exits
+as shipped (FID included; the zoo's runs score PSNR and SSIM). Any failed phase raises and the script exits
 non-zero. It needs a CUDA
 card: without one it exits non-zero and prints no result. The last two
 lines of standard output are the kernel table (JSON) and the device
@@ -5711,12 +5741,690 @@ def run_xdata(data_dir: str, tmp: str, patients: dict):
     return {"tester": tester, "dice": dice, "aux": aux}, kernels
 
 
+# ---------------------------------------------------------------------------
+# The Swin-based model zoo (``--only zoo``): RDST-N, ESTSR, the wavelet
+# transformers, Swin-MLP and RDST's 3conv / ape, at the full width the
+# factories build from the E1 configs with KEY=VALUE overrides, on seeded
+# weights (no committed weights)
+
+ZOO_SEED = SEED + 40
+# label: (overrides of CONFIG, LR size of the 8 seeded slices, scale)
+ZOO = {
+    "RDST-N": ({"rdst_global_bottleneck": True}, LR_HW, 4.0),
+    "RDST-N conv": ({"rdst_global_bottleneck": True,
+                     "rdst_global_bottleneck_mode": "conv"}, LR_HW, 4.0),
+    "ESTSR": ({"feature_generator": "estsr"}, LR_HW, 4.0),
+    "ESTSR meta": ({"feature_generator": "estsr", "scale_free": True},
+                   LR_HW, 2.5),
+    "WaveletSR": ({"feature_generator": "wtb"}, LR_HW, 4.0),
+    "WaveletSR db2": ({"feature_generator": "wts",
+                       "wavelet_kernel": "db2"}, LR_HW, 4.0),
+    "SwinMLP": ({"feature_generator": "swinmlp"}, LR_HW, 4.0),
+    "RDST 3conv": ({"rdst_res_connection": "3conv"}, LR_HW, 4.0),
+    # the position table is sized by the token count at init: 24x24
+    "RDST ape": ({"rdst_ape": True}, (24, 24), 4.0),
+}
+# f32 block launches a forward, each family (SwinMLP runs no kernel)
+ZOO_F32_LAUNCHES = {"RDST-N": 48, "RDST-N conv": 48, "ESTSR": 144,
+                    "ESTSR meta": 144, "WaveletSR": 8, "WaveletSR db2": 8,
+                    "SwinMLP": 0, "RDST 3conv": 48, "RDST ape": 48}
+# bf16 modes a family serves in, with the launches of the mode's kernel a
+# forward; 'refused': the modes it raises in at build
+ZOO_BF16 = {
+    "RDST-N": {"rdstb": 8, "pair": 24, "swin": 48},
+    "ESTSR": {"rdstb": 24, "pair": 72, "swin": 144},
+    "WaveletSR": {"swin": 8, "refused": ("rdstb", "pair")},
+    "RDST 3conv": {"pair": 24, "swin": 48, "refused": ("rdstb",)},
+}
+ZOO_TRAIN = {  # label: (overrides of TRAIN_CONFIG, train-pair launches a step)
+    "RDST-N": ({"rdst_global_bottleneck": True}, 24),
+    "ESTSR": ({"feature_generator": "estsr"}, 72),
+    "WaveletSR": ({"feature_generator": "wtb", "pallas_kernels": "swin"}, 4),
+    "SwinMLP": ({"feature_generator": "swinmlp",
+                 "training_dtype": "float32"}, 0),
+}
+ZOO_STEPS = 10
+# ZOO_BARS: the JAX package's float32 forward of each ZOO family on the
+# CPU (XLA), from the same seeded weights and slices (zoo_weights,
+# zoo_input): the output's shape, sum, sum of squares, largest magnitude
+# and 64 sampled pixels (zoo_stats). Made by
+#     JAX_PLATFORMS=cpu python tools/jax_zoo_bars.py
+ZOO_BARS = {
+    'RDST-N': {
+        "shape": [8, 160, 128, 1], "sum": 2611.546962,
+        "sumsq": 604.7943979, "absmax": 0.275234878,
+        "pixels": [0.074802123, -0.0846270621, -0.00330077857, -0.0994790345, -0.0469144583, -0.0239890516, 0.0461135544, 0.082776159, 0.0715379417, -0.103147969, -0.0281101353, 0.0489880033, 0.0258558877, 0.0461288244, 0.0239431262, -0.00929092616, 0.038427107, -0.0287422687, 0.0886693522, 0.00581043307, 0.0590995625, 0.0535027385, 0.0630582795, -0.0354774594, 0.0515174195, 0.0565670952, -0.124749511, 0.0544081628, 0.0419148728, 0.000122344121, 0.184465945, 0.0955407172, -0.0935485885, 0.119012624, -0.0200651288, -0.0909274071, 0.0442534015, 0.108680174, 0.053054437, -0.0870625079, 0.0167767256, 0.0536471866, 0.0316850804, -0.00241426006, 0.0511222593, 0.0707871914, -0.0453589521, 0.0309127346, 0.0600819513, 0.0699158013, 0.0982564613, 0.0728816018, 0.00571500137, 0.00909139588, 0.0286561213, 0.105631948, -0.0177560654, 0.120044842, -0.0244953893, -0.00181455724, 0.0574098788, 0.0152326506, -0.0634028092, 0.0424058586]},
+    'RDST-N conv': {
+        "shape": [8, 160, 128, 1], "sum": -5592.239724,
+        "sumsq": 1631.335544, "absmax": 0.347059608,
+        "pixels": [-0.0629798546, 0.0641971976, 0.0816808566, -0.151200235, -0.079022482, 0.0111852325, 0.0573928356, -0.0489026494, -0.190008491, -0.0256113671, 0.0706507936, -0.15230976, 0.0789687037, -0.215043351, 0.00594373513, -0.0228890851, -0.0861796588, -0.162758008, -0.130380183, -0.163112402, 0.0438559055, -0.0982050002, -0.0608467162, 0.0503958538, 0.133998305, 0.0763676614, -0.0415121317, -0.113645673, -0.157782182, -0.0727594495, 0.119299725, -0.0677421466, -0.103464745, -0.00770078879, 0.17192252, 0.0323527679, 0.113568574, 0.0859173611, -0.106040478, 0.00740086474, -0.169484437, -0.124183267, -0.208549082, -0.184357747, 0.0210073031, -0.0452210344, -0.0256941468, 0.0116952844, -0.187479302, 0.122180752, -0.0349463113, -0.0181712694, -0.0594578683, -0.0130061088, -0.143070772, -0.16159308, -0.0998204872, 0.0316457264, -0.0618658066, 0.126064822, 0.143932283, -0.1017849, 0.13938272, -0.059551686]},
+    'ESTSR': {
+        "shape": [8, 160, 128, 1], "sum": -3314.300049,
+        "sumsq": 7635.390292, "absmax": 0.752361476,
+        "pixels": [-0.0568136573, 0.0138359666, -0.370326161, 0.0586178154, -0.0413576663, 0.367894888, 0.147925496, -0.208843887, -0.176037759, 0.00362914801, 0.155359566, -0.0680735707, 0.203233585, 0.029615432, 0.158944398, 0.237120762, -0.113163382, -0.215263069, -0.313728213, -0.306801647, -0.324571908, 0.0798663497, -0.277752489, 0.143695012, -0.398407787, -0.252735198, -0.196500361, 0.187737018, 0.12394689, 0.171930403, 0.0343437269, 0.214602977, -0.120497033, -0.00857015327, -0.208534107, 0.0478999019, -0.29670316, -0.0243806243, -0.0149532445, -0.0700350255, 0.406550348, 0.0559880733, -0.232036129, 0.4017542, -0.00973848253, 0.137680262, -0.117378421, -0.344131052, -0.0195299834, -0.299047291, 0.0926224142, 0.0849478915, 0.281909496, -0.138590574, -0.0180281717, -0.0743261352, -0.17826961, 0.156178266, 0.185352147, -0.415535003, -0.373955637, 0.367693305, 0.00710234046, -0.00856969878]},
+    'ESTSR meta': {
+        "shape": [8, 100, 80, 1], "sum": 5371.094502,
+        "sumsq": 564.1425356, "absmax": 0.251549512,
+        "pixels": [0.0712789595, 0.0364044197, 0.0943641067, 0.130295977, 0.0305725653, 0.122490913, 0.0915198103, 0.160789013, 0.0970451832, 0.0818147734, 0.10069298, 0.139280036, 0.104988515, 0.057067696, 0.0749154389, 0.0968479663, 0.0709878653, 0.0482767075, 0.127255842, 0.1345478, 0.094526194, 0.0724890083, 0.0397444665, 0.137355804, 0.0452863462, 0.0388890356, 0.0451033637, 0.107617974, 0.0623221099, 0.0538365692, 0.126198798, 0.126138434, 0.112260722, 0.0979555547, 0.0695946664, 0.121237442, 0.113557413, 0.00212758966, 0.0547753498, 0.120858297, 0.137093142, 0.0497284941, 0.11371772, 0.118534148, 0.14347361, 0.0101219658, 0.0599746406, 0.0670994967, 0.0415903777, 0.0987532139, 0.0431116633, 0.0273801703, 0.0675782934, 0.133700624, 0.0796282887, 0.0398319215, 0.00663380884, 0.131293803, 0.0875743777, 0.110938579, 0.0820765197, 0.161696464, 0.0680649132, 0.054779768]},
+    'WaveletSR': {
+        "shape": [8, 160, 128, 1], "sum": 1215.410231,
+        "sumsq": 7395.036485, "absmax": 0.866038561,
+        "pixels": [-0.026617581, -0.0351131856, 0.221440762, -0.00144551694, -0.0411440134, 0.0420819819, -0.35366863, -0.188582867, -0.285668999, 0.123258971, 0.163220689, -0.0235053077, -0.233006477, 0.0572781414, -0.17317827, 0.326851815, 0.266286075, -0.0647876561, 0.451460272, -0.00216257572, -0.254561484, 0.00992612541, 0.0530180112, -0.283785462, 0.221177399, -0.322119236, 0.153914362, -0.0298298076, 0.08154466, -0.271858037, 0.346301019, 0.260222256, 0.268556774, 0.188073665, 0.263640553, -0.172457203, 0.254431129, -0.138618857, 0.128419369, -0.0993561745, 0.152417034, -0.143532336, 0.307914615, -0.176654682, -0.195243791, 0.0753912926, -0.104075775, 0.632517874, 0.240559235, 0.339006126, -0.171915382, 0.307900369, -0.278085709, 0.00245545805, -0.582945108, -0.38630113, 0.130037457, -0.218500331, -0.144091249, -0.0151108876, -0.0910438374, 0.154447079, 0.185273468, -0.0178619698]},
+    'WaveletSR db2': {
+        "shape": [8, 160, 128, 1], "sum": 1263.761835,
+        "sumsq": 7345.73562, "absmax": 0.997177482,
+        "pixels": [-0.0869484246, 0.135747224, 0.251497895, 0.391759098, 0.2978127, -0.0259416252, -0.46103397, 0.0670274347, -0.121583402, -0.29848516, -0.0543162897, 0.280288637, 0.346488684, -0.0951332301, 0.0513342842, 0.185455129, 0.0096822232, 0.0531759523, -0.0768347681, 0.0441807993, -0.0404146984, 0.291781694, -0.19474487, 0.0561586954, 0.00366540253, -0.0596123822, -0.135018572, 0.0706023127, -0.0777079239, 0.161407173, 0.510108113, -0.199347541, 0.192517132, -0.00973977149, 0.0306635369, -0.206871688, -0.124122292, -0.210594326, -0.239576519, -0.192052811, 0.228363484, 0.173860192, 0.0645836294, -0.518484831, 0.385483086, 0.0928487033, -0.130493879, -0.0427392721, 0.0658167899, 0.24778378, 0.349534452, 0.218800634, -0.0365511253, -0.0568427183, -0.223087937, -0.483810931, 0.0169997625, -0.134834215, -0.0334171988, 0.056289956, -0.15767549, -0.317429006, 0.104196534, -0.416819632]},
+    'SwinMLP': {
+        "shape": [8, 160, 128, 1], "sum": -1290.32317,
+        "sumsq": 2219.829345, "absmax": 0.500515163,
+        "pixels": [-0.117743433, -0.120730542, 0.127319813, -0.0521223918, -0.0549109653, -0.0511825085, 0.042871125, -0.0842020512, -0.00180497766, -0.190003648, -0.0630429983, -0.149227172, -0.0543504171, -0.0716055855, 0.0233083367, 0.264974356, -0.0898450613, 0.359869987, -0.0460840203, -0.0728525519, -0.0463092886, -0.0389077663, -0.0206972174, -0.124309495, -0.169670582, 0.106726058, -0.165304556, -0.233561203, -0.131108969, -0.112231873, -0.0537540093, -0.00790350512, -0.120283589, -0.183875546, -0.0471056849, 0.0671029836, -0.0108417179, -0.12108288, -0.0166951194, -0.100243196, 0.108467296, -0.0607396886, 0.059186168, -0.00337101519, -0.178329676, 0.0134646371, -0.144436896, 0.104242109, -0.111814484, -0.0673542693, -0.126062095, -0.106902234, 0.0662616342, -0.0488748252, -0.121692136, -0.140534073, -0.113059163, 0.0785191357, -0.184744835, -0.0243479423, 0.0182021186, 0.192375347, -0.0816871971, 0.0266199633]},
+    'RDST 3conv': {
+        "shape": [8, 160, 128, 1], "sum": 4992.267928,
+        "sumsq": 719.2173926, "absmax": 0.232417911,
+        "pixels": [0.0898323059, 0.064570941, -0.0112200528, 0.00195507333, 0.013037377, -0.101345517, 0.0449780263, 0.000620711595, 0.00475599244, -0.0151393609, 0.0479968563, 0.0879049301, -0.0423128307, 0.0675410405, 0.0889306515, 0.066354461, 0.110744245, 0.0967253819, 0.0470481291, 0.125654474, 0.0468122289, 0.0673890263, -0.0841626078, 0.0590318367, -0.0139851794, -0.0164042041, -0.012911072, -0.0081751775, 0.0594152585, 0.00942211412, 0.0664667636, 0.00854550488, -0.048204273, 0.0524471216, 0.0170643553, 0.101079211, -0.0102635501, 0.118276313, 0.0618937016, 0.00381864421, 0.0960878357, 0.09838669, 0.0839608833, 0.0483884029, 0.00605543703, -0.0108162072, 0.0244972911, -0.0529546626, 0.0528919697, 0.0142916851, 0.0415629782, 0.0559846535, 0.0435191467, 0.000420378521, 0.0352663137, 0.011828728, 0.0114347488, 0.0284367763, 0.0530236065, 0.0100817662, 0.0186801814, 0.126688287, 0.0529542677, 0.0959445238]},
+    'RDST ape': {
+        "shape": [8, 96, 96, 1], "sum": 1013.244365,
+        "sumsq": 612.8305791, "absmax": 0.388168663,
+        "pixels": [0.0366858393, 0.191162482, 0.260479331, 0.206315875, 0.0246762484, -0.0121140983, 0.250495195, -0.0247706622, 0.226992607, -0.16327706, -0.0706846118, -0.035719879, -0.00422668085, -0.103318512, 0.00679339096, 0.0247792564, 0.085404858, 0.0138078164, -0.0777764544, 0.0296838805, 0.0705121905, 0.119493425, 0.0875919163, 0.140820593, 0.042235285, -0.0197874978, -0.0343315154, -0.0535788834, -0.0433662422, 0.00719868019, -0.121841073, 0.171534047, 0.144682601, 0.063960582, 0.255506545, -0.0531156994, 0.113619745, -0.0187131166, 0.252064049, 0.00576859713, 0.129241928, 0.0934976637, 0.0208459441, 0.000332501717, 0.198122188, 0.108442187, 0.0105602313, 0.0427615866, -0.0288327113, -0.0115174614, -0.145575762, 0.0588514283, 0.0291887745, 0.0609930232, 0.0274974089, 0.061040476, -0.0601632781, 0.0831940398, 0.0425671637, 0.0388975665, 0.0485743396, 0.105745554, -0.00767840818, 0.050820291]},
+}
+# the port's f32 kernel forward on the card against them: the mean, the
+# mean square (over the largest magnitude squared) and each sampled pixel
+# within ZOO_TOL of the largest magnitude
+ZOO_TOL = 1e-4
+
+
+def _trunc_normal(rng, shape):
+    """Standard normal draws cut at 2 (redrawn), as flax's
+    ``truncated_normal`` draws before its scale."""
+    v = rng.standard_normal(shape)
+    bad = np.abs(v) > 2.0
+    while bad.any():
+        v[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(v) > 2.0
+    return v
+
+
+def zoo_weights(shapes: dict, seed: int = ZOO_SEED) -> dict:
+    """Seeded parameters of a fresh model, ``{flax path: array}``, drawn
+    leaf by leaf in sorted flax-path order at the scales of the JAX
+    package's initializers: a conv kernel uniform within 1 / sqrt(fan_in)
+    (``torch_conv_init``), dense kernels, relative-position and absolute
+    position tables and Swin-MLP spatial kernels 0.02 x a normal cut at 2,
+    LayerNorm scales 1, every bias 0. numpy only: ``tools/jax_zoo_bars.py``
+    draws the same arrays for the JAX package."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for path in sorted(shapes):
+        shape, leaf = tuple(shapes[path]), path[-1]
+        if leaf == "kernel" and len(shape) == 4:
+            bound = float(np.prod(shape[:-1])) ** -0.5
+            v = rng.uniform(-bound, bound, shape)
+        elif leaf in ("kernel", "relative_position_bias_table",
+                      "spatial_mlp_kernel", "absolute_pos_embed"):
+            v = 0.02 * _trunc_normal(rng, shape)
+        elif leaf == "scale":
+            v = np.ones(shape)
+        else:
+            v = np.zeros(shape)
+        out[path] = v.astype(np.float32)
+    return out
+
+
+def zoo_input(hw) -> np.ndarray:
+    """The 8 seeded LR slices of a ZOO family (NHWC, values 0..1)."""
+    return np.random.default_rng(ZOO_SEED).random((8,) + tuple(hw) + (1,),
+                                                  dtype=np.float32)
+
+
+def zoo_stats(y: np.ndarray) -> dict:
+    """What ZOO_BARS holds of an output: its shape, sum, sum of squares,
+    largest magnitude and 64 pixels at seeded flat indices."""
+    y = np.asarray(y, np.float64)
+    idx = np.random.default_rng(ZOO_SEED + 1).choice(y.size, 64,
+                                                     replace=False)
+    return {"shape": list(y.shape), "sum": float(y.sum()),
+            "sumsq": float((y * y).sum()),
+            "absmax": float(np.abs(y).max()),
+            "pixels": [float(v) for v in y.reshape(-1)[idx]]}
+
+
+def zoo_paras(label: str, config: str = CONFIG, **kw):
+    from rdst_tpu_torch.config import ParametersLoader
+
+    p = ParametersLoader(config)
+    for k, v in {**ZOO[label][0], **kw}.items():
+        p.set(k, v)
+    return p
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return tree
+
+
+def _zoo_model(label: str, dtype=torch.float32, device="cuda", **kw):
+    """A ZOO family built by ``build_generator`` from CONFIG with its
+    overrides (and ``kw``), holding the seeded weights (``zoo_weights``
+    over its flax tree, carried in by ``convert``), on ``device`` as the
+    entry points resolve it (``device.resolve_device``)."""
+    from rdst_tpu_torch.checkpoint.convert import export_params
+    from rdst_tpu_torch.checkpoint.msgpack_reader import flatten
+    from rdst_tpu_torch.checkpoint.msgpack_writer import import_state_dict
+    from rdst_tpu_torch.device import resolve_device
+    from rdst_tpu_torch.models import build_generator
+
+    device = resolve_device(device)  # float32 numerics: TF32 off
+    p = zoo_paras(label, **kw)
+    model = build_generator(p, dtype=dtype)
+    shapes = {k: v.shape for k, v in flatten(import_state_dict(
+        model.state_dict())["params"]).items()}
+    sd = export_params({"params": _nest(zoo_weights(shapes))},
+                       p.feature_generator, getattr(model, "mean", (0.0,)),
+                       getattr(model, "std", (1.0,)))
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in sd.items()})
+    return model.to(device).eval()
+
+
+def _zoo_counters():
+    from rdst_tpu_torch.kernels import rdstb_block, swin_block, swin_pair
+
+    return {"f32": swin_block.fused_swin_block,
+            "swin": swin_block.run_fast_block,
+            "pair": swin_pair.run_swin_pair, "rdstb": rdstb_block.run_rdstb}
+
+
+def _zoo_forward(model, x: np.ndarray, scale) -> tuple:
+    """(output as numpy float32, {counter: launches}) of one forward, the
+    counts set to 0 just before and read just after."""
+    counters = _zoo_counters()
+    for c in counters.values():
+        c.launches = 0
+    with torch.inference_mode():
+        y = model(torch.from_numpy(x).cuda(), scale)
+        torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    return y.float().cpu().numpy(), launches
+
+
+@phase("zoo f32 forwards")
+def zoo_forward_phase() -> dict:
+    """Each ZOO family at full width in float32 on 8 seeded slices: the
+    kernel path against ZOO_BARS (the JAX package's forward on the CPU)
+    and against the same model's plain path on the card (MODEL_TOL), its
+    f32 block launches a forward."""
+    from rdst_tpu_torch.nn.swin import set_block_kernels
+
+    out = {}
+    for label, (_, hw, scale) in ZOO.items():
+        model = _zoo_model(label)
+        x = zoo_input(hw)
+        y, n = _zoo_forward(model, x, scale)
+        set_block_kernels(model, False)
+        y_plain, n_plain = _zoo_forward(model, x, scale)
+        set_block_kernels(model, True)
+        got, bar = zoo_stats(y), ZOO_BARS[label]
+        big = bar["absmax"]
+        size = float(np.prod(bar["shape"]))
+        d = {"mean": abs(got["sum"] - bar["sum"]) / size / big,
+             "mean_square": abs(got["sumsq"] - bar["sumsq"]) / size
+             / big ** 2,
+             "pixels": max(abs(a - b) for a, b in zip(got["pixels"],
+                                                      bar["pixels"])) / big}
+        err = float(np.abs(y - y_plain).max())
+        row = {"routes": model.routes, "launches": n["f32"],
+               "versus_jax": d, "kernel_vs_plain_max_abs_err": err,
+               "absmax": got["absmax"], "params": sum(
+                   p.numel() for p in model.parameters())}
+        out[label] = row
+        log(f"zoo {label} ({row['params']} params) f32 8 x {hw} -> "
+            f"{y.shape}: vs the JAX forward (ZOO_BARS) mean {d['mean']:.2e}"
+            f", mean square {d['mean_square']:.2e}, 64 pixels "
+            f"{d['pixels']:.2e} of max|y| {big:.4f} (bar {ZOO_TOL}); kernel "
+            f"vs plain {err:.3e} (tol {MODEL_TOL}); f32 block launches a "
+            f"forward {n['f32']} (plain {n_plain['f32']})")
+        if list(y.shape) != bar["shape"] or not np.isfinite(y).all():
+            raise AssertionError(f"zoo {label}: {y.shape} vs {bar['shape']}")
+        if max(d.values()) > ZOO_TOL or err > MODEL_TOL:
+            raise AssertionError(f"zoo {label}: {row}")
+        if n["f32"] != ZOO_F32_LAUNCHES[label] or n_plain["f32"] or any(
+                n[k] for k in ("swin", "pair", "rdstb")):
+            raise AssertionError(f"zoo {label}: launches {n} / {n_plain}")
+        row["y"] = y
+    return out
+
+
+@phase("zoo bf16 forwards")
+def zoo_bf16_phase(f32: dict) -> dict:
+    """RDST-N and ESTSR in bf16 modes rdstb, pair and swin, WaveletSR in
+    mode swin, RDST 3conv in modes pair and swin, each on the seeded
+    weights: the kernel route against the same model's plain bf16 path on
+    the card (BF16_TOL) and against the family's f32 output (the
+    bf16-vs-f32 bars), launches of the mode's kernel a forward (counts
+    set to 0 just before, read just after); the modes a family's kernel
+    cannot take raise at build and name the mode to choose."""
+    from rdst_tpu_torch.models.routes import set_kernel_mode
+
+    out = {}
+    for label, modes in ZOO_BF16.items():
+        for mode in modes.get("refused", ()):
+            try:
+                _zoo_model(label, torch.bfloat16, "cpu",
+                           pallas_kernels=mode)
+            except ValueError as e:
+                log(f"zoo {label} bf16 mode {mode}: refused at build ({e})")
+                if "pallas_kernels=" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"zoo {label}: mode {mode} built")
+        served = [m for m in modes if m != "refused"]
+        model = _zoo_model(label, torch.bfloat16, pallas_kernels=served[0])
+        softmax = model.softmax
+        _, hw, scale = ZOO[label]
+        x = zoo_input(hw)
+        set_kernel_mode(model, "", softmax)
+        y_plain, n_plain = _zoo_forward(model, x, scale)
+        y32 = f32[label]["y"]
+        for mode in served:
+            set_kernel_mode(model, mode, softmax)
+            y, n = _zoo_forward(model, x, scale)
+            kp = _rel(torch.from_numpy(y), torch.from_numpy(y_plain))[:2]
+            kf = _rel(torch.from_numpy(y), torch.from_numpy(y32))[:2]
+            row = {"routes": sorted(set(model.routes)), "launches": n[mode],
+                   "vs_plain_rel": kp, "vs_f32_rel": kf, "softmax": softmax}
+            out[f"{label} {mode}"] = row
+            log(f"zoo {label} bf16 mode {mode} ({softmax}): {n[mode]} "
+                f"launches a forward; vs the plain bf16 path rel max "
+                f"{kp[0]:.3e} (bar {BF16_TOL}); vs f32 rel max {kf[0]:.3e} "
+                f"mean {kf[1]:.3e} (bars {BF16_VS_F32_MAX}, "
+                f"{BF16_VS_F32_MEAN})")
+            if not np.isfinite(y).all() or n[mode] != modes[mode] or sum(
+                    n.values()) != n[mode] or any(n_plain.values()):
+                raise AssertionError(f"zoo {label} {mode}: launches {n}")
+            if kp[0] > BF16_TOL or kf[0] >= BF16_VS_F32_MAX or \
+                    kf[1] >= BF16_VS_F32_MEAN:
+                raise AssertionError(f"zoo {label} {mode}: {row}")
+        out[label] = {"model": model}
+    return out
+
+
+def _zoo_block(block, shift: int, images: int, grid, gen, bf16: bool,
+               label: str) -> dict:
+    """The f32 block kernel (``bf16`` False) or the fast block at
+    ``images`` images of DWT grid ``grid`` with ``block``'s weights at
+    ``shift``: against its plain version (KERNEL_TOL / BF16_TOL), two
+    launches bitwise equal, CUDA-event times, the bound."""
+    from rdst_tpu_torch.kernels import swin_block as sb
+
+    ws, nh, c = 8, block.num_heads, block.dim
+    nw = (grid[0] // ws) * (grid[1] // ws)
+    x = torch.randn(images * nw, ws * ws, c, device="cuda", generator=gen)
+    with torch.inference_mode():
+        if bf16:
+            x = x.to(torch.bfloat16)
+            params, bias = block.fast_kernel_inputs(tuple(grid), ws, shift)
+            plan = sb.plan_fast_block(params, bias, num_heads=nh)
+            kw = dict(num_heads=nh, windows_per_image=nw, softmax="stable")
+
+            def call():
+                return sb.run_fast_block(x, plan, **kw)
+
+            def plain():
+                return sb.swin_block_fast_reference(
+                    x, plan.params, plan.bias, num_heads=nh,
+                    softmax="stable", qkv=plan.qkv)
+        else:
+            params, bias = block.kernel_inputs(tuple(grid), ws, shift)
+            plan = sb.plan_f32_block(params, bias, num_heads=nh)
+            kw = dict(num_heads=nh, windows_per_image=nw)
+
+            def call():
+                return sb.run_f32_block(x, plan, **kw)
+
+            def plain():
+                return sb.swin_block_reference(x, *plan.params, bias, **kw)
+        got, again, want = call(), call(), plain()
+        torch.cuda.synchronize()
+        name = (f"{label} {'fast' if bf16 else 'f32'} block C={c} nH={nh} "
+                f"shift={shift} at {images} x grid {tuple(grid)} "
+                f"({images * nw} windows)")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two launches differ")
+        if bf16:
+            err = _check(name, got, want)
+        else:
+            e = (got - want).abs().max().item()
+            if not (e <= KERNEL_TOL and torch.isfinite(got).all()):
+                raise AssertionError(f"{name}: {e} > {KERNEL_TOL}")
+            err = (None, None, e)
+        ms = cuda_time_ms(call, warmup=2, iters=10)
+        plain_ms = cuda_time_ms(plain, warmup=1, iters=3)
+    flops, weights = _block_work(block, c, images * nw)
+    if bf16:
+        bound_ms, by = _bound(flops, 2 * 2 * x.numel() + _plan_bytes(plan))
+        bound = {"bound_ms": bound_ms, "bound_by": by}
+    else:
+        bound = _f32_bound(flops, 4 * (2 * x.numel() + weights
+                                       + bias.numel()))
+    row = dict(c=c, num_heads=nh, shift=shift, images=images,
+               grid=list(grid), windows=images * nw, rel_max=err[0],
+               max_abs_err=err[2], ms=ms, plain_ms=plain_ms, **bound)
+    if bf16:
+        row["route"] = plan.route
+    log(f"{name}" + (f" ({plan.route})" if bf16 else "") + ": "
+        + (f"rel max {err[0]:.3e} (bar {BF16_TOL})" if bf16 else
+           f"max abs err {err[2]:.3e} (tol {KERNEL_TOL})")
+        + f", two launches bitwise equal; {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    return row
+
+
+def _zoo_pair_train(layer, grid, images: int, gen, label: str) -> dict:
+    """The train pair (forward and backward) with ``layer``'s first two
+    blocks at ``images`` images of ``grid`` (window 8, shift 4, 'clamp'):
+    output and every gradient against the plain version and its autograd
+    (BF16_TOL); the forward and backward launches alone (two forward
+    launches bitwise equal) timed by CUDA events beside their bounds and
+    the plain version's times."""
+    from rdst_tpu_torch.kernels import pair_train as pt
+    from rdst_tpu_torch.kernels.swin_block import (FastParams, fast_params,
+                                                   pack_bias_fast,
+                                                   softmax_code)
+
+    a, b = layer.blocks[0], layer.blocks[1]
+    c, nh, ws = a.dim, a.num_heads, 8
+    nw = (grid[0] // ws) * (grid[1] // ws)
+    pa, ba = a.fast_kernel_inputs(tuple(grid), ws, 0)
+    pb, bb = b.fast_kernel_inputs(tuple(grid), ws, ws // 2)
+    with torch.no_grad():
+        ops = [o.detach().contiguous() for o in (
+            *fast_params(pa, c, nh), pack_bias_fast(ba, nh, 64),
+            *fast_params(pb, c, nh), pack_bias_fast(bb, nh, 64))]
+    x = torch.randn(images * nw, 64, c, device="cuda",
+                    generator=gen).to(torch.bfloat16)
+    dz = torch.randn(images * nw, 64, c, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    kw = dict(num_heads=nh, x_size=tuple(grid), window_size=ws, shift=4,
+              softmax="clamp")
+    got, g_got = _pair_train_grads(pt.run_pair_train, ops, x, dz, None, kw)
+    want, g_want = _pair_train_grads(pt.pair_train_reference, ops, x, dz,
+                                     None, kw)
+    torch.cuda.synchronize()
+    errs = [_rel(got, want)] + [_rel(u, v) for u, v in zip(g_got, g_want)]
+    worst = max(e[0] for e in errs)
+    name = f"{label} train pair C={c} nH={nh} at {images} x grid {grid}"
+    if worst > BF16_TOL or not all(bool(torch.isfinite(g.float()).all())
+                                   for g in g_got):
+        raise AssertionError(f"{name}: rel max {worst} > {BF16_TOL}")
+    geom = (tuple(grid), ws, 4, nh, softmax_code("clamp"))
+    fa, fb = FastParams(*ops[:8]), FastParams(*ops[9:17])
+    oa, ob = pt.forward_layout(fa, ops[8], fb, ops[17], nh)
+    hidden = a.mlp.fc1.out_features
+
+    def fwd():
+        return pt.launch_forward(x, oa, ob, None, geom, hidden)
+
+    first, y = fwd()
+    again, y2 = fwd()
+    torch.cuda.synchronize()
+    if not (torch.equal(first, again) and torch.equal(y, y2)):
+        raise AssertionError(f"{name}: two forward launches differ")
+
+    def bwd():
+        return pt.launch_backward(x, dz, y, fa, ops[8], fb, ops[17], None,
+                                  geom)
+
+    ms = cuda_time_ms(fwd, warmup=2, iters=10)
+    bwd_ms = cuda_time_ms(bwd, warmup=1, iters=5)
+    with torch.no_grad():
+        plain_ms = cuda_time_ms(lambda: pt.pair_train_reference(
+            x, fa, ops[8], fb, ops[17], None, **kw), warmup=1, iters=3)
+    leaves = [t.detach().clone().requires_grad_(True) for t in [x] + ops]
+    twin = pt.pair_train_reference(
+        leaves[0], FastParams(*leaves[1:9]), leaves[9],
+        FastParams(*leaves[10:18]), leaves[18], None, **kw)
+    plain_bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(
+        twin, leaves, dz, retain_graph=True), warmup=1, iters=3)
+    del twin, leaves
+    flops = 2 * _block_flops(images * nw, c)
+    wbytes = sum(t.numel() * t.element_size() for t in ops)
+    tok = x.numel() * 2
+    bound_ms, by = _bound(flops, 3 * tok + wbytes)
+    bwd_bound_ms, bwd_by = _bound(2 * flops, 4 * tok + 3 * wbytes)
+    row = dict(c=c, num_heads=nh, images=images, grid=list(grid),
+               windows=images * nw, rel_max=worst,
+               out_abs_err=errs[0][2],
+               grad_abs_err=max(e[2] for e in errs[1:]), ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=by,
+               bwd_ms=bwd_ms, plain_bwd_ms=plain_bwd_ms,
+               bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_by)
+    log(f"{name}: out and gradients rel max {worst:.3e} (bar {BF16_TOL}); "
+        f"two forward launches bitwise equal; forward {ms:.4f} ms (plain "
+        f"{plain_ms:.4f}, bound {bound_ms:.4f} {by}); backward "
+        f"{bwd_ms:.4f} ms (plain {plain_bwd_ms:.4f}, bound "
+        f"{bwd_bound_ms:.4f} {bwd_by})")
+    return row
+
+
+@phase("zoo kernels alone")
+def zoo_kernel_phase(f32_models: dict, bf16: dict) -> dict:
+    """The kernels at the zoo's geometries against their plain versions:
+    WaveletSR's C = 64 / 4 heads (head dim 16) f32 and fast blocks, shift
+    0 and 4, at bucket 64 of 40x32 (DWT grid 24x16: 384 windows), then at
+    the tester's grid 8x8 where the shift drops out; its train pair at 32
+    training patches (grid 16x16); ESTSR's and RDST-N's f32 blocks and
+    RDSTB and their train pair at E1's geometries."""
+    gen = torch.Generator(device="cuda").manual_seed(ZOO_SEED + 2)
+    wt32, wt16 = f32_models["WaveletSR"], bf16["WaveletSR"]["model"]
+    out = {"f32": [], "fast": []}
+    for grid, shifts in (((24, 16), (0, 4)), ((8, 8), (0,))):
+        for shift in shifts:
+            out["f32"].append(_zoo_block(wt32.group_0.blocks[shift // 4],
+                                         shift, 64, grid, gen, False,
+                                         "WaveletSR"))
+            out["fast"].append(_zoo_block(wt16.group_0.blocks[shift // 4],
+                                          shift, 64, grid, gen, True,
+                                          "WaveletSR"))
+    out["train_pair"] = [_zoo_pair_train(wt16.group_0, (16, 16), 32, gen,
+                                         "WaveletSR")]
+    for label in ("ESTSR", "RDST-N"):
+        m32, m16 = f32_models[label], bf16[label]["model"]
+        first = m16.rdstbs()[0]
+        out[label] = {
+            "f32": [_f32_block_at(blk, k * 4, 8, LR_HW, gen)
+                    for blk, k in zip(m32.rdstbs()[0].body[0].body.blocks,
+                                      (0, 1))],
+            "rdstb": [_rdstb_at(first, 8, LR_HW, gen, m16.softmax)],
+            "train_pair": [_zoo_pair_train(first.body[0].body, (24, 24), 32,
+                                           gen, label)]}
+    return out
+
+
+def _zoo_serve(live, counter, per_forward: int) -> dict:
+    """``live`` over HTTP: requests of 1, 8 and 64 seeded 40x32 slices,
+    each response against a direct predict (SERVE_TOL), ``counter``'s
+    launches over the requests (set to 0 just before, read just after:
+    ``per_forward`` a forward), p50 latency of 3 requests a bucket."""
+    from rdst_tpu_torch.serving.client import SRClient
+    from rdst_tpu_torch.serving.server import InferenceServer
+
+    srv = InferenceServer(live, "127.0.0.1", 0, max_batch=64,
+                          batch_wait_ms=5.0)
+    rng = np.random.default_rng(ZOO_SEED + 3)
+    out = {}
+    try:
+        srv.warmup(lr_hw=LR_HW, scale=SCALE)
+        srv.start_background()
+        client = SRClient(f"http://127.0.0.1:{srv.port}")
+        xs = {b: rng.random((b,) + LR_HW, dtype=np.float32)
+              for b in (1, 8, 64)}
+        direct = {b: live.predict(x, SCALE) for b, x in xs.items()}
+        if counter is not None:
+            counter.launches = 0  # the served path starts here
+        for b, x in xs.items():
+            got = client.predict(x, SCALE)
+            err = float(np.abs(got - direct[b]).max())
+            if got.shape != direct[b].shape or err > SERVE_TOL:
+                raise AssertionError(f"served {b}: {got.shape} {err}")
+            out[f"err_{b}"] = err
+        if counter is not None:
+            out["launches"] = counter.launches  # and ends here
+            if out["launches"] != 3 * per_forward:
+                raise AssertionError(f"served launches {out['launches']}, "
+                                     f"expected 3 x {per_forward}")
+        for b, x in xs.items():
+            ts = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                client.predict(x, SCALE)
+                ts.append(time.perf_counter() - t0)
+            out[f"p50_ms_{b}"] = float(np.median(ts)) * 1e3
+    finally:
+        srv.close()
+    log("served 1 / 8 / 64 slices, each equal to a direct predict (max "
+        f"abs err {max(out[f'err_{b}'] for b in (1, 8, 64)):.3e}); "
+        + (f"{out['launches']} launches; " if counter is not None else "")
+        + "p50 " + " / ".join(f"{out[f'p50_ms_{b}']:.2f}" for b in
+                              (1, 8, 64)) + " ms")
+    return out
+
+
+@phase("zoo training, tester and server")
+def zoo_train_phase(data_dir: str, tmp: str, patients: dict) -> dict:
+    """``python -m rdst_tpu_torch.train`` (``cli.train_main``) of the
+    shipped bf16 recipe (TRAIN_CONFIG: batch 32 of LR 24x24) for ZOO_STEPS
+    steps each of RDST-N, ESTSR and WaveletSR on the train-pair kernels,
+    and of Swin-MLP in f32 (no kernel): the routes, the first step on the
+    kernel route against the plain bf16 route, the train-pair launches of
+    the run (counts set to 0 just before, read just after), a finite,
+    falling loss, steps/s and one profiled step. Then each snapshot the
+    run saved: ``cli.test_main`` on patients 19-20 (f32, the f32 block's
+    launches a forward) and served over HTTP (``_zoo_serve``)."""
+    from rdst_tpu_torch.cli import build_trainer, train_main
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels import pair_train as pt
+    from rdst_tpu_torch.kernels import swin_block as sb
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    out = {}
+    for label, (over, pairs) in ZOO_TRAIN.items():
+        over = {**over, "eva_metrics": "psnr ssim"}
+
+        def argv(name, steps):
+            return _train_argv(data_dir, os.path.join(tmp, "zoo", name),
+                               steps) + [f"{k}={v!r}"
+                                         for k, v in over.items()]
+
+        row = {}
+        slug = label.replace(" ", "_")
+        probe = build_trainer(argv(f"{slug}_probe", 1))
+        probe.setup()
+        row["train_routes"] = dict(probe.model.train_routes)
+        log(f"zoo {label}: train routes {probe.model.train_routes} "
+            f"({probe.model.train_mode or 'plain'})")
+        if probe.model.train_routes != {"pair": pairs, "block": 0}:
+            raise AssertionError(f"zoo {label}: train routes "
+                                 f"{probe.model.train_routes}")
+        if pairs:
+            batch = probe.ds_train.sample(np.random.default_rng(17))
+            row.update(_first_step_vs_plain(probe, batch))
+        del probe
+        bt.launch_forward.launches = bt.launch_backward.launches = 0
+        pt.launch_forward.launches = pt.launch_backward.launches = 0
+        t0 = time.perf_counter()
+        trainer = train_main(argv(slug, ZOO_STEPS))  # the main path
+        torch.cuda.synchronize()
+        row["run_s"] = time.perf_counter() - t0
+        fwd, bwd = pt.launch_forward.launches, pt.launch_backward.launches
+        losses = trainer.training_loss_records.get("WarmUP", [])
+        row.update(forward_launches=fwd, backward_launches=bwd,
+                   losses=losses)
+        log(f"zoo {label}: {ZOO_STEPS} steps in {row['run_s']:.3f} s "
+            f"(evaluations included), train-pair launches forward {fwd}, "
+            f"backward {bwd}; loss {losses[0]:.5f} -> {losses[-1]:.5f}")
+        if fwd != pairs * ZOO_STEPS or bwd != pairs * ZOO_STEPS or \
+                bt.launch_forward.launches or bt.launch_backward.launches:
+            raise AssertionError(f"zoo {label}: launches {fwd} / {bwd}")
+        if len(losses) != ZOO_STEPS or not np.isfinite(losses).all() or \
+                not np.mean(losses[-3:]) < np.mean(losses[:3]):
+            raise AssertionError(f"zoo {label}: losses {losses} (the mean "
+                                 "of the last 3 must fall below the first "
+                                 "3's)")
+        row["profile"] = _step_profile(trainer,
+                                       label=f"zoo {label} training step")
+        snap = os.path.join(trainer.dirs["models"], "WarmUP_model_g.msgpack")
+        del trainer
+        f32_over = {**over, "training_dtype": "float32"}
+        counter = sb.fused_swin_block if pairs else None
+        per = ZOO_F32_LAUNCHES[label]
+        row["tester"] = _tester_row(
+            f"zoo {label}", TRAIN_CONFIG, snap, data_dir, tmp, patients,
+            counter, per, **f32_over)
+        p = ParametersLoader(TRAIN_CONFIG)
+        for k, v in f32_over.items():
+            p.set(k, v)
+        p.set("well_trained_single_scale_model_g", snap)
+        live = LiveModel(p, max_batch=64, device="cuda")
+        row["serving"] = _zoo_serve(live, counter, per)
+        del live
+        out[label] = row
+    return out
+
+
+def run_zoo(data_dir: str, tmp: str, patients: dict):
+    """The model-zoo phases; returns (results, kernel rows: the kernels at
+    the zoo's geometries with the launches of its main path)."""
+    fwd = zoo_forward_phase()
+    bf16 = zoo_bf16_phase(fwd)
+    models = {label: _zoo_model(label) for label in
+              ("WaveletSR", "ESTSR", "RDST-N")}
+    kern = zoo_kernel_phase(models, bf16)
+    del models
+    train = zoo_train_phase(data_dir, tmp, patients)
+    for row in fwd.values():
+        row.pop("y")
+    for label in ZOO_BF16:
+        bf16.pop(label)
+    wt = train["WaveletSR"]
+    kernels = [
+        _row("fused_swin_block (WaveletSR f32, C = 64, 4 heads)",
+             "swin_block.cu", "rdst_tpu/kernels/swin_block.py:757",
+             fwd["WaveletSR"]["launches"], kern["f32"]),
+        _row("fused_swin_block (WaveletSR bf16 mode swin, C = 64, 4 heads)",
+             "swin_block_fast.cu", "rdst_tpu/kernels/swin_block.py:757",
+             bf16["WaveletSR swin"]["launches"], kern["fast"]),
+    ] + _train_rows("fused_swin_pair_train (WaveletSR, C = 64)",
+                    "pair_train.cu", "rdst_tpu/kernels/pair_train.py:293",
+                    {"variants": kern["train_pair"]}, wt)
+    for label in ("ESTSR", "RDST-N"):
+        k = kern[label]
+        kernels += [
+            _row(f"fused_swin_block ({label} f32)", "swin_block.cu",
+                 "rdst_tpu/kernels/swin_block.py:757",
+                 fwd[label]["launches"], k["f32"]),
+            _row(f"fused_rdstb ({label} bf16)", "rdstb_block.cu",
+                 "rdst_tpu/kernels/rdstb_block.py:334",
+                 bf16[f"{label} rdstb"]["launches"], k["rdstb"]),
+        ] + _train_rows(f"fused_swin_pair_train ({label})", "pair_train.cu",
+                        "rdst_tpu/kernels/pair_train.py:293",
+                        {"variants": k["train_pair"]}, train[label])
+    return {"forward": fwd, "bf16": bf16, "kernels": kern,
+            "train": train}, kernels
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--only", choices=("e1", "swinir", "w96", "metasr",
-                                       "int8", "xdata"),
+                                       "int8", "xdata", "zoo"),
                     nargs="+", default=None,
                     help="run the card and build phases and these models' "
                     "phases only (default: every phase)")
@@ -5755,6 +6463,9 @@ def main(argv=None) -> int:
             kernels += rows
         if args.only is None or "xdata" in args.only:
             results["xdata"], rows = run_xdata(data_dir, tmp, patients)
+            kernels += rows
+        if args.only is None or "zoo" in args.only:
+            results["zoo"], rows = run_zoo(data_dir, tmp, patients)
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

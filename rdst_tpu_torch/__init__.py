@@ -18,6 +18,11 @@ trained weights by the ``test.py`` protocol (``runners/tester.py``).
 The trainer also runs the fine-tune recipes: the VGG and seg-UNet
 perceptual losses and the GAN step with its discriminator
 (``losses/``), and FID scores the evaluations (``metrics/fid.py``).
+MetaSR and a scale-free RDST serve and train at fractional scales. The
+Swin-based model zoo builds from any RDST config by overrides
+(``models/registry.py``): RDST-N, ESTSR, RDST's ``3conv`` / ``ape`` /
+``remat`` options, the wavelet transformers and Swin-MLP, on the same
+kernels.
 """
 
 __version__ = "0.1.0"

@@ -1,10 +1,11 @@
-"""Weight carry-over: a JAX ``RDSTSR`` or ``SwinIR`` parameter tree -> the
-port's state_dict; and both ways for the networks whose port modules
-carry the flax module names (the discriminators, the seg UNet,
-InceptionV3): :func:`export_flax_tree` / :func:`import_flax_tree`; and
-for EDSR and MetaSR, named as flax names them but with each flax
-``Conv``'s inner ``conv`` level dropped: :func:`export_named` /
-:func:`import_named`.
+"""Weight carry-over: a JAX ``RDSTSR`` (RDST-N and ESTSR too) or ``SwinIR``
+parameter tree -> the port's state_dict; and both ways for the networks
+whose port modules carry the flax module names (the discriminators, the
+seg UNet, InceptionV3): :func:`export_flax_tree` /
+:func:`import_flax_tree`; and for EDSR, MetaSR, WaveletSR and Swin-MLP,
+named as flax names them but with each flax ``Conv``'s inner ``conv``
+level dropped and a Swin stack's ``blocks_i`` as ``blocks.i``:
+:func:`export_named` / :func:`import_named`.
 
 The port's modules are named so that their ``state_dict`` keys are the
 reference RDSTSR and SwinIR keys that ``rdst_tpu/checkpoint/
@@ -87,8 +88,9 @@ def _conv_leaf(leaf: str, v):
 
 def export_rdstsr(params: dict, mean=(0.0,),
                   std=(1.0,)) -> Dict[str, np.ndarray]:
-    """JAX RDSTSR params (nested numpy dict, with or without the top
-    ``params`` level) -> the port's RDSTSR state_dict (numpy values)."""
+    """JAX RDSTSR, RDSTSR_N or ESTSR params (nested numpy dict, with or
+    without the top ``params`` level) -> the port's state_dict (numpy
+    values)."""
     flat = flatten(params["params"] if "params" in params else params)
     sd: Dict[str, np.ndarray] = dict(mean_shift_entries(mean, std))
     for path, v in flat.items():
@@ -117,12 +119,15 @@ def export_rdstsr(params: dict, mean=(0.0,),
         elif p.startswith("tail_conv/"):
             name, val = _conv_leaf(path[-1], v)
             sd[f"tail.1.{name}"] = val
-        elif p.startswith("tail_meta/"):  # scale-free: the MetaUpSampler
+        elif p.startswith(("tail_meta/", "bottleneck_")):
+            # the scale-free MetaUpSampler; RDST-N's global bottleneck
+            # (Dense or Conv layers)
             sd.update(_named_leaf(path, v))
         elif p.startswith("body_"):
             # body_{i}/body_{j}/(head|tail)_{k} adapters,
             # body_{i}/body_{j}/body/blocks_{k}/... Swin blocks,
-            # body_{i}/conv(_k)/conv bottleneck
+            # body_{i}/conv(_k)/conv bottleneck; ESTSR nests one level
+            # more (body_{i}/body_{j} an RDSTB, body_{i}/conv its own)
             q = re.sub(r"^body_(\d+)", r"body.\1", p)
             q = re.sub(r"/body_(\d+)", r"/body.\1", q)
             m = re.search(r"/(head|tail)_(\d+)/(kernel|bias|scale)$", q)
@@ -203,25 +208,34 @@ def export_swinir(params: dict) -> Dict[str, np.ndarray]:
 
 
 def _named_leaf(path, v) -> Dict[str, np.ndarray]:
-    """One flax leaf of EDSR / MetaSR / a MetaUpSampler as the port's
-    entry: a ``Conv``'s ``conv`` level dropped (HWIO -> OIHW), the
-    ``UpSampler``'s ``conv_i`` at index 2i of its Sequential, dense
-    kernels (in, out) -> (out, in)."""
+    """One flax leaf of a network named as flax names it (EDSR, MetaSR, a
+    MetaUpSampler, WaveletSR, Swin-MLP, RDST-N's bottleneck) as the
+    port's entry: a ``Conv``'s ``conv`` level dropped (HWIO -> OIHW), the
+    ``UpSampler``'s ``conv_i`` at index 2i of its Sequential, a flax
+    ``Sequential``-like ``name_i`` of a Swin stack (``blocks_i``) or of
+    RDST-N's bottleneck as ``name.i``, dense kernels (in, out) -> (out,
+    in), LayerNorm ``scale`` -> ``weight``."""
     v = np.asarray(v)
-    mods, leaf = list(path[:-1]), path[-1]
+    mods, leaf = [], path[-1]
+    for m in path[:-1]:
+        mods += (re.sub(r"^(blocks|bottleneck)_(\d+)$", r"\1.\2", m)
+                 .split("."))
     if mods and mods[-1] == "conv":
         mods = mods[:-1]
     if len(mods) >= 2 and mods[-2] == "tail_up":
         mods[-1] = str(2 * int(mods[-1].split("_")[1]))
     if leaf == "kernel":
         leaf, v = "weight", (_conv_w(v) if v.ndim == 4 else _linear_w(v))
+    elif leaf == "scale":
+        leaf = "weight"
     return {".".join(mods + [leaf]): v}
 
 
 def export_named(params: dict) -> Dict[str, np.ndarray]:
-    """JAX EDSR or MetaSR params (with or without the top ``params``
-    level) -> the port's state_dict (numpy values). Neither has MeanShift
-    parameters: their mean shift is a function in both packages."""
+    """JAX EDSR, MetaSR, WaveletSR or Swin-MLP params (with or without the
+    top ``params`` level) -> the port's state_dict (numpy values). None
+    has MeanShift parameters: EDSR's and MetaSR's mean shift is a
+    function in both packages, the other two have none."""
     flat = flatten(params["params"] if "params" in params else params)
     sd: Dict[str, np.ndarray] = {}
     for path, v in flat.items():
@@ -230,22 +244,25 @@ def export_named(params: dict) -> Dict[str, np.ndarray]:
 
 
 def import_named(state_dict) -> dict:
-    """The inverse of :func:`export_named`: the port's EDSR or MetaSR
-    ``state_dict`` (tensors or arrays) -> ``{"params": ...}`` numpy
-    trees in the flax layout."""
+    """The inverse of :func:`export_named` (and of :func:`_named_leaf`):
+    the port's state_dict (tensors or arrays) -> ``{"params": ...}``
+    numpy trees in the flax layout."""
     params: dict = {}
     convs = {k.rsplit(".", 1)[0] for k, v in state_dict.items()
              if k.endswith(".weight") and len(v.shape) == 4}
     for key, val in state_dict.items():
         v = np.asarray(val.detach().cpu().float().numpy()
                        if hasattr(val, "detach") else val, np.float32)
-        *mods, leaf = key.split(".")
+        *mods, leaf = re.sub(r"(^|\.)(blocks|bottleneck)\.(\d+)(?=\.)",
+                             r"\1\2_\3", key).split(".")
         conv = key.rsplit(".", 1)[0] in convs
         if len(mods) >= 2 and mods[-2] == "tail_up":
             mods[-1] = f"conv_{int(mods[-1]) // 2}"
         if conv:  # a flax Conv holds its kernel and bias under 'conv'
             mods.append("conv")
-        if leaf == "weight":
+        if leaf == "weight" and v.ndim == 1:  # a LayerNorm
+            leaf = "scale"
+        elif leaf == "weight":
             leaf = "kernel"
             v = np.ascontiguousarray(v.transpose(2, 3, 1, 0) if conv
                                      else v.T)
@@ -256,16 +273,21 @@ def import_named(state_dict) -> dict:
     return {"params": params}
 
 
+NAMED_GENERATORS = ("edsr", "metasr", "wtb", "wtr", "wtp", "wts", "swinmlp",
+                    "swin-mlp")
+
+
 def export_params(params: dict, generator: str, mean=(0.0,),
                   std=(1.0,)) -> Dict[str, np.ndarray]:
     """The port's state_dict of a JAX parameter tree of ``generator``
-    ('rdst', 'swinir'/'swin', 'edsr' or 'metasr')."""
+    ('rdst' -- RDST-N too --, 'estsr', 'swinir'/'swin', or one of
+    ``NAMED_GENERATORS``)."""
     name = str(generator).strip().lower()
-    if name == "rdst":
+    if name in ("rdst", "estsr"):
         return export_rdstsr(params, mean, std)
     if name in ("swinir", "swin"):
         return export_swinir(params)
-    if name in ("edsr", "metasr"):
+    if name in NAMED_GENERATORS:
         return export_named(params)
     raise NotImplementedError(
         f"carrying {generator!r} snapshots over comes with the rest of the "

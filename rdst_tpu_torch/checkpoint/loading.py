@@ -96,7 +96,7 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
     """Load a trained generator's weights into ``model`` (strictly: every
     key must match) and return it.
 
-    A ``.msgpack`` snapshot (RDST, SwinIR, EDSR or MetaSR) is read
+    A ``.msgpack`` snapshot (of any generator the port builds) is read
     without flax
     (``checkpoint.msgpack_reader``) and carried over by
     ``checkpoint.convert``. A reference torch checkpoint (``.pt``,
@@ -115,13 +115,20 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
     generator = paras.get("feature_generator") or paras.get("sr_generator")
     mean, std = getattr(model, "mean", (0.0,)), getattr(model, "std", (1.0,))
     if ext in (".pt", ".tar", ".pth"):
-        if str(generator).strip().lower() in ("edsr", "metasr"):
+        name = str(generator).strip().lower()
+        if name in ("edsr", "metasr"):
             raise NotImplementedError(
                 f"{path}: the reference torch EDSR / MetaSR key mapper is "
                 "not ported (ROADMAP Queue A 8); use the .msgpack snapshot")
+        if name not in ("rdst", "swinir", "swin") or \
+                paras.get("rdst_global_bottleneck"):
+            raise NotImplementedError(
+                f"{path}: no reference torch key mapper for "
+                f"{'RDST-N' if name == 'rdst' else repr(generator)} (the JAX "
+                "package has none either); use the .msgpack snapshot")
         sd = {k: v for k, v in read_torch_state_dict(path).items()
               if not _REBUILT.search(k)}
-        if str(generator).strip().lower() == "rdst":
+        if name == "rdst":
             sd.update({k: torch.from_numpy(v)
                        for k, v in mean_shift_entries(mean, std).items()})
         model.load_state_dict(sd)

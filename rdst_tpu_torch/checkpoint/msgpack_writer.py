@@ -1,8 +1,9 @@
 """Pure-stdlib writer of flax ``.msgpack`` parameter snapshots: the inverse
 of ``checkpoint.msgpack_reader`` and ``checkpoint.convert``.
 
-:func:`import_rdstsr` and :func:`import_swinir` (and
-``checkpoint.convert.import_named`` for EDSR and MetaSR) turn the port's
+:func:`import_rdstsr` (RDST, RDST-N, ESTSR) and :func:`import_swinir` (and
+``checkpoint.convert.import_named`` for EDSR, MetaSR, WaveletSR and
+Swin-MLP) turn the port's
 ``state_dict`` back into the JAX package's parameter trees
 (conv kernels OIHW -> HWIO, dense kernels (out, in) -> (in, out),
 LayerNorm ``weight`` -> ``scale``; the MeanShift convs, which are not
@@ -124,9 +125,10 @@ _SWIN_INV = [(dst.lstrip("."), src.lstrip("/")) for src, dst in _SWIN_LEAVES]
 
 
 def import_rdstsr(state_dict: Dict[str, object]) -> dict:
-    """The port's RDSTSR ``state_dict`` (tensors or arrays) -> the JAX
-    package's variables ``{"params": ...}`` with float32 numpy leaves:
-    the inverse of ``checkpoint.convert.export_rdstsr``."""
+    """The port's RDSTSR, RDSTSR_N or ESTSR ``state_dict`` (tensors or
+    arrays) -> the JAX package's variables ``{"params": ...}`` with
+    float32 numpy leaves: the inverse of
+    ``checkpoint.convert.export_rdstsr``."""
     params: dict = {}
     meta: dict = {}
     for key, val in state_dict.items():
@@ -158,7 +160,8 @@ def import_rdstsr(state_dict: Dict[str, object]) -> dict:
         elif key.startswith("tail.1."):
             k, val2 = _conv(leaf, v)
             _set(params, ("tail_conv", "conv", k), val2)
-        elif key.startswith("tail_meta."):  # scale-free: the MetaUpSampler
+        elif key.startswith(("tail_meta.", "bottleneck.")):
+            # the scale-free MetaUpSampler; RDST-N's global bottleneck
             meta[key] = v
         elif key.startswith("body."):
             _import_body(params, key, v)
@@ -170,27 +173,29 @@ def import_rdstsr(state_dict: Dict[str, object]) -> dict:
 
 
 def _import_body(params: dict, key: str, v: np.ndarray) -> None:
-    m = re.match(r"body\.(\d+)\.conv(?:\.(\d+))?\.(weight|bias)$", key)
-    if m:
-        name = "conv" if m.group(2) is None else f"conv_{m.group(2)}"
-        k, val = _conv(m.group(3), v)
-        _set(params, (f"body_{m.group(1)}", name, "conv", k), val)
+    """One ``body.i[.body.j]...`` entry: an RDSTB's (or ESTSR's RRDSTB's)
+    conv, a DSTL's adapter or a Swin block's leaf."""
+    m = re.match(r"((?:body\.\d+\.)+)(.+)$", key)
+    names = tuple(f"body_{i}" for i in re.findall(r"\d+", m.group(1)))
+    rest = m.group(2)
+    c = re.match(r"conv(?:\.(\d+))?\.(weight|bias)$", rest)
+    if c:
+        name = "conv" if c.group(1) is None else f"conv_{c.group(1)}"
+        k, val = _conv(c.group(2), v)
+        _set(params, (*names, name, "conv", k), val)
         return
-    m = re.match(r"body\.(\d+)\.body\.(\d+)\.(head|tail)\.(\d+)\."
-                 r"(weight|bias)$", key)
-    if m:
-        i, j, side, k, leaf = m.groups()
+    a = re.match(r"(head|tail)\.(\d+)\.(weight|bias)$", rest)
+    if a:
+        side, k, leaf = a.groups()
         if leaf == "weight":
             leaf, v = ("kernel", np.ascontiguousarray(v.T)) if v.ndim == 2 \
                 else ("scale", v)
-        _set(params, (f"body_{i}", f"body_{j}", f"{side}_{k}", leaf), v)
+        _set(params, (*names, f"{side}_{k}", leaf), v)
         return
-    m = re.match(r"body\.(\d+)\.body\.(\d+)\.body\.blocks\.(\d+)\.(.+)$", key)
-    if m:
-        i, j, k, rest = m.groups()
-        if _swin_block_leaf(params, (f"body_{i}", f"body_{j}", "body",
-                                     f"blocks_{k}"), rest, v):
-            return
+    b = re.match(r"body\.blocks\.(\d+)\.(.+)$", rest)
+    if b and _swin_block_leaf(params, (*names, "body", f"blocks_{b.group(1)}"),
+                              b.group(2), v):
+        return
     raise KeyError(f"unmapped state_dict key: {key}")
 
 
@@ -260,19 +265,20 @@ def import_swinir(state_dict: Dict[str, object]) -> dict:
 
 
 def import_state_dict(state_dict) -> dict:
-    """The JAX variables of an RDSTSR, SwinIR, EDSR or MetaSR
-    ``state_dict`` (told apart by SwinIR's ``conv_first``, EDSR's
-    ``body_conv`` and MetaSR's ``extractor``)."""
+    """The JAX variables of a generator's ``state_dict``: EDSR, MetaSR,
+    WaveletSR and Swin-MLP by their flax names (told apart by EDSR's
+    ``body_conv``, MetaSR's ``extractor`` and the others' ``group_*``),
+    SwinIR by its ``conv_first``, RDSTSR / RDSTSR_N / ESTSR otherwise."""
+    if "body_conv.weight" in state_dict or any(
+            k.startswith(("extractor.", "group_")) for k in state_dict):
+        return import_named(state_dict)
     if "conv_first.weight" in state_dict:
         return import_swinir(state_dict)
-    if "body_conv.weight" in state_dict or any(
-            k.startswith("extractor.") for k in state_dict):
-        return import_named(state_dict)
     return import_rdstsr(state_dict)
 
 
 def write_snapshot(path: str, state_dict) -> None:
-    """Write the port's RDSTSR, SwinIR, EDSR or MetaSR weights as a flax
+    """Write a generator's weights (any the port builds) as a flax
     ``.msgpack`` snapshot."""
     data = to_bytes(import_state_dict(state_dict))
     with open(path, "wb") as f:

@@ -4,12 +4,16 @@
 * DenseSTLayer (DSTL): a Swin block pair (shift 0 / ws//2) + a linear
   dim adapter at 'head' or 'tail' + a dense channel concat;
 * RDSTB: DSTLs with the input dim growing by growth_rate, then a 3x3
-  conv bottleneck back to embed_dim and a scaled residual;
-* RDSTSR: mean-shift -> head conv -> RDSTBs over tokens -> LayerNorm ->
-  conv_after_body -> global residual -> PixelShuffle tail, or with
-  ``scale_free`` the ``tail_meta`` MetaUpSampler at the scale the model
-  is called with (``forward(x, sr_scale)``), cropped to
-  ``int(orig_hw * s)``.
+  conv bottleneck back to embed_dim (or the '3conv' stack,
+  :func:`conv_stack`) and a scaled residual; RRDSTB (ESTSR's unit):
+  RDSTBs, a conv and a scaled residual;
+* RDSTSR: mean-shift -> head conv -> patch LayerNorm (-> the absolute
+  position table with ``ape``) -> RDSTBs over tokens (each recomputed in
+  the backward with ``remat``) -> LayerNorm -> conv_after_body -> global
+  residual -> PixelShuffle tail, or with ``scale_free`` the
+  ``tail_meta`` MetaUpSampler at the scale the model is called with
+  (``forward(x, sr_scale)``), cropped to ``int(orig_hw * s)``; the head
+  and the tail are :class:`SRFrame`'s, which RDST-N and ESTSR share.
 
 Module names give the reference RDSTSR state_dict keys (the ones
 ``checkpoint.convert.export_rdstsr`` writes). Layouts are NHWC and
@@ -49,7 +53,8 @@ from rdst_tpu_torch.models.meta_upscale import MetaUpSampler, scale_value
 from rdst_tpu_torch.models.routes import (  # noqa: F401 (old names)
     set_kernel_mode, set_train_mode)
 from rdst_tpu_torch.nn.common import Conv, MeanShift, UpSampler
-from rdst_tpu_torch.nn.layers import BF16, Dropout, LayerNorm, Linear
+from rdst_tpu_torch.nn.layers import (BF16, Dropout, LayerNorm, LeakyReLU,
+                                      Linear)
 from rdst_tpu_torch.nn.swin import (BasicLayer, kernel_plan, refuse_grad,
                                     resolve_ws_shift)
 
@@ -146,6 +151,22 @@ class DenseSTLayer(nn.Module):
         return torch.cat([shortcut, x], dim=2)
 
 
+def conv_stack(c_in: int, c_out: int, resi_connection: str) -> nn.Module:
+    """The residual conv of an RDSTB (C_in = its dense width) or of
+    ``conv_after_body``: '1conv' one 3x3 conv; '3conv' a 3x3 conv to
+    C_in // 4, leaky ReLU 0.2, a 1x1 conv, leaky ReLU, a 3x3 conv to
+    C_out (the flax ``conv_0`` / ``conv_2`` / ``conv_4`` at indices 0, 2,
+    4)."""
+    if resi_connection == "1conv":
+        return Conv(c_in, c_out, 3)
+    if resi_connection == "3conv":
+        q = c_in // 4
+        return nn.Sequential(Conv(c_in, q, 3), LeakyReLU(0.2), Conv(q, q, 1),
+                             LeakyReLU(0.2), Conv(q, c_out, 3))
+    raise ValueError(f"resi_connection {resi_connection!r}: expected "
+                     "'1conv' or '3conv'")
+
+
 class RDSTB(nn.Module):
     """Residual dense block of DSTLs."""
 
@@ -161,10 +182,7 @@ class RDSTB(nn.Module):
                  layer_norm: bool = True, drop: float = 0.0,
                  attn_drop: float = 0.0):
         super().__init__()
-        if resi_connection != "1conv":
-            raise NotImplementedError(
-                f"resi_connection {resi_connection!r}: only '1conv' (every "
-                "shipped RDST config) is ported")
+        self.resi_connection = resi_connection
         self.residual_scale = residual_scale
         self.input_dim, self.growth_rate = input_dim, growth_rate
         self.num_heads, self.window_size = num_heads, window_size
@@ -183,8 +201,8 @@ class RDSTB(nn.Module):
                          pre_norm, build_resolution, layer_norm, drop,
                          attn_drop)
             for i in range(int(num_blocks))])
-        self.conv = Conv(input_dim + int(num_blocks) * growth_rate,
-                         input_dim, 3)
+        self.conv = conv_stack(input_dim + int(num_blocks) * growth_rate,
+                               input_dim, resi_connection)
 
     def _window(self, h: int, w: int) -> Tuple[int, int]:
         return resolve_ws_shift(self.build_resolution or (h, w), h, w,
@@ -202,6 +220,9 @@ class RDSTB(nn.Module):
 
         nb = len(self.body)
         widths = [self.input_dim + i * self.growth_rate for i in range(nb)]
+        if self.resi_connection != "1conv":
+            return (f"resi_connection {self.resi_connection!r}: the kernel "
+                    "ends in the one-conv bottleneck")
         if self.layer_depth != 2 or not self.layer_norm:
             return (f"layer_depth {self.layer_depth} / layer_norm "
                     f"{self.layer_norm}: the kernel runs one LayerNorm pair "
@@ -273,6 +294,41 @@ class RDSTB(nn.Module):
         return y + shortcut
 
 
+class RRDSTB(nn.Module):
+    """Residual-in-residual dense Swin block (the JAX package's
+    ``RRDSTB``, ESTSR's unit): ``num_rdstb`` RDSTBs, a 3x3 conv, then
+    ``conv(x) * residual_scale + shortcut``. Its RDSTBs take the RDSTB
+    defaults for the q/k/v bias, the q scale, the dropout rates and the
+    LayerNorms, whatever the config says, as the JAX ``RRDSTB`` hands
+    them none."""
+
+    def __init__(self, input_dim: int, num_rdstb: int = 3,
+                 layer_depth: int = 2, num_heads: int = 6,
+                 window_size: int = 8, mlp_ratio: float = 2.0,
+                 resi_connection: str = "1conv", growth_rate: int = 30,
+                 dense_scale: float = 1.0, dim_modify_mode: str = "tail",
+                 rdb_depth: int = 3, rdb_residual_scale: float = 1.0,
+                 residual_scale: float = 1.0, pre_norm: bool = False,
+                 build_resolution: Optional[Tuple[int, int]] = None):
+        super().__init__()
+        self.residual_scale = float(residual_scale)
+        self.body = nn.ModuleList([
+            RDSTB(input_dim, layer_depth, num_heads, window_size, mlp_ratio,
+                  resi_connection=resi_connection, growth_rate=growth_rate,
+                  dense_scale=dense_scale, dim_modify_mode=dim_modify_mode,
+                  num_blocks=rdb_depth, residual_scale=rdb_residual_scale,
+                  pre_norm=pre_norm, build_resolution=build_resolution)
+            for _ in range(int(num_rdstb))])
+        self.conv = Conv(input_dim, input_dim, 3)
+
+    def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
+        shortcut = x
+        for block in self.body:
+            x = block(x, x_size)
+        y, _ = to_tokens(self.conv(to_image(x, x_size)))
+        return y * self.residual_scale + shortcut
+
+
 class _PatchEmbed(nn.Module):
     """Holds the patch-embedding LayerNorm (state_dict ``patch_embed.norm``)."""
 
@@ -281,7 +337,136 @@ class _PatchEmbed(nn.Module):
         self.norm = LayerNorm(dim)
 
 
-class RDSTSR(nn.Module):
+class SRFrame(nn.Module):
+    """What RDSTSR, RDSTSR_N (``models.rdst_n``) and ESTSR
+    (``models.estsr``) share around their bodies: the mean shift, the head
+    conv, the patch LayerNorm and the absolute position embedding before
+    it (:meth:`_head`, :meth:`_embed`); the PixelShuffle tail or the
+    scale-free ``tail_meta`` MetaUpSampler and the crop after it
+    (:meth:`_tail`, :meth:`_upsample`). ``route_units()`` are the
+    RDSTBs (:meth:`rdstbs`)."""
+
+    def _head(self, in_chans: int, embed_dim: int, window_size, mean, std,
+              patch_norm: bool, ape: bool, build_resolution,
+              dtype: torch.dtype) -> None:
+        if dtype not in (torch.float32, BF16):
+            raise NotImplementedError(
+                f"{type(self).__name__} in {dtype}: the port computes in "
+                "float32 or bfloat16")
+        self.dtype = dtype
+        self.train_mode = ""  # plain autograd until set_train_mode
+        self.train_routes = {"pair": 0, "block": 0}
+        # training patches are built at the build resolution (24x24 LR)
+        self.train_resolution = build_resolution
+        self.window_size = tuple(window_size)
+        self.mean, self.std = tuple(mean), tuple(std)
+        self.sub_mean = MeanShift(mean, std, "sub")
+        self.add_mean = MeanShift(mean, std, "add")
+        self.head = Conv(in_chans, embed_dim, 3)
+        self.patch_embed = _PatchEmbed(embed_dim) if patch_norm else None
+        self.absolute_pos_embed = None
+        if ape:
+            # the JAX table has one row a token of the input it was
+            # initialized at (the trainer's: one training patch, padded to
+            # whole windows); a carried-over table keeps its own length
+            m = _lcm_all(window_size)
+            h, w = (-(-int(s) // m) * m for s in build_resolution)
+            self.absolute_pos_embed = nn.Parameter(
+                torch.zeros(1, h * w, embed_dim))
+
+    def _tail(self, in_chans: int, sr_scale, tail_dim: int,
+              drop_rate: float, scale_free: bool) -> None:
+        self.sr_scale = int(sr_scale)
+        self.pos_drop = Dropout(drop_rate)
+        self.scale_free = bool(scale_free)
+        if self.scale_free:
+            self.tail_meta = MetaUpSampler(tail_dim, in_chans)
+        else:
+            self.tail = nn.Sequential(
+                UpSampler(self.sr_scale, tail_dim) if self.sr_scale > 1
+                else nn.Identity(),
+                Conv(tail_dim, in_chans, 3))
+
+    def rdstbs(self):
+        return list(self.body)
+
+    def route_units(self):
+        """The units a kernel route is decided for: the RDSTBs."""
+        return [("RDSTB", b) for b in self.rdstbs()]
+
+    def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
+        # the position table takes the length of the one carried over
+        key = prefix + "absolute_pos_embed"
+        table = self.absolute_pos_embed
+        if table is not None and key in state_dict and \
+                state_dict[key].shape != table.shape:
+            table.data = table.new_zeros(state_dict[key].shape)
+        super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
+
+    def _embed(self, x: torch.Tensor):
+        """NHWC LR -> (the head conv's output, the tokens the body takes,
+        their (H, W), the unpadded LR (h0, w0))."""
+        x = x.to(self.dtype)
+        x, hw0 = pad_to_window_multiple(x, _lcm_all(self.window_size))
+        x = self.head(self.sub_mean(x))
+        tokens, x_size = to_tokens(x)
+        if self.patch_embed is not None:
+            tokens = self.patch_embed.norm(tokens)
+        table = self.absolute_pos_embed
+        if table is not None:
+            if table.shape[1] != tokens.shape[1]:
+                raise ValueError(
+                    f"absolute_pos_embed has {table.shape[1]} positions, the "
+                    f"input {tuple(x_size)} {tokens.shape[1]} tokens: the "
+                    "table (rdst_ape) is sized by the token count the model "
+                    "was initialized at, and takes inputs of that size only")
+            # bf16: the table rounded, so the tokens stay bf16 (the JAX
+            # package promotes them to float32 here)
+            tokens = tokens + table.to(tokens.dtype)
+        return x, self.pos_drop(tokens), x_size, hw0
+
+    def _upsample(self, res: torch.Tensor, scale, hw0) -> torch.Tensor:
+        """The tail on ``res`` (head features + scaled body residual),
+        the mean added back, the window padding cropped (at the real
+        scale when scale-free)."""
+        h0, w0 = hw0
+        if self.scale_free:
+            out = self.add_mean(self.tail_meta(res, scale))
+            return out[:, : int(h0 * scale), : int(w0 * scale), :]
+        out = self.add_mean(self.tail(res))
+        s = self.sr_scale
+        return out[:, : h0 * s, : w0 * s, :]
+
+
+def remat(block: nn.Module, x: torch.Tensor, x_size) -> torch.Tensor:
+    """``block(x, x_size)`` with its activations recomputed in the
+    backward (the JAX ``nn.remat(RDSTB)`` of ``rdst_remat``): the same
+    numbers, less memory. The generators its dropout layers draw from are
+    rewound for the recompute, so that it draws what the forward drew."""
+    from torch.utils.checkpoint import checkpoint
+
+    gens = {id(g): g for m in block.modules()
+            if (g := getattr(m, "generator", None)) is not None}
+    start = {k: g.get_state() for k, g in gens.items()}
+    calls = []
+
+    def run(t):
+        if not calls:
+            calls.append(1)
+            return block(t, x_size)
+        now = {k: g.get_state() for k, g in gens.items()}
+        for k, g in gens.items():
+            g.set_state(start[k])
+        try:
+            return block(t, x_size)
+        finally:
+            for k, g in gens.items():
+                g.set_state(now[k])
+
+    return checkpoint(run, x, use_reentrant=False)
+
+
+class RDSTSR(SRFrame):
     """Full RDST SR network; forward maps NHWC LR (B, H, W, C) to HR."""
 
     def __init__(self, in_chans: int = 1, sr_scale: int = 4,
@@ -301,35 +486,21 @@ class RDSTSR(nn.Module):
                  feature_last_operation: bool = False,
                  build_resolution: Optional[Tuple[int, int]] = None,
                  dtype: torch.dtype = torch.float32, drop_rate: float = 0.0,
-                 attn_drop: float = 0.0, scale_free: bool = False):
+                 attn_drop: float = 0.0, scale_free: bool = False,
+                 ape: bool = False, remat: bool = False):
         super().__init__()
         # no drop path rate: the JAX RDSTSR takes swin_drop_path_rate but
         # never hands it to its RDSTBs (rdst_tpu/models/rdst.py:410-428),
         # so stochastic depth stays off in RDST training
-        self.train_mode = ""  # plain autograd until set_train_mode
-        self.train_routes = {"pair": 0, "block": 0}
-        # training patches are built at the build resolution (24x24 LR)
-        self.train_resolution = build_resolution
-        if dtype not in (torch.float32, BF16):
-            raise NotImplementedError(
-                f"RDST in {dtype}: the port computes in float32 or bfloat16")
-        self.dtype = dtype
         if not (len(rdb_depths) == len(window_size) == len(num_heads)
                 == len(dense_layer_depths)):
             raise ValueError("per-RDSTB config lists differ in length")
-        if feature_last_operation and resi_connection != "1conv":
-            raise NotImplementedError("conv_after_body: only '1conv' is ported")
-        self.sr_scale = int(sr_scale)
-        self.window_size = tuple(window_size)
+        self._head(in_chans, embed_dim, window_size, mean, std,
+                   patch_norm and layer_norm, ape, build_resolution, dtype)
         self.layer_norm = layer_norm
-        self.patch_norm = patch_norm
         self.global_res_scale = global_res_scale
-        self.mean, self.std = tuple(mean), tuple(std)
-        self.sub_mean = MeanShift(mean, std, "sub")
-        self.add_mean = MeanShift(mean, std, "add")
-        self.head = Conv(in_chans, embed_dim, 3)
-        self.patch_embed = (_PatchEmbed(embed_dim)
-                            if patch_norm and layer_norm else None)
+        # rdst_remat: each RDSTB's activations recomputed in the backward
+        self.remat = bool(remat)
         self.body = nn.ModuleList([
             RDSTB(embed_dim, dense_layer_depths[i], num_heads[i],
                   window_size[i], mlp_ratio, qkv_bias, qk_scale,
@@ -337,22 +508,11 @@ class RDSTSR(nn.Module):
                   rdb_depths[i], rdb_residual_scale, pre_norm,
                   build_resolution, layer_norm, drop_rate, attn_drop)
             for i in range(len(rdb_depths))])
-        self.pos_drop = Dropout(drop_rate)
         self.norm = LayerNorm(embed_dim) if layer_norm else None
-        self.conv_after_body = (Conv(embed_dim, embed_dim, 3)
+        self.conv_after_body = (conv_stack(embed_dim, embed_dim,
+                                           resi_connection)
                                 if feature_last_operation else None)
-        self.scale_free = bool(scale_free)
-        if self.scale_free:
-            self.tail_meta = MetaUpSampler(embed_dim, in_chans)
-        else:
-            self.tail = nn.Sequential(
-                UpSampler(self.sr_scale, embed_dim) if self.sr_scale > 1
-                else nn.Identity(),
-                Conv(embed_dim, in_chans, 3))
-
-    def route_units(self):
-        """The units a kernel route is decided for: the RDSTBs."""
-        return [("RDSTB", b) for b in self.body]
+        self._tail(in_chans, sr_scale, embed_dim, drop_rate, scale_free)
 
     def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
         """NHWC LR -> HR in the model's dtype (bf16: the input is rounded
@@ -360,15 +520,11 @@ class RDSTSR(nn.Module):
         path). ``sr_scale`` is read by a scale-free model only, which
         needs it."""
         scale = scale_value(sr_scale) if self.scale_free else None
-        x = x.to(self.dtype)
-        x, (h0, w0) = pad_to_window_multiple(x, _lcm_all(self.window_size))
-        x = self.head(self.sub_mean(x))
-        tokens, x_size = to_tokens(x)
-        if self.patch_embed is not None:
-            tokens = self.patch_embed.norm(tokens)
-        tokens = self.pos_drop(tokens)
+        x, tokens, x_size, hw0 = self._embed(x)
+        again = self.remat and self.training and torch.is_grad_enabled()
         for block in self.body:
-            tokens = block(tokens, x_size)
+            tokens = (remat(block, tokens, x_size) if again
+                      else block(tokens, x_size))
         if self.norm is not None:
             tokens = self.norm(tokens)
         res = to_image(tokens, x_size)
@@ -376,33 +532,34 @@ class RDSTSR(nn.Module):
             res = res * self.global_res_scale
         if self.conv_after_body is not None:
             res = self.conv_after_body(res)
-        if self.scale_free:
-            out = self.add_mean(self.tail_meta(res + x, scale))
-            # the padding cropped at the real scale, as the JAX package
-            return out[:, : int(h0 * scale), : int(w0 * scale), :]
-        out = self.add_mean(self.tail(res + x))
-        s = self.sr_scale
-        return out[:, : h0 * s, : w0 * s, :]
+        return self._upsample(res + x, scale, hw0)
 
 
-def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
-    """Factory keyed off the reference config names (the JAX package's
-    ``make_rdst``), in float32 or bfloat16. The kernel mode
-    (``pallas_kernels``, else ``RDST_TORCH_KERNELS``) and the softmax
-    variant (``pallas_softmax``, 'auto' resolved against the configured
-    checkpoint's stats sidecar) and the int8 groups (``pallas_quant``) are
-    resolved here, once, and the routes set by :func:`set_kernel_mode`."""
+def route_by_config(model: nn.Module, paras) -> nn.Module:
+    """Decide ``model``'s kernel routes once from the config's kernel keys:
+    the mode (``pallas_kernels``, else ``RDST_TORCH_KERNELS``), the
+    softmax variant (``pallas_softmax``, 'auto' resolved against the
+    configured checkpoint's stats sidecar) and the int8 groups
+    (``pallas_quant``), by :func:`set_kernel_mode`; returns the model in
+    eval mode."""
     from rdst_tpu_torch.checkpoint.loading import (resolve_model_path,
                                                    resolve_pallas_softmax)
     from rdst_tpu_torch.kernels.window_attention import kernel_flags
 
+    flags = kernel_flags(paras)
+    softmax = resolve_pallas_softmax(resolve_model_path(paras), flags.softmax)
+    set_kernel_mode(model, flags.kernels, softmax, flags.quant)
+    return model.eval()
+
+
+def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> nn.Module:
+    """Factory keyed off the reference config names (the JAX package's
+    ``make_rdst``), in float32 or bfloat16; ``rdst_global_bottleneck``
+    builds RDST-N (``models.rdst_n``). Routes by :func:`route_by_config`."""
     if paras.rdst_global_bottleneck:
-        raise NotImplementedError(
-            "rdst_global_bottleneck (RDST-N) comes with the model-zoo slice")
-    if paras.rdst_ape:
-        raise NotImplementedError(
-            "rdst_ape (absolute position embedding) is not ported; no "
-            "shipped RDST config sets it")
+        from rdst_tpu_torch.models.rdst_n import make_rdst_n
+
+        return make_rdst_n(paras, mean, std, dtype)
     nc = paras.input_channel
     model = RDSTSR(
         in_chans=nc,
@@ -432,8 +589,7 @@ def make_rdst(paras, mean=None, std=None, dtype=torch.float32) -> RDSTSR:
         drop_rate=float(paras.get("swin_drop_rate", 0.0) or 0.0),
         attn_drop=float(paras.get("swin_attn_drop_rate", 0.0) or 0.0),
         scale_free=bool(paras.scale_free),
+        ape=bool(paras.rdst_ape),
+        remat=bool(paras.get("rdst_remat", False)),
     )
-    flags = kernel_flags(paras)
-    softmax = resolve_pallas_softmax(resolve_model_path(paras), flags.softmax)
-    set_kernel_mode(model, flags.kernels, softmax, flags.quant)
-    return model.eval()
+    return route_by_config(model, paras)

@@ -27,26 +27,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from rdst_tpu_torch.models.rdst import (pad_to_window_multiple, to_image,
-                                        to_tokens)
+from rdst_tpu_torch.models.rdst import (conv_stack, pad_to_window_multiple,
+                                        route_by_config, to_image, to_tokens)
 from rdst_tpu_torch.nn.common import Conv, PixelShuffle, UpSampler
-from rdst_tpu_torch.nn.layers import BF16, Dropout, LayerNorm
+from rdst_tpu_torch.nn.layers import BF16, Dropout, LayerNorm, LeakyReLU
 from rdst_tpu_torch.nn.swin import BasicLayer
 
 UPSAMPLERS = ("pixelshuffle", "pixelshuffledirect")
-
-
-class LeakyReLU(nn.Module):
-    """``jax.nn.leaky_relu``: x where x >= 0, else slope * x; on bf16 the
-    slope is rounded to bf16 first, as a weak-typed scalar is in JAX."""
-
-    def __init__(self, slope: float):
-        super().__init__()
-        self.slope = float(slope)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        slope = torch.tensor(self.slope, dtype=x.dtype, device=x.device)
-        return torch.where(x >= 0, x, x * slope)
 
 
 class RSTB(nn.Module):
@@ -65,16 +52,7 @@ class RSTB(nn.Module):
             dim, depth, num_heads, window_size, mlp_ratio, qkv_bias,
             qk_scale, build_resolution, layer_norm, drop, attn_drop,
             tuple(drop_path))
-        if resi_connection == "1conv":
-            self.conv = Conv(dim, dim, 3)
-        elif resi_connection == "3conv":
-            self.conv = nn.Sequential(
-                Conv(dim, dim // 4, 3), LeakyReLU(0.2),
-                Conv(dim // 4, dim // 4, 1), LeakyReLU(0.2),
-                Conv(dim // 4, dim, 3))
-        else:
-            raise ValueError(f"resi_connection {resi_connection!r}: expected "
-                             "'1conv' or '3conv'")
+        self.conv = conv_stack(dim, dim, resi_connection)
 
     def forward(self, x: torch.Tensor, x_size: Tuple[int, int]) -> torch.Tensor:
         y = self.residual_group(x, x_size)
@@ -185,13 +163,8 @@ class SwinIR(nn.Module):
 def make_swinir(paras, mean=None, std=None, dtype=torch.float32) -> SwinIR:
     """Factory reading the ``sir_*`` config keys (the JAX package's
     ``make_swinir``; ``mean``/``std`` are not used: SwinIR normalizes by
-    its own mean and ``sir_img_range``). Kernel keys are resolved once, as
-    in ``make_rdst``."""
-    from rdst_tpu_torch.checkpoint.loading import (resolve_model_path,
-                                                   resolve_pallas_softmax)
-    from rdst_tpu_torch.kernels.window_attention import kernel_flags
-    from rdst_tpu_torch.models.routes import set_kernel_mode
-
+    its own mean and ``sir_img_range``). Routes by ``route_by_config``,
+    as in ``make_rdst``."""
     if paras.sir_ape:
         raise NotImplementedError(
             "sir_ape (absolute position embedding) is not ported; no "
@@ -221,7 +194,4 @@ def make_swinir(paras, mean=None, std=None, dtype=torch.float32) -> SwinIR:
         resi_connection=paras.sir_res_connection,
         dtype=dtype,
     )
-    flags = kernel_flags(paras)
-    softmax = resolve_pallas_softmax(resolve_model_path(paras), flags.softmax)
-    set_kernel_mode(model, flags.kernels, softmax, flags.quant)
-    return model.eval()
+    return route_by_config(model, paras)

@@ -128,6 +128,19 @@ class Mlp(nn.Module):
         return self.drop(self.fc2(self.drop(gelu_exact(self.fc1(x)))))
 
 
+class LeakyReLU(nn.Module):
+    """``jax.nn.leaky_relu``: x where x >= 0, else slope * x; on bf16 the
+    slope is rounded to bf16 first, as a weak-typed scalar is in JAX."""
+
+    def __init__(self, slope: float):
+        super().__init__()
+        self.slope = float(slope)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        slope = torch.tensor(self.slope, dtype=x.dtype, device=x.device)
+        return torch.where(x >= 0, x, x * slope)
+
+
 def resolve_act(paras, act: Optional[str]) -> Optional[str]:
     """``rdst_tpu.nn.layers.resolve_act``: 'leaky_relu' takes the config's
     ``leaky_relu_slope`` as 'leaky_relu:<slope>' where it is not 0.2."""

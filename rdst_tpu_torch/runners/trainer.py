@@ -87,11 +87,13 @@ def truncated_normal(t: torch.Tensor, generator: torch.Generator,
 
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
-    """The JAX package's initializers: dense kernels and relative-position
-    tables truncated normal (std 0.02, cut at 2 std), dense biases zero,
-    LayerNorms one and zero, convolution kernels uniform within
+    """The JAX package's initializers: dense kernels, relative-position
+    tables, Swin-MLP spatial kernels and absolute position tables
+    truncated normal (std 0.02, cut at 2 std), dense and spatial biases
+    zero, LayerNorms one and zero, convolution kernels uniform within
     sqrt(1 / fan_in) (torch's default) and their biases zero. The frozen
     MeanShift convs are left as they are."""
+    from rdst_tpu_torch.models.swin_mlp import SwinMLPBlock
     from rdst_tpu_torch.nn.layers import LayerNorm, Linear
     from rdst_tpu_torch.nn.swin import WindowAttention
 
@@ -115,6 +117,11 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, WindowAttention):
                 truncated_normal(m.relative_position_bias_table,
                                  generator, 0.02)
+            elif isinstance(m, SwinMLPBlock):
+                truncated_normal(m.spatial_mlp_kernel, generator, 0.02)
+                m.spatial_mlp_bias.zero_()
+            if getattr(m, "absolute_pos_embed", None) is not None:
+                truncated_normal(m.absolute_pos_embed, generator, 0.02)
 
 
 def pin_batch(batch: dict) -> dict:

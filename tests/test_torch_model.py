@@ -166,11 +166,11 @@ def test_pad_to_window_multiple_reflects():
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("rdst_global_bottleneck", True, "RDST-N"),
+    ("feature_generator", "rcan", "'rcan' is not ported"),
     ("meta_feature_generator", "RDN", "Queue A 8"),
-    ("rdst_ape", True, "absolute position"),
-    ("rdst_res_connection", "3conv", "1conv"),
-    ("feature_generator", "estsr", "model-zoo"),
+    ("feature_generator", "ipt", "'ipt' is not ported"),
+    ("meta_feature_generator", "SRResNet", "'SRResNet' is not ported"),
+    ("feature_generator", "dbpn", "'dbpn' is not ported"),
     ("feature_generator", "rdn", "Queue A 8"),
 ])
 def test_unported_options_raise(key, value, match):
