@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
-        [--only e1|swinir|w96|metasr|int8|xdata|zoo ...]
+        [--only e1|swinir|w96|metasr|int8|xdata|zoo|convzoo ...]
 
 Drives the port's main paths -- the tester (``python -m
 rdst_tpu_torch.test``) on the committed weights of the README quality
@@ -361,6 +361,32 @@ from CONFIG / TRAIN_CONFIG with KEY=VALUE overrides on seeded weights
     48 / 144 / 8 / 0 launches a forward, no quality bar: the weights are
     10 steps old) and served over HTTP at 1 / 8 / 64 slices, each
     response equal to a direct predict.
+
+(``--only convzoo``, after the other models) the convolutional model
+zoo, built from CONFIG / TRAIN_CONFIG / METASR_CONFIG with KEY=VALUE
+overrides on seeded weights (``zoo_weights``), at the widths the
+factories build; no kernel of the port is on this path (cuDNN
+convolutions, plain PyTorch attention), and every port kernel counter
+must stay 0 through it; phases 42-45:
+42. each CONV_ZOO family (SRResNet, SRDenseNet, RDN, ESRGAN, MDSR at 2 /
+    3 / 4, RCAN, HAN, ConvNeXt large / lite, ZSSR on its HR-size input,
+    DBPN, IPT at 2 / 3 / 4 on 24x24, MetaSR on five extractors at 1.5 and
+    4) in f32 on 8 seeded slices: against the JAX package's forward on
+    the CPU (``CONV_ZOO_BARS``, ``tools/jax_zoo_bars.py --conv``) and
+    against the port's CPU forward of one of them (MODEL_TOL); RCAN in
+    float64 on both sides (CONV_ZOO_F64_TOL), its float32 gates that
+    differ from the float64 run's counted; one forward's device time;
+43. each family in bf16 against its f32 output (the bf16-vs-f32 bars;
+    RCAN reports its gate flips and error against float64, no bar);
+44. training: each CONV_ZOO_TRAIN family for CONV_ZOO_STEPS steps of
+    TRAIN_CONFIG (bf16; ZSSR with ``lr_image_size_remain``, MDSR and IPT
+    at scales 2 / 3 / 4, IPT at learning rate 1e-5) or METASR_CONFIG (MetaSR-RDN and -Meta_MDSR,
+    f32): the set-up model's step on the card against the CPU's (loss and
+    gradient norm; RCAN's in float64, every gradient), finite losses, a fixed batch's loss lower after the run, steps/s and one
+    profiled step (device time, idle share);
+45. each snapshot scored by ``cli.test_main`` on patients 19-20 (IPT
+    tiled) and served over HTTP at 1 / 8 / 64 slices (ZSSR HR-size, IPT
+    24x24), each response equal to a direct predict.
 
 Each training run's final evaluation scores the config's ``eva_metrics``
 as shipped (FID included; the zoo's runs score PSNR and SSIM). Any failed phase raises and the script exits
@@ -1544,13 +1570,18 @@ def _window16_cases(gen) -> dict:
     return out
 
 
-def _profiled(fn):
-    """(wall us, the profiler's CUDA events) of one call of fn()."""
+def _profiled(fn, host: bool = True):
+    """(wall us, the profiler's CUDA events) of one call of fn(); with
+    ``host`` False the profiler records the device's activity only (the
+    host's ops of a step of tens of thousands of launches cost the
+    profiler tens of seconds to record and sum)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1988,7 +2019,8 @@ def train_phase(data_dir: str, tmp: str) -> dict:
 
 
 def _step_profile(trainer, ts: str = "WarmUP", seed: int = SEED + 6,
-                  label: str = "training step") -> dict:
+                  label: str = "training step",
+                  wall_steps: int = WALL_STEPS, host: bool = True) -> dict:
     """Steps/s over WALL_STEPS warm steps of one batch on the wall clock;
     the device time of one profiled step by kernel group, and the
     device's idle share of the step's wall time; in a GAN state, the
@@ -2005,13 +2037,14 @@ def _step_profile(trainer, ts: str = "WarmUP", seed: int = SEED + 6,
     # steps/s on the wall clock: WALL_STEPS steps queued back to back, as
     # the training loop queues them, then one wait for the card
     t0 = time.perf_counter()
-    for _ in range(WALL_STEPS):
+    for _ in range(wall_steps):
         trainer.train_step(batch, ts)
     torch.cuda.synchronize()
-    steps_per_s = WALL_STEPS / (time.perf_counter() - t0)
-    log(f"{label}: {steps_per_s:.3f} steps/s over {WALL_STEPS} warm steps "
+    steps_per_s = wall_steps / (time.perf_counter() - t0)
+    log(f"{label}: {steps_per_s:.3f} steps/s over {wall_steps} warm steps "
         "(wall clock, one batch)")
-    wall_us, events, device = _profiled(lambda: trainer.train_step(batch, ts))
+    wall_us, events, device = _profiled(lambda: trainer.train_step(batch, ts),
+                                        host)
     groups = {"train kernels forward": 0.0,
               "train kernels backward (13 kernels a block)": 0.0,
               "convolution": 0.0, "matmul (adapters, optimizer)": 0.0,
@@ -2068,8 +2101,9 @@ def _step_profile(trainer, ts: str = "WarmUP", seed: int = SEED + 6,
             "time)")
     for t, count, key in out["top"]:
         log(f"  {t / 1e3:9.3f} ms x{count:4d} {key}")
-    log(f"host: {out['host_ops']} profiled CPU ops; by self CPU time "
-        "(the profiler's own overhead included):")
+    if host:
+        log(f"host: {out['host_ops']} profiled CPU ops; by self CPU time "
+            "(the profiler's own overhead included):")
     for t, count, key in out["host_top"]:
         log(f"  {t / 1e3:9.3f} ms x{count:5d} {key}")
     adv = trainer.loss.adversarial
@@ -5847,21 +5881,28 @@ def _trunc_normal(rng, shape):
 def zoo_weights(shapes: dict, seed: int = ZOO_SEED) -> dict:
     """Seeded parameters of a fresh model, ``{flax path: array}``, drawn
     leaf by leaf in sorted flax-path order at the scales of the JAX
-    package's initializers: a conv kernel uniform within 1 / sqrt(fan_in)
-    (``torch_conv_init``), dense kernels, relative-position and absolute
-    position tables and Swin-MLP spatial kernels 0.02 x a normal cut at 2,
-    LayerNorm scales 1, every bias 0. numpy only: ``tools/jax_zoo_bars.py``
-    draws the same arrays for the JAX package."""
+    package's initializers: a conv kernel (2-D, 3-D or transposed) uniform
+    within 1 / sqrt(fan_in) (``torch_conv_init``), dense kernels,
+    relative-position, absolute-position and IPT's position and query
+    tables and Swin-MLP spatial kernels 0.02 x a normal cut at 2,
+    LayerNorm scales 1, every bias 0; the layer scales ``gamma`` (HAN's
+    LAM and CSAM, ConvNeXt's blocks) uniform in [0.5, 1), not at their
+    init (0 or 1e-6), where the branches they scale would not show in the
+    output. numpy only: ``tools/jax_zoo_bars.py`` draws the same arrays
+    for the JAX package."""
     rng = np.random.default_rng(seed)
     out = {}
     for path in sorted(shapes):
         shape, leaf = tuple(shapes[path]), path[-1]
-        if leaf == "kernel" and len(shape) == 4:
+        if leaf == "kernel" and len(shape) >= 4:
             bound = float(np.prod(shape[:-1])) ** -0.5
             v = rng.uniform(-bound, bound, shape)
         elif leaf in ("kernel", "relative_position_bias_table",
-                      "spatial_mlp_kernel", "absolute_pos_embed"):
+                      "spatial_mlp_kernel", "absolute_pos_embed",
+                      "position_encoding", "query_embed"):
             v = 0.02 * _trunc_normal(rng, shape)
+        elif leaf == "gamma":
+            v = rng.uniform(0.5, 1.0, shape)
         elif leaf == "scale":
             v = np.ones(shape)
         else:
@@ -6246,11 +6287,13 @@ def zoo_kernel_phase(f32_models: dict, bf16: dict) -> dict:
     return out
 
 
-def _zoo_serve(live, counter, per_forward: int) -> dict:
-    """``live`` over HTTP: requests of 1, 8 and 64 seeded 40x32 slices,
-    each response against a direct predict (SERVE_TOL), ``counter``'s
-    launches over the requests (set to 0 just before, read just after:
-    ``per_forward`` a forward), p50 latency of 3 requests a bucket."""
+def _zoo_serve(live, counter, per_forward: int, hw=LR_HW,
+               timed: int = 3) -> dict:
+    """``live`` over HTTP: requests of 1, 8 and 64 seeded slices of ``hw``
+    (default 40x32), each response against a direct predict (SERVE_TOL),
+    ``counter``'s launches over the requests (set to 0 just before, read
+    just after: ``per_forward`` a forward; or, a dict of counters, each
+    0), p50 latency of ``timed`` requests a bucket."""
     from rdst_tpu_torch.serving.client import SRClient
     from rdst_tpu_torch.serving.server import InferenceServer
 
@@ -6259,13 +6302,16 @@ def _zoo_serve(live, counter, per_forward: int) -> dict:
     rng = np.random.default_rng(ZOO_SEED + 3)
     out = {}
     try:
-        srv.warmup(lr_hw=LR_HW, scale=SCALE)
+        srv.warmup(lr_hw=hw, scale=SCALE)
         srv.start_background()
         client = SRClient(f"http://127.0.0.1:{srv.port}")
-        xs = {b: rng.random((b,) + LR_HW, dtype=np.float32)
+        xs = {b: rng.random((b,) + tuple(hw), dtype=np.float32)
               for b in (1, 8, 64)}
         direct = {b: live.predict(x, SCALE) for b, x in xs.items()}
-        if counter is not None:
+        counters = counter if isinstance(counter, dict) else {}
+        for c in counters.values():
+            c.launches = 0  # the served path starts here
+        if counter is not None and not counters:
             counter.launches = 0  # the served path starts here
         for b, x in xs.items():
             got = client.predict(x, SCALE)
@@ -6273,14 +6319,18 @@ def _zoo_serve(live, counter, per_forward: int) -> dict:
             if got.shape != direct[b].shape or err > SERVE_TOL:
                 raise AssertionError(f"served {b}: {got.shape} {err}")
             out[f"err_{b}"] = err
-        if counter is not None:
+        if counters:
+            out["launches"] = {k: c.launches for k, c in counters.items()}
+            if any(out["launches"].values()):  # and ends here
+                raise AssertionError(f"served launches {out['launches']}")
+        elif counter is not None:
             out["launches"] = counter.launches  # and ends here
             if out["launches"] != 3 * per_forward:
                 raise AssertionError(f"served launches {out['launches']}, "
                                      f"expected 3 x {per_forward}")
         for b, x in xs.items():
             ts = []
-            for _ in range(3):
+            for _ in range(timed):
                 t0 = time.perf_counter()
                 client.predict(x, SCALE)
                 ts.append(time.perf_counter() - t0)
@@ -6419,12 +6469,664 @@ def run_zoo(data_dir: str, tmp: str, patients: dict):
             "train": train}, kernels
 
 
+# ---------------------------------------------------------------------------
+# The convolutional model zoo (``--only convzoo``): SRResNet, SRDenseNet,
+# RDN, ESRGAN, MDSR, RCAN, HAN, ConvNeXt-SR, ZSSR, DBPN, IPT and MetaSR on
+# five more extractors, at the full width the factories build from the E1
+# and MetaSR configs with KEY=VALUE overrides, on seeded weights
+
+# label: (overrides, config, LR size of the 8 seeded slices (ZSSR: its
+# HR-size input), the scales each forward runs at)
+CONV_ZOO = {
+    "SRResNet": ({"feature_generator": "srresnet"}, CONFIG, LR_HW, (4.0,)),
+    "SRDenseNet": ({"feature_generator": "srdensenet"}, CONFIG, LR_HW,
+                   (4.0,)),
+    "RDN": ({"feature_generator": "rdn"}, CONFIG, LR_HW, (4.0,)),
+    "ESRGAN": ({"feature_generator": "esrgan"}, CONFIG, LR_HW, (4.0,)),
+    "MDSR": ({"feature_generator": "mdsr", "all_sr_scales": [2.0, 3.0, 4.0]},
+             CONFIG, LR_HW, (2.0, 3.0, 4.0)),
+    "RCAN": ({"feature_generator": "rcan"}, CONFIG, LR_HW, (4.0,)),
+    "HAN": ({"feature_generator": "han"}, CONFIG, LR_HW, (4.0,)),
+    "ConvNeXt-large": ({"feature_generator": "convnet-large"}, CONFIG, LR_HW,
+                       (4.0,)),
+    "ConvNeXt-lite": ({"feature_generator": "convnet-lite"}, CONFIG, LR_HW,
+                      (4.0,)),
+    "ZSSR": ({"feature_generator": "zssr", "lr_image_size_remain": True},
+             CONFIG, (4 * LR_HW[0], 4 * LR_HW[1]), (4.0,)),
+    "DBPN": ({"feature_generator": "dbpn"}, CONFIG, LR_HW, (4.0,)),
+    # the position and query tables are sized by the 24x24 training patch
+    "IPT": ({"feature_generator": "ipt", "all_sr_scales": [2.0, 3.0, 4.0],
+             "tiled_inference": True}, CONFIG, (24, 24), (2.0, 3.0, 4.0)),
+    **{f"MetaSR {e}": ({"meta_feature_generator": e}, METASR_CONFIG, LR_HW,
+                       (1.5, 4.0))
+       for e in ("SRResNet", "SRDenseNet", "RDN", "ESRGAN", "Meta_MDSR")},
+}
+# held in float64 on both sides: RCAN's hard gate flips at near-ties of
+# 0.5 under float32 rounding, and a flip swaps a whole 3x3 conv output
+CONV_ZOO_F64 = ("RCAN",)
+
+
+def conv_zoo_paras(label: str, config=None, **kw):
+    """The ParametersLoader of a CONV_ZOO family (its config, or
+    ``config``, with its overrides and ``kw``)."""
+    from rdst_tpu_torch.config import ParametersLoader
+
+    over, cfg, _, _ = CONV_ZOO[label]
+    p = ParametersLoader(config or cfg)
+    for k, v in {**over, **kw}.items():
+        p.set(k, v)
+    return p
+
+
+# CONV_ZOO_BARS: the JAX package's forward of each CONV_ZOO family on the
+# CPU (XLA; float64 for CONV_ZOO_F64), from the same seeded weights and
+# slices (zoo_weights, zoo_input), at each of its scales: the output's
+# shape, sum, sum of squares, largest magnitude and 64 sampled pixels
+# (zoo_stats). Made by
+#     JAX_PLATFORMS=cpu python tools/jax_zoo_bars.py --conv
+CONV_ZOO_BARS = {
+    'SRResNet @4': {
+        "shape": [8, 160, 128, 1], "sum": -8181.010401,
+        "sumsq": 1517.565188, "absmax": 0.351170927,
+        "pixels": [-0.179588079, 0.0234142654, -0.138542295, -0.134594172, -0.00366903469, -0.133286417, -0.0569653213, -0.00637333468, -0.184215531, -0.106904231, 0.0221896693, 0.0591505803, -0.196944043, 0.00439146534, -0.0890201777, -0.0157615654, -0.0660681129, -0.0756572485, -0.117002949, -0.264874071, 0.00875191763, -0.057723403, 0.045944266, 0.0289603863, -0.144200921, 0.0838668197, -0.137038812, -0.0844302326, -0.0116599761, -0.209051013, -0.117249109, -0.162532389, -0.096038647, -0.101237513, -0.109756552, 0.0577846877, -0.15802674, -0.0208082367, -0.0512861237, -0.0939852297, -0.0224280115, 0.00245776027, -0.0506851748, -0.0274053551, -0.0574963726, -0.00800156593, 0.00998957083, 0.198740482, -0.138567001, -0.0688942522, 0.0307372846, -0.0969381034, -0.0671723932, 0.0849721283, -0.210045666, -0.0845509395, -0.0566179007, -0.112386569, 0.0530636013, -0.14624466, -0.0889949054, -0.0625859648, 0.00315024331, -0.139694467]},
+    'SRDenseNet @4': {
+        "shape": [8, 160, 128, 1], "sum": 257.8194067,
+        "sumsq": 14.45556723, "absmax": 0.0328147002,
+        "pixels": [-0.00039443979, -0.00112678204, 0.0125802625, -0.0102311503, 0.00217774813, -0.00727154547, 0.00959565118, 0.00398112508, 0.00809696876, -0.000642430037, -0.00185128208, 0.014025568, -0.00654179975, 0.00457927492, 0.0132003166, 0.00215019425, 0.0124346809, -0.00199732883, 0.00413929159, -0.00742461346, 0.00279236888, -0.0129948668, -0.0141814528, 0.00710920244, 0.0157619491, -0.0213174112, -0.000523634604, 0.00290377717, 0.00307458267, -0.00238900352, 0.00863933377, 0.000278112479, -0.00546164857, 0.0108849751, 0.0204023216, 0.00417916477, 0.0185595956, 0.00449123653, -0.00304282573, -0.0037286235, 0.00929636601, 0.00896130037, 0.0115256868, 0.00350898062, -0.0028265398, -0.016665183, -0.00392778125, -0.0143979173, -0.00513889734, 0.00752452621, -0.0041545704, -0.00783933606, 0.000167152844, -0.0165427625, -0.00785968173, 0.00752799679, 0.00109005556, 0.00479503116, 0.00339609268, 0.0166051611, 0.0162173286, 0.00707289204, -0.00033827126, -0.00366771035]},
+    'RDN @4': {
+        "shape": [8, 160, 128, 1], "sum": -1395.253316,
+        "sumsq": 934.094923, "absmax": 0.294931233,
+        "pixels": [0.0958241001, 0.0375020467, -0.0227177665, -0.0422630087, 0.0538741238, 0.108182855, 0.00376707129, -0.0497965328, -0.00872792397, 0.0583829209, -0.0377657413, -0.0339904986, 0.0857057273, 0.0256450921, -0.00215395726, -0.0266358107, 0.0251833424, -0.204404771, -0.0372430384, -0.00618870556, -0.0294122621, -0.0986060947, -0.0231528487, -0.019025322, -0.0670769811, 0.0489357859, 0.104463495, 0.0557286665, -0.0445437543, -0.00872460008, -0.0309832767, 0.163236797, 0.179472521, 0.0501224324, -0.106008366, -0.0113244019, -0.0842040926, 0.0247297026, -0.0784579664, 0.105258398, -0.0412284583, 0.0485405326, 0.0859469771, 0.029358305, -0.0911436081, -0.0499828868, -0.0148240542, 0.0528039336, 0.122589149, -0.200392246, -0.0702938437, -0.133835137, 0.152118951, 0.00684752688, 0.103284627, -0.0377965495, -0.0105110668, -0.0287412275, 0.0407866165, -0.0926926732, -0.134951398, -0.0670478418, -0.0678622723, -0.126380056]},
+    'ESRGAN @4': {
+        "shape": [8, 160, 128, 1], "sum": -2102.413297,
+        "sumsq": 6697.589115, "absmax": 0.733086646,
+        "pixels": [0.0680673569, -0.0158074424, -0.14308995, 0.279683143, -0.140323594, 0.267547458, -0.105812967, -0.307869107, -0.385220408, -0.00901950896, -0.0478328466, 0.179303512, 0.113880694, -0.061080806, -0.104881078, -0.336589873, 0.02548966, -0.494582832, -0.353974164, 0.320979565, -0.10992907, 0.02541437, 0.14725329, -0.0605379976, -0.275597453, 0.2559807, 0.046106942, 0.101481155, 0.0914450139, 0.064071022, -0.114119425, 0.0164791495, 0.130867764, -0.130803123, -0.105343223, 0.0274308026, -0.320283413, -0.126976579, -0.0882211775, 0.097051017, -0.323508948, -0.0979487598, -0.0690090209, -0.114392161, 0.0552773327, 0.229641974, 0.185884476, 0.246804506, -0.0944310278, -0.0850887299, -0.0340980962, 0.118017688, -0.179697186, 0.340209842, -0.0556244254, -0.304293066, 0.145958185, 0.00877435505, 0.0607242957, -0.169043988, -0.344243884, -0.111684725, -0.0922509655, 0.0143547952]},
+    'MDSR @2': {
+        "shape": [8, 80, 64, 1], "sum": -1685.323665,
+        "sumsq": 554.1049663, "absmax": 0.434791505,
+        "pixels": [-0.239312068, 0.00680753961, -0.0553828627, -0.268634439, 0.0291954018, -0.129282385, -0.111464396, -0.00150413439, -0.0178300291, -0.0288955197, -0.116702706, -0.0441637486, -0.129686967, -0.0892081857, 0.140766352, -0.214803606, 0.15903765, -0.0649338067, -0.0604969934, -0.0361374319, -0.19695209, -0.148527175, 0.0703661516, -0.0573365688, 0.00161132589, -0.0252439231, 0.242539108, -0.19165504, -0.0751406401, -0.0154146701, -0.0942768306, -0.0752872825, -0.00919290259, -0.029282093, -0.039912194, 0.144436121, -0.0788800418, -0.0220517311, 0.0430063829, -0.0411709547, -0.26510334, 0.001984559, 0.008962892, -0.124664396, -0.0275187269, -0.0864188969, 0.298369735, 0.0241600648, 0.0161883477, -0.0624644458, -0.0680648983, -0.116968676, -0.0526270978, -0.0216869004, -0.02979552, -0.11501652, 0.233952194, 0.115278594, -0.0661856607, 0.00677154213, -0.0721179992, -0.0989709347, -0.0347544253, -0.00675196946]},
+    'MDSR @3': {
+        "shape": [8, 120, 96, 1], "sum": -2275.380474,
+        "sumsq": 2473.595397, "absmax": 0.563992858,
+        "pixels": [0.0409722328, -0.00916996971, -0.0622576252, 0.0511471331, 0.110316612, -0.097739026, -0.019230511, 0.0200170726, 0.101280972, 0.0173623115, -0.111375079, -0.315251172, -0.087891534, -0.12502709, -0.244235411, -0.174825639, 0.116644517, -0.00885477662, 0.00486567616, 0.302771449, -0.355766356, 0.0853902102, -0.0267463997, 0.0670723692, 0.0622078963, -0.0290933214, -0.141483456, 0.0132880062, -0.142077118, -0.167721242, 0.257870167, 0.0999283344, -0.252775699, -0.269881815, 0.0151407793, -0.00230515748, -0.146888942, 0.193542823, -0.233627111, -0.129941806, 0.236552685, 0.047360152, 0.0604585372, 0.213680357, 0.170990676, 0.241794169, 0.00308771431, 0.114871293, 0.0412458926, 0.0583423078, 0.0836946368, 0.133328453, -0.286755681, -0.0154631436, -0.216533512, 0.0879409611, -0.281529874, -0.0369769521, -0.02108071, -0.0329381526, -0.0313114226, -0.0383871645, -0.0224902425, -0.0730182752]},
+    'MDSR @4': {
+        "shape": [8, 160, 128, 1], "sum": 2664.493674,
+        "sumsq": 1396.309579, "absmax": 0.342477173,
+        "pixels": [-0.00127146393, -0.208778009, 0.191458106, 3.49991024e-05, 0.027427759, -0.0395768397, 0.0159678254, 0.0512421243, -0.000504806638, -0.00627780706, -0.207922071, 0.0743128657, 0.00461820513, 0.167518213, 0.0657018572, 0.128861979, 0.143099189, -0.0930009335, 0.0161321908, 0.0825415403, 0.129607484, 0.00181760639, 0.0128926504, -0.134904504, 0.105129242, 0.0549243689, -0.058024399, -0.0695565939, 0.151253358, -0.0199974477, 0.0117212385, -0.0115418956, -0.0316104181, -0.00283331238, 0.237079769, -0.207322359, 0.220149457, -0.0258209351, -0.0086851418, 0.000601761043, 0.171087965, 0.0929994062, 0.148188174, 0.224561334, -0.0437548272, 0.0264412351, -0.0329026245, 0.0404211953, 0.00156326592, 0.147750854, -0.0298618823, -0.0363299251, 0.0510182939, -0.0831026584, -0.0606502667, 0.00548273325, 0.0242658649, -0.0786205754, 0.0499195457, 0.129231632, 0.135205552, 0.143608108, -0.153786957, 0.034240678]},
+    'RCAN @4': {
+        "shape": [8, 160, 128, 1], "sum": -4658.725423,
+        "sumsq": 7862.607006, "absmax": 0.970685362,
+        "pixels": [0.189348921, -0.472089793, 0.218204638, -0.0356751474, 0.12913229, 0.239486205, -0.202279306, 0.323628147, 0.212380507, -0.098943539, -0.00276705565, -0.309635769, -0.0827241988, -0.0908353359, 0.0491808508, -0.172105141, 0.301972712, -0.127189054, 0.359406665, -0.362235902, -0.24626963, 0.00661735674, -0.323977034, -0.470722993, 0.173514187, 0.0233181847, 0.0989646616, 0.123863743, 0.0828219752, 0.0180241065, -0.237990154, 0.48679735, 0.128495914, -0.0928914642, -0.0638408756, -0.0448407577, 0.565642421, 0.0296940872, -0.0947943947, -0.106560643, -0.216873107, -0.28212693, 0.0474527074, -0.148527839, 0.0184989011, 0.2399881, -0.0944889622, 0.375020667, 0.14967867, -0.0500787758, 0.354883918, -0.232604675, 0.0857941697, 0.352635819, 0.01608439, 0.188860369, -0.0522226983, -0.312473658, -0.361967994, 0.358547676, 0.148254578, -0.440711941, -0.213881521, 0.0861669765]},
+    'HAN @4': {
+        "shape": [8, 160, 128, 1], "sum": -1897.273116,
+        "sumsq": 3879.272208, "absmax": 0.635212183,
+        "pixels": [0.0755273402, -0.0899338871, -0.196953773, -0.000425860286, 0.101144046, -0.291939944, 0.188966557, 0.106672123, -0.0747318715, 0.0871164799, -0.034547776, -0.0255621523, -0.181248158, -0.0321157873, 0.0824718699, 0.0515035428, -0.0551911965, 0.150707155, -0.00193472952, 0.306402624, 0.0241291337, -0.197229013, -0.0302094668, 0.0876992121, -0.0756228417, -0.134553954, 0.0701052547, -0.0141138434, -0.0197468475, -0.135980636, 0.139719695, 0.0824384838, 0.134130359, -0.0487422049, -0.240375817, -0.16129522, -0.232708544, 0.0783158541, 0.0289394669, 0.0869796872, -0.0437285714, -0.108385839, -0.148286894, -0.206733733, -0.112431936, 0.0154101215, 0.0797034055, 0.0315719694, 0.00291886926, -0.107993066, 0.0434876159, 0.00771368295, -0.0962409973, -0.156464607, -0.0708936974, 0.0499123335, 0.124448791, 0.136469334, 0.28292498, -0.00731083751, -0.111030698, -0.0778183043, -0.160938144, -0.0177981369]},
+    'ConvNeXt-large @4': {
+        "shape": [8, 160, 128, 1], "sum": 2865.160261,
+        "sumsq": 2936.908799, "absmax": 0.471277535,
+        "pixels": [-0.0369695798, -0.23435232, -0.149963126, -0.00817402825, 0.0151346773, 0.194629788, -0.356755555, -0.0605664924, -0.0367578268, 0.151349902, -0.283598065, 0.158780783, 0.0308628604, 0.0370091647, -0.254441381, -0.00361797586, 0.03969175, 0.205641776, -0.0227170736, 0.184352741, -0.0237655491, 0.113411069, 0.0289134905, -0.0443368442, -0.183351308, 0.01959702, 0.15436922, -0.109754823, 0.0386411399, 0.0606447607, -0.285483956, -0.0618203282, 0.0666472018, -0.198750824, -0.0511847213, -0.284991562, -0.195025802, -0.151883334, 0.130303353, 0.126592308, 0.0434923917, 0.0316152573, -0.0185498707, 0.0565718189, 0.102983676, 0.113243639, 0.00317487679, 0.0372161828, 0.0835364759, -0.0304859579, 0.143829525, 0.0506430641, 0.0460758507, -0.0764191449, -0.0420398489, 0.0617311001, -0.0451420061, -0.146910757, 0.0205618851, -0.261434019, -0.0589349866, 0.0462304279, -0.171345666, 0.054828614]},
+    'ConvNeXt-lite @4': {
+        "shape": [8, 160, 128, 1], "sum": -356.4110673,
+        "sumsq": 2956.579437, "absmax": 0.55923146,
+        "pixels": [-0.0130877122, 0.0238155685, 0.206853345, -0.00568184629, -0.023500964, -0.223587543, -0.0948647335, -0.0501310155, -0.142769873, -0.141361043, -0.113860667, 0.189393193, -0.157585174, 0.193693131, 0.0737014562, -0.0838982016, 0.021664314, 0.0912414864, -0.132044733, -0.458102137, 0.210378632, 0.169063106, -0.0188433602, -0.0270557255, 0.059397541, 0.0751920193, -0.17810747, 0.175100327, 0.0521740466, -0.0657979548, -0.0583624095, 0.0444041863, -0.142506093, 0.180559248, -0.0854916275, -0.0274996534, 0.165347993, -0.0610181987, 0.0606801212, -0.16826871, 0.0724859834, 0.0921488404, 0.202317327, 0.10687688, 0.157882616, 0.0329047367, -0.275415719, 0.0712161809, 0.0450203903, -0.0298650898, 0.0511047952, 0.114681549, -0.0254133642, 0.0818714201, 0.102939568, -0.108773001, -0.214511737, 0.0746127889, -0.0811329931, 0.0904734805, 0.0707260296, -0.0204962157, -0.120305203, 0.128122181]},
+    'ZSSR @4': {
+        "shape": [8, 160, 128, 1], "sum": 82106.43399,
+        "sumsq": 54859.62701, "absmax": 1.0006566,
+        "pixels": [0.0982755423, 0.964255869, 0.932216346, 0.83725071, 0.547544301, 0.1678572, 0.875437081, 0.844487965, 0.0812387019, 0.850864768, 0.144994408, 0.0621370822, 0.420090437, 0.0704617351, 0.521218956, 0.795456767, 0.046395462, 0.0131525379, 0.214660615, 0.283212692, 0.250896007, 0.824806333, 0.522928536, 0.522354186, 0.652484596, 0.853701472, 0.0553771853, 0.705937922, 0.870447874, 0.702010095, 0.605229199, 0.347314268, 0.831850111, 0.577298582, 0.176076472, 0.895626962, 0.470170945, 0.98034668, 0.565327287, 0.0416522659, 0.680038571, 0.596269608, 0.191014215, 0.00636910275, 0.701463103, 0.180592299, 0.170050442, 0.946258485, 0.161054224, 0.545756698, 0.504227161, 0.0320843495, 0.829095423, 0.827680528, 0.659476995, 0.530615866, 0.297567606, 0.160031319, 0.910203755, 0.130696625, 0.786398649, 0.257133067, 0.14930895, 0.0588137656]},
+    'DBPN @4': {
+        "shape": [8, 160, 128, 1], "sum": -18.99080675,
+        "sumsq": 1.238383924, "absmax": 0.0107257729,
+        "pixels": [-0.00174239278, 0.00459642103, -0.0039130277, -0.000862129964, 0.000582187669, 0.00136688794, 0.00324790948, -0.000607080758, -0.00263159303, 4.01725993e-06, 0.00586657412, -0.00415978767, 0.0030179373, -0.00308737392, 0.00400835462, 0.000853874953, -0.00120860187, 0.00259247026, -0.00290555693, -0.00176993455, 0.000398649601, 0.0037224344, -0.000492671097, 0.00347820949, -0.00170603162, -0.000196231878, 0.000250250683, -0.000815152307, -0.000283956877, -0.000807672273, 0.00376213714, -0.00177902589, -0.000591752352, 0.00617235852, -0.00592774153, 0.00313278753, -0.00528882956, 0.00158008817, -0.00239678868, 0.000184554316, -0.000619045924, 0.000850528188, -0.00110646884, 0.000163742341, 0.000741122232, 0.00335631589, -0.00342930388, 0.00147748541, -0.000359840575, -0.00425334554, 0.000464159122, 0.00274978881, -0.00188080897, 0.00208542612, -0.00229518488, -0.00290849432, -0.00213980349, 0.0043356237, -0.000530347228, -0.00520009175, -0.00726465043, 0.000583735062, 0.00758364052, 0.00199877471]},
+    'IPT @2': {
+        "shape": [8, 48, 48, 1], "sum": 623.3446388,
+        "sumsq": 7286.380628, "absmax": 1.9895463,
+        "pixels": [-0.251952231, 0.101469606, 0.840331674, -1.01450336, -0.524758816, 0.988187015, 1.13305116, -1.13251936, -0.277889669, -0.127117991, -0.359757453, 0.183348835, -0.0137056112, 0.147224993, 1.36912727, 0.45432502, -0.435409725, 0.483737111, 1.06254029, 0.0554380417, -0.959906578, -0.862573683, 0.301415622, -0.302327067, 0.140323132, -0.850013852, 0.203360096, 0.234915912, 0.790545464, -0.554596663, -0.988211453, 1.43927968, -0.478855669, -0.00650440156, 0.654848695, -0.3540093, 0.0669222027, 0.172685981, -0.25516516, -0.327219248, 0.0715426132, 0.404250711, 1.22360539, -0.264118791, 0.992623806, -0.325453997, -0.349031359, -0.465955257, 0.541098535, 0.257995605, -0.953842103, -0.670503616, 0.373420477, -0.374069512, 1.16181123, 1.10798931, -0.770211101, 0.2581833, -0.477027386, -1.00383914, -0.0108895898, 0.0727100521, 0.642609239, 0.977136254]},
+    'IPT @3': {
+        "shape": [8, 72, 72, 1], "sum": -5116.701862,
+        "sumsq": 15811.46649, "absmax": 2.60779619,
+        "pixels": [0.140902236, 0.067390427, -1.47500193, -1.53296971, 0.302000761, 0.0297961086, 0.149069399, -0.302784026, -0.597305775, 0.0725039244, 0.675885081, -0.982084632, -0.561484933, -0.658006608, 0.0935980082, 0.711750388, -0.604292035, -1.07344913, -1.3493154, 1.14169312, -0.947882771, -0.883770406, -0.754144788, -0.70509994, 0.0521653816, 0.0564458817, 0.356612742, -0.427262902, -0.301963687, 0.211634874, 0.748064995, -0.00891772658, 0.0697372407, 0.343115747, -0.253949612, -0.161695674, 0.0977082103, -0.144463465, -1.7407155, 0.180990174, -1.84509337, 0.919397831, -0.258486181, 0.4987652, -0.745507896, -0.37457341, 0.0609047711, -0.250898063, 1.0113852, -0.649742901, -0.395685077, 0.0904255211, 0.470260143, -0.180973172, -0.804213405, -1.44063306, -0.646108627, -0.573935449, -0.123110741, -0.0875036716, -1.2221806, 0.338481694, -0.094568789, -1.73762429]},
+    'IPT @4': {
+        "shape": [8, 96, 96, 1], "sum": -1343.539928,
+        "sumsq": 8665.667791, "absmax": 1.14687824,
+        "pixels": [-0.0200242624, 0.0224978626, -0.251577049, -0.768761396, 0.237770289, -0.0318393335, -0.106172673, -0.0471296795, -0.148407891, -0.522402585, -0.167591274, 0.152768865, 0.0304991603, -0.0432939529, 0.146514028, 0.40065518, -0.44659996, -0.0976723433, -0.818006039, 0.0897804648, -0.293989688, -0.303919524, -0.341583878, -0.147575334, -0.499540895, -0.0752435625, 0.0626665801, -0.650015533, 0.190607741, -0.258104712, 0.0071952939, -0.558722734, 0.311238736, -0.527527034, -0.119798228, 0.161267966, -0.0545457304, 0.236745656, -0.740858912, -0.117017031, 0.0951013267, -0.324582338, -0.571130753, 0.305310249, -0.784042716, -0.20777452, -0.547781348, 0.303377807, -0.35356915, 0.0647915006, 0.792583585, -0.117719807, -0.315967262, -0.168017, -0.243001178, 0.0840881914, 0.383452892, -0.475096941, -0.156052634, -0.499527156, 0.783379674, -0.043472182, 0.517914295, 0.067174986]},
+    'MetaSR SRResNet @1.5': {
+        "shape": [8, 60, 48, 1], "sum": -64.27298521,
+        "sumsq": 6.973758237, "absmax": 0.0749855191,
+        "pixels": [0.00137061626, -0.0107877953, -0.0300397221, -0.0158809796, 0.0176170263, -0.0102939829, 0.0202448927, -0.0256677717, -0.00711931288, -0.0218143389, -0.0335502364, -0.0139422752, -0.0316814259, -0.0254371166, 0.021643009, 0.000153563917, -0.00199560821, 0.00613260642, -0.0420010388, -0.00822400674, 0.00662256684, -0.0079324916, -0.0174733251, 0.0267029386, -0.00353281014, -0.0130055845, 0.0324985273, -0.0134642683, 0.0250259973, -0.00660554832, -0.0249711554, -0.0163374692, -0.00258018821, -0.0382596105, -0.0203874167, 0.0124744475, 0.00962736085, -0.0207785405, 0.0240358002, -0.00542358123, -0.017275773, 0.0157258008, -0.0131121203, -0.0127945133, 0.00836381316, -0.00364715164, -0.0304771345, 0.0131226815, 0.0010903962, 0.0335125178, 0.000569790602, -8.45454633e-05, 0.00401985273, -0.0348412059, 0.0100266337, 0.00880111009, -0.0224479102, 0.00776470965, -0.0154310493, 0.0173968151, -0.00540748145, -0.0193243027, 0.011327045, 0.000761598349]},
+    'MetaSR SRResNet @4': {
+        "shape": [8, 160, 128, 1], "sum": -1200.285493,
+        "sumsq": 33.92807887, "absmax": 0.0629610047,
+        "pixels": [-0.0063073663, -0.00764613599, -0.0186387822, -0.0207093842, -0.0026544407, -0.0182976089, -0.000745013356, -0.00977440551, -0.0254888572, -0.00286919437, -0.0112862736, 0.00291176513, -0.00348845869, -0.0116963116, 0.0075077191, 0.0218920428, -0.0154334111, -0.0020272322, -0.0186562836, 0.00964975171, 0.00452614669, -0.00865250081, -0.00333027169, -0.00117405504, -0.0135187469, -0.00364320725, -0.00392808393, -0.0116146524, -0.00320733385, -0.0210153833, -0.0040964298, -0.01125516, -0.00575413182, -0.0187351182, -0.0134679005, -0.0111805275, -0.0113610066, -0.018084459, -0.0191429369, -0.0113966092, 0.000499472022, 0.00130820367, -0.000261309091, 0.00585727766, -0.0302655529, -0.0233363565, 0.0034512151, -0.0081572216, -0.00583301857, -0.00666799676, -0.0193587393, -0.0172107518, -0.0250089131, -0.00871035457, -0.00920221582, -0.0258613154, -0.00851095095, -0.00882087648, -0.0104742758, -0.0180893317, -0.0184591338, 0.00643137284, -0.0102321431, -0.0302516297]},
+    'MetaSR SRDenseNet @1.5': {
+        "shape": [8, 60, 48, 1], "sum": -86.1952604,
+        "sumsq": 0.7256788675, "absmax": 0.0196607672,
+        "pixels": [-0.00196785806, -0.00481472723, -0.00201048004, -0.00218983414, -0.00305887568, 0.00220562192, -0.00336425425, 0.00337855145, -0.0137992166, 0.000240471214, -0.00198240438, -0.00710101333, -0.00189381884, -0.00628522225, -0.00301595777, -0.00762794632, 0.00178377051, -0.00764369592, -0.0042519737, 0.00150237023, -0.00669288542, 0.00638355967, 0.00985931698, -0.0080738049, -0.00845756568, -0.00659343321, -0.00191608083, -0.00557607692, -0.00226738863, 0.00235391897, -0.00224706437, 0.00214498909, -0.0076072393, -0.00632511731, -0.00927569531, -0.00278576976, 0.000860569533, 0.00206347601, -0.00190730009, -0.00352135859, -0.00686084945, -0.00836961996, -0.00336748734, -0.00632639881, -0.00784255378, -0.00678857695, -0.00582134817, 0.00319952704, -0.010489285, -0.00328856753, -0.000535381958, -0.00179179385, -0.00169948, -0.00598414522, 0.00110841147, -0.0093883872, -0.00924595818, -0.00833434798, -0.00207346282, -0.00609473092, -0.00201057503, -0.00233922433, -0.000652004033, -0.0038070851]},
+    'MetaSR SRDenseNet @4': {
+        "shape": [8, 160, 128, 1], "sum": -296.4795455,
+        "sumsq": 1.862194769, "absmax": 0.0162001718,
+        "pixels": [-0.00507985428, -0.0046581286, -0.00651163049, -0.0056088157, -0.00493931212, -0.00443296274, -0.0022552195, -0.000205432996, 0.00046183262, 0.00142412726, 0.00180423399, -0.0031253784, -0.00654660352, -0.00364241609, -0.00652344944, -0.004558763, -0.00405809376, -0.000612206524, -0.00332998019, 0.000252693659, -0.00111343525, -0.000940893311, -0.00396373123, -0.000898888335, -0.001193756, -0.00360551709, -0.00170808192, 0.000146894716, -0.00352584478, 0.00258257845, -0.000869709998, 0.00200763205, -0.00169589766, -0.000749060418, -0.00365862111, -0.00784633681, -0.00304282992, 0.00439973734, -0.00301827863, 0.00119644776, -0.00360239763, -0.000740727875, -0.000502551906, -0.00227882597, -0.000233681407, 0.000332586002, -0.00112941477, -0.00283777085, -0.00515104458, -0.00154748524, -0.00024030311, 0.00565700559, 0.00255445205, -0.00131582003, -0.0037456064, 0.00217276346, 0.00201598043, -0.00409625145, 0.000608996488, -0.00303431577, -0.000494404929, 0.00317805377, 0.00484949909, -0.00406042906]},
+    'MetaSR RDN @1.5': {
+        "shape": [8, 60, 48, 1], "sum": -833.4396468,
+        "sumsq": 39.18002162, "absmax": 0.117841505,
+        "pixels": [-0.0172849186, -0.0543067567, 0.00806770846, -0.0410786793, -0.027765099, -0.0429132208, -0.0108438823, -0.0455285646, -0.044317387, -0.0785028785, -0.0202304069, -0.0416494161, -0.0389887877, -0.0566607565, -0.0360717252, -0.0342087038, -0.0379928239, -0.0272056293, -0.0559139289, -0.0344105065, -0.0222197119, -0.0249823537, -0.0588158704, -0.0189944617, -0.04363418, -0.0241387598, -0.0133886188, -0.0425520316, -0.038640894, -0.0161110628, -0.0644442886, -0.0343508311, -0.0477902107, -0.0521085449, -0.0364350155, -0.0498950407, -0.0302648712, -0.0288595445, -0.00809641182, -0.0310425237, -0.0453376099, -0.0248783175, -0.0513914041, -0.0391767621, -0.0543312952, -0.0321504883, -0.0475675352, -0.0130434185, -0.0492014736, -0.0176517908, -0.04565534, -0.0825381353, -0.0300846063, -0.0531660989, -0.0219179466, -0.0354884714, -0.030324759, -0.0412053727, -0.0299769174, -0.0106452703, 0.024243759, -0.02780772, -0.0264262706, -0.00829321146]},
+    'MetaSR RDN @4': {
+        "shape": [8, 160, 128, 1], "sum": -3619.328546,
+        "sumsq": 118.230821, "absmax": 0.10337846,
+        "pixels": [-0.0564866066, -0.0461760089, -0.0113207893, -0.0402615666, -0.0327376984, -0.0434703156, -0.0193719231, -0.0164929293, -0.0233115032, -0.00974475127, -0.0312262774, -0.0154520124, -0.0120982938, -0.0312708132, -0.0346575156, -0.00548600964, -0.0170722082, -0.0070229494, -0.0246268511, -0.00909713563, -0.00901375245, -0.0333217345, -0.0117461281, -0.0495266616, -0.029186137, -0.0107800663, -0.0111792237, -0.038679108, -0.0270100366, -0.0211604014, -0.0244673118, -0.0525903031, -0.0155086666, -0.0344372056, -0.0229841508, -0.0302064735, -0.0346256122, -0.026162697, -0.0765192956, -0.00924309343, -0.034468703, -0.0109513905, -0.0131262783, -0.0115924031, -0.0303285904, -0.0138173625, -0.0140554914, -0.0455809906, -0.0329143703, -0.0352367088, -0.0414501913, -0.0258223545, -0.00130866538, -0.0219003875, -0.0421366394, -0.0241192374, -0.0125893438, -0.0537906066, -0.0310890432, -0.0120281046, -0.0269304682, -0.00322852004, -0.0165785421, -0.00111704692]},
+    'MetaSR ESRGAN @1.5': {
+        "shape": [8, 60, 48, 1], "sum": 1515.863917,
+        "sumsq": 128.171281, "absmax": 0.227306709,
+        "pixels": [0.122463673, 0.0424769446, 0.0381959826, 0.0986074433, 0.0794078186, 0.118436955, 0.00649850816, 0.111769721, 0.0498842746, 0.128007188, 0.0733417645, 0.0775957704, 0.12417978, 0.0533036701, 0.028455887, 0.119886532, 0.0904130563, 0.0734404624, 0.105098695, 0.120526642, 0.0456037372, 0.142716944, 0.0923353806, -0.0236481279, 0.0606195107, 0.0306628719, 0.0661903471, 0.0790038779, 0.0525533631, 0.0330263898, 0.0755164623, 0.059342321, 0.0356336385, 0.0426279269, 0.0590357147, 0.0215500668, 0.078363955, -0.00190524757, 0.103742741, 0.0433166772, 0.106970437, 0.0798992813, 0.117193818, 0.0631114691, -0.000514235348, 0.0617016964, 0.0501423813, 0.114640005, 0.0797914341, 0.0140484944, 0.0601654947, 0.0115902126, 0.0780150369, 0.142282099, 0.0607866608, 0.084660545, 0.0419746861, 0.0313060693, 0.035395138, 0.0541016869, 0.0926421955, 0.139068484, 0.0626973212, 0.0799007416]},
+    'MetaSR ESRGAN @4': {
+        "shape": [8, 160, 128, 1], "sum": 8114.584026,
+        "sumsq": 572.6703641, "absmax": 0.226792991,
+        "pixels": [0.0258007422, 0.0582239702, 0.0390086174, 0.0741215348, 0.0273127146, 0.067994535, 0.0878733397, 0.0614063293, 0.177658781, 0.0575776733, 0.138065964, 0.0117397718, 0.0691386163, 0.0222701989, 0.0416109823, 0.0958607048, 0.0437840521, 0.0514116138, 0.0503171124, 0.0440456048, 0.0287933964, 0.0260181148, 0.0208854824, 0.0582168326, 0.0196614098, 0.0643389225, 0.0641210079, 0.088345781, 0.0200864021, 0.0440673232, 0.0594282188, 0.0802999288, 0.0247488767, 0.0683232993, 0.0292596277, 0.0776461661, 0.0302165076, 0.0247196574, 0.0453749001, 0.0333049595, 0.0764772445, 0.00991754234, 0.00935498066, 0.0789124146, 0.0425271876, 0.0526202396, 0.0263020433, 0.0575778708, 0.0913847685, 0.0318380147, 0.107904837, 0.159858853, 0.0346548706, 0.0867204517, -0.00850403868, 0.18749024, 0.0351259671, 0.102782845, 0.0129256165, 0.0365415402, 0.0793930367, 0.0499495901, 0.0595329851, 0.0875758529]},
+    'MetaSR Meta_MDSR @1.5': {
+        "shape": [8, 60, 48, 1], "sum": -536.8369568,
+        "sumsq": 21.65817994, "absmax": 0.111926667,
+        "pixels": [-0.0271730442, -0.0229292139, -0.0185724534, -0.0159372799, -0.0198389068, -0.0223982483, -0.00664353557, -0.0385489576, -0.0610919669, -0.0290571693, -0.0268050954, -0.0429533646, -0.013814887, -0.0421028212, -0.0199835096, -0.0469761416, -0.0439521074, -0.0334526449, 0.00265082344, 0.000939153135, -0.00904188398, -0.0197754707, -0.0215847939, -0.0308581889, -0.0368534513, -0.0153664192, -0.000694398768, -0.0186571553, -0.0114903841, -0.0032753041, -0.0263647698, -0.00724223256, -0.0040118224, 0.00565375201, -0.0169744119, -0.0465558022, -0.014338675, 0.00454795174, -0.00089516025, 0.00251759775, -0.0491741374, -0.013192256, -0.0129644144, -0.0557954423, -0.0370766968, -0.0213487782, -0.0104015376, -0.0115569597, -0.0455472916, -0.00858144183, 0.00342736766, -0.0331930295, -0.0052119894, -0.0434580669, -0.0333588645, 0.00227914285, -0.0172407161, -0.00207098387, -0.010616295, -0.0172368903, -0.0290400274, -0.0405253582, 0.0122493887, -0.0335296914]},
+    'MetaSR Meta_MDSR @4': {
+        "shape": [8, 160, 128, 1], "sum": 36.34778948,
+        "sumsq": 48.54600812, "absmax": 0.0999821872,
+        "pixels": [-0.0206981339, -0.0336660445, 0.00120363012, -0.00941348635, 0.0126328561, 0.00376873091, 0.0336280912, 0.0323559791, 0.0141333565, -0.00508218538, -0.000505562872, 0.00217268756, 0.00561835989, -0.0105592003, 0.00309517607, 0.0212638881, -0.0155569725, 0.00355647877, -0.0196109135, -0.00615582056, -0.000127017964, 0.0307838358, -0.00381159782, 0.0612094328, 0.00210977858, 0.0100514684, -0.00741752051, 0.00898822676, -0.00420104386, 0.0345669538, 0.0274184775, 0.0236676, -0.0119429091, -0.0116237607, -0.00732182618, 0.0246952847, -0.0134231746, 0.04530368, 0.00373800844, -0.00689201429, -0.014645569, 0.00599404611, -0.0159478672, -0.0106739774, 0.023671655, 0.000368280336, 0.0192164332, -0.00384150445, 0.0035992898, -0.0355727375, -0.00537116453, 0.0305214077, 0.00621218979, 0.015040881, -0.00256073382, -0.00746239349, 0.00246725883, 0.0360226743, -0.0105247563, 0.00494638644, -0.0390486866, -0.00429693051, -0.0145667624, 0.0533953756]},
+}
+# the float64 families' bar, in place of ZOO_TOL, and their card-vs-CPU bar
+# in place of MODEL_TOL: cuDNN and XLA in float64 differ by summation order
+# only
+CONV_ZOO_F64_TOL = 1e-9
+# the families trained, tested and served: the CONFIG families from
+# TRAIN_CONFIG (bf16 as shipped), the MetaSR ones from METASR_CONFIG (f32
+# as shipped), each with its CONV_ZOO overrides
+CONV_ZOO_TRAIN = ("SRResNet", "SRDenseNet", "RDN", "ESRGAN", "MDSR", "RCAN",
+                  "HAN", "ConvNeXt-large", "ConvNeXt-lite", "ZSSR", "DBPN",
+                  "IPT", "MetaSR RDN", "MetaSR Meta_MDSR")
+CONV_ZOO_STEPS = 6
+# the training runs' own overrides: IPT trains at a transformer's rate; at
+# the E1 recipe's 1e-4 its loss rises from the first step on, in float32
+# as in bf16 (0.37 -> 2.15 in 4 steps on the card)
+CONV_ZOO_TRAIN_OVER = {"IPT": {"learning_rate": 1e-5}}
+# ZSSR's batches are one whole slice each (``lr_image_size_remain``): it
+# takes the slices of one batch-32 step, and its loss is checked over 8
+# fixed one-slice batches
+CONV_ZOO_ONE_SLICE_STEPS, CONV_ZOO_FIXED_SLICES = 32, 8
+# slices of the 8 that the port's CPU forward takes (the card's forward of
+# all 8 is held against CONV_ZOO_BARS), and of a batch that the first
+# step's card-vs-CPU check takes
+CONV_ZOO_CPU_SLICES = 1
+# the card's forward device time and steps/s: warm iterations
+CONV_ZOO_ITERS, CONV_ZOO_WALL_STEPS = 3, 2
+
+
+def _port_counters() -> dict:
+    """Every launch counter of the port's kernel wrappers."""
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels import pair_train as pt
+    from rdst_tpu_torch.kernels import token_wgmma as tw
+
+    return {**_zoo_counters(), "pair_train_fwd": pt.launch_forward,
+            "pair_train_bwd": pt.launch_backward,
+            "block_train_fwd": bt.launch_forward,
+            "block_train_bwd": bt.launch_backward,
+            "token_qkv": tw.qkv_gemm, "token_proj": tw.proj_ln,
+            "token_mlp": tw.mlp, "token_adapter": tw.adapter}
+
+
+def _zero(counters: dict) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def _launched(counters: dict) -> dict:
+    return {k: c.launches for k, c in counters.items() if c.launches}
+
+
+def _conv_zoo_model(label: str, dtype=torch.float32, device="cuda",
+                    state_dict=None):
+    """A CONV_ZOO family built by ``build_generator`` from its config with
+    its overrides, holding the seeded weights (``zoo_weights`` over its
+    flax tree, carried in by ``convert``; or ``state_dict``, another
+    build's), on ``device`` as the entry points resolve it
+    (``device.resolve_device``: TF32 off). A CONV_ZOO_F64 family's f32
+    module is cast to float64 (here only: no float64 mode on the main
+    path) when ``dtype`` is float64."""
+    from rdst_tpu_torch.checkpoint.convert import export_params
+    from rdst_tpu_torch.checkpoint.msgpack_reader import flatten
+    from rdst_tpu_torch.checkpoint.msgpack_writer import import_state_dict
+    from rdst_tpu_torch.device import resolve_device
+    from rdst_tpu_torch.models import build_generator
+
+    device = resolve_device(device)
+    p = conv_zoo_paras(label)
+    f64 = dtype == torch.float64
+    model = build_generator(p, dtype=torch.float32 if f64 else dtype)
+    if state_dict is None:
+        shapes = {k: v.shape for k, v in flatten(import_state_dict(
+            model.state_dict())["params"]).items()}
+        sd = export_params({"params": _nest(zoo_weights(shapes))},
+                           p.feature_generator)
+        state_dict = {k: torch.from_numpy(np.array(v))
+                      for k, v in sd.items()}
+    model.load_state_dict(state_dict)
+    if f64:
+        model.double()
+        model.dtype = torch.float64
+    return model.to(device).eval()
+
+
+def _conv_forward(model, x: np.ndarray, scale, counters: dict,
+                  device="cuda") -> np.ndarray:
+    """One forward of ``model`` on ``x`` (cast to the model's dtype) at
+    ``scale``: the output as float64 numpy; the port's kernel launches
+    (counts set to 0 just before, read just after) must be none."""
+    _zero(counters)
+    dt = torch.float64 if model.dtype == torch.float64 else torch.float32
+    with torch.inference_mode():
+        y = model(torch.from_numpy(x).to(device, dt), scale)
+        if device == "cuda":
+            torch.cuda.synchronize()
+    if _launched(counters):
+        raise AssertionError(f"kernel launches in a kernel-less forward: "
+                             f"{_launched(counters)}")
+    return y.double().cpu().numpy()
+
+
+def _versus_bars(y: np.ndarray, bar: dict) -> dict:
+    got, big = zoo_stats(y), bar["absmax"]
+    size = float(np.prod(bar["shape"]))
+    return {"mean": abs(got["sum"] - bar["sum"]) / size / big,
+            "mean_square": abs(got["sumsq"] - bar["sumsq"]) / size
+            / big ** 2,
+            "pixels": max(abs(a - b) for a, b in zip(got["pixels"],
+                                                     bar["pixels"])) / big}
+
+
+def _gate_masks(model) -> tuple:
+    """Forward hooks on each RCAN AdaConv's gate conv: the list the masks
+    (sigmoid < 0.5) of the next forwards go into, and the hooks."""
+    from rdst_tpu_torch.models.rcan import AdaConv
+
+    masks = []
+
+    def hook(mod, inp, out):  # as AdaConv computes its mask
+        masks.append(torch.sigmoid(out) < 0.5)
+
+    return masks, [m.conv0.register_forward_hook(hook)
+                   for m in model.modules() if isinstance(m, AdaConv)]
+
+
+def _flips(masks: list, ref: list) -> int:
+    return int(sum(int((a != b).sum()) for a, b in zip(masks, ref)))
+
+
+@phase("convzoo f32 forwards")
+def conv_zoo_forward_phase() -> dict:
+    """Each CONV_ZOO family at full width on 8 seeded slices at each of
+    its scales, in float32 (CONV_ZOO_F64: float64): against CONV_ZOO_BARS
+    (the JAX package's forward on the CPU: mean, mean square and 64 pixels
+    within ZOO_TOL, or CONV_ZOO_F64_TOL, of the largest magnitude) and
+    against the port's CPU forward of the first CONV_ZOO_CPU_SLICES
+    slice(s) (MODEL_TOL); no kernel launch a forward; one forward's device time by
+    CUDA events. RCAN also runs in float32: its gates that differ from the
+    float64 run's are counted, and its output's relative error reported
+    (no bar)."""
+    import copy
+
+    counters = _port_counters()
+    card = _card_line()
+    out = {}
+    for label, (_, _, hw, scales) in CONV_ZOO.items():
+        f64 = label in CONV_ZOO_F64
+        dtype = torch.float64 if f64 else torch.float32
+        model = _conv_zoo_model(label, dtype)
+        cpu = copy.deepcopy(model).cpu()
+        x = zoo_input(hw).astype(np.float64 if f64 else np.float32)
+        tol, cpu_tol = (CONV_ZOO_F64_TOL, CONV_ZOO_F64_TOL) if f64 else \
+            (ZOO_TOL, MODEL_TOL)
+        masks = ref = None
+        if f64:
+            ref, hooks = _gate_masks(model)
+        for s in scales:
+            key = f"{label} @{s:g}"
+            y = _conv_forward(model, x, s, counters)
+            if f64:
+                for h in hooks:
+                    h.remove()
+            y_cpu = _conv_forward(cpu, x[:CONV_ZOO_CPU_SLICES], s, counters,
+                                  "cpu")
+            bar = CONV_ZOO_BARS[key]
+            d = _versus_bars(y, bar)
+            err = float(np.abs(y[:CONV_ZOO_CPU_SLICES] - y_cpu).max())
+            xt = torch.from_numpy(x).cuda()
+            with torch.inference_mode():
+                ms = cuda_time_ms(lambda: model(xt, s), warmup=1,
+                                  iters=CONV_ZOO_ITERS)
+            row = {"dtype": str(dtype).split(".")[-1], "versus_jax": d,
+                   "card_vs_cpu_max_abs_err": err, "absmax": bar["absmax"],
+                   "ms": ms, "params": sum(q.numel()
+                                           for q in model.parameters())}
+            log(f"convzoo {key} ({row['params']} params, {row['dtype']}) 8 "
+                f"x {hw} -> {y.shape}: vs the JAX forward (CONV_ZOO_BARS) "
+                f"mean {d['mean']:.2e}, mean square {d['mean_square']:.2e}, "
+                f"64 pixels {d['pixels']:.2e} of max|y| {bar['absmax']:.4f} "
+                f"(bar {tol}); card vs CPU ({CONV_ZOO_CPU_SLICES} slice(s)) "
+                f"{err:.3e} (tol {cpu_tol}); no kernel launch; forward "
+                f"{ms:.3f} ms device ({card})")
+            if list(y.shape) != bar["shape"] or not np.isfinite(y).all():
+                raise AssertionError(f"convzoo {key}: {y.shape} vs "
+                                     f"{bar['shape']}")
+            if max(d.values()) > tol or err > cpu_tol:
+                raise AssertionError(f"convzoo {key}: {row}")
+            if f64:
+                m32 = _conv_zoo_model(label, state_dict=model.state_dict())
+                masks, hooks = _gate_masks(m32)
+                y32 = _conv_forward(m32, x.astype(np.float32), s, counters)
+                for h in hooks:
+                    h.remove()
+                row["f32_gate_flips"] = _flips(masks, ref)
+                row["gates"] = int(sum(m.numel() for m in ref))
+                row["f32_rel"] = _rel(torch.from_numpy(y32),
+                                      torch.from_numpy(y))[:2]
+                with torch.inference_mode():
+                    row["f32_ms"] = cuda_time_ms(
+                        lambda: m32(xt.float(), s), warmup=1,
+                        iters=CONV_ZOO_ITERS)
+                log(f"convzoo {key} in float32: {row['f32_gate_flips']} of "
+                    f"{row['gates']} gates differ from the float64 run's; "
+                    f"output vs float64 rel max {row['f32_rel'][0]:.3e} mean "
+                    f"{row['f32_rel'][1]:.3e} (no bar); forward "
+                    f"{row['f32_ms']:.3f} ms device")
+                row["y32"] = y32
+                row["masks"] = ref
+                del m32, masks
+            row["y"] = y
+            out[key] = row
+        out[f"{label} @{scales[0]:g}"]["state_dict"] = model.state_dict()
+        del model, cpu
+    return out
+
+
+@phase("convzoo bf16 forwards")
+def conv_zoo_bf16_phase(f32: dict) -> dict:
+    """Each CONV_ZOO family in bfloat16 (the f32 build's weights) at its
+    first scale on the same slices: against its float32 output (BF16_VS_F32_MAX / _MEAN), no
+    kernel launch, one forward's device time. RCAN only reports: its gates
+    that differ from the float64 run's and its relative error against
+    float64."""
+    counters = _port_counters()
+    out = {}
+    for label, (_, _, hw, scales) in CONV_ZOO.items():
+        s, f64 = scales[0], label in CONV_ZOO_F64
+        key = f"{label} @{s:g}"
+        model = _conv_zoo_model(label, torch.bfloat16,
+                                state_dict=f32[key].pop("state_dict"))
+        x = zoo_input(hw)
+        masks = hooks = None
+        if f64:
+            masks, hooks = _gate_masks(model)
+        y = _conv_forward(model, x, s, counters)
+        if f64:
+            for h in hooks:
+                h.remove()
+        ref = f32[key]["y32" if f64 else "y"]
+        rel = _rel(torch.from_numpy(y), torch.from_numpy(ref))[:2]
+        xt = torch.from_numpy(x).cuda()
+        with torch.inference_mode():
+            ms = cuda_time_ms(lambda: model(xt, s), warmup=1,
+                              iters=CONV_ZOO_ITERS)
+        row = {"vs_f32_rel": rel, "ms": ms,
+               "f32_ms": f32[key].get("f32_ms", f32[key]["ms"])}
+        if f64:
+            row["gate_flips"] = _flips(masks, f32[key]["masks"])
+            row["vs_f64_rel"] = _rel(torch.from_numpy(y),
+                                     torch.from_numpy(f32[key]["y"]))[:2]
+            log(f"convzoo {key} bf16: {row['gate_flips']} gates differ from "
+                f"the float64 run's; vs float64 rel max "
+                f"{row['vs_f64_rel'][0]:.3e} mean {row['vs_f64_rel'][1]:.3e},"
+                f" vs float32 rel max {rel[0]:.3e} (no bar); forward "
+                f"{ms:.3f} ms device (f32 {row['f32_ms']:.3f})")
+        else:
+            log(f"convzoo {key} bf16: vs f32 rel max {rel[0]:.3e} mean "
+                f"{rel[1]:.3e} (bars {BF16_VS_F32_MAX}, {BF16_VS_F32_MEAN});"
+                f" forward {ms:.3f} ms device (f32 {row['f32_ms']:.3f})")
+            if not np.isfinite(y).all() or rel[0] >= BF16_VS_F32_MAX or \
+                    rel[1] >= BF16_VS_F32_MEAN:
+                raise AssertionError(f"convzoo {key} bf16: {row}")
+        out[key] = row
+        del model
+    return out
+
+
+def _conv_batch(batch, n: int = CONV_ZOO_CPU_SLICES):
+    """The first ``n`` slices of a host batch: (LR input, HR target)."""
+    return (torch.from_numpy(np.asarray(batch["in"][:n])),
+            torch.from_numpy(np.asarray(batch["out"][:n])))
+
+
+def _conv_step_card_vs_cpu(trainer, batch, f64: bool = False) -> dict:
+    """A step of the trainer's model as set up (before any training step)
+    on the card against the port's CPU step from the same weights and the
+    first CONV_ZOO_CPU_SLICES slices of ``batch``: the trainer's loss
+    (TRAIN_LOSS_RTOL) and the global gradient norm (TRAIN_GRAD_TOL,
+    relative). Each tensor's gradient is compared too and the worst
+    logged, with no bar: the set-up biases are 0, so a ReLU fed by a conv
+    of an all-zero background region sits at an exact tie, and a cuDNN
+    algorithm's rounding (FFT, Winograd) there moves a bias gradient by
+    O(1) of itself (IPT's 5x5 head convs: in float32 too). With ``f64``
+    (RCAN, whose gates also tie) both steps run on float64 copies of the
+    model on one slice and every tensor is held to CONV_ZOO_F64_TOL."""
+    import copy
+
+    model = trainer.model
+    n = CONV_ZOO_CPU_SLICES
+    if f64:
+        model = copy.deepcopy(model).double()
+        model.dtype, n = torch.float64, 1
+    cpu = copy.deepcopy(model).cpu()
+    x, y = _conv_batch(batch, n)
+    if f64:
+        x, y = x.double(), y.double()
+    scale = trainer.batch_scale(batch)
+    res = {}
+    for dev, m in ((trainer.device, model), ("cpu", cpu)):
+        m.train()
+        pred = m(x.to(dev), scale)
+        total, _ = trainer.loss(pred if f64 else pred.float(),
+                                {"out": y.to(dev)}, "WarmUP")
+        named = [(k, q) for k, q in m.named_parameters() if q.requires_grad]
+        grads = torch.autograd.grad(total, [q for _, q in named],
+                                    allow_unused=True)
+        res[dev] = (float(total.detach()),
+                    {k: torch.zeros(q.shape) if g is None  # another branch
+                     else g.detach().double().cpu()
+                     for (k, q), g in zip(named, grads)})
+    (lk, gk), (lp, gp) = res[trainer.device], res["cpu"]
+    gmax = max(float(g.abs().max()) for g in gp.values())
+    rel, worst = max((float((gk[k] - b).abs().max())
+                      / max(1e-5, float(b.abs().max()), 0.12 * gmax), k)
+                     for k, b in gp.items())
+    norms = [float(torch.sqrt(sum((g ** 2).sum() for g in gs.values())))
+             for gs in (gk, gp)]
+    norm_rel = abs(norms[0] - norms[1]) / norms[1]
+    loss_tol, grad_tol = ((CONV_ZOO_F64_TOL, CONV_ZOO_F64_TOL) if f64 else
+                          (TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL))
+    log(f"first step card vs CPU ({'float64, ' if f64 else ''}{len(x)} "
+        f"slice(s), scale {scale}): loss {lk:.9f} / {lp:.9f} (rtol "
+        f"{loss_tol}); gradient norm {norms[0]:.9e} / {norms[1]:.9e}, rel "
+        f"{norm_rel:.3e} (bar {grad_tol}); a tensor's gradient rel max "
+        f"{rel:.3e} ({worst}{'; bar ' + str(grad_tol) if f64 else ''})")
+    if abs(lk - lp) > loss_tol * abs(lp) or norm_rel > grad_tol or (
+            f64 and rel >= grad_tol) or not np.isfinite(norms).all():
+        raise AssertionError("card vs CPU on the first step")
+    return {"first_loss_card": lk, "first_loss_cpu": lp,
+            "grad_norm_card": norms[0], "grad_norm_cpu": norms[1],
+            "grad_norm_rel": norm_rel, "first_grad_rel_max": rel,
+            "first_grad_worst": worst, "first_step_float64": f64}
+
+
+def _conv_batch_loss(trainer, batches) -> float:
+    """The trainer's loss of its model (eval mode) over ``batches``, each
+    weighted by its slices."""
+    total, n = 0.0, 0
+    trainer.model.eval()
+    for batch in batches:
+        x, y = _conv_batch(batch, len(batch["in"]))
+        with torch.no_grad():
+            pred = trainer.model(x.to(trainer.device),
+                                 trainer.batch_scale(batch)).float()
+            total += len(x) * float(trainer.loss(
+                pred, {"out": y.to(trainer.device)}, "WarmUP")[0])
+        n += len(x)
+    return total / n
+
+
+def _conv_zoo_tester(label: str, config: str, snap: str, data_dir: str,
+                     tmp: str, counters: dict, **over) -> dict:
+    """``cli.test_main`` on the card of one snapshot on the held-out
+    patients (f32): the mean of each score at each test scale, finite,
+    and no kernel launch (counts set to 0 just before, read just
+    after)."""
+    from rdst_tpu_torch.cli import test_main
+
+    over = {"data_folder": data_dir, "verbose": False,
+            "inference_dtype": "float32",
+            "output_dir": os.path.join(tmp, "tester", label.replace(" ", "_")),
+            "well_trained_single_scale_model_g": snap, **over}
+    argv = ["--config-file", config] + [f"{k}={v!r}" for k, v in over.items()]
+    _zero(counters)  # the tester's path starts here
+    t0 = time.perf_counter()
+    tester = test_main(argv)
+    wall = time.perf_counter() - t0
+    launched = _launched(counters)  # and ends here
+    stacked = np.load(os.path.join(tester.output_root,
+                                   "stacked_eva_reports.npy"),
+                      allow_pickle=True).item()
+    scores = {k: float(np.mean(v)) for k, v in stacked.items()}
+    log(f"tester {label}: " + " ".join(f"{k} {v:.4f}" for k, v in
+                                       sorted(scores.items()))
+        + f" over {tester.patient_ids} ({wall:.3f} s; the weights are "
+        f"{CONV_ZOO_STEPS} steps old: no quality bar)")
+    if launched or not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"tester {label}: {scores}, launches {launched}")
+    return {"scores": scores, "wall_s": wall,
+            "tiled": bool(tester.paras.get("tiled_inference", False))}
+
+
+@phase("convzoo training, tester and server")
+def conv_zoo_train_phase(data_dir: str, tmp: str) -> dict:
+    """``python -m rdst_tpu_torch.train`` (``cli.train_main``'s build,
+    set-up and training) of each CONV_ZOO_TRAIN family for CONV_ZOO_STEPS
+    steps (TRAIN_CONFIG, bf16 batch 32 of LR 24x24, or METASR_CONFIG,
+    f32): between set-up and training, a step of the set-up model on the
+    card against the port's CPU step (a slice of a fixed batch: loss and
+    gradient norm; RCAN in float64 on one slice, every gradient); no
+    kernel launch in the run (counts set to 0
+    just before, read just after), finite losses, the fixed batch's loss
+    (ZSSR: 8 fixed one-slice batches', after CONV_ZOO_ONE_SLICE_STEPS
+    steps) lower after the run;
+    steps/s and one profiled step. Then the snapshot it saved: ``cli.test_main``
+    on patients 19-20 (IPT tiled) and served over HTTP at 1 / 8 / 64
+    slices (ZSSR HR-size slices, IPT 24x24 tiles), each response equal to
+    a direct predict."""
+    from rdst_tpu_torch.cli import build_trainer
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    counters = _port_counters()
+    out = {}
+    for label in CONV_ZOO_TRAIN:
+        over, cfg, hw, _ = CONV_ZOO[label]
+        config = TRAIN_CONFIG if cfg == CONFIG else cfg
+        over = {**over, **CONV_ZOO_TRAIN_OVER.get(label, {}),
+                "eva_metrics": "psnr ssim"}
+        slug = label.replace(" ", "_")
+        steps = (CONV_ZOO_ONE_SLICE_STEPS if over.get("lr_image_size_remain")
+                 else CONV_ZOO_STEPS)
+        argv = _train_argv(data_dir, os.path.join(tmp, "convzoo", slug),
+                           steps, config) + [
+            f"{k}={v!r}" for k, v in over.items()]
+        times = {}
+        t0 = time.perf_counter()
+        # cli.train_main's steps, with the checks on the set-up model
+        # between its set-up and its training
+        trainer = build_trainer(argv)
+        trainer.setup()
+        times["setup"] = time.perf_counter() - t0
+        rng = np.random.default_rng(SEED + 7)
+        fixed = [trainer.ds_train.sample(rng)]
+        while len(fixed) * len(fixed[0]["in"]) < CONV_ZOO_FIXED_SLICES:
+            fixed.append(trainer.ds_train.sample(rng))
+        t0 = time.perf_counter()
+        row = {"dtype": str(trainer.model.dtype).split(".")[-1],
+               **_conv_step_card_vs_cpu(trainer, fixed[0],
+                                        label in CONV_ZOO_F64),
+               "init_loss": _conv_batch_loss(trainer, fixed)}
+        times["card_vs_cpu"] = time.perf_counter() - t0
+        _zero(counters)
+        t0 = time.perf_counter()
+        trainer.train()  # the main path
+        torch.cuda.synchronize()
+        row["run_s"] = times["run"] = time.perf_counter() - t0
+        launched = _launched(counters)
+        losses = trainer.training_loss_records.get("WarmUP", [])
+        row["losses"] = losses
+        row["trained_loss"] = _conv_batch_loss(trainer, fixed)
+        log(f"convzoo {label}: {steps} {row['dtype']} steps in "
+            f"{row['run_s']:.3f} s (evaluations included), no kernel "
+            f"launch; loss {losses[0]:.5f} -> {losses[-1]:.5f} (each batch "
+            "at its own scale where the scale is drawn a batch); on "
+            f"{len(fixed)} fixed batch(es) at scale "
+            f"{trainer.batch_scale(fixed[0])} {row['init_loss']:.5f} -> "
+            f"{row['trained_loss']:.5f}")
+        if launched:
+            raise AssertionError(f"convzoo {label}: launches {launched}")
+        if len(losses) != steps or not np.isfinite(losses).all() \
+                or not row["trained_loss"] < row["init_loss"]:
+            raise AssertionError(f"convzoo {label}: losses {losses}, on the "
+                                 f"fixed batch {row['init_loss']} -> "
+                                 f"{row['trained_loss']}")
+        t0 = time.perf_counter()
+        row["profile"] = _step_profile(
+            trainer, label=f"convzoo {label} training step",
+            wall_steps=CONV_ZOO_WALL_STEPS, host=False)
+        times["profile"] = time.perf_counter() - t0
+        snap = os.path.join(trainer.dirs["models"], "WarmUP_model_g.msgpack")
+        del trainer
+        t0 = time.perf_counter()
+        row["tester"] = _conv_zoo_tester(label, config, snap, data_dir, tmp,
+                                         counters, **over)
+        times["tester"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p = conv_zoo_paras(label, config, inference_dtype="float32",
+                           well_trained_single_scale_model_g=snap)
+        live = LiveModel(p, max_batch=64, device="cuda")
+        row["serving"] = _zoo_serve(live, counters, 0, hw, timed=1)
+        del live
+        times["serving"] = time.perf_counter() - t0
+        row["seconds"] = times
+        log(f"convzoo {label}: seconds " + ", ".join(
+            f"{k} {v:.2f}" for k, v in times.items()))
+        out[label] = row
+    return out
+
+
+def run_conv_zoo(data_dir: str, tmp: str):
+    """The convolutional model-zoo phases; returns (results, kernel rows:
+    none, these families run no kernel of the port)."""
+    fwd = conv_zoo_forward_phase()
+    bf16 = conv_zoo_bf16_phase(fwd)
+    for row in fwd.values():
+        for k in ("y", "y32", "masks", "state_dict"):
+            row.pop(k, None)
+    torch.cuda.empty_cache()
+    train = conv_zoo_train_phase(data_dir, tmp)
+    return {"forward": fwd, "bf16": bf16, "train": train}, []
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--only", choices=("e1", "swinir", "w96", "metasr",
-                                       "int8", "xdata", "zoo"),
+                                       "int8", "xdata", "zoo", "convzoo"),
                     nargs="+", default=None,
                     help="run the card and build phases and these models' "
                     "phases only (default: every phase)")
@@ -6466,6 +7168,9 @@ def main(argv=None) -> int:
             kernels += rows
         if args.only is None or "zoo" in args.only:
             results["zoo"], rows = run_zoo(data_dir, tmp, patients)
+            kernels += rows
+        if args.only is None or "convzoo" in args.only:
+            results["convzoo"], rows = run_conv_zoo(data_dir, tmp)
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

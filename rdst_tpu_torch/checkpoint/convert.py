@@ -2,10 +2,11 @@
 parameter tree -> the port's state_dict; and both ways for the networks
 whose port modules carry the flax module names (the discriminators, the
 seg UNet, InceptionV3): :func:`export_flax_tree` /
-:func:`import_flax_tree`; and for EDSR, MetaSR, WaveletSR and Swin-MLP,
-named as flax names them but with each flax ``Conv``'s inner ``conv``
-level dropped and a Swin stack's ``blocks_i`` as ``blocks.i``:
-:func:`export_named` / :func:`import_named`.
+:func:`import_flax_tree`; and for EDSR, MetaSR, WaveletSR, Swin-MLP and the
+convolutional families (``NAMED_GENERATORS``), named as flax names them
+but with each flax ``Conv``'s inner ``conv`` level dropped and a Swin
+stack's ``blocks_i`` as ``blocks.i``: :func:`export_named` /
+:func:`import_named`.
 
 The port's modules are named so that their ``state_dict`` keys are the
 reference RDSTSR and SwinIR keys that ``rdst_tpu/checkpoint/
@@ -207,14 +208,31 @@ def export_swinir(params: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+# an UpSampler's flax name: tail_up, MDSR's tail_up_4, IPT's tail_0_up
+_UPSAMPLER = re.compile(r"tail(_\d+)?_up(_\d+)?")
+# flax convs that are not wrapped in the package's ``Conv`` (no inner
+# ``conv`` level): ConvNeXt's depthwise conv, DBPN's transposed conv
+_DIRECT_CONVS = ("dwconv", "deconv")
+
+
+def _deconv_w(v):
+    """flax ConvTranspose kernel (kh, kw, in, out), applied unflipped ->
+    torch ConvTranspose2d weight (in, out, kh, kw), applied as the
+    correlation with the flipped kernel: both spatial axes flipped."""
+    return np.ascontiguousarray(v[::-1, ::-1].transpose(2, 3, 0, 1))
+
+
 def _named_leaf(path, v) -> Dict[str, np.ndarray]:
     """One flax leaf of a network named as flax names it (EDSR, MetaSR, a
-    MetaUpSampler, WaveletSR, Swin-MLP, RDST-N's bottleneck) as the
-    port's entry: a ``Conv``'s ``conv`` level dropped (HWIO -> OIHW), the
-    ``UpSampler``'s ``conv_i`` at index 2i of its Sequential, a flax
-    ``Sequential``-like ``name_i`` of a Swin stack (``blocks_i``) or of
-    RDST-N's bottleneck as ``name.i``, dense kernels (in, out) -> (out,
-    in), LayerNorm ``scale`` -> ``weight``."""
+    MetaUpSampler, WaveletSR, Swin-MLP, RDST-N's bottleneck, the
+    convolutional families) as the port's entry: a ``Conv``'s ``conv``
+    level dropped (HWIO -> OIHW), an ``UpSampler``'s ``conv_i`` at index
+    2i of its Sequential, a flax ``Sequential``-like ``name_i`` of a Swin
+    stack (``blocks_i``) or of a bottleneck as ``name.i``, dense kernels
+    (in, out) -> (out, in), a ``ConvTranspose`` kernel flipped
+    (:func:`_deconv_w`), a 3-D conv kernel DHWIO -> OIDHW, LayerNorm
+    ``scale`` -> ``weight``; any other leaf (``gamma``, IPT's tables) as it
+    is."""
     v = np.asarray(v)
     mods, leaf = [], path[-1]
     for m in path[:-1]:
@@ -222,20 +240,26 @@ def _named_leaf(path, v) -> Dict[str, np.ndarray]:
                  .split("."))
     if mods and mods[-1] == "conv":
         mods = mods[:-1]
-    if len(mods) >= 2 and mods[-2] == "tail_up":
+    if len(mods) >= 2 and _UPSAMPLER.fullmatch(mods[-2]):
         mods[-1] = str(2 * int(mods[-1].split("_")[1]))
     if leaf == "kernel":
-        leaf, v = "weight", (_conv_w(v) if v.ndim == 4 else _linear_w(v))
+        if v.ndim == 5:
+            v = np.ascontiguousarray(v.transpose(4, 3, 0, 1, 2))
+        elif v.ndim == 4:
+            v = _deconv_w(v) if mods[-1] == "deconv" else _conv_w(v)
+        else:
+            v = _linear_w(v)
+        leaf = "weight"
     elif leaf == "scale":
         leaf = "weight"
     return {".".join(mods + [leaf]): v}
 
 
 def export_named(params: dict) -> Dict[str, np.ndarray]:
-    """JAX EDSR, MetaSR, WaveletSR or Swin-MLP params (with or without the
-    top ``params`` level) -> the port's state_dict (numpy values). None
-    has MeanShift parameters: EDSR's and MetaSR's mean shift is a
-    function in both packages, the other two have none."""
+    """JAX params of a generator named as flax names it (every one of
+    ``NAMED_GENERATORS``; with or without the top ``params`` level) -> the
+    port's state_dict (numpy values). None has MeanShift parameters: the
+    mean shift is a function in both packages, or absent."""
     flat = flatten(params["params"] if "params" in params else params)
     sd: Dict[str, np.ndarray] = {}
     for path, v in flat.items():
@@ -249,14 +273,15 @@ def import_named(state_dict) -> dict:
     numpy trees in the flax layout."""
     params: dict = {}
     convs = {k.rsplit(".", 1)[0] for k, v in state_dict.items()
-             if k.endswith(".weight") and len(v.shape) == 4}
+             if k.endswith(".weight") and len(v.shape) == 4
+             and k.split(".")[-2] not in _DIRECT_CONVS}
     for key, val in state_dict.items():
         v = np.asarray(val.detach().cpu().float().numpy()
                        if hasattr(val, "detach") else val, np.float32)
         *mods, leaf = re.sub(r"(^|\.)(blocks|bottleneck)\.(\d+)(?=\.)",
                              r"\1\2_\3", key).split(".")
         conv = key.rsplit(".", 1)[0] in convs
-        if len(mods) >= 2 and mods[-2] == "tail_up":
+        if len(mods) >= 2 and _UPSAMPLER.fullmatch(mods[-2]):
             mods[-1] = f"conv_{int(mods[-1]) // 2}"
         if conv:  # a flax Conv holds its kernel and bias under 'conv'
             mods.append("conv")
@@ -264,8 +289,13 @@ def import_named(state_dict) -> dict:
             leaf = "scale"
         elif leaf == "weight":
             leaf = "kernel"
-            v = np.ascontiguousarray(v.transpose(2, 3, 1, 0) if conv
-                                     else v.T)
+            if v.ndim == 5:
+                v = v.transpose(2, 3, 4, 1, 0)
+            elif v.ndim == 4 and mods[-1] == "deconv":
+                v = v.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
+            v = np.ascontiguousarray(v)
         tree = params
         for m in mods:
             tree = tree.setdefault(m, {})
@@ -274,7 +304,9 @@ def import_named(state_dict) -> dict:
 
 
 NAMED_GENERATORS = ("edsr", "metasr", "wtb", "wtr", "wtp", "wts", "swinmlp",
-                    "swin-mlp")
+                    "swin-mlp", "srresnet", "srdensenet", "rdn", "esrgan",
+                    "mdsr", "rcan", "han", "convnet-large", "convnet-lite",
+                    "dbpn", "zssr", "ipt")
 
 
 def export_params(params: dict, generator: str, mean=(0.0,),
@@ -289,9 +321,7 @@ def export_params(params: dict, generator: str, mean=(0.0,),
         return export_swinir(params)
     if name in NAMED_GENERATORS:
         return export_named(params)
-    raise NotImplementedError(
-        f"carrying {generator!r} snapshots over comes with the rest of the "
-        "model zoo (ROADMAP Queue A 8)")
+    raise ValueError(f"unknown generator {generator!r}")
 
 
 # -- networks named as their flax modules --------------------------------------

@@ -91,6 +91,11 @@ def read_torch_state_dict(path: str) -> dict:
     return sd
 
 
+# the named generators for which the JAX package has no reference torch
+# key mapper either
+_NO_TORCH_MAPPER = ("wtb", "wtr", "wtp", "wts", "swinmlp", "swin-mlp")
+
+
 def load_well_trained_params(model: torch.nn.Module, paras, path: str,
                              sr_scales: Sequence[float]) -> torch.nn.Module:
     """Load a trained generator's weights into ``model`` (strictly: every
@@ -105,7 +110,8 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
     entries come from the model's own normalization in both cases. A
     ``.pt`` path whose ``.msgpack`` sibling exists takes the sibling, as
     in the JAX package."""
-    from rdst_tpu_torch.checkpoint.convert import (export_params,
+    from rdst_tpu_torch.checkpoint.convert import (NAMED_GENERATORS,
+                                                   export_params,
                                                    mean_shift_entries)
     from rdst_tpu_torch.checkpoint.msgpack_reader import read_snapshot
 
@@ -116,10 +122,11 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
     mean, std = getattr(model, "mean", (0.0,)), getattr(model, "std", (1.0,))
     if ext in (".pt", ".tar", ".pth"):
         name = str(generator).strip().lower()
-        if name in ("edsr", "metasr"):
+        if name in NAMED_GENERATORS and name not in _NO_TORCH_MAPPER:
             raise NotImplementedError(
-                f"{path}: the reference torch EDSR / MetaSR key mapper is "
-                "not ported (ROADMAP Queue A 8); use the .msgpack snapshot")
+                f"{path}: the reference torch key mapper for {generator!r} "
+                "(rdst_tpu/checkpoint/torch_import.py) is not ported yet "
+                "(ROADMAP Queue A 8 item 3); use the .msgpack snapshot")
         if name not in ("rdst", "swinir", "swin") or \
                 paras.get("rdst_global_bottleneck"):
             raise NotImplementedError(

@@ -2,8 +2,8 @@
 of ``checkpoint.msgpack_reader`` and ``checkpoint.convert``.
 
 :func:`import_rdstsr` (RDST, RDST-N, ESTSR) and :func:`import_swinir` (and
-``checkpoint.convert.import_named`` for EDSR, MetaSR, WaveletSR and
-Swin-MLP) turn the port's
+``checkpoint.convert.import_named`` for EDSR, MetaSR, WaveletSR, Swin-MLP
+and the convolutional families) turn the port's
 ``state_dict`` back into the JAX package's parameter trees
 (conv kernels OIHW -> HWIO, dense kernels (out, in) -> (in, out),
 LayerNorm ``weight`` -> ``scale``; the MeanShift convs, which are not
@@ -265,16 +265,16 @@ def import_swinir(state_dict: Dict[str, object]) -> dict:
 
 
 def import_state_dict(state_dict) -> dict:
-    """The JAX variables of a generator's ``state_dict``: EDSR, MetaSR,
-    WaveletSR and Swin-MLP by their flax names (told apart by EDSR's
-    ``body_conv``, MetaSR's ``extractor`` and the others' ``group_*``),
-    SwinIR by its ``conv_first``, RDSTSR / RDSTSR_N / ESTSR otherwise."""
-    if "body_conv.weight" in state_dict or any(
-            k.startswith(("extractor.", "group_")) for k in state_dict):
-        return import_named(state_dict)
-    if "conv_first.weight" in state_dict:
+    """The JAX variables of a generator's ``state_dict``: RDSTSR /
+    RDSTSR_N / ESTSR by their MeanShift ``sub_mean``, SwinIR by its
+    ``layers.*`` residual groups, every other generator (EDSR, MetaSR,
+    WaveletSR, Swin-MLP, the convolutional families) by its flax
+    names."""
+    if "sub_mean.weight" in state_dict:
+        return import_rdstsr(state_dict)
+    if any(k.startswith("layers.") for k in state_dict):
         return import_swinir(state_dict)
-    return import_rdstsr(state_dict)
+    return import_named(state_dict)
 
 
 def write_snapshot(path: str, state_dict) -> None:

@@ -160,6 +160,11 @@ class MultiSRTrainDataset(SliceStore):
         if self.return_res_image:
             res = [ops.resize(p, hr_size) for p in lr_patches]
             batch["res"] = ops.stack_to_nhwc(res)
+            if self.lr_image_size_remain:
+                # the model maps the interpolated LR to the output size
+                # (ZSSR), as the test pairs feed it; the JAX sampler leaves
+                # 'in' at LR here, so the JAX trainer cannot train ZSSR
+                batch["in"] = batch["res"]
         return batch
 
     def __getitem__(self, item):  # reference-compatible access

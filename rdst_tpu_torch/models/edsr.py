@@ -58,7 +58,7 @@ class EDSR(NoKernels, nn.Module):
                  train_resolution=None):
         super().__init__()
         self._no_kernels(dtype, train_resolution)
-        self.sr_scale = int(sr_scale)
+        self.sr_scale, self.out_feats = int(sr_scale), int(n_feats)
         self.n_resblocks = int(n_resblocks)
         self.mean, self.std = tuple(mean), tuple(std)
         self.scale_free = bool(scale_free)

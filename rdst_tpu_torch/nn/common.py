@@ -22,24 +22,61 @@ from rdst_tpu_torch.nn.layers import activation
 BF16 = torch.bfloat16
 
 
+def flax_bf16(conv, x: torch.Tensor, weight: torch.Tensor, bias,
+              **kw) -> torch.Tensor:
+    """A flax convolution at ``dtype=bfloat16`` on a channels-first
+    tensor: ``conv`` (``F.conv2d``, ``F.conv3d``, ``F.conv_transpose2d``)
+    of the bf16-rounded operands in float32, rounded to bf16, then the bf16
+    bias added and rounded."""
+    y = conv(x.to(BF16).float(), weight.to(BF16).float(), None, **kw).to(BF16)
+    if bias is not None:
+        shape = (-1,) + (1,) * (y.dim() - 2)
+        y = (y.float() + bias.to(BF16).float().view(shape)).to(BF16)
+    return y
+
+
 class Conv(nn.Conv2d):
-    """Same-padding conv with bias on NHWC tensors; weight is OIHW."""
+    """Conv with bias on NHWC tensors, same-padding unless ``padding`` is
+    given; weight is OIHW (``groups`` > 1: a grouped or depthwise conv)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 3, stride: int = 1, bias: bool = True):
+                 kernel_size: int = 3, stride: int = 1, bias: bool = True,
+                 padding=None, groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size,
-                         stride=stride, padding=kernel_size // 2, bias=bias)
+                         stride=stride,
+                         padding=kernel_size // 2 if padding is None
+                         else padding, groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == BF16:
-            y = F.conv2d(x.permute(0, 3, 1, 2).float(),
-                         self.weight.to(BF16).float(), None, self.stride,
-                         self.padding).to(BF16)
-            if self.bias is not None:
-                y = (y.float() + self.bias.to(BF16).float()[:, None, None]
-                     ).to(BF16)
-            return y.permute(0, 2, 3, 1)
+            return flax_bf16(F.conv2d, x.permute(0, 3, 1, 2), self.weight,
+                             self.bias, stride=self.stride,
+                             padding=self.padding,
+                             groups=self.groups).permute(0, 2, 3, 1)
         return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """flax ``ConvTranspose(k, s, 'VALID')`` cropped by ``padding`` on each
+    side, which is torch's ``ConvTranspose2d(k, s, padding)``, on NHWC
+    tensors. The weight is torch's (in, out, kh, kw): the flax kernel
+    (kh, kw, in, out) flipped in both spatial axes
+    (``checkpoint.convert``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int, padding: int):
+        super().__init__(in_channels, out_channels, kernel_size,
+                         stride=stride, padding=padding)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        if x.dtype == BF16:
+            y = flax_bf16(F.conv_transpose2d, x, self.weight, self.bias,
+                          stride=self.stride, padding=self.padding)
+        else:
+            y = F.conv_transpose2d(x, self.weight, self.bias, self.stride,
+                                   self.padding)
+        return y.permute(0, 2, 3, 1)
 
 
 def mean_shift(x: torch.Tensor, mean: Sequence[float], std: Sequence[float],
@@ -132,3 +169,46 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.conv_1(self.act(self.conv_0(x)))
         return x + y * self.res_scale
+
+
+class DenseLayer(nn.Module):
+    """conv + activation, then the input and ``y * dense_scale`` side by
+    side on the channels (``rdst_tpu/nn/common.py::DenseLayer``; the conv
+    keeps the flax name ``conv``)."""
+
+    def __init__(self, in_channels: int, growth_rate: int,
+                 kernel_size: int = 3, act: str = "relu",
+                 dense_scale: float = 1.0):
+        super().__init__()
+        self.conv = Conv(in_channels, growth_rate, kernel_size)
+        self.act = activation(act)
+        self.dense_scale = float(dense_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.act(self.conv(x))
+        return torch.cat([x, y * self.dense_scale], dim=-1)
+
+
+class ResidualDenseBlock(nn.Module):
+    """``n_dense_layers`` dense layers (``dense_i``), a 1x1 ``bottleneck``
+    back to the input's width, then ``x + y * res_scale``."""
+
+    def __init__(self, in_channels: int, growth_rate: int,
+                 n_dense_layers: int = 8, kernel_size: int = 3,
+                 act: str = "relu", dense_scale: float = 1.0,
+                 res_scale: float = 1.0):
+        super().__init__()
+        self.n_dense_layers = int(n_dense_layers)
+        for i in range(self.n_dense_layers):
+            self.add_module(f"dense_{i}", DenseLayer(
+                in_channels + i * growth_rate, growth_rate, kernel_size, act,
+                dense_scale))
+        self.bottleneck = Conv(in_channels + self.n_dense_layers
+                               * growth_rate, in_channels, 1)
+        self.res_scale = float(res_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x
+        for i in range(self.n_dense_layers):
+            y = getattr(self, f"dense_{i}")(y)
+        return x + self.bottleneck(y) * self.res_scale

@@ -53,6 +53,12 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype != BF16:
             return super().forward(x)
+        return self.bf16(x)
+
+    def bf16(self, x: torch.Tensor) -> torch.Tensor:
+        """flax ``LayerNorm(dtype=bfloat16)`` on a bf16 or float32 input:
+        the statistics and the affine of the input as it is, in float32,
+        the output rounded to bf16."""
         xf = x.float()
         mu = xf.mean(dim=-1, keepdim=True)
         var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mu * mu,

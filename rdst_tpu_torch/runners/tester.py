@@ -44,6 +44,30 @@ def _fancy(msg: str) -> str:
     return f"\n{bar}\n#   {msg}\n{bar}\n"
 
 
+def tiled_sr(forward, lr: np.ndarray, hr_shape, paras,
+             device) -> np.ndarray:
+    """``forward`` (NHWC LR patches -> SR patches, a tensor on ``device``)
+    over ``lr`` cut into ``patch_size`` patches at
+    ``test_lr_patch_stride``, in chunks of ``max(4 * batch_size, 8)``,
+    folded back to ``hr_shape`` (H, W, ...) with the overlaps averaged:
+    ``tiled_inference = True`` (basic_dataset.py:347-449)."""
+    from rdst_tpu_torch.data.folding import ImageFolder
+
+    n, h, w, c = lr.shape
+    patch = int(paras.patch_size)
+    stride = int(paras.get("test_lr_patch_stride", patch))
+    lr_folder = ImageFolder((n, h, w, c), patch, stride)
+    # the HR grid from the TRUE LR->HR ratio, not int(s)
+    r = hr_shape[0] / h
+    hr_folder = ImageFolder((n, hr_shape[0], hr_shape[1], c),
+                            int(round(patch * r)), int(round(stride * r)))
+    patches = lr_folder.unfold(torch.from_numpy(lr).to(device))
+    chunk = max(paras.batch_size * 4, 8)
+    sr = torch.cat([forward(patches[i:i + chunk])
+                    for i in range(0, patches.shape[0], chunk)])
+    return hr_folder.fold(sr).cpu().numpy()
+
+
 class SRTester:
     """Scores ``testing_patient_ids`` by the ``test.py`` protocol on
     ``device`` ('cuda' unless the caller asks for 'cpu')."""
@@ -150,23 +174,9 @@ class SRTester:
     def _tiled_inference(self, lr: np.ndarray, s: float, pairs) -> np.ndarray:
         """Patch-unfold -> SR each chunk of patches -> overlap-normalized
         fold, on the device."""
-        from rdst_tpu_torch.data.folding import ImageFolder
-
-        n, h, w, c = lr.shape
-        patch = int(self.paras.patch_size)
-        stride = int(self.paras.get("test_lr_patch_stride", patch))
-        lr_folder = ImageFolder((n, h, w, c), patch, stride)
-        hr_shape = pairs[0][s]["gt"].shape
-        # the HR grid from the TRUE LR->HR ratio, not int(s)
-        r = hr_shape[0] / h
-        hr_folder = ImageFolder((n, hr_shape[0], hr_shape[1], c),
-                                int(round(patch * r)), int(round(stride * r)))
-        patches = lr_folder.unfold(torch.from_numpy(lr).to(self.device))
-        chunk = max(self.paras.batch_size * 4, 8)
         scale = self.model_scale(s, pairs)
-        sr = torch.cat([self.forward(patches[i:i + chunk], scale)
-                        for i in range(0, patches.shape[0], chunk)])
-        return hr_folder.fold(sr).cpu().numpy()
+        return tiled_sr(lambda x: self.forward(x, scale), lr,
+                        pairs[0][s]["gt"].shape, self.paras, self.device)
 
     def _sync(self):
         if self.device.type == "cuda":

@@ -88,11 +88,13 @@ def truncated_normal(t: torch.Tensor, generator: torch.Generator,
 
 def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
     """The JAX package's initializers: dense kernels, relative-position
-    tables, Swin-MLP spatial kernels and absolute position tables
-    truncated normal (std 0.02, cut at 2 std), dense and spatial biases
-    zero, LayerNorms one and zero, convolution kernels uniform within
-    sqrt(1 / fan_in) (torch's default) and their biases zero. The frozen
-    MeanShift convs are left as they are."""
+    tables, Swin-MLP spatial kernels, absolute position tables and IPT's
+    position and query tables truncated normal (std 0.02, cut at 2 std),
+    dense and spatial biases zero, LayerNorms one and zero, convolution
+    kernels (2-D, 3-D and transposed) uniform within sqrt(1 / fan_in)
+    (torch's default; fan_in the flax kernel's receptive field times its
+    input features) and their biases zero. The frozen MeanShift convs and
+    the layer scales (``gamma``, set when built) are left as they are."""
     from rdst_tpu_torch.models.swin_mlp import SwinMLPBlock
     from rdst_tpu_torch.nn.layers import LayerNorm, Linear
     from rdst_tpu_torch.nn.swin import WindowAttention
@@ -106,8 +108,11 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
-            elif isinstance(m, torch.nn.Conv2d):
+            elif isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d,
+                                torch.nn.ConvTranspose2d)):
                 fan_in = m.weight[0].numel()
+                if isinstance(m, torch.nn.ConvTranspose2d):  # (in, out, k, k)
+                    fan_in = m.weight[:, 0].numel()
                 bound = fan_in ** -0.5
                 u = torch.rand(m.weight.shape, generator=generator,
                                device=m.weight.device)
@@ -120,8 +125,10 @@ def init_weights(model: torch.nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, SwinMLPBlock):
                 truncated_normal(m.spatial_mlp_kernel, generator, 0.02)
                 m.spatial_mlp_bias.zero_()
-            if getattr(m, "absolute_pos_embed", None) is not None:
-                truncated_normal(m.absolute_pos_embed, generator, 0.02)
+            for table in ("absolute_pos_embed", "position_encoding",
+                          "query_embed"):
+                if getattr(m, table, None) is not None:
+                    truncated_normal(getattr(m, table), generator, 0.02)
 
 
 def pin_batch(batch: dict) -> dict:
@@ -636,11 +643,24 @@ class SRTrainer:
 
     # -- evaluation -----------------------------------------------------------
 
-    def _predict(self, lr: np.ndarray, scale: float) -> np.ndarray:
+    def _predict(self, lr: np.ndarray, scale: float,
+                 hr_shape=None) -> np.ndarray:
+        """The model at ``scale`` on the LR slices, whole, or tiled as the
+        tester tiles them where ``tiled_inference = True`` (``hr_shape``
+        the slices' HR shape): IPT runs only at its training patch."""
+        from rdst_tpu_torch.runners.tester import tiled_sr
+
         self.model.eval()
+
+        def forward(x):
+            return self.model(torch.as_tensor(x).to(self.device),
+                              scale).float()
+
         with torch.no_grad():
-            out = self.model(torch.from_numpy(lr).to(self.device), scale)
-        return out.float().cpu().numpy()
+            if self.paras.get("tiled_inference", False):
+                return tiled_sr(forward, lr, hr_shape, self.paras,
+                                self.device)
+            return forward(lr).cpu().numpy()
 
     def _infer_pairs(self, ids):
         """Batched whole-slice inference on the serving routes, at each
@@ -655,7 +675,7 @@ class SRTrainer:
             lr = np.concatenate([p[s]["in"] for p in pairs], axis=0)
             scale = float(pairs[0][s]["real_sr_scale"] if self.scale_free
                           else s)
-            out = self._predict(lr, scale)
+            out = self._predict(lr, scale, pairs[0][s]["gt"].shape)
             if self.residual_scale > 0:
                 out = residual_blend(out, lr, self.residual_scale)
             for i in range(len(ids)):

@@ -100,6 +100,29 @@ def residual_blend(out: np.ndarray, x: np.ndarray,
     return out * (1.0 - residual_scale) + res * residual_scale
 
 
+def _check_servable(paras) -> None:
+    """Refuse, at load, the generators that the JAX server would fail to
+    apply to the slices it is sent, naming the key to set: ZSSR maps an
+    input already interpolated to the output size (served from a config
+    with ``lr_image_size_remain = True``, its clients send the HR-size
+    slice), IPT runs only at its training patch (served from a config
+    with ``tiled_inference = True``, its clients send patch-size
+    tiles)."""
+    name = str(paras.get("feature_generator")
+               or paras.get("sr_generator")).strip().lower()
+    if name == "zssr" and not paras.get("lr_image_size_remain"):
+        raise ValueError(
+            "ZSSR does not upsample: it maps a slice already interpolated "
+            "to the output size. Serve it from a config with "
+            "lr_image_size_remain = True and send HR-size slices")
+    if name == "ipt" and not paras.get("tiled_inference"):
+        p = int(paras.patch_size)
+        raise ValueError(
+            f"IPT runs only at its training patch ({p}x{p}). Serve it from "
+            "a config with tiled_inference = True and send "
+            f"{p}x{p} tiles")
+
+
 def build_serving_model(paras, device="cuda"):
     """Build the generator + trained weights exactly like the tester, on
     ``device``. Returns ``(model, meta)``; ``meta`` is the manifest
@@ -123,6 +146,7 @@ def build_serving_model(paras, device="cuda"):
     if not path:
         raise ValueError("no well-trained model path configured "
                          "(well_trained_single_scale_model_g)")
+    _check_servable(paras)
     mean = std = None
     norm = paras.get("normal_inputs") or ""
     if "zero_mean" in norm or "unit_std" in norm:

@@ -166,20 +166,31 @@ def test_pad_to_window_multiple_reflects():
 
 
 @pytest.mark.parametrize("key,value,match", [
-    ("feature_generator", "rcan", "'rcan' is not ported"),
-    ("meta_feature_generator", "RDN", "Queue A 8"),
-    ("feature_generator", "ipt", "'ipt' is not ported"),
-    ("meta_feature_generator", "SRResNet", "'SRResNet' is not ported"),
-    ("feature_generator", "dbpn", "'dbpn' is not ported"),
-    ("feature_generator", "rdn", "Queue A 8"),
+    ("feature_generator", "rcan", "Queue A 8 item 3"),
+    ("meta_feature_generator", "RDN", "Queue A 8 item 3"),
+    ("feature_generator", "ipt", "Queue A 8 item 3"),
+    ("meta_feature_generator", "SRResNet-x", "LR feature extractor"),
+    ("feature_generator", "dbpn", "Queue A 8 item 3"),
+    ("feature_generator", "rdn-x", "unknown feature_generator"),
 ])
 def test_unported_options_raise(key, value, match):
+    """What the port still refuses now that every generator builds: a
+    reference torch ``.pt`` snapshot of a convolutional family (its key
+    mapper is ROADMAP Queue A 8 item 3), and a generator or MetaSR
+    extractor that neither package has."""
+    from rdst_tpu_torch.checkpoint.loading import load_well_trained_params
+
     p = ParametersLoader(CONFIG)
     p.set(key, value)
     if key == "meta_feature_generator":  # MetaSR with another extractor
         p.set("feature_generator", "metasr")
-    with pytest.raises(NotImplementedError, match=match):
-        build_generator(p)
+    if "Queue A 8" in match:
+        with pytest.raises(NotImplementedError, match=match):
+            load_well_trained_params(torch.nn.Identity(), p, "absent.pt",
+                                     [4.0])
+    else:
+        with pytest.raises(ValueError, match=match):
+            build_generator(p)
 
 
 def test_bf16_model_raises():

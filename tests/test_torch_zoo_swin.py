@@ -18,8 +18,8 @@ Swin-MLP, and RDST's ``3conv`` / ``ape`` / ``remat`` options.
 * the refusals: ``ape`` at another token count, a Swin-MLP input under
   its window, a bottleneck ratio that changes the width (the JAX
   package fails on the first three too), ``3conv`` in bf16 mode rdstb,
-  WaveletSR in bf16 modes pair / rdstb, the convolutional families, a
-  ``.pt`` snapshot of these families.
+  WaveletSR in bf16 modes pair / rdstb, a ``.pt`` snapshot of a
+  convolutional family or of these families.
 """
 
 import pathlib
@@ -318,10 +318,14 @@ def _raises_wavelet_pair_rdstb():
 
 
 def _raises_conv_family():
+    """The convolutional families build now; a reference torch ``.pt``
+    snapshot of one is refused, naming its key mapper's roadmap item."""
     for name in ("rcan", "convnet-lite", "zssr"):
         p = _paras(ParametersLoader, {"feature_generator": name})
-        with pytest.raises(NotImplementedError, match=f"{name}.*Queue A 8"):
-            build_generator(p)
+        with pytest.raises(NotImplementedError,
+                           match=f"{name}.*Queue A 8 item 3"):
+            load_well_trained_params(torch.nn.Identity(), p, "absent.pt",
+                                     [4.0])
     with pytest.raises(ValueError, match="unknown feature_generator"):
         build_generator(_paras(ParametersLoader,
                                {"feature_generator": "nonesuch"}))
