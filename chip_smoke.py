@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
-        [--only e1|swinir|w96|metasr|int8|xdata|zoo|convzoo ...]
+        [--only e1|swinir|w96|metasr|int8|xdata|zoo|convzoo|ckpt ...]
 
 Drives the port's main paths -- the tester (``python -m
 rdst_tpu_torch.test``) on the committed weights of the README quality
@@ -93,8 +93,9 @@ after the build):
     resume from the checkpoint that goes on for 2 more steps; the
     first step's loss and gradients on the kernel route against the
     plain bf16 route (loss rtol 2e-2, gradients relative max < 0.08);
-13. steps/s on the wall clock over 10 warm steps queued back to back,
-    and the profile of one warm training step with its kernel launches;
+13. steps/s on the wall clock over WALL_STEPS (5) warm steps queued back
+    to back, and the profile of one warm training step with its kernel
+    launches;
 14. SwinIR-std (``config_files/swinir_std_40k_oasis20_x4.ini``, its
     committed weights, bf16, mode swin, int8 qkv; every block unshifted
     at the build resolution): the fast block at C = 180 with int8 qkv vs
@@ -208,8 +209,8 @@ after the build):
     UNet-F term finite and above 0, the snapshot written; then the repo's
     example recipe ``config_files/rdst_e1_oasis_x4.ini`` (WarmUP ->
     UNet-F from scratch, the same UNet) for 3 steps a state; steps/s over
-    10 warm steps and one profiled step (device time by kernel group,
-    idle share, launches);
+    WALL_STEPS warm steps and one profiled step (device time by kernel
+    group, idle share, launches);
 28. the GAN fine-tune: ``config_files/rdst_gan_ft_oasis20_x4.ini`` as
     shipped (RaGAN, CNN discriminator, f32, ``eva_metrics`` with FID)
     for 12 steps with a quick evaluation every 6: every loss finite, the
@@ -321,9 +322,9 @@ then phases 36 and 37:
     counted);
 37. the auxiliary trainers on the 20-phantom corpus:
     ``runners.train_seg_unet`` (batch 8 of HR 96x96) and
-    ``runners.train_vgg_features`` (width 0.25, batch 16 of 64x64), 100
-    steps each: the first three steps on the card against the CPU from
-    the same variables and batches (the VGG autoencoder in float32, 1e-3;
+    ``runners.train_vgg_features`` (width 0.25, batch 16 of 64x64),
+    AUX_STEPS (50) steps each: the first three steps on the card against
+    the CPU from the same variables and batches (the VGG autoencoder in float32, 1e-3;
     the seg UNet in float64, 1e-6, and its float32 first step, 1e-3: its
     train-mode BatchNorm makes two float32 runs drift apart within two
     Adam steps), the loss falling, the pickles reloading into
@@ -359,7 +360,7 @@ from CONFIG / TRAIN_CONFIG with KEY=VALUE overrides on seeded weights
     bf16 route, a finite, falling loss, steps/s and one profiled step;
     then each snapshot scored by ``cli.test_main`` on patients 19-20 (f32,
     48 / 144 / 8 / 0 launches a forward, no quality bar: the weights are
-    10 steps old) and served over HTTP at 1 / 8 / 64 slices, each
+    ZOO_STEPS old) and served over HTTP at 1 / 8 / 64 slices, each
     response equal to a direct predict.
 
 (``--only convzoo``, after the other models) the convolutional model
@@ -388,6 +389,32 @@ must stay 0 through it; phases 42-45:
     tiled) and served over HTTP at 1 / 8 / 64 slices (ZSSR HR-size, IPT
     24x24), each response equal to a direct predict.
 
+(``--only ckpt``, after the other models) reference torch checkpoints
+and SwinIR's other heads; phases 46-48:
+46. each family that ``checkpoint.torch_import`` maps (CKPT: the CONFIG
+    families of CONV_ZOO and EDSR on seeded weights at their factory
+    widths, RDST-E1 and SwinIR-std on their committed weights): its
+    msgpack snapshot served by ``LiveModel`` (f32), written as the
+    reference network's ``.pt`` (``torch_export.save_torch_checkpoint``
+    with ``reference_template``), read back by the tester's loader and by
+    ``LiveModel``: both forwards of 8 seeded slices equal the msgpack
+    model's bit for bit, the manifests equal; 2 bf16 training steps from
+    a ``pre_trained_g`` warm start on the ``.pt``, finite;
+47. SwinIR-std (embed 180, 6 x 6 blocks) with ``sir_upsampler =
+    'nearest+conv'`` (8 x LR 40x32) and with ``sir_ape`` (8 x 24x24, its
+    table's size), seeded weights: f32 (36 f32 block launches a forward)
+    against the JAX package's CPU forward (``SIR_BARS``, ``tools/
+    jax_zoo_bars.py --swinir``) and the plain f32 path; bf16 int8 qkv (36
+    fast-block launches) against the plain bf16 path; 6 bf16 training
+    steps (36 + 36 block-train calls a step) and the block-train kernels
+    alone at the step's geometry; the tester on patients 19-20 (ape
+    tiled by its 24x24 patch) and HTTP at 1 / 8 / 64 slices;
+48. the same for the denoise head (``sir_upsampler = ''``,
+    ``lr_image_size_remain``) on 8 HR-size 160x128 slices, with the f32
+    block and the fast block (int8 qkv) alone at its 2,560 windows
+    against their plain versions and bounds; its training steps take one
+    whole HR-size slice each.
+
 Each training run's final evaluation scores the config's ``eva_metrics``
 as shipped (FID included; the zoo's runs score PSNR and SSIM). Any failed phase raises and the script exits
 non-zero. It needs a CUDA
@@ -402,6 +429,7 @@ import argparse
 import concurrent.futures
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -447,7 +475,7 @@ BF16_VS_F32_MAX, BF16_VS_F32_MEAN = 0.05, 0.005
 # (tests/test_pair_train.py:192,209)
 TRAIN_CONFIG = "config_files/rdst_e1_100k_oasis20_x4.ini"
 TRAIN_STEPS, TRAIN_CHECK = 20, 10
-WALL_STEPS = 10
+WALL_STEPS = 5
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 2e-2, 0.08
 # A bf16 response vs a direct predict of the same slices (HR values about
 # 0..1): equal batch shapes agree exactly; at another batch shape the f32
@@ -2556,10 +2584,10 @@ def _block_train_case(blk, c: int, shift: int, gen):
     return ops, x, dz, dpf
 
 
-def _block_train_grads(kernel: bool, ops, x, dz, dpf, softmax, nh=6):
+def _block_train_grads(kernel: bool, ops, x, dz, dpf, softmax, nh=6, nw=9):
     """Output and gradients (x, the 12 raw parameters, the head-major
     bias) of the block through the fold, on the kernels or the plain
-    version."""
+    version (``nw`` windows an image)."""
     from rdst_tpu_torch.kernels import block_train as bt
     from rdst_tpu_torch.kernels.swin_block import fast_params, pack_bias_fast
 
@@ -2570,7 +2598,7 @@ def _block_train_grads(kernel: bool, ops, x, dz, dpf, softmax, nh=6):
                                                    nh, 64)
     if kernel:
         out = bt.run_block_train(leaves[0], fp, pb, dpf, num_heads=nh,
-                                 windows_per_image=9, softmax=softmax)
+                                 windows_per_image=nw, softmax=softmax)
     else:
         out = bt.block_train_reference(leaves[0], fp, pb, dpf, num_heads=nh,
                                        softmax=softmax)
@@ -2583,11 +2611,12 @@ BLOCK_TRAIN_NAMES = ["x", "wqkv", "bqkv", "wproj", "bproj", "g1", "b1", "g2",
 
 
 def _block_train_variant(label: str, ops, x, dz, dpf, softmax: str,
-                         nh: int = 6) -> dict:
+                         nh: int = 6, nw: int = 9) -> dict:
     """The kernels' output and every gradient against the plain version
     and its autograd, bar BF16_TOL."""
-    got, g_got = _block_train_grads(True, ops, x, dz, dpf, softmax, nh)
-    want, g_want = _block_train_grads(False, ops, x, dz, dpf, softmax, nh)
+    got, g_got = _block_train_grads(True, ops, x, dz, dpf, softmax, nh, nw)
+    want, g_want = _block_train_grads(False, ops, x, dz, dpf, softmax, nh,
+                                      nw)
     torch.cuda.synchronize()
     errs = {"out": _rel(got, want)}
     for nm, a, b in zip(BLOCK_TRAIN_NAMES, g_got, g_want):
@@ -3665,10 +3694,11 @@ def _rdstb_at(rdstb, images: int, x_size, gen, softmax: str,
 
 
 def _fast_block_at(block, images: int, x_size, gen, softmax: str,
-                   quant) -> dict:
+                   quant, bound: bool = False) -> dict:
     """The fast block against its plain version on ``images`` images of
     ``x_size`` (one whole patient), unshifted (SwinIR-std's blocks at its
-    build resolution)."""
+    build resolution); with ``bound`` also the plain version's time and
+    the launch's bound."""
     from rdst_tpu_torch.kernels import swin_block
 
     ws, nh, c = 8, block.num_heads, block.dim
@@ -3690,10 +3720,27 @@ def _fast_block_at(block, images: int, x_size, gen, softmax: str,
         err = _check(label, got, want)
         ms = cuda_time_ms(lambda: swin_block.run_fast_block(x, plan, **kw),
                           warmup=1, iters=5)
+        extra = {}
+        if bound:
+            extra["plain_ms"] = cuda_time_ms(
+                lambda: swin_block.swin_block_fast_reference(
+                    x, plan.params, plan.bias, num_heads=nh,
+                    softmax=softmax, qkv=plan.qkv), warmup=1, iters=3)
+            nbytes = 2 * 2 * x.numel() + _plan_bytes(plan) + sum(
+                t.numel() * t.element_size() for t in plan.qkv_layout)
+            if quant:
+                extra["bound_ms"], extra["bound_by"] = _int8_qkv_bound(
+                    x.shape[0] * 64, c, nbytes)
+            else:
+                extra["bound_ms"], extra["bound_by"] = _bound(
+                    _block_flops(x.shape[0], c), nbytes)
     log(f"{label}: rel max {err[0]:.3e} mean {err[1]:.3e} (bar {BF16_TOL}), "
-        f"{ms:.4f} ms")
+        f"{ms:.4f} ms" + (f", plain {extra['plain_ms']:.4f} ms, bound "
+                          f"{extra['bound_ms']:.4f} ms ({extra['bound_by']})"
+                          if bound else ""))
     return dict(c=c, images=images, x_size=list(x_size), windows=images * nw,
-                rel_max=err[0], rel_mean=err[1], max_abs_err=err[2], ms=ms)
+                rel_max=err[0], rel_mean=err[1], max_abs_err=err[2], ms=ms,
+                **extra)
 
 
 def _tiled_chunk(model32, model16, gen, patches: int = 128) -> dict:
@@ -5354,7 +5401,7 @@ DICE_BARS = {
 UNET_LOGIT_RTOL = 1e-4
 # the auxiliary trainers (phase 37): steps, and the card's first steps
 # against the CPU's from the same variables and batches
-AUX_STEPS, AUX_CHECK_STEPS = 100, 3
+AUX_STEPS, AUX_CHECK_STEPS = 50, 3
 AUX_F32_RTOL = 1e-3
 AUX_F64_RTOL = 1e-6
 # the phase-13 training run under a small stall_warn_s
@@ -5817,7 +5864,7 @@ ZOO_TRAIN = {  # label: (overrides of TRAIN_CONFIG, train-pair launches a step)
     "SwinMLP": ({"feature_generator": "swinmlp",
                  "training_dtype": "float32"}, 0),
 }
-ZOO_STEPS = 10
+ZOO_STEPS = 6
 # ZOO_BARS: the JAX package's float32 forward of each ZOO family on the
 # CPU (XLA), from the same seeded weights and slices (zoo_weights,
 # zoo_input): the output's shape, sum, sum of squares, largest magnitude
@@ -5948,27 +5995,32 @@ def _nest(flat: dict) -> dict:
     return tree
 
 
+def _seeded_sd(model, generator: str) -> dict:
+    """``zoo_weights`` over a built model's flax tree, as its state_dict."""
+    from rdst_tpu_torch.checkpoint.convert import export_params
+    from rdst_tpu_torch.checkpoint.msgpack_reader import flatten
+    from rdst_tpu_torch.checkpoint.msgpack_writer import import_state_dict
+
+    shapes = {k: v.shape for k, v in flatten(import_state_dict(
+        model.state_dict())["params"]).items()}
+    sd = export_params({"params": _nest(zoo_weights(shapes))}, generator,
+                       getattr(model, "mean", (0.0,)),
+                       getattr(model, "std", (1.0,)))
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
 def _zoo_model(label: str, dtype=torch.float32, device="cuda", **kw):
     """A ZOO family built by ``build_generator`` from CONFIG with its
     overrides (and ``kw``), holding the seeded weights (``zoo_weights``
     over its flax tree, carried in by ``convert``), on ``device`` as the
     entry points resolve it (``device.resolve_device``)."""
-    from rdst_tpu_torch.checkpoint.convert import export_params
-    from rdst_tpu_torch.checkpoint.msgpack_reader import flatten
-    from rdst_tpu_torch.checkpoint.msgpack_writer import import_state_dict
     from rdst_tpu_torch.device import resolve_device
     from rdst_tpu_torch.models import build_generator
 
     device = resolve_device(device)  # float32 numerics: TF32 off
     p = zoo_paras(label, **kw)
     model = build_generator(p, dtype=dtype)
-    shapes = {k: v.shape for k, v in flatten(import_state_dict(
-        model.state_dict())["params"]).items()}
-    sd = export_params({"params": _nest(zoo_weights(shapes))},
-                       p.feature_generator, getattr(model, "mean", (0.0,)),
-                       getattr(model, "std", (1.0,)))
-    model.load_state_dict({k: torch.from_numpy(np.array(v))
-                           for k, v in sd.items()})
+    model.load_state_dict(_seeded_sd(model, p.feature_generator))
     return model.to(device).eval()
 
 
@@ -6640,21 +6692,21 @@ CONV_ZOO_F64_TOL = 1e-9
 CONV_ZOO_TRAIN = ("SRResNet", "SRDenseNet", "RDN", "ESRGAN", "MDSR", "RCAN",
                   "HAN", "ConvNeXt-large", "ConvNeXt-lite", "ZSSR", "DBPN",
                   "IPT", "MetaSR RDN", "MetaSR Meta_MDSR")
-CONV_ZOO_STEPS = 6
+CONV_ZOO_STEPS = 4
 # the training runs' own overrides: IPT trains at a transformer's rate; at
 # the E1 recipe's 1e-4 its loss rises from the first step on, in float32
 # as in bf16 (0.37 -> 2.15 in 4 steps on the card)
 CONV_ZOO_TRAIN_OVER = {"IPT": {"learning_rate": 1e-5}}
 # ZSSR's batches are one whole slice each (``lr_image_size_remain``): it
-# takes the slices of one batch-32 step, and its loss is checked over 8
-# fixed one-slice batches
-CONV_ZOO_ONE_SLICE_STEPS, CONV_ZOO_FIXED_SLICES = 32, 8
+# takes half the slices of one batch-32 step, and its loss is checked over
+# 8 fixed one-slice batches
+CONV_ZOO_ONE_SLICE_STEPS, CONV_ZOO_FIXED_SLICES = 16, 8
 # slices of the 8 that the port's CPU forward takes (the card's forward of
 # all 8 is held against CONV_ZOO_BARS), and of a batch that the first
 # step's card-vs-CPU check takes
 CONV_ZOO_CPU_SLICES = 1
 # the card's forward device time and steps/s: warm iterations
-CONV_ZOO_ITERS, CONV_ZOO_WALL_STEPS = 3, 2
+CONV_ZOO_ITERS, CONV_ZOO_WALL_STEPS = 2, 1
 
 
 def _port_counters() -> dict:
@@ -6689,9 +6741,6 @@ def _conv_zoo_model(label: str, dtype=torch.float32, device="cuda",
     (``device.resolve_device``: TF32 off). A CONV_ZOO_F64 family's f32
     module is cast to float64 (here only: no float64 mode on the main
     path) when ``dtype`` is float64."""
-    from rdst_tpu_torch.checkpoint.convert import export_params
-    from rdst_tpu_torch.checkpoint.msgpack_reader import flatten
-    from rdst_tpu_torch.checkpoint.msgpack_writer import import_state_dict
     from rdst_tpu_torch.device import resolve_device
     from rdst_tpu_torch.models import build_generator
 
@@ -6699,14 +6748,8 @@ def _conv_zoo_model(label: str, dtype=torch.float32, device="cuda",
     p = conv_zoo_paras(label)
     f64 = dtype == torch.float64
     model = build_generator(p, dtype=torch.float32 if f64 else dtype)
-    if state_dict is None:
-        shapes = {k: v.shape for k, v in flatten(import_state_dict(
-            model.state_dict())["params"]).items()}
-        sd = export_params({"params": _nest(zoo_weights(shapes))},
-                           p.feature_generator)
-        state_dict = {k: torch.from_numpy(np.array(v))
-                      for k, v in sd.items()}
-    model.load_state_dict(state_dict)
+    model.load_state_dict(state_dict if state_dict is not None
+                          else _seeded_sd(model, p.feature_generator))
     if f64:
         model.double()
         model.dtype = torch.float64
@@ -7121,12 +7164,461 @@ def run_conv_zoo(data_dir: str, tmp: str):
     return {"forward": fwd, "bf16": bf16, "train": train}, []
 
 
+# ---------------------------------------------------------------------------
+# Reference torch checkpoints and SwinIR's other heads (``--only ckpt``):
+# phases 46-48
+
+# the families whose reference torch layout ``checkpoint.torch_import``
+# maps: label -> (overrides, config, LR size of the 8 seeded slices (ZSSR:
+# its HR-size input), the scale each forward runs at, training config):
+# the CONV_ZOO families of CONFIG at their factory widths and EDSR on
+# seeded weights (``zoo_weights``), RDST-E1 and SwinIR-std on their
+# committed weights (CKPT_WEIGHTS)
+CKPT = {
+    **{label: (over, CONFIG, hw, scales[-1], TRAIN_CONFIG)
+       for label, (over, cfg, hw, scales) in CONV_ZOO.items()
+       if cfg == CONFIG},
+    "EDSR": ({"feature_generator": "edsr"}, CONFIG, LR_HW, 4.0,
+             TRAIN_CONFIG),
+    "RDST-E1": ({}, CONFIG, LR_HW, 4.0, TRAIN_CONFIG),
+    "SwinIR-std": ({}, SWINIR_CONFIG, LR_HW, 4.0, SWINIR_TRAIN_CONFIG),
+}
+CKPT_WEIGHTS = {"RDST-E1": WEIGHTS, "SwinIR-std": SWINIR_WEIGHTS}
+# bf16 training steps from each ``.pt`` warm start
+CKPT_STEPS = 2
+# SwinIR-std (embed 180, 6 x 6 blocks, 6 heads, window 8, MLP 2) with
+# another head, on seeded weights: label -> (overrides of SWINIR_CONFIG /
+# SWINIR_TRAIN_CONFIG, size of the 8 seeded slices). The ape table holds
+# the 24x24 training patch's tokens: it runs at that size only (the tester
+# tiles by it); the denoise head maps an HR-size slice (in = res) to its
+# own size
+SIR = {
+    "SwinIR nearest+conv": ({"sir_upsampler": "nearest+conv"}, LR_HW),
+    "SwinIR ape": ({"sir_ape": True, "tiled_inference": True}, (24, 24)),
+    "SwinIR denoise": ({"sir_upsampler": "", "lr_image_size_remain": True},
+                       (4 * LR_HW[0], 4 * LR_HW[1])),
+}
+SIR_STEPS = 6
+# SIR_BARS: the JAX package's float32 forward of each SIR variant on the
+# CPU (XLA), from the same seeded weights and slices (zoo_weights,
+# zoo_input): zoo_stats of the output. Made by
+#     JAX_PLATFORMS=cpu python tools/jax_zoo_bars.py --swinir
+SIR_BARS = {
+    'SwinIR nearest+conv': {
+        "shape": [8, 160, 128, 1], "sum": -888.8633187,
+        "sumsq": 8.220472248, "absmax": 0.0271553081,
+        "pixels": [0.0035339552, -0.0086291898, -0.00556190126, -0.00306459353, -0.00183424761, -0.00353735918, -0.00249536708, -0.0143382307, 0.000685391482, -0.0160963926, -0.00829975307, -0.00257518794, -0.00385776255, -0.00341007393, -0.00820783526, -0.0137956571, -0.0075207036, -0.00755792623, -0.00243895408, -0.00530031789, -0.00251886155, -0.0105377696, 0.00495590363, -0.0192404967, -0.0125296535, -0.00972451549, -0.00478187157, -0.0138380341, -0.00458013033, -0.00559465447, -0.00376049662, -0.00371190812, -0.00321958726, 0.0012890622, -0.0106390379, -0.00395180145, -0.000856245868, -0.00238313247, -0.0116271451, -0.0037518898, -0.00677995989, 0.00356466975, -0.00809031166, -0.00678392686, -0.00805648789, -0.011780723, -0.00853987783, -0.00254592486, -0.00591307599, 0.00205292855, -0.000678928103, -0.00186407287, 0.00425634347, -0.000773173757, -0.00757876365, -0.00182991195, -0.00991445407, -0.00713126734, -0.00165558327, -0.0130957831, -0.0117825679, -0.00772671681, 0.00270214118, -0.00842527486]},
+    'SwinIR ape': {
+        "shape": [8, 96, 96, 1], "sum": 552.3927973,
+        "sumsq": 166.3749774, "absmax": 0.186518744,
+        "pixels": [0.0590303019, 0.0575623512, 0.0339336842, 0.0201113224, -0.0195352584, 0.04664547, 0.0151133817, 0.000163458288, 0.0122158695, -0.0234963633, 0.0751282722, 0.0789694935, 0.0321946256, -0.0143515132, 0.00659000501, 0.0037702173, -0.0500791594, 0.021211518, -0.0102653382, 0.00827559084, 0.0476918295, 0.0464990363, -0.025162911, 0.0210324526, 0.0903230309, 0.00522163324, 0.0677632019, -0.082932882, -0.0692233592, 0.0346651524, 0.00883214083, -0.0466390923, 0.0420414433, -0.00231983187, 0.038539838, -0.000514532439, -0.00847417116, 0.0393985659, 0.0509051904, 0.0065144971, 0.0228110794, -0.0456160009, 0.0328052007, -0.00886569172, 0.084706597, -0.0142539144, -0.0326915979, -0.109245509, -0.011431383, 0.0371735767, -0.0173679627, -0.0560494512, 0.0156422965, 0.05863408, -0.00595508516, 0.0153366607, 0.0381556973, 0.0364268571, 0.0453401469, 0.0860476047, 0.0478198975, 0.0259100106, -0.00206865557, 0.0849385336]},
+    'SwinIR denoise': {
+        "shape": [8, 160, 128, 1], "sum": 47203.45803,
+        "sumsq": 35958.69325, "absmax": 1.56120682,
+        "pixels": [0.00354389846, 0.849937975, 1.08806849, 0.974204719, 0.189178854, -0.236640215, 0.667575598, 0.6404652, -0.353642344, 0.446175545, -0.0697598457, -0.0348735526, 0.131037086, -0.204288274, 0.0362573862, 0.575449824, -0.14471969, -0.565179706, -0.25878796, 0.0625181049, 0.074352771, 0.532051206, 0.237461865, 0.312684655, 0.790530682, 0.584638298, -0.26723057, 0.619852662, 0.492959946, 0.396426201, 0.692207158, 0.175642163, 0.439824104, 0.64429915, 0.228776276, 0.736110687, 0.544927418, 0.598243773, 0.233426809, -0.388070554, 0.732549071, 0.444718003, -0.286969423, -0.486233592, 0.698521495, -0.0975131392, 0.0742995143, 0.611685514, -0.315099597, 0.423890054, 0.326488197, -0.384842992, 0.57563138, 0.220553577, 0.352350771, 0.332799256, 0.230384007, 0.0651903898, 1.09453881, -0.171855122, 0.438265979, -0.181664199, -0.317086995, -0.573765516]},
+}
+
+
+def _ckpt_paras(label: str, config=None, **kw):
+    """The ParametersLoader of a CKPT or SIR label (its config, or
+    ``config``, with its overrides and ``kw``)."""
+    from rdst_tpu_torch.config import ParametersLoader
+
+    over, cfg = (CKPT[label][:2] if label in CKPT
+                 else (SIR[label][0], SWINIR_CONFIG))
+    p = ParametersLoader(config or cfg)
+    for k, v in {**over, **kw}.items():
+        p.set(k, v)
+    return p
+
+
+def _seeded_snapshot(label: str, path: str) -> str:
+    from rdst_tpu_torch.checkpoint.msgpack_writer import write_snapshot
+    from rdst_tpu_torch.models import build_generator
+
+    p = _ckpt_paras(label)
+    model = build_generator(p)
+    model.load_state_dict(_seeded_sd(model, p.feature_generator))
+    write_snapshot(path, model.state_dict())
+    return path
+
+
+def _manifest(live) -> dict:
+    return {k: v for k, v in live.manifest.items() if k != "entries"}
+
+
+@phase("reference torch checkpoints")
+def ckpt_reference_phase(data_dir: str, tmp: str) -> dict:
+    """Each CKPT family: its msgpack snapshot served by ``LiveModel``
+    (f32), written as the reference network's ``.pt`` by
+    ``torch_export.save_torch_checkpoint`` (``reference_template``; the
+    snapshot's ``.stats.json`` sidecar copied beside it), read
+    back by the tester's loader (``load_well_trained_params``) and by
+    ``LiveModel``: their weights and both forwards of 8 seeded slices on
+    the card equal the msgpack-loaded model's bit for bit
+    (``torch.equal``; on cuDNN's deterministic algorithms where two
+    forwards of one model differ on its default ones), the manifests
+    equal; then CKPT_STEPS bf16 training steps (``train_step`` of the
+    trainer that ``cli.build_trainer`` builds) from a ``pre_trained_g``
+    warm start on the ``.pt``: the set-up model holds the file's weights
+    (bf16-rounded), the losses are finite."""
+    from rdst_tpu_torch.checkpoint import torch_export, torch_import
+    from rdst_tpu_torch.checkpoint.loading import load_well_trained_params
+    from rdst_tpu_torch.cli import build_trainer
+    from rdst_tpu_torch.models import build_generator
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    out = {}
+    for label, (over, _, hw, scale, train_config) in CKPT.items():
+        t0 = time.perf_counter()
+        d = os.path.join(tmp, "ckpt", label.replace(" ", "_"))
+        os.makedirs(d, exist_ok=True)
+        snap = CKPT_WEIGHTS.get(label) or _seeded_snapshot(
+            label, os.path.join(d, "g.msgpack"))
+        p = _ckpt_paras(label, inference_dtype="float32",
+                        well_trained_single_scale_model_g=snap)
+        live = LiveModel(p, max_batch=8, device="cuda")
+        arch = torch_import.mapper_arch(p.feature_generator)
+        pt = os.path.join(d, "g.pt")
+        torch_export.save_torch_checkpoint(
+            live.model, pt, arch, *torch_export.mean_std(live.model),
+            template=torch_export.reference_template(live.model, arch),
+            **torch_import.mapper_kwargs(p, arch))
+        keys = len(torch.load(pt, weights_only=True))
+        # the snapshot's stats sidecar travels with it (the audited logit
+        # bound that resolves pallas_softmax='auto'; without it a .pt
+        # resolves to the exact 'stable_bc')
+        sidecar = os.path.splitext(snap)[0] + ".stats.json"
+        if os.path.exists(sidecar):
+            shutil.copy(sidecar, os.path.join(d, "g.stats.json"))
+        p_pt = _ckpt_paras(label, inference_dtype="float32",
+                           well_trained_single_scale_model_g=pt)
+        tested = load_well_trained_params(
+            build_generator(p_pt, *torch_export.mean_std(live.model)), p_pt,
+            pt, live.manifest["scales"]).to(live.device).eval()
+        live_pt = LiveModel(p_pt, max_batch=8, device="cuda")
+        x = torch.from_numpy(zoo_input(hw)).cuda()
+        sd = live.model.state_dict()
+        weights = all(torch.equal(m[k], v)
+                      for m in (tested.state_dict(), live_pt.model.state_dict())
+                      for k, v in sd.items())
+        # cuDNN's default algorithms may sum in a run-dependent order
+        # (DBPN's transposed convolutions do): where two forwards of one
+        # model differ, the forwards compared bit for bit run on its
+        # deterministic algorithms
+        with torch.inference_mode():
+            want = live.model(x, scale)
+            repeat = torch.equal(want, live.model(x, scale))
+            torch.backends.cudnn.deterministic = not repeat
+            try:
+                if not repeat:
+                    want = live.model(x, scale)
+                got = [tested(x, scale), live_pt.model(x, scale)]
+                torch.cuda.synchronize()
+            finally:
+                torch.backends.cudnn.deterministic = False
+        equal = [torch.equal(g, want) for g in got]
+        same = _manifest(live) == _manifest(live_pt)
+        ref = {k: v.detach() for k, v in live.model.named_parameters()}
+        del live, live_pt, tested
+        row = {"arch": arch, "pt_keys": keys, "weights_equal": weights,
+               "bitwise_equal": equal, "default_algorithms_repeat": repeat,
+               "manifest_equal": same, "out_shape": list(want.shape),
+               "absmax": float(want.abs().max())}
+        t1 = time.perf_counter()
+        argv = _train_argv(data_dir, os.path.join(d, "train"), CKPT_STEPS,
+                           train_config) + [
+            f"{k}={v!r}" for k, v in {
+                **over, **CONV_ZOO_TRAIN_OVER.get(label, {}),
+                "eva_metrics": "psnr ssim", "pre_trained_g": pt}.items()]
+        trainer = build_trainer(argv)
+        trainer.setup()
+        warm = all(torch.equal(q.detach(), ref[k].to(q.dtype))
+                   for k, q in trainer.model.named_parameters())
+        rng = np.random.default_rng(SEED + 46)
+        losses = []
+        for _ in range(CKPT_STEPS):
+            total, _, ok = trainer.train_step(trainer.ds_train.sample(rng),
+                                              "WarmUP")
+            losses.append(float(total))
+        row.update(warm_start_equal=warm, losses=losses,
+                   train_dtype=str(trainer.model.dtype).split(".")[-1],
+                   seconds=[t1 - t0, time.perf_counter() - t1])
+        del trainer
+        torch.cuda.empty_cache()
+        log(f"ckpt {label} ({arch}): {keys} reference keys; the .pt's "
+            f"weights equal the msgpack model's {weights}; forward of 8 x "
+            f"{hw} at x{scale:g} -> {row['out_shape']} bitwise equal to the "
+            f"msgpack model's: tester loader {equal[0]}, LiveModel "
+            f"{equal[1]} (on cuDNN's default algorithms: {repeat}, else its "
+            f"deterministic ones); manifests equal {same}; "
+            f"{CKPT_STEPS} "
+            f"{row['train_dtype']} steps from pre_trained_g = the .pt "
+            f"(weights as in the file: {warm}): losses "
+            + ", ".join(f"{v:.5f}" for v in losses)
+            + f" ({row['seconds'][0]:.2f} + {row['seconds'][1]:.2f} s)")
+        if not (weights and all(equal) and same and warm
+                and np.isfinite(losses).all()):
+            raise AssertionError(f"ckpt {label}: {row}")
+        out[label] = row
+    return out
+
+
+def _sir_model(label: str, dtype, sd=None, device="cuda", **kw):
+    """A SIR variant built by ``build_generator`` from SWINIR_CONFIG with
+    its overrides (and ``kw``), holding the seeded weights (or ``sd``), on
+    ``device`` as the entry points resolve it."""
+    from rdst_tpu_torch.device import resolve_device
+    from rdst_tpu_torch.models import build_generator
+
+    device = resolve_device(device)
+    model = build_generator(_ckpt_paras(label, **kw), dtype=dtype)
+    model.load_state_dict(sd if sd is not None else
+                          _seeded_sd(model, "swinir"))
+    return model.to(device).eval()
+
+
+def _block_train_at(blk, images: int, x_size, gen, label: str) -> dict:
+    """The block-train forward and backward kernels with ``blk``'s
+    weights on ``images`` images of ``x_size`` (unshifted, 'clamp', no
+    factor columns) against the plain version and its autograd
+    (BF16_TOL); the forward and the backward launch alone timed beside
+    their plain versions and bounds."""
+    from rdst_tpu_torch.kernels import block_train as bt
+
+    c, nw = blk.dim, (x_size[0] // 8) * (x_size[1] // 8)
+    params, bias = blk.fast_kernel_inputs(tuple(x_size), 8, 0)
+    ops = [q.detach().float().contiguous() for q in params] + \
+        [bias.detach().float().contiguous()]
+    x, dz = (torch.randn(images * nw, 64, c, device="cuda",
+                         generator=gen).to(torch.bfloat16) for _ in range(2))
+    row = _block_train_variant(f"{label} block train C={c} at {images} x "
+                               f"{tuple(x_size)} ({images * nw} windows)",
+                               ops, x, dz, None, "clamp", nw=nw)
+    times, fp, pb, _, code = _block_train_forward_times(x, ops, "clamp")
+    row.update(times)
+    row["bwd_ms"] = cuda_time_ms(lambda: bt.launch_backward(
+        x, dz, fp, pb, None, 6, code), warmup=1, iters=5)
+    leaves = [t.detach().clone().requires_grad_(True) for t in [x, *fp, pb]]
+    twin = bt.block_train_reference(leaves[0], type(fp)(*leaves[1:9]),
+                                    leaves[9], None, num_heads=6,
+                                    softmax="clamp")
+    row["plain_bwd_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+        twin, leaves, dz, retain_graph=True), warmup=1, iters=3)
+    del twin, leaves
+    wbytes = sum(t.numel() * t.element_size() for t in [*fp, pb])
+    row["bwd_bound_ms"], row["bwd_bound_by"] = _bound(
+        2 * _block_flops(x.shape[0], c), 3 * x.numel() * 2 + 3 * wbytes)
+    row["windows"] = images * nw
+    log(f"  forward {row['ms']:.4f} ms (plain {row['plain_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f} {row['bound_by']}), backward "
+        f"{row['bwd_ms']:.4f} ms (plain {row['plain_bwd_ms']:.4f}, bound "
+        f"{row['bwd_bound_ms']:.4f} {row['bwd_bound_by']})")
+    return row
+
+
+def _sir_tester(label: str, snap: str, data_dir: str, tmp: str) -> dict:
+    """``cli.test_main`` on the card (bf16, int8 qkv, as SWINIR_CONFIG
+    ships) of a SIR variant's snapshot on the held-out patients: finite
+    scores, the fast block's launches a whole number of forwards."""
+    from rdst_tpu_torch.cli import test_main
+    from rdst_tpu_torch.kernels import swin_block
+
+    over = {**SIR[label][0], "data_folder": data_dir, "verbose": False,
+            "eva_metrics": "psnr ssim",
+            "output_dir": os.path.join(tmp, "tester", label.replace(" ", "_")),
+            "well_trained_single_scale_model_g": snap}
+    argv = ["--config-file", SWINIR_CONFIG] + [f"{k}={v!r}"
+                                               for k, v in over.items()]
+    swin_block.run_fast_block.launches = 0  # the tester's path starts here
+    t0 = time.perf_counter()
+    tester = test_main(argv)
+    wall = time.perf_counter() - t0
+    n = swin_block.run_fast_block.launches  # and ends here
+    stacked = np.load(os.path.join(tester.output_root,
+                                   "stacked_eva_reports.npy"),
+                      allow_pickle=True).item()
+    scores = {k: float(np.mean(v)) for k, v in stacked.items()}
+    log(f"tester {label}: " + " ".join(f"{k} {v:.4f}" for k, v in
+                                       sorted(scores.items()))
+        + f" over {tester.patient_ids} ({wall:.3f} s, {n} fast-block "
+        "launches; seeded weights: no quality bar)")
+    if not n or n % 36 or not all(np.isfinite(v) for v in scores.values()):
+        raise AssertionError(f"tester {label}: {scores}, launches {n}")
+    return {"scores": scores, "wall_s": wall, "launches": n}
+
+
+@phase("SwinIR heads at SwinIR-std width")
+def sir_variant_phase(label: str, data_dir: str, tmp: str) -> dict:
+    """A SIR variant on the seeded weights: in f32 (every block on the f32
+    block kernel, 36 a forward) against SIR_BARS (the JAX package's CPU
+    forward: ZOO_TOL of max|y|) and against the plain f32 path on the
+    card (MODEL_TOL); in bf16 with int8 qkv (the fast block, 36 a
+    forward) against its plain versions (the same model on the CPU, one
+    slice: BF16_TOL) and against f32 (the bf16-vs-f32 bars), each
+    forward's device time; the denoise head's f32 and fast blocks alone at its 2,560
+    windows; SIR_STEPS bf16 training steps from SWINIR_TRAIN_CONFIG (the
+    block-train kernels, 36 + 36 a step) and those kernels alone at the
+    step's geometry; the tester on patients 19-20 and HTTP at 1 / 8 / 64
+    slices from the seeded snapshot (bf16, int8 qkv)."""
+    from rdst_tpu_torch.checkpoint.msgpack_writer import write_snapshot
+    from rdst_tpu_torch.cli import build_trainer
+    from rdst_tpu_torch.kernels import block_train as bt
+    from rdst_tpu_torch.kernels import pair_train as pt
+    from rdst_tpu_torch.kernels import swin_block
+    from rdst_tpu_torch.nn.swin import set_block_kernels
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    over, hw = SIR[label]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 47)
+    x = zoo_input(hw)
+    xt = torch.from_numpy(x).cuda()
+    m32 = _sir_model(label, torch.float32, inference_dtype="float32",
+                     pallas_kernels="swin")
+    y32, n32 = _zoo_forward(m32, x, SCALE)
+    set_block_kernels(m32, False)
+    y_plain, n_plain = _zoo_forward(m32, x, SCALE)
+    set_block_kernels(m32, True)
+    bar = SIR_BARS[label]
+    d = _versus_bars(y32, bar)
+    err32 = float(np.abs(y32 - y_plain).max())
+    with torch.inference_mode():
+        ms32 = cuda_time_ms(lambda: m32(xt, SCALE), warmup=1, iters=3)
+    row = {"f32": {"launches": n32["f32"], "versus_jax": d,
+                   "kernel_vs_plain_max_abs_err": err32, "ms": ms32,
+                   "absmax": bar["absmax"], "shape": list(y32.shape)}}
+    log(f"{label} f32 8 x {hw} -> {y32.shape}: vs the JAX forward "
+        f"(SIR_BARS) mean {d['mean']:.2e}, mean square "
+        f"{d['mean_square']:.2e}, 64 pixels {d['pixels']:.2e} of max|y| "
+        f"{bar['absmax']:.4f} (bar {ZOO_TOL}); kernel vs plain {err32:.3e} "
+        f"(tol {MODEL_TOL}); f32 block launches a forward {n32['f32']} "
+        f"(plain {n_plain['f32']}); {ms32:.3f} ms device")
+    if list(y32.shape) != bar["shape"] or not np.isfinite(y32).all() or \
+            max(d.values()) > ZOO_TOL or err32 > MODEL_TOL:
+        raise AssertionError(f"{label} f32: {row['f32']}")
+    if n32["f32"] != 36 or n_plain["f32"] or sum(n32.values()) != 36:
+        raise AssertionError(f"{label} f32 launches {n32} / {n_plain}")
+    sd = {k: v.detach().cpu() for k, v in m32.state_dict().items()}
+    if label == "SwinIR denoise":
+        blk = m32.layers[0].residual_group.blocks[0]
+        row["f32_block"] = _f32_block_at(blk, 0, len(x), hw, gen)
+    del m32
+
+    m16 = _sir_model(label, torch.bfloat16, sd)
+    softmax, quant = m16.softmax, m16.quant
+    y16, n16 = _zoo_forward(m16, x, SCALE)
+    # the kernels' plain versions: the same model on the CPU, where each
+    # wrapper takes its plain version (bf16, int8 qkv); one slice
+    cpu = _sir_model(label, torch.bfloat16, sd, device="cpu")
+    with torch.inference_mode():
+        y_cpu = cpu(torch.from_numpy(x[:CONV_ZOO_CPU_SLICES]),
+                    SCALE).float().numpy()
+    del cpu
+    kp = _rel(torch.from_numpy(y16[:CONV_ZOO_CPU_SLICES]),
+              torch.from_numpy(y_cpu))[:2]
+    kf = _rel(torch.from_numpy(y16), torch.from_numpy(y32))[:2]
+    with torch.inference_mode():
+        ms16 = cuda_time_ms(lambda: m16(xt, SCALE), warmup=1, iters=3)
+    row["bf16"] = {"launches": n16["swin"], "vs_plain_versions_rel": kp,
+                   "vs_f32_rel": kf, "ms": ms16, "softmax": softmax,
+                   "int8": sorted(quant)}
+    log(f"{label} bf16 mode swin ({softmax}, int8 {sorted(quant)}): "
+        f"{n16['swin']} fast-block launches a forward; vs the plain "
+        f"versions (the same model on the CPU, {CONV_ZOO_CPU_SLICES} "
+        f"slice(s)) rel max {kp[0]:.3e} mean {kp[1]:.3e} (bar {BF16_TOL}); "
+        f"vs f32 rel max {kf[0]:.3e} mean {kf[1]:.3e} (bars "
+        f"{BF16_VS_F32_MAX}, {BF16_VS_F32_MEAN}); {ms16:.3f} ms device")
+    if not np.isfinite(y16).all() or kp[0] > BF16_TOL or n16["swin"] != 36 \
+            or sum(n16.values()) != 36 or quant != frozenset({"qkv"}) or \
+            kf[0] >= BF16_VS_F32_MAX or kf[1] >= BF16_VS_F32_MEAN:
+        raise AssertionError(f"{label} bf16: {row['bf16']}, {n16}")
+    if label == "SwinIR denoise":
+        blk = m16.layers[0].residual_group.blocks[0]
+        row["fast_block"] = _fast_block_at(blk, len(x), hw, gen, softmax,
+                                           quant, bound=True)
+    del m16
+    torch.cuda.empty_cache()
+
+    argv = _swinir_train_argv(data_dir, os.path.join(
+        tmp, "sir", label.replace(" ", "_")), SIR_STEPS) + [
+        f"{k}={v!r}" for k, v in {**over, "eva_metrics": "psnr ssim"}.items()]
+    trainer = build_trainer(argv)
+    trainer.setup()
+    routes = dict(trainer.model.train_routes)
+    rng = np.random.default_rng(SEED + 48)
+    batches = [trainer.ds_train.sample(rng) for _ in range(SIR_STEPS)]
+    counters = (bt.launch_forward, bt.launch_backward, pt.launch_forward,
+                pt.launch_backward)
+    for cnt in counters:
+        cnt.launches = 0  # the main path starts here
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(b, "WarmUP")[0] for b in batches]
+    losses = [float(v) for v in losses]
+    train_s = time.perf_counter() - t0
+    fwd, bwd, pfwd, pbwd = (cnt.launches for cnt in counters)  # ends here
+    geo = tuple(batches[0]["in"].shape[:3])
+    row["train"] = {"routes": routes, "forward_launches": fwd,
+                    "backward_launches": bwd, "losses": losses,
+                    "batch": list(geo), "seconds": train_s}
+    log(f"{label} {SIR_STEPS} bf16 steps on {geo} batches in "
+        f"{train_s:.3f} s: train routes {routes}, block-train calls "
+        f"forward {fwd}, backward {bwd}, train pair {pfwd + pbwd}; losses "
+        + ", ".join(f"{v:.5f}" for v in losses))
+    if routes != {"pair": 0, "block": 36} or fwd != 36 * SIR_STEPS or \
+            bwd != 36 * SIR_STEPS or pfwd + pbwd or \
+            not np.isfinite(losses).all():
+        raise AssertionError(f"{label} training: {row['train']}")
+    blk = trainer.model.layers[0].residual_group.blocks[0]
+    row["block_train"] = _block_train_at(blk, geo[0], geo[1:], gen, label)
+    del trainer
+    torch.cuda.empty_cache()
+
+    snap = os.path.join(tmp, "sir", label.replace(" ", "_") + ".msgpack")
+    write_snapshot(snap, sd)
+    row["tester"] = _sir_tester(label, snap, data_dir, tmp)
+    live = LiveModel(_ckpt_paras(label,
+                                 well_trained_single_scale_model_g=snap),
+                     max_batch=64, device="cuda")
+    row["manifest"] = _manifest(live)
+    row["serving"] = _zoo_serve(live, swin_block.run_fast_block, 36, hw,
+                                timed=1)
+    del live
+    torch.cuda.empty_cache()
+    return row
+
+
+def run_ckpt(data_dir: str, tmp: str):
+    """Phases 46-48; returns (results, kernel rows: the SwinIR heads'
+    f32 and fast blocks at the denoise head's 2,560 windows, the
+    block-train kernels at the heads' training geometries)."""
+    ref = ckpt_reference_phase(data_dir, tmp)
+    heads = {label: sir_variant_phase(label, data_dir, tmp) for label in SIR}
+    dn = heads["SwinIR denoise"]
+    rows = [
+        _row("fused_swin_block (SwinIR denoise f32, C = 180, 2,560 windows)",
+             "swin_block.cu", "rdst_tpu/kernels/swin_block.py:757",
+             dn["f32"]["launches"], [dn["f32_block"]]),
+        _row("fused_swin_block_fast (SwinIR denoise bf16, C = 180, int8 "
+             "qkv, 2,560 windows)", "swin_block_fast.cu",
+             "rdst_tpu/kernels/swin_block.py:757", dn["bf16"]["launches"],
+             [dn["fast_block"]]),
+    ]
+    rows += _train_rows(
+        "fused_swin_block_train (SwinIR heads)", "block_train.cu",
+        "rdst_tpu/kernels/block_train.py:307",
+        {"variants": [h["block_train"] for h in heads.values()]},
+        {k: sum(h["train"][k] for h in heads.values())
+         for k in ("forward_launches", "backward_launches")})
+    return {"reference": ref, "heads": heads}, rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--only", choices=("e1", "swinir", "w96", "metasr",
-                                       "int8", "xdata", "zoo", "convzoo"),
+                                       "int8", "xdata", "zoo", "convzoo",
+                                       "ckpt"),
                     nargs="+", default=None,
                     help="run the card and build phases and these models' "
                     "phases only (default: every phase)")
@@ -7171,6 +7663,9 @@ def main(argv=None) -> int:
             kernels += rows
         if args.only is None or "convzoo" in args.only:
             results["convzoo"], rows = run_conv_zoo(data_dir, tmp)
+            kernels += rows
+        if args.only is None or "ckpt" in args.only:
+            results["ckpt"], rows = run_ckpt(data_dir, tmp)
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

@@ -164,8 +164,8 @@ def export_swinir(params: dict) -> Dict[str, np.ndarray]:
     for path, v in flat.items():
         p = "/".join(path)
         v = np.asarray(v)
-        m = re.match(r"^(conv_first|conv_after_body|conv_last)/conv/"
-                     r"(kernel|bias)$", p)
+        m = re.match(r"^(conv_first|conv_after_body|conv_last|conv_hr|"
+                     r"conv_up1|conv_up2)/conv/(kernel|bias)$", p)
         if m:
             name, val = _conv_leaf(m.group(2), v)
             sd[f"{m.group(1)}.{name}"] = val
@@ -178,6 +178,9 @@ def export_swinir(params: dict) -> Dict[str, np.ndarray]:
         if p.startswith("patch_embed_norm/"):
             leaf = "weight" if p.endswith("scale") else "bias"
             sd[f"patch_embed.norm.{leaf}"] = v
+            continue
+        if p == "absolute_pos_embed":
+            sd[p] = v
             continue
         if p.startswith("norm/"):
             leaf = "weight" if p.endswith("scale") else "bias"

@@ -12,10 +12,11 @@ from __future__ import annotations
 import json
 import os
 import pickle
-import re
+import warnings
 from os.path import exists
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -64,13 +65,6 @@ def resolve_pallas_softmax(model_path: Optional[str], mode: str) -> str:
     return resolve_softmax_auto(stats.get("attn_logit_max"))
 
 
-# entries a reference checkpoint carries that the port rebuilds: the
-# MeanShift convs (from the model's own normalization) and the window
-# buffers (closed form), as ``rdst_tpu/checkpoint/torch_import.py`` skips them
-_REBUILT = re.compile(r"^(sub_mean|add_mean)\.|(^|\.)(relative_position_index"
-                      r"|attn_mask)$")
-
-
 def read_torch_state_dict(path: str) -> dict:
     """The tensors of a reference torch checkpoint: a state dict, or one
     wrapped as ``{'state_dict': ...}``. Read with ``weights_only=True``:
@@ -91,9 +85,48 @@ def read_torch_state_dict(path: str) -> dict:
     return sd
 
 
-# the named generators for which the JAX package has no reference torch
-# key mapper either
-_NO_TORCH_MAPPER = ("wtb", "wtr", "wtp", "wts", "swinmlp", "swin-mlp")
+# the slope both packages apply for a PReLU (torch's init)
+PRELU_SLOPE = 0.25
+
+
+def _torch_params(model: torch.nn.Module, paras, path: str, mean,
+                  std) -> dict:
+    """A reference torch checkpoint of ``model``'s family as the port's
+    state_dict (numpy): the family's key mapper
+    (``checkpoint.torch_import``) into the flax tree, checked leaf by leaf
+    against the model's own tree (a missing, extra or misshaped leaf
+    raises and names it), then carried over by ``convert.export_params``.
+    The file's MeanShift entries are rebuilt from ``mean`` / ``std`` (the
+    model's own normalization) and its window buffers from the geometry; its PReLU
+    slopes are dropped, as the JAX import drops them (both packages apply
+    the fixed 0.25), with a warning that counts those that differ."""
+    from rdst_tpu_torch.checkpoint import torch_import as ti
+    from rdst_tpu_torch.checkpoint.convert import export_params
+    from rdst_tpu_torch.checkpoint.msgpack_writer import import_state_dict
+
+    generator = paras.get("feature_generator") or paras.get("sr_generator")
+    arch = ti.mapper_arch(generator)
+    # no mapper in the JAX package either: MetaSR, ESTSR, the wavelet
+    # transformers, Swin-MLP and RDST-N (an RDST with a global bottleneck)
+    if arch not in ti._MAPPERS or (
+            arch == "rdst" and paras.get("rdst_global_bottleneck")):
+        raise NotImplementedError(
+            f"{path}: no reference torch key mapper for "
+            f"{'RDST-N' if arch == 'rdst' else repr(generator)} (the JAX "
+            "package has none either); use the .msgpack snapshot")
+    kw = ti.mapper_kwargs(paras, arch)
+    sd = read_torch_state_dict(path)
+    slopes = ti.prelu_slopes(sd, arch, **kw)
+    off = sorted(k for k, v in slopes.items()
+                 if np.any(np.asarray(v) != PRELU_SLOPE))
+    if off:
+        warnings.warn(
+            f"{path}: {len(off)} of {len(slopes)} PReLU slopes differ from "
+            f"{PRELU_SLOPE} ({off[:3]}...); they are dropped, as the JAX "
+            f"package drops them: both apply the fixed slope {PRELU_SLOPE}")
+    tree = ti.convert_state_dict(sd, arch, **kw)
+    ti.verify_params_match(tree, import_state_dict(model.state_dict()))
+    return export_params(tree, generator, mean, std)
 
 
 def load_well_trained_params(model: torch.nn.Module, paras, path: str,
@@ -102,17 +135,14 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
     key must match) and return it.
 
     A ``.msgpack`` snapshot (of any generator the port builds) is read
-    without flax
-    (``checkpoint.msgpack_reader``) and carried over by
+    without flax (``checkpoint.msgpack_reader``) and carried over by
     ``checkpoint.convert``. A reference torch checkpoint (``.pt``,
-    ``.pth``, ``.tar``) already has the port's keys; its MeanShift and
-    window-index entries are dropped and rebuilt. RDST's MeanShift
-    entries come from the model's own normalization in both cases. A
-    ``.pt`` path whose ``.msgpack`` sibling exists takes the sibling, as
-    in the JAX package."""
-    from rdst_tpu_torch.checkpoint.convert import (NAMED_GENERATORS,
-                                                   export_params,
-                                                   mean_shift_entries)
+    ``.pth``, ``.tar``) of a family that ``checkpoint.torch_import`` maps
+    goes through its mapper first (:func:`_torch_params`). RDST's
+    MeanShift entries come from the model's own normalization in both
+    cases. A ``.pt`` path whose ``.msgpack`` sibling exists takes the
+    sibling, as in the JAX package."""
+    from rdst_tpu_torch.checkpoint.convert import export_params
     from rdst_tpu_torch.checkpoint.msgpack_reader import read_snapshot
 
     stem, ext = os.path.splitext(path)
@@ -121,27 +151,11 @@ def load_well_trained_params(model: torch.nn.Module, paras, path: str,
     generator = paras.get("feature_generator") or paras.get("sr_generator")
     mean, std = getattr(model, "mean", (0.0,)), getattr(model, "std", (1.0,))
     if ext in (".pt", ".tar", ".pth"):
-        name = str(generator).strip().lower()
-        if name in NAMED_GENERATORS and name not in _NO_TORCH_MAPPER:
-            raise NotImplementedError(
-                f"{path}: the reference torch key mapper for {generator!r} "
-                "(rdst_tpu/checkpoint/torch_import.py) is not ported yet "
-                "(ROADMAP Queue A 8 item 3); use the .msgpack snapshot")
-        if name not in ("rdst", "swinir", "swin") or \
-                paras.get("rdst_global_bottleneck"):
-            raise NotImplementedError(
-                f"{path}: no reference torch key mapper for "
-                f"{'RDST-N' if name == 'rdst' else repr(generator)} (the JAX "
-                "package has none either); use the .msgpack snapshot")
-        sd = {k: v for k, v in read_torch_state_dict(path).items()
-              if not _REBUILT.search(k)}
-        if name == "rdst":
-            sd.update({k: torch.from_numpy(v)
-                       for k, v in mean_shift_entries(mean, std).items()})
-        model.load_state_dict(sd)
-        return model
-    if ext != ".msgpack":
+        sd = _torch_params(model, paras, path, mean, std)
+    elif ext == ".msgpack":
+        sd = export_params(read_snapshot(path), generator, mean, std)
+    else:
         raise ValueError(f"unknown checkpoint format: {path}")
-    sd = export_params(read_snapshot(path), generator, mean, std)
-    model.load_state_dict({k: torch.from_numpy(v.copy()) for k, v in sd.items()})
+    model.load_state_dict({k: torch.from_numpy(np.array(v))
+                           for k, v in sd.items()})
     return model

@@ -225,8 +225,8 @@ def import_swinir(state_dict: Dict[str, object]) -> dict:
     for key, val in state_dict.items():
         v = _f32(val)
         leaf = key.rsplit(".", 1)[-1]
-        m = re.match(r"^(conv_first|conv_after_body|conv_last)\."
-                     r"(weight|bias)$", key)
+        m = re.match(r"^(conv_first|conv_after_body|conv_last|conv_hr|"
+                     r"conv_up1|conv_up2)\.(weight|bias)$", key)
         if m:
             k, val2 = _conv(m.group(2), v)
             _set(params, (m.group(1), "conv", k), val2)
@@ -235,6 +235,9 @@ def import_swinir(state_dict: Dict[str, object]) -> dict:
         if m:
             k, val2 = _conv(m.group(1), v)
             _set(params, ("conv_before_upsample", "conv", k), val2)
+            continue
+        if key == "absolute_pos_embed":
+            params[key] = v
             continue
         if key.startswith(("patch_embed.norm.", "norm.")):
             name = "patch_embed_norm" if key.startswith("patch") else "norm"

@@ -103,6 +103,37 @@ def pad_to_window_multiple(x: torch.Tensor, multiple: int
     return x, (h, w)
 
 
+def position_table(resolution, multiple: int, dim: int) -> nn.Parameter:
+    """An absolute position table (``rdst_ape`` / ``sir_ape``) of one row a
+    token of ``resolution`` padded to whole windows (``multiple``): the
+    JAX table's length is the token count of the input it was initialized
+    at (the trainer's: one training patch)."""
+    h, w = (-(-int(s) // multiple) * multiple for s in resolution)
+    return nn.Parameter(torch.zeros(1, h * w, dim))
+
+
+def fit_position_table(table, state_dict, key: str) -> None:
+    """Before a ``state_dict`` load: the table takes the length of the one
+    carried over."""
+    if table is not None and key in state_dict and \
+            state_dict[key].shape != table.shape:
+        table.data = table.new_zeros(state_dict[key].shape)
+
+
+def add_position_table(tokens: torch.Tensor, table, x_size,
+                       option: str) -> torch.Tensor:
+    """``tokens + table``; another token count than the table's raises and
+    names both (the JAX apply fails there). In bf16 the table is rounded,
+    so the tokens stay bf16 (the JAX package promotes them to float32)."""
+    if table.shape[1] != tokens.shape[1]:
+        raise ValueError(
+            f"absolute_pos_embed has {table.shape[1]} positions, the input "
+            f"{tuple(x_size)} {tokens.shape[1]} tokens: the table ({option}) "
+            "is sized by the token count the model was initialized at, and "
+            "takes inputs of that size only")
+    return tokens + table.to(tokens.dtype)
+
+
 def _adapter(in_dim: int, out_dim: int, pre_norm: bool,
              layer_norm: bool) -> nn.Sequential:
     """[LN(in), Linear] when pre_norm, else [Linear, LN(out)]; the
@@ -364,15 +395,9 @@ class SRFrame(nn.Module):
         self.add_mean = MeanShift(mean, std, "add")
         self.head = Conv(in_chans, embed_dim, 3)
         self.patch_embed = _PatchEmbed(embed_dim) if patch_norm else None
-        self.absolute_pos_embed = None
-        if ape:
-            # the JAX table has one row a token of the input it was
-            # initialized at (the trainer's: one training patch, padded to
-            # whole windows); a carried-over table keeps its own length
-            m = _lcm_all(window_size)
-            h, w = (-(-int(s) // m) * m for s in build_resolution)
-            self.absolute_pos_embed = nn.Parameter(
-                torch.zeros(1, h * w, embed_dim))
+        self.absolute_pos_embed = (position_table(
+            build_resolution, _lcm_all(window_size), embed_dim) if ape
+            else None)
 
     def _tail(self, in_chans: int, sr_scale, tail_dim: int,
               drop_rate: float, scale_free: bool) -> None:
@@ -395,12 +420,8 @@ class SRFrame(nn.Module):
         return [("RDSTB", b) for b in self.rdstbs()]
 
     def _load_from_state_dict(self, state_dict, prefix, *args, **kwargs):
-        # the position table takes the length of the one carried over
-        key = prefix + "absolute_pos_embed"
-        table = self.absolute_pos_embed
-        if table is not None and key in state_dict and \
-                state_dict[key].shape != table.shape:
-            table.data = table.new_zeros(state_dict[key].shape)
+        fit_position_table(self.absolute_pos_embed, state_dict,
+                           prefix + "absolute_pos_embed")
         super()._load_from_state_dict(state_dict, prefix, *args, **kwargs)
 
     def _embed(self, x: torch.Tensor):
@@ -412,17 +433,9 @@ class SRFrame(nn.Module):
         tokens, x_size = to_tokens(x)
         if self.patch_embed is not None:
             tokens = self.patch_embed.norm(tokens)
-        table = self.absolute_pos_embed
-        if table is not None:
-            if table.shape[1] != tokens.shape[1]:
-                raise ValueError(
-                    f"absolute_pos_embed has {table.shape[1]} positions, the "
-                    f"input {tuple(x_size)} {tokens.shape[1]} tokens: the "
-                    "table (rdst_ape) is sized by the token count the model "
-                    "was initialized at, and takes inputs of that size only")
-            # bf16: the table rounded, so the tokens stay bf16 (the JAX
-            # package promotes them to float32 here)
-            tokens = tokens + table.to(tokens.dtype)
+        if self.absolute_pos_embed is not None:
+            tokens = add_position_table(tokens, self.absolute_pos_embed,
+                                        x_size, "rdst_ape")
         return x, self.pos_drop(tokens), x_size, hw0
 
     def _upsample(self, res: torch.Tensor, scale, hw0) -> torch.Tensor:

@@ -270,7 +270,10 @@ class SRTrainer:
 
     def weights_init(self) -> str:
         """Warm start from ``pre_trained_g`` (a flax ``.msgpack``
-        snapshot; no optimizer state), else keep the fresh init."""
+        snapshot, or a reference torch ``.pt`` / ``.pth`` of any family
+        that ``checkpoint.torch_import`` maps, the JAX trainer's aliases
+        included; a missing, extra or misshaped leaf raises and names it;
+        no optimizer state), else keep the fresh init."""
         from rdst_tpu_torch.checkpoint.loading import load_well_trained_params
 
         g_path = self.paras.get("pre_trained_g")

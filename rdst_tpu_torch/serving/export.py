@@ -105,9 +105,10 @@ def _check_servable(paras) -> None:
     apply to the slices it is sent, naming the key to set: ZSSR maps an
     input already interpolated to the output size (served from a config
     with ``lr_image_size_remain = True``, its clients send the HR-size
-    slice), IPT runs only at its training patch (served from a config
-    with ``tiled_inference = True``, its clients send patch-size
-    tiles)."""
+    slice; so does SwinIR's denoise head, ``sir_upsampler = ''``, which
+    returns its input's size), IPT runs only at its training patch (served
+    from a config with ``tiled_inference = True``, its clients send
+    patch-size tiles)."""
     name = str(paras.get("feature_generator")
                or paras.get("sr_generator")).strip().lower()
     if name == "zssr" and not paras.get("lr_image_size_remain"):
@@ -115,6 +116,13 @@ def _check_servable(paras) -> None:
             "ZSSR does not upsample: it maps a slice already interpolated "
             "to the output size. Serve it from a config with "
             "lr_image_size_remain = True and send HR-size slices")
+    if name in ("swinir", "swin") and paras.get("sir_upsampler") == "" \
+            and not paras.get("lr_image_size_remain"):
+        raise ValueError(
+            "SwinIR's denoise head (sir_upsampler = '') returns its input's "
+            "size: it maps a slice already interpolated to the output size. "
+            "Serve it from a config with lr_image_size_remain = True and "
+            "send HR-size slices")
     if name == "ipt" and not paras.get("tiled_inference"):
         p = int(paras.patch_size)
         raise ValueError(

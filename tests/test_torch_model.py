@@ -174,10 +174,12 @@ def test_pad_to_window_multiple_reflects():
     ("feature_generator", "rdn-x", "unknown feature_generator"),
 ])
 def test_unported_options_raise(key, value, match):
-    """What the port still refuses now that every generator builds: a
-    reference torch ``.pt`` snapshot of a convolutional family (its key
-    mapper is ROADMAP Queue A 8 item 3), and a generator or MetaSR
-    extractor that neither package has."""
+    """What the port refuses now that every generator builds: a generator
+    or MetaSR extractor that neither package has. The ``.pt`` cases name
+    ROADMAP Queue A 8 item 3, now closed: a reference torch snapshot of a
+    convolutional family goes through its key mapper to the file (absent
+    here), and MetaSR's is refused, the JAX package having no mapper for
+    it either."""
     from rdst_tpu_torch.checkpoint.loading import load_well_trained_params
 
     p = ParametersLoader(CONFIG)
@@ -185,7 +187,10 @@ def test_unported_options_raise(key, value, match):
     if key == "meta_feature_generator":  # MetaSR with another extractor
         p.set("feature_generator", "metasr")
     if "Queue A 8" in match:
-        with pytest.raises(NotImplementedError, match=match):
+        exc, text = ((NotImplementedError, "JAX package has none either")
+                     if key == "meta_feature_generator" else
+                     (FileNotFoundError, "absent.pt"))
+        with pytest.raises(exc, match=text):
             load_well_trained_params(torch.nn.Identity(), p, "absent.pt",
                                      [4.0])
     else:

@@ -16,8 +16,9 @@ and 4).
   relative max;
 * a snapshot that the port's trainer wrote (1 step, f32, CPU) loads in
   flax and the JAX forward on it equals the port's, for DBPN, HAN and IPT;
-* the refusals that hold: a ``.pt`` snapshot of each family (its mapper is
-  ROADMAP Queue A 8 item 3), an unknown generator or extractor, MDSR at
+* a ``.pt`` snapshot of each family loads (MetaSR's is refused: the JAX
+  package has no mapper for it); the refusals that hold: an unknown
+  generator or extractor, MDSR at
   2.5, IPT at another size, ZSSR and IPT served without their keys;
 * the new modules import with jax, flax, msgpack and rdst_tpu blocked.
 """
@@ -25,6 +26,7 @@ and 4).
 import pathlib
 import subprocess
 import sys
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -386,14 +388,37 @@ PT_FAMILIES = ("srresnet", "srdensenet", "rdn", "esrgan", "mdsr", "rcan",
 
 
 def _raises_pt_import():
-    """A reference torch ``.pt`` snapshot of each family is refused before
-    it is read: its key mapper is ROADMAP Queue A 8 item 3."""
-    for name in PT_FAMILIES + ("metasr",):
-        p = _paras(ParametersLoader, {"feature_generator": name}, METASR)
-        with pytest.raises(NotImplementedError,
-                           match="Queue A 8 item 3"):
-            load_well_trained_params(torch.nn.Identity(), p, "absent.pt",
-                                     [4.0])
+    """Only MetaSR's reference torch ``.pt`` is refused (the JAX package has
+    no mapper for it either); every other family's loads: a ``.pt`` that
+    the port writes in the reference layout (``torch_export``) from one
+    model fills a zeroed twin strictly, weight for weight."""
+    from rdst_tpu_torch.checkpoint import torch_export, torch_import
+
+    p = _paras(ParametersLoader, {"feature_generator": "metasr"}, METASR)
+    with pytest.raises(NotImplementedError, match="JAX package has none"):
+        load_well_trained_params(torch.nn.Identity(), p, "absent.pt", [4.0])
+    for name in ("srresnet", "srdensenet-hl", "rdn", "esrgan", "mdsr",
+                 "rcan", "han", "convnext", "zssr", "dbpn-x2", "ipt"):
+        over = CASES[name][0]
+        p = _paras(ParametersLoader, {} if isinstance(over, str) else over)
+        if isinstance(over, str):
+            p.set("feature_generator", {"convnext": "convnet-large"}.get(
+                over, over))
+        arch = torch_import.mapper_arch(p.feature_generator)
+        model = _port_model(name)
+        with tempfile.TemporaryDirectory() as tmp:
+            pt = str(pathlib.Path(tmp) / "ref.pt")
+            torch_export.save_torch_checkpoint(
+                model, pt, arch, *torch_export.mean_std(model),
+                template=torch_export.reference_template(model, arch),
+                **torch_import.mapper_kwargs(p, arch))
+            twin = _port_model(name)
+            with torch.no_grad():
+                for q in twin.parameters():
+                    q.zero_()
+            load_well_trained_params(twin, p, pt, [4.0])
+        for k, v in model.state_dict().items():
+            assert torch.equal(twin.state_dict()[k], v), (name, k)
 
 
 def _raises_unknown_generator():

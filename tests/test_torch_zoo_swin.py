@@ -18,11 +18,13 @@ Swin-MLP, and RDST's ``3conv`` / ``ape`` / ``remat`` options.
 * the refusals: ``ape`` at another token count, a Swin-MLP input under
   its window, a bottleneck ratio that changes the width (the JAX
   package fails on the first three too), ``3conv`` in bf16 mode rdstb,
-  WaveletSR in bf16 modes pair / rdstb, a ``.pt`` snapshot of a
-  convolutional family or of these families.
+  WaveletSR in bf16 modes pair / rdstb, a ``.pt`` snapshot of these
+  families (the JAX package has no key mapper for them); a ``.pt`` of a
+  convolutional family loads.
 """
 
 import pathlib
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -318,14 +320,33 @@ def _raises_wavelet_pair_rdstb():
 
 
 def _raises_conv_family():
-    """The convolutional families build now; a reference torch ``.pt``
-    snapshot of one is refused, naming its key mapper's roadmap item."""
-    for name in ("rcan", "convnet-lite", "zssr"):
-        p = _paras(ParametersLoader, {"feature_generator": name})
-        with pytest.raises(NotImplementedError,
-                           match=f"{name}.*Queue A 8 item 3"):
-            load_well_trained_params(torch.nn.Identity(), p, "absent.pt",
-                                     [4.0])
+    """The convolutional families build, and since their key mappers are
+    ported a reference torch ``.pt`` of one loads (here written by the
+    port in the reference layout, read into a zeroed twin); an unknown
+    generator raises."""
+    from rdst_tpu_torch.checkpoint import torch_export, torch_import
+    from rdst_tpu_torch.models.rcan import RCAN
+
+    for name, over in (("rcan", {}), ("convnet-lite", {}),
+                       ("zssr", {"zssr_num_layers": 3, "zssr_n_feats": 8})):
+        p = _paras(ParametersLoader, dict(over, feature_generator=name))
+        arch = torch_import.mapper_arch(name)
+        make = ((lambda: RCAN(n_resgroups=1, n_resblocks=1, n_feats=8,
+                              reduction=4).eval()) if name == "rcan"
+                else (lambda: build_generator(p)))
+        model, twin = make(), make()
+        with torch.no_grad():
+            for q in twin.parameters():
+                q.zero_()
+        with tempfile.TemporaryDirectory() as tmp:
+            pt = str(pathlib.Path(tmp) / "ref.pt")
+            torch_export.save_torch_checkpoint(
+                model, pt, arch, *torch_export.mean_std(model),
+                template=torch_export.reference_template(model, arch),
+                **torch_import.mapper_kwargs(p, arch))
+            load_well_trained_params(twin, p, pt, [4.0])
+        for k, v in model.state_dict().items():
+            assert torch.equal(twin.state_dict()[k], v), (name, k)
     with pytest.raises(ValueError, match="unknown feature_generator"):
         build_generator(_paras(ParametersLoader,
                                {"feature_generator": "nonesuch"}))

@@ -1,11 +1,15 @@
 """The JAX package's numbers for phase 38 of ``chip_smoke.py --only zoo``
-(its ``ZOO_BARS``) and phase 42 of ``--only convzoo`` (its
-``CONV_ZOO_BARS``), on the CPU.
+(its ``ZOO_BARS``), phase 42 of ``--only convzoo`` (its
+``CONV_ZOO_BARS``) and phases 47-48 of ``--only ckpt`` (its
+``SIR_BARS``), on the CPU.
 
-    JAX_PLATFORMS=cpu python tools/jax_zoo_bars.py [--conv] [LABEL ...]
+    JAX_PLATFORMS=cpu python tools/jax_zoo_bars.py [--conv | --swinir]
+        [LABEL ...]
 
 For each family of ``chip_smoke.ZOO`` (default: all; ``--conv``: of
-``chip_smoke.CONV_ZOO``): the JAX model that
+``chip_smoke.CONV_ZOO``; ``--swinir``: the SwinIR heads of
+``chip_smoke.SIR``, on ``SWINIR_CONFIG``, their forward one slice at a
+time): the JAX model that
 ``rdst_tpu.models.build_generator`` makes from the family's config with
 its overrides, its parameter tree traced (``jax.eval_shape``; a CONV_ZOO
 family's init calls every scale of ``all_sr_scales``, as the JAX
@@ -30,9 +34,11 @@ if REPO not in sys.path:
     sys.path.insert(0, REPO)
 
 
-def _bars(model, x, init_scales, scales, dtype) -> dict:
+def _bars(model, x, init_scales, scales, dtype, per_slice=False) -> dict:
     """{scale: zoo_stats} of ``model`` at each scale, from the seeded
-    weights of the tree an init over ``init_scales`` makes."""
+    weights of the tree an init over ``init_scales`` makes; with
+    ``per_slice`` the forward runs one slice at a time (the same numbers
+    in less memory)."""
     import jax
     import numpy as np
 
@@ -53,8 +59,11 @@ def _bars(model, x, init_scales, scales, dtype) -> dict:
                                   cs.zoo_weights(shapes).items()})}
     out = {}
     for s in scales:
-        y = jax.jit(lambda v, x: model.apply(v, x, s))(params, x)
-        out[s] = cs.zoo_stats(np.asarray(y))
+        fwd = jax.jit(lambda v, x: model.apply(v, x, s))
+        y = (np.concatenate([np.asarray(fwd(params, x[i:i + 1]))
+                             for i in range(len(x))]) if per_slice
+             else np.asarray(fwd(params, x)))
+        out[s] = cs.zoo_stats(y)
     return out
 
 
@@ -99,6 +108,23 @@ def conv_family_bars(label: str) -> dict:
                      dtype)
 
 
+def swinir_bars(label: str) -> dict:
+    """A SIR variant's bars, at x4 (the denoise head's output at its
+    input's size)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    from rdst_tpu.config import ParametersLoader
+    from rdst_tpu.models import build_generator
+
+    overrides, hw = cs.SIR[label]
+    p = ParametersLoader(cs.SWINIR_CONFIG)
+    for k, v in overrides.items():
+        p.set(k, v)
+    return _bars(build_generator(p), cs.zoo_input(hw), [cs.SCALE],
+                 [cs.SCALE], np.float32, per_slice=True)[cs.SCALE]
+
+
 def _print(key: str, bars: dict) -> None:
     body = ", ".join(f"{v:.9g}" for v in bars["pixels"])
     print(f"    {key!r}: {{\n        \"shape\": {bars['shape']}, "
@@ -112,12 +138,15 @@ def main(argv=None) -> int:
     import chip_smoke as cs
 
     args = list(argv if argv is not None else sys.argv[1:])
-    conv = "--conv" in args
-    labels = [a for a in args if a != "--conv"] or list(
-        cs.CONV_ZOO if conv else cs.ZOO)
-    print(("CONV_ZOO_BARS" if conv else "ZOO_BARS") + " = {")
+    conv, sir = "--conv" in args, "--swinir" in args
+    labels = [a for a in args if a not in ("--conv", "--swinir")] or list(
+        cs.CONV_ZOO if conv else cs.SIR if sir else cs.ZOO)
+    print(("CONV_ZOO_BARS" if conv else "SIR_BARS" if sir else "ZOO_BARS")
+          + " = {")
     for label in labels:
-        if conv:
+        if sir:
+            _print(label, swinir_bars(label))
+        elif conv:
             for s, bars in conv_family_bars(label).items():
                 _print(f"{label} @{s:g}", bars)
         else:
