@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json]
-        [--only e1|swinir|w96|metasr|int8|xdata|zoo|convzoo|ckpt ...]
+        [--only e1|swinir|w96|metasr|int8|xdata|zoo|convzoo|ckpt|parallel
+         ...] [--dp-devices cuda:0 cuda:1 ...]
 
 Drives the port's main paths -- the tester (``python -m
 rdst_tpu_torch.test``) on the committed weights of the README quality
@@ -85,8 +86,8 @@ after the build):
     wgmma serialization refused); the forward's mean time over C;
 12. the bf16 training step: the 20-phantom corpus made by the port's
     generator, then ``python -m rdst_tpu_torch.train`` (in process) on
-    ``config_files/rdst_e1_100k_oasis20_x4.ini`` for 20 steps with a
-    quick evaluation every 10: 24 forward and 24 backward train-pair
+    ``config_files/rdst_e1_100k_oasis20_x4.ini`` for 10 steps with a
+    quick evaluation every 5: 24 forward and 24 backward train-pair
     launches per step (counts set to 0 just before the run, read just
     after), a finite loss at every step, parameters that moved, the
     snapshot and its sidecar, the snapshot served by ``LiveModel``, a
@@ -125,7 +126,7 @@ after the build):
     committed weights (shift 0 and 4, with and without factor columns)
     and their forward times;
 18. SwinIR-std bf16 training (``config_files/swinir_std_100k_oasis20_x4
-    .ini``, 20 steps, a quick evaluation every 10): ``train_routes`` 36
+    .ini``, 10 steps, a quick evaluation every 5): ``train_routes`` 36
     block / 0 pair, 36 + 36 block-train wrapper calls a step and none of
     the train pair (counts set to 0 just before the run), a finite loss
     that falls, the quick evaluations on the fast block, the snapshot
@@ -166,7 +167,7 @@ after the build):
 24. the train-pair kernels at W96's C = 96 with its committed weights, as
     phase 11;
 25. W96 bf16 training (``config_files/rdst_w96_100k_oasis20_x4.ini`` with
-    ``training_dtype='bfloat16'``, 20 steps, a quick evaluation every 10):
+    ``training_dtype='bfloat16'``, 10 steps, a quick evaluation every 5):
     ``train_routes`` 8 pair / 32 block, 8 + 8 train-pair and 32 + 32
     block-train calls a step (counts set to 0 just before the run), a
     finite loss that falls, the snapshot served in bf16 by ``LiveModel``;
@@ -204,7 +205,7 @@ after the build):
     rdst_hrl_seg_ft_oasis20_x4.ini`` with ``--seg-loss`` as shipped (f32,
     warm start, L1 + UNet-F), with ``unet_native_ckpt`` naming the
     committed seg UNet ``weights/unet_tiny.pkl`` (checked: the term's
-    UNet holds its weights), for 12 steps with a quick evaluation every 6
+    UNet holds its weights), for 6 steps with a quick evaluation every 3
     (the f32 block kernel in each evaluation, 48 launches a forward): the
     UNet-F term finite and above 0, the snapshot written; then the repo's
     example recipe ``config_files/rdst_e1_oasis_x4.ini`` (WarmUP ->
@@ -213,7 +214,7 @@ after the build):
     group, idle share, launches);
 28. the GAN fine-tune: ``config_files/rdst_gan_ft_oasis20_x4.ini`` as
     shipped (RaGAN, CNN discriminator, f32, ``eva_metrics`` with FID)
-    for 12 steps with a quick evaluation every 6: every loss finite, the
+    for 6 steps with a quick evaluation every 3: every loss finite, the
     discriminator's loss moving, the G and D snapshots written; the resume
     for 2 more steps; FID of the final evaluation's images on the card
     against the CPU (relative 1e-3) with both times; steps/s, one
@@ -323,7 +324,7 @@ then phases 36 and 37:
 37. the auxiliary trainers on the 20-phantom corpus:
     ``runners.train_seg_unet`` (batch 8 of HR 96x96) and
     ``runners.train_vgg_features`` (width 0.25, batch 16 of 64x64),
-    AUX_STEPS (50) steps each: the first three steps on the card against
+    AUX_STEPS (25) steps each: the first three steps on the card against
     the CPU from the same variables and batches (the VGG autoencoder in float32, 1e-3;
     the seg UNet in float64, 1e-6, and its float32 first step, 1e-3: its
     train-mode BatchNorm makes two float32 runs drift apart within two
@@ -398,7 +399,7 @@ and SwinIR's other heads; phases 46-48:
     reference network's ``.pt`` (``torch_export.save_torch_checkpoint``
     with ``reference_template``), read back by the tester's loader and by
     ``LiveModel``: both forwards of 8 seeded slices equal the msgpack
-    model's bit for bit, the manifests equal; 2 bf16 training steps from
+    model's bit for bit, the manifests equal; CKPT_STEPS bf16 training steps from
     a ``pre_trained_g`` warm start on the ``.pt``, finite;
 47. SwinIR-std (embed 180, 6 x 6 blocks) with ``sir_upsampler =
     'nearest+conv'`` (8 x LR 40x32) and with ``sir_ape`` (8 x 24x24, its
@@ -414,6 +415,30 @@ and SwinIR's other heads; phases 46-48:
     block and the fast block (int8 qkv) alone at its 2,560 windows
     against their plain versions and bounds; its training steps take one
     whole HR-size slice each.
+
+(``--only parallel``, after the other models) data parallelism on the data
+axis ``--dp-devices`` (default ``['cuda:0', 'cuda:0']``: two ranks or
+replicas sharing the one card, over gloo); phases 49-51:
+49. TRAIN_CONFIG (bf16, batch 32) for DP_STEPS steps through
+    ``parallel.probe`` (the trainer's own run, every step recorded): (a) in
+    this process on one device, twice (the card's run-to-run spread), (b)
+    a rank a device, spawned (``parallel.launch.spawn``), (c) one NCCL rank;
+    GAN_CONFIG (RaGAN, f32) for DP_GAN_STEPS steps on one device and on the
+    axis. Every rank 24 + 24 train-pair launches a step on its share of the
+    batch, the ranks' losses, parameters, Adam moments and discriminators
+    bitwise equal; (b) and (c) against (a): the loss, the gradient (from
+    Adam's first moment, as phase 12 measures it) and the parameters (2 lr
+    a step) within the bf16 step bar, RaGAN within DP_F32_RTOL /
+    DP_F32_GRAD, each bar at least twice the one-rank spread; host steps/s
+    a rank, not a speed result where ranks share a card;
+50. the tester (E1 f32 and bf16 on the held-out patients) over the axis,
+    a replica a device, against one device: the printed digits equal, the
+    SR slices within DP_TESTER_TOL of max|y|, each replica's launches (48
+    f32 blocks / 8 RDSTBs a forward);
+51. the HTTP server on a ``LiveModel`` over the axis against the
+    one-replica server: 1-, 8- and 64-slice requests and a burst of 8
+    concurrent 1-slice requests within SERVE_TOL, the manifest's ``mesh``,
+    each replica's launches.
 
 Each training run's final evaluation scores the config's ``eva_metrics``
 as shipped (FID included; the zoo's runs score PSNR and SSIM). Any failed phase raises and the script exits
@@ -471,10 +496,10 @@ BF16_TOL = 0.02
 # mean error.
 BF16_VS_F32_MAX, BF16_VS_F32_MEAN = 0.05, 0.005
 # the training step (phase 12): the shipped bf16 training config, cut to
-# 20 steps; kernel route vs plain bf16 route on one step
+# 10 steps; kernel route vs plain bf16 route on one step
 # (tests/test_pair_train.py:192,209)
 TRAIN_CONFIG = "config_files/rdst_e1_100k_oasis20_x4.ini"
-TRAIN_STEPS, TRAIN_CHECK = 20, 10
+TRAIN_STEPS, TRAIN_CHECK = 10, 5
 WALL_STEPS = 5
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 2e-2, 0.08
 # A bf16 response vs a direct predict of the same slices (HR values about
@@ -2164,7 +2189,7 @@ E1_RECIPE_CONFIG = "config_files/rdst_e1_oasis_x4.ini"
 # the committed seg UNet (a full-width SegUNet(1, 4)), which the seg
 # recipes name in place of their random UNet
 UNET_CKPT = "weights/unet_tiny.pkl"
-FT_STEPS, FT_CHECK, FT_BF16_STEPS = 12, 6, 6
+FT_STEPS, FT_CHECK, FT_BF16_STEPS = 6, 3, 6
 # FID of the same images on the card against the CPU: f32 features on both
 # sides (TF32 off), the Frechet distance in float64 on the host
 FID_RTOL = 1e-3
@@ -5401,7 +5426,7 @@ DICE_BARS = {
 UNET_LOGIT_RTOL = 1e-4
 # the auxiliary trainers (phase 37): steps, and the card's first steps
 # against the CPU's from the same variables and batches
-AUX_STEPS, AUX_CHECK_STEPS = 50, 3
+AUX_STEPS, AUX_CHECK_STEPS = 25, 3
 AUX_F32_RTOL = 1e-3
 AUX_F64_RTOL = 1e-6
 # the phase-13 training run under a small stall_warn_s
@@ -7185,7 +7210,7 @@ CKPT = {
 }
 CKPT_WEIGHTS = {"RDST-E1": WEIGHTS, "SwinIR-std": SWINIR_WEIGHTS}
 # bf16 training steps from each ``.pt`` warm start
-CKPT_STEPS = 2
+CKPT_STEPS = 1
 # SwinIR-std (embed 180, 6 x 6 blocks, 6 heads, window 8, MLP 2) with
 # another head, on seeded weights: label -> (overrides of SWINIR_CONFIG /
 # SWINIR_TRAIN_CONFIG, size of the 8 seeded slices). The ape table holds
@@ -7612,16 +7637,352 @@ def run_ckpt(data_dir: str, tmp: str):
     return {"reference": ref, "heads": heads}, rows
 
 
+# ----------------------------------------------------------------------------
+# Data parallelism (``--only parallel``): the data axis of ``mesh_shape`` on
+# an explicit device list that repeats the one card, ``['cuda:0',
+# 'cuda:0']`` (``rdst_tpu_torch.parallel``): two trainer ranks over gloo,
+# one over NCCL through the same code, two tester and server replicas
+
+DP_DEVICES = ["cuda:0", "cuda:0"]
+DP_STEPS = 5  # E1 recipe steps each way (phase 49)
+DP_GAN_STEPS = 2  # RaGAN fine-tune steps each way
+# the f32 RaGAN run on 2 ranks against 1: the loss within 1e-4 (PERF.md
+# section 2's f32 bar); the gradient, from Adam's first moment, relative
+# max as phase 12 measures it within 5e-3. The discriminator updates before
+# the generator's loss, and its Adam moves each entry whose gradient is
+# rounding noise by up to its learning rate either way: that alone moves
+# the generator's gradient by ~1e-3 (a one-rank step against itself on the
+# card 6.5e-4 in some calls, 2 ranks against 1 7.9e-4 - 9.3e-4), where a
+# missing gather, sum or average moves it by O(1). Each bar is at least
+# twice the one-rank run's difference from itself in the same call.
+DP_F32_RTOL, DP_F32_GRAD = 1e-4, 5e-3
+# SR slices of the 2-replica tester against one device's, of max|y|
+DP_TESTER_TOL = 1e-6
+# E1's kernel launches a forward: 48 f32 blocks, 8 RDSTBs in bf16
+DP_PER_FORWARD = {"float32": 48, "bfloat16": 8}
+
+
+def _dp_runs(runs, devices, spawned: bool = True):
+    """``parallel.probe.record_runs`` of ``runs`` ((argv, out_dir) pairs)
+    on ``devices``: spawned ranks of a new process group, or this process
+    (one device, ``spawned`` False); returns each run's records by rank
+    and the seconds."""
+    from rdst_tpu_torch.parallel import probe
+    from rdst_tpu_torch.parallel.launch import spawn
+
+    t0 = time.perf_counter()
+    if spawned:
+        spawn(probe.record_runs, devices, runs, devices)
+    else:
+        probe.record_runs(runs, devices)
+    world = len(devices)
+    wall = time.perf_counter() - t0
+    return [[probe.load(out, r) for r in range(world)] for _, out in runs], wall
+
+
+def _dp_grads(rec, b1: float) -> np.ndarray:
+    mu = rec["mu"]
+    prev = np.concatenate([np.zeros_like(mu[:1]), mu[:-1]])
+    return (mu - b1 * prev) / (1 - b1)
+
+
+def _dp_delta(got: dict, want: dict, lr: float) -> dict:
+    """A run's steps against another's: the largest relative loss
+    difference, the gradient's relative max as phase 12 measures it
+    (tensor by tensor, of max(its max, 0.12 x the step's max)), and the
+    parameters' largest difference, also over their bar: 2 lr a step
+    (Adam moves an entry by less than lr a step in each run, and one whose
+    gradient is rounding noise may move either way) and float32
+    rounding."""
+    g, gw = _dp_grads(got, 0.9), _dp_grads(want, 0.9)
+    dloss = float(np.max(np.abs(got["loss"] - want["loss"])
+                         / np.abs(want["loss"])))
+    cuts = np.cumsum(want["numels"])[:-1]
+    rel = 0.0
+    for a, b in zip(g, gw):
+        gmax = float(np.abs(b).max())
+        rel = max(rel, max(
+            float(np.abs(x - y).max()) / max(1e-5, float(np.abs(y).max()),
+                                             0.12 * gmax)
+            for x, y in zip(np.split(a, cuts), np.split(b, cuts))))
+    dp = np.abs(got["params"] - want["params"])
+    steps = np.arange(1, len(want["loss"]) + 1)[:, None]
+    pbar = 2 * lr * steps + 2.0 ** -22 * np.abs(want["params"])
+    return {"loss_rel": dloss, "grad_rel": rel, "params_max": float(dp.max()),
+            "params_over_bar": float((dp / pbar).max())}
+
+
+def _dp_held(label: str, got: dict, want: dict, lr: float, bf16: bool,
+             spread: dict) -> dict:
+    """:func:`_dp_delta` against the one-rank run within the loss and
+    gradient bars (bf16 TRAIN_LOSS_RTOL / TRAIN_GRAD_TOL, f32 DP_F32_RTOL /
+    DP_F32_GRAD, each at least twice the one-rank run's own difference from
+    itself on the card in this call, ``spread``) and the parameters within
+    their bar."""
+    out = _dp_delta(got, want, lr)
+    loss_tol, grad_tol = ((TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL) if bf16
+                          else (DP_F32_RTOL, DP_F32_GRAD))
+    loss_tol = max(loss_tol, 2 * spread["loss_rel"])
+    grad_tol = max(grad_tol, 2 * spread["grad_rel"])
+    log(f"  {label}: loss rel {out['loss_rel']:.3e} (bar {loss_tol}), "
+        f"gradient rel {out['grad_rel']:.3e} (bar {grad_tol}), parameters "
+        f"max {out['params_max']:.3e} ({out['params_over_bar']:.3f} of 2 lr "
+        "a step)")
+    if out["loss_rel"] > loss_tol or out["grad_rel"] > grad_tol or \
+            out["params_over_bar"] > 1:
+        raise AssertionError(f"{label} against one rank: {out}")
+    return out
+
+
+def _dp_ranks(label: str, ranks: list, steps: int, pair_launches: int):
+    """The ranks of one run: every step applied, the generator's flat
+    parameters and Adam moment bitwise equal across ranks, each rank's
+    train-pair launches (``pair_launches`` a step each way)."""
+    for r in ranks:
+        ln = r["launches"]
+        log(f"  {label} rank {int(r['rank'])} of {int(r['world'])}: "
+            f"train-pair launches forward {ln['pair_forward']}, backward "
+            f"{ln['pair_backward']}; rows a step {r['rows'].tolist()}; "
+            f"{float(r['steps_per_s']):.3f} steps/s of host time "
+            "(ranks sharing one card: not a speed result)")
+        if not r["ok"].all() or len(r["loss"]) != steps:
+            raise AssertionError(f"{label}: steps {r['ok']}")
+        if ln["pair_forward"] != pair_launches * steps or \
+                ln["pair_backward"] != pair_launches * steps:
+            raise AssertionError(f"{label}: launches {ln}")
+    for key in ("loss", "params", "mu"):
+        if any(not np.array_equal(r[key], ranks[0][key]) for r in ranks):
+            raise AssertionError(f"{label}: ranks differ in {key}")
+    if any(not np.array_equal(r["d_state"], ranks[0]["d_state"])
+           for r in ranks):
+        raise AssertionError(f"{label}: the ranks' discriminators differ")
+
+
+@phase("data-parallel training")
+def dp_train_phase(data_dir: str, tmp: str, devices) -> dict:
+    """Phase 49: the shipped bf16 E1 recipe, DP_STEPS steps (a) in this
+    process, (b) on a rank a device of ``devices`` (DP_DEVICES: 2 gloo
+    ranks on the one card), (c) on 1 NCCL rank, the RaGAN fine-tune
+    DP_GAN_STEPS steps on 1 rank and on ``devices``; the one-rank runs
+    once more in this process for the card's own run-to-run spread
+    (logged, no bar)."""
+    from rdst_tpu_torch.parallel.mesh import backend_for
+
+    e1_lr, gan_lr = 1e-4, 2e-5  # the two configs' learning_rate
+
+    def e1(out):
+        return _train_argv(data_dir, out, DP_STEPS) + [
+            f"check_every={DP_STEPS}"], out
+
+    def gan(out):
+        return _ft_argv(GAN_CONFIG, data_dir, out,
+                        {"GAN-FT": DP_GAN_STEPS}, check=DP_GAN_STEPS), out
+
+    runs = {}
+    log(f"backends: {len(devices)} ranks on {devices} "
+        f"{backend_for(devices)}, 1 rank on {devices[:1]} "
+        f"{backend_for(devices[:1])}")
+    one = devices[:1]  # an explicit list: the default spans every GPU
+    (runs["a"], runs["a_gan"]), t_a = _dp_runs(
+        [e1(os.path.join(tmp, "dp_a")), gan(os.path.join(tmp, "dp_a_gan"))],
+        one, spawned=False)
+    (runs["a2"], runs["a2_gan"]), _ = _dp_runs(
+        [e1(os.path.join(tmp, "dp_a2")),
+         gan(os.path.join(tmp, "dp_a2_gan"))], one, spawned=False)
+    (runs["b"], runs["b_gan"]), t_b = _dp_runs(
+        [e1(os.path.join(tmp, "dp_b")), gan(os.path.join(tmp, "dp_b_gan"))],
+        devices)
+    (runs["c"],), t_c = _dp_runs([e1(os.path.join(tmp, "dp_c"))],
+                                 devices[:1])
+    log(f"runs (E1 {DP_STEPS} + RaGAN {DP_GAN_STEPS} steps, evaluations and "
+        f"start-up included): one rank {t_a:.3f} s, {len(devices)} ranks "
+        f"{t_b:.3f} s, 1 NCCL rank (E1 only) {t_c:.3f} s")
+    out = {"seconds": {"a": t_a, "b": t_b, "c": t_c}}
+    _dp_ranks("(a) E1 one rank", runs["a"], DP_STEPS, 24)
+    _dp_ranks(f"(b) E1 {len(devices)} ranks", runs["b"], DP_STEPS, 24)
+    _dp_ranks("(c) E1 1 NCCL rank", runs["c"], DP_STEPS, 24)
+    _dp_ranks("RaGAN one rank", runs["a_gan"], DP_GAN_STEPS, 0)
+    _dp_ranks(f"RaGAN {len(devices)} ranks", runs["b_gan"], DP_GAN_STEPS, 0)
+    if any(list(r["rows"]) != [n // len(devices)
+                               for n in runs["a"][0]["rows"]]
+           for r in runs["b"]):  # 16 of the batch's 32 on each of 2 ranks
+        raise AssertionError(f"rows {[r['rows'] for r in runs['b']]}")
+    a = runs["a"][0]
+    for key, (got, want, lr) in {
+            "E1": (runs["a2"][0], a, e1_lr),
+            "RaGAN": (runs["a2_gan"][0], runs["a_gan"][0], gan_lr)}.items():
+        out[f"spread_{key}"] = d = _dp_delta(got, want, lr)
+        log(f"  {key} one rank run twice (the card's run-to-run spread): "
+            f"loss rel {d['loss_rel']:.3e}, gradient rel {d['grad_rel']:.3e}"
+            f", parameters max {d['params_max']:.3e} "
+            f"({d['params_over_bar']:.3f} of 2 lr a step)")
+    out["b"] = _dp_held(f"(b) E1 {len(devices)} ranks vs (a)", runs["b"][0],
+                        a, e1_lr, True, out["spread_E1"])
+    out["c"] = _dp_held("(c) E1 1 NCCL rank vs (a)", runs["c"][0], a, e1_lr,
+                        True, out["spread_E1"])
+    out["gan"] = _dp_held(f"RaGAN {len(devices)} ranks vs 1", runs["b_gan"][0],
+                          runs["a_gan"][0], gan_lr, False, out["spread_RaGAN"])
+    out["launches"] = {k: [r["launches"] for r in v] for k, v in runs.items()}
+    out["steps_per_s"] = {k: [float(r["steps_per_s"]) for r in v]
+                          for k, v in runs.items()}
+    return out
+
+
+def _replica_launches(replicas, counter) -> list:
+    """Per replica, the launches of ``counter`` its forwards make (forward
+    hooks around each replica's call; the replicas run one after
+    another)."""
+    tally = [0] * len(replicas)
+    state = {}
+    for i, m in enumerate(replicas):
+        m.register_forward_pre_hook(
+            lambda mod, args: state.__setitem__("n", counter.launches))
+
+        def post(mod, args, out, i=i):
+            tally[i] += counter.launches - state["n"]
+        m.register_forward_hook(post)
+    return tally
+
+
+@phase("data-parallel tester")
+def dp_tester_phase(data_dir: str, tmp: str, devices) -> dict:
+    """Phase 50: the tester over ``devices`` (a replica a device) against
+    one device, E1 f32 and bf16 on the held-out patients."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.kernels import rdstb_block, swin_block
+    from rdst_tpu_torch.runners.tester import SRTester
+
+    out = {}
+    for label, dtype, counter in (
+            ("E1 f32", "float32", swin_block.fused_swin_block),
+            ("E1 bf16", "bfloat16", rdstb_block.run_rdstb)):
+        per, res = DP_PER_FORWARD[dtype], {}
+        for name, devs in (("one", devices[:1]), ("two", devices)):
+            p = ParametersLoader(CONFIG)
+            for k, v in {"data_folder": data_dir, "verbose": False,
+                         "output_dir": os.path.join(tmp, "dp_tester", name,
+                                                    dtype),
+                         "well_trained_single_scale_model_g": WEIGHTS,
+                         "inference_dtype": dtype}.items():
+                p.set(k, v)
+            t = SRTester(p, device="cuda", devices=devs)
+            t.setup()
+            tally = _replica_launches(t.replicas, counter)
+            counter.launches = 0  # the tester's path starts here
+            t0 = time.perf_counter()
+            stacked = t.test()
+            wall = time.perf_counter() - t0
+            vols = np.concatenate([np.load(os.path.join(
+                t.dirs["inference_results"], f"{pid}_inference_results.npz"))
+                ["x4.0"] for pid in t.patient_ids])
+            res[name] = {"scores": {m: float(np.mean(stacked[f"{m}_4.0"]))
+                                    for m in ("psnr", "ssim")},
+                         "launches": tally, "wall_s": wall, "sr": vols}
+            log(f"  tester {label} on {t.mesh}: PSNR "
+                f"{res[name]['scores']['psnr']:.4f} SSIM "
+                f"{res[name]['scores']['ssim']:.4f} over {len(vols)} slices, "
+                f"{counter.__name__} launches by replica {tally} "
+                f"({per} a forward), run {wall:.3f} s")
+            if any(n != per * len(t.patient_ids) for n in tally):
+                raise AssertionError(f"tester {label}: launches {tally}")
+        one, two = res["one"], res["two"]
+        err = float(np.abs(two["sr"] - one["sr"]).max()
+                    / np.abs(one["sr"]).max())
+        digits = all(f"{two['scores'][m]:.4f}" == f"{one['scores'][m]:.4f}"
+                     for m in ("psnr", "ssim"))
+        log(f"  tester {label}: {len(devices)} replicas against one device: "
+            f"SR slices "
+            f"max err {err:.3e} of max|y| (bar {DP_TESTER_TOL}); printed "
+            f"digits equal: {digits}")
+        if err > DP_TESTER_TOL or not digits:
+            raise AssertionError(f"tester {label} on {devices}")
+        out[label] = {k: {kk: vv for kk, vv in v.items() if kk != "sr"}
+                      for k, v in res.items()}
+        out[label]["sr_err"] = err
+    return out
+
+
+@phase("data-parallel serving")
+def dp_serving_phase(devices) -> dict:
+    """Phase 51: the HTTP server on a live model over ``devices`` against
+    the one-replica server: 1-, 8- and 64-slice requests and a burst of 8
+    concurrent 1-slice requests, E1 f32."""
+    from rdst_tpu_torch.config import ParametersLoader
+    from rdst_tpu_torch.kernels.swin_block import fused_swin_block
+    from rdst_tpu_torch.serving.client import SRClient
+    from rdst_tpu_torch.serving.export import LiveModel
+    from rdst_tpu_torch.serving.server import InferenceServer
+
+    p = ParametersLoader(CONFIG)
+    p.set("well_trained_single_scale_model_g", WEIGHTS)
+    rng = np.random.default_rng(SEED + 49)
+    xs = {n: rng.random((n,) + LR_HW, dtype=np.float32) for n in (1, 8, 64)}
+    got, out = {}, {}
+    for name, devs in (("one", devices[:1]), ("two", devices)):
+        live = LiveModel(p, max_batch=64, device="cuda", devices=devs)
+        tally = _replica_launches(live.replicas, fused_swin_block)
+        srv = InferenceServer(live, "127.0.0.1", 0, max_batch=64,
+                              batch_wait_ms=25.0)
+        try:
+            srv.warmup(lr_hw=LR_HW, scale=SCALE)
+            srv.start_background()
+            client = SRClient(f"http://127.0.0.1:{srv.port}")
+            meta = client.metadata()
+            fused_swin_block.launches = 0  # the served path starts here
+            tally[:] = [0] * len(tally)
+            got[name] = {n: client.predict(x, SCALE) for n, x in xs.items()}
+            barrier = threading.Barrier(8)
+
+            def one(i):
+                barrier.wait()
+                return client.predict(xs[8][i:i + 1], SCALE)
+
+            with concurrent.futures.ThreadPoolExecutor(8) as ex:
+                got[name]["burst"] = np.concatenate(list(ex.map(one,
+                                                               range(8))))
+            out[name] = {"mesh": meta.get("mesh"), "launches": list(tally),
+                         "total": fused_swin_block.launches}
+            per = DP_PER_FORWARD["float32"]
+            log(f"  server on {live.mesh}: manifest mesh {meta.get('mesh')}, "
+                f"f32 block launches by replica {tally} ({per} a forward)")
+            if meta.get("mesh") != {"data": len(devs)} or \
+                    min(tally) == 0 or any(n % per for n in tally):
+                raise AssertionError(f"server {name}: {out[name]}")
+        finally:
+            srv.close()
+    for key, want in got["one"].items():
+        err = float(np.abs(got["two"][key] - want).max())
+        log(f"  {'8 concurrent 1-slice requests' if key == 'burst' else f'{key}-slice request'}: "
+            f"{len(devices)} replicas against one, max abs err {err:.3e} "
+            f"(tol {SERVE_TOL})")
+        out[f"err_{key}"] = err
+        if got["two"][key].shape != want.shape or err > SERVE_TOL:
+            raise AssertionError(f"serving {key} on {devices}: {err}")
+    return out
+
+
+def run_parallel(data_dir: str, tmp: str, devices=tuple(DP_DEVICES)):
+    """Phases 49-51 on ``devices``; no kernel row of its own (the kernels
+    are the E1 group's, each held against its plain version there)."""
+    devices = list(devices)
+    return {"train": dp_train_phase(data_dir, tmp, devices),
+            "tester": dp_tester_phase(data_dir, tmp, devices),
+            "serving": dp_serving_phase(devices)}, []
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--only", choices=("e1", "swinir", "w96", "metasr",
                                        "int8", "xdata", "zoo", "convzoo",
-                                       "ckpt"),
+                                       "ckpt", "parallel"),
                     nargs="+", default=None,
                     help="run the card and build phases and these models' "
                     "phases only (default: every phase)")
+    ap.add_argument("--dp-devices", nargs="+", default=DP_DEVICES,
+                    help="the data axis of phases 49-51 (default: two ranks "
+                    "or replicas sharing cuda:0)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -7666,6 +8027,10 @@ def main(argv=None) -> int:
             kernels += rows
         if args.only is None or "ckpt" in args.only:
             results["ckpt"], rows = run_ckpt(data_dir, tmp)
+            kernels += rows
+        if args.only is None or "parallel" in args.only:
+            results["parallel"], rows = run_parallel(data_dir, tmp,
+                                                     args.dp_devices)
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

@@ -1,7 +1,7 @@
 """Weight carry-over: a JAX ``RDSTSR`` (RDST-N and ESTSR too) or ``SwinIR``
 parameter tree -> the port's state_dict; and both ways for the networks
 whose port modules carry the flax module names (the discriminators, the
-seg UNet, InceptionV3): :func:`export_flax_tree` /
+seg UNet, InceptionV3, the PatchGAN): :func:`export_flax_tree` /
 :func:`import_flax_tree`; and for EDSR, MetaSR, WaveletSR, Swin-MLP and the
 convolutional families (``NAMED_GENERATORS``), named as flax names them
 but with each flax ``Conv``'s inner ``conv`` level dropped and a Swin
@@ -343,8 +343,9 @@ def _torch_path(path) -> str:
 def export_flax_tree(variables: dict) -> Dict[str, np.ndarray]:
     """JAX variables ``{'params', 'batch_stats'}`` (numpy) of a network
     whose port modules carry the flax names (``models.seg_unet``,
-    ``metrics.inception``, the discriminators through
-    :func:`export_discriminator`) -> the port's state_dict:
+    ``metrics.inception``, ``losses.patchgan.PatchGAN``, the
+    discriminators through :func:`export_discriminator`) -> the port's
+    state_dict:
     conv kernels HWIO -> OIHW ``weight``, dense kernels (in, out) ->
     (out, in), ``scale`` -> ``weight``, BN ``mean``/``var`` ->
     ``running_mean``/``running_var``."""

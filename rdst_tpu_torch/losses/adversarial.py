@@ -16,7 +16,9 @@ the alternating update the trainer runs.
   generator's objective against the (already updated) discriminator in
   eval mode.
 * The optimizer: the config's (``utils.optim.Optimizer``, its count moving
-  once a discriminator update), or Adam(1e-5, b1 0, b2 0.9) for ``*GP*``.
+  once a discriminator update), or Adam(1e-5, b1 0, b2 0.9) for ``*GP*``;
+  with ``reduce`` (the trainer's, on a data axis) applied to its flat
+  gradient.
 
 The discriminator is float32 whatever the generator's dtype.
 """
@@ -51,6 +53,9 @@ class ScaleAdversarial:
         self.wgan_clip_value = paras.wgan_clip_value
         self.discriminator = build_discriminator(paras)
         self.opt: Optional[Optimizer] = None
+        # the optimizer's reduction of the flat gradient over the ranks of
+        # a data axis (None: one process)
+        self.reduce = None
 
     @property
     def map_chw(self):
@@ -76,7 +81,7 @@ class ScaleAdversarial:
         paras = (ParametersLoader.from_dict(GP_ADAM) if "GP" in self.gan_type
                  else self.paras)
         self.params = [p for p in self.discriminator.parameters()]
-        self.opt = Optimizer(self.params, paras)
+        self.opt = Optimizer(self.params, paras, self.reduce)
 
     def gp_alpha(self, n: int, k: int, generator=None) -> torch.Tensor:
         """The gradient penalty's interpolation weights of update ``k``,

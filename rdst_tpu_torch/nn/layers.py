@@ -13,7 +13,10 @@ product rounded to bf16, then its bf16 bias added and rounded again.
 float32 activations take the float32 code unchanged.
 
 Dropout and stochastic depth act in training mode only, drawing from an
-explicit ``torch.Generator`` (:func:`set_generator`).
+explicit ``torch.Generator`` (:func:`set_generator`). Under data
+parallelism each draw is made for the whole global batch and sliced to
+this rank's rows (:class:`RowShard`), so that N ranks draw what one rank
+would.
 """
 
 from __future__ import annotations
@@ -76,6 +79,31 @@ class Linear(nn.Linear):
         return super().forward(x)
 
 
+class RowShard:
+    """The rows of the global batch this process holds: ``rank`` of
+    ``world`` equal parts (0 of 1: all of it). The trainer owns one and
+    sets it at each step; every stochastic layer reads it
+    (:func:`set_generator`)."""
+
+    def __init__(self):
+        self.rank, self.world = 0, 1
+
+    def rand(self, shape, generator: Optional[torch.Generator],
+             device) -> torch.Tensor:
+        """``torch.rand(shape)`` for this process's rows: the draw for
+        ``world`` times the leading dimension, of which rows ``[rank n,
+        (rank + 1) n)``."""
+        if self.world == 1:
+            return torch.rand(shape, generator=generator, device=device)
+        n = shape[0]
+        u = torch.rand((n * self.world,) + tuple(shape[1:]),
+                       generator=generator, device=device)
+        return u[self.rank * n:(self.rank + 1) * n]
+
+
+WHOLE_BATCH = RowShard()  # never changed: the default of every layer
+
+
 class Dropout(nn.Module):
     """``flax.linen.Dropout`` in training mode: each element kept with
     probability 1 - rate and scaled by 1 / keep; the identity in eval
@@ -87,10 +115,11 @@ class Dropout(nn.Module):
         super().__init__()
         self.rate = float(rate)
         self.generator: Optional[torch.Generator] = None
+        self.shard = WHOLE_BATCH
 
     def _keep(self, shape, x):
         keep = 1.0 - self.rate
-        u = torch.rand(shape, generator=self.generator, device=x.device)
+        u = self.shard.rand(shape, self.generator, x.device)
         return u < keep, keep
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -112,12 +141,15 @@ class DropPath(Dropout):
         return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
-def set_generator(module: nn.Module, generator: torch.Generator) -> None:
+def set_generator(module: nn.Module, generator: torch.Generator,
+                  shard: RowShard = WHOLE_BATCH) -> None:
     """Give every stochastic layer under ``module`` (dropout, drop path,
-    the pair route's factor columns) the explicit ``generator``."""
+    the pair route's factor columns) the explicit ``generator`` and the
+    rows ``shard`` of the global batch it draws for."""
     for m in module.modules():
         if hasattr(m, "generator"):
             m.generator = generator
+            m.shard = shard
 
 
 class Mlp(nn.Module):

@@ -38,8 +38,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from rdst_tpu_torch.nn.layers import (BF16, Dropout, DropPath, LayerNorm,
-                                      Linear, Mlp)
+from rdst_tpu_torch.nn.layers import (BF16, WHOLE_BATCH, Dropout, DropPath,
+                                      LayerNorm, Linear, Mlp)
 
 
 def window_partition(x: torch.Tensor, window_size: int) -> torch.Tensor:
@@ -255,6 +255,7 @@ class SwinTransformerBlock(nn.Module):
         self.quant = frozenset()  # int8 groups of the fast kernel route
         self.pack = 1  # 2: 'pack' mode's window pairs (the int8 scales')
         self.generator: Optional[torch.Generator] = None  # factor columns
+        self.shard = WHOLE_BATCH
         # the table's window is decided from the build resolution, as the
         # reference's constructor does; the runtime window must match it
         ws = (min(window_size, *build_resolution) if build_resolution
@@ -381,8 +382,8 @@ class SwinTransformerBlock(nn.Module):
             return None
         dev = self.attn.qkv.weight.device
         keep = 1.0 - rate
-        cols = [torch.where(torch.rand(b, generator=self.generator,
-                                       device=dev) < keep, 1.0 / keep, 0.0)
+        cols = [torch.where(self.shard.rand((b,), self.generator, dev)
+                            < keep, 1.0 / keep, 0.0)
                 for _ in range(2)]
         return torch.stack(cols, -1).repeat_interleave(rows_per_image, 0)
 
@@ -487,6 +488,7 @@ class BasicLayer(nn.Module):
         self.use_pair_train = False  # see models.routes.set_train_mode
         self.softmax = ""
         self.generator: Optional[torch.Generator] = None  # factor columns
+        self.shard = WHOLE_BATCH
 
     def pair_unsupported(self, quant=frozenset()) -> Optional[str]:
         """Why the pair kernel cannot run this layer's blocks with the
@@ -584,7 +586,7 @@ class BasicLayer(nn.Module):
                 cols.append(torch.ones(b, device=dev))
             else:
                 keep = 1.0 - r
-                u = torch.rand(b, generator=self.generator, device=dev)
+                u = self.shard.rand((b,), self.generator, dev)
                 cols.append(torch.where(u < keep, 1.0 / keep, 0.0))
         return torch.stack(cols, -1).repeat_interleave(rows_per_image, 0)
 

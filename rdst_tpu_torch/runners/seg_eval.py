@@ -68,8 +68,10 @@ def seg_eval(paras, unet_ckpt: str, scale: float = None,
     from rdst_tpu_torch.device import resolve_device
     from rdst_tpu_torch.metrics.evaluation import tabulate
     from rdst_tpu_torch.metrics.image_metrics import dice_coefficient
+    from rdst_tpu_torch.parallel.mesh import refuse_mesh
     from rdst_tpu_torch.utils.figures import _load_sr_volume
 
+    refuse_mesh(paras, "seg_eval")
     device = resolve_device(device)
     scale = scale or max(paras.test_sr_scales)
     unet = None

@@ -3,8 +3,11 @@
 
 * a per-patient loop, each patient with a fresh test dataset;
 * resume: a patient whose report is saved is not run again;
-* all slices of a patient go through one forward per scale, on one
-  device, and come back as float32 numpy once;
+* all slices of a patient go through one forward per scale and come back
+  as float32 numpy once: on one device, or over the config's data axis
+  (``mesh_shape``, :mod:`rdst_tpu_torch.parallel`) with one replica of
+  the model on each of its devices, the padded batch split into equal
+  shards, as the JAX tester shards it (``shard_batch_padded``);
 * ``feature_generator = 'bicubic'`` is a pass-through that scores the
   interpolated LR;
 * ``tiled_inference = True`` runs overlapping LR patches through the
@@ -36,6 +39,7 @@ import torch
 
 from rdst_tpu_torch.data import ops
 from rdst_tpu_torch.data.readers import make_test_dataset, testing_patient_ids
+from rdst_tpu_torch.parallel.mesh import data_parallel, replicate_module
 from rdst_tpu_torch.serving.export import build_serving_model, residual_blend
 
 
@@ -44,13 +48,15 @@ def _fancy(msg: str) -> str:
     return f"\n{bar}\n#   {msg}\n{bar}\n"
 
 
-def tiled_sr(forward, lr: np.ndarray, hr_shape, paras,
-             device) -> np.ndarray:
+def tiled_sr(forward, lr: np.ndarray, hr_shape, paras, device,
+             data: int = 1) -> np.ndarray:
     """``forward`` (NHWC LR patches -> SR patches, a tensor on ``device``)
     over ``lr`` cut into ``patch_size`` patches at
-    ``test_lr_patch_stride``, in chunks of ``max(4 * batch_size, 8)``,
-    folded back to ``hr_shape`` (H, W, ...) with the overlaps averaged:
-    ``tiled_inference = True`` (basic_dataset.py:347-449)."""
+    ``test_lr_patch_stride``, in chunks of ``max(4 * batch_size, 8)``
+    rounded up to a multiple of the data axis' ``data`` devices
+    (``rdst_tpu/runners/tester.py:225-226``), folded back to ``hr_shape``
+    (H, W, ...) with the overlaps averaged: ``tiled_inference = True``
+    (basic_dataset.py:347-449)."""
     from rdst_tpu_torch.data.folding import ImageFolder
 
     n, h, w, c = lr.shape
@@ -62,7 +68,7 @@ def tiled_sr(forward, lr: np.ndarray, hr_shape, paras,
     hr_folder = ImageFolder((n, hr_shape[0], hr_shape[1], c),
                             int(round(patch * r)), int(round(stride * r)))
     patches = lr_folder.unfold(torch.from_numpy(lr).to(device))
-    chunk = max(paras.batch_size * 4, 8)
+    chunk = -(-max(paras.batch_size * 4, 8) // data) * data
     sr = torch.cat([forward(patches[i:i + chunk])
                     for i in range(0, patches.shape[0], chunk)])
     return hr_folder.fold(sr).cpu().numpy()
@@ -70,14 +76,18 @@ def tiled_sr(forward, lr: np.ndarray, hr_shape, paras,
 
 class SRTester:
     """Scores ``testing_patient_ids`` by the ``test.py`` protocol on
-    ``device`` ('cuda' unless the caller asks for 'cpu')."""
+    ``device`` ('cuda' unless the caller asks for 'cpu'): on the config's
+    data axis there (every visible GPU by default), or on an explicit
+    ``devices`` list."""
 
-    def __init__(self, paras, device="cuda"):
-        from rdst_tpu_torch.device import resolve_device
+    def __init__(self, paras, device="cuda", devices=None):
+        from rdst_tpu_torch.parallel import data_mesh_from_paras
 
         self.paras = paras
         self.verbose = paras.verbose
-        self.device = resolve_device(device)
+        self.mesh = data_mesh_from_paras(paras, device, devices)
+        self.device = self.mesh.device
+        self.replicas = []
         self.bicubic = paras.get("feature_generator") == "bicubic"
         self.model = self.manifest = None
         self.residual_scale = float(paras.get("residual_scale", 0.0) or 0.0)
@@ -124,6 +134,7 @@ class SRTester:
             return
         self.model, self.manifest = build_serving_model(self.paras,
                                                         self.device)
+        self.replicas = replicate_module(self.model, self.mesh.local_devices)
         self.write_log(_fancy("Loaded well-trained model: "
                               f"{resolve_model_path(self.paras)}"))
 
@@ -131,11 +142,10 @@ class SRTester:
 
     def forward(self, x, sr_scale=None) -> torch.Tensor:
         """The model at ``sr_scale`` on an NHWC batch (numpy or a tensor),
-        as f32 on the device."""
-        if isinstance(x, np.ndarray):
-            x = torch.from_numpy(x)
+        as f32 on the (first) device: each replica on its shard."""
+        fns = [lambda s, m=m: m(s, sr_scale).float() for m in self.replicas]
         with torch.inference_mode():
-            return self.model(x.to(self.device), sr_scale).float()
+            return data_parallel(self.mesh, fns, x)
 
     def model_scale(self, s: float, pairs) -> float:
         """The scale the model is called at for test scale ``s``: a
@@ -176,11 +186,13 @@ class SRTester:
         fold, on the device."""
         scale = self.model_scale(s, pairs)
         return tiled_sr(lambda x: self.forward(x, scale), lr,
-                        pairs[0][s]["gt"].shape, self.paras, self.device)
+                        pairs[0][s]["gt"].shape, self.paras, self.device,
+                        self.mesh.size)
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for dev in self.mesh.local_devices:
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
     # -- evaluation with resume (basic_tester.py:147-189) -----------------------
 

@@ -102,6 +102,9 @@ def train_seg_unet(paras, steps: int = 1000, lr: float = 1e-3,
                    init_variables=None):
     """Train ``steps`` updates; returns (variables, the losses at every
     ``log_every`` steps)."""
+    from rdst_tpu_torch.parallel.mesh import refuse_mesh
+
+    refuse_mesh(paras, "train_seg_unet")
     trainer = SegUNetTrainer(paras, lr, batch_size, patch, seed, device,
                              init_variables)
     np_rng = np.random.default_rng(seed)

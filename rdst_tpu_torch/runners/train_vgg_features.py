@@ -175,6 +175,9 @@ def train_vgg_features(paras, steps: int = 2000, width: float = 0.25,
     """Train ``steps`` updates; returns ``{'width', 'params' (the
     encoder's), 'losses'}`` (the loss at every ``log_every`` steps and
     at the last)."""
+    from rdst_tpu_torch.parallel.mesh import refuse_mesh
+
+    refuse_mesh(paras, "train_vgg_features")
     trainer = VGGFeatureTrainer(paras, width, lr, batch_size, patch, noise,
                                 seed, device, init_variables)
     losses = []

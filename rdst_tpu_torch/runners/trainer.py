@@ -1,5 +1,5 @@
 """Training orchestration (counterpart of ``rdst_tpu/runners/trainer.py``),
-in PyTorch on one device.
+in PyTorch, on one device or as one rank of the config's data axis.
 
 Same artifacts as the JAX trainer: the output tree
 ``{output_dir}/{model_name}_{gan_type}/`` with ``training_log.txt``,
@@ -37,6 +37,27 @@ One optimizer step per "epoch", as in the JAX package:
   loop checkpoint and exit 17 at the next step boundary once the host's
   RSS passes it, for a supervisor to restart and resume.
 
+Data parallelism (``mesh_shape`` / ``mesh_axes``, :mod:`rdst_tpu_torch.
+parallel`): each rank is one process on one device and computes the JAX
+package's one SPMD step over the global batch of ``batch_size``. Every
+rank draws the same global batch from the same seed and runs the
+generator's forward and backward on its own rows (``shard_batch``); each
+per-sample random draw is made for the whole batch and sliced
+(``nn.layers.RowShard``); the prediction is gathered
+(``parallel.collectives.gather_rows``), and everything after it -- the
+loss terms, the frozen seg UNet and VGG, the discriminator and its
+``d_step`` -- runs on every rank on the whole batch, since the Dice, the
+relativistic means and BatchNorm's statistics are not means over samples.
+The generator's flat gradient is summed over the ranks in the optimizer
+(averaged where the batch does not divide the ranks and every rank holds
+all of it); the discriminator's, which every rank computes on the whole
+batch, is averaged (on the card its weight gradients differ in the last
+bits from rank to rank, and the average keeps the copies equal). Rank 0
+alone writes (logs, ``metrics.jsonl``, checkpoints,
+snapshots, sidecars) and scores the evaluations, whose slices the ranks
+split; every rank restores from the same checkpoint, and the RSS flag is
+reduced over the ranks so that they checkpoint and exit 17 together.
+
 ``pallas_softmax='auto'`` starts from the audited bound of
 ``pre_trained_g`` (0 for a fresh init: clamp) and escalates to the stable
 softmax once an audit reaches the margin.
@@ -65,7 +86,10 @@ import numpy as np
 import torch
 
 from rdst_tpu_torch.losses.sr_loss import SRLoss
+from rdst_tpu_torch.parallel import collectives
+from rdst_tpu_torch.parallel.mesh import data_parallel, shard_batch
 from rdst_tpu_torch.utils.optim import Optimizer, Timer, tree_finite
+from rdst_tpu_torch.utils.profiling import Throughput
 
 
 def fancy_print(msg: str) -> str:
@@ -140,10 +164,12 @@ def pin_batch(batch: dict) -> dict:
 
 class SRTrainer:
     """Generator-only SR trainer on one device (``device``: 'cuda' unless
-    the caller asks for 'cpu')."""
+    the caller asks for 'cpu'), or one rank of a data axis (``mesh``, a
+    :class:`~rdst_tpu_torch.parallel.Mesh` of the process group; by
+    default the config's, on ``device``)."""
 
     def __init__(self, paras, ds_train, ds_valid, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         from rdst_tpu_torch.checkpoint.loading import read_stats_sidecar
         from rdst_tpu_torch.device import resolve_device
         from rdst_tpu_torch.kernels.swin_block import resolve_softmax_auto
@@ -151,12 +177,20 @@ class SRTrainer:
                                                              train_flag)
         from rdst_tpu_torch.models import build_generator
         from rdst_tpu_torch.models.routes import set_kernel_mode, set_train_mode
-        from rdst_tpu_torch.nn.layers import set_generator
+        from rdst_tpu_torch.nn.layers import RowShard, set_generator
+        from rdst_tpu_torch.parallel import data_mesh_from_paras
 
         self.paras = paras
         self.ds_train, self.ds_valid = ds_train, ds_valid
         self.verbose = paras.verbose
-        self.device = resolve_device(device)
+        self.mesh = mesh or data_mesh_from_paras(paras, device)
+        if self.mesh.size > 1 and not self.mesh.distributed:
+            raise ValueError(
+                f"a data axis of {self.mesh.size} devices trains one process "
+                "per device: start it with `python -m rdst_tpu_torch.train` "
+                "(which spawns the ranks) or torchrun")
+        self.rank0 = self.mesh.rank == 0
+        self.device = resolve_device(self.mesh.device)
         gan_type = paras.get("gan_type", "None")
         self.residual_scale = float(paras.get("residual_scale", 0.0) or 0.0)
         self.scale_free = bool(paras.get("scale_free"))
@@ -186,10 +220,23 @@ class SRTrainer:
             softmax = resolve_softmax_auto(bound)
         set_kernel_mode(self.model, self.model.kernel_mode, softmax,
                         self.model.quant)
-        set_generator(self.model, self.generator)
+        self.draw_shard = RowShard()  # this step's rows of the global batch
+        set_generator(self.model, self.generator, self.draw_shard)
         self.params = [p for p in self.model.parameters() if p.requires_grad]
-        self.opt = Optimizer(self.params, paras)
+        self.opt = Optimizer(self.params, paras,
+                             collectives.sum_over_ranks
+                             if self.mesh.distributed else None)
+        self.throughput = Throughput()
+        # steps/s of host time up to the last step (the first excluded;
+        # evaluations between steps included, the final ones not)
+        self.steps_per_s = 0.0
         self.loss = SRLoss(paras).to(self.device)
+        if self.loss.adversarial is not None and self.mesh.distributed:
+            # the discriminator's step sees the whole batch on every rank:
+            # its gradient is averaged, not summed, so that the ranks'
+            # copies stay equal where cuDNN's weight gradients differ run
+            # to run
+            self.loss.adversarial.reduce = collectives.mean_over_ranks
 
         self.training_states = list(paras.training_states)
         self.epochs_in_total: Dict[str, int] = dict(paras.epochs_in_total)
@@ -246,6 +293,11 @@ class SRTrainer:
         # can wedge as a step can
         with self._stall_watchdog():
             self._setup_inner()
+            if self.mesh.distributed:  # rank 0's initial parameters
+                collectives.broadcast_module(self.model)
+                if self.loss.adversarial is not None:
+                    collectives.broadcast_module(
+                        self.loss.adversarial.discriminator)
 
     def _setup_inner(self):
         init_weights(self.model, self.generator)
@@ -266,7 +318,7 @@ class SRTrainer:
                        f"route {self.model.train_mode or 'plain'} "
                        f"{self.model.train_routes}, eval routes "
                        f"{self.model.routes}, softmax {self.model.softmax}, "
-                       f"int8 {sorted(self.model.quant)}")
+                       f"int8 {sorted(self.model.quant)}, mesh {self.mesh}")
 
     def weights_init(self) -> str:
         """Warm start from ``pre_trained_g`` (a flax ``.msgpack``
@@ -315,6 +367,8 @@ class SRTrainer:
         return f"Init Adversarial Loss with pre-trained model: {d_path}\n"
 
     def save_checkpoint(self):
+        if not self.rank0:
+            return
         state = {"model": self.model.state_dict(),
                  "optimizer": self.opt.state_dict(),
                  "generator": self.generator.get_state()}
@@ -386,6 +440,8 @@ class SRTrainer:
         self._write_stats_sidecar(path)
 
     def save_models(self, training_state: str):
+        if not self.rank0:
+            return
         path = join(self.dirs["models"], f"{training_state}_model_g.msgpack")
         self._write_snapshot(path)
         self.write_log(f"Saved model snapshot: {path}")
@@ -440,18 +496,30 @@ class SRTrainer:
         tensors on the device. The guard is decided there, as the JAX
         step decides it in the graph, so the host queues the next step
         while the card runs this one. In a GAN state the discriminator
-        is updated first, on a generator forward without gradient."""
-        x = torch.as_tensor(batch["in"]).to(self.device, non_blocking=True)
+        is updated first, on a generator forward without gradient. On a
+        data axis the generator runs on this rank's rows and its
+        prediction is gathered; the rest sees the whole batch."""
+        mesh = self.mesh
+        split = mesh.holds_rows(len(batch["in"]))
+        rows = shard_batch(mesh, {"in": batch["in"]})["in"]
+        x = torch.as_tensor(rows).to(self.device, non_blocking=True)
+        self.draw_shard.rank, self.draw_shard.world = (
+            (mesh.rank, mesh.world) if split else (0, 1))
+
+        def gather(y):
+            return collectives.gather_rows(y, mesh) if split else y
+
         dbatch = self.device_batch(batch)
         scale = self.batch_scale(batch)
         self.model.train()
         d_report = {}
         if self.gan_active(training_state):
             with torch.no_grad():  # no blend: the JAX step's fakes
-                fake = self.model(x, scale).float()
+                fake = gather(self.model(x, scale).float())
             d_report = self.loss.adversarial.d_step(
                 fake, dbatch["out"], dbatch["sr_scales"], self.generator)
-        pred = self.model(x, scale).float()  # the loss in f32 whatever the dtype
+        # the loss in f32 whatever the dtype
+        pred = gather(self.model(x, scale).float())
         rs = self.residual_scale
         if rs > 0:  # the model embedding (meta_sr_trainer.py:111-112)
             pred = pred * (1.0 - rs) + dbatch["res"] * rs
@@ -459,6 +527,10 @@ class SRTrainer:
         grads = torch.autograd.grad(total, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
+        if mesh.distributed and not split:
+            # every rank holds the whole batch: the optimizer's sum over
+            # the ranks is then their mean
+            grads = [g / mesh.world for g in grads]
         total = total.detach()
         ok = (torch.isfinite(total) & (total < float(self.loss_threshold))
               & tree_finite(grads))
@@ -529,7 +601,7 @@ class SRTrainer:
                     and self._rss_gb() > self.rss_restart_gb):
                 # a flag only: the step loop exits at a step boundary,
                 # after a checkpoint
-                self.write_log(
+                self._watchdog_log(
                     f"WATCHDOG: host RSS {self._rss_gb():.1f} GiB > "
                     f"rss_restart_gb={self.rss_restart_gb:g} -- will "
                     "checkpoint and exit 17 at the next step boundary")
@@ -540,16 +612,30 @@ class SRTrainer:
                 continue
             stalled = now - last_t
             if stalled >= warn_s and not warned:
-                self.write_log(
+                self._watchdog_log(
                     f"WATCHDOG: no training progress for {stalled:.0f}s "
                     f"(step {step}); likely a wedged device call")
                 warned = True
             if abort_s > 0 and stalled >= abort_s:
-                self.write_log(
+                self._watchdog_log(
                     f"WATCHDOG: aborting after {stalled:.0f}s stall -- "
                     "restart to resume from the last checkpoint")
                 os._exit(17)
                 return  # reached only where a test stubs os._exit
+
+    def _watchdog_log(self, msg: str) -> None:
+        """The watchdog runs on every rank: rank 0 logs, the others print
+        with their rank."""
+        if self.rank0:
+            self.write_log(msg)
+        else:
+            print(f"[rank {self.mesh.rank}] {msg}", flush=True)
+
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` of any rank (this rank's outside a group)."""
+        if not self.mesh.distributed:
+            return flag
+        return collectives.max_over_ranks(float(flag), self.device) > 0
 
     # -- main loop ------------------------------------------------------------
 
@@ -561,8 +647,9 @@ class SRTrainer:
             self.loss.set_training_state(ts)
             left = self.epochs_in_total[ts] - self.current_epoch
             if left <= 0:
-                if not exists(join(self.dirs["models"],
-                                   f"{ts}_model_g.msgpack")):
+                # decided together: rank 0 writes the file the others read
+                if self._any_rank(not exists(join(
+                        self.dirs["models"], f"{ts}_model_g.msgpack"))):
                     self.save_models(ts)
                     self.write_log(self.final_eva(ts))
                 self.current_epoch = 0
@@ -590,6 +677,10 @@ class SRTrainer:
                             raise batch
                         timer.tic()
                         total, report, _ = self.train_step(batch, ts)
+                        self.throughput.step(len(batch["in"])
+                                             // self.mesh.world)
+                        self.steps_per_s = self.throughput.report()[
+                            "steps_per_sec"]
                         self.step += 1
                         self.current_epoch += 1
                         steps_this_run += 1
@@ -609,7 +700,8 @@ class SRTrainer:
                                 f"s/epoch)\n" + plog)
                             self.log_metrics(ts)
                         self._wd_step = self.step  # the watchdog's heartbeat
-                        if self._rss_exceeded:
+                        if self.rss_restart_gb > 0 and \
+                                self._any_rank(self._rss_exceeded):
                             # the restart at a step boundary
                             # (rss_restart_gb): flush, checkpoint, exit 17
                             self._flush_scalar_records(pending, ts)
@@ -618,6 +710,8 @@ class SRTrainer:
                                 f"RSS restart: checkpoint saved at step "
                                 f"{self.step}; exiting 17 for the "
                                 "supervisor to restart (resume)")
+                            if self.mesh.distributed:  # rank 0 has saved
+                                collectives.sync(self.device)
                             os._exit(17)
             finally:
                 stop.set()
@@ -655,21 +749,22 @@ class SRTrainer:
 
         self.model.eval()
 
-        def forward(x):
-            return self.model(torch.as_tensor(x).to(self.device),
-                              scale).float()
+        def forward(x):  # this rank's shard; every rank gets every output
+            return data_parallel(self.mesh, [
+                lambda s: self.model(s, scale).float()], x)
 
         with torch.no_grad():
             if self.paras.get("tiled_inference", False):
                 return tiled_sr(forward, lr, hr_shape, self.paras,
-                                self.device)
+                                self.device, self.mesh.size)
             return forward(lr).cpu().numpy()
 
     def _infer_pairs(self, ids):
         """Batched whole-slice inference on the serving routes, at each
         test scale (a scale-free model at the pairs' real scale), with
         the bicubic blend where ``residual_scale > 0``
-        (meta_sr_trainer.py:171-172)."""
+        (meta_sr_trainer.py:171-172); on a data axis each rank runs its
+        share of the slices."""
         from rdst_tpu_torch.serving.export import residual_blend
 
         pairs = [self.ds_valid.get_test_pair(i) for i in ids]
@@ -696,6 +791,8 @@ class SRTrainer:
             self._probe = (torch.from_numpy(d["in"][:4]).to(self.device),
                            float(scale))
         b = measure_logit_bound(self.model, *self._probe)
+        if b is not None and self.mesh.distributed:  # one bound, one softmax
+            b = collectives.max_over_ranks(b, self.device)
         if b is not None and (self._logit_bound is None
                               or b > self._logit_bound):
             self._logit_bound = float(b)
@@ -726,6 +823,8 @@ class SRTrainer:
         ids = self.rng.permutation(self.ds_valid.test_len())[:n]
         t0 = time.time()
         recs, pairs = self._infer_pairs(list(ids))
+        if not self.rank0:  # rank 0 scores, logs and keeps the snapshot
+            return ""
         report = self.quick_eva_func(recs, pairs)
         self.quick_validation_reports.append(report)
         plog = self.quick_eva_func.print(report)
@@ -752,6 +851,8 @@ class SRTrainer:
 
     def final_eva(self, training_state: str) -> str:
         recs, pairs = self._infer_pairs(list(range(self.ds_valid.test_len())))
+        if not self.rank0:
+            return ""
         report = self.final_eva_func(recs, pairs)
         plog = fancy_print(f"Final evaluation after {training_state}")
         plog += self.final_eva_func.print(report)
@@ -760,6 +861,10 @@ class SRTrainer:
         return plog
 
     def training_complete(self, steps_this_run: Optional[int] = None):
+        rates = (collectives.per_rank(self.steps_per_s, self.mesh)
+                 if self.mesh.distributed else [self.steps_per_s])
+        if not self.rank0:
+            return
         summary = {"training_loss_records": self.training_loss_records,
                    "training_epoch_costs": self.training_epoch_costs}
         np.save(join(self.dirs["final_results"], "training_records.npy"),
@@ -771,11 +876,15 @@ class SRTrainer:
         elif self.training_epoch_costs:
             self.write_log(fancy_print(
                 f"Training complete: {len(self.training_epoch_costs)} "
-                f"epochs, {np.mean(self.training_epoch_costs):.3f}s/epoch"))
+                f"epochs, {np.mean(self.training_epoch_costs):.3f}s/epoch; "
+                "steps/s of host time by rank (the first step excluded): "
+                + ", ".join(f"{r:.3f}" for r in rates)))
 
     # -- logging --------------------------------------------------------------
 
     def write_log(self, plog: str):
+        if not self.rank0:
+            return
         with open(self.log_file, "a") as f:
             f.write(plog + "\n")
         if self.verbose:
@@ -783,6 +892,8 @@ class SRTrainer:
 
     def log_metrics(self, ts: str):
         """One structured record per check interval in metrics.jsonl."""
+        if not self.rank0:
+            return
         rec = {"time": time.time(), "state": ts, "step": int(self.step),
                "epoch": int(self.current_epoch),
                "loss": float(self._last_total_f),

@@ -12,8 +12,14 @@ the fast kernels of its kernel mode, with int8 qkv operands where
 ``pallas_quant='qkv'`` asks for them (modes rdstb, pair and swin). A
 config with ``residual_scale > 0`` gets MetaSR's bicubic blend after the
 buckets, as the JAX package applies it. The exported bundle of the JAX
-package waits for a later slice; so do the other int8 groups, which
-raise.
+package waits for a later slice.
+
+On the config's data axis (``mesh_shape``, :mod:`rdst_tpu_torch.
+parallel`; every visible GPU by default) the live model holds one replica
+on each device: each bucket is rounded up to a multiple of the axis (the
+JAX ``min_bucket``), split into equal shards that run on their devices,
+and the outputs are gathered on the host. The manifest's ``mesh`` entry is
+the JAX one (``{"data": N}``).
 """
 
 from __future__ import annotations
@@ -71,11 +77,13 @@ def _bucket(n: int, buckets: Tuple[int, ...]) -> int:
 
 
 def _bucketed_predict(fn: Callable[[np.ndarray], np.ndarray], x: np.ndarray,
-                      buckets: Tuple[int, ...]) -> np.ndarray:
+                      buckets: Tuple[int, ...],
+                      min_bucket: int = 1) -> np.ndarray:
     """Pad each chunk to its bucket (repeating the last slice), run, and
-    slice the padding off."""
+    slice the padding off. The bucket is rounded up to a multiple of
+    ``min_bucket`` (the data axis), so that it splits into equal shards."""
     n = x.shape[0]
-    b = _bucket(n, buckets)
+    b = -(-_bucket(n, buckets) // min_bucket) * min_bucket
     out_chunks = []
     for i in range(0, n, b):
         blk = x[i:i + b]
@@ -186,23 +194,35 @@ def build_serving_model(paras, device="cuda"):
 
 class LiveModel:
     """``predict(x, scale)`` over a live model built from a config, on
-    ``device`` ('cuda' unless the caller asks for 'cpu')."""
+    ``device`` ('cuda' unless the caller asks for 'cpu'): on the config's
+    data axis there, or on an explicit ``devices`` list."""
 
     def __init__(self, paras, max_batch: int = 64, buckets=None,
-                 device="cuda"):
-        self.model, meta = build_serving_model(paras, device)
+                 device="cuda", devices=None):
+        from rdst_tpu_torch.parallel.mesh import (data_mesh_from_paras,
+                                                  replicate_module)
+
+        self.mesh = data_mesh_from_paras(paras, device, devices)
+        if self.mesh.distributed:
+            raise ValueError("the live model is one process over the data "
+                             "axis: start it outside a process group")
+        self.model, meta = build_serving_model(paras, self.mesh.device)
+        self.replicas = replicate_module(self.model, self.mesh.devices)
         self.device = next(self.model.parameters()).device
-        self.manifest = dict(meta, entries=[])
+        self.manifest = dict(meta, entries=[], mesh={
+            k: int(v) for k, v in self.mesh.shape.items()})
         self.max_batch = int(max_batch)
         self.buckets = resolve_buckets(max_batch, buckets)
-        self._lock = threading.Lock()  # one forward at a time on the device
+        self._lock = threading.Lock()  # one bucket forward at a time
 
     def _run(self, blk: np.ndarray, scale=None) -> np.ndarray:
-        """One padded bucket through the model at ``scale`` (read by a
-        scale-free model only, which needs it)."""
+        """One padded bucket through the replicas at ``scale`` (read by a
+        scale-free model only, which needs it), a shard each."""
+        from rdst_tpu_torch.parallel.mesh import data_parallel
+
+        fns = [lambda s, m=m: m(s, scale) for m in self.replicas]
         with self._lock, torch.inference_mode():
-            y = self.model(torch.from_numpy(blk).to(self.device), scale)
-            return y.float().cpu().numpy()
+            return data_parallel(self.mesh, fns, blk).float().cpu().numpy()
 
     def predict(self, x, scale: float) -> np.ndarray:
         """The model at ``scale`` (one of the manifest's) on each slice,
@@ -214,6 +234,6 @@ class LiveModel:
             raise ValueError(f"scale {scale} not served; this model serves "
                              f"{self.manifest['scales']}")
         out = _bucketed_predict(lambda blk: self._run(blk, scale), x,
-                                self.buckets)
+                                self.buckets, self.mesh.size)
         rs = self.manifest["residual_scale"]
         return residual_blend(out, x, rs) if rs > 0 else out

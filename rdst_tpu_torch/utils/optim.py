@@ -15,7 +15,10 @@ State (moments, count) is float32 on the parameters' device; updates are
 written into the parameters in place, which bumps their version counters
 so that the serving kernels' folded-weight plans refold. A guarded step
 (``Optimizer.step(grads, ok)``) is decided on the device, so a training
-step never waits for the card.
+step never waits for the card. Under data parallelism the optimizer's
+owner hands it the reduction of the flat gradient over the ranks
+(``reduce``): the guard is then decided on the reduced gradient, the same
+on every rank.
 """
 
 from __future__ import annotations
@@ -61,10 +64,17 @@ class Optimizer:
     The state is flat: one float32 buffer per moment over all parameters,
     and the count of updates applied as a 0-d tensor, so that a step is a
     few launches over one buffer and can be made conditional on the
-    device (``step(grads, ok)``) without the host reading anything."""
+    device (``step(grads, ok)``) without the host reading anything.
 
-    def __init__(self, params: List[torch.Tensor], paras):
+    ``reduce`` (optional): applied to the flat float32 gradient before the
+    update, e.g. its sum over the ranks of a data axis; the step is then
+    also refused where the reduced gradient is not finite."""
+
+    def __init__(self, params: List[torch.Tensor], paras,
+                 reduce: Optional[Callable[[torch.Tensor],
+                                           torch.Tensor]] = None):
         self.params = list(params)
+        self.reduce = reduce
         self.schedule = make_schedule(paras)
         self.name = paras.opt
         if self.name not in ("Adam", "SGD", "RMSprop"):
@@ -103,6 +113,11 @@ class Optimizer:
         lr = self.schedule(self.count_t)
         count = self.count_t + 1
         g = self._flat(grads)
+        if ok is None:
+            ok = torch.ones((), dtype=torch.bool, device=g.device)
+        if self.reduce is not None:
+            g = self.reduce(g)
+            ok = ok & torch.isfinite(g).all()
         if self.wd:
             g = torch.add(g, self._flat(self.params), alpha=self.wd)
         st = self.state
@@ -124,8 +139,6 @@ class Optimizer:
             new = {"nu": nu, "trace": torch.add(
                 st["trace"] * self.momentum, u)}
             u = new["trace"]
-        if ok is None:
-            ok = torch.ones((), dtype=torch.bool, device=g.device)
         for k, v in new.items():
             st[k].copy_(torch.where(ok, v, st[k]))
         self.count_t.add_(ok.to(torch.float32))

@@ -186,9 +186,10 @@ def test_bucketed_predict_pads_and_slices():
 
 def test_import_isolation_serves_without_jax():
     """A GPU host for the port need not have jax, flax, optax, msgpack,
-    tabulate or matplotlib: the port must import (the evaluation and
-    auxiliary-trainer modules included) and serve with all of them (and
-    rdst_tpu) unimportable."""
+    tabulate or matplotlib: the port must import (the evaluation,
+    auxiliary-trainer, data-parallel, profiling, FLOP and PatchGAN modules
+    included) and serve, on one device and over a data axis of two, with
+    all of them (and rdst_tpu) unimportable."""
     script = f"""
 import sys
 for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "tabulate",
@@ -199,6 +200,9 @@ import rdst_tpu_torch
 import rdst_tpu_torch.runners.seg_eval, rdst_tpu_torch.utils.figures
 import rdst_tpu_torch.runners.train_seg_unet
 import rdst_tpu_torch.runners.train_vgg_features
+import rdst_tpu_torch.parallel.collectives, rdst_tpu_torch.parallel.launch
+import rdst_tpu_torch.parallel.probe, rdst_tpu_torch.losses.patchgan
+import rdst_tpu_torch.utils.flops, rdst_tpu_torch.utils.profiling
 from rdst_tpu_torch.config import ParametersLoader
 from rdst_tpu_torch.serving.export import LiveModel
 p = ParametersLoader({CONFIG!r})
@@ -206,6 +210,12 @@ p.set("well_trained_single_scale_model_g", {WEIGHTS!r})
 live = LiveModel(p, max_batch=8, device="cpu")
 y = live.predict(np.random.default_rng(0).random((2, 16, 24), dtype=np.float32), 4.0)
 assert y.shape == (2, 64, 96, 1) and np.isfinite(y).all(), y.shape
+p.set("mesh_shape", [2])
+live2 = LiveModel(p, max_batch=8, device="cpu")
+assert live2.manifest["mesh"] == {{"data": 2}}, live2.manifest
+y2 = live2.predict(np.random.default_rng(0).random((2, 16, 24), dtype=np.float32), 4.0)
+assert np.abs(y2 - y).max() < 1e-5
+p.set("mesh_shape", None)
 import rdst_tpu_torch.kernels.rdstb_block, rdst_tpu_torch.kernels.swin_pair
 p.set("inference_dtype", "bfloat16")
 live = LiveModel(p, max_batch=8, device="cpu")
