@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--out results.json]
         [--only e1|swinir|w96|metasr|int8|xdata|zoo|convzoo|ckpt|parallel
-         ...] [--dp-devices cuda:0 cuda:1 ...]
+         |bundle ...] [--dp-devices cuda:0 cuda:1 ...]
 
 Drives the port's main paths -- the tester (``python -m
 rdst_tpu_torch.test``) on the committed weights of the README quality
@@ -439,6 +439,29 @@ replicas sharing the one card, over gloo); phases 49-51:
     one-replica server: 1-, 8- and 64-slice requests and a burst of 8
     concurrent 1-slice requests within SERVE_TOL, the manifest's ``mesh``,
     each replica's launches.
+
+(``--only bundle``, after the other models) the serving bundle, one CUDA
+graph an entry and bucket; phases 52-56:
+52. each bundle of BUNDLES (E1 f32 as shipped, also at the tester's LR;
+    E1 bf16 in modes rdstb, pair and swin; W96 bf16 with int8 qkv;
+    SwinIR-std as shipped; MetaSR at its four scales, blend 0.5) exported
+    by ``export_bundle`` into a fresh directory and loaded there, reading
+    its two files and nothing else;
+53. each bundle's graphs at buckets 1, 8 and 64 against the eager
+    ``LiveModel`` built from the config: bitwise (or, where the eager
+    model differs from itself, within its bar), the capture's launches
+    those of an eager forward, capture seconds and memory, wall p50 each
+    way, device time and idle share, device kernels and host launches a
+    forward (torch.profiler); then every cached device table dropped and
+    the freed blocks zeroed, and each graph's replay still bitwise its
+    first (a graph holds the tables it read);
+54. the E1 f32 bundle's predictions scored by the tester's protocol
+    against the E1 f32 row of TESTER_BARS;
+55. ``serving.server.main(['--bundle', ..., '--warmup'])``: health,
+    metadata, a burst of 64 concurrent 1-slice requests coalesced; the
+    volume CLI with ``--bundle`` against the live volume CLI.
+56. a capture that meets a host-to-device copy raises, naming the line,
+    and the bundle then captures and serves with the forward put back.
 
 Each training run's final evaluation scores the config's ``eva_metrics``
 as shipped (FID included; the zoo's runs score PSNR and SSIM). Any failed phase raises and the script exits
@@ -7970,13 +7993,595 @@ def run_parallel(data_dir: str, tmp: str, devices=tuple(DP_DEVICES)):
             "serving": dp_serving_phase(devices)}, []
 
 
+
+# --------------------------------------------------------------------------
+# Phases 52-56: the serving bundle (``--only bundle``, after the other
+# models): export, load and serve a bundle, one CUDA graph an entry and
+# bucket
+
+# name -> (config, weights key, weights, overrides, scales); the MetaSR
+# bundle blends at 0.5 (its config ships 0), so that the blend runs
+BUNDLES = {
+    "E1 f32": (CONFIG, "well_trained_single_scale_model_g", WEIGHTS, {},
+               (SCALE,)),
+    "E1 bf16 rdstb": (CONFIG, "well_trained_single_scale_model_g", WEIGHTS,
+                      {"inference_dtype": "bfloat16",
+                       "pallas_kernels": "rdstb"}, (SCALE,)),
+    # the pair kernel and the persistent window kernel, captured too
+    "E1 bf16 pair": (CONFIG, "well_trained_single_scale_model_g", WEIGHTS,
+                     {"inference_dtype": "bfloat16",
+                      "pallas_kernels": "pair"}, (SCALE,)),
+    "E1 bf16 swin": (CONFIG, "well_trained_single_scale_model_g", WEIGHTS,
+                     {"inference_dtype": "bfloat16",
+                      "pallas_kernels": "swin"}, (SCALE,)),
+    "W96 bf16 int8 qkv": (W96_CONFIG, "well_trained_single_scale_model_g",
+                          W96_WEIGHTS, {"inference_dtype": "bfloat16"},
+                          (SCALE,)),
+    "SwinIR-std": (SWINIR_CONFIG, "well_trained_single_scale_model_g",
+                   SWINIR_WEIGHTS, {}, (SCALE,)),
+    "MetaSR": (METASR_CONFIG, "well_trained_model_metasr", METASR_WEIGHTS,
+               {"residual_scale": 0.5}, METASR_SCALES),
+}
+BUNDLE_BUCKETS = (1, 8, 64)
+BUNDLE_ITERS = 5  # timed predicts a point, each way
+# the host's calls that put work on the device: a kernel launch (runtime
+# or driver entry) or a graph launch
+LAUNCH_CALLS = ("LaunchKernel", "LaunchCooperativeKernel", "GraphLaunch")
+BURST = 64
+
+
+def _bundle_paras(name: str, data_dir=None):
+    from rdst_tpu_torch.config import ParametersLoader
+
+    config, key, weights, over, _ = BUNDLES[name]
+    p = ParametersLoader(config)
+    p.set(key, weights)
+    for k, v in over.items():
+        p.set(k, v)
+    if data_dir:
+        p.set("data_folder", data_dir)
+    return p
+
+
+class _OpenedFiles:
+    """Record every path ``open`` is given while active, and refuse the
+    config loader's file read: a bundle must load from its own directory
+    alone."""
+
+    def __enter__(self):
+        import builtins
+
+        from rdst_tpu_torch.config import ParametersLoader
+
+        self.paths, self._open = [], builtins.open
+        self._load = ParametersLoader.load
+
+        def opener(path, *a, **k):
+            if isinstance(path, (str, bytes, os.PathLike)):
+                self.paths.append(os.path.abspath(os.fsdecode(path)))
+            return self._open(path, *a, **k)
+
+        def no_config(loader, config_file):
+            raise AssertionError(f"bundle load read the config {config_file}")
+
+        builtins.open = opener
+        ParametersLoader.load = no_config
+        return self
+
+    def __exit__(self, *exc):
+        import builtins
+
+        from rdst_tpu_torch.config import ParametersLoader
+
+        builtins.open = self._open
+        ParametersLoader.load = self._load
+        return False
+
+
+def _serving_counters() -> dict:
+    """The serving kernels' wrappers, each counting its launches."""
+    from rdst_tpu_torch.kernels import rdstb_block, swin_block, swin_pair
+
+    return {"swin_block_f32": swin_block.fused_swin_block,
+            "swin_block_fast": swin_block.run_fast_block,
+            "swin_pair": swin_pair.run_swin_pair,
+            "rdstb_block": rdstb_block.run_rdstb}
+
+
+class _Captures:
+    """While active, record each capture of a serving bundle: its seconds
+    (the eager pass before it included), and in the captured forward the
+    peak memory allocated beyond what was allocated before it (the static
+    input included there), what the memory pools grew by, and each
+    serving kernel's launches."""
+
+    def __enter__(self):
+        from rdst_tpu_torch.serving import export
+
+        self.records = []
+        self._capture = export.ServingBundle._capture
+        self._held = export._held_forward
+
+        def held(model, x, scale):
+            counters = _serving_counters()
+            before = {k: c.launches for k, c in counters.items()}
+            allocated = torch.cuda.memory_allocated(x.device)
+            reserved = torch.cuda.memory_reserved(x.device)
+            torch.cuda.reset_peak_memory_stats(x.device)
+            out = self._held(model, x, scale)
+            self.records.append({
+                "graph_bytes": torch.cuda.max_memory_allocated(x.device)
+                - allocated,
+                "pool_growth_bytes": torch.cuda.memory_reserved(x.device)
+                - reserved,
+                "launches": {k: c.launches - before[k]
+                             for k, c in counters.items()
+                             if c.launches != before[k]}})
+            return out
+
+        def capture(bundle, scale, shape):
+            t0 = time.perf_counter()
+            g = self._capture(bundle, scale, shape)
+            torch.cuda.synchronize()
+            self.records[-1]["capture_s"] = time.perf_counter() - t0
+            return g
+
+        export._held_forward, export.ServingBundle._capture = held, capture
+        return self
+
+    def __exit__(self, *exc):
+        from rdst_tpu_torch.serving import export
+
+        export._held_forward = self._held
+        export.ServingBundle._capture = self._capture
+        return False
+
+
+@phase("bundle export and load")
+def bundle_export_phase(tmp: str, tester_hw) -> dict:
+    """Phase 52: each bundle of BUNDLES exported into a fresh directory
+    (E1 f32 also at the tester's LR slice) and loaded there on the card,
+    reading no file outside that directory (no .ini, nothing under
+    weights/ or the corpus)."""
+    from rdst_tpu_torch.serving.export import ServingBundle, export_bundle
+
+    out, loaded = {}, {}
+    for name, (_, _, _, _, scales) in BUNDLES.items():
+        d = tempfile.mkdtemp(prefix="bundle_", dir=tmp)
+        shapes = [LR_HW] + ([tuple(tester_hw)] if name == "E1 f32" else [])
+        t0 = time.perf_counter()
+        export_bundle(_bundle_paras(name), d, shapes, list(scales))
+        t1 = time.perf_counter()
+        with _OpenedFiles() as opened:
+            b = ServingBundle.load(d, max_batch=64, device="cuda")
+        t2 = time.perf_counter()
+        outside = [f for f in opened.paths
+                   if not f.startswith(os.path.abspath(d) + os.sep)]
+        if outside or not opened.paths:
+            raise AssertionError(f"{name}: loading read {outside or 'nothing'}")
+        files = sorted(os.listdir(d))
+        if files != ["MANIFEST.json", "params.msgpack"]:
+            raise AssertionError(f"{name}: bundle holds {files}")
+        m = b.manifest
+        log(f"bundle {name}: exported in {t1 - t0:.3f} s, loaded in "
+            f"{t2 - t1:.3f} s from {sorted(os.path.basename(f) for f in opened.paths)} "
+            f"only; {m['dtype']}, mode {m['pallas_kernels']}, softmax "
+            f"{m['pallas_softmax']}, int8 {m['pallas_quant']}, routes "
+            f"{sorted(set(m['routes']))} x{len(m['routes'])}, "
+            f"{len(m['entries'])} entries, "
+            f"{os.path.getsize(os.path.join(d, 'params.msgpack'))} bytes of "
+            "parameters")
+        out[name] = {"dir": d, "export_s": t1 - t0, "load_s": t2 - t1,
+                     "manifest": {k: v for k, v in m.items() if k != "config"},
+                     "read": [os.path.basename(f) for f in opened.paths]}
+        loaded[name] = b
+    return out, loaded
+
+
+def _wall_ms(fn, iters: int = BUNDLE_ITERS) -> list:
+    """Host-clock milliseconds of ``iters`` warm calls, each to a
+    synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return ts
+
+
+def _forward_profile(fn, iters: int = 3) -> dict:
+    """One torch.profiler session over ``iters`` warm calls: per call the
+    device time (kernels, copies and sets summed; one stream), the device
+    kernels (copies and sets apart) and the host's launch calls
+    (LAUNCH_CALLS)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev if "memcpy" not in e.name.lower()
+               and "memset" not in e.name.lower()]
+    host = [e for e in events if e.device_type == DeviceType.CPU
+            and any(k in e.name for k in LAUNCH_CALLS)]
+    names = {}
+    for e in host:
+        names[e.name] = names.get(e.name, 0) + 1
+    return {"device_ms": sum(e.time_range.elapsed_us() for e in dev)
+            / iters / 1e3 if dev else None,
+            "kernels": len(kernels) / iters, "host_launches": len(host) / iters,
+            "host_calls": {k: v / iters for k, v in names.items()},
+            "kernel_names": sorted({e.name for e in kernels})}
+
+
+def _bundle_point(name: str, b, live, scale: float, bucket: int, gen,
+                  kept: list) -> dict:
+    """One (entry, bucket): the graph's replay against the eager live
+    model on the same slices (bitwise, or where the eager model differs
+    from itself run to run, within the model's bar), the capture's
+    seconds, memory and kernel launches against an eager forward's, then
+    wall p50 each way, device time and idle share, and launches a
+    forward each way. The slices and the graph's prediction go to
+    ``kept``."""
+    x = gen.random((bucket,) + LR_HW, dtype=np.float32)
+    counters = _serving_counters()
+    before = {k: c.launches for k, c in counters.items()}
+    want = live.predict(x, scale)
+    eager = {k: c.launches - before[k] for k, c in counters.items()
+             if c.launches != before[k]}
+    with _Captures() as captures:
+        got = b.predict(x, scale)  # captures this point's graph
+    if len(captures.records) != 1:
+        raise AssertionError(f"{name} x{scale} bucket {bucket}: "
+                             f"{len(captures.records)} captures")
+    g = captures.records[0]
+    kept.append((scale, x, got))
+    err = float(np.abs(got - want).max())
+    out = {"scale": scale, "bucket": bucket, "capture_s": g["capture_s"],
+           "graph_mb": g["graph_bytes"] / 2**20,
+           "pool_growth_mb": g["pool_growth_bytes"] / 2**20,
+           "captured_launches": g["launches"], "eager_launches": eager,
+           "bitwise": bool(np.array_equal(got, want)), "max_abs_err": err}
+    if g["launches"] != eager:
+        raise AssertionError(f"{name} x{scale} bucket {bucket}: the graph "
+                             f"captured {g['launches']} launches, an eager "
+                             f"forward makes {eager}")
+    if not out["bitwise"]:
+        spread = float(np.abs(live.predict(x, scale) - want).max())
+        bar = MODEL_TOL if b.manifest["dtype"] == "float32" else \
+            BF16_TOL * float(np.abs(want).max())
+        out.update(eager_spread=spread, bar=bar)
+        log(f"  {name} x{scale} bucket {bucket}: graph vs eager {err:.3e}, "
+            f"eager vs eager {spread:.3e} (bar {bar:.3e}; kernels "
+            f"{sorted(eager)})")
+        if spread == 0.0 or err > bar:
+            raise AssertionError(f"{name} x{scale} bucket {bucket}: the "
+                                 f"graph differs from the eager model by "
+                                 f"{err} (eager run to run {spread})")
+    graph_ms = _wall_ms(lambda: b.predict(x, scale))
+    eager_ms = _wall_ms(lambda: live.predict(x, scale))
+    out["graph_p50_ms"] = float(np.median(graph_ms))
+    out["eager_p50_ms"] = float(np.median(eager_ms))
+    for way, fn in (("graph", lambda: b.predict(x, scale)),
+                    ("eager", lambda: live.predict(x, scale))):
+        prof = _forward_profile(fn)
+        dev = prof["device_ms"]
+        prof["idle_share"] = (None if dev is None else
+                              1.0 - dev / out[f"{way}_p50_ms"])
+        out[way] = prof
+    if out["graph"]["host_launches"] > 2:
+        raise AssertionError(f"{name}: a replay made "
+                             f"{out['graph']['host_calls']} host launches")
+    log(f"  {name} x{scale} bucket {bucket:2d}: "
+        f"{'bitwise' if out['bitwise'] else f'max abs err {err:.3e}'}; "
+        f"capture {g['capture_s']:.3f} s, {out['graph_mb']:.1f} MiB (pool "
+        f"+{out['pool_growth_mb']:.1f} MiB), launches {g['launches']}; wall "
+        f"p50 "
+        f"graph {out['graph_p50_ms']:.3f} / eager {out['eager_p50_ms']:.3f} "
+        f"ms; device " + " / ".join(
+            "not measured" if out[w]["device_ms"] is None else
+            f"{out[w]['device_ms']:.3f} ms idle {out[w]['idle_share']:.3f}"
+            for w in ("graph", "eager"))
+        + f"; kernels a forward {out['graph']['kernels']:g} / "
+        f"{out['eager']['kernels']:g}, host launches "
+        f"{out['graph']['host_launches']:g} / "
+        f"{out['eager']['host_launches']:g}")
+    return out
+
+
+def _replays_after_eviction(name: str, b, kept: list) -> dict:
+    """The tables a graph reads outlive their caches: every cached device
+    table dropped (``device.clear_device_tables``, as an eviction by later
+    geometries would), the freed blocks of the allocator's cache taken and
+    zeroed (largest first, each size until the cache grows), then each
+    point of ``kept`` replayed again, bitwise its first replay."""
+    import gc
+
+    from rdst_tpu_torch.device import clear_device_tables
+
+    clear_device_tables()
+    gc.collect()
+    fill = []
+    for size in (1 << 20, 1 << 18, 1 << 16, 1 << 14, 1 << 12, 1 << 9):
+        reserved = torch.cuda.memory_reserved()
+        while len(fill) < 50000 and torch.cuda.memory_reserved() == reserved:
+            fill.append(torch.zeros(size, dtype=torch.uint8, device="cuda"))
+    graphs = len(b.graphs)
+    same = [bool(np.array_equal(b.predict(x, s), y)) for s, x, y in kept]
+    zeroed = sum(t.numel() for t in fill)
+    del fill
+    torch.cuda.empty_cache()
+    log(f"bundle {name}: {len(kept)} replays after the device tables were "
+        f"dropped and {zeroed / 2**20:.1f} MiB of freed blocks zeroed: "
+        f"{sum(same)} bitwise their first replay")
+    if not all(same) or len(b.graphs) != graphs:
+        raise AssertionError(f"{name}: replays after eviction {same}, "
+                             f"{len(b.graphs)} graphs of {graphs}")
+    return {"replays": len(kept), "zeroed_mb": zeroed / 2**20}
+
+
+@phase("bundle graphs vs eager")
+def bundle_graph_phase(loaded: dict) -> dict:
+    """Phase 53: each bundle's graphs at buckets 1, 8 and 64 (each served
+    scale of MetaSR) against the eager ``LiveModel`` built from the config
+    (``_bundle_point``); every wrapper count set to 0 just before the
+    bundle's points and read just after (launches happen at capture);
+    then the replays after an eviction (``_replays_after_eviction``)."""
+    from rdst_tpu_torch.serving.export import LiveModel
+
+    gen = np.random.default_rng(SEED + 52)
+    out = {}
+    for name, b in loaded.items():
+        live = LiveModel(_bundle_paras(name), max_batch=64, device="cuda")
+        if live.manifest["routes"] != b.manifest["routes"]:
+            raise AssertionError(f"{name}: routes {b.manifest['routes']} "
+                                 f"against live {live.manifest['routes']}")
+        counters = _serving_counters()
+        for c in counters.values():
+            c.launches = 0  # the bundle's path starts here
+        kept = []
+        points = [_bundle_point(name, b, live, s, n, gen, kept)
+                  for s in BUNDLES[name][4] for n in BUNDLE_BUCKETS]
+        launched = {k: c.launches for k, c in counters.items()
+                    if c.launches}  # and ends here
+        del live
+        evicted = _replays_after_eviction(name, b, kept)
+        routed = any(r != "plain" for r in b.manifest["routes"])
+        if routed and not launched:
+            raise AssertionError(f"{name}: no kernel launched")
+        log(f"bundle {name}: {len(b.graphs)} graphs, launches in the run "
+            f"(captures and eager forwards) {launched}")
+        out[name] = {"points": points, "launches": launched,
+                     "graphs": len(b.graphs), "after_eviction": evicted}
+    return out
+
+
+@phase("bundle E1 f32 tester")
+def bundle_tester_phase(bundle_dir: str, data_dir: str, tmp: str) -> dict:
+    """Phase 54: the E1 f32 bundle's predictions of the held-out patients,
+    whole slices at the tester's LR shape, scored by the tester's protocol
+    (``TransSRTester.test`` with the bundle as its forward) against the
+    E1 f32 row of TESTER_BARS."""
+    from rdst_tpu_torch.runners.tester import TransSRTester
+    from rdst_tpu_torch.serving.export import ServingBundle
+
+    b = ServingBundle.load(bundle_dir, max_batch=64, device="cuda")
+    p = _bundle_paras("E1 f32", data_dir)
+    p.set("verbose", False)
+    p.set("output_dir", os.path.join(tmp, "tester", "bundle_E1_f32"))
+    tester = TransSRTester(p, device="cuda")
+    tester.setup()
+    calls = []
+
+    def forward(x, sr_scale=None):
+        calls.append(len(x))
+        return torch.from_numpy(b.predict(np.asarray(x), sr_scale))
+
+    tester.forward = forward
+    t0 = time.perf_counter()
+    stacked = tester.test()
+    wall = time.perf_counter() - t0
+    bar = TESTER_BARS["E1 f32"]
+    scores = {m: float(np.mean(stacked[f"{m}_4.0"])) for m in ("psnr", "ssim")}
+    delta = {m: scores[m] - bar[m] for m in scores}
+    log(f"E1 f32 bundle by the tester's protocol: PSNR {scores['psnr']:.4f} "
+        f"SSIM {scores['ssim']:.4f} over {len(stacked['psnr_4.0'])} slices "
+        f"(bar {bar['psnr']} / {bar['ssim']}, tol {TESTER_PSNR_TOL} / "
+        f"{TESTER_SSIM_TOL}); {len(calls)} patient batches {calls}, "
+        f"{len(b.graphs)} graphs, {wall:.3f} s")
+    if not calls or abs(delta["psnr"]) > TESTER_PSNR_TOL or \
+            abs(delta["ssim"]) > TESTER_SSIM_TOL:
+        raise AssertionError(f"bundle tester: {scores} against {bar}")
+    return {"scores": scores, "delta": delta, "batches": calls,
+            "wall_s": wall}
+
+
+def _live_ini(tmp: str) -> str:
+    """E1's shipped config with its committed weights named in it (the
+    volume CLI takes no overrides)."""
+    import re
+
+    with open(CONFIG) as f:
+        text = f.read()
+    text = re.sub(r"^\[DEFAULT\]\n", "[DEFAULT]\nwell_trained_single_scale_"
+                  f"model_g = '{os.path.abspath(WEIGHTS)}'\n", text, count=1,
+                  flags=re.M)
+    path = os.path.join(tmp, "e1_live.ini")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+@phase("bundle server and volume")
+def bundle_serving_phase(bundle_dir: str, tmp: str, bar: float) -> dict:
+    """Phase 55: ``serving.server.main(['--bundle', E1 f32, '--warmup'])``
+    answering health, metadata and a burst of BURST concurrent one-slice
+    requests (coalesced; each within SERVE_TOL of the bundle's own
+    prediction of the burst as one batch), every wrapper count set to 0
+    before the server starts and read after it stops (the warmup captures
+    every graph: 48 f32 block launches in the eager forward before each
+    capture, 48 in the capture); then the volume CLI with
+    ``--bundle`` against the live volume CLI on one NIfTI volume (within
+    ``bar``, phase 53's for E1 f32: 0 where the graphs were bitwise)."""
+    from rdst_tpu_torch.data import io as nio
+    from rdst_tpu_torch.serving import volume
+    from rdst_tpu_torch.serving.client import SRClient
+    from rdst_tpu_torch.serving.export import ServingBundle
+    from rdst_tpu_torch.serving.server import InferenceServer, main
+
+    rng = np.random.default_rng(SEED + 55)
+    xs = rng.random((BURST,) + LR_HW, dtype=np.float32)
+    out, runs = {}, []
+    run = ServingBundle._run
+
+    def counted(self, blk, scale):
+        runs.append(len(blk))  # the bucket replayed
+        return run(self, blk, scale)
+
+    def serve(srv):
+        srv.start_background()
+        client = SRClient(f"http://127.0.0.1:{srv.port}")
+        out["health"] = client.health()
+        out["metadata"] = client.metadata()
+        direct = srv.batcher.predictor.predict(xs, SCALE)
+        runs.clear()
+        barrier = threading.Barrier(BURST)
+
+        def one(i):
+            barrier.wait()
+            return client.predict(xs[i:i + 1], SCALE)
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(BURST) as ex:
+            got = np.concatenate(list(ex.map(one, range(BURST))))
+        out["burst_s"] = time.perf_counter() - t0
+        out["burst_dispatches"] = list(runs)
+        out["burst_err"] = float(np.abs(got - direct).max())
+        raise KeyboardInterrupt
+
+    counters = _serving_counters()
+    for c in counters.values():
+        c.launches = 0  # the served path starts here
+    forever = InferenceServer.serve_forever
+    ServingBundle._run, InferenceServer.serve_forever = counted, serve
+    try:
+        main(["--bundle", bundle_dir, "--warmup", "--port", "0",
+              "--max-batch", "64", "--batch-wait-ms", "25"])
+    finally:
+        ServingBundle._run, InferenceServer.serve_forever = run, forever
+    launched = {k: c.launches for k, c in counters.items() if c.launches}
+    out["launches"] = launched  # and ends here
+    man = out["metadata"]
+    graphs = len(man["entries"]) * 3
+    log(f"server --bundle --warmup: health {out['health']}, metadata "
+        f"{man['model_name']} {len(man['entries'])} entries on "
+        f"{man['device']}; {BURST} concurrent 1-slice requests in "
+        f"{out['burst_s']:.3f} s as {len(out['burst_dispatches'])} replays "
+        f"of buckets {out['burst_dispatches']}, "
+        f"max abs err {out['burst_err']:.3e} against one batch (tol "
+        f"{SERVE_TOL}); launches {launched} ({graphs} graphs captured)")
+    # each graph: the eager forward before its capture and the capture
+    if out["health"] != {"status": "ok"} or man["runtime"] != "torch" or \
+            launched != {"swin_block_f32": 2 * 48 * graphs}:
+        raise AssertionError(f"bundle server: {out}")
+    if not 1 <= len(out["burst_dispatches"]) < BURST or \
+            out["burst_err"] > SERVE_TOL:
+        raise AssertionError(f"bundle server burst: {out}")
+    vol = 100 + 50 * rng.random(LR_HW + (24,), dtype=np.float32)
+    src = os.path.join(tmp, "volume_in.nii")
+    nio.save(src, vol)
+    res = {}
+    for way, args in (("bundle", ["--bundle", bundle_dir]),
+                      ("live", ["--config-file", _live_ini(tmp)])):
+        dst = os.path.join(tmp, f"volume_{way}.nii")
+        volume.main(args + ["--in", src, "--out", dst, "--max-batch", "64"])
+        res[way] = nio.load(dst).get_fdata()
+    err = float(np.abs(res["bundle"] - res["live"]).max())
+    out["volume_err"] = err
+    log(f"volume CLI --bundle: {vol.shape} -> {res['bundle'].shape}, max abs "
+        f"err against the live volume CLI {err:.3e} (bar {bar})")
+    if res["bundle"].shape != (160, 128, 24) or err > bar * 50:
+        raise AssertionError(f"volume CLI: {res['bundle'].shape}, {err}")
+    return out
+
+
+@phase("bundle capture fault")
+def bundle_capture_fault_phase(bundle_dir: str) -> dict:
+    """Phase 56: on the E1 bf16 bundle, a capture that meets a
+    host-to-device copy (MeanShift's bf16 path making its mean and std
+    from Python numbers on every call, as the port did before they became
+    buffers) raises, naming that line, and nothing runs eagerly in its
+    place; with the forward put back the same bundle captures and serves."""
+    from rdst_tpu_torch.nn.common import MeanShift, mean_shift
+    from rdst_tpu_torch.serving.export import ServingBundle
+
+    b = ServingBundle.load(bundle_dir, max_batch=64, device="cuda")
+    x = np.random.default_rng(SEED + 56).random((1,) + LR_HW,
+                                                dtype=np.float32)
+    fixed = MeanShift.forward
+
+    def numbers_per_call(self, t):
+        return mean_shift(t, torch.as_tensor(self.mean, device=t.device),
+                          torch.as_tensor(self.std, device=t.device),
+                          self.mode)
+
+    MeanShift.forward = numbers_per_call
+    try:
+        b.predict(x, SCALE)
+    except RuntimeError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("a capture with a host-to-device copy ran")
+    finally:
+        MeanShift.forward = fixed
+    log(f"capture fault: {msg[:600]}")
+    if "mean_shift" not in msg or b.graphs:
+        raise AssertionError(f"capture fault not named or kept: {msg}")
+    y = b.predict(x, SCALE)
+    if y.shape != (1, LR_HW[0] * 4, LR_HW[1] * 4, 1) or \
+            not np.isfinite(y).all() or len(b.graphs) != 1:
+        raise AssertionError(f"after the fault: {y.shape}, {b.graphs}")
+    return {"message": msg}
+
+
+def run_bundle(data_dir: str, tmp: str, patients: dict):
+    """Phases 52-56; no kernel row of its own (the kernels run in the
+    graphs are each held against their plain version in their model's
+    group)."""
+    import gc
+
+    card = _card_line()
+    exported, loaded = bundle_export_phase(tmp, _lr_hw(patients))
+    graphs = bundle_graph_phase(loaded)
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    e1 = exported["E1 f32"]["dir"]
+    bar = max([p.get("bar", 0.0) for p in graphs["E1 f32"]["points"]]
+              + [0.0])
+    return {"card": card, "bundles": exported, "graphs": graphs,
+            "tester": bundle_tester_phase(e1, data_dir, tmp),
+            "serving": bundle_serving_phase(e1, tmp, bar),
+            "fault": bundle_capture_fault_phase(
+                exported["E1 bf16 rdstb"]["dir"])}, []
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--only", choices=("e1", "swinir", "w96", "metasr",
                                        "int8", "xdata", "zoo", "convzoo",
-                                       "ckpt", "parallel"),
+                                       "ckpt", "parallel", "bundle"),
                     nargs="+", default=None,
                     help="run the card and build phases and these models' "
                     "phases only (default: every phase)")
@@ -8031,6 +8636,9 @@ def main(argv=None) -> int:
         if args.only is None or "parallel" in args.only:
             results["parallel"], rows = run_parallel(data_dir, tmp,
                                                      args.dp_devices)
+            kernels += rows
+        if args.only is None or "bundle" in args.only:
+            results["bundle"], rows = run_bundle(data_dir, tmp, patients)
             kernels += rows
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - t_start

@@ -7,6 +7,10 @@ carries on on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
+
 import torch
 
 
@@ -27,3 +31,53 @@ def resolve_device(device="cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: expected cuda or cpu")
     return dev
+
+
+# -- tables cached on a device ---------------------------------------------
+
+_held = threading.local()
+_tables = []
+
+
+def device_table(maxsize: int):
+    """``functools.lru_cache(maxsize)`` for a function that makes a table
+    on a device (an index, a mask, a plan's arrays). Every call, a hit or a
+    miss, also adds what it returns to each :func:`held_tables` list open in
+    the calling thread: a CUDA graph keeps raw pointers to the tables its
+    capture read, so it must keep them alive once the cache evicts them."""
+
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            out = cached(*args, **kwargs)
+            for held in getattr(_held, "lists", ()):
+                held.append(out)
+            return out
+
+        call.cache_clear, call.cache_info = cached.cache_clear, \
+            cached.cache_info
+        _tables.append(call)
+        return call
+
+    return wrap
+
+
+@contextlib.contextmanager
+def held_tables():
+    """Collect, in a list, every table a :func:`device_table` function
+    returns in this thread while the context is open."""
+    held = []
+    lists = _held.__dict__.setdefault("lists", [])
+    lists.append(held)
+    try:
+        yield held
+    finally:
+        lists.remove(held)
+
+
+def clear_device_tables() -> None:
+    """Empty every :func:`device_table` cache (what a graph holds stays)."""
+    for fn in _tables:
+        fn.cache_clear()

@@ -14,7 +14,7 @@ from torch import nn
 
 from rdst_tpu_torch.models.edsr import NoKernels
 from rdst_tpu_torch.nn.common import (Conv, ResidualDenseBlock, UpSampler,
-                                      mean_shift)
+                                      mean_shift, norm_buffers)
 from rdst_tpu_torch.nn.layers import resolve_act
 
 
@@ -59,7 +59,7 @@ class ESRGAN(NoKernels, nn.Module):
         self.sr_scale, self.out_feats = int(sr_scale), int(n_feats)
         self.n_blocks = int(n_blocks)
         self.global_res_scale = float(global_res_scale)
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         self.feature_maps_only = bool(feature_maps_only)
         self.head = Conv(in_chans, n_feats, 3)
         for i in range(self.n_blocks):
@@ -76,7 +76,7 @@ class ESRGAN(NoKernels, nn.Module):
     def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
         x = x.to(self.dtype)
         if not self.feature_maps_only:
-            x = mean_shift(x, self.mean, self.std, "sub")
+            x = mean_shift(x, self.norm_mean, self.norm_std, "sub")
         x = self.head(x)
         res = x
         for i in range(self.n_blocks):
@@ -85,7 +85,8 @@ class ESRGAN(NoKernels, nn.Module):
         if self.feature_maps_only:
             return res
         out = self.tail_up(res) if self.sr_scale > 1 else res
-        return mean_shift(self.tail_conv(out), self.mean, self.std, "add")
+        return mean_shift(self.tail_conv(out), self.norm_mean,
+                          self.norm_std, "add")
 
 
 def make_esrgan(paras, mean=None, std=None, dtype=torch.float32,

@@ -23,7 +23,7 @@ from torch.nn import functional as F
 from rdst_tpu_torch.models.edsr import NoKernels
 from rdst_tpu_torch.models.rcan import CALayer, ResidualGroup
 from rdst_tpu_torch.nn.common import (BF16, Conv, UpSampler, flax_bf16,
-                                      mean_shift)
+                                      mean_shift, norm_buffers)
 
 
 class HanRCAB(nn.Module):
@@ -104,7 +104,7 @@ class HAN(NoKernels, nn.Module):
         super().__init__()
         self._no_kernels(dtype, train_resolution)
         self.n_resgroups = int(n_resgroups)
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         self.head = Conv(in_chans, n_feats, 3)
         for i in range(self.n_resgroups):
             self.add_module(f"body_{i}", ResidualGroup(
@@ -118,8 +118,8 @@ class HAN(NoKernels, nn.Module):
         self.tail_conv = Conv(n_feats, in_chans, 3)
 
     def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
-        x = self.head(mean_shift(x.to(self.dtype), self.mean, self.std,
-                                 "sub"))
+        x = self.head(mean_shift(x.to(self.dtype), self.norm_mean,
+                                 self.norm_std, "sub"))
         res, stacked = x, []
         for i in range(self.n_resgroups):
             res = getattr(self, f"body_{i}")(res)
@@ -131,7 +131,7 @@ class HAN(NoKernels, nn.Module):
         fused = self.last(torch.cat([out1, out2.to(out1.dtype)], -1)
                           .to(self.dtype)) + x
         out = self.tail_conv(self.tail_up(fused))
-        return mean_shift(out, self.mean, self.std, "add")
+        return mean_shift(out, self.norm_mean, self.norm_std, "add")
 
 
 def make_han(paras, mean=None, std=None, dtype=torch.float32) -> HAN:

@@ -28,7 +28,7 @@ from torch.nn import functional as F
 
 from rdst_tpu_torch.models.edsr import NoKernels
 from rdst_tpu_torch.nn.common import (BF16, Conv, ResBlock, UpSampler,
-                                      mean_shift)
+                                      mean_shift, norm_buffers)
 from rdst_tpu_torch.nn.layers import Dropout, LayerNorm, Linear, resolve_act
 
 
@@ -207,7 +207,7 @@ class IPT(NoKernels, nn.Module):
         super().__init__()
         self._no_kernels(dtype, (patch, patch))
         self.sr_scales = tuple(float(s) for s in sr_scales)
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         for si, s in enumerate(self.sr_scales):
             self.add_module(f"head_{si}_conv", Conv(in_chans, n_feats, 3))
             self.add_module(f"head_{si}_res0", ResBlock(n_feats, 5, act))
@@ -223,14 +223,14 @@ class IPT(NoKernels, nn.Module):
             raise ValueError(f"IPT has branches for scales {self.sr_scales} "
                              f"(all_sr_scales), not {sr_scale}")
         si = self.sr_scales.index(float(sr_scale))
-        x = mean_shift(x.to(self.dtype), self.mean, self.std, "sub")
+        x = mean_shift(x.to(self.dtype), self.norm_mean, self.norm_std, "sub")
         y = getattr(self, f"head_{si}_conv")(x)
         y = getattr(self, f"head_{si}_res0")(y)
         y = getattr(self, f"head_{si}_res1")(y)
         res = self.body(y, si) + y
         out = getattr(self, f"tail_{si}_up")(res.to(self.dtype))
         out = getattr(self, f"tail_{si}_conv")(out)
-        return mean_shift(out, self.mean, self.std, "add")
+        return mean_shift(out, self.norm_mean, self.norm_std, "add")
 
 
 def make_ipt(paras, mean=None, std=None, dtype=torch.float32) -> IPT:

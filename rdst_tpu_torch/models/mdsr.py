@@ -19,7 +19,8 @@ import torch
 from torch import nn
 
 from rdst_tpu_torch.models.edsr import NoKernels
-from rdst_tpu_torch.nn.common import Conv, ResBlock, UpSampler, mean_shift
+from rdst_tpu_torch.nn.common import (Conv, ResBlock, UpSampler, mean_shift,
+                                      norm_buffers)
 from rdst_tpu_torch.nn.layers import resolve_act
 
 MDSR_SCALES = (2, 3, 4)
@@ -48,7 +49,7 @@ class MDSR(NoKernels, nn.Module):
         self._no_kernels(dtype, train_resolution)
         self.scales = tuple(sorted({mdsr_scale(s) for s in scales}))
         self.out_feats, self.n_resblocks = int(n_feats), int(n_resblocks)
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         self.feature_maps_only = bool(feature_maps_only)
         for s in self.scales:
             self.add_module(f"head_{s}", Conv(in_chans, n_feats, 3))
@@ -68,7 +69,7 @@ class MDSR(NoKernels, nn.Module):
                              f"(its training scales), not {s}")
         x = x.to(self.dtype)
         if not self.feature_maps_only:
-            x = mean_shift(x, self.mean, self.std, "sub")
+            x = mean_shift(x, self.norm_mean, self.norm_std, "sub")
         x = getattr(self, f"head_{s}")(x)
         res = x
         for i in range(self.n_resblocks):
@@ -78,7 +79,7 @@ class MDSR(NoKernels, nn.Module):
             return res
         out = getattr(self, f"tail_up_{s}")(res)
         out = getattr(self, f"tail_conv_{s}")(out)
-        return mean_shift(out, self.mean, self.std, "add")
+        return mean_shift(out, self.norm_mean, self.norm_std, "add")
 
 
 def make_mdsr(paras, mean=None, std=None, dtype=torch.float32,

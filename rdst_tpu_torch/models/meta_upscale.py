@@ -26,6 +26,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from rdst_tpu_torch.device import device_table
 from rdst_tpu_torch.nn.layers import BF16, Linear
 
 
@@ -83,7 +84,7 @@ def meta_upscale_plan(in_h: int, in_w: int, scale: float):
     return pos_small, tile_idx.astype(np.int32), valid_idx
 
 
-@functools.lru_cache(maxsize=64)
+@device_table(64)
 def _device_plan(in_h: int, in_w: int, scale: float, device: torch.device):
     """The plan's arrays on ``device`` (a bounded cache: a training run
     sees one geometry a scale, so its steps copy nothing to the card)."""

@@ -18,7 +18,7 @@ from torch import nn
 
 from rdst_tpu_torch.models.edsr import NoKernels
 from rdst_tpu_torch.models.meta_upscale import MetaUpSampler, scale_value
-from rdst_tpu_torch.nn.common import mean_shift
+from rdst_tpu_torch.nn.common import mean_shift, norm_buffers
 
 EXTRACTORS = ("EDSR", "SRResNet", "SRDenseNet", "RDN", "ESRGAN", "Meta_MDSR")
 
@@ -54,7 +54,7 @@ class MetaSR(NoKernels, nn.Module):
                  dtype: torch.dtype = torch.float32, train_resolution=None):
         super().__init__()
         self._no_kernels(dtype, train_resolution)
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         self.extractor_mode = extractor_mode
         self.extractor = extractor
         self.meta_upsampler = MetaUpSampler(extractor.out_feats, in_chans,
@@ -62,11 +62,11 @@ class MetaSR(NoKernels, nn.Module):
 
     def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
         scale = scale_value(sr_scale)
-        x = mean_shift(x.to(self.dtype), self.mean, self.std, "sub")
+        x = mean_shift(x.to(self.dtype), self.norm_mean, self.norm_std, "sub")
         feats = self.extractor(x, math.ceil(scale)
                                if self.extractor_mode == "Meta_MDSR" else None)
         out = self.meta_upsampler(feats, scale)
-        return mean_shift(out, self.mean, self.std, "add")
+        return mean_shift(out, self.norm_mean, self.norm_std, "add")
 
 
 def make_metasr(paras, mean=None, std=None, dtype=torch.float32) -> MetaSR:

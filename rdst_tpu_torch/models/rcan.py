@@ -17,7 +17,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from rdst_tpu_torch.models.edsr import NoKernels
-from rdst_tpu_torch.nn.common import BF16, Conv, UpSampler, mean_shift
+from rdst_tpu_torch.nn.common import (BF16, Conv, UpSampler, mean_shift,
+                                      norm_buffers)
 
 
 class CALayer(nn.Module):
@@ -104,7 +105,7 @@ class RCAN(NoKernels, nn.Module):
         super().__init__()
         self._no_kernels(dtype, train_resolution)
         self.n_resgroups = int(n_resgroups)
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         self.head = Conv(in_chans, n_feats, 3)
         for i in range(self.n_resgroups):
             self.add_module(f"body_{i}", ResidualGroup(n_feats, n_resblocks,
@@ -114,14 +115,14 @@ class RCAN(NoKernels, nn.Module):
         self.tail_conv = Conv(n_feats, in_chans, 3)
 
     def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
-        x = self.head(mean_shift(x.to(self.dtype), self.mean, self.std,
-                                 "sub"))
+        x = self.head(mean_shift(x.to(self.dtype), self.norm_mean,
+                                 self.norm_std, "sub"))
         res = x
         for i in range(self.n_resgroups):
             res = getattr(self, f"body_{i}")(res)
         res = self.body_conv(res) + x
         out = self.tail_conv(self.tail_up(res))
-        return mean_shift(out, self.mean, self.std, "add")
+        return mean_shift(out, self.norm_mean, self.norm_std, "add")
 
 
 def make_rcan(paras, mean=None, std=None, dtype=torch.float32) -> RCAN:

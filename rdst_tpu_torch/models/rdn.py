@@ -17,7 +17,7 @@ from torch import nn
 
 from rdst_tpu_torch.models.edsr import NoKernels
 from rdst_tpu_torch.nn.common import (Conv, ResidualDenseBlock, UpSampler,
-                                      mean_shift)
+                                      mean_shift, norm_buffers)
 
 
 class RDN(NoKernels, nn.Module):
@@ -39,7 +39,7 @@ class RDN(NoKernels, nn.Module):
         self.sr_scale, self.out_feats = int(sr_scale), int(n_feats)
         self.n_blocks = int(n_blocks)
         self.global_res_scale = float(global_res_scale)
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         self.feature_maps_only = bool(feature_maps_only)
         self.head = Conv(in_chans, n_feats, 3)
         self.F0 = Conv(n_feats, n_feats, 3)
@@ -59,7 +59,7 @@ class RDN(NoKernels, nn.Module):
     def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
         x = x.to(self.dtype)
         if not self.feature_maps_only:
-            x = mean_shift(x, self.mean, self.std, "sub")
+            x = mean_shift(x, self.norm_mean, self.norm_std, "sub")
         fn1 = self.head(x)
         x = self.F0(fn1)
         maps = []
@@ -72,7 +72,8 @@ class RDN(NoKernels, nn.Module):
             return x
         if self.sr_scale > 1:
             x = self.tail_up(x)
-        return mean_shift(self.tail_conv(x), self.mean, self.std, "add")
+        return mean_shift(self.tail_conv(x), self.norm_mean,
+                          self.norm_std, "add")
 
 
 def make_rdn(paras, mean=None, std=None, dtype=torch.float32,

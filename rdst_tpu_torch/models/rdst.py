@@ -49,6 +49,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from rdst_tpu_torch.device import device_table
 from rdst_tpu_torch.models.meta_upscale import MetaUpSampler, scale_value
 from rdst_tpu_torch.models.routes import (  # noqa: F401 (old names)
     set_kernel_mode, set_train_mode)
@@ -97,10 +98,20 @@ def pad_to_window_multiple(x: torch.Tensor, multiple: int
     b, h, w, c = x.shape
     ph, pw = (-h) % multiple, (-w) % multiple
     if ph:
-        x = x.index_select(1, reflect_index(h, h + ph).to(x.device))
+        x = x.index_select(1, _reflect_index_on(h, h + ph, x.device))
     if pw:
-        x = x.index_select(2, reflect_index(w, w + pw).to(x.device))
+        x = x.index_select(2, _reflect_index_on(w, w + pw, x.device))
     return x, (h, w)
+
+
+@device_table(64)
+def _reflect_index_on(size: int, padded: int,
+                      device: torch.device) -> torch.Tensor:
+    """:func:`reflect_index` on ``device``, made once a geometry (outside
+    inference mode, as ``nn.swin``'s cached tables): a forward then copies
+    nothing from the host, so a CUDA graph can capture it."""
+    with torch.inference_mode(False):
+        return reflect_index(size, padded).to(device)
 
 
 def position_table(resolution, multiple: int, dim: int) -> nn.Parameter:

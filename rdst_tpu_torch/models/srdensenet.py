@@ -14,7 +14,8 @@ import torch
 from torch import nn
 
 from rdst_tpu_torch.models.edsr import NoKernels
-from rdst_tpu_torch.nn.common import Conv, DenseLayer, UpSampler, mean_shift
+from rdst_tpu_torch.nn.common import (Conv, DenseLayer, UpSampler, mean_shift,
+                                      norm_buffers)
 from rdst_tpu_torch.nn.layers import resolve_act
 
 SKIP_TYPES = ("h", "hl", "all")
@@ -54,7 +55,7 @@ class SRDenseNet(NoKernels, nn.Module):
         self.sr_scale, self.out_feats = int(sr_scale), int(n_feats)
         self.skip_type = skip_type
         self.n_dense_blocks = int(n_dense_blocks)
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         self.feature_maps_only = bool(feature_maps_only)
         self.head = Conv(in_chans, growth_rate, 3)
         step = n_dense_layers * growth_rate  # the width a block adds
@@ -76,7 +77,7 @@ class SRDenseNet(NoKernels, nn.Module):
     def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
         x = x.to(self.dtype)
         if not self.feature_maps_only:
-            x = mean_shift(x, self.mean, self.std, "sub")
+            x = mean_shift(x, self.norm_mean, self.norm_std, "sub")
         x = self.head(x)
         collected = [x] if self.skip_type in ("hl", "all") else []
         for i in range(self.n_dense_blocks):
@@ -90,7 +91,8 @@ class SRDenseNet(NoKernels, nn.Module):
             return x
         if self.sr_scale > 1:
             x = self.tail_up(x)
-        return mean_shift(self.tail_conv(x), self.mean, self.std, "add")
+        return mean_shift(self.tail_conv(x), self.norm_mean,
+                          self.norm_std, "add")
 
 
 def make_srdensenet(paras, mean=None, std=None, dtype=torch.float32,

@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from rdst_tpu_torch.models.edsr import NoKernels
-from rdst_tpu_torch.nn.common import Conv, ResBlock, UpSampler, mean_shift
+from rdst_tpu_torch.nn.common import (Conv, ResBlock, UpSampler, mean_shift,
+                                      norm_buffers)
 from rdst_tpu_torch.nn.layers import resolve_act
 
 
@@ -34,7 +35,7 @@ class SRResNet(NoKernels, nn.Module):
         self._no_kernels(dtype, train_resolution)
         self.sr_scale, self.out_feats = int(sr_scale), int(n_feats)
         self.n_resblocks = int(n_resblocks)
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         self.feature_maps_only = bool(feature_maps_only)
         self.head = Conv(in_chans, n_feats, 3)
         for i in range(self.n_resblocks):
@@ -49,7 +50,7 @@ class SRResNet(NoKernels, nn.Module):
     def forward(self, x: torch.Tensor, sr_scale=None) -> torch.Tensor:
         x = x.to(self.dtype)
         if not self.feature_maps_only:
-            x = mean_shift(x, self.mean, self.std, "sub")
+            x = mean_shift(x, self.norm_mean, self.norm_std, "sub")
         x = self.head(x)
         res = x
         for i in range(self.n_resblocks):
@@ -58,7 +59,8 @@ class SRResNet(NoKernels, nn.Module):
         if self.feature_maps_only:
             return res
         out = self.tail_up(res) if self.sr_scale > 1 else res
-        return mean_shift(self.tail_conv(out), self.mean, self.std, "add")
+        return mean_shift(self.tail_conv(out), self.norm_mean,
+                          self.norm_std, "add")
 
 
 def make_srresnet(paras, mean=None, std=None, dtype=torch.float32,

@@ -38,7 +38,8 @@ from rdst_tpu_torch.models.rdst import (add_position_table, conv_stack,
                                         position_table, route_by_config,
                                         to_image, to_tokens)
 from rdst_tpu_torch.nn.common import Conv, PixelShuffle, UpSampler
-from rdst_tpu_torch.nn.layers import BF16, Dropout, LayerNorm, LeakyReLU
+from rdst_tpu_torch.nn.layers import (BF16, Dropout, LayerNorm, LeakyReLU,
+                                      constant_buffer)
 from rdst_tpu_torch.nn.swin import BasicLayer
 
 UPSAMPLERS = ("pixelshuffle", "pixelshuffledirect", "nearest+conv", "")
@@ -110,6 +111,7 @@ class SwinIR(nn.Module):
         # the DIV2K RGB mean for 3 channels, zero otherwise (:646-651)
         self.rgb_mean = ((0.4488, 0.4371, 0.4040) if in_chans == 3
                          else (0.0,) * in_chans)
+        constant_buffer(self, "rgb_mean_value", self.rgb_mean)
         self.train_mode = ""  # plain autograd until set_train_mode
         self.train_routes = {"pair": 0, "block": 0}
         self.train_resolution = train_resolution or build_resolution
@@ -178,7 +180,7 @@ class SwinIR(nn.Module):
         read (SwinIR has a fixed scale)."""
         x = x.to(self.dtype)
         x, (h0, w0) = pad_to_window_multiple(x, self.window_size)
-        mean = torch.tensor(self.rgb_mean, dtype=x.dtype, device=x.device)
+        mean = self.rgb_mean_value.to(x.dtype)
         x = (x - mean) * self.img_range
         first = self.conv_first(x)
         res = self.conv_after_body(self.forward_features(first)) + first

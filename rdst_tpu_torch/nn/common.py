@@ -17,7 +17,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from rdst_tpu_torch.nn.layers import activation
+from rdst_tpu_torch.nn.layers import activation, constant_buffer
 
 BF16 = torch.bfloat16
 
@@ -79,12 +79,23 @@ class ConvTranspose(nn.ConvTranspose2d):
         return y.permute(0, 2, 3, 1)
 
 
-def mean_shift(x: torch.Tensor, mean: Sequence[float], std: Sequence[float],
+def norm_buffers(module: nn.Module, mean: Sequence[float],
+                 std: Sequence[float]) -> None:
+    """A model's normalization: ``module.mean`` / ``module.std`` as tuples
+    and as the buffers ``norm_mean`` / ``norm_std`` that
+    :func:`mean_shift` takes (:func:`constant_buffer`)."""
+    module.mean, module.std = tuple(mean), tuple(std)
+    constant_buffer(module, "norm_mean", module.mean)
+    constant_buffer(module, "norm_std", module.std)
+
+
+def mean_shift(x: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
                mode: str) -> torch.Tensor:
     """Elementwise (x - mean)/std ('sub') or x*std + mean ('add'), in
-    x's dtype (bf16: mean and std rounded, each op's result rounded)."""
-    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
-    std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
+    x's dtype (bf16: mean and std rounded, each op's result rounded).
+    ``mean`` / ``std``: tensors on x's device, a model's float64 buffers
+    (:func:`norm_buffers`)."""
+    mean, std = mean.to(x.dtype), std.to(x.dtype)
     if mode == "sub":
         return (x - mean) / std
     if mode == "add":
@@ -101,7 +112,7 @@ class MeanShift(nn.Module):
                  mode: str):
         super().__init__()
         self.mode = mode
-        self.mean, self.std = tuple(mean), tuple(std)
+        norm_buffers(self, mean, std)
         mean = torch.as_tensor(mean, dtype=torch.float32)
         std = torch.as_tensor(std, dtype=torch.float32)
         nc = mean.numel()
@@ -113,7 +124,8 @@ class MeanShift(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == BF16:  # the JAX package's mean_shift in bf16
-            return mean_shift(x, self.mean, self.std, self.mode)
+            return mean_shift(x, self.norm_mean, self.norm_std,
+                              self.mode)
         nc = self.bias.numel()
         return (x * torch.diagonal(self.weight.reshape(nc, nc))
                 + self.bias)

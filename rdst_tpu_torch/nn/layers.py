@@ -166,6 +166,16 @@ class Mlp(nn.Module):
         return self.drop(self.fc2(self.drop(gelu_exact(self.fc1(x)))))
 
 
+def constant_buffer(module: nn.Module, name: str, values) -> None:
+    """Register ``values`` on ``module`` as the float64 buffer ``name``,
+    out of the state_dict. A forward casts it to its activations' dtype
+    on their device (float64 -> dtype rounds as a Python float does),
+    where a tensor made from Python numbers in the forward would be a
+    host-to-device copy, which a CUDA graph cannot capture."""
+    module.register_buffer(
+        name, torch.tensor(values, dtype=torch.float64), persistent=False)
+
+
 class LeakyReLU(nn.Module):
     """``jax.nn.leaky_relu``: x where x >= 0, else slope * x; on bf16 the
     slope is rounded to bf16 first, as a weak-typed scalar is in JAX."""
@@ -173,10 +183,10 @@ class LeakyReLU(nn.Module):
     def __init__(self, slope: float):
         super().__init__()
         self.slope = float(slope)
+        constant_buffer(self, "slope_value", self.slope)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        slope = torch.tensor(self.slope, dtype=x.dtype, device=x.device)
-        return torch.where(x >= 0, x, x * slope)
+        return torch.where(x >= 0, x, x * self.slope_value.to(x.dtype))
 
 
 def resolve_act(paras, act: Optional[str]) -> Optional[str]:

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from rdst_tpu_torch.device import device_table
 from rdst_tpu_torch.nn.layers import (BF16, WHOLE_BATCH, Dropout, DropPath,
                                       LayerNorm, Linear, Mlp)
 
@@ -137,14 +138,14 @@ def kernel_plan(module: nn.Module, key, build):
 # The cached index and mask tensors are made outside inference mode even
 # when the first caller serves under torch.inference_mode(): a training
 # step in the same process saves them for its backward.
-@functools.lru_cache(maxsize=64)
+@device_table(64)
 def _index_tensor(ws: int, device: torch.device) -> torch.Tensor:
     with torch.inference_mode(False):
         return torch.as_tensor(relative_position_index(ws, ws).reshape(-1),
                                device=device)
 
 
-@functools.lru_cache(maxsize=256)
+@device_table(256)
 def _mask_tensor(h: int, w: int, ws: int, shift: int,
                  device: torch.device) -> Optional[torch.Tensor]:
     mask = shift_attention_mask(h, w, ws, shift)

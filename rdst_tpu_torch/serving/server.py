@@ -8,7 +8,7 @@ Endpoints
 
 * ``GET /healthz`` -- liveness: ``{"status": "ok"}``.
 * ``GET /v1/metadata`` -- the model manifest (identity, scales, dtype,
-  kernel mode, device).
+  kernel mode, device; a bundle's manifest with its entries).
 * ``POST /v1/predict?scale=4`` -- body is an ``.npy`` payload
   (``np.save`` bytes) of shape (H,W) / (N,H,W) / (N,H,W,C); the response
   is the f32 HR ``.npy``. Errors come back as JSON with status 400.
@@ -218,8 +218,10 @@ class InferenceServer:
     def warmup(self, lr_hw=None, scale=None, channels: int = 1) -> float:
         """Run every batch bucket of the predictor's ladder once, so the
         first burst meets steady-state latency (cuDNN algorithm choice,
-        kernel build and load happen here). Warm points: the explicit
-        ``(lr_hw, scale)``, else every manifest entry. Returns seconds."""
+        kernel build and load happen here; a bundle captures its CUDA
+        graphs). Warm points: the explicit ``(lr_hw, scale)``, else every
+        manifest entry (a bundle's; a live model has none). Returns
+        seconds."""
         import time
 
         from rdst_tpu_torch.serving.export import resolve_buckets
@@ -269,8 +271,9 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description="rdst_tpu_torch inference server")
     src = ap.add_mutually_exclusive_group(required=True)
-    src.add_argument("--bundle", help="exported serving bundle directory "
-                     "(not ported yet: raises)")
+    src.add_argument("--bundle", help="serving bundle directory written by "
+                     "python -m rdst_tpu_torch.serving.export (one CUDA "
+                     "graph an entry and bucket on the card)")
     src.add_argument("--config-file", help="serve a live model from a "
                      "training config")
     ap.add_argument("--host", default="127.0.0.1")
@@ -282,6 +285,10 @@ def main(argv=None):
     ap.add_argument("--batch-wait-ms", type=float, default=5.0)
     ap.add_argument("--platform", default=None, choices=("cpu", "cuda"),
                     help="device to serve on (default: cuda)")
+    ap.add_argument("--warmup", action="store_true",
+                    help="run every batch bucket of each bundle manifest "
+                    "entry before accepting traffic (a bundle captures "
+                    "its CUDA graphs here)")
     ap.add_argument("--warmup-shape", type=int, nargs=2, metavar=("H", "W"),
                     default=None,
                     help="LR shape to warm every batch bucket at, for "
@@ -292,24 +299,34 @@ def main(argv=None):
                     "\"'weights/rdst_e1_40k_best_oasis20_x4.msgpack'\"")
     args = ap.parse_args(argv)
 
+    device = args.platform or "cuda"
     if args.bundle:
-        raise NotImplementedError(
-            "--bundle: exported serving bundles are not ported; serve a "
-            "config with --config-file")
-    from rdst_tpu_torch.config import ParametersLoader
-    from rdst_tpu_torch.serving.export import LiveModel
+        if args.set:
+            raise ValueError(f"KEY=VALUE overrides {args.set} apply to a "
+                             "--config-file; a bundle's config is fixed at "
+                             "export")
+        from rdst_tpu_torch.serving.export import ServingBundle
 
-    paras = ParametersLoader(args.config_file)
-    paras.apply_overrides(args.set)
-    predictor = LiveModel(paras, max_batch=args.max_batch,
-                          buckets=args.buckets,
-                          device=args.platform or "cuda")
+        predictor = ServingBundle.load(args.bundle, max_batch=args.max_batch,
+                                       buckets=args.buckets, device=device)
+    else:
+        from rdst_tpu_torch.config import ParametersLoader
+        from rdst_tpu_torch.serving.export import LiveModel
+
+        paras = ParametersLoader(args.config_file)
+        paras.apply_overrides(args.set)
+        predictor = LiveModel(paras, max_batch=args.max_batch,
+                              buckets=args.buckets, device=device)
     srv = InferenceServer(predictor, args.host, args.port,
                           args.max_batch, args.batch_wait_ms)
     if args.warmup_shape is not None:
         for sc in predictor.manifest.get("scales", []):
             dt = srv.warmup(lr_hw=args.warmup_shape, scale=sc)
             print(f"warmed {tuple(args.warmup_shape)} x{sc} in {dt}s")
+    elif args.warmup:
+        dt = srv.warmup()
+        print(f"warmed {len(predictor.manifest.get('entries', []))} "
+              f"manifest entries in {dt}s")
     print(f"serving {predictor.manifest.get('model_name', '?')} on "
           f"{predictor.manifest['device']} at http://{args.host}:{srv.port}",
           flush=True)

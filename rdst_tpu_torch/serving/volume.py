@@ -6,6 +6,9 @@ In-plane 2D SR per slice along a chosen axis:
     python -m rdst_tpu_torch.serving.volume --config-file X.ini \
         --in brain.nii.gz --out brain_x4.nii.gz --scale 4
 
+(or ``--bundle DIR`` for an exported bundle, ``--url`` for a running
+server).
+
 Intensities are min/max-normalized to [0,1] for the network (the
 training-corpus convention, OASIS_dataset.py:86-90) and mapped back to
 the input range on the way out.
@@ -20,10 +23,11 @@ def sr_volume(predictor, vol: np.ndarray, scale: float,
               axis: int = 2) -> np.ndarray:
     """SR every slice of ``vol`` along ``axis`` (in-plane 2D).
 
-    ``predictor`` is a :class:`~rdst_tpu_torch.serving.LiveModel` or an
-    HTTP :class:`~rdst_tpu_torch.serving.client.SRClient`. Returns the
-    volume with both in-plane dims scaled by ``scale``; intensities are
-    restored to the input range. Non-finite values are rejected.
+    ``predictor`` is a :class:`~rdst_tpu_torch.serving.LiveModel`, a
+    :class:`~rdst_tpu_torch.serving.ServingBundle` or an HTTP
+    :class:`~rdst_tpu_torch.serving.client.SRClient`. Returns the volume
+    with both in-plane dims scaled by ``scale``; intensities are restored
+    to the input range. Non-finite values are rejected.
     """
     vol = np.asarray(vol, np.float32)
     if vol.ndim != 3:
@@ -47,8 +51,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         description="super-resolve a NIfTI/Analyze volume")
     src = ap.add_mutually_exclusive_group(required=True)
-    src.add_argument("--bundle", help="exported serving bundle dir (not "
-                     "ported yet: raises)")
+    src.add_argument("--bundle", help="serving bundle dir written by "
+                     "python -m rdst_tpu_torch.serving.export")
     src.add_argument("--config-file", help="live model from a config")
     src.add_argument("--url", help="running server, e.g. "
                      "http://host:8000 (no local model needed)")
@@ -60,17 +64,19 @@ def main(argv=None):
                     help="slice axis (default 2, the reference's)")
     ap.add_argument("--max-batch", type=int, default=64)
     ap.add_argument("--platform", default=None, choices=("cpu", "cuda"),
-                    help="device of the live model (default: cuda)")
+                    help="device of the bundle or live model (default: "
+                    "cuda)")
     args = ap.parse_args(argv)
 
-    if args.bundle:
-        raise NotImplementedError(
-            "--bundle: exported serving bundles are not ported; use "
-            "--config-file or --url")
     if args.url:
         from rdst_tpu_torch.serving.client import SRClient
 
         predictor = SRClient(args.url)
+    elif args.bundle:
+        from rdst_tpu_torch.serving.export import ServingBundle
+
+        predictor = ServingBundle.load(args.bundle, max_batch=args.max_batch,
+                                       device=args.platform or "cuda")
     else:
         from rdst_tpu_torch.config import ParametersLoader
         from rdst_tpu_torch.serving.export import LiveModel

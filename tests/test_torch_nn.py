@@ -178,7 +178,10 @@ def test_mean_shift_matches_jax(rng, mode):
     x = rng.normal(size=(2, 4, 5, 1)).astype(np.float32)
     mean, std = (0.3,), (1.7,)
     want = np.asarray(jc.mean_shift(jnp.asarray(x), mean, std, mode))
-    got_fn = tc.mean_shift(torch.from_numpy(x), mean, std, mode).numpy()
+    got_fn = tc.mean_shift(torch.from_numpy(x),
+                           torch.tensor(mean, dtype=torch.float64),
+                           torch.tensor(std, dtype=torch.float64),
+                           mode).numpy()
     with torch.no_grad():
         got_mod = tc.MeanShift(mean, std, mode)(torch.from_numpy(x)).numpy()
     assert np.abs(got_fn - want).max() <= TOL

@@ -20,7 +20,14 @@ kernel fault of the port (the last test):
    those widths to the token-parallel forward (``window_kernel_supports``
    refuses them; asked for by name, the window route raises and names
    the route that takes them), whose plain version agrees with the JAX
-   fast block.
+   fast block;
+7. the forwards made tensors from Python numbers on every call (the
+   MeanShift / ``mean_shift`` normalization, LeakyReLU's slope, SwinIR's
+   RGB mean, the reflect-padding index), a host-to-device copy that a
+   CUDA graph cannot capture: they are build-time buffers (or tables made
+   once a geometry) now, and give bitwise the numbers they gave before;
+   every kernel launch of ``kernels/`` and ``csrc/`` runs on the current
+   stream.
 """
 
 import pathlib
@@ -186,3 +193,150 @@ def test_window_kernel_refuses_one_output_piece(monkeypatch, c, nh):
     src = (REPO / "rdst_tpu_torch" / "csrc" / "swin_block_fast.cu").read_text()
     assert "launch_window<1>" not in src
     assert all(f"launch_window<{k}>" in src for k in (2, 3, 4))
+
+
+# -- 7. capture safety --------------------------------------------------------
+
+def _old_mean_shift(x, mean, std, mode):
+    """``nn.common.mean_shift`` as it was: tensors made from the numbers
+    on every call."""
+    mean = torch.as_tensor(mean, dtype=x.dtype, device=x.device)
+    std = torch.as_tensor(std, dtype=x.dtype, device=x.device)
+    return (x - mean) / std if mode == "sub" else x * std + mean
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["sub", "add"])
+def test_mean_shift_from_buffers(dtype, mode):
+    from rdst_tpu_torch.nn.common import MeanShift, mean_shift, norm_buffers
+
+    rng = np.random.default_rng(21)
+    for nc in (1, 3):
+        mean = tuple(float(v) for v in rng.random(nc))
+        std = tuple(float(v) for v in 0.1 + rng.random(nc))
+        x = torch.from_numpy(rng.standard_normal((2, 5, 6, nc)).astype(
+            np.float32)).to(dtype)
+        holder = torch.nn.Module()
+        norm_buffers(holder, mean, std)
+        assert holder.mean == mean and holder.state_dict() == {}
+        want = _old_mean_shift(x, mean, std, mode)
+        got = mean_shift(x, holder.norm_mean, holder.norm_std, mode)
+        assert got.dtype == dtype
+        assert torch.equal(got.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32),
+                           want.view(torch.int16 if dtype == torch.bfloat16
+                                     else torch.int32))
+        if dtype == torch.bfloat16:  # MeanShift's bf16 path
+            ms = MeanShift(mean, std, mode)
+            assert set(ms.state_dict()) == {"weight", "bias"}
+            assert torch.equal(ms(x), want)
+    # the models keep their numbers as buffers, out of the state_dict
+    model = build_generator(_paras(), (0.25,), (0.5,))
+    assert model.sub_mean.norm_mean.tolist() == [0.25]
+    assert not any("norm_" in k for k in model.state_dict())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_leaky_relu_slope_from_buffer(dtype):
+    from rdst_tpu_torch.nn.layers import LeakyReLU
+
+    x = torch.from_numpy(np.random.default_rng(22).standard_normal(
+        (4, 7, 9)).astype(np.float32)).to(dtype)
+    for slope in (0.2, 0.01, 0.1234567):
+        act = LeakyReLU(slope)
+        old = torch.where(x >= 0, x,
+                          x * torch.tensor(slope, dtype=x.dtype))
+        assert torch.equal(act(x), old) and act.state_dict() == {}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swinir_rgb_mean_from_buffer(dtype):
+    from rdst_tpu_torch.models.swinir import SwinIR
+
+    for chans in (3, 1):
+        model = SwinIR(in_chans=chans, embed_dim=12, depths=(2,),
+                       num_heads=(2,), window_size=4, upscale=2,
+                       upsampler="pixelshuffledirect", dtype=dtype)
+        old = torch.tensor(model.rgb_mean, dtype=dtype)
+        assert torch.equal(model.rgb_mean_value.to(dtype), old)
+        assert "rgb_mean_value" not in model.state_dict()
+        with torch.no_grad():  # subtracted and added back
+            y = model.eval()(torch.zeros(1, 8, 8, chans))
+        assert y.shape == (1, 16, 16, chans)
+
+
+def test_reflect_index_made_once_a_geometry():
+    from rdst_tpu_torch.models.rdst import _reflect_index_on, reflect_index
+
+    dev = torch.device("cpu")
+    a = _reflect_index_on(5, 13, dev)
+    assert torch.equal(a, reflect_index(5, 13))
+    assert _reflect_index_on(5, 13, dev) is a
+
+
+def _launch_configs(src: str):
+    """The ``<<<...>>>`` launch configurations of a CUDA source, each
+    split at its top-level commas."""
+    import re
+
+    out = []
+    for m in re.finditer(r"<<<(.*?)>>>", src, re.S):
+        parts, depth, cur = [], 0, ""
+        for ch in m.group(1):
+            depth += ch in "([{"
+            depth -= ch in ")]}"
+            if ch == "," and depth == 0:
+                parts.append(cur.strip())
+                cur = ""
+            else:
+                cur += ch
+        parts.append(cur.strip())
+        out.append(parts)
+    return out
+
+
+def test_every_launch_runs_on_the_current_stream():
+    """A CUDA graph captures the work of its capture stream: every launch
+    of the port's kernels goes through ``kernels.swin_block.launch``, which
+    passes the current stream of the tensors' device, and every kernel
+    launch and memset in ``csrc/`` names the stream it was given."""
+    import ast
+    import inspect
+    import re
+
+    from rdst_tpu_torch.kernels import swin_block
+
+    assert "torch.cuda.current_stream(device).cuda_stream" in \
+        inspect.getsource(swin_block.launch)
+    pkg = REPO / "rdst_tpu_torch"
+    # entries that only size or count (no device work, no stream)
+    query = re.compile(r"(_work_bytes|_work_floats|_kernels|_error_string)$")
+    for path in sorted((pkg / "kernels").glob("*.py")):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if not isinstance(node, ast.Call):
+                continue
+            f = node.func
+            if isinstance(f, ast.Attribute) and isinstance(
+                    f.value, ast.Name) and f.value.id == "lib":
+                assert query.search(f.attr), (path.name, f.attr)
+            # an entry looked up by name: only launch / work_bytes do it
+            if isinstance(f, ast.Name) and f.id == "getattr" and \
+                    len(node.args) == 2 and path.name != "swin_block.py":
+                assert not (isinstance(node.args[0], ast.Name)
+                            and node.args[0].id == "lib"), path.name
+    configs = 0
+    for path in sorted((pkg / "csrc").glob("*.cu*")):
+        src = path.read_text()
+        for parts in _launch_configs(src):
+            configs += 1
+            assert len(parts) == 4 and parts[3], (path.name, parts)
+        for call in re.findall(r"cudaMemsetAsync\((.*?)\);", src, re.S):
+            assert call.count(",") == 3, (path.name, call)
+        assert not re.search(r"cudaMemset\(|cudaMemcpy\(|"
+                             r"cudaDeviceSynchronize|cudaStreamSynchronize|"
+                             r"cudaMalloc\(", src), path.name
+        for call in re.findall(r"cudaLaunchCooperativeKernel\((.*?)\);",
+                               src, re.S):
+            assert call.count(",") == 5, (path.name, call)
+    assert configs >= 20

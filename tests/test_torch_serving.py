@@ -308,7 +308,10 @@ def test_missing_weights_path_raises():
 
 
 def test_server_main_bundle_raises():
-    with pytest.raises(NotImplementedError, match="bundle"):
+    """``--bundle`` serves an exported bundle (tests/test_torch_bundle.py);
+    a directory that holds none raises, naming the exporter."""
+    with pytest.raises(FileNotFoundError,
+                       match="MANIFEST.json.*rdst_tpu_torch.serving.export"):
         main(["--bundle", "somewhere"])
 
 
@@ -387,5 +390,6 @@ def test_sr_volume_matches_jax(blended):
 def test_volume_main_bundle_raises():
     from rdst_tpu_torch.serving.volume import main as volume_main
 
-    with pytest.raises(NotImplementedError, match="serving bundles"):
+    with pytest.raises(FileNotFoundError,
+                       match="MANIFEST.json.*rdst_tpu_torch.serving.export"):
         volume_main(["--bundle", "b", "--in", "x.nii", "--out", "y.nii"])

@@ -48,6 +48,9 @@ def test_reference_matches_jax_pair(monkeypatch, c, nh, softmax):
         monkeypatch.delenv("RDST_TPU_PALLAS_SOFTMAX", raising=False)
     else:
         monkeypatch.setenv("RDST_TPU_PALLAS_SOFTMAX", softmax)
+    # the bf16 pair: no int8 group left in the environment by a JAX model
+    # built earlier in this process (a config's pallas_quant)
+    monkeypatch.delenv("RDST_TPU_PALLAS_QUANT", raising=False)
     clear_kernel_caches()
     bf = jnp.bfloat16
     want = np.asarray(jax_sb.fused_swin_pair(

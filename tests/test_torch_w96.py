@@ -23,6 +23,7 @@ MLP 2C, pre-norm adapters, ``pallas_quant = 'qkv'``) from
   forward, and each stage in the design the route rule picks.
 """
 
+import os
 import pathlib
 
 import jax
@@ -72,9 +73,15 @@ def _paras(cls=ParametersLoader, **overrides):
 @pytest.fixture(scope="module")
 def jax_live():
     # one device: the JAX LiveModel pads every call to the mesh's data
-    # axis (8 virtual CPU devices here), the port serves the one slice
-    return jax_export.LiveModel(_paras(JaxParams, mesh_shape=[1]),
-                                max_batch=1)
+    # axis (8 virtual CPU devices here), the port serves the one slice.
+    # Its builder writes the config's kernel flags (pallas_quant='qkv')
+    # to the process's environment: they are put back after this file
+    saved = {k: v for k, v in os.environ.items() if k.startswith("RDST_TPU_")}
+    yield jax_export.LiveModel(_paras(JaxParams, mesh_shape=[1]),
+                               max_batch=1)
+    for k in [k for k in os.environ if k.startswith("RDST_TPU_")]:
+        del os.environ[k]
+    os.environ.update(saved)
 
 
 @pytest.fixture(scope="module")
